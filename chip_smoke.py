@@ -7,17 +7,33 @@ Phases, each of which exits non-zero on failure:
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds every
    kernel under ``ray_tpu_torch/csrc`` from source, timing the build.
-2. Kernel against its plain version: the splash attention kernel on bf16
-   inputs at the serving shapes and a few edge shapes, against
-   ``attention_reference`` on the same inputs (output and lse), with its
-   time beside the plain version's, ``F.scaled_dot_product_attention``'s (a
-   yardstick only; the port never calls it) and the card's bound.
+2. Kernels against their plain versions, each at the main path's shape and
+   a few edge shapes, with its device time beside the plain version's, a
+   PyTorch yardstick (the port never calls it) and the card's bound:
+   - the splash attention forward against ``attention_reference`` (output
+     and lse; yardstick ``F.scaled_dot_product_attention``);
+   - the splash attention backward against ``attention_bwd_reference``
+     (dq, dk, dv; yardstick the backward of SDPA);
+   - the fused LM-head cross-entropy forward, dx and dW against
+     ``ce_fwd_reference``, ``ce_dx_reference`` and ``ce_dw_reference``
+     (yardstick the dense head: bf16 logits, logsumexp and gather, and
+     their backward).
 3. Serving: GPT-2 124M (``GPTConfig()``, bf16, random weights from a seed)
    answers unary requests through ``GPT2Next`` and streams greedy tokens
    through ``GPT2Stream``. The splash launch counter must rise by exactly
    ``n_layer`` per forward, and every answer is held against the same model
    with ``attn_impl="xla"`` (the plain attention) on the card.
-4. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+4. Training: GPT-2 124M, ``GPTConfig(remat_policy="attn_outside",
+   scan_layers=False)``, ``make_optimizer(3e-4)``, B=16, S=1024, one batch
+   from a numpy seed: five steps with the dense loss, then five with
+   ``loss_impl="fused"`` from the same start. Every loss is finite and the
+   last is below the first; each step launches exactly 12 splash forwards
+   and 12 splash backwards, and in the fused run one of each CE kernel. At
+   B=2 the loss and every gradient of one step are held against the same
+   step with plain attention, the dense loss and ``remat_policy="full"``;
+   and ``remat_policy="full"`` on the kernel path launches 24 splash
+   forwards (each block's reruns in the backward) for the same gradients.
+5. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -34,15 +50,9 @@ import sys
 import time
 from typing import Callable, Dict, Tuple
 
-# Published dense peaks (NVIDIA data sheets): device-memory bytes/s and bf16
-# tensor-core flop/s, keyed on a substring of torch.cuda.get_device_name().
-PEAKS: Dict[str, Tuple[float, float]] = {
-    "H100 80GB HBM3": (3.35e12, 989e12),  # H100 SXM
-    "H100 SXM": (3.35e12, 989e12),
-    "H100 NVL": (3.9e12, 835e12),
-    "H100 PCIe": (2.0e12, 756e12),
-    "H200": (4.8e12, 989e12),
-}
+# Published dense peaks, one table for the port (ray_tpu_torch._private.peaks):
+# device-memory bytes/s and bf16 tensor-core flop/s by card name.
+from ray_tpu_torch._private.peaks import PEAKS, peaks_for  # noqa: E402,F401
 
 # Kernel against plain version, bf16 in and out: the kernel rounds the
 # unnormalised probabilities to bf16 before p @ v and normalises in fp32;
@@ -55,9 +65,10 @@ LSE_ATOL = 1e-3
 # difference passes through the remaining layers.
 LOGIT_ATOL = 5e-2
 
-# (B, S, H, hd, causal): the serving shapes (B=1 and a batch of 8, S=1024),
-# ragged S, and head_dim 128.
+# (B, S, H, hd, causal): the training shape (B=16), the serving shapes (B=1
+# and a batch of 8, S=1024), ragged S, and head_dim 128.
 KERNEL_SHAPES = [
+    (16, 1024, 12, 64, True),
     (8, 1024, 12, 64, True), (8, 1024, 12, 64, False),
     (1, 1024, 12, 64, True), (1, 1024, 12, 64, False),
     (1, 1000, 12, 64, True), (2, 1000, 12, 64, False),
@@ -67,17 +78,40 @@ KERNEL_SHAPES = [
 # The main path's shape (GPT2Stream pads every step to seq_len).
 MAIN_SHAPE = (1, 1024, 12, 64, True)
 
+# Splash backward against attention_bwd_reference, per gradient: max|delta|
+# over max|reference| (bf16 out). The kernel rounds p and ds to bf16 before
+# its products and accumulates in another order; the plain version keeps
+# them fp32; both round the result to bf16 (2**-8 relative).
+BWD_RTOL = 2e-2
+# (B, S, H, hd, causal): the training shape first, q, k, v split from a
+# fused qkv as the model makes them.
+BWD_SHAPES = [(16, 1024, 12, 64, True), (1, 1000, 12, 64, False),
+              (1, 7, 12, 64, True), (2, 512, 8, 128, True)]
+
+# Fused CE against its plain versions. lse and tgt are fp32 on both sides
+# from exact bf16 products summed in another order (over D and over V).
+# dx and dW: both sides round (softmax - onehot) to bf16, and a p that lies
+# on a rounding boundary may round one ulp apart (2**-8 relative).
+CE_ATOL = 2e-3
+CE_GRAD_RTOL = 2e-2
+# (N, D, V): GPT-2 124M's training shape (16 x 1024 tokens), the reference
+# test's ragged 24 x 96 case, and an N and V (GPT-2's unpadded vocab) that
+# are multiples of no tile.
+CE_SHAPES = [(16384, 768, 50304), (24, 64, 96), (1000, 768, 50257)]
+
+TRAIN_BATCH = 16
+TRAIN_STEPS = 5
+# One B=2 step of the kernel path against the plain-attention, dense-loss,
+# full-remat step on the card: loss within LOSS_ATOL; every gradient leaf
+# within GRAD_RTOL of its largest entry. The two attention paths round to
+# bf16 at different points, and the difference passes through 12 layers.
+LOSS_ATOL = 1e-3
+GRAD_RTOL = 5e-2
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def peaks_for(name: str) -> Tuple[float, float]:
-    for key, peaks in PEAKS.items():
-        if key in name:
-            return peaks
-    raise KeyError(f"no published peaks for {name!r}; add it to PEAKS")
 
 
 def attention_bound(B: int, S: int, H: int, hd: int, causal: bool,
@@ -92,6 +126,45 @@ def attention_bound(B: int, S: int, H: int, hd: int, causal: bool,
     t_bytes, t_ops = nbytes / bytes_per_s, flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bwd_bound(B: int, S: int, H: int, hd: int, causal: bool,
+                        bytes_per_s: float, flops_per_s: float
+                        ) -> Tuple[float, str]:
+    """Least time (ms) for one attention backward: q, k, v, o, do read once,
+    dq, dk, dv written once (bf16), lse and delta (fp32); 10*hd flops for
+    each kept (query, key) pair (the score recompute and the dv, dp, dq, dk
+    products)."""
+    nbytes = 8 * B * S * H * hd * 2 + 2 * B * H * S * 4
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 10.0 * hd * B * H * pairs
+    t_bytes, t_ops = nbytes / bytes_per_s, flops / flops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ce_bound(which: str, N: int, D: int, V: int, bytes_per_s: float,
+             flops_per_s: float) -> Tuple[float, str]:
+    """Least time (ms) of one fused-CE kernel: x (N, D) and W (V, D) bf16 and
+    t (N,) int32 read once; fwd writes lse and tgt (N,) fp32 and does
+    2*N*V*D flops; dx and dW also read lse, write (N, D) or (V, D) fp32 and
+    recompute the logits, 4*N*V*D flops."""
+    nbytes = (N + V) * D * 2 + N * 4
+    if which == "fwd":
+        nbytes += 2 * N * 4
+        flops = 2.0 * N * V * D
+    else:
+        nbytes += N * 4 + (N if which == "dx" else V) * D * 4
+        flops = 4.0 * N * V * D
+    t_bytes, t_ops = nbytes / bytes_per_s, flops / flops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_err(x, ref) -> float:
+    """max|x - ref| / max|ref|, in fp32."""
+    return ((x.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
 
 
 def time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3
@@ -155,6 +228,27 @@ class _Request:
         return self._body
 
 
+def loop_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2
+            ) -> float:
+    """Device time of one call: two events around ``iters`` calls issued back
+    to back, over ``iters``. For calls that cannot be captured in a CUDA
+    graph (an autograd backward); at the sizes it is used for, the host
+    issues the next call long before the device finishes this one."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -215,6 +309,173 @@ def phase_kernel(peaks: Tuple[float, float]) -> Dict[str, object]:
         del qkv, q, k, v, o, lse, o_ref, lse_ref
     torch.cuda.empty_cache()
     return dict(main=main, worst=worst, rows=rows)
+
+
+def _qkv(gen, B: int, S: int, H: int, hd: int):
+    """q, k, v as the model makes them: views split from one fused qkv."""
+    import torch
+
+    qkv = torch.randn((B, S, 3 * H * hd), generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    return tuple(t.view(B, S, H, hd) for t in qkv.split(H * hd, dim=-1))
+
+
+def phase_attn_bwd(peaks: Tuple[float, float]) -> Dict[str, object]:
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows, worst_abs, worst_rel, main = [], 0.0, 0.0, None
+    for n, (B, S, H, hd, causal) in enumerate(BWD_SHAPES):
+        q, k, v = _qkv(gen, B, S, H, hd)
+        o, lse = attention.splash_attention(q, k, v, causal=causal,
+                                            return_lse=True)
+        do = torch.randn((B, S, H, hd), generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        grads = attention.splash_attention_bwd(q, k, v, o, lse, do,
+                                               causal=causal)
+        torch.cuda.synchronize()
+        refs = attention.attention_bwd_reference(q, k, v, o, lse, do,
+                                                 causal=causal)
+        shape = dict(B=B, S=S, H=H, hd=hd, causal=causal)
+        row = dict(shape)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            if not torch.isfinite(g).all():
+                fail(f"non-finite splash backward {name} at {shape}")
+            row[f"{name}_rel_err"] = rel_err(g, r)
+            row[f"{name}_abs_err"] = (g.float() - r.float()).abs().max().item()
+            worst_abs = max(worst_abs, row[f"{name}_abs_err"])
+            worst_rel = max(worst_rel, row[f"{name}_rel_err"])
+            if row[f"{name}_rel_err"] > BWD_RTOL:
+                fail(f"splash backward {name} disagrees with "
+                     f"attention_bwd_reference at {shape}: "
+                     f"{row[f'{name}_rel_err']} (tol {BWD_RTOL})")
+        # An external delta (the ring backward's entry) gives the same result.
+        delta = (o.float() * do.float()).sum(-1).transpose(1, 2)
+        ext = attention.splash_attention_bwd(q, k, v, o, lse, do,
+                                             causal=causal, delta=delta)
+        row["external_delta_rel_err"] = max(
+            rel_err(a, b) for a, b in zip(ext, grads))
+        if row["external_delta_rel_err"] > BWD_RTOL:
+            fail(f"splash backward with an external delta differs at {shape}")
+        if n == 0:  # the training shape: time it
+            qt, kt, vt = (t.transpose(1, 2).detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            dot = do.transpose(1, 2).contiguous()
+
+            def kernel():
+                return attention.splash_attention_bwd(q, k, v, o, lse, do,
+                                                      causal=causal)
+
+            def plain():
+                return attention.attention_bwd_reference(q, k, v, o, lse, do,
+                                                         causal=causal)
+
+            def library():
+                return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                           retain_graph=True)
+
+            bound_ms, bound_by = attention_bwd_bound(B, S, H, hd, causal,
+                                                     *peaks)
+            row.update(ms=device_ms(kernel), plain_ms=device_ms(plain, iters=3),
+                       library_ms=loop_ms(library), bound_ms=bound_ms,
+                       bound_by=bound_by, call_ms=time_ms(kernel))
+            main = row
+            del qt, kt, vt, out, dot
+        rows.append(row)
+        print("kernel splash_attention_bwd " + json.dumps(row), flush=True)
+        del q, k, v, o, lse, do, grads, refs, ext
+    torch.cuda.empty_cache()
+    return dict(main=main, worst_abs=worst_abs, worst_rel=worst_rel, rows=rows)
+
+
+def phase_ce(peaks: Tuple[float, float]) -> Dict[str, object]:
+    import torch
+
+    from ray_tpu_torch.ops import fused_ce
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {name: {"rows": [], "worst_abs": 0.0}
+           for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")}
+    for n, (N, D, V) in enumerate(CE_SHAPES):
+        # Layernormed hidden states and GPT-2's init scale for the head.
+        x2 = torch.randn((N, D), generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        w = (torch.randn((V, D), generator=gen, device="cuda") * 0.02).to(
+            torch.bfloat16)
+        t = torch.randint(0, V, (N,), generator=gen, device="cuda")
+        lse, tgt = fused_ce.ce_fwd(x2, w, t)
+        dx = fused_ce.ce_dx(x2, w, t, lse)
+        dw = fused_ce.ce_dw(x2, w, t, lse)
+        torch.cuda.synchronize()
+        lse_r, tgt_r = fused_ce.ce_fwd_reference(x2, w, t)
+        dx_r = fused_ce.ce_dx_reference(x2, w, t, lse)
+        dw_r = fused_ce.ce_dw_reference(x2, w, t, lse)
+        shape = dict(N=N, D=D, V=V)
+        for name, got in (("lse", lse), ("tgt", tgt), ("dx", dx), ("dW", dw)):
+            if not torch.isfinite(got).all():
+                fail(f"non-finite fused CE {name} at {shape}")
+        fwd = dict(shape, lse_abs_err=(lse - lse_r).abs().max().item(),
+                   tgt_abs_err=(tgt - tgt_r).abs().max().item())
+        fwd["max_abs_err"] = max(fwd["lse_abs_err"], fwd["tgt_abs_err"])
+        if fwd["max_abs_err"] > CE_ATOL:
+            fail(f"fused_ce_fwd disagrees with ce_fwd_reference at {shape}: "
+                 f"{fwd} (tol {CE_ATOL})")
+        dxr = dict(shape, rel_err=rel_err(dx, dx_r),
+                   max_abs_err=(dx - dx_r).abs().max().item())
+        dwr = dict(shape, rel_err=rel_err(dw, dw_r),
+                   max_abs_err=(dw - dw_r).abs().max().item())
+        for name, r in (("fused_ce_dx", dxr), ("fused_ce_dw", dwr)):
+            if r["rel_err"] > CE_GRAD_RTOL:
+                fail(f"{name} disagrees with its plain version at {shape}: "
+                     f"{r['rel_err']} (tol {CE_GRAD_RTOL})")
+        del lse_r, tgt_r, dx_r, dw_r
+        if n == 0:  # the training shape: time it
+            x2d = x2.detach().clone().requires_grad_()
+            wd = w.detach().clone().requires_grad_()
+
+            def dense_fwd():
+                logits = x2d @ wd.t()
+                return (torch.logsumexp(logits.float(), -1)
+                        - logits.gather(1, t[:, None])[:, 0].float()).mean()
+
+            dense_loss = dense_fwd()
+
+            def dense_bwd():
+                return torch.autograd.grad(dense_loss, (x2d, wd),
+                                           retain_graph=True)
+
+            with torch.no_grad():
+                dense_fwd_ms = device_ms(dense_fwd, iters=3)
+            dense_bwd_ms = loop_ms(dense_bwd, iters=3)
+            for r, which, kern, plain in (
+                    (fwd, "fwd", lambda: fused_ce.ce_fwd(x2, w, t),
+                     lambda: fused_ce.ce_fwd_reference(x2, w, t)),
+                    (dxr, "dx", lambda: fused_ce.ce_dx(x2, w, t, lse),
+                     lambda: fused_ce.ce_dx_reference(x2, w, t, lse)),
+                    (dwr, "dw", lambda: fused_ce.ce_dw(x2, w, t, lse),
+                     lambda: fused_ce.ce_dw_reference(x2, w, t, lse))):
+                bound_ms, bound_by = ce_bound(which, N, D, V, *peaks)
+                r.update(ms=device_ms(kern, iters=3),
+                         plain_ms=device_ms(plain, iters=2),
+                         dense_ms=dense_fwd_ms if which == "fwd"
+                         else dense_bwd_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+            del x2d, wd, dense_loss
+        for name, r in (("fused_ce_fwd", fwd), ("fused_ce_dx", dxr),
+                        ("fused_ce_dw", dwr)):
+            out[name]["rows"].append(r)
+            out[name]["worst_abs"] = max(out[name]["worst_abs"],
+                                         r["max_abs_err"])
+            if n == 0:
+                out[name]["main"] = r
+            print(f"kernel {name} " + json.dumps(r), flush=True)
+        del x2, w, t, lse, tgt, dx, dw
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_serve() -> Dict[str, object]:
@@ -329,6 +590,146 @@ def phase_serve() -> Dict[str, object]:
     return result
 
 
+def _counts() -> Dict[str, int]:
+    from ray_tpu_torch.ops import attention, fused_ce
+
+    return {**attention.LAUNCHES, **fused_ce.LAUNCHES}
+
+
+def phase_train(peaks: Tuple[float, float], card: str) -> Dict[str, object]:
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import attention, fused_ce
+    from ray_tpu_torch.optim import tree_leaves, tree_map
+
+    config = gpt2.GPTConfig(remat_policy="attn_outside", scan_layers=False)
+    init = gpt2.init_params(config, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(
+        rng.integers(0, 50257, (TRAIN_BATCH, config.seq_len + 1)),
+        dtype=torch.long, device="cuda")
+    tokens, targets = toks[:, :-1], toks[:, 1:]
+    tokens_per_step = TRAIN_BATCH * config.seq_len
+    result: Dict[str, object] = {"launches": {}}
+
+    def fresh():
+        return tree_map(lambda p: p.detach().clone(), init)
+
+    # (i) Five steps with each loss from the same start: the main path.
+    for impl in ("dense", "fused"):
+        cfg = dataclasses.replace(config, loss_impl=impl)
+        params = fresh()
+        optimizer = gpt2.make_optimizer(3e-4)
+        opt_state = optimizer.init(params)
+        step = gpt2.make_train_step(cfg, optimizer)
+        torch.cuda.reset_peak_memory_stats()
+        attention.reset_launches()
+        fused_ce.reset_launches()
+        losses, step_s = [], []
+        for i in range(TRAIN_STEPS):
+            before = _counts()
+            t0 = time.perf_counter()
+            params, opt_state, loss = step(params, opt_state, tokens, targets)
+            losses.append(float(loss))  # waits for the step
+            step_s.append(time.perf_counter() - t0)
+            delta = {k: v - before[k] for k, v in _counts().items()}
+            want = {"splash_attention_fwd": config.n_layer,
+                    "splash_attention_bwd": config.n_layer,
+                    **{k: int(impl == "fused") for k in fused_ce.LAUNCHES}}
+            if delta != want:
+                fail(f"{impl} step {i}: launches {delta}, expected {want}")
+        launches = _counts()
+        if not all(np.isfinite(losses)):
+            fail(f"{impl} training losses not finite: {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"{impl} training loss did not fall: {losses}")
+        # Steps after the first (which sets up cuBLAS and the allocator).
+        steps_per_s = (TRAIN_STEPS - 1) / sum(step_s[1:])
+        tokens_per_s = steps_per_s * tokens_per_step
+        mfu = 100.0 * gpt2.flops_per_token(config) * tokens_per_s / peaks[1]
+        run = dict(loss_impl=impl, losses=losses, step_s=step_s,
+                   steps_per_s=steps_per_s, tokens_per_s=tokens_per_s,
+                   mfu_pct=mfu, launches=launches, card=card,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        result[impl] = run
+        result["launches"][impl] = launches
+        print("train " + json.dumps(run), flush=True)
+        del params, opt_state, step
+        torch.cuda.empty_cache()
+
+    # (ii) One B=2 step of the kernel paths against plain attention, the
+    # dense loss and full remat, on the same weights.
+    small = (tokens[:2], targets[:2])
+
+    def loss_and_grads(cfg):
+        params = tree_map(lambda p: p.requires_grad_(True), fresh())
+        loss = gpt2.loss_fn(params, *small, cfg)
+        return (float(loss.detach()),
+                torch.autograd.grad(loss, tree_leaves(params)))
+
+    plain = dataclasses.replace(config, attn_impl="xla", loss_impl="dense",
+                                remat_policy="full")
+    names = list(_leaf_names(init))
+    checks = {}
+    for label, cfg, ref_cfg in (
+            ("dense", config, plain),
+            # The fused loss keeps fp32 logits: hold it to fp32 dense logits.
+            ("fused", dataclasses.replace(config, loss_impl="fused"),
+             dataclasses.replace(plain, logits_dtype=torch.float32))):
+        loss, grads = loss_and_grads(cfg)
+        ref_loss, ref_grads = loss_and_grads(ref_cfg)
+        errs = {n: rel_err(g, r) for n, g, r in zip(names, grads, ref_grads)}
+        worst = max(errs, key=errs.get)
+        checks[label] = dict(loss=loss, ref_loss=ref_loss,
+                             loss_abs_err=abs(loss - ref_loss),
+                             grad_rel_err=errs, worst_leaf=worst)
+        print(f"train_check {label} " + json.dumps(checks[label]), flush=True)
+        if not np.isfinite(loss) or abs(loss - ref_loss) > LOSS_ATOL:
+            fail(f"B=2 {label} loss {loss} vs plain {ref_loss} "
+                 f"(tol {LOSS_ATOL})")
+        if errs[worst] > GRAD_RTOL:
+            fail(f"B=2 {label} gradient {worst} off by {errs[worst]} of its "
+                 f"largest entry (tol {GRAD_RTOL})")
+    result["checks"] = checks
+
+    # (iii) remat_policy="full" checkpoints each block whole, so the backward
+    # reruns its splash forward: twice attn_outside's forward launches, the
+    # same backward launches and the same gradients.
+    _, split_grads = loss_and_grads(config)
+    before = _counts()
+    _, full_grads = loss_and_grads(
+        dataclasses.replace(config, remat_policy="full"))
+    delta = {k: v - before[k] for k, v in _counts().items()}
+    full = dict(launches=delta,
+                grads_equal=all(torch.equal(a, b)
+                                for a, b in zip(full_grads, split_grads)),
+                grad_rel_err=max(rel_err(a, b)
+                                 for a, b in zip(full_grads, split_grads)))
+    print("train_full_remat " + json.dumps(full), flush=True)
+    if (delta["splash_attention_fwd"] != 2 * config.n_layer
+            or delta["splash_attention_bwd"] != config.n_layer):
+        fail(f"remat_policy='full' launched {delta}; expected "
+             f"{2 * config.n_layer} splash forwards, {config.n_layer} "
+             "backwards")
+    # The kernels and the matmuls are deterministic: remat reruns the same
+    # forward, so the gradients must be equal bit for bit.
+    if not full["grads_equal"]:
+        fail(f"remat_policy='full' changed the gradients: {full}")
+    result["full_remat"] = full
+    torch.cuda.empty_cache()
+    return result
+
+
+def _leaf_names(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_names(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k
+
+
 def main() -> int:
     import torch
 
@@ -339,7 +740,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(card_line(), flush=True)
+    card = card_line()
+    print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
     peaks = peaks_for(kind)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -354,26 +756,59 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     kern = phase_kernel(peaks)
+    bwd = phase_attn_bwd(peaks)
+    ce = phase_ce(peaks)
     serve = phase_serve()
+    train = phase_train(peaks, card)
 
-    main_row = kern["main"]
-    kernels = [{
-        "name": "splash_attention_fwd",
-        "route": "cuda",
-        "source": "ray_tpu_torch/csrc/splash_attention_fwd.cu",
-        "replaces": "ray_tpu/ops/attention.py:95",
-        "replaces_function": "ray_tpu.ops.attention.splash_attention "
-                             "(and flash_attention :128)",
-        "launches": serve["splash_launches"],
-        "max_abs_err": kern["worst"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_us": main_row["bound_ms"] * 1e3,
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": {k: main_row[k] for k in ("B", "S", "H", "hd", "causal")},
-    }]
+    def entry(name, source, replaces, function, launches, by_path, worst,
+              row, library_ms, shape, **extra):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    replaces_function=function, launches=launches,
+                    launches_by_path=by_path, max_abs_err=worst, ms=row["ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_us=row["bound_ms"] * 1e3, bound_by=row["bound_by"],
+                    library_ms=library_ms, shape=shape, **extra)
+
+    def train_count(name):
+        return {f"train_{impl}": train["launches"][impl][name]
+                for impl in ("dense", "fused")}
+
+    fwd_paths = {"serve": serve["splash_launches"],
+                 **train_count("splash_attention_fwd")}
+    bwd_paths = train_count("splash_attention_bwd")
+    kernels = [
+        entry("splash_attention_fwd",
+              "ray_tpu_torch/csrc/splash_attention_fwd.cu",
+              "ray_tpu/ops/attention.py:95",
+              "ray_tpu.ops.attention.splash_attention (and flash_attention "
+              ":128), forward", sum(fwd_paths.values()), fwd_paths,
+              kern["worst"], kern["main"], kern["main"]["library_ms"],
+              {k: kern["main"][k] for k in ("B", "S", "H", "hd", "causal")},
+              train_shape_ms=kern["rows"][0]["ms"]),
+        entry("splash_attention_bwd",
+              "ray_tpu_torch/csrc/splash_attention_bwd.cu",
+              "ray_tpu/ops/attention.py:56",
+              "ray_tpu.ops.attention.splash_attention fused dq/dk/dv "
+              "backward (and flash_attention's dkv and dq kernels)",
+              sum(bwd_paths.values()), bwd_paths, bwd["worst_abs"],
+              bwd["main"], bwd["main"]["library_ms"],
+              {k: bwd["main"][k] for k in ("B", "S", "H", "hd", "causal")},
+              max_rel_err=bwd["worst_rel"]),
+    ]
+    for name, line, function in (
+            ("fused_ce_fwd", 81, "_fwd_pallas (_fwd_kernel :53)"),
+            ("fused_ce_dx", 154, "_bwd_pallas dx (_dx_kernel :113)"),
+            ("fused_ce_dw", 167, "_bwd_pallas dW (_dw_kernel :131)")):
+        main_row = ce[name]["main"]
+        paths = train_count(name)
+        kernels.append(entry(
+            name, "ray_tpu_torch/csrc/fused_ce.cu",
+            f"ray_tpu/ops/fused_ce.py:{line}",
+            f"ray_tpu.ops.fused_ce.{function}", sum(paths.values()), paths,
+            ce[name]["worst_abs"], main_row, None,
+            {k: main_row[k] for k in ("N", "D", "V")},
+            dense_ms=main_row["dense_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-"""GPT-2 in PyTorch: the port of ``ray_tpu/models/gpt2.py``, forward only.
+"""GPT-2 in PyTorch: the port of ``ray_tpu/models/gpt2.py``.
 
 Parameters keep the JAX package's layout, so the converter between the two is
 a plain copy: a dictionary of tensors with the blocks stacked on a leading
@@ -6,23 +6,33 @@ layer axis and every weight stored (in, out) and used as ``x @ W``. Weights
 are held in float32 and each matmul casts its operands to ``config.dtype``;
 layernorm, softmax and the loss reductions run in float32.
 
-This is the evaluation and serving path: ``forward``, ``forward_hidden`` and
-``loss_fn``. Training (backward kernels, the optimizer, remat) comes later,
-so the remat and scan fields of ``GPTConfig`` are accepted and have no effect.
+``forward``, ``forward_hidden`` and ``loss_fn`` serve evaluation and
+serving; ``make_train_step`` (with ``make_optimizer``, from
+``ray_tpu_torch.optim``) and ``make_eval_step`` are the training step.
+Gradients come from autograd: attention differentiates through the splash
+kernels' own backward (``SplashAttention``), the fused loss through the
+fused cross-entropy kernels (``FusedCE``), and remat is
+``torch.utils.checkpoint``. The layers always run as a Python loop.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from functools import partial
+from typing import Callable, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import (attention_reference, flash_attention,
                                          splash_attention)
+from ray_tpu_torch.ops.fused_ce import fused_lm_head_ce
+# make_optimizer is re-exported: the JAX package defines it in this module.
+from ray_tpu_torch.optim import (AdamW, make_optimizer,  # noqa: F401
+                                 tree_leaves, tree_map)
 
 Params = Dict[str, object]
 
@@ -39,10 +49,26 @@ class GPTConfig:
     d_model: int = 768
     seq_len: int = 1024
     dtype: torch.dtype = torch.bfloat16
-    #: remat, remat_policy, save_mlp_act, scan_layers and scan_unroll shape
-    #: the JAX training step's memory and compile depth. A forward pass has no
-    #: backward to rematerialise for and runs its layers as a Python loop, so
-    #: here they have no effect; their invalid combinations still raise.
+    #: Rematerialisation in the backward (``torch.utils.checkpoint``,
+    #: non-reentrant). JAX names what its checkpoint saves; the port maps
+    #: each policy to the nearest of three schedules:
+    #:
+    #: - ``remat=False``, and "save_matmuls", "dots", "everything" (save
+    #:   every matmul input/output): nothing is checkpointed.
+    #: - "full": each block is checkpointed whole, so the backward reruns
+    #:   its forward, the splash kernel included.
+    #: - "attn_outside" and "save_attn", "save_attn_qkv", "save_attn_mlp",
+    #:   "save_attn_qkv_mlp": the block's two halves around attention
+    #:   (``_block_pre_attn``, ``_block_post_attn``) are checkpointed
+    #:   separately with ``SplashAttention`` between them, which keeps
+    #:   (q, k, v, o, lse), so the splash forward never reruns. With
+    #:   attn_impl="xla" the save_attn family checkpoints the whole block
+    #:   instead (the plain attention would keep its (B, H, S, S) probs).
+    #:   "save_attn_mlp", "save_attn_qkv_mlp" and ``save_mlp_act`` also keep
+    #:   the post-half's MLP activation: the mlp_out product runs outside the
+    #:   checkpoint.
+    #:
+    #: Remat never changes the numbers, only what is kept and what reruns.
     remat: bool = True
     remat_policy: str = "save_attn"
     attn_impl: str = "auto"  # auto | xla | pallas | splash | ring | ulysses
@@ -53,14 +79,18 @@ class GPTConfig:
     #: this many positions, so the (B, S, V) logits are never whole. 0 = one
     #: unchunked product.
     loss_chunk: int = 0
-    #: "auto" | "dense" | "fused". "auto" is dense (the fused kernel is not
-    #: ported yet, and at D=768 the JAX package keeps dense too).
+    #: "auto" | "dense" | "fused". "fused" runs the fused LM-head
+    #: cross-entropy kernels (``ops/fused_ce.py``); "auto" is dense (JAX
+    #: flips it only on a TPU, and at D=768 keeps dense there too).
     loss_impl: str = "auto"
     #: Type the (B, S, V) logits of ``loss_fn`` materialise in; the
     #: logsumexp and the target gather still reduce in float32.
     logits_dtype: torch.dtype = torch.bfloat16
+    #: ``scan_layers`` and ``scan_unroll`` choose between lax.scan and an
+    #: unrolled loop in JAX; the port always runs the layers as a Python
+    #: loop, so both are accepted and have no effect.
     scan_unroll: int = 1
-    #: The TPU splash kernel's tile sizes; the Hopper kernel ignores them.
+    #: The TPU splash kernel's tile sizes; the Hopper kernels ignore them.
     attn_block_q: int = 512
     attn_block_kv: int = 512
     save_mlp_act: bool = False
@@ -173,25 +203,70 @@ def _block_pre_attn(x: torch.Tensor, blk: Params, config: GPTConfig
     return h @ blk["qkv_w"].to(dt) + blk["qkv_b"].to(dt)
 
 
-def _block_post_attn(x: torch.Tensor, attn: torch.Tensor, blk: Params,
-                     config: GPTConfig) -> torch.Tensor:
-    """Residual out-projection + MLP (the part after attention)."""
+def _post_attn_mlp_in(x: torch.Tensor, attn: torch.Tensor, blk: Params,
+                      config: GPTConfig):
+    """Residual out-projection, ln2, mlp_in and GELU: (x, MLP activation)."""
     dt = config.dtype
     x = x + attn @ blk["out_w"].to(dt) + blk["out_b"].to(dt)
     h = _layernorm(x, blk["ln2_scale"], blk["ln2_bias"]).to(dt)
-    h = F.gelu(h @ blk["mlp_in_w"].to(dt) + blk["mlp_in_b"].to(dt),
-               approximate="tanh")
-    return x + h @ blk["mlp_out_w"].to(dt) + blk["mlp_out_b"].to(dt)
+    return x, F.gelu(h @ blk["mlp_in_w"].to(dt) + blk["mlp_in_b"].to(dt),
+                     approximate="tanh")
+
+
+def _post_attn_mlp_out(x: torch.Tensor, act: torch.Tensor, blk: Params,
+                       config: GPTConfig) -> torch.Tensor:
+    dt = config.dtype
+    return x + act @ blk["mlp_out_w"].to(dt) + blk["mlp_out_b"].to(dt)
+
+
+def _block_post_attn(x: torch.Tensor, attn: torch.Tensor, blk: Params,
+                     config: GPTConfig) -> torch.Tensor:
+    """Residual out-projection + MLP (the part after attention)."""
+    x, act = _post_attn_mlp_in(x, attn, blk, config)
+    return _post_attn_mlp_out(x, act, blk, config)
+
+
+def _attend(qkv: torch.Tensor, config: GPTConfig) -> torch.Tensor:
+    B, S, D3 = qkv.shape
+    D, H, hd = D3 // 3, config.n_head, config.head_dim
+    # Views into qkv with a row stride of 3*D; the kernel takes them as is.
+    q, k, v = (t.view(B, S, H, hd) for t in qkv.split(D, dim=-1))
+    return _attention(q, k, v, config).reshape(B, S, D)
 
 
 def _block(x: torch.Tensor, blk: Params, config: GPTConfig) -> torch.Tensor:
-    B, S, D = x.shape
-    H, hd = config.n_head, config.head_dim
     qkv = _block_pre_attn(x, blk, config)
-    # Views into qkv with a row stride of 3*D; the kernel takes them as is.
-    q, k, v = (t.view(B, S, H, hd) for t in qkv.split(D, dim=-1))
-    attn = _attention(q, k, v, config).reshape(B, S, D)
-    return _block_post_attn(x, attn, blk, config)
+    return _block_post_attn(x, _attend(qkv, config), blk, config)
+
+
+_ckpt = partial(checkpoint, use_reentrant=False, preserve_rng_state=False)
+
+
+def _block_split(x: torch.Tensor, blk: Params, config: GPTConfig,
+                 keep_mlp_act: bool) -> torch.Tensor:
+    """The block with its two halves checkpointed separately and attention
+    (which keeps its own q, k, v, o, lse) between them
+    (``ray_tpu/models/gpt2.py:276-328``)."""
+    qkv = _ckpt(_block_pre_attn, x, blk, config)
+    attn = _attend(qkv, config)
+    if not keep_mlp_act:
+        return _ckpt(_block_post_attn, x, attn, blk, config)
+    x, act = _ckpt(_post_attn_mlp_in, x, attn, blk, config)
+    return _post_attn_mlp_out(x, act, blk, config)
+
+
+def block_fn(config: GPTConfig) -> Callable[[torch.Tensor, Params],
+                                            torch.Tensor]:
+    """One transformer block under the config's remat schedule (see
+    ``GPTConfig.remat``)."""
+    policy = config.remat_policy
+    if not config.remat or policy in ("save_matmuls", "dots", "everything"):
+        return partial(_block, config=config)
+    if policy == "full" or config.attn_impl == "xla":
+        return lambda x, blk: _ckpt(_block, x, blk, config)
+    keep = config.save_mlp_act or policy in ("save_attn_mlp",
+                                             "save_attn_qkv_mlp")
+    return partial(_block_split, config=config, keep_mlp_act=keep)
 
 
 def _validate(config: GPTConfig) -> None:
@@ -224,8 +299,11 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     dt = config.dtype
     x = params["wte"][tokens].to(dt) + params["wpe"][:S].to(dt)
     blocks = params["blocks"]
+    # Checkpointing only matters when a backward will run.
+    block = (block_fn(config) if torch.is_grad_enabled()
+             else partial(_block, config=config))
     for i in range(config.n_layer):
-        x = _block(x, {name: w[i] for name, w in blocks.items()}, config)
+        x = block(x, {name: w[i] for name, w in blocks.items()})
     return _layernorm(x, params["lnf_scale"], params["lnf_bias"]).to(dt)
 
 
@@ -261,17 +339,15 @@ def _ce_sum(x: torch.Tensor, wte: torch.Tensor, targets: torch.Tensor,
 
 def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
             config: GPTConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy; dense or sequence-chunked head."""
+    """Mean next-token cross-entropy: the fused LM-head kernels, or a dense
+    or sequence-chunked head."""
     x = forward_hidden(params, tokens, config)
     B, S, D = x.shape
     impl = config.loss_impl
     if impl not in ("auto", "fused", "dense"):
         raise ValueError(f"loss_impl must be auto|fused|dense, got {impl!r}")
     if impl == "fused":
-        raise NotImplementedError(
-            "loss_impl='fused' needs the fused LM-head cross-entropy kernels "
-            "(ray_tpu/ops/fused_ce.py), not ported yet; see ROADMAP.md "
-            "Queue 2, rows 5-7")
+        return fused_lm_head_ce(x, params["wte"], targets)
     C = config.loss_chunk
     if not C or C >= S:
         return _ce_sum(x, params["wte"], targets, config.logits_dtype) / (B * S)
@@ -295,3 +371,45 @@ def inference_params(params: Params, config: GPTConfig) -> Params:
     out = {n: cast(n, w) for n, w in params.items() if n != "blocks"}
     out["blocks"] = {n: cast(n, w) for n, w in params["blocks"].items()}
     return out
+
+
+def make_train_step(config: GPTConfig, optimizer: AdamW):
+    """(params, opt_state, tokens, targets) -> (params, opt_state, loss).
+
+    The counterpart of the JAX step (``jax.value_and_grad(loss_fn)``, the
+    optimizer update, ``optax.apply_updates``) with one difference: JAX
+    returns new arrays, while here the parameters are leaf tensors updated
+    in place under ``no_grad`` and the same dictionary is returned. Leaves
+    that do not require grad yet are switched to ``requires_grad``. Gradients
+    come from ``torch.autograd.grad``, so no ``.grad`` is left behind. The
+    loss comes back detached, still on the device: reading it (``float``)
+    waits for the step.
+    """
+    if config.pp_stages > 1:
+        raise NotImplementedError(
+            "pp_stages > 1 (pipeline parallelism) is not ported yet; see "
+            "ROADMAP.md")
+
+    def step(params: Params, opt_state, tokens: torch.Tensor,
+             targets: torch.Tensor):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        loss = loss_fn(params, tokens, targets, config)
+        grads = torch.autograd.grad(loss, leaves)
+        it = iter(grads)
+        grad_tree = tree_map(lambda _: next(it), params)
+        opt_state = optimizer.update(grad_tree, opt_state, params)
+        return params, opt_state, loss.detach()
+
+    return step
+
+
+def make_eval_step(config: GPTConfig):
+    """(params, tokens, targets) -> mean loss, without a graph."""
+    def step(params: Params, tokens: torch.Tensor, targets: torch.Tensor):
+        with torch.no_grad():
+            return loss_fn(params, tokens, targets, config)
+
+    return step

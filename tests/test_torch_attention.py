@@ -82,10 +82,11 @@ def test_flash_is_splash():
 
 def test_cpu_calls_launch_nothing():
     attention.reset_launches()
-    q, k, v = _torch(*_qkv(5, S=16))
-    attention.splash_attention(q, k, v)
-    attention.flash_attention(q, k, v)
-    assert attention.LAUNCHES == {"splash_attention_fwd": 0}
+    q, k, v = (t.requires_grad_() for t in _torch(*_qkv(5, S=16)))
+    attention.splash_attention(q, k, v).sum().backward()
+    attention.flash_attention(q, k, v).sum().backward()
+    assert attention.LAUNCHES == {"splash_attention_fwd": 0,
+                                  "splash_attention_bwd": 0}
 
 
 def test_shape_mismatch_raises():

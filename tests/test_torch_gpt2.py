@@ -178,11 +178,17 @@ def test_causality(attn_impl):
 
 
 def test_fused_loss_is_not_ported_yet(tokens):
+    """The fused loss is ported now (tests/test_torch_fused_ce.py): it runs
+    and equals the dense loss with fp32 logits; an unknown loss_impl still
+    raises."""
     _, tcfg = _configs(loss_impl="fused")
     params = tgpt2.init_params(tcfg, seed=0, device="cpu")
     toks = torch.as_tensor(tokens[0], dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="fused"):
-        tgpt2.loss_fn(params, toks, toks, tcfg)
+    np.testing.assert_allclose(
+        float(tgpt2.loss_fn(params, toks, toks, tcfg)),
+        float(tgpt2.loss_fn(params, toks, toks,
+                            dataclasses.replace(tcfg, loss_impl="dense"))),
+        rtol=1e-5)
     with pytest.raises(ValueError, match="loss_impl"):
         tgpt2.loss_fn(params, toks, toks,
                       dataclasses.replace(tcfg, loss_impl="sparse"))

@@ -21,8 +21,9 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch import bench
 from ray_tpu_torch._private import device as device_mod
-from ray_tpu_torch._private import kernel_build
+from ray_tpu_torch._private import kernel_build, peaks
 from ray_tpu_torch.models import convert, gpt2
 from ray_tpu_torch.serve import GPT2Next, GPT2Stream
 
@@ -58,7 +59,9 @@ print(json.dumps({"modules": mods, "loaded": sorted(sys.modules)}))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"ray_tpu_torch.models.gpt2", "ray_tpu_torch.ops.attention",
-            "ray_tpu_torch.serve.gpt2",
+            "ray_tpu_torch.serve.gpt2", "ray_tpu_torch.ops.fused_ce",
+            "ray_tpu_torch.optim", "ray_tpu_torch.bench",
+            "ray_tpu_torch._private.peaks",
             "ray_tpu_torch._private.kernel_build"} <= set(res["modules"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
@@ -94,6 +97,9 @@ _TINY = gpt2.GPTConfig(vocab_size=64, n_layer=1, n_head=1, d_model=64,
 
 
 @pytest.mark.parametrize("make", [
+    lambda dev: bench.run(_TINY, batch=1, steps=1, windows=1, warmup=1,
+                          device=dev) if dev else
+    bench.run(_TINY, batch=1, steps=1, windows=1, warmup=1),
     lambda dev: device_mod.resolve_device(dev),
     lambda dev: gpt2.init_params(_TINY, 0, dev) if dev else
     gpt2.init_params(_TINY),
@@ -123,6 +129,30 @@ def test_nvcc_command_targets_sm90a():
         assert flag in cmd
     assert cmd[cmd.index("-o") + 1] == "liba.so"
     assert "splash_attention_fwd" in kernel_build.kernel_names()
+
+
+def test_every_kernel_source_is_built():
+    assert kernel_build.kernel_names() == [
+        "fused_ce", "splash_attention_bwd", "splash_attention_fwd"]
+
+
+def test_bench_raises_on_an_unknown_device_name(monkeypatch):
+    """MFU is taken against a table of published peaks; a card that is not
+    in it raises before anything runs, instead of being measured against a
+    guessed peak."""
+    assert peaks.peaks_for("NVIDIA H100 80GB HBM3") == (3.35e12, 989e12)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda *a: "NVIDIA A100-SXM4-80GB")
+    with pytest.raises(KeyError, match="no published peaks"):
+        bench.run(_TINY, batch=1, steps=1)
+
+
+def test_chip_smoke_uses_the_packages_peak_table():
+    import chip_smoke
+
+    assert chip_smoke.PEAKS is peaks.PEAKS
+    assert chip_smoke.peaks_for is peaks.peaks_for
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -163,6 +193,23 @@ def test_attention_bound_of_the_serving_shapes():
     assert ms1 == pytest.approx(0.001893, rel=1e-3)
     with pytest.raises(KeyError):
         chip_smoke.peaks_for("NVIDIA A100")
+
+
+def test_training_kernel_bounds():
+    """The bounds chip_smoke.py reports for the training shapes: the splash
+    backward at (16, 1024, 12, 64) causal is set by its 10*hd flops per kept
+    pair (6.45e10 flops against ~203 MB); each fused CE kernel by its
+    2*N*V*D (fwd) or 4*N*V*D (dx, dW, which recompute the logits) flops."""
+    import chip_smoke
+
+    peaks = chip_smoke.peaks_for("NVIDIA H100 80GB HBM3")
+    ms, by = chip_smoke.attention_bwd_bound(16, 1024, 12, 64, True, *peaks)
+    assert by == "operations" and ms == pytest.approx(0.06520, rel=1e-3)
+    for which, want in (("fwd", 1.2800), ("dx", 2.5600), ("dw", 2.5600)):
+        ms, by = chip_smoke.ce_bound(which, 16384, 768, 50304, *peaks)
+        assert by == "operations" and ms == pytest.approx(want, rel=1e-3)
+    # The ragged 24 x 96 case moves more bytes than it computes.
+    assert chip_smoke.ce_bound("dw", 24, 64, 96, *peaks)[1] == "bytes"
 
 
 @pytest.mark.parametrize("alone", [False, True])
