@@ -33,7 +33,18 @@ Phases, each of which exits non-zero on failure:
    step with plain attention, the dense loss and ``remat_policy="full"``;
    and ``remat_policy="full"`` on the kernel path launches 24 splash
    forwards (each block's reruns in the backward) for the same gradients.
-5. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+5. Ring attention (``attn_impl="ring"``, the ``seq`` axis of W=4 ranks
+   folded onto the card): the ring step forward and backward kernels
+   against their plain versions at the training path's per-step shapes
+   (B=16, S_local=256, 12 heads, hd=64), a ragged shard, head_dim 128 and
+   the full mask, with per-launch and whole-ring times beside the bound and
+   SDPA; whole ``ring_attention`` against ``splash_attention`` at
+   (16, 1024, 12, 64), forward and gradient. Then GPT-2 124M trains five
+   steps through the ring from the splash run's start (exactly 48 ring
+   forward and 48 ring backward launches per step, no splash or CE), and
+   one B=2 step of ``attn_impl="ring"`` and of ``"ulysses"`` is held
+   against the splash path.
+6. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -99,6 +110,18 @@ CE_GRAD_RTOL = 2e-2
 # are multiples of no tile.
 CE_SHAPES = [(16384, 768, 50304), (24, 64, 96), (1000, 768, 50257)]
 
+# Ring kernels (rows 8, 9) against their plain versions: (B, S_local, H, hd,
+# causal) over W=4 ranks. The training path's per-step shape first, then a
+# ragged shard, head_dim 128 and the full mask. Tolerances are the splash
+# kernels' (O_ATOL and LSE_ATOL on the merged fp32 o and lse after W steps,
+# BWD_RTOL per gradient): the plain forward rounds each block's o to bf16
+# before the merge, as JAX does, where the kernel merges it in fp32.
+RING_WORLD = 4
+RING_SHAPES = [(16, 256, 12, 64, True), (2, 250, 12, 64, True),
+               (2, 256, 8, 128, True), (4, 256, 12, 64, False)]
+# Whole ring attention against splash attention on the same q, k, v.
+RING_WHOLE_SHAPE = (16, 1024, 12, 64)
+
 TRAIN_BATCH = 16
 TRAIN_STEPS = 5
 # One B=2 step of the kernel path against the plain-attention, dense-loss,
@@ -138,6 +161,28 @@ def attention_bwd_bound(B: int, S: int, H: int, hd: int, causal: bool,
     nbytes = 8 * B * S * H * hd * 2 + 2 * B * H * S * 4
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 10.0 * hd * B * H * pairs
+    t_bytes, t_ops = nbytes / bytes_per_s, flops / flops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ring_bound(which: str, B: int, shard: int, H: int, hd: int, n_diag: int,
+               n_full: int, bytes_per_s: float, flops_per_s: float
+               ) -> Tuple[float, str]:
+    """Least time (ms) of ring steps that cover n_diag diagonal (causal) and
+    n_full full (rank, chunk) blocks of S_local = ``shard`` rows. Per block
+    the forward reads q, k, v (bf16) and reads and writes the fp32 o_acc and
+    lse_acc, with 4*hd flops per kept (query, key) pair; the backward reads
+    q, k, v, do (bf16), lse and delta (fp32) and reads and writes the fp32
+    dq, dk, dv, with 10*hd flops per kept pair."""
+    x, rows = B * shard * H * hd, B * H * shard
+    if which == "fwd":
+        per_block, flops_per_pair = 3 * x * 2 + 2 * x * 4 + 2 * rows * 4, 4 * hd
+    else:
+        per_block, flops_per_pair = 4 * x * 2 + 2 * rows * 4 + 6 * x * 4, 10 * hd
+    pairs = n_diag * shard * (shard + 1) // 2 + n_full * shard * shard
+    nbytes = (n_diag + n_full) * per_block
+    flops = float(flops_per_pair) * B * H * pairs
     t_bytes, t_ops = nbytes / bytes_per_s, flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -483,7 +528,6 @@ def phase_serve() -> Dict[str, object]:
     import torch
 
     from ray_tpu_torch.models import gpt2
-    from ray_tpu_torch.ops import attention
     from ray_tpu_torch.serve import GPT2Next, GPT2Stream
 
     config = gpt2.GPTConfig()  # GPT-2 124M, bf16, attn_impl="auto"
@@ -500,7 +544,7 @@ def phase_serve() -> Dict[str, object]:
     torch.cuda.synchronize()
 
     # The main path: counts at 0 just before, read just after.
-    attention.reset_launches()
+    _reset_counts()
     answers, latencies = [], []
     for toks in requests:
         t0 = time.perf_counter()
@@ -517,7 +561,8 @@ def phase_serve() -> Dict[str, object]:
         last = now
         streamed.append(json.loads(chunk)["token"])
     decode_s = time.perf_counter() - t0
-    launches = attention.LAUNCHES["splash_attention_fwd"]
+    counts = _counts()
+    launches = counts["splash_attention_fwd"]
 
     forwards = len(requests) + max_new
     if launches != config.n_layer * forwards:
@@ -581,7 +626,7 @@ def phase_serve() -> Dict[str, object]:
         unary_latency_ms=latencies, stream_prompt_len=len(prompt),
         stream_tokens=streamed, stream_gap_ms=gaps,
         decode_tokens_per_s=max_new / decode_s, forwards=forwards,
-        splash_launches=launches, max_abs_logit_err=worst,
+        splash_launches=launches, launches=counts, max_abs_logit_err=worst,
         forward_hidden_ms_splash=fwd_ms, forward_hidden_ms_xla=fwd_xla_ms,
         forward_hidden_graph_ms_splash=fwd_graph_ms,
         lm_head_ms_fp32_logits=head_fp32_ms,
@@ -590,28 +635,318 @@ def phase_serve() -> Dict[str, object]:
     return result
 
 
+def phase_ring(peaks: Tuple[float, float]) -> Dict[str, object]:
+    import torch
+
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    W = RING_WORLD
+    rows, main = [], None
+    worst = {"fwd": 0.0, "bwd_abs": 0.0, "bwd_rel": 0.0}
+    for n, (B, shard, H, hd, causal) in enumerate(RING_SHAPES):
+        q, k, v = _qkv(gen, B, W * shard, H, hd)
+        do = torch.randn(q.shape, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        o, lse = ra.ring_forward(q, k, v, world=W, causal=causal)
+        grads = ra.ring_backward(q, k, v, o, lse, do, world=W, causal=causal)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = ra.ring_forward(q, k, v, world=W, causal=causal,
+                                         plain=True)
+        refs = ra.ring_backward(q, k, v, o, lse, do, world=W, causal=causal,
+                                plain=True)
+        shape = dict(B=B, S_local=shard, H=H, hd=hd, W=W, causal=causal)
+        if not all(torch.isfinite(x).all() for x in (o, lse, *grads)):
+            fail(f"non-finite ring kernel output at {shape}")
+        row = dict(shape, o_max_abs_err=(o - o_ref).abs().max().item(),
+                   lse_max_abs_err=(lse - lse_ref).abs().max().item())
+        if row["o_max_abs_err"] > O_ATOL or row["lse_max_abs_err"] > LSE_ATOL:
+            fail(f"ring_attention_fwd disagrees with its plain version at "
+                 f"{shape}: {row} (tol {O_ATOL}, {LSE_ATOL})")
+        worst["fwd"] = max(worst["fwd"], row["o_max_abs_err"])
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            row[f"{name}_rel_err"] = rel_err(g, r)
+            row[f"{name}_abs_err"] = (g - r).abs().max().item()
+            worst["bwd_abs"] = max(worst["bwd_abs"], row[f"{name}_abs_err"])
+            worst["bwd_rel"] = max(worst["bwd_rel"], row[f"{name}_rel_err"])
+            if row[f"{name}_rel_err"] > BWD_RTOL:
+                fail(f"ring_attention_bwd {name} disagrees with its plain "
+                     f"version at {shape}: {row[f'{name}_rel_err']} "
+                     f"(tol {BWD_RTOL})")
+        if n == 0:  # the training path's shape: time it
+            row.update(_ring_times(peaks, q, k, v, do, o, lse, causal))
+            main = row
+        rows.append(row)
+        print("kernel ring_attention " + json.dumps(row), flush=True)
+        del q, k, v, do, o, lse, grads, o_ref, lse_ref, refs
+    torch.cuda.empty_cache()
+    whole = _ring_against_splash(gen)
+    torch.cuda.empty_cache()
+    return dict(rows=rows, main=main, worst=worst, whole=whole)
+
+
+def _ring_times(peaks, q, k, v, do, o, lse, causal) -> Dict[str, object]:
+    """Device ms of each ring kernel per launch (steps 0 and 1) and over the
+    W launches of one layer's attention, beside the plain versions and the
+    bounds; host ms per launch. The accumulators are scratch copies that the
+    timed launches keep merging into."""
+    import torch
+
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    W = RING_WORLD
+    B, S, H, hd = q.shape
+    shard = S // W
+    o_t, lse_t = o.clone(), lse.clone()
+    delta = ra.ring_delta(o, do)
+    acc = [torch.zeros_like(o) for _ in range(3)]
+    fwd_args = (q, k, v, o_t, lse_t)
+    bwd_args = (q, k, v, do, lse, delta, *acc)
+
+    def steps(fn, args, which):
+        return lambda: [fn(*args, step=s, world=W, causal=causal)
+                        for s in which]
+
+    out = {"per_launch": []}
+    for s in (0, 1):
+        n = len(ra.ring_pairs(s, W, causal))
+        blocks = (n, 0) if causal and s == 0 else (0, n)
+        launch = dict(step=s, pairs=n)
+        for which, kern, plain, args in (
+                ("fwd", ra.ring_fwd_step, ra.ring_fwd_step_plain, fwd_args),
+                ("bwd", ra.ring_bwd_step, ra.ring_bwd_step_plain, bwd_args)):
+            bound_ms, bound_by = ring_bound(which, B, shard, H, hd, *blocks,
+                                            *peaks)
+            launch.update({
+                f"{which}_ms": device_ms(steps(kern, args, [s])),
+                f"{which}_plain_ms": device_ms(steps(plain, args, [s]),
+                                               iters=2),
+                f"{which}_bound_ms": bound_ms, f"{which}_bound_by": bound_by,
+                f"{which}_call_ms": time_ms(steps(kern, args, [s]))})
+        out["per_launch"].append(launch)
+    causal_blocks = (W, W * (W - 1) // 2) if causal else (0, W * W)
+    for which, kern, plain, args in (
+            ("fwd", ra.ring_fwd_step, ra.ring_fwd_step_plain, fwd_args),
+            ("bwd", ra.ring_bwd_step, ra.ring_bwd_step_plain, bwd_args)):
+        bound_ms, bound_by = ring_bound(which, B, shard, H, hd,
+                                        *causal_blocks, *peaks)
+        out[which] = dict(
+            launches=W, ms=device_ms(steps(kern, args, range(W))),
+            plain_ms=device_ms(steps(plain, args, range(W)), iters=2),
+            bound_ms=bound_ms, bound_by=bound_by,
+            call_ms=time_ms(steps(kern, args, range(W))))
+    return out
+
+
+def _ring_against_splash(gen) -> Dict[str, object]:
+    """Whole ring attention (W=4, FusedRing, the kernels) against the splash
+    kernels on the same q, k, v, forward and gradient, with the device time
+    of each and of SDPA, forward by CUDA-graph replay and backward by events
+    around back-to-back calls (an autograd backward does not capture)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.ops import ring_attention as ra
+    from ray_tpu_torch.parallel import MeshSpec
+
+    B, S, H, hd = RING_WHOLE_SHAPE
+    mesh = MeshSpec(seq=RING_WORLD)
+    qkv = torch.randn((B, S, 3 * H * hd), generator=gen, device="cuda",
+                      dtype=torch.bfloat16, requires_grad=True)
+    q, k, v = (t.view(B, S, H, hd) for t in qkv.split(H * hd, dim=-1))
+    do = torch.randn((B, S, H, hd), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    out_r = ra.ring_attention(q, k, v, mesh=mesh)
+    if type(out_r.grad_fn).__name__ != "FusedRingBackward":
+        fail(f"ring_attention's gradient is {type(out_r.grad_fn).__name__}")
+    out_s = attention.splash_attention(q, k, v)
+    (g_r,) = torch.autograd.grad(out_r, qkv, do, retain_graph=True)
+    (g_s,) = torch.autograd.grad(out_s, qkv, do, retain_graph=True)
+    res = dict(B=B, S=S, H=H, hd=hd, W=RING_WORLD,
+               o_max_abs_err=(out_r.float() - out_s.float()).abs().max().item())
+    for name, a, b in zip(("dq", "dk", "dv"), g_r.split(H * hd, -1),
+                          g_s.split(H * hd, -1)):
+        res[f"{name}_rel_err"] = rel_err(a, b)
+    print("ring_vs_splash " + json.dumps(res), flush=True)
+    if res["o_max_abs_err"] > O_ATOL:
+        fail(f"ring_attention differs from splash_attention: {res}")
+    if max(res[f"{n}_rel_err"] for n in ("dq", "dk", "dv")) > BWD_RTOL:
+        fail(f"ring_attention's gradient differs from splash's: {res}")
+
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out_l = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        res["fwd_ms"] = dict(
+            ring=device_ms(lambda: ra.ring_attention(q, k, v, mesh=mesh)),
+            splash=device_ms(lambda: attention.splash_attention(q, k, v)),
+            sdpa=device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)))
+    res["bwd_ms"] = dict(
+        ring=loop_ms(lambda: torch.autograd.grad(out_r, qkv, do,
+                                                 retain_graph=True)),
+        splash=loop_ms(lambda: torch.autograd.grad(out_s, qkv, do,
+                                                   retain_graph=True)),
+        sdpa=loop_ms(lambda: torch.autograd.grad(out_l, (qt, kt, vt), dot,
+                                                 retain_graph=True)))
+    print("ring_whole_ms " + json.dumps(res), flush=True)
+    return res
+
+
 def _counts() -> Dict[str, int]:
-    from ray_tpu_torch.ops import attention, fused_ce
+    from ray_tpu_torch.ops import attention, fused_ce, ring_attention
 
-    return {**attention.LAUNCHES, **fused_ce.LAUNCHES}
+    return {**attention.LAUNCHES, **fused_ce.LAUNCHES,
+            **ring_attention.LAUNCHES}
 
 
-def phase_train(peaks: Tuple[float, float], card: str) -> Dict[str, object]:
+def _reset_counts() -> None:
+    from ray_tpu_torch.ops import attention, fused_ce, ring_attention
+
+    for mod in (attention, fused_ce, ring_attention):
+        mod.reset_launches()
+
+
+def _train_start(config):
+    """The training runs' common start: GPT-2 weights from seed 0 and one
+    batch of B=16 tokens from a numpy seed."""
     import numpy as np
     import torch
 
     from ray_tpu_torch.models import gpt2
-    from ray_tpu_torch.ops import attention, fused_ce
-    from ray_tpu_torch.optim import tree_leaves, tree_map
 
-    config = gpt2.GPTConfig(remat_policy="attn_outside", scan_layers=False)
     init = gpt2.init_params(config, seed=0, device="cuda")
     rng = np.random.default_rng(0)
     toks = torch.as_tensor(
         rng.integers(0, 50257, (TRAIN_BATCH, config.seq_len + 1)),
         dtype=torch.long, device="cuda")
-    tokens, targets = toks[:, :-1], toks[:, 1:]
-    tokens_per_step = TRAIN_BATCH * config.seq_len
+    return init, toks[:, :-1], toks[:, 1:]
+
+
+def _train_steps(label, config, step, params, opt_state, tokens, targets,
+                 want, peaks, card) -> Dict[str, object]:
+    """TRAIN_STEPS steps of ``step``, checking each step's launch counts
+    against ``want`` (every kernel not named there: 0) and that the losses
+    are finite and fall. Counts are set to 0 just before and read after."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        before = _counts()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, tokens, targets)
+        losses.append(float(loss))  # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        expected = {k: want.get(k, 0) for k in delta}
+        if delta != expected:
+            fail(f"{label} step {i}: launches {delta}, expected {expected}")
+    launches = _counts()
+    if not all(np.isfinite(losses)):
+        fail(f"{label} training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label} training loss did not fall: {losses}")
+    # Steps after the first (which sets up cuBLAS and the allocator).
+    steps_per_s = (TRAIN_STEPS - 1) / sum(step_s[1:])
+    tokens_per_s = steps_per_s * TRAIN_BATCH * config.seq_len
+    mfu = 100.0 * gpt2.flops_per_token(config) * tokens_per_s / peaks[1]
+    return dict(losses=losses, step_s=step_s, steps_per_s=steps_per_s,
+                tokens_per_s=tokens_per_s, mfu_pct=mfu, launches=launches,
+                card=card,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _check_step_against(label, cfg, ref_cfg, init, small, mesh=None
+                        ) -> Dict[str, object]:
+    """One B=2 loss and gradient of ``cfg`` against ``ref_cfg`` on the same
+    weights: loss within LOSS_ATOL, every leaf within GRAD_RTOL of its
+    largest entry."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.optim import tree_leaves, tree_map
+    from ray_tpu_torch.parallel import use_mesh
+
+    def loss_and_grads(c):
+        params = tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                          init)
+        with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            loss = gpt2.loss_fn(params, *small, c)
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+        return float(loss.detach()), grads
+
+    loss, grads = loss_and_grads(cfg)
+    ref_loss, ref_grads = loss_and_grads(ref_cfg)
+    errs = {n: rel_err(g, r)
+            for n, g, r in zip(_leaf_names(init), grads, ref_grads)}
+    worst = max(errs, key=errs.get)
+    check = dict(loss=loss, ref_loss=ref_loss, loss_abs_err=abs(loss - ref_loss),
+                 grad_rel_err=errs, worst_leaf=worst)
+    print(f"train_check {label} " + json.dumps(check), flush=True)
+    if not np.isfinite(loss) or abs(loss - ref_loss) > LOSS_ATOL:
+        fail(f"B=2 {label} loss {loss} vs {ref_loss} (tol {LOSS_ATOL})")
+    if errs[worst] > GRAD_RTOL:
+        fail(f"B=2 {label} gradient {worst} off by {errs[worst]} of its "
+             f"largest entry (tol {GRAD_RTOL})")
+    return check
+
+
+def phase_train_ring(peaks: Tuple[float, float], card: str
+                     ) -> Dict[str, object]:
+    """GPT-2 124M through attn_impl="ring" on a seq axis of W=4 folded onto
+    the card: five steps from the splash run's start, then B=2 steps of the
+    ring and of Ulysses against the splash path."""
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.optim import tree_map
+    from ray_tpu_torch.parallel import MeshSpec, jit_train_step
+
+    W = RING_WORLD
+    config = gpt2.GPTConfig(attn_impl="ring", remat_policy="attn_outside",
+                            scan_layers=False)
+    mesh = MeshSpec(seq=W)
+    init, tokens, targets = _train_start(config)
+    params = tree_map(lambda p: p.detach().clone(), init)
+    optimizer = gpt2.make_optimizer(3e-4)
+    step = jit_train_step(gpt2.make_train_step(config, optimizer), mesh=mesh)
+    want = {"ring_attention_fwd": config.n_layer * W,
+            "ring_attention_bwd": config.n_layer * W}
+    run = _train_steps("ring", config, step, params, optimizer.init(params),
+                       tokens, targets, want, peaks, card)
+    run.update(attn_impl="ring", seq_axis=W)
+    print("train " + json.dumps(run), flush=True)
+    del params, step
+    torch.cuda.empty_cache()
+
+    small = (tokens[:2], targets[:2])
+    splash = gpt2.GPTConfig(remat_policy="attn_outside", scan_layers=False)
+    checks = {label: _check_step_against(
+        label, dataclasses.replace(config, attn_impl=label), splash, init,
+        small, mesh) for label in ("ring", "ulysses")}
+    torch.cuda.empty_cache()
+    return dict(run=run, checks=checks)
+
+
+def phase_train(peaks: Tuple[float, float], card: str) -> Dict[str, object]:
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import fused_ce
+    from ray_tpu_torch.optim import tree_leaves, tree_map
+
+    config = gpt2.GPTConfig(remat_policy="attn_outside", scan_layers=False)
+    init, tokens, targets = _train_start(config)
     result: Dict[str, object] = {"launches": {}}
 
     def fresh():
@@ -622,41 +957,17 @@ def phase_train(peaks: Tuple[float, float], card: str) -> Dict[str, object]:
         cfg = dataclasses.replace(config, loss_impl=impl)
         params = fresh()
         optimizer = gpt2.make_optimizer(3e-4)
-        opt_state = optimizer.init(params)
         step = gpt2.make_train_step(cfg, optimizer)
-        torch.cuda.reset_peak_memory_stats()
-        attention.reset_launches()
-        fused_ce.reset_launches()
-        losses, step_s = [], []
-        for i in range(TRAIN_STEPS):
-            before = _counts()
-            t0 = time.perf_counter()
-            params, opt_state, loss = step(params, opt_state, tokens, targets)
-            losses.append(float(loss))  # waits for the step
-            step_s.append(time.perf_counter() - t0)
-            delta = {k: v - before[k] for k, v in _counts().items()}
-            want = {"splash_attention_fwd": config.n_layer,
-                    "splash_attention_bwd": config.n_layer,
-                    **{k: int(impl == "fused") for k in fused_ce.LAUNCHES}}
-            if delta != want:
-                fail(f"{impl} step {i}: launches {delta}, expected {want}")
-        launches = _counts()
-        if not all(np.isfinite(losses)):
-            fail(f"{impl} training losses not finite: {losses}")
-        if not losses[-1] < losses[0]:
-            fail(f"{impl} training loss did not fall: {losses}")
-        # Steps after the first (which sets up cuBLAS and the allocator).
-        steps_per_s = (TRAIN_STEPS - 1) / sum(step_s[1:])
-        tokens_per_s = steps_per_s * tokens_per_step
-        mfu = 100.0 * gpt2.flops_per_token(config) * tokens_per_s / peaks[1]
-        run = dict(loss_impl=impl, losses=losses, step_s=step_s,
-                   steps_per_s=steps_per_s, tokens_per_s=tokens_per_s,
-                   mfu_pct=mfu, launches=launches, card=card,
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        want = {"splash_attention_fwd": config.n_layer,
+                "splash_attention_bwd": config.n_layer,
+                **{k: int(impl == "fused") for k in fused_ce.LAUNCHES}}
+        run = _train_steps(impl, config, step, params, optimizer.init(params),
+                           tokens, targets, want, peaks, card)
+        run = dict(loss_impl=impl, **run)
         result[impl] = run
-        result["launches"][impl] = launches
+        result["launches"][impl] = run["launches"]
         print("train " + json.dumps(run), flush=True)
-        del params, opt_state, step
+        del params, step
         torch.cuda.empty_cache()
 
     # (ii) One B=2 step of the kernel paths against plain attention, the
@@ -671,28 +982,13 @@ def phase_train(peaks: Tuple[float, float], card: str) -> Dict[str, object]:
 
     plain = dataclasses.replace(config, attn_impl="xla", loss_impl="dense",
                                 remat_policy="full")
-    names = list(_leaf_names(init))
-    checks = {}
-    for label, cfg, ref_cfg in (
-            ("dense", config, plain),
-            # The fused loss keeps fp32 logits: hold it to fp32 dense logits.
-            ("fused", dataclasses.replace(config, loss_impl="fused"),
-             dataclasses.replace(plain, logits_dtype=torch.float32))):
-        loss, grads = loss_and_grads(cfg)
-        ref_loss, ref_grads = loss_and_grads(ref_cfg)
-        errs = {n: rel_err(g, r) for n, g, r in zip(names, grads, ref_grads)}
-        worst = max(errs, key=errs.get)
-        checks[label] = dict(loss=loss, ref_loss=ref_loss,
-                             loss_abs_err=abs(loss - ref_loss),
-                             grad_rel_err=errs, worst_leaf=worst)
-        print(f"train_check {label} " + json.dumps(checks[label]), flush=True)
-        if not np.isfinite(loss) or abs(loss - ref_loss) > LOSS_ATOL:
-            fail(f"B=2 {label} loss {loss} vs plain {ref_loss} "
-                 f"(tol {LOSS_ATOL})")
-        if errs[worst] > GRAD_RTOL:
-            fail(f"B=2 {label} gradient {worst} off by {errs[worst]} of its "
-                 f"largest entry (tol {GRAD_RTOL})")
-    result["checks"] = checks
+    result["checks"] = {
+        "dense": _check_step_against("dense", config, plain, init, small),
+        # The fused loss keeps fp32 logits: hold it to fp32 dense logits.
+        "fused": _check_step_against(
+            "fused", dataclasses.replace(config, loss_impl="fused"),
+            dataclasses.replace(plain, logits_dtype=torch.float32), init,
+            small)}
 
     # (iii) remat_policy="full" checkpoints each block whole, so the backward
     # reruns its splash forward: twice attn_outside's forward launches, the
@@ -758,31 +1054,36 @@ def main() -> int:
     kern = phase_kernel(peaks)
     bwd = phase_attn_bwd(peaks)
     ce = phase_ce(peaks)
+    ring = phase_ring(peaks)
     serve = phase_serve()
     train = phase_train(peaks, card)
+    train_ring = phase_train_ring(peaks, card)
 
-    def entry(name, source, replaces, function, launches, by_path, worst,
-              row, library_ms, shape, **extra):
+    def entry(name, source, replaces, function, rows, by_path, worst, row,
+              library_ms, shape, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    replaces_function=function, launches=launches,
-                    launches_by_path=by_path, max_abs_err=worst, ms=row["ms"],
-                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_us=row["bound_ms"] * 1e3, bound_by=row["bound_by"],
-                    library_ms=library_ms, shape=shape, **extra)
+                    replaces_function=function, rows=rows,
+                    launches=sum(by_path.values()), launches_by_path=by_path,
+                    max_abs_err=worst, ms=row["ms"], plain_ms=row["plain_ms"],
+                    bound_ms=row["bound_ms"], bound_us=row["bound_ms"] * 1e3,
+                    bound_by=row["bound_by"], library_ms=library_ms,
+                    shape=shape, **extra)
 
-    def train_count(name):
-        return {f"train_{impl}": train["launches"][impl][name]
-                for impl in ("dense", "fused")}
+    def paths(name):
+        """Launches of kernel ``name`` on each main path, counted from 0
+        just before the path ran."""
+        out = {"serve": serve["launches"][name]}
+        for impl in ("dense", "fused"):
+            out[f"train_{impl}"] = train["launches"][impl][name]
+        out["train_ring"] = train_ring["run"]["launches"][name]
+        return out
 
-    fwd_paths = {"serve": serve["splash_launches"],
-                 **train_count("splash_attention_fwd")}
-    bwd_paths = train_count("splash_attention_bwd")
     kernels = [
         entry("splash_attention_fwd",
               "ray_tpu_torch/csrc/splash_attention_fwd.cu",
               "ray_tpu/ops/attention.py:95",
               "ray_tpu.ops.attention.splash_attention (and flash_attention "
-              ":128), forward", sum(fwd_paths.values()), fwd_paths,
+              ":128), forward", [1, 3], paths("splash_attention_fwd"),
               kern["worst"], kern["main"], kern["main"]["library_ms"],
               {k: kern["main"][k] for k in ("B", "S", "H", "hd", "causal")},
               train_shape_ms=kern["rows"][0]["ms"]),
@@ -790,25 +1091,50 @@ def main() -> int:
               "ray_tpu_torch/csrc/splash_attention_bwd.cu",
               "ray_tpu/ops/attention.py:56",
               "ray_tpu.ops.attention.splash_attention fused dq/dk/dv "
-              "backward (and flash_attention's dkv and dq kernels)",
-              sum(bwd_paths.values()), bwd_paths, bwd["worst_abs"],
-              bwd["main"], bwd["main"]["library_ms"],
+              "backward (and flash_attention's dkv and dq kernels)", [2, 4],
+              paths("splash_attention_bwd"), bwd["worst_abs"], bwd["main"],
+              bwd["main"]["library_ms"],
               {k: bwd["main"][k] for k in ("B", "S", "H", "hd", "causal")},
               max_rel_err=bwd["worst_rel"]),
     ]
-    for name, line, function in (
-            ("fused_ce_fwd", 81, "_fwd_pallas (_fwd_kernel :53)"),
-            ("fused_ce_dx", 154, "_bwd_pallas dx (_dx_kernel :113)"),
-            ("fused_ce_dw", 167, "_bwd_pallas dW (_dw_kernel :131)")):
+    for name, row_no, line, function in (
+            ("fused_ce_fwd", 5, 81, "_fwd_pallas (_fwd_kernel :53)"),
+            ("fused_ce_dx", 6, 154, "_bwd_pallas dx (_dx_kernel :113)"),
+            ("fused_ce_dw", 7, 167, "_bwd_pallas dW (_dw_kernel :131)")):
         main_row = ce[name]["main"]
-        paths = train_count(name)
         kernels.append(entry(
             name, "ray_tpu_torch/csrc/fused_ce.cu",
             f"ray_tpu/ops/fused_ce.py:{line}",
-            f"ray_tpu.ops.fused_ce.{function}", sum(paths.values()), paths,
+            f"ray_tpu.ops.fused_ce.{function}", [row_no], paths(name),
             ce[name]["worst_abs"], main_row, None,
             {k: main_row[k] for k in ("N", "D", "V")},
             dense_ms=main_row["dense_ms"]))
+    # The ring kernels' time is one layer's W=4 launches at the training
+    # path's shape; SDPA is the one PyTorch call for the same attention.
+    ring_shape = {k: ring["main"][k]
+                  for k in ("B", "S_local", "H", "hd", "W", "causal")}
+    for name, which, line, function, worst, extra in (
+            ("ring_attention_fwd", "fwd", 200,
+             "_fused_ring_fwd (_block_kernel :148, merge :232)",
+             ring["worst"]["fwd"], {}),
+            ("ring_attention_bwd", "bwd", 242,
+             "_fused_ring_bwd (_splash_attention_bwd_dkv :270)",
+             ring["worst"]["bwd_abs"],
+             {"max_rel_err": ring["worst"]["bwd_rel"]})):
+        timed = ring["main"][which]
+        kernels.append(entry(
+            name, f"ray_tpu_torch/csrc/{name}.cu",
+            f"ray_tpu/ops/ring_attention.py:{line}",
+            f"ray_tpu.ops.ring_attention.{function}", [8 if which == "fwd"
+                                                       else 9],
+            paths(name), worst, timed, ring["whole"][f"{which}_ms"]["sdpa"],
+            ring_shape, ms_unit="one layer's W=4 launches",
+            launches_per_layer=timed["launches"],
+            per_launch=[{key: launch[key] for key in launch
+                         if key in ("step", "pairs")
+                         or key.startswith(which)}
+                        for launch in ring["main"]["per_launch"]],
+            whole_ring_ms=ring["whole"][f"{which}_ms"], **extra))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,6 +14,12 @@
 
 namespace {
 
+// Mode tags of the attention bodies (attention_fwd.cuh, attention_bwd.cuh):
+// the splash kernel over one whole sequence, or one ring step over (rank,
+// chunk) pairs. A tag is a type, so that it shows in the kernel's name.
+struct SplashMode { static constexpr bool kRing = false; };
+struct RingStepMode { static constexpr bool kRing = true; };
+
 // c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col).
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
                                           uint32_t b0, uint32_t b1) {

@@ -50,411 +50,13 @@
 // aligned, which the Python wrapper checks. Rows past S are read as zeros and
 // never written.
 
-#include "mma_sm90.cuh"
+//
+// The code is in attention_bwd.cuh, shared with the ring step
+// (ring_attention_bwd.cu).
+
+#include "attention_bwd.cuh"
 
 namespace {
-
-constexpr int kBlock = 64;      // rows of a query tile and of a KV tile
-constexpr int kThreads = 128;   // four warps, 16 rows each
-constexpr int kPad = 8;         // bf16 elements of padding per shared row
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <int HD>
-__host__ __device__ constexpr int tile_elems() { return kBlock * (HD + kPad); }
-
-// Six tiles: the block's own two (K, V or Q, dO) and two double-buffered
-// streamed ones; plus, for the dkv kernel, lse and delta of two query tiles.
-template <int HD>
-__host__ __device__ constexpr int smem_bytes() {
-  return 6 * tile_elems<HD>() * 2 + 4 * kBlock * 4;
-}
-
-// Starts copying 64 rows of HD bf16 into shared memory with row stride
-// HD + kPad. Rows at or past S become zeros.
-template <int HD>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                long long row_stride,
-                                                int row0, int S) {
-  constexpr int kChunks = HD / 8;
-  for (int idx = threadIdx.x; idx < kBlock * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const bool valid = row0 + r < S;
-    const __nv_bfloat16* g =
-        src + (long long)(valid ? row0 + r : 0) * row_stride + c;
-    cp_async16(dst + r * (HD + kPad) + c, g, valid);
-  }
-}
-
-// B fragments of the n-tiles n0 and n0+8 for k-step kk, from a tile stored
-// [n][k]: b[0], b[1] for n0; b[2], b[3] for n0+8.
-template <int LD>
-__device__ __forceinline__ void load_b_nk(uint32_t b[4], const __nv_bfloat16* tile,
-                                          int n0, int kk) {
-  const int lane = threadIdx.x % 32;
-  const int mi = lane / 8, mr = lane % 8;
-  ldmatrix_x4(b, tile + (n0 + (mi >> 1) * 8 + mr) * LD + kk * 16 + (mi & 1) * 8);
-}
-
-// The same from a tile stored [k][n] (the product contracts over its rows).
-template <int LD>
-__device__ __forceinline__ void load_b_kn(uint32_t b[4], const __nv_bfloat16* tile,
-                                          int kk, int n0) {
-  const int lane = threadIdx.x % 32;
-  const int mi = lane / 8, mr = lane % 8;
-  ldmatrix_x4_trans(b, tile + (kk * 16 + (mi & 1) * 8 + mr) * LD + n0 + (mi >> 1) * 8);
-}
-
-// acc (16 x 64) = A[r0:r0+16, :HD] * B[0:64, :HD]^T, B stored [n][k].
-template <int HD>
-__device__ __forceinline__ void product_nt(float acc[8][4], const __nv_bfloat16* a_tile,
-                                           int r0, const __nv_bfloat16* b_tile) {
-  constexpr int LD = HD + kPad;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4];
-    load_a<LD>(a, a_tile, r0, kk);
-#pragma unroll
-    for (int n = 0; n < 8; n += 2) {
-      uint32_t b[4];
-      load_b_nk<LD>(b, b_tile, n * 8, kk);
-      mma_16816(acc[n], a, b[0], b[1]);
-      mma_16816(acc[n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// out (16 x HD) += P (16 x 64, accumulator layout) * B (64 x HD), B stored
-// [k][n]. The accumulators of n-tiles 2kt and 2kt+1 are exactly the A
-// fragment of the 16-wide k-step kt.
-template <int HD>
-__device__ __forceinline__ void product_pn(float out[HD / 8][4], float p[8][4],
-                                           const __nv_bfloat16* b_tile) {
-  constexpr int LD = HD + kPad;
-#pragma unroll
-  for (int kt = 0; kt < kBlock / 16; ++kt) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(p[2 * kt][0], p[2 * kt][1]);
-    pa[1] = pack_bf16(p[2 * kt][2], p[2 * kt][3]);
-    pa[2] = pack_bf16(p[2 * kt + 1][0], p[2 * kt + 1][1]);
-    pa[3] = pack_bf16(p[2 * kt + 1][2], p[2 * kt + 1][3]);
-#pragma unroll
-    for (int d = 0; d < HD / 8; d += 2) {
-      uint32_t b[4];
-      load_b_kn<LD>(b, b_tile, kt, d * 8);
-      mma_16816(out[d], pa, b[0], b[1]);
-      mma_16816(out[d + 1], pa, b[2], b[3]);
-    }
-  }
-}
-
-// Writes a warp's 16 x HD accumulator tile, times `scale`, as bf16 rows of a
-// contiguous (B, S, H, HD) tensor; rows at or past S are skipped.
-template <int HD>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, float acc[HD / 8][4],
-                                           int b, int h, int S, int H, int row_a,
-                                           float scale) {
-  const int t = (threadIdx.x % 32) % 4;
-  const long long ss = (long long)H * HD;
-  __nv_bfloat16* base = out + (long long)b * S * ss + (long long)h * HD + 2 * t;
-  const int row_b = row_a + 8;
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d) {
-    if (row_a < S)
-      *reinterpret_cast<uint32_t*>(base + row_a * ss + d * 8) =
-          pack_bf16(acc[d][0] * scale, acc[d][1] * scale);
-    if (row_b < S)
-      *reinterpret_cast<uint32_t*>(base + row_b * ss + d * 8) =
-          pack_bf16(acc[d][2] * scale, acc[d][3] * scale);
-  }
-}
-
-// (a) delta[b, h, s] = sum_d o[b, s, h, d] * do[b, s, h, d], fp32. HD/8
-// neighbouring threads share a row, 16 bytes each.
-template <int HD>
-__global__ void __launch_bounds__(256)
-splash_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
-                        const __nv_bfloat16* __restrict__ dout,
-                        float* __restrict__ delta, int B, int S, int H,
-                        long long o_sb, long long o_ss, long long o_sh,
-                        long long d_sb, long long d_ss, long long d_sh) {
-  constexpr int kPer = HD / 8;  // threads per row
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long row = idx / kPer;
-  const int c = (int)(idx % kPer) * 8;
-  const long long n_rows = (long long)B * S * H;
-  const int h = (int)(row % H);
-  const int s = (int)((row / H) % S);
-  const int b = (int)(row / ((long long)H * S));
-  float acc = 0.f;
-  if (row < n_rows) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(o + b * o_sb + s * o_ss + h * o_sh + c);
-    const uint4 dv = *reinterpret_cast<const uint4*>(dout + b * d_sb + s * d_ss + h * d_sh + c);
-    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(op[i]);
-      const float2 y = __bfloat1622float2(dp[i]);
-      acc += x.x * y.x + x.y * y.y;
-    }
-  }
-#pragma unroll
-  for (int off = kPer / 2; off > 0; off /= 2)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (row < n_rows && c == 0) delta[((long long)b * H + h) * S + s] = acc;
-}
-
-// (b) dk, dv for one 64-row KV tile of one (batch, head).
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-splash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int S, int H,
-                      long long q_sb, long long q_ss, long long q_sh,
-                      long long k_sb, long long k_ss, long long k_sh,
-                      long long v_sb, long long v_ss, long long v_sh,
-                      long long d_sb, long long d_ss, long long d_sh,
-                      float scale_log2, float scale, int causal) {
-  constexpr int TILE = tile_elems<HD>();
-  constexpr int NT_O = HD / 8;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + TILE;
-  __nv_bfloat16* q_s = v_s + TILE;     // two buffers
-  __nv_bfloat16* do_s = q_s + 2 * TILE;  // two buffers
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * TILE);  // [2][64], base 2
-  float* delta_s = lse_s + 2 * kBlock;                        // [2][64]
-
-  // Causal: KV tile 0 walks every query tile; blocks go out in index order,
-  // so the longest come first.
-  const int kv_tile = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int kv0 = kv_tile * kBlock;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
-  const __nv_bfloat16* qp = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kp = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vp = v + b * v_sb + h * v_sh;
-  const __nv_bfloat16* dp_ = dout + b * d_sb + h * d_sh;
-  const float* lse_p = lse + (long long)bh * S;
-  const float* delta_p = delta + (long long)bh * S;
-
-  const int n_q = (S + kBlock - 1) / kBlock;
-  const int q_begin = causal ? kv_tile : 0;
-
-  auto load_q_tile = [&](int i, int buf) {
-    const int q0 = i * kBlock;
-    load_tile_async<HD>(q_s + buf * TILE, qp, q_ss, q0, S);
-    load_tile_async<HD>(do_s + buf * TILE, dp_, d_ss, q0, S);
-    if (threadIdx.x < kBlock) {
-      const int r = q0 + threadIdx.x;
-      lse_s[buf * kBlock + threadIdx.x] = r < S ? lse_p[r] * kLog2e : 0.f;
-      delta_s[buf * kBlock + threadIdx.x] = r < S ? delta_p[r] : 0.f;
-    }
-  };
-
-  load_tile_async<HD>(k_s, kp, k_ss, kv0, S);
-  load_tile_async<HD>(v_s, vp, v_ss, kv0, S);
-  load_q_tile(q_begin, 0);
-  cp_async_commit();
-
-  const int kvr_a = kv0 + warp * 16 + g;  // this thread's two key rows
-  const int kvr_b = kvr_a + 8;
-
-  float acc_dk[NT_O][4], acc_dv[NT_O][4];
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i) {
-    acc_dk[i][0] = acc_dk[i][1] = acc_dk[i][2] = acc_dk[i][3] = 0.f;
-    acc_dv[i][0] = acc_dv[i][1] = acc_dv[i][2] = acc_dv[i][3] = 0.f;
-  }
-
-  for (int i = q_begin; i < n_q; ++i) {
-    const int cur = (i - q_begin) & 1;
-    if (i + 1 < n_q) {
-      load_q_tile(i + 1, cur ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* qb = q_s + cur * TILE;
-    const __nv_bfloat16* dob = do_s + cur * TILE;
-    const float* lseb = lse_s + cur * kBlock;
-    const float* deltab = delta_s + cur * kBlock;
-    const int q0 = i * kBlock;
-
-    // p^T (16 key rows x 64 query columns) = exp2(k q^T * scale - lse).
-    float s[8][4];
-    product_nt<HD>(s, k_s, warp * 16, qb);
-    const bool edge = (q0 + kBlock > S) || (kv0 + kBlock > S) ||
-                      (causal && i == kv_tile);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        float p = exp2f(s[n][e] * scale_log2 - lseb[col]);
-        if (edge) {
-          const int qi = q0 + col;
-          const int row = e < 2 ? kvr_a : kvr_b;
-          if (qi >= S || row >= S || (causal && row > qi)) p = 0.f;
-        }
-        s[n][e] = p;
-      }
-    }
-    // dv += p^T do.
-    product_pn<HD>(acc_dv, s, dob);
-    // dp^T = v do^T, then ds^T = p^T (dp^T - delta).
-    float dpt[8][4];
-    product_nt<HD>(dpt, v_s, warp * 16, dob);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        dpt[n][e] = s[n][e] * (dpt[n][e] - deltab[col]);
-      }
-    }
-    // dk += ds^T q (scaled at the end).
-    product_pn<HD>(acc_dk, dpt, qb);
-    __syncthreads();  // every warp is done with buffer cur before it refills
-  }
-
-  store_rows<HD>(dk, acc_dk, b, h, S, H, kvr_a, scale);
-  store_rows<HD>(dv, acc_dv, b, h, S, H, kvr_a, 1.f);
-}
-
-// (c) dq for one 64-row query tile of one (batch, head).
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-splash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dq, int S, int H,
-                     long long q_sb, long long q_ss, long long q_sh,
-                     long long k_sb, long long k_ss, long long k_sh,
-                     long long v_sb, long long v_ss, long long v_sh,
-                     long long d_sb, long long d_ss, long long d_sh,
-                     float scale_log2, float scale, int causal) {
-  constexpr int TILE = tile_elems<HD>();
-  constexpr int NT_O = HD / 8;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* do_s = q_s + TILE;
-  __nv_bfloat16* k_s = do_s + TILE;    // two buffers
-  __nv_bfloat16* v_s = k_s + 2 * TILE;  // two buffers
-
-  // The last query tiles do the most causal work: issue them first.
-  const int q_tile = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = q_tile * kBlock;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-
-  const __nv_bfloat16* qp = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kp = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vp = v + b * v_sb + h * v_sh;
-  const __nv_bfloat16* dp_ = dout + b * d_sb + h * d_sh;
-
-  const int n_kv = (S + kBlock - 1) / kBlock;
-  const int kv_end = causal ? min(n_kv, q_tile + 1) : n_kv;
-
-  load_tile_async<HD>(q_s, qp, q_ss, q0, S);
-  load_tile_async<HD>(do_s, dp_, d_ss, q0, S);
-  load_tile_async<HD>(k_s, kp, k_ss, 0, S);
-  load_tile_async<HD>(v_s, vp, v_ss, 0, S);
-  cp_async_commit();
-
-  const int row_a = q0 + warp * 16 + g;  // this thread's two query rows
-  const int row_b = row_a + 8;
-  const float* lse_p = lse + (long long)bh * S;
-  const float* delta_p = delta + (long long)bh * S;
-  const float lse_a = row_a < S ? lse_p[row_a] * kLog2e : 0.f;
-  const float lse_b = row_b < S ? lse_p[row_b] * kLog2e : 0.f;
-  const float delta_a = row_a < S ? delta_p[row_a] : 0.f;
-  const float delta_b = row_b < S ? delta_p[row_b] : 0.f;
-
-  float acc[NT_O][4];
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int j = 0; j < kv_end; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < kv_end) {
-      const int nxt = (j + 1) * kBlock;
-      load_tile_async<HD>(k_s + (cur ^ 1) * TILE, kp, k_ss, nxt, S);
-      load_tile_async<HD>(v_s + (cur ^ 1) * TILE, vp, v_ss, nxt, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* kb = k_s + cur * TILE;
-    const __nv_bfloat16* vb = v_s + cur * TILE;
-    const int kv0 = j * kBlock;
-
-    // p (16 query rows x 64 key columns) = exp2(q k^T * scale - lse).
-    float s[8][4];
-    product_nt<HD>(s, q_s, warp * 16, kb);
-    const bool edge = (kv0 + kBlock > S) || (q0 + kBlock > S) ||
-                      (causal && j == q_tile);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? row_a : row_b;
-        float p = exp2f(s[n][e] * scale_log2 - (e < 2 ? lse_a : lse_b));
-        if (edge) {
-          const int col = kv0 + n * 8 + 2 * t + (e & 1);
-          if (col >= S || row >= S || (causal && col > row)) p = 0.f;
-        }
-        s[n][e] = p;
-      }
-    }
-    // dp = do v^T, then ds = p (dp - delta).
-    float dp[8][4];
-    product_nt<HD>(dp, do_s, warp * 16, vb);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      dp[n][0] = s[n][0] * (dp[n][0] - delta_a);
-      dp[n][1] = s[n][1] * (dp[n][1] - delta_a);
-      dp[n][2] = s[n][2] * (dp[n][2] - delta_b);
-      dp[n][3] = s[n][3] * (dp[n][3] - delta_b);
-    }
-    // dq += ds k (scaled at the end).
-    product_pn<HD>(acc, dp, kb);
-    __syncthreads();
-  }
-
-  store_rows<HD>(dq, acc, b, h, S, H, row_a, scale);
-}
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
@@ -462,44 +64,24 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            void* dv, int B, int S, int H, const long long st[15], float scale,
            int causal, int compute_delta, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  constexpr int kSmem = smem_bytes<HD>();
-  static bool allowed_dkv[64] = {};
-  static bool allowed_dq[64] = {};
-  cudaError_t err = allow_smem(splash_bwd_dkv_kernel<HD>, kSmem, allowed_dkv);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem(splash_bwd_dq_kernel<HD>, kSmem, allowed_dq);
-  if (err != cudaSuccess) return (int)err;
-
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
   const bf16* op = static_cast<const bf16*>(o);
   const bf16* dop = static_cast<const bf16*>(dout);
-  const float* lsep = static_cast<const float*>(lse);
   float* deltap = static_cast<float*>(delta);
   // st: q, k, v, o, do strides (batch, seq, head), in elements.
   if (compute_delta) {
     const long long threads = (long long)B * S * H * (HD / 8);
     const unsigned blocks = (unsigned)((threads + 255) / 256);
-    splash_bwd_delta_kernel<HD><<<blocks, 256, 0, stream>>>(
+    attention_bwd_delta_kernel<HD><<<blocks, 256, 0, stream>>>(
         op, dop, deltap, B, S, H, st[9], st[10], st[11], st[12], st[13], st[14]);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const int n_tiles = (S + kBlock - 1) / kBlock;
-  const dim3 grid(n_tiles, B * H);
-  const float scale_log2 = scale * kLog2e;
-  splash_bwd_dkv_kernel<HD><<<grid, kThreads, kSmem, stream>>>(
-      qp, kp, vp, dop, lsep, deltap, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, H, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[12], st[13], st[14], scale_log2, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  splash_bwd_dq_kernel<HD><<<grid, kThreads, kSmem, stream>>>(
-      qp, kp, vp, dop, lsep, deltap, static_cast<bf16*>(dq), S, H, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[12], st[13],
-      st[14], scale_log2, scale, causal);
-  return (int)cudaGetLastError();
+  const long long qkvd[12] = {st[0], st[1], st[2],  st[3],  st[4],  st[5],
+                              st[6], st[7], st[8], st[12], st[13], st[14]};
+  return launch_bwd_dkv_dq<HD, SplashMode>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), dop, static_cast<const float*>(lse), deltap,
+      dq, dk, dv, B, S, H, qkvd, scale, causal, nullptr, 1, 1, stream);
 }
 
 }  // namespace

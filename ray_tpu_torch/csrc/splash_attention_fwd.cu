@@ -40,276 +40,11 @@
 // have a row stride of 3*D): every row of hd elements must be contiguous and
 // 16-byte aligned, which the Python wrapper checks. Rows past S are read as
 // zeros and never written.
+//
+// The code is in attention_fwd.cuh, shared with the ring step
+// (ring_attention_fwd.cu).
 
-#include "mma_sm90.cuh"
-
-namespace {
-
-constexpr int kBlockQ = 64;      // query rows per block (16 per warp)
-constexpr int kBlockKV = 64;     // key/value rows per tile
-constexpr int kThreads = 128;    // four warps
-constexpr int kPad = 8;          // bf16 elements of padding per shared row
-constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
-constexpr float kLn2 = 0.6931471805599453f;
-// The causal diagonal of query tile i is KV tile i.
-static_assert(kBlockQ == kBlockKV, "query and KV tiles must be equal");
-
-template <int HD>
-__host__ __device__ constexpr int tile_elems() { return kBlockKV * (HD + kPad); }
-
-// Shared memory: K and V, two buffers each. The query tile is staged in the
-// second K buffer before the loop starts.
-template <int HD>
-__host__ __device__ constexpr int smem_bytes() { return 4 * tile_elems<HD>() * 2; }
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Starts copying a tile of 64 rows of HD bf16 into shared memory with row
-// stride HD + kPad, 16 bytes per thread per step. Rows at or past S become
-// zeros: a zero V row times a zero probability stays zero, where stale
-// shared memory could hold a NaN.
-template <int HD>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                long long row_stride,
-                                                int row0, int S) {
-  constexpr int kChunks = HD / 8;
-  for (int idx = threadIdx.x; idx < kBlockKV * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const bool valid = row0 + r < S;
-    const __nv_bfloat16* g =
-        src + (long long)(valid ? row0 + r : 0) * row_stride + c;
-    cp_async16(dst + r * (HD + kPad) + c, g, valid);
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-splash_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ o,
-                            float* __restrict__ lse, int S, int H,
-                            long long q_sb, long long q_ss, long long q_sh,
-                            long long k_sb, long long k_ss, long long k_sh,
-                            long long v_sb, long long v_ss, long long v_sh,
-                            float scale_log2, int causal) {
-  constexpr int LD = HD + kPad;
-  constexpr int TILE = tile_elems<HD>();
-  constexpr int KSTEPS = HD / 16;     // k-steps of the q k^T product
-  constexpr int NT_S = kBlockKV / 8;  // n-tiles of a score row block
-  constexpr int NT_O = HD / 8;        // n-tiles of an output row block
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + 2 * TILE;
-
-  // The last query tiles do the most causal work: issue them first.
-  const int q_tile = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = q_tile * kBlockQ;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // row within the 8-row group of a fragment
-  const int t = lane % 4;   // column pair within a fragment
-  const int mi = lane / 8;  // which ldmatrix matrix this lane addresses
-  const int mr = lane % 8;  // which row of it
-
-  const __nv_bfloat16* qp = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kp = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vp = v + b * v_sb + h * v_sh;
-
-  const int n_kv = (S + kBlockKV - 1) / kBlockKV;
-  const int kv_end = causal ? min(n_kv, q_tile + 1) : n_kv;
-
-  // Query tile into the second K buffer, KV tile 0 into the first buffers.
-  load_tile_async<HD>(k_s + TILE, qp, q_ss, q0, S);
-  load_tile_async<HD>(k_s, kp, k_ss, 0, S);
-  load_tile_async<HD>(v_s, vp, v_ss, 0, S);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qa[KSTEPS][4];
-  {
-    const __nv_bfloat16* r0 = k_s + TILE + (warp * 16 + g) * LD + 2 * t;
-    const __nv_bfloat16* r1 = r0 + 8 * LD;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      qa[kk][0] = ld32(r0 + kk * 16);
-      qa[kk][1] = ld32(r1 + kk * 16);
-      qa[kk][2] = ld32(r0 + kk * 16 + 8);
-      qa[kk][3] = ld32(r1 + kk * 16 + 8);
-    }
-  }
-  __syncthreads();  // the second buffers are free for tile 1
-
-  // This thread's two query rows.
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-
-  float acc[NT_O][4];
-#pragma unroll
-  for (int i = 0; i < NT_O; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_a = kMaskValue, m_b = kMaskValue;  // running max, base-2 units
-  float l_a = 0.f, l_b = 0.f;                // this thread's share of the sum
-
-  for (int j = 0; j < kv_end; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < kv_end) {
-      const int nxt = (j + 1) * kBlockKV;
-      load_tile_async<HD>(k_s + (cur ^ 1) * TILE, kp, k_ss, nxt, S);
-      load_tile_async<HD>(v_s + (cur ^ 1) * TILE, vp, v_ss, nxt, S);
-      cp_async_commit();
-      cp_async_wait<1>();  // tile j has landed; tile j+1 may be in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* kb = k_s + cur * TILE;
-    const __nv_bfloat16* vb = v_s + cur * TILE;
-    const int kv0 = j * kBlockKV;
-
-    // s = q k^T. One ldmatrix.x4 gives the B fragments of two n-tiles
-    // (key rows) for one 16-wide k-step: matrices (n, lo), (n, hi),
-    // (n+1, lo), (n+1, hi).
-    float s[NT_S][4];
-#pragma unroll
-    for (int n = 0; n < NT_S; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NT_S; n += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, kb + ((n + (mi >> 1)) * 8 + mr) * LD + kk * 16 +
-                            (mi & 1) * 8);
-        mma_16816(s[n], qa[kk], bk[0], bk[1]);
-        mma_16816(s[n + 1], qa[kk], bk[2], bk[3]);
-      }
-    }
-
-    // Scale into base-2 units, mask, and take the row maxima.
-    const bool edge = (kv0 + kBlockKV > S) || (causal && j == q_tile);
-    float mx_a = m_a, mx_b = m_b;
-#pragma unroll
-    for (int n = 0; n < NT_S; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
-        if (edge) {
-          const int col = kv0 + n * 8 + 2 * t + (e & 1);
-          const int row = e < 2 ? row_a : row_b;
-          if (col >= S || (causal && col > row)) x = kMaskValue;
-        }
-        s[n][e] = x;
-      }
-      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
-    }
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-
-    const float alpha_a = exp2f(m_a - mx_a);
-    const float alpha_b = exp2f(m_b - mx_b);
-    m_a = mx_a;
-    m_b = mx_b;
-    l_a *= alpha_a;
-    l_b *= alpha_b;
-#pragma unroll
-    for (int i = 0; i < NT_O; ++i) {
-      acc[i][0] *= alpha_a;
-      acc[i][1] *= alpha_a;
-      acc[i][2] *= alpha_b;
-      acc[i][3] *= alpha_b;
-    }
-#pragma unroll
-    for (int n = 0; n < NT_S; ++n) {
-      s[n][0] = exp2f(s[n][0] - m_a);
-      s[n][1] = exp2f(s[n][1] - m_a);
-      s[n][2] = exp2f(s[n][2] - m_b);
-      s[n][3] = exp2f(s[n][3] - m_b);
-      l_a += s[n][0] + s[n][1];
-      l_b += s[n][2] + s[n][3];
-    }
-
-    // o += p v: the score accumulators of n-tiles 2kt and 2kt+1 are exactly
-    // the A fragment of the 16-wide k-step kt. V is row-major (key, d):
-    // ldmatrix.trans of matrices (kt lo, d), (kt hi, d), (kt lo, d+8),
-    // (kt hi, d+8) gives the B fragments of two 8-wide d tiles.
-#pragma unroll
-    for (int kt = 0; kt < kBlockKV / 16; ++kt) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kt][0], s[2 * kt][1]);
-      pa[1] = pack_bf16(s[2 * kt][2], s[2 * kt][3]);
-      pa[2] = pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
-      pa[3] = pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
-#pragma unroll
-      for (int d = 0; d < NT_O; d += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vb + (kt * 16 + (mi & 1) * 8 + mr) * LD +
-                                  (d + (mi >> 1)) * 8);
-        mma_16816(acc[d], pa, bv[0], bv[1]);
-        mma_16816(acc[d + 1], pa, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with buffer cur before it refills
-  }
-
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
-  const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
-
-  const long long o_ss = (long long)H * HD;
-  __nv_bfloat16* op = o + (long long)b * S * o_ss + (long long)h * HD + 2 * t;
-  if (row_a < S) {
-#pragma unroll
-    for (int d = 0; d < NT_O; ++d) {
-      *reinterpret_cast<uint32_t*>(op + row_a * o_ss + d * 8) =
-          pack_bf16(acc[d][0] * inv_a, acc[d][1] * inv_a);
-    }
-    if (t == 0) lse[(long long)bh * S + row_a] = (m_a + log2f(l_a)) * kLn2;
-  }
-  if (row_b < S) {
-#pragma unroll
-    for (int d = 0; d < NT_O; ++d) {
-      *reinterpret_cast<uint32_t*>(op + row_b * o_ss + d * 8) =
-          pack_bf16(acc[d][2] * inv_b, acc[d][3] * inv_b);
-    }
-    if (t == 0) lse[(long long)bh * S + row_b] = (m_b + log2f(l_b)) * kLn2;
-  }
-}
-
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int S, int H, long long q_sb, long long q_ss, long long q_sh,
-           long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-           long long v_ss, long long v_sh, float scale, int causal,
-           cudaStream_t stream) {
-  auto kernel = splash_attention_fwd_kernel<HD>;
-  constexpr int kSmem = smem_bytes<HD>();
-  static bool allowed[64] = {};
-  const cudaError_t err = allow_smem(kernel, kSmem, allowed);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
-  kernel<<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), S, H, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-      v_ss, v_sh, scale * 1.4426950408889634f, causal);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "attention_fwd.cuh"
 
 // Plain C entry, bound with ctypes. Strides are in elements; o is written
 // contiguous (B, S, H, hd) and lse contiguous (B, H, S). Launches on `stream`
@@ -326,12 +61,14 @@ extern "C" int splash_attention_fwd(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0 || H <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (head_dim == 64) {
-    return launch<64>(q, k, v, o, lse, B, S, H, q_sb, q_ss, q_sh, k_sb, k_ss,
-                      k_sh, v_sb, v_ss, v_sh, scale, causal, st);
+    return launch_fwd<64, SplashMode>(q, k, v, o, lse, B, S, H, q_sb, q_ss, q_sh,
+                                      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                                      causal, nullptr, 1, 1, st);
   }
   if (head_dim == 128) {
-    return launch<128>(q, k, v, o, lse, B, S, H, q_sb, q_ss, q_sh, k_sb, k_ss,
-                       k_sh, v_sb, v_ss, v_sh, scale, causal, st);
+    return launch_fwd<128, SplashMode>(q, k, v, o, lse, B, S, H, q_sb, q_ss, q_sh,
+                                       k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                                       causal, nullptr, 1, 1, st);
   }
   return (int)cudaErrorInvalidValue;
 }

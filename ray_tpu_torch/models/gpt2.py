@@ -10,7 +10,8 @@ layernorm, softmax and the loss reductions run in float32.
 serving; ``make_train_step`` (with ``make_optimizer``, from
 ``ray_tpu_torch.optim``) and ``make_eval_step`` are the training step.
 Gradients come from autograd: attention differentiates through the splash
-kernels' own backward (``SplashAttention``), the fused loss through the
+kernels' own backward (``SplashAttention``) or, with ``attn_impl="ring"``,
+the ring kernels' (``FusedRing``), the fused loss through the
 fused cross-entropy kernels (``FusedCE``), and remat is
 ``torch.utils.checkpoint``. The layers always run as a Python loop.
 """
@@ -30,6 +31,7 @@ from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import (attention_reference, flash_attention,
                                          splash_attention)
 from ray_tpu_torch.ops.fused_ce import fused_lm_head_ce
+from ray_tpu_torch.ops.ring_attention import ring_attention, ulysses_attention
 # make_optimizer is re-exported: the JAX package defines it in this module.
 from ray_tpu_torch.optim import (AdamW, make_optimizer,  # noqa: F401
                                  tree_leaves, tree_map)
@@ -176,6 +178,9 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     auto/splash run the splash kernel, pallas runs it through
     ``flash_attention`` (the same kernel), xla runs the plain version.
+    ring/ulysses are the context-parallel paths (``ops/ring_attention.py``)
+    over the ambient mesh's ``seq`` axis: callers install the mesh with
+    ``ray_tpu_torch.parallel.use_mesh`` or ``jit_train_step(mesh=)``.
     """
     impl = config.attn_impl
     if impl not in ("auto", "xla", "pallas", "splash", "ring", "ulysses"):
@@ -188,10 +193,10 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 block_kv=config.attn_block_kv)
     if impl == "pallas":
         return flash_attention(q, k, v, causal=True)
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r} (context parallelism) is not ported yet; "
-            "see ROADMAP.md, the long-context slice")
+    if impl == "ring":
+        return ring_attention(q, k, v, causal=True)
+    if impl == "ulysses":
+        return ulysses_attention(q, k, v, causal=True)
     return attention_reference(q, k, v, causal=True)[0]
 
 

@@ -7,12 +7,14 @@ Builds GPT-2 124M (``GPTConfig(remat_policy="attn_outside",
 scan_layers=False)``, bf16, random weights from seed 0) with
 ``ray_tpu_torch`` and runs ``make_train_step`` with ``make_optimizer(3e-4)``
 at (16, 1024), 3 steps under ``torch.profiler`` after 3 warm-up steps, once
-with the dense loss and once with ``loss_impl="fused"``. For each it prints one JSON line: the host wall
-time per step, the device busy time per step (the sum of the kernels' own
-device times), the device's idle share, launches per step, the device time
-by kind of kernel (the port's kernels by name, cuBLAS matmuls, everything
-else), the optimizer update's own device time (CUDA events around it alone)
-and the kernels that take the most device time. Needs a CUDA device; with
+with the dense loss, once with ``loss_impl="fused"`` and once through the
+ring (``attn_impl="ring"``, dense loss, a seq axis of 4 ranks folded onto
+the card by ``jit_train_step(mesh=)``). For each it prints one JSON line:
+the host wall time per step, the device busy time per step (the sum of the
+kernels' own device times), the device's idle share, launches per step,
+the device time by kind of kernel (the port's kernels by name, cuBLAS
+matmuls, everything else), the optimizer update's own device time (CUDA
+events around it alone) and the kernels that take the most device time. Needs a CUDA device; with
 ``--trace-dir`` it also writes a Chrome trace of each run there.
 """
 
@@ -29,18 +31,28 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 from torch_profile_serve import device_kernel_times  # noqa: E402
 
-# Kernel-name fragments of each kind, checked in order.
-KINDS = (("splash_attention_fwd", ("splash_attention_fwd_kernel",)),
-         ("splash_attention_bwd", ("splash_bwd_",)),
-         ("fused_ce", ("fused_ce_",)),
-         ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
+# Each kind's kernel names: a name is of the kind when it holds every
+# fragment of one of the alternatives; kinds are checked in order. The
+# splash and ring attention kernels share their bodies (csrc/attention_*.cuh)
+# and differ by the mode tag in their names.
+KINDS = (("splash_attention_fwd", (("attention_fwd_kernel", "SplashMode"),)),
+         ("splash_attention_bwd", (("attention_bwd_", "SplashMode"),
+                                   ("attention_bwd_delta_kernel",))),
+         ("ring_attention_fwd", (("attention_fwd_kernel", "RingStepMode"),)),
+         ("ring_attention_bwd", (("attention_bwd_", "RingStepMode"),)),
+         ("fused_ce", (("fused_ce_",),)),
+         ("matmul", (("gemm",), ("xmma",), ("cutlass",), ("nvjet",),
+                     ("cublas",))))
 BATCH = 16  # per chip, as bench.py
-STEPS = 3   # profiled steps per loss path
+STEPS = 3   # profiled steps per path
+# (attn_impl, loss_impl, ranks of the seq axis): the paths chip_smoke.py
+# trains at full width.
+PATHS = (("auto", "dense", 1), ("auto", "fused", 1), ("ring", "dense", 4))
 
 
 def kind_of(name: str) -> str:
-    for kind, frags in KINDS:
-        if any(f in name for f in frags):
+    for kind, alternatives in KINDS:
+        if any(all(f in name for f in alt) for alt in alternatives):
             return kind
     return "other"
 
@@ -56,6 +68,7 @@ def main() -> int:
 
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.optim import tree_map
+    from ray_tpu_torch.parallel import MeshSpec, jit_train_step
 
     if not torch.cuda.is_available():
         print("torch finds no CUDA device", file=sys.stderr)
@@ -69,12 +82,13 @@ def main() -> int:
         device="cuda")
     tokens, targets = toks[:, :-1], toks[:, 1:]
 
-    for impl in ("dense", "fused"):
-        cfg = dataclasses.replace(config, loss_impl=impl)
+    for attn, impl, seq_axis in PATHS:
+        cfg = dataclasses.replace(config, attn_impl=attn, loss_impl=impl)
         params = tree_map(lambda p: p.detach().clone(), init)
         optimizer = gpt2.make_optimizer(3e-4)
         state = optimizer.init(params)
-        step = gpt2.make_train_step(cfg, optimizer)
+        step = jit_train_step(gpt2.make_train_step(cfg, optimizer),
+                              mesh=MeshSpec(seq=seq_axis))
         for _ in range(3):  # warm-up
             params, state, loss = step(params, state, tokens, targets)
         torch.cuda.synchronize()
@@ -104,7 +118,8 @@ def main() -> int:
 
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
         print(json.dumps({
-            "loss_impl": impl, "batch": BATCH, "seq_len": config.seq_len,
+            "loss_impl": impl, "attn_impl": attn, "seq_axis": seq_axis,
+            "batch": BATCH, "seq_len": config.seq_len,
             "device": torch.cuda.get_device_name(0),
             "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy_ms,
@@ -121,7 +136,8 @@ def main() -> int:
         if args.trace_dir:
             os.makedirs(args.trace_dir, exist_ok=True)
             prof.export_chrome_trace(
-                os.path.join(args.trace_dir, f"train_step_{impl}.json"))
+                os.path.join(args.trace_dir,
+                             f"train_step_{attn}_{impl}.json"))
         del params, state, grads, state_copy
         torch.cuda.empty_cache()
     return 0

@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from ray_tpu_torch.ops import attention, fused_ce
+from ray_tpu_torch.ops import ring_attention as ra
+from ray_tpu_torch.parallel import MeshSpec, use_mesh
 
 
 def _need_gpu():
@@ -97,3 +99,65 @@ def test_fused_ce_kernels_match_plain_on_gpu(N, D, V):
                 fused_ce.ce_dx_reference(x, w, t, lse)) <= 2e-2
     assert _rel(fused_ce.ce_dw(x, w, t, lse),
                 fused_ce.ce_dw_reference(x, w, t, lse)) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,shard,H,hd,causal", [
+    (4, 256, 12, 64, True), (2, 250, 12, 64, True), (2, 256, 8, 128, True),
+    (2, 256, 12, 64, False)])
+def test_ring_kernels_match_plain_on_gpu(B, shard, H, hd, causal):
+    """A W=4 ring forward and backward through the kernels (one launch per
+    step each) against the same steps through the plain versions, q, k, v
+    split from a fused qkv."""
+    _need_gpu()
+    W = 4
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn((B, W * shard, 3 * H * hd), generator=gen,
+                      device="cuda", dtype=torch.bfloat16)
+    q, k, v = (t.view(B, W * shard, H, hd) for t in qkv.split(H * hd, dim=-1))
+    do = torch.randn(q.shape, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    before = dict(ra.LAUNCHES)
+    o, lse = ra.ring_forward(q, k, v, world=W, causal=causal)
+    grads = ra.ring_backward(q, k, v, o, lse, do, world=W, causal=causal)
+    assert {n: ra.LAUNCHES[n] - before[n] for n in before} == {
+        "ring_attention_fwd": W, "ring_attention_bwd": W}
+    o_ref, lse_ref = ra.ring_forward(q, k, v, world=W, causal=causal,
+                                     plain=True)
+    assert (o - o_ref).abs().max().item() <= 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    refs = ra.ring_backward(q, k, v, o, lse, do, world=W, causal=causal,
+                            plain=True)
+    for g, r in zip(grads, refs):
+        assert torch.isfinite(g).all() and _rel(g, r) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_ring_attention_gradient_is_its_own_on_gpu():
+    """attn_impl="ring"'s attention on the card: FusedRing's backward (four
+    launches at W=4), within the splash kernels' tolerance of splash
+    attention on the same q, k, v."""
+    _need_gpu()
+    B, S, H, hd = 2, 1024, 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    qkv = torch.randn((B, S, 3 * H * hd), generator=gen, device="cuda",
+                      dtype=torch.bfloat16, requires_grad=True)
+    do = torch.randn((B, S, H, hd), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    outs, grads = [], []
+    for ring in (True, False):
+        q, k, v = (t.view(B, S, H, hd) for t in qkv.split(H * hd, dim=-1))
+        with use_mesh(MeshSpec(seq=4)):
+            out = (ra.ring_attention(q, k, v) if ring
+                   else attention.splash_attention(q, k, v))
+        if ring:
+            assert type(out.grad_fn).__name__ == "FusedRingBackward"
+            before = ra.LAUNCHES["ring_attention_bwd"]
+        (g,) = torch.autograd.grad(out, qkv, do)
+        if ring:
+            assert ra.LAUNCHES["ring_attention_bwd"] == before + 4
+        outs.append(out)
+        grads.append(g)
+    assert (outs[0].float() - outs[1].float()).abs().max().item() <= 2e-2
+    for a, b in zip(grads[0].split(H * hd, -1), grads[1].split(H * hd, -1)):
+        assert _rel(a, b) <= 2e-2

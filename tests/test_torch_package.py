@@ -62,7 +62,10 @@ print(json.dumps({"modules": mods, "loaded": sorted(sys.modules)}))
             "ray_tpu_torch.serve.gpt2", "ray_tpu_torch.ops.fused_ce",
             "ray_tpu_torch.optim", "ray_tpu_torch.bench",
             "ray_tpu_torch._private.peaks",
-            "ray_tpu_torch._private.kernel_build"} <= set(res["modules"])
+            "ray_tpu_torch._private.kernel_build",
+            "ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.parallel",
+            "ray_tpu_torch.parallel.mesh",
+            "ray_tpu_torch.parallel.train_state"} <= set(res["modules"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 
@@ -133,7 +136,32 @@ def test_nvcc_command_targets_sm90a():
 
 def test_every_kernel_source_is_built():
     assert kernel_build.kernel_names() == [
-        "fused_ce", "splash_attention_bwd", "splash_attention_fwd"]
+        "fused_ce", "ring_attention_bwd", "ring_attention_fwd",
+        "splash_attention_bwd", "splash_attention_fwd"]
+
+
+def test_the_scan_covers_the_parallel_package():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"parallel/__init__.py", "parallel/mesh.py",
+            "parallel/train_state.py", "ops/ring_attention.py"} <= files
+
+
+@pytest.mark.parametrize("header", ["attention_fwd.cuh", "attention_bwd.cuh",
+                                    "mma_sm90.cuh"])
+def test_build_digest_covers_the_shared_headers(tmp_path, monkeypatch, header):
+    """The attention bodies live in headers that several sources include: an
+    edited header must give a new build directory, so every library is
+    rebuilt."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernel_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(kernel_build, "CSRC_DIR", csrc)
+    before = kernel_build.build_dir()
+    with open(csrc / header, "a") as f:
+        f.write("\n// edited\n")
+    assert kernel_build.build_dir() != before
 
 
 def test_bench_raises_on_an_unknown_device_name(monkeypatch):
@@ -210,6 +238,26 @@ def test_training_kernel_bounds():
         assert by == "operations" and ms == pytest.approx(want, rel=1e-3)
     # The ragged 24 x 96 case moves more bytes than it computes.
     assert chip_smoke.ce_bound("dw", 24, 64, 96, *peaks)[1] == "bytes"
+
+
+def test_ring_kernel_bounds():
+    """The bounds chip_smoke.py reports for the ring at the training path's
+    shapes (B=16, S_local=256, H=12, hd=64, W=4): the causal forward's 10
+    rank-steps read q, k, v and read and write the fp32 o_acc and lse_acc
+    once each, 444 MB (0.1326 ms); the backward's read q, k, v, do, lse,
+    delta and read and write the fp32 dq, dk, dv, 1.01 GB; both bound by
+    bytes. Per launch: step 0 (4 diagonal rank-steps) and step 1 (3 full)."""
+    import chip_smoke
+
+    peaks = chip_smoke.peaks_for("NVIDIA H100 80GB HBM3")
+    ms, by = chip_smoke.ring_bound("fwd", 16, 256, 12, 64, 4, 6, *peaks)
+    assert by == "bytes" and ms == pytest.approx(0.13264, rel=1e-3)
+    ms, by = chip_smoke.ring_bound("bwd", 16, 256, 12, 64, 4, 6, *peaks)
+    assert by == "bytes" and ms == pytest.approx(0.30166, rel=1e-3)
+    assert chip_smoke.ring_bound("fwd", 16, 256, 12, 64, 4, 0, *peaks)[0] == \
+        pytest.approx(0.053055, rel=1e-3)
+    assert chip_smoke.ring_bound("fwd", 16, 256, 12, 64, 0, 3, *peaks)[0] == \
+        pytest.approx(0.039791, rel=1e-3)
 
 
 @pytest.mark.parametrize("alone", [False, True])
