@@ -34,6 +34,12 @@ __host__ __device__ constexpr int smem_bytes() {
   return 6 * tile_elems<HD>() * 2 + 4 * kBlock * 4;
 }
 
+// The dynamic shared memory of each kernel's launch in mode Mode.
+template <int HD, typename Mode>
+__host__ __device__ constexpr int dkv_smem_bytes() { return smem_bytes<HD>(); }
+template <int HD, typename Mode>
+__host__ __device__ constexpr int dq_smem_bytes() { return smem_bytes<HD>(); }
+
 // Starts copying 64 rows of HD bf16 into shared memory with row stride
 // HD + kPad. Rows at or past S become zeros.
 template <int HD>
@@ -119,30 +125,31 @@ __device__ __forceinline__ void product_pn(float out[HD / 8][4], float p[8][4],
 // Writes a warp's 16 x HD accumulator tile, times `scale`, into rows
 // row_a.. of batch b, head h: as bf16 rows of a contiguous (B, S, H, HD)
 // tensor, or (ring step) added into the fp32 rows of chunk `slot` of a
-// contiguous (B, world * S, H, HD) accumulator. Each thread owns its
-// elements, so the addition needs no atomics. Rows at or past S are skipped.
-template <int HD, bool kRing>
+// contiguous (B, world * S, H, HD) accumulator (written, not added, at the
+// ring's first step). Each thread owns its elements, so the addition needs
+// no atomics. Rows at or past S are skipped.
+template <int HD, typename Mode>
 __device__ __forceinline__ void store_rows(void* out, float acc[HD / 8][4],
                                            int b, int h, int S, int H, int row_a,
                                            float scale, int world, int slot) {
   const int t = (threadIdx.x % 32) % 4;
   const long long ss = (long long)H * HD;
   const int row_b = row_a + 8;
-  if constexpr (kRing) {
+  if constexpr (Mode::kRing) {
     float* base = static_cast<float*>(out) + ((long long)b * world + slot) * S * ss +
                   (long long)h * HD + 2 * t;
 #pragma unroll
     for (int d = 0; d < HD / 8; ++d) {
       if (row_a < S) {
         float2* p = reinterpret_cast<float2*>(base + row_a * ss + d * 8);
-        float2 x = *p;
+        float2 x = Mode::kFirst ? make_float2(0.f, 0.f) : *p;
         x.x += acc[d][0] * scale;
         x.y += acc[d][1] * scale;
         *p = x;
       }
       if (row_b < S) {
         float2* p = reinterpret_cast<float2*>(base + row_b * ss + d * 8);
-        float2 x = *p;
+        float2 x = Mode::kFirst ? make_float2(0.f, 0.f) : *p;
         x.x += acc[d][2] * scale;
         x.y += acc[d][3] * scale;
         *p = x;
@@ -339,8 +346,8 @@ attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // every warp is done with buffer cur before it refills
   }
 
-  store_rows<HD, Mode::kRing>(dk, acc_dk, b, h, S, H, kvr_a, scale, world, pair.y);
-  store_rows<HD, Mode::kRing>(dv, acc_dv, b, h, S, H, kvr_a, 1.f, world, pair.y);
+  store_rows<HD, Mode>(dk, acc_dk, b, h, S, H, kvr_a, scale, world, pair.y);
+  store_rows<HD, Mode>(dv, acc_dv, b, h, S, H, kvr_a, 1.f, world, pair.y);
 }
 
 // dq for one 64-row query tile of one (batch, head).
@@ -458,7 +465,7 @@ attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
   }
 
-  store_rows<HD, Mode::kRing>(dq, acc, b, h, S, H, row_a, scale, world, pair.x);
+  store_rows<HD, Mode>(dq, acc, b, h, S, H, row_a, scale, world, pair.x);
 }
 
 // Launches the dk/dv kernel, then the dq kernel, each over the grid
@@ -472,23 +479,24 @@ int launch_bwd_dkv_dq(const __nv_bfloat16* q, const __nv_bfloat16* k,
                       void* dv, int B, int S, int H, const long long st[12],
                       float scale, int causal, const int* pairs, int n_pairs,
                       int world, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<HD>();
+  constexpr int kSmemDkv = dkv_smem_bytes<HD, Mode>();
+  constexpr int kSmemDq = dq_smem_bytes<HD, Mode>();
   static bool allowed_dkv[64] = {};
   static bool allowed_dq[64] = {};
-  cudaError_t err = allow_smem(attention_bwd_dkv_kernel<HD, Mode>, kSmem, allowed_dkv);
+  cudaError_t err = allow_smem(attention_bwd_dkv_kernel<HD, Mode>, kSmemDkv, allowed_dkv);
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(attention_bwd_dq_kernel<HD, Mode>, kSmem, allowed_dq);
+  err = allow_smem(attention_bwd_dq_kernel<HD, Mode>, kSmemDq, allowed_dq);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (S + kBlock - 1) / kBlock;
   const dim3 grid(n_tiles, B * H, n_pairs);
   const float scale_log2 = scale * kLog2e;
-  attention_bwd_dkv_kernel<HD, Mode><<<grid, kThreads, kSmem, stream>>>(
+  attention_bwd_dkv_kernel<HD, Mode><<<grid, kThreads, kSmemDkv, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, S, H, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2, scale,
       causal, pairs, world);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_dq_kernel<HD, Mode><<<grid, kThreads, kSmem, stream>>>(
+  attention_bwd_dq_kernel<HD, Mode><<<grid, kThreads, kSmemDq, stream>>>(
       q, k, v, dout, lse, delta, dq, S, H, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2, scale,
       causal, pairs, world);

@@ -35,6 +35,10 @@ __host__ __device__ constexpr int tile_elems() { return kBlockKV * (HD + kPad); 
 template <int HD>
 __host__ __device__ constexpr int smem_bytes() { return 4 * tile_elems<HD>() * 2; }
 
+// The dynamic shared memory of a launch in mode Mode.
+template <int HD, typename Mode>
+__host__ __device__ constexpr int fwd_smem_bytes() { return smem_bytes<HD>(); }
+
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -87,6 +91,23 @@ __device__ __forceinline__ void ring_merge_row(float* o_row, float* lse_row,
     *p = x;
   }
   if (writes_lse) *lse_row = lse_new;
+}
+
+// The first ring step's epilogue for one query row: the block's own
+// normalised output and lse, which is what ring_merge_row gives from o = 0,
+// lse = -1e30, bit for bit (lse_new = lse_b, w_old = 0, w_new = 1 / l).
+// Nothing is read.
+template <int NT_O>
+__device__ __forceinline__ void ring_write_row(float* o_row, float* lse_row,
+                                               float acc[NT_O][4], int e0,
+                                               float m, float l,
+                                               bool writes_lse) {
+  const float w = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+  for (int d = 0; d < NT_O; ++d)
+    *reinterpret_cast<float2*>(o_row + d * 8) =
+        make_float2(acc[d][e0] * w, acc[d][e0 + 1] * w);
+  if (writes_lse) *lse_row = (m + log2f(l)) * kLn2;
 }
 
 // o: bf16 (B, S, H, HD) for the splash kernel; for the ring step the fp32
@@ -284,6 +305,15 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     float* op = static_cast<float*>(o) + ((long long)b * world + rank) * S * o_ss +
                 (long long)h * HD + 2 * t;
     float* lp = lse + ((long long)bh * world + rank) * S;
+    if constexpr (Mode::kFirst) {
+      if (row_a < S)
+        ring_write_row<NT_O>(op + row_a * o_ss, lp + row_a, acc, 0, m_a, l_a,
+                             t == 0);
+      if (row_b < S)
+        ring_write_row<NT_O>(op + row_b * o_ss, lp + row_b, acc, 2, m_b, l_b,
+                             t == 0);
+      return;
+    }
     // The four lanes of a row all read its lse before one of them writes it.
     const float old_a = row_a < S ? lp[row_a] : 0.f;
     const float old_b = row_b < S ? lp[row_b] : 0.f;
@@ -329,7 +359,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int causal, const int* pairs, int n_pairs, int world,
                cudaStream_t stream) {
   auto kernel = attention_fwd_kernel<HD, Mode>;
-  constexpr int kSmem = smem_bytes<HD>();
+  constexpr int kSmem = fwd_smem_bytes<HD, Mode>();
   static bool allowed[64] = {};
   const cudaError_t err = allow_smem(kernel, kSmem, allowed);
   if (err != cudaSuccess) return (int)err;

@@ -12,13 +12,31 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 // Mode tags of the attention bodies (attention_fwd.cuh, attention_bwd.cuh):
 // the splash kernel over one whole sequence, or one ring step over (rank,
 // chunk) pairs. A tag is a type, so that it shows in the kernel's name.
-struct SplashMode { static constexpr bool kRing = false; };
-struct RingStepMode { static constexpr bool kRing = true; };
+// kFirst: the ring's step 0, where every rank holds its own chunk, so the
+// step covers every row and writes the accumulators without reading them.
+struct SplashMode { static constexpr bool kRing = false, kFirst = false; };
+struct RingStepMode { static constexpr bool kRing = true, kFirst = false; };
+struct RingFirstStepMode { static constexpr bool kRing = true, kFirst = true; };
+
+// Returns go(std::integral_constant<int, HD>{}, Mode{}) for head_dim (64 or
+// 128) and the ring step's kind; cudaErrorInvalidValue for another head_dim.
+template <typename Go>
+int ring_dispatch(int head_dim, int first, Go go) {
+  using HD64 = std::integral_constant<int, 64>;
+  using HD128 = std::integral_constant<int, 128>;
+  if (head_dim == 64)
+    return first ? go(HD64{}, RingFirstStepMode{}) : go(HD64{}, RingStepMode{});
+  if (head_dim == 128)
+    return first ? go(HD128{}, RingFirstStepMode{}) : go(HD128{}, RingStepMode{});
+  return (int)cudaErrorInvalidValue;
+}
 
 // c (16 x 8, fp32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col).
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
@@ -76,6 +94,66 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// Hopper's bulk copy engine (the TMA's non-tensor form) and the mbarrier it
+// reports to. A copy moves a multiple of 16 bytes between 16-byte aligned
+// addresses; the thread that issues it spends no registers on the data.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// Makes an mbarrier's initialisation visible to the copy engine.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrives on the barrier and adds `bytes` to the transfer it waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Waits until the barrier's phase `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// global -> shared, completing `bytes` of the barrier's transfer.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// shared -> global, in the issuing thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+}
+
+// Closes the issuing thread's bulk group and waits until the copy engine
+// has read its sources, so that the shared memory may be left or reused.
+__device__ __forceinline__ void bulk_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\n"
+               "cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Orders this thread's ordinary shared-memory accesses before later bulk
+// copies (the copy engine is another proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Two floats into one register of two bf16, the lower column in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -108,6 +186,29 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool allowed[64]) {
     allowed[dev] = true;
   }
   return cudaSuccess;
+}
+
+// What a kernel holds on an SM, launched with `threads` threads and `smem`
+// bytes of dynamic shared memory: out = {registers per thread, local
+// (spill) bytes per thread, static shared bytes, dynamic shared bytes,
+// resident blocks per SM}.
+template <typename Kernel>
+cudaError_t kernel_resources(Kernel kernel, int threads, int smem, int out[5]) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                      smem);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  out[3] = smem;
+  out[4] = blocks;
+  return err;
 }
 
 }  // namespace

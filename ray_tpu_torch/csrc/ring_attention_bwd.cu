@@ -46,7 +46,8 @@
 
 // Plain C entry, bound with ctypes. q, k, v, do strides (batch, seq, head) in
 // elements; `pairs` a device array of n_pairs (rank, chunk) int pairs;
-// `causal` the diagonal mask. Launches on `stream` and returns
+// `causal` the diagonal mask; `first` the ring's step 0, which writes dq, dk
+// and dv and reads none of them. Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported head dimension
 // or grid).
 extern "C" int ring_attention_bwd(
@@ -56,7 +57,7 @@ extern "C" int ring_attention_bwd(
     int H, int head_dim, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long d_sb, long long d_ss,
-    long long d_sh, float scale, int causal, void* stream) {
+    long long d_sh, float scale, int causal, int first, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || B * H > 65535 || n_pairs <= 0 ||
       n_pairs > world || world > 65535)
     return (int)cudaErrorInvalidValue;
@@ -71,15 +72,24 @@ extern "C" int ring_attention_bwd(
   const float* deltap = static_cast<const float*>(delta);
   const int* pr = static_cast<const int*>(pairs);
   cudaStream_t sm = reinterpret_cast<cudaStream_t>(stream);
-  if (head_dim == 64) {
-    return launch_bwd_dkv_dq<64, RingStepMode>(
+  return ring_dispatch(head_dim, first, [&](auto hd, auto mode) {
+    return launch_bwd_dkv_dq<decltype(hd)::value, decltype(mode)>(
         qp, kp, vp, dop, lsep, deltap, dq_acc, dk_acc, dv_acc, B, S, H, st,
         scale, causal, pr, n_pairs, world, sm);
-  }
-  if (head_dim == 128) {
-    return launch_bwd_dkv_dq<128, RingStepMode>(
-        qp, kp, vp, dop, lsep, deltap, dq_acc, dk_acc, dv_acc, B, S, H, st,
-        scale, causal, pr, n_pairs, world, sm);
-  }
-  return (int)cudaErrorInvalidValue;
+  });
+}
+
+// What the two kernels a step launches hold on an SM (kernel_resources in
+// mma_sm90.cuh), the dk/dv kernel's five numbers then the dq kernel's, for
+// head_dim and the first step or a later one.
+extern "C" int ring_attention_bwd_resources(int head_dim, int first, int* out) {
+  return ring_dispatch(head_dim, first, [&](auto hd, auto mode) {
+    constexpr int HD = decltype(hd)::value;
+    using Mode = decltype(mode);
+    cudaError_t err = kernel_resources(attention_bwd_dkv_kernel<HD, Mode>,
+                                       kThreads, dkv_smem_bytes<HD, Mode>(), out);
+    if (err != cudaSuccess) return (int)err;
+    return (int)kernel_resources(attention_bwd_dq_kernel<HD, Mode>, kThreads,
+                                 dq_smem_bytes<HD, Mode>(), out + 5);
+  });
 }

@@ -48,8 +48,9 @@
 
 // Plain C entry, bound with ctypes. q, k, v strides (batch, seq, head) in
 // elements; `pairs` a device array of n_pairs (rank, chunk) int pairs;
-// `causal` the diagonal mask (the step where each rank holds its own chunk).
-// Launches on `stream` and returns cudaGetLastError()
+// `causal` the diagonal mask (the step where each rank holds its own chunk);
+// `first` the ring's step 0, which writes o_acc and lse_acc and reads
+// neither. Launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported head dimension or grid).
 extern "C" int ring_attention_fwd(const void* q, const void* k, const void* v,
                                   void* o_acc, void* lse_acc, const void* pairs,
@@ -59,23 +60,27 @@ extern "C" int ring_attention_fwd(const void* q, const void* k, const void* v,
                                   long long k_ss, long long k_sh,
                                   long long v_sb, long long v_ss,
                                   long long v_sh, float scale, int causal,
-                                  void* stream) {
+                                  int first, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || B * H > 65535 || n_pairs <= 0 ||
       n_pairs > world || world > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int* pr = static_cast<const int*>(pairs);
-  if (head_dim == 64) {
-    return launch_fwd<64, RingStepMode>(q, k, v, o_acc, lse_acc, B, S, H, q_sb,
-                                        q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-                                        v_sh, scale, causal, pr, n_pairs, world,
-                                        st);
-  }
-  if (head_dim == 128) {
-    return launch_fwd<128, RingStepMode>(q, k, v, o_acc, lse_acc, B, S, H, q_sb,
-                                         q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-                                         v_sh, scale, causal, pr, n_pairs, world,
-                                         st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return ring_dispatch(head_dim, first, [&](auto hd, auto mode) {
+    return launch_fwd<decltype(hd)::value, decltype(mode)>(
+        q, k, v, o_acc, lse_acc, B, S, H, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+        v_sb, v_ss, v_sh, scale, causal, pr, n_pairs, world, st);
+  });
+}
+
+// What the kernel a step launches holds on an SM (kernel_resources in
+// mma_sm90.cuh: registers, spill bytes, static and dynamic shared bytes,
+// resident blocks), for head_dim and the first step or a later one.
+extern "C" int ring_attention_fwd_resources(int head_dim, int first, int* out) {
+  return ring_dispatch(head_dim, first, [&](auto hd, auto mode) {
+    constexpr int HD = decltype(hd)::value;
+    using Mode = decltype(mode);
+    return (int)kernel_resources(attention_fwd_kernel<HD, Mode>, kThreads,
+                                 fwd_smem_bytes<HD, Mode>(), out);
+  });
 }

@@ -99,19 +99,23 @@ def _rows(index: int, shard: int) -> slice:
 
 # --------------------------------------------------------- plain versions
 def ring_fwd_step_reference(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, o_acc: torch.Tensor,
-                            lse_acc: torch.Tensor, causal: bool,
+                            v: torch.Tensor, o_acc: Optional[torch.Tensor],
+                            lse_acc: Optional[torch.Tensor], causal: bool,
                             sm_scale: Optional[float] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of one (rank, chunk) block of the forward kernel.
 
     q (B, S, H, hd) is the rank's shard, k and v the chunk's; o_acc
     (B, S, H, hd) and lse_acc (B, H, S) fp32 the rank's running output and
-    lse. Returns the merged (o_acc, lse_acc) (``ring_attention.py:232-234``).
+    lse. Returns the merged (o_acc, lse_acc) (``ring_attention.py:232-234``),
+    or, with o_acc and lse_acc None (the ring's first step), the block's own
+    (o, lse): what the merge gives from o = 0, lse = -1e30, bit for bit.
     ``causal`` is the diagonal mask. The block's o comes out of
     ``attention_reference`` in q's type, as JAX's splash output does.
     """
     o_b, lse_b = attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)
+    if o_acc is None:
+        return o_b.float(), lse_b
     lse_new = torch.logaddexp(lse_acc, lse_b)
     w_old = torch.exp(lse_acc - lse_new).transpose(1, 2)[..., None]
     w_new = torch.exp(lse_b - lse_new).transpose(1, 2)[..., None]
@@ -121,8 +125,10 @@ def ring_fwd_step_reference(q: torch.Tensor, k: torch.Tensor,
 def ring_bwd_step_reference(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: Optional[torch.Tensor],
                             lse: torch.Tensor, do: torch.Tensor,
-                            delta: torch.Tensor, dq_acc: torch.Tensor,
-                            dk_acc: torch.Tensor, dv_acc: torch.Tensor,
+                            delta: torch.Tensor,
+                            dq_acc: Optional[torch.Tensor],
+                            dk_acc: Optional[torch.Tensor],
+                            dv_acc: Optional[torch.Tensor],
                             causal: bool, sm_scale: Optional[float] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of one (rank, chunk) block of the backward kernel.
@@ -130,11 +136,14 @@ def ring_bwd_step_reference(q: torch.Tensor, k: torch.Tensor,
     q, do, lse (B, H, S) and delta (B, H, S) are the rank's (lse and delta
     the global ones of the merged forward), k and v the chunk's. Returns
     (dq_acc, dk_acc, dv_acc) plus the block's gradients, each rounded to its
-    input's type first, as JAX's splash backward output is (:282). ``o`` is
-    not read: delta is given.
+    input's type first, as JAX's splash backward output is (:282); with the
+    accumulators None (the ring's first step), the block's gradients alone.
+    ``o`` is not read: delta is given.
     """
     dq, dk, dv = attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
                                          sm_scale=sm_scale, delta=delta)
+    if dq_acc is None:
+        return dq.float(), dk.float(), dv.float()
     return dq_acc + dq.float(), dk_acc + dk.float(), dv_acc + dv.float()
 
 
@@ -143,13 +152,15 @@ def ring_fwd_step_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         step: int, world: int, causal: bool = True,
                         sm_scale: Optional[float] = None) -> None:
     """Plain version of ``ring_fwd_step`` on any device:
-    ``ring_fwd_step_reference`` for each rank that computes at ``step``."""
+    ``ring_fwd_step_reference`` for each rank that computes at ``step``;
+    step 0 writes every rank's rows and reads none."""
     shard, scale = q.shape[1] // world, _scale(q, sm_scale)
+    first = step == 0
     for r, c in ring_pairs(step, world, causal):
         rs, cs = _rows(r, shard), _rows(c, shard)
         o_acc[:, rs], lse_acc[:, :, rs] = ring_fwd_step_reference(
-            q[:, rs], k[:, cs], v[:, cs], o_acc[:, rs], lse_acc[:, :, rs],
-            causal and step == 0, scale)
+            q[:, rs], k[:, cs], v[:, cs], None if first else o_acc[:, rs],
+            None if first else lse_acc[:, :, rs], causal and first, scale)
 
 
 def ring_bwd_step_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -159,14 +170,17 @@ def ring_bwd_step_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         step: int, world: int, causal: bool = True,
                         sm_scale: Optional[float] = None) -> None:
     """Plain version of ``ring_bwd_step`` on any device:
-    ``ring_bwd_step_reference`` for each rank that computes at ``step``."""
+    ``ring_bwd_step_reference`` for each rank that computes at ``step``;
+    step 0 writes every row of dq, dk, dv and reads none."""
     shard, scale = q.shape[1] // world, _scale(q, sm_scale)
+    first = step == 0
     for r, c in ring_pairs(step, world, causal):
         rs, cs = _rows(r, shard), _rows(c, shard)
+        accs = ((None,) * 3 if first
+                else (dq_acc[:, rs], dk_acc[:, cs], dv_acc[:, cs]))
         dq_acc[:, rs], dk_acc[:, cs], dv_acc[:, cs] = ring_bwd_step_reference(
             q[:, rs], k[:, cs], v[:, cs], None, lse[:, :, rs], do[:, rs],
-            delta[:, :, rs], dq_acc[:, rs], dk_acc[:, cs], dv_acc[:, cs],
-            causal and step == 0, scale)
+            delta[:, :, rs], *accs, causal and first, scale)
 
 
 # --------------------------------------------------------- kernel wrappers
@@ -230,7 +244,7 @@ def _ring_fwd_cuda(q, k, v, o_acc, lse_acc, step, world, causal, scale):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o_acc.data_ptr(),
                  lse_acc.data_ptr(), pairs, n, world, B, shard, H, hd,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], scale,
-                 int(causal and step == 0), stream)
+                 int(causal and step == 0), int(step == 0), stream)
     _launch("ring_attention_fwd", err)
 
 
@@ -250,7 +264,8 @@ def _ring_bwd_cuda(q, k, v, do, lse, delta, dq, dk, dv, step, world, causal,
                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), pairs, n, world, B, shard, H,
                  hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *do.stride()[:3], scale, int(causal and step == 0), stream)
+                 *do.stride()[:3], scale, int(causal and step == 0),
+                 int(step == 0), stream)
     _launch("ring_attention_bwd", err)
 
 
@@ -258,7 +273,7 @@ def _fwd_fn():
     fn = kernel_build.load("ring_attention_fwd").ring_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = ([_PTR] * 6 + [_I32] * 6 + [_I64] * 9
-                       + [ctypes.c_float, _I32, _PTR])
+                       + [ctypes.c_float, _I32, _I32, _PTR])
         fn.restype = _I32
     return fn
 
@@ -267,7 +282,7 @@ def _bwd_fn():
     fn = kernel_build.load("ring_attention_bwd").ring_attention_bwd
     if fn.argtypes is None:
         fn.argtypes = ([_PTR] * 10 + [_I32] * 6 + [_I64] * 12
-                       + [ctypes.c_float, _I32, _PTR])
+                       + [ctypes.c_float, _I32, _I32, _PTR])
         fn.restype = _I32
     return fn
 
@@ -284,6 +299,8 @@ def ring_fwd_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   sm_scale: Optional[float] = None) -> None:
     """Ring step ``step`` of the forward for every rank that computes at it,
     merged into o_acc (B, S, H, hd) and lse_acc (B, H, S), fp32, in place.
+    Step 0 (every rank's own chunk) writes both and reads neither, so they
+    may start uninitialised.
 
     q, k, v: the whole (B, S, H, hd) sequence of W = ``world`` shards. CUDA
     tensors (bfloat16, head_dim 64 or 128) run one launch of the Hopper
@@ -305,7 +322,8 @@ def ring_bwd_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   sm_scale: Optional[float] = None) -> None:
     """Ring step ``step`` of the backward: every computing rank's dq, and the
     dk, dv of the chunk it holds, added in place into the fp32 (B, S, H, hd)
-    accumulators, from the forward's global lse and delta (B, H, S).
+    accumulators, from the forward's global lse and delta (B, H, S). Step 0
+    writes every row of the three and reads none.
 
     CUDA tensors run one launch of the Hopper kernel (its dk/dv and dq
     passes); CPU tensors run ``ring_bwd_step_plain``.
@@ -323,12 +341,13 @@ def ring_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  world: int, causal: bool = True,
                  sm_scale: Optional[float] = None, plain: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The W ring steps of the forward from o = 0, lse = -1e30: the merged
-    fp32 output (B, S, H, hd) and lse (B, H, S). ``plain`` runs the plain
-    step on any device (what the kernel is held against on the card)."""
+    """The W ring steps of the forward: the merged fp32 output (B, S, H, hd)
+    and lse (B, H, S). Step 0 writes both (what merging into o = 0,
+    lse = -1e30 would give), so they start uninitialised. ``plain`` runs the
+    plain step on any device (what the kernel is held against on the card)."""
     B, S, H, hd = q.shape
-    o = torch.zeros((B, S, H, hd), dtype=torch.float32, device=q.device)
-    lse = torch.full((B, H, S), _NEG, dtype=torch.float32, device=q.device)
+    o = torch.empty((B, S, H, hd), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     step_fn = ring_fwd_step_plain if plain else ring_fwd_step
     for step in range(world):
         step_fn(q, k, v, o, lse, step=step, world=world, causal=causal,
@@ -348,9 +367,10 @@ def ring_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The W ring steps of the backward: fp32 (dq, dk, dv), each
     (B, S, H, hd), from the merged fp32 o and lse of ``ring_forward``.
+    Step 0 writes every row, so the accumulators start uninitialised.
     ``plain`` runs the plain step on any device."""
     delta = ring_delta(o, do)
-    dq, dk, dv = (torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
                   for _ in range(3))
     step_fn = ring_bwd_step_plain if plain else ring_bwd_step
     for step in range(world):

@@ -133,6 +133,48 @@ def test_ring_kernels_match_plain_on_gpu(B, shard, H, hd, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,shard,H,hd,causal", [
+    (4, 256, 12, 64, True), (2, 250, 12, 64, True), (2, 256, 8, 128, True),
+    (2, 256, 12, 64, False)])
+def test_ring_first_step_reads_no_accumulator_on_gpu(B, shard, H, hd, causal):
+    """Step 0 through the kernels writes every row of o, lse, dq, dk, dv and
+    reads none: from NaN-filled accumulators it gives exactly what it gives
+    from o = 0, lse = -1e30 and zeros, within the plain step's tolerance."""
+    _need_gpu()
+    W = 4
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn((B, W * shard, 3 * H * hd), generator=gen,
+                      device="cuda", dtype=torch.bfloat16)
+    q, k, v = (t.view(B, W * shard, H, hd) for t in qkv.split(H * hd, dim=-1))
+    do = torch.randn(q.shape, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    o_ref, lse_ref = ra.ring_forward(q, k, v, world=W, causal=causal)
+    delta = ra.ring_delta(o_ref, do)
+    runs = {}
+    for fill in ("nan", "zero", "plain"):
+        nan = fill == "nan"
+        o = torch.full(q.shape, float("nan") if nan else 0.0, device="cuda")
+        lse = torch.full((B, H, W * shard), float("nan") if nan else ra._NEG,
+                         device="cuda")
+        grads = [torch.full(q.shape, float("nan") if nan else 0.0,
+                            device="cuda") for _ in range(3)]
+        fwd = ra.ring_fwd_step_plain if fill == "plain" else ra.ring_fwd_step
+        bwd = ra.ring_bwd_step_plain if fill == "plain" else ra.ring_bwd_step
+        fwd(q, k, v, o, lse, step=0, world=W, causal=causal)
+        bwd(q, k, v, do, lse_ref, delta, *grads, step=0, world=W,
+            causal=causal)
+        runs[fill] = (o, lse, *grads)
+    for a, b in zip(runs["nan"], runs["zero"]):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    o, lse, *grads = runs["nan"]
+    o_p, lse_p, *grads_p = runs["plain"]
+    assert (o - o_p).abs().max().item() <= 2e-2
+    assert (lse - lse_p).abs().max().item() <= 1e-3
+    for g, r in zip(grads, grads_p):
+        assert _rel(g, r) <= 2e-2
+
+
+@pytest.mark.cuda
 def test_ring_attention_gradient_is_its_own_on_gpu():
     """attn_impl="ring"'s attention on the card: FusedRing's backward (four
     launches at W=4), within the splash kernels' tolerance of splash

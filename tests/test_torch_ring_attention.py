@@ -217,6 +217,46 @@ def test_step_plain_versions_give_dense_attention(causal):
     assert torch.equal(o1, blk[0]) and torch.equal(lse1, blk[1])
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_first_step_reads_no_accumulator(causal):
+    """Step 0 (every rank's own chunk) writes o, lse, dq, dk and dv and reads
+    none of them: from NaN-filled accumulators the plain steps give exactly
+    what they give from o = 0, lse = -1e30 and zero gradients, and that is
+    what merging into o = 0, lse = -1e30 (and adding into zeros) gives."""
+    W, shard = 4, 8
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(11, S=W * shard, n=4))
+    o_ref, lse_ref = ra.ring_forward(q, k, v, world=W, causal=causal,
+                                     plain=True)
+    delta = ra.ring_delta(o_ref, do)
+    runs = {}
+    for fill in ("nan", "zero"):
+        nan = fill == "nan"
+        o = torch.full(q.shape, float("nan") if nan else 0.0)
+        lse = torch.full((2, 4, W * shard), float("nan") if nan else ra._NEG)
+        grads = [torch.full(q.shape, float("nan") if nan else 0.0)
+                 for _ in range(3)]
+        ra.ring_fwd_step_plain(q, k, v, o, lse, step=0, world=W,
+                               causal=causal)
+        ra.ring_bwd_step_plain(q, k, v, do, lse_ref, delta, *grads, step=0,
+                               world=W, causal=causal)
+        runs[fill] = (o, lse, *grads)
+    for a, b in zip(runs["nan"], runs["zero"]):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    o, lse, dq, dk, dv = runs["nan"]
+    for r in range(W):
+        rs = slice(r * shard, (r + 1) * shard)
+        zero = torch.zeros((2, shard, 4, 16))
+        o1, lse1 = ra.ring_fwd_step_reference(
+            q[:, rs], k[:, rs], v[:, rs], zero, torch.full((2, 4, shard),
+                                                           ra._NEG), causal)
+        assert torch.equal(o[:, rs], o1) and torch.equal(lse[:, :, rs], lse1)
+        g1 = ra.ring_bwd_step_reference(
+            q[:, rs], k[:, rs], v[:, rs], None, lse_ref[:, :, rs], do[:, rs],
+            delta[:, :, rs], zero, zero, zero, causal)
+        for got, want in zip((dq, dk, dv), g1):
+            assert torch.equal(got[:, rs], want)
+
+
 def test_step_wrappers_update_in_place_on_cpu():
     """ring_fwd_step (the kernel wrapper) runs the plain step on CPU
     tensors: step 1 of a causal ring of 4 touches ranks 1-3 only."""
