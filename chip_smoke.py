@@ -6,7 +6,9 @@
 Phases, each of which exits non-zero on failure:
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds every
-   kernel under ``ray_tpu_torch/csrc`` from source, timing the build.
+   kernel under ``ray_tpu_torch/csrc`` from source, timing the build; prints
+   each ring kernel's registers, spill bytes, shared memory and resident
+   blocks per SM (``resources ring ...``).
 2. Kernels against their plain versions, each at the main path's shape and
    a few edge shapes, with its device time beside the plain version's, a
    PyTorch yardstick (the port never calls it) and the card's bound:
@@ -37,8 +39,10 @@ Phases, each of which exits non-zero on failure:
    folded onto the card): the ring step forward and backward kernels
    against their plain versions at the training path's per-step shapes
    (B=16, S_local=256, 12 heads, hd=64), a ragged shard, head_dim 128 and
-   the full mask, with per-launch and whole-ring times beside the bound and
-   SDPA; whole ``ring_attention`` against ``splash_attention`` at
+   the full mask, with per-launch and whole-ring times beside the bound
+   (step 0's blocks write-only; ``bound_ms_accumulate`` with every block
+   reading) and SDPA, step 0 timed from NaN-filled accumulators, which it
+   must not read; whole ``ring_attention`` against ``splash_attention`` at
    (16, 1024, 12, 64), forward and gradient. Then GPT-2 124M trains five
    steps through the ring from the splash run's start (exactly 48 ring
    forward and 48 ring backward launches per step, no splash or CE), and
@@ -167,21 +171,23 @@ def attention_bwd_bound(B: int, S: int, H: int, hd: int, causal: bool,
 
 
 def ring_bound(which: str, B: int, shard: int, H: int, hd: int, n_diag: int,
-               n_full: int, bytes_per_s: float, flops_per_s: float
-               ) -> Tuple[float, str]:
+               n_full: int, bytes_per_s: float, flops_per_s: float,
+               n_first: int = 0) -> Tuple[float, str]:
     """Least time (ms) of ring steps that cover n_diag diagonal (causal) and
-    n_full full (rank, chunk) blocks of S_local = ``shard`` rows. Per block
-    the forward reads q, k, v (bf16) and reads and writes the fp32 o_acc and
-    lse_acc, with 4*hd flops per kept (query, key) pair; the backward reads
-    q, k, v, do (bf16), lse and delta (fp32) and reads and writes the fp32
-    dq, dk, dv, with 10*hd flops per kept pair."""
+    n_full full (rank, chunk) blocks of S_local = ``shard`` rows, n_first of
+    them at the ring's first step. Per block the forward reads q, k, v
+    (bf16) and reads and writes the fp32 o_acc and lse_acc, with 4*hd flops
+    per kept (query, key) pair; the backward reads q, k, v, do (bf16), lse
+    and delta (fp32) and reads and writes the fp32 dq, dk, dv, with 10*hd
+    flops per kept pair. A first-step block writes its accumulators and
+    reads none; n_first=0 gives the form in which every block reads them."""
     x, rows = B * shard * H * hd, B * H * shard
     if which == "fwd":
-        per_block, flops_per_pair = 3 * x * 2 + 2 * x * 4 + 2 * rows * 4, 4 * hd
+        inputs, acc, flops_per_pair = 3 * x * 2, x * 4 + rows * 4, 4 * hd
     else:
-        per_block, flops_per_pair = 4 * x * 2 + 2 * rows * 4 + 6 * x * 4, 10 * hd
+        inputs, acc, flops_per_pair = 4 * x * 2 + 2 * rows * 4, 3 * x * 4, 10 * hd
     pairs = n_diag * shard * (shard + 1) // 2 + n_full * shard * shard
-    nbytes = (n_diag + n_full) * per_block
+    nbytes = (n_diag + n_full) * (inputs + 2 * acc) - n_first * acc
     flops = float(flops_per_pair) * B * H * pairs
     t_bytes, t_ops = nbytes / bytes_per_s, flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
@@ -688,8 +694,11 @@ def phase_ring(peaks: Tuple[float, float]) -> Dict[str, object]:
 def _ring_times(peaks, q, k, v, do, o, lse, causal) -> Dict[str, object]:
     """Device ms of each ring kernel per launch (steps 0 and 1) and over the
     W launches of one layer's attention, beside the plain versions and the
-    bounds; host ms per launch. The accumulators are scratch copies that the
-    timed launches keep merging into."""
+    bounds (``bound_ms`` with the first step's blocks write-only,
+    ``bound_ms_accumulate`` with every block reading its accumulators);
+    host ms per launch. The accumulators are scratch tensors that the timed
+    launches keep merging into. They hold NaN when step 0 is timed: step 0
+    reads none of them, so they must come out finite."""
     import torch
 
     from ray_tpu_torch.ops import ring_attention as ra
@@ -699,7 +708,7 @@ def _ring_times(peaks, q, k, v, do, o, lse, causal) -> Dict[str, object]:
     shard = S // W
     o_t, lse_t = o.clone(), lse.clone()
     delta = ra.ring_delta(o, do)
-    acc = [torch.zeros_like(o) for _ in range(3)]
+    acc = [torch.empty_like(o) for _ in range(3)]
     fwd_args = (q, k, v, o_t, lse_t)
     bwd_args = (q, k, v, do, lse, delta, *acc)
 
@@ -707,34 +716,74 @@ def _ring_times(peaks, q, k, v, do, o, lse, causal) -> Dict[str, object]:
         return lambda: [fn(*args, step=s, world=W, causal=causal)
                         for s in which]
 
+    def bounds(which, n_diag, n_full, n_first):
+        bound_ms, bound_by = ring_bound(which, B, shard, H, hd, n_diag,
+                                        n_full, *peaks, n_first=n_first)
+        return dict(bound_ms=bound_ms, bound_by=bound_by,
+                    bound_ms_accumulate=ring_bound(
+                        which, B, shard, H, hd, n_diag, n_full, *peaks)[0])
+
     out = {"per_launch": []}
     for s in (0, 1):
         n = len(ra.ring_pairs(s, W, causal))
         blocks = (n, 0) if causal and s == 0 else (0, n)
         launch = dict(step=s, pairs=n)
-        for which, kern, plain, args in (
-                ("fwd", ra.ring_fwd_step, ra.ring_fwd_step_plain, fwd_args),
-                ("bwd", ra.ring_bwd_step, ra.ring_bwd_step_plain, bwd_args)):
-            bound_ms, bound_by = ring_bound(which, B, shard, H, hd, *blocks,
-                                            *peaks)
+        if s == 0:
+            for x in (o_t, lse_t, *acc):
+                x.fill_(float("nan"))
+        for which, kern, plain, args, accs in (
+                ("fwd", ra.ring_fwd_step, ra.ring_fwd_step_plain, fwd_args,
+                 (o_t, lse_t)),
+                ("bwd", ra.ring_bwd_step, ra.ring_bwd_step_plain, bwd_args,
+                 acc)):
+            launch[f"{which}_ms"] = device_ms(steps(kern, args, [s]))
+            if s == 0 and not all(torch.isfinite(x).all() for x in accs):
+                fail(f"ring step 0 ({which}) left a NaN of its accumulators: "
+                     "it read them")
             launch.update({
-                f"{which}_ms": device_ms(steps(kern, args, [s])),
                 f"{which}_plain_ms": device_ms(steps(plain, args, [s]),
                                                iters=2),
-                f"{which}_bound_ms": bound_ms, f"{which}_bound_by": bound_by,
+                **{f"{which}_{key}": val for key, val in bounds(
+                    which, *blocks, n if s == 0 else 0).items()},
                 f"{which}_call_ms": time_ms(steps(kern, args, [s]))})
         out["per_launch"].append(launch)
     causal_blocks = (W, W * (W - 1) // 2) if causal else (0, W * W)
     for which, kern, plain, args in (
             ("fwd", ra.ring_fwd_step, ra.ring_fwd_step_plain, fwd_args),
             ("bwd", ra.ring_bwd_step, ra.ring_bwd_step_plain, bwd_args)):
-        bound_ms, bound_by = ring_bound(which, B, shard, H, hd,
-                                        *causal_blocks, *peaks)
         out[which] = dict(
             launches=W, ms=device_ms(steps(kern, args, range(W))),
             plain_ms=device_ms(steps(plain, args, range(W)), iters=2),
-            bound_ms=bound_ms, bound_by=bound_by,
+            **bounds(which, *causal_blocks, W),
             call_ms=time_ms(steps(kern, args, range(W))))
+    return out
+
+
+def ring_resources() -> Dict[str, object]:
+    """What each ring kernel holds on an SM (registers, spill bytes, static
+    and dynamic shared bytes, resident blocks per SM), by head_dim and step
+    kind, from the ring sources' ``*_resources`` entries."""
+    import ctypes
+
+    from ray_tpu_torch._private import kernel_build
+
+    fields = ("registers", "spill_bytes", "static_smem", "dynamic_smem",
+              "blocks_per_sm")
+    out = {}
+    for name, kernels in (("ring_attention_fwd", ("fwd",)),
+                          ("ring_attention_bwd", ("dkv", "dq"))):
+        fn = getattr(kernel_build.load(name), f"{name}_resources")
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for hd in (64, 128):
+            for first in (0, 1):
+                buf = (ctypes.c_int * (5 * len(kernels)))()
+                err = fn(hd, first, ctypes.addressof(buf))
+                if err != 0:
+                    fail(f"{name}_resources({hd}, {first}): CUDA error {err}")
+                for i, kernel in enumerate(kernels):
+                    out[f"{kernel} hd={hd} {'first' if first else 'later'}"] = \
+                        dict(zip(fields, buf[5 * i:5 * i + 5]))
     return out
 
 
@@ -1050,6 +1099,9 @@ def main() -> int:
         for line in kernel_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    resources = ring_resources()
+    for kernel, res in resources.items():
+        print(f"resources ring {kernel} " + json.dumps(res), flush=True)
 
     kern = phase_kernel(peaks)
     bwd = phase_attn_bwd(peaks)
@@ -1134,7 +1186,12 @@ def main() -> int:
                          if key in ("step", "pairs")
                          or key.startswith(which)}
                         for launch in ring["main"]["per_launch"]],
-            whole_ring_ms=ring["whole"][f"{which}_ms"], **extra))
+            whole_ring_ms=ring["whole"][f"{which}_ms"],
+            bound_ms_accumulate=timed["bound_ms_accumulate"],
+            resources={key: res for key, res in resources.items()
+                       if key.split()[0] in (("fwd",) if which == "fwd"
+                                             else ("dkv", "dq"))},
+            **extra))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

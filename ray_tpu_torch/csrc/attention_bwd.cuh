@@ -8,10 +8,13 @@
 // blockIdx.z selects one (rank, source chunk) pair of the step; q, do, lse
 // and delta are read at the rank's rows and k, v at the chunk's; dq is added
 // into the rank's rows and dk, dv into the chunk's rows of fp32
-// accumulators. Without it (the splash kernel) rank and chunk are 0 and the
-// gradients are written as bf16, the code the splash kernel always had
-// (SplashMode). The tag is part of the kernel's name, so a profile tells the
-// two apart.
+// accumulators, whose tiles the TMA moves between device and shared memory
+// (RingFirstStepMode: the ring's step 0 writes them and reads nothing).
+// Without it (the splash kernel) rank and chunk are 0 and the gradients are
+// written as bf16, the code the splash kernel always had (SplashMode). The
+// tag is part of the kernel's name, so a profile tells them apart. The
+// bodies are device functions; the splash kernels below and those of
+// ring_attention_bwd.cu are their kernels, each with its own launch bounds.
 
 #pragma once
 
@@ -34,11 +37,59 @@ __host__ __device__ constexpr int smem_bytes() {
   return 6 * tile_elems<HD>() * 2 + 4 * kBlock * 4;
 }
 
-// The dynamic shared memory of each kernel's launch in mode Mode.
+// Where a later ring step reads its fp32 accumulator tiles (AccTile in
+// mma_sm90.cuh) without losing a resident block. Both kernels hold 3
+// blocks per SM at hd=64 (registers, capped at 168 by ring_min_blocks) and
+// 2 at hd=128 (shared memory). At hd=64 one tile fits beside 3 blocks: the
+// dq tile, or dk's, gets shared memory of its own past the kernel's and is
+// read from the block's start. Every other tile is read into streamed
+// buffers that the loop has freed: dv into the last iteration's free Q/dO
+// buffers and (hd=128) dq into its free K/V buffers, one iteration ahead of
+// the epilogue; dk (hd=128) into K/V once the last iteration's products
+// with them are done. The first step stages its tiles in the streamed
+// buffers once the loop is done.
+template <int HD>
+__host__ __device__ constexpr bool acc_early() { return HD == 64; }
+
+// The dynamic shared memory of each kernel's launch in mode Mode: a later
+// ring step adds its early tile (hd=64) and one mbarrier.
 template <int HD, typename Mode>
-__host__ __device__ constexpr int dkv_smem_bytes() { return smem_bytes<HD>(); }
+__host__ __device__ constexpr int ring_extra_bytes() {
+  return Mode::kRing && !Mode::kFirst
+             ? (acc_early<HD>() ? AccTile<HD>::kBytes : 0) + 16
+             : 0;
+}
 template <int HD, typename Mode>
-__host__ __device__ constexpr int dq_smem_bytes() { return smem_bytes<HD>(); }
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  return smem_bytes<HD>() + ring_extra_bytes<HD, Mode>();
+}
+template <int HD, typename Mode>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  return smem_bytes<HD>() + ring_extra_bytes<HD, Mode>();
+}
+static_assert(2 * tile_elems<64>() * 2 >= AccTile<64>::kBytes &&
+                  2 * tile_elems<128>() * 2 >= AccTile<128>::kBytes,
+              "an fp32 accumulator tile fits in two bf16 tiles");
+
+// A later ring step's early tile, past the kernel's own shared memory
+// (hd=64), and its mbarrier after that.
+template <int HD>
+__device__ __forceinline__ AccTile<HD> extra_tile(unsigned char* smem) {
+  const uint32_t p = smem_addr(smem + smem_bytes<HD>());
+  return {{p, p + 32 * HD * 4}};
+}
+template <int HD>
+__device__ __forceinline__ uint64_t* ring_bar(unsigned char* smem) {
+  return reinterpret_cast<uint64_t*>(
+      smem + smem_bytes<HD>() + (acc_early<HD>() ? AccTile<HD>::kBytes : 0));
+}
+
+// The tile made of two bf16 buffers.
+template <int HD>
+__device__ __forceinline__ AccTile<HD> buffer_tile(__nv_bfloat16* lo,
+                                                   __nv_bfloat16* hi) {
+  return {{smem_addr(lo), smem_addr(hi)}};
+}
 
 // Starts copying 64 rows of HD bf16 into shared memory with row stride
 // HD + kPad. Rows at or past S become zeros.
@@ -122,51 +173,51 @@ __device__ __forceinline__ void product_pn(float out[HD / 8][4], float p[8][4],
   }
 }
 
-// Writes a warp's 16 x HD accumulator tile, times `scale`, into rows
-// row_a.. of batch b, head h: as bf16 rows of a contiguous (B, S, H, HD)
-// tensor, or (ring step) added into the fp32 rows of chunk `slot` of a
-// contiguous (B, world * S, H, HD) accumulator (written, not added, at the
-// ring's first step). Each thread owns its elements, so the addition needs
-// no atomics. Rows at or past S are skipped.
-template <int HD, typename Mode>
+// Writes a warp's 16 x HD accumulator tile, times `scale`, as bf16 rows
+// row_a.. of batch b, head h of a contiguous (B, S, H, HD) tensor. Rows at
+// or past S are skipped.
+template <int HD>
 __device__ __forceinline__ void store_rows(void* out, float acc[HD / 8][4],
                                            int b, int h, int S, int H, int row_a,
-                                           float scale, int world, int slot) {
+                                           float scale) {
   const int t = (threadIdx.x % 32) % 4;
   const long long ss = (long long)H * HD;
   const int row_b = row_a + 8;
-  if constexpr (Mode::kRing) {
-    float* base = static_cast<float*>(out) + ((long long)b * world + slot) * S * ss +
-                  (long long)h * HD + 2 * t;
+  __nv_bfloat16* base = static_cast<__nv_bfloat16*>(out) + (long long)b * S * ss +
+                        (long long)h * HD + 2 * t;
 #pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
-      if (row_a < S) {
-        float2* p = reinterpret_cast<float2*>(base + row_a * ss + d * 8);
-        float2 x = Mode::kFirst ? make_float2(0.f, 0.f) : *p;
-        x.x += acc[d][0] * scale;
-        x.y += acc[d][1] * scale;
-        *p = x;
-      }
-      if (row_b < S) {
-        float2* p = reinterpret_cast<float2*>(base + row_b * ss + d * 8);
-        float2 x = Mode::kFirst ? make_float2(0.f, 0.f) : *p;
-        x.x += acc[d][2] * scale;
-        x.y += acc[d][3] * scale;
-        *p = x;
-      }
-    }
-  } else {
-    __nv_bfloat16* base = static_cast<__nv_bfloat16*>(out) + (long long)b * S * ss +
-                          (long long)h * HD + 2 * t;
+  for (int d = 0; d < HD / 8; ++d) {
+    if (row_a < S)
+      *reinterpret_cast<uint32_t*>(base + row_a * ss + d * 8) =
+          pack_bf16(acc[d][0] * scale, acc[d][1] * scale);
+    if (row_b < S)
+      *reinterpret_cast<uint32_t*>(base + row_b * ss + d * 8) =
+          pack_bf16(acc[d][2] * scale, acc[d][3] * scale);
+  }
+}
+
+// The ring step's counterpart: adds a warp's 16 x HD accumulator tile,
+// times `scale`, into rows r_a and r_a + 8 of an fp32 tile in shared memory
+// (writes them at the first step). Each thread owns its elements, so the
+// addition needs no atomics. Rows past S hold zeros and the TMA writes none
+// of them back.
+template <int HD, bool kFirst>
+__device__ __forceinline__ void add_rows(const AccTile<HD>& tile,
+                                         float acc[HD / 8][4], int r_a,
+                                         float scale) {
+  const int t = (threadIdx.x % 32) % 4;
+  const uint32_t pa = tile.row(r_a) + 8 * t;
+  const uint32_t pb = tile.row(r_a + 8) + 8 * t;
 #pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
-      if (row_a < S)
-        *reinterpret_cast<uint32_t*>(base + row_a * ss + d * 8) =
-            pack_bf16(acc[d][0] * scale, acc[d][1] * scale);
-      if (row_b < S)
-        *reinterpret_cast<uint32_t*>(base + row_b * ss + d * 8) =
-            pack_bf16(acc[d][2] * scale, acc[d][3] * scale);
-    }
+  for (int d = 0; d < HD / 8; ++d) {
+    float2 x = kFirst ? make_float2(0.f, 0.f) : lds2(pa + d * 32);
+    x.x += acc[d][0] * scale;
+    x.y += acc[d][1] * scale;
+    sts2(pa + d * 32, x);
+    x = kFirst ? make_float2(0.f, 0.f) : lds2(pb + d * 32);
+    x.x += acc[d][2] * scale;
+    x.y += acc[d][3] * scale;
+    sts2(pb + d * 32, x);
   }
 }
 
@@ -214,22 +265,20 @@ __device__ __forceinline__ int2 block_pair(const int* pairs) {
   return make_int2(0, 0);
 }
 
-// dk, dv for one 64-row KV tile of one (batch, head).
+// dk, dv for one 64-row KV tile of one (batch, head): the body of a block.
+// The ring step reaches its fp32 dk, dv through dk_map, dv_map
+// (encode_acc_map); the splash kernel writes bf16 dk, dv.
 template <int HD, typename Mode>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         void* __restrict__ dk, void* __restrict__ dv, int S,
-                         int H, long long q_sb, long long q_ss, long long q_sh,
-                         long long k_sb, long long k_ss, long long k_sh,
-                         long long v_sb, long long v_ss, long long v_sh,
-                         long long d_sb, long long d_ss, long long d_sh,
-                         float scale_log2, float scale, int causal,
-                         const int* __restrict__ pairs, int world) {
+__device__ __forceinline__ void attention_bwd_dkv_body(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    void* __restrict__ dk, void* __restrict__ dv, int S, int H, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long d_sb, long long d_ss, long long d_sh, float scale_log2,
+    float scale, int causal, const int* __restrict__ pairs, int world,
+    const CUtensorMap* dk_map, const CUtensorMap* dv_map) {
   constexpr int TILE = tile_elems<HD>();
   constexpr int NT_O = HD / 8;
 
@@ -286,6 +335,25 @@ attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   const int kvr_a = kv0 + warp * 16 + g;  // this thread's two key rows
   const int kvr_b = kvr_a + 8;
 
+  // The ring step's dk and dv: the block's 64 rows of head h of each (tiles
+  // of dk_map, dv_map), added in shared memory and written back by the TMA.
+  // A later step reads them with the TMA, where acc_early says.
+  const int bw = b * world + pair.y;             // the chunk's shard of batch b
+  const int last = n_q - 1;                      // the loop's last query tile
+  const int spare = ((last - q_begin) & 1) ^ 1;  // its free Q/dO buffers
+  AccTile<HD> dk_tile = buffer_tile<HD>(q_s, q_s + TILE);
+  AccTile<HD> dv_tile = buffer_tile<HD>(do_s, do_s + TILE);
+  uint64_t* bar = ring_bar<HD>(smem_raw);
+  if constexpr (Mode::kRing && !Mode::kFirst) {
+    dk_tile = acc_early<HD>() ? extra_tile<HD>(smem_raw) : buffer_tile<HD>(k_s, v_s);
+    dv_tile = buffer_tile<HD>(q_s + spare * TILE, do_s + spare * TILE);
+    if (threadIdx.x == 0) {
+      mbar_init(bar, 2);  // one arrival per tile
+      fence_mbar_init();
+      if constexpr (acc_early<HD>()) dk_tile.load(dk_map, h, kv0, bw, bar);
+    }
+  }
+
   float acc_dk[NT_O][4], acc_dv[NT_O][4];
 #pragma unroll
   for (int i = 0; i < NT_O; ++i) {
@@ -300,6 +368,9 @@ attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_commit();
       cp_async_wait<1>();
     } else {
+      if constexpr (Mode::kRing && !Mode::kFirst) {
+        if (threadIdx.x == 0) dv_tile.load(dv_map, h, kv0, bw, bar);
+      }
       cp_async_wait<0>();
     }
     __syncthreads();
@@ -333,6 +404,12 @@ attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     // dp^T = v do^T, then ds^T = p^T (dp^T - delta).
     float dpt[8][4];
     product_nt<HD>(dpt, v_s, warp * 16, dob);
+    if constexpr (Mode::kRing && !Mode::kFirst && !acc_early<HD>()) {
+      if (i == last) {
+        __syncthreads();  // every warp is done with K and V
+        if (threadIdx.x == 0) dk_tile.load(dk_map, h, kv0, bw, bar);
+      }
+    }
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
 #pragma unroll
@@ -346,26 +423,32 @@ attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // every warp is done with buffer cur before it refills
   }
 
-  store_rows<HD, Mode>(dk, acc_dk, b, h, S, H, kvr_a, scale, world, pair.y);
-  store_rows<HD, Mode>(dv, acc_dv, b, h, S, H, kvr_a, 1.f, world, pair.y);
+  if constexpr (Mode::kRing) {
+    if constexpr (!Mode::kFirst) mbar_wait(bar, 0);
+    add_rows<HD, Mode::kFirst>(dk_tile, acc_dk, warp * 16 + g, scale);
+    add_rows<HD, Mode::kFirst>(dv_tile, acc_dv, warp * 16 + g, 1.f);
+    fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0) dk_tile.store(dk_map, h, kv0, bw);
+    if (threadIdx.x == 32) dv_tile.store(dv_map, h, kv0, bw);
+  } else {
+    store_rows<HD>(dk, acc_dk, b, h, S, H, kvr_a, scale);
+    store_rows<HD>(dv, acc_dv, b, h, S, H, kvr_a, 1.f);
+  }
 }
 
-// dq for one 64-row query tile of one (batch, head).
+// dq for one 64-row query tile of one (batch, head): the body of a block.
+// The ring step reaches its fp32 dq through dq_map (encode_acc_map).
 template <int HD, typename Mode>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        void* __restrict__ dq, int S, int H,
-                        long long q_sb, long long q_ss, long long q_sh,
-                        long long k_sb, long long k_ss, long long k_sh,
-                        long long v_sb, long long v_ss, long long v_sh,
-                        long long d_sb, long long d_ss, long long d_sh,
-                        float scale_log2, float scale, int causal,
-                        const int* __restrict__ pairs, int world) {
+__device__ __forceinline__ void attention_bwd_dq_body(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    void* __restrict__ dq, int S, int H, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long d_sb,
+    long long d_ss, long long d_sh, float scale_log2, float scale, int causal,
+    const int* __restrict__ pairs, int world, const CUtensorMap* dq_map) {
   constexpr int TILE = tile_elems<HD>();
   constexpr int NT_O = HD / 8;
 
@@ -402,6 +485,24 @@ attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   load_tile_async<HD>(v_s, vp, v_ss, 0, S);
   cp_async_commit();
 
+  // The ring step's dq, as dk and dv in the dk/dv body: a later step reads
+  // it at the block's start or into the last iteration's free K/V buffers
+  // (acc_early).
+  const int bw = b * world + pair.x;         // the rank's shard of batch b
+  const int spare = ((kv_end - 1) & 1) ^ 1;  // the last iteration's free buffers
+  AccTile<HD> dq_tile = buffer_tile<HD>(k_s, k_s + TILE);
+  uint64_t* bar = ring_bar<HD>(smem_raw);
+  if constexpr (Mode::kRing && !Mode::kFirst) {
+    dq_tile = acc_early<HD>()
+                  ? extra_tile<HD>(smem_raw)
+                  : buffer_tile<HD>(k_s + spare * TILE, v_s + spare * TILE);
+    if (threadIdx.x == 0) {
+      mbar_init(bar, 1);
+      fence_mbar_init();
+      if constexpr (acc_early<HD>()) dq_tile.load(dq_map, h, q0, bw, bar);
+    }
+  }
+
   const int row_a = q0 + warp * 16 + g;  // this thread's two query rows
   const int row_b = row_a + 8;
   const long long lrow0 = Mode::kRing ? ((long long)bh * world + pair.x) * S : (long long)bh * S;
@@ -425,6 +526,9 @@ attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_commit();
       cp_async_wait<1>();
     } else {
+      if constexpr (Mode::kRing && !Mode::kFirst && !acc_early<HD>()) {
+        if (threadIdx.x == 0) dq_tile.load(dq_map, h, q0, bw, bar);
+      }
       cp_async_wait<0>();
     }
     __syncthreads();
@@ -465,7 +569,59 @@ attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
   }
 
-  store_rows<HD, Mode>(dq, acc, b, h, S, H, row_a, scale, world, pair.x);
+  if constexpr (Mode::kRing) {
+    if constexpr (!Mode::kFirst) mbar_wait(bar, 0);
+    add_rows<HD, Mode::kFirst>(dq_tile, acc, warp * 16 + g, scale);
+    fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0) dq_tile.store(dq_map, h, q0, bw);
+  } else {
+    store_rows<HD>(dq, acc, b, h, S, H, row_a, scale);
+  }
+}
+
+// The splash kernels: one whole sequence, gradients written as bf16.
+template <int HD, typename Mode>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         void* __restrict__ dk, void* __restrict__ dv, int S,
+                         int H, long long q_sb, long long q_ss, long long q_sh,
+                         long long k_sb, long long k_ss, long long k_sh,
+                         long long v_sb, long long v_ss, long long v_sh,
+                         long long d_sb, long long d_ss, long long d_sh,
+                         float scale_log2, float scale, int causal,
+                         const int* __restrict__ pairs, int world) {
+  attention_bwd_dkv_body<HD, Mode>(q, k, v, dout, lse, delta, dk, dv, S, H,
+                                   q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                                   v_ss, v_sh, d_sb, d_ss, d_sh, scale_log2,
+                                   scale, causal, pairs, world, nullptr,
+                                   nullptr);
+}
+
+template <int HD, typename Mode>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        void* __restrict__ dq, int S, int H,
+                        long long q_sb, long long q_ss, long long q_sh,
+                        long long k_sb, long long k_ss, long long k_sh,
+                        long long v_sb, long long v_ss, long long v_sh,
+                        long long d_sb, long long d_ss, long long d_sh,
+                        float scale_log2, float scale, int causal,
+                        const int* __restrict__ pairs, int world) {
+  attention_bwd_dq_body<HD, Mode>(q, k, v, dout, lse, delta, dq, S, H, q_sb,
+                                  q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                                  v_sh, d_sb, d_ss, d_sh, scale_log2, scale,
+                                  causal, pairs, world, nullptr);
 }
 
 // Launches the dk/dv kernel, then the dq kernel, each over the grid
@@ -479,24 +635,23 @@ int launch_bwd_dkv_dq(const __nv_bfloat16* q, const __nv_bfloat16* k,
                       void* dv, int B, int S, int H, const long long st[12],
                       float scale, int causal, const int* pairs, int n_pairs,
                       int world, cudaStream_t stream) {
-  constexpr int kSmemDkv = dkv_smem_bytes<HD, Mode>();
-  constexpr int kSmemDq = dq_smem_bytes<HD, Mode>();
+  constexpr int kSmem = smem_bytes<HD>();
   static bool allowed_dkv[64] = {};
   static bool allowed_dq[64] = {};
-  cudaError_t err = allow_smem(attention_bwd_dkv_kernel<HD, Mode>, kSmemDkv, allowed_dkv);
+  cudaError_t err = allow_smem(attention_bwd_dkv_kernel<HD, Mode>, kSmem, allowed_dkv);
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(attention_bwd_dq_kernel<HD, Mode>, kSmemDq, allowed_dq);
+  err = allow_smem(attention_bwd_dq_kernel<HD, Mode>, kSmem, allowed_dq);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (S + kBlock - 1) / kBlock;
   const dim3 grid(n_tiles, B * H, n_pairs);
   const float scale_log2 = scale * kLog2e;
-  attention_bwd_dkv_kernel<HD, Mode><<<grid, kThreads, kSmemDkv, stream>>>(
+  attention_bwd_dkv_kernel<HD, Mode><<<grid, kThreads, kSmem, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, S, H, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2, scale,
       causal, pairs, world);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_dq_kernel<HD, Mode><<<grid, kThreads, kSmemDq, stream>>>(
+  attention_bwd_dq_kernel<HD, Mode><<<grid, kThreads, kSmem, stream>>>(
       q, k, v, dout, lse, delta, dq, S, H, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2, scale,
       causal, pairs, world);

@@ -7,10 +7,14 @@
 // addressing and epilogue (RingStepMode):
 // blockIdx.z selects one (rank, source chunk) pair of the step, q is read at
 // the rank's rows and k, v at the source chunk's, and the block merges its
-// normalised output and lse into the rank's running fp32 (o, lse). Without
-// it (the splash kernel) rank and chunk are 0 and the epilogue writes bf16 o
-// and fp32 lse, the code the splash kernel always had (SplashMode). The tag
-// is part of the kernel's name, so a profile tells the two apart.
+// normalised output and lse into the rank's running fp32 (o, lse), whose
+// tile the TMA moves between device and shared memory (RingFirstStepMode:
+// the ring's step 0 writes them and reads nothing). Without it (the splash
+// kernel) rank and chunk are 0 and the epilogue writes bf16 o and fp32 lse,
+// the code the splash kernel always had (SplashMode). The tag is part of
+// the kernel's name, so a profile tells them apart. The body is a device
+// function; attention_fwd_kernel below (splash) and ring_attention_fwd.cu
+// (ring) are its kernels, each with its own launch bounds.
 
 #pragma once
 
@@ -35,9 +39,17 @@ __host__ __device__ constexpr int tile_elems() { return kBlockKV * (HD + kPad); 
 template <int HD>
 __host__ __device__ constexpr int smem_bytes() { return 4 * tile_elems<HD>() * 2; }
 
-// The dynamic shared memory of a launch in mode Mode.
+// The dynamic shared memory of a launch in mode Mode: a later ring step adds
+// the running output's fp32 tile and its mbarrier past the K/V buffers (the
+// first step stages its tile in the K/V buffers once the loop is done).
 template <int HD, typename Mode>
-__host__ __device__ constexpr int fwd_smem_bytes() { return smem_bytes<HD>(); }
+__host__ __device__ constexpr int fwd_smem_bytes() {
+  return smem_bytes<HD>() +
+         (Mode::kRing && !Mode::kFirst ? AccTile<HD>::kBytes + 16 : 0);
+}
+static_assert(2 * tile_elems<64>() * 2 >= AccTile<64>::kBytes &&
+                  2 * tile_elems<128>() * 2 >= AccTile<128>::kBytes,
+              "an fp32 accumulator tile fits in two bf16 tiles");
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -71,7 +83,7 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
 //   o_new   = o_old * exp(lse_old - lse_new) + (acc / l) * exp(lse_b - lse_new)
 // From o = 0, lse = -1e30 the result is exactly the block's own (o_b, lse_b).
 template <int NT_O>
-__device__ __forceinline__ void ring_merge_row(float* o_row, float* lse_row,
+__device__ __forceinline__ void ring_merge_row(uint32_t o_row, float* lse_row,
                                                float lse_old,
                                                float acc[NT_O][4],
                                                int e0, float m, float l,
@@ -84,11 +96,10 @@ __device__ __forceinline__ void ring_merge_row(float* o_row, float* lse_row,
   const float w_new = l > 0.f ? expf(lse_b - lse_new) / l : 0.f;
 #pragma unroll
   for (int d = 0; d < NT_O; ++d) {
-    float2* p = reinterpret_cast<float2*>(o_row + d * 8);
-    float2 x = *p;
+    float2 x = lds2(o_row + d * 32);
     x.x = x.x * w_old + acc[d][e0] * w_new;
     x.y = x.y * w_old + acc[d][e0 + 1] * w_new;
-    *p = x;
+    sts2(o_row + d * 32, x);
   }
   if (writes_lse) *lse_row = lse_new;
 }
@@ -98,33 +109,31 @@ __device__ __forceinline__ void ring_merge_row(float* o_row, float* lse_row,
 // lse = -1e30, bit for bit (lse_new = lse_b, w_old = 0, w_new = 1 / l).
 // Nothing is read.
 template <int NT_O>
-__device__ __forceinline__ void ring_write_row(float* o_row, float* lse_row,
+__device__ __forceinline__ void ring_write_row(uint32_t o_row, float* lse_row,
                                                float acc[NT_O][4], int e0,
                                                float m, float l,
                                                bool writes_lse) {
   const float w = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
   for (int d = 0; d < NT_O; ++d)
-    *reinterpret_cast<float2*>(o_row + d * 8) =
-        make_float2(acc[d][e0] * w, acc[d][e0 + 1] * w);
+    sts2(o_row + d * 32, make_float2(acc[d][e0] * w, acc[d][e0 + 1] * w));
   if (writes_lse) *lse_row = (m + log2f(l)) * kLn2;
 }
 
-// o: bf16 (B, S, H, HD) for the splash kernel; for the ring step the fp32
-// running output (B, world * S, H, HD), whose rows of rank r start at r * S.
-// lse: fp32 (B, H, S), or (B, H, world * S) for the ring step. pairs (ring
-// step only): (rank, source chunk) of blockIdx.z; S is then one shard's rows.
+// The body of a block. o: bf16 (B, S, H, HD) for the splash kernel; for the
+// ring step the fp32 running output (B, world * S, H, HD), whose rows of
+// rank r start at r * S, reached through o_map (encode_acc_map). lse: fp32
+// (B, H, S), or (B, H, world * S) for the ring step. pairs (ring step only):
+// (rank, source chunk) of blockIdx.z; S is then one shard's rows.
 template <int HD, typename Mode>
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     void* __restrict__ o, float* __restrict__ lse, int S,
-                     int H, long long q_sb, long long q_ss, long long q_sh,
-                     long long k_sb, long long k_ss, long long k_sh,
-                     long long v_sb, long long v_ss, long long v_sh,
-                     float scale_log2, int causal,
-                     const int* __restrict__ pairs, int world) {
+__device__ __forceinline__ void attention_fwd_body(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, void* __restrict__ o,
+    float* __restrict__ lse, int S, int H, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, float scale_log2,
+    int causal, const int* __restrict__ pairs, int world,
+    const CUtensorMap* o_map) {
   constexpr int LD = HD + kPad;
   constexpr int TILE = tile_elems<HD>();
   constexpr int KSTEPS = HD / 16;     // k-steps of the q k^T product
@@ -160,12 +169,43 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int n_kv = (S + kBlockKV - 1) / kBlockKV;
   const int kv_end = causal ? min(n_kv, q_tile + 1) : n_kv;
+  // This thread's two query rows.
+  const int row_a = q0 + warp * 16 + g;
+  const int row_b = row_a + 8;
 
   // Query tile into the second K buffer, KV tile 0 into the first buffers.
   load_tile_async<HD>(k_s + TILE, qp, q_ss, q0, S);
   load_tile_async<HD>(k_s, kp, k_ss, 0, S);
   load_tile_async<HD>(v_s, vp, v_ss, 0, S);
   cp_async_commit();
+
+  // The ring step's running output: the block's 64 rows of head h of o_acc
+  // (a tile of o_map) and its rows of lse_acc. At a later step the TMA reads
+  // the tile into shared memory past the K/V buffers while the loop runs,
+  // and each thread reads its rows' lse now. The first step reads neither
+  // and stages its output in the K/V buffers once the loop is done.
+  const long long o_ss = (long long)H * HD;
+  const int bw = b * world + rank;  // the rank's shard of batch b in o_map
+  float* lp = nullptr;
+  float old_a = 0.f, old_b = 0.f;
+  AccTile<HD> o_tile = {{smem_addr(k_s), smem_addr(k_s + TILE)}};
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + smem_bytes<HD>() +
+                                              AccTile<HD>::kBytes);
+  if constexpr (Mode::kRing) {
+    lp = lse + ((long long)bh * world + rank) * S;
+    if constexpr (!Mode::kFirst) {
+      const uint32_t tile = smem_addr(smem_raw + smem_bytes<HD>());
+      o_tile = {{tile, tile + 32 * HD * 4}};
+      if (threadIdx.x == 0) {
+        mbar_init(bar, 1);
+        fence_mbar_init();
+        o_tile.load(o_map, h, q0, bw, bar);
+      }
+      old_a = row_a < S ? lp[row_a] : 0.f;
+      old_b = row_b < S ? lp[row_b] : 0.f;
+    }
+  }
+
   cp_async_wait<0>();
   __syncthreads();
   uint32_t qa[KSTEPS][4];
@@ -181,10 +221,6 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();  // the second buffers are free for tile 1
-
-  // This thread's two query rows.
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
 
   float acc[NT_O][4];
 #pragma unroll
@@ -300,30 +336,29 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
 
-  const long long o_ss = (long long)H * HD;
   if constexpr (Mode::kRing) {
-    float* op = static_cast<float*>(o) + ((long long)b * world + rank) * S * o_ss +
-                (long long)h * HD + 2 * t;
-    float* lp = lse + ((long long)bh * world + rank) * S;
+    // Merge into the tile (the first step writes it), then the TMA writes
+    // it back.
+    const int r_a = warp * 16 + g;  // this thread's rows in the tile
     if constexpr (Mode::kFirst) {
       if (row_a < S)
-        ring_write_row<NT_O>(op + row_a * o_ss, lp + row_a, acc, 0, m_a, l_a,
-                             t == 0);
+        ring_write_row<NT_O>(o_tile.row(r_a) + 8 * t, lp + row_a, acc, 0, m_a,
+                             l_a, t == 0);
       if (row_b < S)
-        ring_write_row<NT_O>(op + row_b * o_ss, lp + row_b, acc, 2, m_b, l_b,
-                             t == 0);
-      return;
+        ring_write_row<NT_O>(o_tile.row(r_a + 8) + 8 * t, lp + row_b, acc, 2,
+                             m_b, l_b, t == 0);
+    } else {
+      mbar_wait(bar, 0);
+      if (row_a < S)
+        ring_merge_row<NT_O>(o_tile.row(r_a) + 8 * t, lp + row_a, old_a, acc,
+                             0, m_a, l_a, t == 0);
+      if (row_b < S)
+        ring_merge_row<NT_O>(o_tile.row(r_a + 8) + 8 * t, lp + row_b, old_b,
+                             acc, 2, m_b, l_b, t == 0);
     }
-    // The four lanes of a row all read its lse before one of them writes it.
-    const float old_a = row_a < S ? lp[row_a] : 0.f;
-    const float old_b = row_b < S ? lp[row_b] : 0.f;
-    __syncwarp();
-    if (row_a < S)
-      ring_merge_row<NT_O>(op + row_a * o_ss, lp + row_a, old_a, acc, 0, m_a,
-                           l_a, t == 0);
-    if (row_b < S)
-      ring_merge_row<NT_O>(op + row_b * o_ss, lp + row_b, old_b, acc, 2, m_b,
-                           l_b, t == 0);
+    fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0) o_tile.store(o_map, h, q0, bw);
   } else {
     const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
     const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
@@ -348,6 +383,23 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// The splash kernel: one whole sequence, written as bf16.
+template <int HD, typename Mode>
+__global__ void __launch_bounds__(kThreads)
+attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     void* __restrict__ o, float* __restrict__ lse, int S,
+                     int H, long long q_sb, long long q_ss, long long q_sh,
+                     long long k_sb, long long k_ss, long long k_sh,
+                     long long v_sb, long long v_ss, long long v_sh,
+                     float scale_log2, int causal,
+                     const int* __restrict__ pairs, int world) {
+  attention_fwd_body<HD, Mode>(q, k, v, o, lse, S, H, q_sb, q_ss, q_sh, k_sb,
+                               k_ss, k_sh, v_sb, v_ss, v_sh, scale_log2,
+                               causal, pairs, world, nullptr);
+}
+
 // Launches the grid (query tiles, B * H, n_pairs) on `stream` and returns
 // cudaGetLastError(). The splash kernel passes pairs = nullptr, n_pairs = 1,
 // world = 1.
@@ -359,7 +411,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int causal, const int* pairs, int n_pairs, int world,
                cudaStream_t stream) {
   auto kernel = attention_fwd_kernel<HD, Mode>;
-  constexpr int kSmem = fwd_smem_bytes<HD, Mode>();
+  constexpr int kSmem = smem_bytes<HD>();
   static bool allowed[64] = {};
   const cudaError_t err = allow_smem(kernel, kSmem, allowed);
   if (err != cudaSuccess) return (int)err;

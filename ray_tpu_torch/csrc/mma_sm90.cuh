@@ -1,13 +1,17 @@
 // Warp-level building blocks shared by the port's Hopper (sm_90a) kernels:
 // mma.sync m16n8k16 (bf16 operands, fp32 accumulators), ldmatrix operand
 // loads from shared memory, cp.async global -> shared copies, bf16 packing,
-// and the once-per-device opt-in to more than 48 KB of shared memory.
+// the once-per-device opt-in to more than 48 KB of shared memory, and what
+// the ring step kernels add: TMA tensor copies and their mbarriers, the
+// tensor map of an fp32 accumulator, its shared-memory tile, and a kernel's
+// registers, shared memory and resident blocks.
 //
 // Included by each source under csrc/; every source is its own translation
 // unit and shared library, so the helpers live in an unnamed namespace.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,9 +98,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// Hopper's bulk copy engine (the TMA's non-tensor form) and the mbarrier it
-// reports to. A copy moves a multiple of 16 bytes between 16-byte aligned
-// addresses; the thread that issues it spends no registers on the data.
+// Hopper's Tensor Memory Accelerator (TMA) and the mbarrier it reports to:
+// one thread asks for a whole box to be copied between device memory and
+// shared memory and spends no registers on the data.
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
                :: "r"(smem_addr(bar)), "r"(count) : "memory");
@@ -124,21 +128,31 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
-// global -> shared, completing `bytes` of the barrier's transfer.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
+// Tensor-map copies of one box (cp.async.bulk.tensor, 4D tile mode).
+// global -> shared, completing the box's bytes of the barrier's transfer;
+// elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tensor_load(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
       : "memory");
 }
 
-// shared -> global, in the issuing thread's current bulk group.
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               :: "l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+// shared -> global, in the issuing thread's current bulk group; elements
+// outside the tensor are not written.
+__device__ __forceinline__ void tensor_store(const CUtensorMap* map, int c0,
+                                             int c1, int c2, int c3,
+                                             uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%1, %2, %3, %4}], [%5];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(src)
+      : "memory");
 }
 
 // Closes the issuing thread's bulk group and waits until the copy engine
@@ -148,11 +162,95 @@ __device__ __forceinline__ void bulk_store_drain() {
                "cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
+// Two floats at a shared-window address.
+__device__ __forceinline__ float2 lds2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ void sts2(uint32_t addr, float2 v) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n"
+               :: "r"(addr), "f"(v.x), "f"(v.y) : "memory");
+}
+
 // Orders this thread's ordinary shared-memory accesses before later bulk
 // copies (the copy engine is another proxy).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+
+// A ring accumulator, fp32 contiguous (B, world * S, H, HD), as the 4D
+// tensor {HD, H, S, B * world} whose boxes are 32 rows of one head
+// {HD, 1, 32, 1}: the rows of one rank's shard end at S, so the copy engine
+// reads rows past a ragged S as zeros and writes none of them. Encoded on
+// the host through the driver's entry point, so that nothing links libcuda.
+inline cudaError_t encode_acc_map(CUtensorMap* map, void* base, int B,
+                                  int world, int S, int H, int HD) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B * world};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * 4, (cuuint64_t)H * HD * 4,
+                                 (cuuint64_t)S * H * HD * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)HD, 1, 32, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A ring step's fp32 accumulator tile in shared memory: 64 rows of HD
+// floats of one head, rows 0-31 at half[0] and rows 32-63 at half[1]
+// (shared-window addresses, 32 bits each), each half one box of
+// encode_acc_map (dense rows, 128-byte aligned). A half fits in one 64-row
+// bf16 tile of the attention bodies (HD + 8 bf16 per row), so a tile also
+// fits in two bf16 buffers that a loop has freed.
+template <int HD>
+struct AccTile {
+  static constexpr int kBytes = 64 * HD * 4;
+  uint32_t half[2];
+
+  // The address of row r. (A select, not half[r >> 5]: an indexed array
+  // would live in local memory.)
+  __device__ __forceinline__ uint32_t row(int r) const {
+    return (r < 32 ? half[0] : half[1]) + (r & 31) * HD * 4;
+  }
+
+  // One thread: starts reading rows row0 .. row0 + 63 of head h of shard
+  // bw = batch * world + rank, as one arrival on `bar` that expects them.
+  __device__ __forceinline__ void load(const CUtensorMap* map, int h, int row0,
+                                       int bw, uint64_t* bar) const {
+    mbar_expect_tx(bar, kBytes);
+    tensor_load(half[0], map, 0, h, row0, bw, bar);
+    tensor_load(half[1], map, 0, h, row0 + 32, bw, bar);
+  }
+
+  // One thread, after every writer's fence_proxy_async() and a barrier:
+  // writes the rows back and waits until the copy engine has read them.
+  __device__ __forceinline__ void store(const CUtensorMap* map, int h, int row0,
+                                        int bw) const {
+    tensor_store(map, 0, h, row0, bw, half[0]);
+    tensor_store(map, 0, h, row0 + 32, bw, half[1]);
+    bulk_store_drain();
+  }
+};
 
 // Two floats into one register of two bf16, the lower column in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

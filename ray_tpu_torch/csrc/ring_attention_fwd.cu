@@ -21,30 +21,78 @@
 // step, and which ranks skip, is decided on the host
 // (ray_tpu_torch/ops/ring_attention.py:ring_source), not here.
 // o_acc is fp32 (B, W * S, H, hd) and lse_acc fp32 (B, H, W * S), both
-// contiguous; the step reads and rewrites a rank's rows in place. Within one
-// launch no two pairs share a rank, so no two blocks touch the same rows.
+// contiguous and 16-byte aligned; a later step reads and rewrites a rank's
+// rows in place. Within one launch no two pairs share a rank, so no two
+// blocks touch the same rows.
 //
-// What bounds it on an H100: memory. Per (rank, chunk) pair at the training
-// shape (B=16, S=256, H=12, hd=64) it reads q, k, v (18.9 MB of bf16) and
-// reads and writes the fp32 o_acc and lse_acc (25.6 MB), against 1.6e9 flops
-// (diag) or 3.2e9 (full): 36 to 72 flops per byte, far below the ~295 where
-// the tensor cores become the limit.
+// What bounds it on an H100: memory, and most of it the fp32 accumulators.
+// Per (rank, chunk) pair at the training shape (B=16, S=256, H=12, hd=64) a
+// later step reads q, k, v (18.9 MB of bf16) and reads and writes o_acc and
+// lse_acc (25.6 MB), against 1.6e9 flops (diag) or 3.2e9 (full): 36 to 72
+// flops per byte, far below the ~295 where the tensor cores become the
+// limit. The first step reads no accumulator: 31.7 MB per pair. One layer's
+// 4 launches (4 first-step and 6 later pairs) move 393 MB, 0.117 ms at
+// 3.35 TB/s (chip_smoke.py:ring_bound).
 //
 // What the design does about it: the block is the splash forward's
 // (attention_fwd.cuh, the design note in splash_attention_fwd.cu): scores and
 // probabilities stay in registers and shared memory. Its epilogue does the
 // merge: the block's unnormalised output and its row sums never reach
-// device memory, and the running output is read and written once per step in
-// fp32, where the JAX merge makes five elementwise passes over it and rounds
-// the block's output to bf16 first. From o_acc = 0, lse_acc = -1e30 a step
-// gives exactly the block's own (o_b, lse_b).
+// device memory, and the running output moves once per step in fp32, where
+// the JAX merge makes five elementwise passes over it and rounds the block's
+// output to bf16 first. The accumulator bytes themselves:
+// - The first step (`first`) writes o_acc and lse_acc and reads neither:
+//   merging into o = 0, lse = -1e30 gives exactly the block's own (acc / l,
+//   lse_b), so the caller allocates them uninitialised and nothing fills
+//   them. The ring's outputs are equal bit for bit to the form that merged
+//   into zeros.
+// - At a later step one thread has the TMA read the block's 64 x hd fp32
+//   tile of o_acc (two boxes of a 4D tensor map, encode_acc_map in
+//   mma_sm90.cuh, a grid constant of the launch) into shared memory past
+//   the K/V buffers before the main loop starts, and each thread reads its
+//   rows' lse; the epilogue waits on the tile's mbarrier and merges there.
+//   So the read overlaps the QK/PV loop instead of following it.
+// - The merged tile (the first step stages its tile in the freed K/V
+//   buffers) goes back by TMA stores after a proxy fence and a barrier:
+//   whole boxes, no thread's registers on the copy. Rows past a ragged S
+//   lie outside the map and are neither read nor written.
+// - Occupancy: 3 blocks per SM at hd=64 (registers; 52 KB of shared memory
+//   at a later step) and 2 at hd=128, as in the design without the tile
+//   (ring_attention_fwd_resources); the first step, 128 registers, keeps 4.
 //
-// Not yet done (later work): wgmma, TMA, and one launch that walks all W
-// steps of a rank with its accumulator in registers (it would read and write
-// o_acc once instead of once per step; the step-per-launch form is the one
-// an NCCL ring across processes needs).
+// Not yet done (later work): wgmma; TMA loads of the Q/K/V tiles;
+// persistent or warp-specialised blocks; one launch that walks all W steps
+// of a rank with its accumulator in registers (it would move o_acc once
+// instead of once per step, but the step-per-launch form is the one an NCCL
+// ring across processes needs, and at this form's bound, 0.117 ms per
+// layer, it stays above SDPA's 0.084 ms); a swizzled tile, whose dense rows
+// give the epilogue's float2 accesses 4-way bank conflicts.
 
 #include "attention_fwd.cuh"
+
+namespace {
+
+// The ring step's kernel: the attention body (attention_fwd.cuh) over the
+// step's (rank, chunk) pairs, with the running output's tensor map as a
+// grid constant.
+template <int HD, typename Mode>
+__global__ void __launch_bounds__(kThreads)
+ring_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          float* __restrict__ lse, int S, int H,
+                          long long q_sb, long long q_ss, long long q_sh,
+                          long long k_sb, long long k_ss, long long k_sh,
+                          long long v_sb, long long v_ss, long long v_sh,
+                          float scale_log2, int causal,
+                          const int* __restrict__ pairs, int world,
+                          const __grid_constant__ CUtensorMap o_map) {
+  attention_fwd_body<HD, Mode>(q, k, v, nullptr, lse, S, H, q_sb, q_ss, q_sh,
+                               k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale_log2,
+                               causal, pairs, world, &o_map);
+}
+
+}  // namespace
 
 // Plain C entry, bound with ctypes. q, k, v strides (batch, seq, head) in
 // elements; `pairs` a device array of n_pairs (rank, chunk) int pairs;
@@ -65,11 +113,26 @@ extern "C" int ring_attention_fwd(const void* q, const void* k, const void* v,
       n_pairs > world || world > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int* pr = static_cast<const int*>(pairs);
+  using bf16 = __nv_bfloat16;
   return ring_dispatch(head_dim, first, [&](auto hd, auto mode) {
-    return launch_fwd<decltype(hd)::value, decltype(mode)>(
-        q, k, v, o_acc, lse_acc, B, S, H, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-        v_sb, v_ss, v_sh, scale, causal, pr, n_pairs, world, st);
+    constexpr int HD = decltype(hd)::value;
+    using Mode = decltype(mode);
+    auto kernel = ring_attention_fwd_kernel<HD, Mode>;
+    constexpr int kSmem = fwd_smem_bytes<HD, Mode>();
+    static bool allowed[64] = {};
+    cudaError_t err = allow_smem(kernel, kSmem, allowed);
+    if (err != cudaSuccess) return (int)err;
+    CUtensorMap o_map;
+    err = encode_acc_map(&o_map, o_acc, B, world, S, H, HD);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H, n_pairs);
+    kernel<<<grid, kThreads, kSmem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<float*>(lse_acc), S, H, q_sb,
+        q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+        scale * 1.4426950408889634f, causal, static_cast<const int*>(pairs),
+        world, o_map);
+    return (int)cudaGetLastError();
   });
 }
 
@@ -80,7 +143,7 @@ extern "C" int ring_attention_fwd_resources(int head_dim, int first, int* out) {
   return ring_dispatch(head_dim, first, [&](auto hd, auto mode) {
     constexpr int HD = decltype(hd)::value;
     using Mode = decltype(mode);
-    return (int)kernel_resources(attention_fwd_kernel<HD, Mode>, kThreads,
+    return (int)kernel_resources(ring_attention_fwd_kernel<HD, Mode>, kThreads,
                                  fwd_smem_bytes<HD, Mode>(), out);
   });
 }

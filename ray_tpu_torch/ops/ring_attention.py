@@ -21,9 +21,11 @@ whole all-to-all; an NCCL ring across processes replaces those functions.
   (attention of every computing rank's queries to its chunk, merged into the
   fp32 running output in the kernel), and each backward step one launch of
   ``csrc/ring_attention_bwd.cu`` (dq, dk, dv added into fp32 accumulators
-  from the global lse and delta). On CPU tensors the same steps run the plain
-  versions ``ring_fwd_step_reference`` and ``ring_bwd_step_reference``. A
-  CUDA tensor goes through the kernels or raises.
+  from the global lse and delta). Step 0 writes the accumulators instead of
+  merging or adding, so they start uninitialised. On CPU tensors the same
+  steps run the plain versions ``ring_fwd_step_reference`` and
+  ``ring_bwd_step_reference``. A CUDA tensor goes through the kernels or
+  raises.
 - ``impl="auto"`` picks fused when ``_ring_block(S / W)`` is a legal splash
   block, as JAX does. JAX also probes its private splash surfaces
   (``_fused_available``, ``_probe_fused_surfaces``) and downgrades to einsum
@@ -206,11 +208,14 @@ def _pair_table(world: int, causal: bool, device: torch.device) -> torch.Tensor:
 
 
 def _accumulator(x: torch.Tensor, shape, name: str) -> None:
+    """The kernels move accumulator rows with the bulk copy engine, which
+    takes 16-byte aligned addresses."""
     if x.dtype != torch.float32 or tuple(x.shape) != tuple(shape) \
-            or not x.is_contiguous():
+            or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(
-            f"{name} must be a contiguous float32 {tuple(shape)} tensor, got "
-            f"{x.dtype} {tuple(x.shape)} (contiguous={x.is_contiguous()})")
+            f"{name} must be a contiguous, 16-byte aligned float32 "
+            f"{tuple(shape)} tensor, got {x.dtype} {tuple(x.shape)} "
+            f"(contiguous={x.is_contiguous()}, address {x.data_ptr():#x})")
 
 
 def _launch(name: str, err: int) -> None:

@@ -260,6 +260,27 @@ def test_ring_kernel_bounds():
         pytest.approx(0.039791, rel=1e-3)
 
 
+def test_ring_kernel_bounds_with_a_first_step_that_writes():
+    """The ring's step 0 writes its accumulators and reads none: at the
+    training path's shapes its 4 blocks move 126.6 MB forward (0.0378 ms)
+    and 253.2 MB backward (0.0756 ms), and a layer's 10 blocks 393.2 MB
+    (0.1174 ms) and 859.6 MB (0.2566 ms), all bound by bytes."""
+    import chip_smoke
+
+    peaks = chip_smoke.peaks_for("NVIDIA H100 80GB HBM3")
+    for which, n_diag, n_full, want in (("fwd", 4, 6, 0.117378),
+                                        ("bwd", 4, 6, 0.256588),
+                                        ("fwd", 4, 0, 0.037796),
+                                        ("bwd", 4, 0, 0.075591)):
+        ms, by = chip_smoke.ring_bound(which, 16, 256, 12, 64, n_diag, n_full,
+                                       *peaks, n_first=4)
+        assert by == "bytes" and ms == pytest.approx(want, rel=1e-4)
+    # Without first-step blocks the form is the one every step accumulates.
+    assert chip_smoke.ring_bound("bwd", 16, 256, 12, 64, 0, 3, *peaks,
+                                 n_first=0) == chip_smoke.ring_bound(
+        "bwd", 16, 256, 12, 64, 0, 3, *peaks)
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_a_gpu(tmp_path, alone):
     """No CUDA here: chip_smoke exits non-zero and prints no result, from
