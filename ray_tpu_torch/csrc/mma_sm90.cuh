@@ -184,7 +184,7 @@ __device__ __forceinline__ void fence_proxy_async() {
 // tensor {HD, H, S, B * world} whose boxes are 32 rows of one head
 // {HD, 1, 32, 1}: the rows of one rank's shard end at S, so the copy engine
 // reads rows past a ragged S as zeros and writes none of them. Encoded on
-// the host through the driver's entry point, so that nothing links libcuda.
+// the host through cudaGetDriverEntryPoint, so that nothing links libcuda.
 inline cudaError_t encode_acc_map(CUtensorMap* map, void* base, int B,
                                   int world, int S, int H, int HD) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
