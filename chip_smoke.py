@@ -7,8 +7,9 @@ Phases, each of which exits non-zero on failure:
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds every
    kernel under ``ray_tpu_torch/csrc`` from source, timing the build; prints
-   each ring kernel's registers, spill bytes, shared memory and resident
-   blocks per SM (``resources ring ...``).
+   each ring kernel's and the splash forward's registers, spill bytes,
+   shared memory and resident blocks per SM (``resources ring ...``,
+   ``resources splash fwd hd=...``).
 2. Kernels against their plain versions, each at the main path's shape and
    a few edge shapes, with its device time beside the plain version's, a
    PyTorch yardstick (the port never calls it) and the card's bound:
@@ -759,6 +760,12 @@ def _ring_times(peaks, q, k, v, do, o, lse, causal) -> Dict[str, object]:
     return out
 
 
+# What a kernel holds on an SM, as the sources' ``*_resources`` entries
+# give it (kernel_resources in csrc/mma_sm90.cuh).
+RESOURCE_FIELDS = ("registers", "spill_bytes", "static_smem", "dynamic_smem",
+                   "blocks_per_sm")
+
+
 def ring_resources() -> Dict[str, object]:
     """What each ring kernel holds on an SM (registers, spill bytes, static
     and dynamic shared bytes, resident blocks per SM), by head_dim and step
@@ -767,8 +774,6 @@ def ring_resources() -> Dict[str, object]:
 
     from ray_tpu_torch._private import kernel_build
 
-    fields = ("registers", "spill_bytes", "static_smem", "dynamic_smem",
-              "blocks_per_sm")
     out = {}
     for name, kernels in (("ring_attention_fwd", ("fwd",)),
                           ("ring_attention_bwd", ("dkv", "dq"))):
@@ -783,7 +788,28 @@ def ring_resources() -> Dict[str, object]:
                     fail(f"{name}_resources({hd}, {first}): CUDA error {err}")
                 for i, kernel in enumerate(kernels):
                     out[f"{kernel} hd={hd} {'first' if first else 'later'}"] = \
-                        dict(zip(fields, buf[5 * i:5 * i + 5]))
+                        dict(zip(RESOURCE_FIELDS, buf[5 * i:5 * i + 5]))
+    return out
+
+
+def splash_resources() -> Dict[str, object]:
+    """What the splash forward kernel holds on an SM, by head_dim, from
+    ``splash_attention_fwd_resources``."""
+    import ctypes
+
+    from ray_tpu_torch._private import kernel_build
+
+    fn = kernel_build.load(
+        "splash_attention_fwd").splash_attention_fwd_resources
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {}
+    for hd in (64, 128):
+        buf = (ctypes.c_int * 5)()
+        err = fn(hd, ctypes.addressof(buf))
+        if err != 0:
+            fail(f"splash_attention_fwd_resources({hd}): CUDA error {err}")
+        out[f"fwd hd={hd}"] = dict(zip(RESOURCE_FIELDS, buf))
     return out
 
 
@@ -1102,6 +1128,9 @@ def main() -> int:
     resources = ring_resources()
     for kernel, res in resources.items():
         print(f"resources ring {kernel} " + json.dumps(res), flush=True)
+    splash_res = splash_resources()
+    for kernel, res in splash_res.items():
+        print(f"resources splash {kernel} " + json.dumps(res), flush=True)
 
     kern = phase_kernel(peaks)
     bwd = phase_attn_bwd(peaks)
@@ -1138,7 +1167,7 @@ def main() -> int:
               ":128), forward", [1, 3], paths("splash_attention_fwd"),
               kern["worst"], kern["main"], kern["main"]["library_ms"],
               {k: kern["main"][k] for k in ("B", "S", "H", "hd", "causal")},
-              train_shape_ms=kern["rows"][0]["ms"]),
+              train_shape_ms=kern["rows"][0]["ms"], resources=splash_res),
         entry("splash_attention_bwd",
               "ray_tpu_torch/csrc/splash_attention_bwd.cu",
               "ray_tpu/ops/attention.py:56",

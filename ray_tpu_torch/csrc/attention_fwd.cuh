@@ -1,20 +1,18 @@
-// The flash-attention forward body shared by splash_attention_fwd.cu (the
-// splash kernel) and ring_attention_fwd.cu (one step of the ring). Each of
-// those sources says what it replaces, what bounds it and why it is built
-// so; this header holds the code.
+// The flash-attention forward body of one ring step (ring_attention_fwd.cu,
+// which says what it replaces, what bounds it and why it is built so); this
+// header holds the code, written with mma.sync m16n8k16, cp.async and
+// ldmatrix. The splash forward (splash_attention_fwd.cu) has its own body,
+// built on wgmma and TMA loads, and takes only the constants below.
 //
 // The Mode tag (mma_sm90.cuh) picks, at compile time, the ring step's
-// addressing and epilogue (RingStepMode):
-// blockIdx.z selects one (rank, source chunk) pair of the step, q is read at
-// the rank's rows and k, v at the source chunk's, and the block merges its
-// normalised output and lse into the rank's running fp32 (o, lse), whose
-// tile the TMA moves between device and shared memory (RingFirstStepMode:
-// the ring's step 0 writes them and reads nothing). Without it (the splash
-// kernel) rank and chunk are 0 and the epilogue writes bf16 o and fp32 lse,
-// the code the splash kernel always had (SplashMode). The tag is part of
-// the kernel's name, so a profile tells them apart. The body is a device
-// function; attention_fwd_kernel below (splash) and ring_attention_fwd.cu
-// (ring) are its kernels, each with its own launch bounds.
+// addressing and epilogue: blockIdx.z selects one (rank, source chunk) pair
+// of the step, q is read at the rank's rows and k, v at the source chunk's,
+// and the block merges its normalised output and lse into the rank's
+// running fp32 (o, lse), whose tile the TMA moves between device and shared
+// memory (RingFirstStepMode: the ring's step 0 writes them and reads
+// nothing; RingStepMode: a later step). The tag is part of the kernel's
+// name, so a profile tells them apart. The body is a device function;
+// ring_attention_fwd.cu holds its kernel and launch bounds.
 
 #pragma once
 
@@ -34,8 +32,8 @@ static_assert(kBlockQ == kBlockKV, "query and KV tiles must be equal");
 template <int HD>
 __host__ __device__ constexpr int tile_elems() { return kBlockKV * (HD + kPad); }
 
-// Shared memory: K and V, two buffers each. The query tile is staged in the
-// second K buffer before the loop starts.
+// Shared memory of the ring body: K and V, two buffers each. The query tile
+// is staged in the second K buffer before the loop starts.
 template <int HD>
 __host__ __device__ constexpr int smem_bytes() { return 4 * tile_elems<HD>() * 2; }
 
@@ -120,11 +118,11 @@ __device__ __forceinline__ void ring_write_row(uint32_t o_row, float* lse_row,
   if (writes_lse) *lse_row = (m + log2f(l)) * kLn2;
 }
 
-// The body of a block. o: bf16 (B, S, H, HD) for the splash kernel; for the
-// ring step the fp32 running output (B, world * S, H, HD), whose rows of
-// rank r start at r * S, reached through o_map (encode_acc_map). lse: fp32
-// (B, H, S), or (B, H, world * S) for the ring step. pairs (ring step only):
-// (rank, source chunk) of blockIdx.z; S is then one shard's rows.
+// The body of a block of one ring step. The running output, fp32
+// (B, world * S, H, HD) with the rows of rank r from r * S, is reached
+// through o_map (encode_acc_map); `o` is not read. lse: fp32
+// (B, H, world * S). pairs: (rank, source chunk) of blockIdx.z; S is one
+// shard's rows.
 template <int HD, typename Mode>
 __device__ __forceinline__ void attention_fwd_body(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -184,7 +182,6 @@ __device__ __forceinline__ void attention_fwd_body(
   // the tile into shared memory past the K/V buffers while the loop runs,
   // and each thread reads its rows' lse now. The first step reads neither
   // and stages its output in the K/V buffers once the loop is done.
-  const long long o_ss = (long long)H * HD;
   const int bw = b * world + rank;  // the rank's shard of batch b in o_map
   float* lp = nullptr;
   float old_a = 0.f, old_b = 0.f;
@@ -336,92 +333,28 @@ __device__ __forceinline__ void attention_fwd_body(
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
 
-  if constexpr (Mode::kRing) {
-    // Merge into the tile (the first step writes it), then the TMA writes
-    // it back.
-    const int r_a = warp * 16 + g;  // this thread's rows in the tile
-    if constexpr (Mode::kFirst) {
-      if (row_a < S)
-        ring_write_row<NT_O>(o_tile.row(r_a) + 8 * t, lp + row_a, acc, 0, m_a,
-                             l_a, t == 0);
-      if (row_b < S)
-        ring_write_row<NT_O>(o_tile.row(r_a + 8) + 8 * t, lp + row_b, acc, 2,
-                             m_b, l_b, t == 0);
-    } else {
-      mbar_wait(bar, 0);
-      if (row_a < S)
-        ring_merge_row<NT_O>(o_tile.row(r_a) + 8 * t, lp + row_a, old_a, acc,
-                             0, m_a, l_a, t == 0);
-      if (row_b < S)
-        ring_merge_row<NT_O>(o_tile.row(r_a + 8) + 8 * t, lp + row_b, old_b,
-                             acc, 2, m_b, l_b, t == 0);
-    }
-    fence_proxy_async();
-    __syncthreads();
-    if (threadIdx.x == 0) o_tile.store(o_map, h, q0, bw);
+  // Merge into the tile (the first step writes it), then the TMA writes
+  // it back.
+  const int r_a = warp * 16 + g;  // this thread's rows in the tile
+  if constexpr (Mode::kFirst) {
+    if (row_a < S)
+      ring_write_row<NT_O>(o_tile.row(r_a) + 8 * t, lp + row_a, acc, 0, m_a,
+                           l_a, t == 0);
+    if (row_b < S)
+      ring_write_row<NT_O>(o_tile.row(r_a + 8) + 8 * t, lp + row_b, acc, 2,
+                           m_b, l_b, t == 0);
   } else {
-    const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
-    const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
-    __nv_bfloat16* op = static_cast<__nv_bfloat16*>(o) + (long long)b * S * o_ss +
-                        (long long)h * HD + 2 * t;
-    if (row_a < S) {
-#pragma unroll
-      for (int d = 0; d < NT_O; ++d) {
-        *reinterpret_cast<uint32_t*>(op + row_a * o_ss + d * 8) =
-            pack_bf16(acc[d][0] * inv_a, acc[d][1] * inv_a);
-      }
-      if (t == 0) lse[(long long)bh * S + row_a] = (m_a + log2f(l_a)) * kLn2;
-    }
-    if (row_b < S) {
-#pragma unroll
-      for (int d = 0; d < NT_O; ++d) {
-        *reinterpret_cast<uint32_t*>(op + row_b * o_ss + d * 8) =
-            pack_bf16(acc[d][2] * inv_b, acc[d][3] * inv_b);
-      }
-      if (t == 0) lse[(long long)bh * S + row_b] = (m_b + log2f(l_b)) * kLn2;
-    }
+    mbar_wait(bar, 0);
+    if (row_a < S)
+      ring_merge_row<NT_O>(o_tile.row(r_a) + 8 * t, lp + row_a, old_a, acc,
+                           0, m_a, l_a, t == 0);
+    if (row_b < S)
+      ring_merge_row<NT_O>(o_tile.row(r_a + 8) + 8 * t, lp + row_b, old_b,
+                           acc, 2, m_b, l_b, t == 0);
   }
-}
-
-// The splash kernel: one whole sequence, written as bf16.
-template <int HD, typename Mode>
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     void* __restrict__ o, float* __restrict__ lse, int S,
-                     int H, long long q_sb, long long q_ss, long long q_sh,
-                     long long k_sb, long long k_ss, long long k_sh,
-                     long long v_sb, long long v_ss, long long v_sh,
-                     float scale_log2, int causal,
-                     const int* __restrict__ pairs, int world) {
-  attention_fwd_body<HD, Mode>(q, k, v, o, lse, S, H, q_sb, q_ss, q_sh, k_sb,
-                               k_ss, k_sh, v_sb, v_ss, v_sh, scale_log2,
-                               causal, pairs, world, nullptr);
-}
-
-// Launches the grid (query tiles, B * H, n_pairs) on `stream` and returns
-// cudaGetLastError(). The splash kernel passes pairs = nullptr, n_pairs = 1,
-// world = 1.
-template <int HD, typename Mode>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-               int B, int S, int H, long long q_sb, long long q_ss,
-               long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-               long long v_sb, long long v_ss, long long v_sh, float scale,
-               int causal, const int* pairs, int n_pairs, int world,
-               cudaStream_t stream) {
-  auto kernel = attention_fwd_kernel<HD, Mode>;
-  constexpr int kSmem = smem_bytes<HD>();
-  static bool allowed[64] = {};
-  const cudaError_t err = allow_smem(kernel, kSmem, allowed);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H, n_pairs);
-  kernel<<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), o, static_cast<float*>(lse), S, H,
-      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-      scale * 1.4426950408889634f, causal, pairs, world);
-  return (int)cudaGetLastError();
+  fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) o_tile.store(o_map, h, q0, bw);
 }
 
 }  // namespace

@@ -2,9 +2,9 @@
 // mma.sync m16n8k16 (bf16 operands, fp32 accumulators), ldmatrix operand
 // loads from shared memory, cp.async global -> shared copies, bf16 packing,
 // the once-per-device opt-in to more than 48 KB of shared memory, and what
-// the ring step kernels add: TMA tensor copies and their mbarriers, the
-// tensor map of an fp32 accumulator, its shared-memory tile, and a kernel's
-// registers, shared memory and resident blocks.
+// the ring step kernels add: TMA tensor copies and their mbarriers, tensor
+// maps (an fp32 accumulator's among them), the accumulator's shared-memory
+// tile, and a kernel's registers, shared memory and resident blocks.
 //
 // Included by each source under csrc/; every source is its own translation
 // unit and shared library, so the helpers live in an unnamed namespace.
@@ -180,13 +180,16 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// A ring accumulator, fp32 contiguous (B, world * S, H, HD), as the 4D
-// tensor {HD, H, S, B * world} whose boxes are 32 rows of one head
-// {HD, 1, 32, 1}: the rows of one rank's shard end at S, so the copy engine
-// reads rows past a ragged S as zeros and writes none of them. Encoded on
-// the host through cudaGetDriverEntryPoint, so that nothing links libcuda.
-inline cudaError_t encode_acc_map(CUtensorMap* map, void* base, int B,
-                                  int world, int S, int H, int HD) {
+// A 4D tiled tensor map of `type` elements at `base`: dims innermost first,
+// strides in bytes of dims 1-3, `box` the elements of one copy, `swizzle`
+// the layout the box takes in shared memory. Elements outside dims are read
+// as zeros and never written. Encoded on the host through
+// cudaGetDriverEntryPoint, so that nothing links libcuda.
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                              void* base, const cuuint64_t dims[4],
+                              const cuuint64_t strides[3],
+                              const cuuint32_t box[4],
+                              CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -203,17 +206,27 @@ inline cudaError_t encode_acc_map(CUtensorMap* map, void* base, int B,
       return cudaErrorSymbolNotFound;
     encode = reinterpret_cast<Encode>(fn);
   }
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, type, 4, base, dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A ring accumulator, fp32 contiguous (B, world * S, H, HD), as the 4D
+// tensor {HD, H, S, B * world} whose boxes are 32 rows of one head
+// {HD, 1, 32, 1}: the rows of one rank's shard end at S, so the copy engine
+// reads rows past a ragged S as zeros and writes none of them.
+inline cudaError_t encode_acc_map(CUtensorMap* map, void* base, int B,
+                                  int world, int S, int H, int HD) {
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B * world};
   const cuuint64_t strides[3] = {(cuuint64_t)HD * 4, (cuuint64_t)H * HD * 4,
                                  (cuuint64_t)S * H * HD * 4};
   const cuuint32_t box[4] = {(cuuint32_t)HD, 1, 32, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides, box, step,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, dims, strides,
+                    box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // A ring step's fp32 accumulator tile in shared memory: 64 rows of HD

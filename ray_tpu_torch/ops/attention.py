@@ -110,16 +110,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _row_aligned(x: torch.Tensor) -> bool:
-    """Each row of head_dim elements contiguous and 16-byte aligned."""
+    """Each row of head_dim elements contiguous, the base and every other
+    stride a positive multiple of 16 bytes: what the forward kernel's tensor
+    maps take (and the backward's 16-byte copies)."""
     return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(s % 8 == 0 for s in x.stride()[:-1]))
+            and all(s > 0 and s % 8 == 0 for s in x.stride()[:-1]))
 
 
 def _kernel_inputs(named: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """Checks what the kernels take (bfloat16, head_dim 64 or 128, B*H
     within the grid) and returns the tensors with every row contiguous and
     16-byte aligned. Strided views (q, k, v split from the fused qkv) are
-    taken as they are; anything else is copied."""
+    taken as they are; anything else is copied into new storage."""
     for name, x in named.items():
         if x.dtype != torch.bfloat16:
             raise TypeError(
@@ -130,7 +132,8 @@ def _kernel_inputs(named: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
             f"the splash kernels take head_dim in {_HEAD_DIMS}, got {hd}")
     if B * H > 65535:
         raise ValueError(f"B * H = {B * H} exceeds the kernels' grid (65535)")
-    return tuple(x if _row_aligned(x) else x.contiguous()
+    return tuple(x if _row_aligned(x)
+                 else x.clone(memory_format=torch.contiguous_format)
                  for x in named.values())
 
 

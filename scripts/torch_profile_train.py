@@ -33,13 +33,14 @@ from torch_profile_serve import device_kernel_times  # noqa: E402
 
 # Each kind's kernel names: a name is of the kind when it holds every
 # fragment of one of the alternatives; kinds are checked in order. The
-# splash and ring attention kernels share their bodies (csrc/attention_*.cuh)
-# and differ by the mode tag in their names.
-KINDS = (("splash_attention_fwd", (("attention_fwd_kernel", "SplashMode"),)),
+# splash and ring backward kernels share their body (csrc/attention_bwd.cuh)
+# and differ by the mode tag in their names; the ring's kernels are named
+# after their source.
+KINDS = (("splash_attention_fwd", (("splash_attention_fwd_kernel",),)),
          ("splash_attention_bwd", (("attention_bwd_", "SplashMode"),
                                    ("attention_bwd_delta_kernel",))),
-         ("ring_attention_fwd", (("attention_fwd_kernel", "RingStepMode"),)),
-         ("ring_attention_bwd", (("attention_bwd_", "RingStepMode"),)),
+         ("ring_attention_fwd", (("ring_attention_fwd_kernel",),)),
+         ("ring_attention_bwd", (("ring_attention_bwd_",),)),
          ("fused_ce", (("fused_ce_",),)),
          ("matmul", (("gemm",), ("xmma",), ("cutlass",), ("nvjet",),
                      ("cublas",))))

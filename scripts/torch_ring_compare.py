@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
-"""Holds the ring step kernels of two source trees against each other on one
-NVIDIA GPU.
+"""Holds the attention kernels of two source trees against each other on one
+NVIDIA GPU: the ring step kernels bit for bit, the splash forward by how far
+each tree is from the plain version and from the other tree.
 
     python3 scripts/torch_ring_compare.py --tree parent=smoke_tree/parent \\
         --tree change=. [--work ray_tpu_torch/_build/ring_compare]
 
 For each tree, in its own process (both hold a package named
-``ray_tpu_torch``) and in the order given, it builds the ring kernels from
-that tree's ``csrc/``, prints their ptxas lines and what each ring kernel
-holds on an SM (registers, spill bytes, static and dynamic shared bytes,
-resident blocks per SM, for head_dim 64 and 128 and each step kind), and
-saves a whole W=4 ring forward and backward (o, lse, dq, dk, dv) at
-``chip_smoke.py``'s four ``RING_SHAPES``, all from one seed. Then it prints,
-per shape and tensor, whether the trees agree bit for bit and by how much
-they differ. A tree whose ring sources export no ``*_resources`` entry gets
-one from a probe source that includes its ring source. Saved results go to
-``--work`` (a directory the repository's .gitignore lists).
+``ray_tpu_torch``) and in the order given, it builds the ring kernels and
+the splash forward from that tree's ``csrc/``, prints their ptxas lines and
+what each kernel holds on an SM (registers, spill bytes, static and dynamic
+shared bytes, resident blocks per SM; the ring's for head_dim 64 and 128
+and each step kind, the splash forward's for each head_dim), and saves,
+all from one seed:
+
+- a whole W=4 ring forward and backward (o, lse, dq, dk, dv) at
+  ``chip_smoke.py``'s four ``RING_SHAPES``;
+- the splash forward's o and lse at ``chip_smoke.py``'s ``KERNEL_SHAPES``
+  (q, k, v split from a fused qkv), printing each shape's largest
+  difference from ``attention_reference`` in that tree (``splash_vs_plain``).
+
+Then it prints, per shape and tensor, whether the trees agree bit for bit
+and by how much they differ (``bits``), and ``ring_bit_equal`` (true when
+every ring tensor agrees). The splash forward sums in the order its kernel
+takes, so two designs are not expected to agree bit for bit. A tree whose
+splash source exports no ``splash_attention_fwd_resources`` gets one from a
+probe source that includes it. Saved results go to ``--work`` (a directory
+the repository's .gitignore lists).
 """
 
 from __future__ import annotations
@@ -31,87 +42,84 @@ W = 4
 # chip_smoke.py RING_SHAPES: (B, S_local, H, hd, causal).
 RING_SHAPES = [(16, 256, 12, 64, True), (2, 250, 12, 64, True),
                (2, 256, 8, 128, True), (4, 256, 12, 64, False)]
-KINDS = ("ring_attention_fwd", "ring_attention_bwd")
+# chip_smoke.py KERNEL_SHAPES: (B, S, H, hd, causal).
+SPLASH_SHAPES = [
+    (16, 1024, 12, 64, True),
+    (8, 1024, 12, 64, True), (8, 1024, 12, 64, False),
+    (1, 1024, 12, 64, True), (1, 1024, 12, 64, False),
+    (1, 1000, 12, 64, True), (2, 1000, 12, 64, False),
+    (1, 7, 12, 64, True), (3, 7, 12, 64, False),
+    (2, 512, 8, 128, True), (2, 512, 8, 128, False),
+]
+RING = ("ring_attention_fwd", "ring_attention_bwd")
+SPLASH = "splash_attention_fwd"
+RING_TENSORS = ("o", "lse", "dq", "dk", "dv")
 
-# The resources entry for ring sources that lack one: each kernel of a step
-# at the one dynamic shared size it launches with.
+# The resources entry for a splash forward source that lacks one: the
+# mma.sync body's kernel (attention_fwd.cuh) at the shared size it launches
+# with.
 _PROBE = """
 #include "{source}"
-namespace {{
-template <typename K>
-cudaError_t probe(K kernel, int threads, int smem, int* out) {{
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      threads, smem);
-  out[0] = a.numRegs; out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes; out[3] = smem; out[4] = blocks;
-  return err;
-}}
-{kernels}}}  // namespace
-extern "C" int {name}_resources(int head_dim, int first, int* out) {{
-  (void)first;
-  if (head_dim == 64) return {which}<64>(out);
-  if (head_dim == 128) return {which}<128>(out);
+extern "C" int splash_attention_fwd_resources(int head_dim, int* out) {{
+  if (head_dim == 64)
+    return (int)kernel_resources(attention_fwd_kernel<64, SplashMode>,
+                                 kThreads, smem_bytes<64>(), out);
+  if (head_dim == 128)
+    return (int)kernel_resources(attention_fwd_kernel<128, SplashMode>,
+                                 kThreads, smem_bytes<128>(), out);
   return (int)cudaErrorInvalidValue;
 }}
 """
-_PROBE_KERNELS = {
-    "fwd": """template <int HD> int fwd(int* out) {
-  return (int)probe(attention_fwd_kernel<HD, RingStepMode>, kThreads,
-                    smem_bytes<HD>(), out);
-}
-""",
-    "bwd": """template <int HD> int bwd(int* out) {
-  cudaError_t err = probe(attention_bwd_dkv_kernel<HD, RingStepMode>,
-                          kThreads, smem_bytes<HD>(), out);
-  if (err != cudaSuccess) return (int)err;
-  return (int)probe(attention_bwd_dq_kernel<HD, RingStepMode>, kThreads,
-                    smem_bytes<HD>(), out + 5);
-}
-"""}
 _FIELDS = ("registers", "spill_bytes", "static_smem", "dynamic_smem",
            "blocks_per_sm")
 
 
-def _resources(kernel_build, name: str, work: Path):
-    """{(hd, first): [kernel resources]} of ring kernel ``name``."""
+def _entry(lib, name: str, n_args: int):
     import ctypes
 
-    lib = kernel_build.load(name)
-    entry = f"{name}_resources"
-    if not hasattr(lib, entry):
-        src = work / f"probe_{name}.cu"
-        which = name.rsplit("_", 1)[1]
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_int] * (n_args - 1) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _call(fn, args, n_kernels: int):
+    import ctypes
+
+    buf = (ctypes.c_int * (5 * n_kernels))()
+    err = fn(*args, ctypes.addressof(buf))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}{args}: CUDA error {err}")
+    return [dict(zip(_FIELDS, buf[5 * i:5 * i + 5])) for i in range(n_kernels)]
+
+
+def _resources(kernel_build, work: Path) -> dict:
+    """What each ring kernel and the splash forward hold on an SM."""
+    import ctypes
+
+    res = {}
+    for name in RING:
+        fn = _entry(kernel_build.load(name), f"{name}_resources", 3)
+        n_kernels = 1 if name.endswith("fwd") else 2
+        for hd in (64, 128):
+            for first in (0, 1):
+                res[f"{name} hd{hd}_first{first}"] = _call(fn, (hd, first),
+                                                           n_kernels)
+    lib = kernel_build.load(SPLASH)
+    if not hasattr(lib, f"{SPLASH}_resources"):
+        src = work / f"probe_{SPLASH}.cu"
         src.write_text(_PROBE.format(
-            source=kernel_build.CSRC_DIR / f"{name}.cu", name=name,
-            which=which, kernels=_PROBE_KERNELS[which]))
-        so = work / f"libprobe_{name}.so"
+            source=kernel_build.CSRC_DIR / f"{SPLASH}.cu"))
+        so = work / f"libprobe_{SPLASH}.so"
         out = subprocess.run(
             kernel_build.nvcc_command(kernel_build.find_nvcc(), src, so),
             capture_output=True, text=True)
         if out.returncode != 0:
             raise RuntimeError(f"probe build failed:\n{out.stdout}{out.stderr}")
         lib = ctypes.CDLL(str(so))
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    n_kernels = 1 if name.endswith("fwd") else 2
-    res = {}
+    fn = _entry(lib, f"{SPLASH}_resources", 2)
     for hd in (64, 128):
-        for first in (0, 1):
-            buf = (ctypes.c_int * (5 * n_kernels))()
-            err = fn(hd, first, ctypes.addressof(buf))
-            if err != 0:
-                raise RuntimeError(f"{entry}({hd}, {first}): CUDA error {err}")
-            res[f"hd{hd}_first{first}"] = [
-                dict(zip(_FIELDS, buf[5 * i:5 * i + 5]))
-                for i in range(n_kernels)]
+        res[f"{SPLASH} hd{hd}"] = _call(fn, (hd,), 1)
     return res
 
 
@@ -120,17 +128,18 @@ def worker(tree: Path, label: str, work: Path) -> None:
     import torch
 
     from ray_tpu_torch._private import kernel_build
+    from ray_tpu_torch.ops import attention
     from ray_tpu_torch.ops import ring_attention as ra
 
     if not Path(kernel_build.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"imported {kernel_build.__file__}, not {tree}'s")
-    kernel_build.build(list(KINDS))
-    for name in KINDS:
+    kernel_build.build([*RING, SPLASH])
+    for name in (*RING, SPLASH):
         for line in kernel_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"{label} ptxas {name}: {line.strip()}", flush=True)
-        print(f"{label} resources {name} "
-              + json.dumps(_resources(kernel_build, name, work)), flush=True)
+    print(f"{label} resources " + json.dumps(_resources(kernel_build, work)),
+          flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     saved = {}
@@ -144,9 +153,24 @@ def worker(tree: Path, label: str, work: Path) -> None:
         o, lse = ra.ring_forward(q, k, v, world=W, causal=causal)
         dq, dk, dv = ra.ring_backward(q, k, v, o, lse, do, world=W,
                                       causal=causal)
-        saved[str((B, shard, H, hd, causal))] = {
-            n: t.cpu() for n, t in zip(("o", "lse", "dq", "dk", "dv"),
-                                       (o, lse, dq, dk, dv))}
+        saved[f"ring {(B, shard, H, hd, causal)}"] = {
+            n: t.cpu() for n, t in zip(RING_TENSORS, (o, lse, dq, dk, dv))}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    vs_plain = {}
+    for B, S, H, hd, causal in SPLASH_SHAPES:
+        qkv = torch.randn((B, S, 3 * H * hd), generator=gen, device="cuda",
+                          dtype=torch.bfloat16)
+        q, k, v = (t.view(B, S, H, hd) for t in qkv.split(H * hd, dim=-1))
+        o, lse = attention.splash_attention(q, k, v, causal=causal,
+                                            return_lse=True)
+        o_ref, lse_ref = attention.attention_reference(q, k, v, causal=causal)
+        shape = str((B, S, H, hd, causal))
+        vs_plain[shape] = dict(
+            o=(o.float() - o_ref.float()).abs().max().item(),
+            lse=(lse - lse_ref).abs().max().item())
+        saved[f"splash {shape}"] = {"o": o.cpu(), "lse": lse.cpu()}
+        del qkv, q, k, v, o, lse, o_ref, lse_ref
+    print(f"{label} splash_vs_plain " + json.dumps(vs_plain), flush=True)
     torch.save(saved, work / f"bits_{label}.pt")
 
 
@@ -160,7 +184,8 @@ def compare(work: Path, a: str, b: str) -> dict:
         out[shape] = {
             n: dict(equal=torch.equal(x[shape][n], y[shape][n]),
                     n_differ=int((x[shape][n] != y[shape][n]).sum()),
-                    max_abs_diff=(x[shape][n] - y[shape][n]).abs().max().item(),
+                    max_abs_diff=(x[shape][n].float()
+                                  - y[shape][n].float()).abs().max().item(),
                     finite=bool(torch.isfinite(y[shape][n]).all()))
             for n in x[shape]}
     return out
@@ -190,12 +215,17 @@ def main() -> int:
             print(f"worker {label} failed ({res.returncode})", file=sys.stderr)
             return 1
     base = trees[0][0]
-    worst_ok = True
+    finite = True
     for label, _ in trees[1:]:
         diff = compare(work, base, label)
         print(f"bits {base} vs {label} " + json.dumps(diff), flush=True)
-        worst_ok &= all(d["finite"] for s in diff.values() for d in s.values())
-    return 0 if worst_ok else 1
+        ring_equal = all(d["equal"] for s, per in diff.items()
+                         if s.startswith("ring") for d in per.values())
+        print(f"ring_bit_equal {base} vs {label} {json.dumps(ring_equal)}",
+              flush=True)
+        finite &= all(d["finite"] for per in diff.values()
+                      for d in per.values())
+    return 0 if finite else 1
 
 
 if __name__ == "__main__":

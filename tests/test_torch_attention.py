@@ -114,3 +114,26 @@ def test_qkv_split_views_go_to_the_kernel_uncopied():
     q, k, v = (t.view(B, S, H, hd) for t in qkv.split(H * hd, dim=-1))
     assert all(attention._row_aligned(x) for x in (q, k, v))
     assert not attention._row_aligned(q.transpose(-1, -2))
+
+
+def test_kernel_inputs_keep_what_the_tensor_maps_take():
+    """The forward kernel's tensor maps need each row contiguous and the
+    base and every stride a multiple of 16 bytes: the qkv-split views pass
+    as they are; a view whose base or row stride is off is copied into new,
+    aligned storage."""
+    B, S, H, hd = 2, 16, 3, 64
+    qkv = torch.randn((B, S, 3 * H * hd)).to(torch.bfloat16)
+    q, k, v = (t.view(B, S, H, hd) for t in qkv.split(H * hd, dim=-1))
+    assert all(y is x for x, y in zip(
+        (q, k, v), attention._kernel_inputs({"q": q, "k": k, "v": v})))
+    n = B * S * H * hd
+    flat = torch.randn(n + 8).to(torch.bfloat16)
+    shifted = flat[1:1 + n].view(B, S, H, hd)  # base 2 bytes past 16
+    wide = torch.randn((B, S, H * hd + 4)).to(torch.bfloat16)
+    padded = wide[..., :H * hd].view(B, S, H, hd)  # row stride 1544 bytes
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    out = attention._kernel_inputs({"q": shifted, "k": padded, "v": v})
+    assert out[2] is v
+    for x, y in zip((shifted, padded), out[:2]):
+        assert y.data_ptr() != x.data_ptr() and attention._row_aligned(y)
+        assert torch.equal(x, y)

@@ -30,12 +30,19 @@ def _rel(x, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,causal", [
     ((8, 1024, 12, 64), True), ((1, 1000, 12, 64), False),
-    ((1, 7, 12, 64), True), ((2, 512, 8, 128), True)])
+    ((1, 1000, 12, 64), True), ((1, 7, 12, 64), True),
+    ((3, 7, 12, 64), False), ((2, 512, 8, 128), True),
+    ((2, 512, 8, 128), False)])
 def test_kernel_matches_plain_on_gpu(shape, causal):
+    """q, k, v split from a fused qkv, as the model makes them: the tensor
+    maps read the strided views; rows past a ragged S, and the whole box
+    past S=7, arrive as zeros."""
     _need_gpu()
+    B, S, H, hd = shape
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda",
-                           dtype=torch.bfloat16) for _ in range(3))
+    qkv = torch.randn((B, S, 3 * H * hd), generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    q, k, v = (t.view(B, S, H, hd) for t in qkv.split(H * hd, dim=-1))
     before = attention.LAUNCHES["splash_attention_fwd"]
     o, lse = attention.splash_attention(q, k, v, causal=causal,
                                         return_lse=True)

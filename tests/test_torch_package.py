@@ -148,7 +148,7 @@ def test_the_scan_covers_the_parallel_package():
 
 
 @pytest.mark.parametrize("header", ["attention_fwd.cuh", "attention_bwd.cuh",
-                                    "mma_sm90.cuh"])
+                                    "mma_sm90.cuh", "wgmma_sm90.cuh"])
 def test_build_digest_covers_the_shared_headers(tmp_path, monkeypatch, header):
     """The attention bodies live in headers that several sources include: an
     edited header must give a new build directory, so every library is
