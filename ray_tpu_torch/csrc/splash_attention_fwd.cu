@@ -42,9 +42,16 @@
 //   m64n{hd}k16 with p from registers (the score accumulator's layout is
 //   the register A operand's, so p only needs packing to bf16) and V read
 //   MN-major from its row-major tile.
-// - Order: each product is waited for as soon as it is issued; the
-//   softmax of a tile runs while the other blocks on the SM use the tensor
-//   cores.
+// - Overlap: the q k^T of tile j + 1 is issued, into a second set of score
+//   registers, before the softmax of tile j, whose exponentials then run
+//   while the tensor cores work on the next scores (FlashAttention-3's
+//   intra-warpgroup pipelining). The output is rescaled once those scores
+//   have landed and p v of tile j is waited for within the tile: ptxas
+//   serialises every wgmma of a kernel in which another instruction
+//   defines an accumulator inside a wgmma's pipeline stage. The second
+//   score set costs registers: 134 at hd=64 (3 blocks per SM), where
+//   products waited for at once took 112 (4 blocks) and were faster at
+//   (16, 1024) and slower at (1, 1024) (PERF.md, PR 6).
 //
 // Not yet done (later work): warp specialisation and persistent blocks, a
 // TMA store of o, and a split over KV for small batches (at B=1 the longest
@@ -55,13 +62,16 @@
 // every stride and the base 16-byte aligned, which the Python wrapper
 // checks. Rows past S are read as zeros and never written.
 
+#include <type_traits>
+
 #include "attention_fwd.cuh"  // kBlockQ, kBlockKV, kThreads, kMaskValue, kLn2
 #include "wgmma_sm90.cuh"
 
 namespace {
 
-// Buffers of the K and the V ring: KV tile n's K is requested at the end
-// of tile n - 2, its V at the end of tile n - 3.
+// Buffers of the K and the V ring. KV tile n's K and V are both requested
+// at the end of tile n - 3: K for the q k^T that tile n - 1 issues, V for
+// tile n's p v.
 constexpr int kKStages = 2;
 constexpr int kVStages = 3;
 
@@ -228,20 +238,49 @@ splash_attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
   float m_a = kMaskValue, m_b = kMaskValue;  // running max, base-2 units
   float l_a = 0.f, l_b = 0.f;                // this thread's share of the sum
-  float s[32];  // this tile's scores
+  float s0[32], s1[32];  // the scores of even and of odd tiles
 
+  // Tile 0's scores before the loop; its K buffer then takes the tile
+  // kKStages ahead.
   mbar_wait(q_bar, 0);
-  for (int j = 0; j < kv_end; ++j) {
-    mbar_wait(k_bar + j % kKStages, (j / kKStages) & 1);
-    qk_product<HD>(s, q_desc, k_desc(j));
-    wgmma_wait<0>();
-    fence_regs(s);
+  mbar_wait(k_bar, 0);
+  qk_product<HD>(s0, q_desc, k_desc(0));
+  wgmma_wait<0>();
+  fence_regs(s0);
+  if (kKStages < kv_end) {
+    __syncthreads();
+    if (threadIdx.x == 0) load_k(kKStages);
+  }
+
+  // Tile j, its scores in s0 or s1 by the parity of j; tile j + 1's land
+  // in the other set. has_next (whether tile j + 1 exists) and the parity
+  // are types, so that each instantiation issues and retires the same
+  // wgmma groups on every path and has one call site (ptxas serialises
+  // wgmma whose retirement it cannot follow). Every group is retired
+  // within its tile: a p v left running into the next tile's softmax made
+  // ptxas serialise all of them.
+  auto tile = [&](int j, auto has_next, auto odd) {
+    constexpr bool next = decltype(has_next)::value;
+    float(&s)[32] = decltype(odd)::value ? s1 : s0;
+    float(&s_next)[32] = decltype(odd)::value ? s0 : s1;
+    if constexpr (next) {
+      mbar_wait(k_bar + (j + 1) % kKStages, ((j + 1) / kKStages) & 1);
+      qk_product<HD>(s_next, q_desc, k_desc(j + 1));
+    }
 
     const int kv0 = j * kBlockKV;
     const bool edge = (kv0 + kBlockKV > S) || (causal && j == q_tile);
     float alpha_a, alpha_b;
     online_softmax(s, kv0, row_a, row_b, S, causal, edge, scale_log2, m_a,
                    m_b, l_a, l_b, alpha_a, alpha_b);
+
+    if constexpr (next) {
+      // The q k^T of tile j + 1 has finished: the output is rescaled while
+      // no wgmma runs (ptxas serialises wgmma around other instructions
+      // that define an accumulator inside a wgmma's pipeline stage).
+      wgmma_wait<0>();
+      fence_regs(s_next);
+    }
 #pragma unroll
     for (int d = 0; d < NT_O; ++d) {
       acc[4 * d] *= alpha_a;
@@ -260,12 +299,12 @@ splash_attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     mbar_wait(v_bar + j % kVStages, (j / kVStages) & 1);
     pv_product<HD>(acc, p, v_desc(j));
+
+    // Buffers every thread is done with take the tiles kKStages and
+    // kVStages ahead: tile j + 1's K (its q k^T has run) and tile j's V.
     wgmma_wait<0>();
     fence_regs(acc);
-
-    // Tile j's buffers take the tiles kKStages and kVStages ahead, once
-    // every thread is done with them.
-    const int tk = j + kKStages;
+    const int tk = j + 1 + kKStages;
     const int tv = j + kVStages;
     if (tk < kv_end || tv < kv_end) {
       __syncthreads();
@@ -274,6 +313,20 @@ splash_attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         if (tv < kv_end) load_v(tv);
       }
     }
+  };
+  using Yes = std::true_type;
+  using No = std::false_type;
+  for (int j = 0;; j += 2) {
+    if (j + 1 == kv_end) {
+      tile(j, No{}, No{});
+      break;
+    }
+    tile(j, Yes{}, No{});
+    if (j + 2 == kv_end) {
+      tile(j + 1, No{}, Yes{});
+      break;
+    }
+    tile(j + 1, Yes{}, Yes{});
   }
 
   l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
