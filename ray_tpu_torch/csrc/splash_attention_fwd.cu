@@ -50,7 +50,7 @@
 //   serialises every wgmma of a kernel in which another instruction
 //   defines an accumulator inside a wgmma's pipeline stage. The second
 //   score set costs registers: 134 at hd=64 (3 blocks per SM), where
-//   products waited for at once took 112 (4 blocks) and were faster at
+//   products waited for at once took 90 (4 blocks) and were faster at
 //   (16, 1024) and slower at (1, 1024) (PERF.md, PR 6).
 //
 // Not yet done (later work): warp specialisation and persistent blocks, a
