@@ -1,20 +1,19 @@
-// The flash-attention backward bodies shared by splash_attention_bwd.cu (the
-// splash kernel) and ring_attention_bwd.cu (one step of the ring). Each of
-// those sources says what it replaces, what bounds it and why it is built
-// so; this header holds the code.
+// The flash-attention backward bodies of one ring step (ring_attention_bwd.cu,
+// which says what it replaces, what bounds it and why it is built so); this
+// header is the ring's alone and holds the code, written with mma.sync
+// m16n8k16, cp.async and ldmatrix. The splash backward
+// (splash_attention_bwd.cu) has its own kernels, built on wgmma and TMA
+// loads.
 //
-// The Mode tag (mma_sm90.cuh) picks, at compile time, the ring step's
-// addressing and epilogue (RingStepMode):
+// The Mode tag (mma_sm90.cuh) picks, at compile time, the ring step's kind:
 // blockIdx.z selects one (rank, source chunk) pair of the step; q, do, lse
 // and delta are read at the rank's rows and k, v at the chunk's; dq is added
 // into the rank's rows and dk, dv into the chunk's rows of fp32
 // accumulators, whose tiles the TMA moves between device and shared memory
-// (RingFirstStepMode: the ring's step 0 writes them and reads nothing).
-// Without it (the splash kernel) rank and chunk are 0 and the gradients are
-// written as bf16, the code the splash kernel always had (SplashMode). The
-// tag is part of the kernel's name, so a profile tells them apart. The
-// bodies are device functions; the splash kernels below and those of
-// ring_attention_bwd.cu are their kernels, each with its own launch bounds.
+// (RingFirstStepMode: the ring's step 0 writes them and reads nothing;
+// RingStepMode: a later step). The tag is part of the kernel's name, so a
+// profile tells them apart. The bodies are device functions;
+// ring_attention_bwd.cu holds their kernels and launch bounds.
 
 #pragma once
 
@@ -55,7 +54,7 @@ __host__ __device__ constexpr bool acc_early() { return HD == 64; }
 // ring step adds its early tile (hd=64) and one mbarrier.
 template <int HD, typename Mode>
 __host__ __device__ constexpr int ring_extra_bytes() {
-  return Mode::kRing && !Mode::kFirst
+  return !Mode::kFirst
              ? (acc_early<HD>() ? AccTile<HD>::kBytes : 0) + 16
              : 0;
 }
@@ -173,31 +172,8 @@ __device__ __forceinline__ void product_pn(float out[HD / 8][4], float p[8][4],
   }
 }
 
-// Writes a warp's 16 x HD accumulator tile, times `scale`, as bf16 rows
-// row_a.. of batch b, head h of a contiguous (B, S, H, HD) tensor. Rows at
-// or past S are skipped.
-template <int HD>
-__device__ __forceinline__ void store_rows(void* out, float acc[HD / 8][4],
-                                           int b, int h, int S, int H, int row_a,
-                                           float scale) {
-  const int t = (threadIdx.x % 32) % 4;
-  const long long ss = (long long)H * HD;
-  const int row_b = row_a + 8;
-  __nv_bfloat16* base = static_cast<__nv_bfloat16*>(out) + (long long)b * S * ss +
-                        (long long)h * HD + 2 * t;
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d) {
-    if (row_a < S)
-      *reinterpret_cast<uint32_t*>(base + row_a * ss + d * 8) =
-          pack_bf16(acc[d][0] * scale, acc[d][1] * scale);
-    if (row_b < S)
-      *reinterpret_cast<uint32_t*>(base + row_b * ss + d * 8) =
-          pack_bf16(acc[d][2] * scale, acc[d][3] * scale);
-  }
-}
-
-// The ring step's counterpart: adds a warp's 16 x HD accumulator tile,
-// times `scale`, into rows r_a and r_a + 8 of an fp32 tile in shared memory
+// Adds a warp's 16 x HD accumulator tile, times `scale`, into rows r_a
+// and r_a + 8 of an fp32 tile in shared memory
 // (writes them at the first step). Each thread owns its elements, so the
 // addition needs no atomics. Rows past S hold zeros and the TMA writes none
 // of them back.
@@ -221,64 +197,24 @@ __device__ __forceinline__ void add_rows(const AccTile<HD>& tile,
   }
 }
 
-// delta[b, h, s] = sum_d o[b, s, h, d] * do[b, s, h, d], fp32. HD/8
-// neighbouring threads share a row, 16 bytes each.
-template <int HD>
-__global__ void __launch_bounds__(256)
-attention_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
-                           const __nv_bfloat16* __restrict__ dout,
-                           float* __restrict__ delta, int B, int S, int H,
-                           long long o_sb, long long o_ss, long long o_sh,
-                           long long d_sb, long long d_ss, long long d_sh) {
-  constexpr int kPer = HD / 8;  // threads per row
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long row = idx / kPer;
-  const int c = (int)(idx % kPer) * 8;
-  const long long n_rows = (long long)B * S * H;
-  const int h = (int)(row % H);
-  const int s = (int)((row / H) % S);
-  const int b = (int)(row / ((long long)H * S));
-  float acc = 0.f;
-  if (row < n_rows) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(o + b * o_sb + s * o_ss + h * o_sh + c);
-    const uint4 dv = *reinterpret_cast<const uint4*>(dout + b * d_sb + s * d_ss + h * d_sh + c);
-    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(op[i]);
-      const float2 y = __bfloat1622float2(dp[i]);
-      acc += x.x * y.x + x.y * y.y;
-    }
-  }
-#pragma unroll
-  for (int off = kPer / 2; off > 0; off /= 2)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (row < n_rows && c == 0) delta[((long long)b * H + h) * S + s] = acc;
-}
-
-// The (rank, chunk) pair of this block: (0, 0) unless kRing.
-template <bool kRing>
+// The (rank, chunk) pair of this block.
 __device__ __forceinline__ int2 block_pair(const int* pairs) {
-  if constexpr (kRing)
-    return make_int2(pairs[2 * blockIdx.z], pairs[2 * blockIdx.z + 1]);
-  return make_int2(0, 0);
+  return make_int2(pairs[2 * blockIdx.z], pairs[2 * blockIdx.z + 1]);
 }
 
 // dk, dv for one 64-row KV tile of one (batch, head): the body of a block.
 // The ring step reaches its fp32 dk, dv through dk_map, dv_map
-// (encode_acc_map); the splash kernel writes bf16 dk, dv.
+// (encode_acc_map).
 template <int HD, typename Mode>
 __device__ __forceinline__ void attention_bwd_dkv_body(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    void* __restrict__ dk, void* __restrict__ dv, int S, int H, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long d_sb, long long d_ss, long long d_sh, float scale_log2,
-    float scale, int causal, const int* __restrict__ pairs, int world,
-    const CUtensorMap* dk_map, const CUtensorMap* dv_map) {
+    const float* __restrict__ lse, const float* __restrict__ delta, int S,
+    int H, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long d_sb, long long d_ss, long long d_sh,
+    float scale_log2, float scale, int causal, const int* __restrict__ pairs,
+    int world, const CUtensorMap* dk_map, const CUtensorMap* dv_map) {
   constexpr int TILE = tile_elems<HD>();
   constexpr int NT_O = HD / 8;
 
@@ -297,7 +233,7 @@ __device__ __forceinline__ void attention_bwd_dkv_body(
   const int b = bh / H;
   const int h = bh % H;
   const int kv0 = kv_tile * kBlock;
-  const int2 pair = block_pair<Mode::kRing>(pairs);  // x: rank (q side), y: chunk
+  const int2 pair = block_pair(pairs);  // x: rank (q side), y: chunk
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -309,7 +245,7 @@ __device__ __forceinline__ void attention_bwd_dkv_body(
   const __nv_bfloat16* vp = v + b * v_sb + (long long)pair.y * S * v_ss + h * v_sh;
   const __nv_bfloat16* dp_ = dout + b * d_sb + (long long)pair.x * S * d_ss + h * d_sh;
   // Row 0 of this (batch, head) and rank in lse and delta.
-  const long long lrow0 = Mode::kRing ? ((long long)bh * world + pair.x) * S : (long long)bh * S;
+  const long long lrow0 = ((long long)bh * world + pair.x) * S;
   const float* lse_p = lse + lrow0;
   const float* delta_p = delta + lrow0;
 
@@ -344,7 +280,7 @@ __device__ __forceinline__ void attention_bwd_dkv_body(
   AccTile<HD> dk_tile = buffer_tile<HD>(q_s, q_s + TILE);
   AccTile<HD> dv_tile = buffer_tile<HD>(do_s, do_s + TILE);
   uint64_t* bar = ring_bar<HD>(smem_raw);
-  if constexpr (Mode::kRing && !Mode::kFirst) {
+  if constexpr (!Mode::kFirst) {
     dk_tile = acc_early<HD>() ? extra_tile<HD>(smem_raw) : buffer_tile<HD>(k_s, v_s);
     dv_tile = buffer_tile<HD>(q_s + spare * TILE, do_s + spare * TILE);
     if (threadIdx.x == 0) {
@@ -368,7 +304,7 @@ __device__ __forceinline__ void attention_bwd_dkv_body(
       cp_async_commit();
       cp_async_wait<1>();
     } else {
-      if constexpr (Mode::kRing && !Mode::kFirst) {
+      if constexpr (!Mode::kFirst) {
         if (threadIdx.x == 0) dv_tile.load(dv_map, h, kv0, bw, bar);
       }
       cp_async_wait<0>();
@@ -404,7 +340,7 @@ __device__ __forceinline__ void attention_bwd_dkv_body(
     // dp^T = v do^T, then ds^T = p^T (dp^T - delta).
     float dpt[8][4];
     product_nt<HD>(dpt, v_s, warp * 16, dob);
-    if constexpr (Mode::kRing && !Mode::kFirst && !acc_early<HD>()) {
+    if constexpr (!Mode::kFirst && !acc_early<HD>()) {
       if (i == last) {
         __syncthreads();  // every warp is done with K and V
         if (threadIdx.x == 0) dk_tile.load(dk_map, h, kv0, bw, bar);
@@ -423,18 +359,13 @@ __device__ __forceinline__ void attention_bwd_dkv_body(
     __syncthreads();  // every warp is done with buffer cur before it refills
   }
 
-  if constexpr (Mode::kRing) {
-    if constexpr (!Mode::kFirst) mbar_wait(bar, 0);
-    add_rows<HD, Mode::kFirst>(dk_tile, acc_dk, warp * 16 + g, scale);
-    add_rows<HD, Mode::kFirst>(dv_tile, acc_dv, warp * 16 + g, 1.f);
-    fence_proxy_async();
-    __syncthreads();
-    if (threadIdx.x == 0) dk_tile.store(dk_map, h, kv0, bw);
-    if (threadIdx.x == 32) dv_tile.store(dv_map, h, kv0, bw);
-  } else {
-    store_rows<HD>(dk, acc_dk, b, h, S, H, kvr_a, scale);
-    store_rows<HD>(dv, acc_dv, b, h, S, H, kvr_a, 1.f);
-  }
+  if constexpr (!Mode::kFirst) mbar_wait(bar, 0);
+  add_rows<HD, Mode::kFirst>(dk_tile, acc_dk, warp * 16 + g, scale);
+  add_rows<HD, Mode::kFirst>(dv_tile, acc_dv, warp * 16 + g, 1.f);
+  fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) dk_tile.store(dk_map, h, kv0, bw);
+  if (threadIdx.x == 32) dv_tile.store(dv_map, h, kv0, bw);
 }
 
 // dq for one 64-row query tile of one (batch, head): the body of a block.
@@ -443,12 +374,12 @@ template <int HD, typename Mode>
 __device__ __forceinline__ void attention_bwd_dq_body(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    void* __restrict__ dq, int S, int H, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long d_sb,
-    long long d_ss, long long d_sh, float scale_log2, float scale, int causal,
-    const int* __restrict__ pairs, int world, const CUtensorMap* dq_map) {
+    const float* __restrict__ lse, const float* __restrict__ delta, int S,
+    int H, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long d_sb, long long d_ss, long long d_sh,
+    float scale_log2, float scale, int causal, const int* __restrict__ pairs,
+    int world, const CUtensorMap* dq_map) {
   constexpr int TILE = tile_elems<HD>();
   constexpr int NT_O = HD / 8;
 
@@ -464,7 +395,7 @@ __device__ __forceinline__ void attention_bwd_dq_body(
   const int b = bh / H;
   const int h = bh % H;
   const int q0 = q_tile * kBlock;
-  const int2 pair = block_pair<Mode::kRing>(pairs);  // x: rank (q side), y: chunk
+  const int2 pair = block_pair(pairs);  // x: rank (q side), y: chunk
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -492,7 +423,7 @@ __device__ __forceinline__ void attention_bwd_dq_body(
   const int spare = ((kv_end - 1) & 1) ^ 1;  // the last iteration's free buffers
   AccTile<HD> dq_tile = buffer_tile<HD>(k_s, k_s + TILE);
   uint64_t* bar = ring_bar<HD>(smem_raw);
-  if constexpr (Mode::kRing && !Mode::kFirst) {
+  if constexpr (!Mode::kFirst) {
     dq_tile = acc_early<HD>()
                   ? extra_tile<HD>(smem_raw)
                   : buffer_tile<HD>(k_s + spare * TILE, v_s + spare * TILE);
@@ -505,7 +436,7 @@ __device__ __forceinline__ void attention_bwd_dq_body(
 
   const int row_a = q0 + warp * 16 + g;  // this thread's two query rows
   const int row_b = row_a + 8;
-  const long long lrow0 = Mode::kRing ? ((long long)bh * world + pair.x) * S : (long long)bh * S;
+  const long long lrow0 = ((long long)bh * world + pair.x) * S;
   const float* lse_p = lse + lrow0;
   const float* delta_p = delta + lrow0;
   const float lse_a = row_a < S ? lse_p[row_a] * kLog2e : 0.f;
@@ -526,7 +457,7 @@ __device__ __forceinline__ void attention_bwd_dq_body(
       cp_async_commit();
       cp_async_wait<1>();
     } else {
-      if constexpr (Mode::kRing && !Mode::kFirst && !acc_early<HD>()) {
+      if constexpr (!Mode::kFirst && !acc_early<HD>()) {
         if (threadIdx.x == 0) dq_tile.load(dq_map, h, q0, bw, bar);
       }
       cp_async_wait<0>();
@@ -569,93 +500,11 @@ __device__ __forceinline__ void attention_bwd_dq_body(
     __syncthreads();
   }
 
-  if constexpr (Mode::kRing) {
-    if constexpr (!Mode::kFirst) mbar_wait(bar, 0);
-    add_rows<HD, Mode::kFirst>(dq_tile, acc, warp * 16 + g, scale);
-    fence_proxy_async();
-    __syncthreads();
-    if (threadIdx.x == 0) dq_tile.store(dq_map, h, q0, bw);
-  } else {
-    store_rows<HD>(dq, acc, b, h, S, H, row_a, scale);
-  }
-}
-
-// The splash kernels: one whole sequence, gradients written as bf16.
-template <int HD, typename Mode>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         void* __restrict__ dk, void* __restrict__ dv, int S,
-                         int H, long long q_sb, long long q_ss, long long q_sh,
-                         long long k_sb, long long k_ss, long long k_sh,
-                         long long v_sb, long long v_ss, long long v_sh,
-                         long long d_sb, long long d_ss, long long d_sh,
-                         float scale_log2, float scale, int causal,
-                         const int* __restrict__ pairs, int world) {
-  attention_bwd_dkv_body<HD, Mode>(q, k, v, dout, lse, delta, dk, dv, S, H,
-                                   q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                                   v_ss, v_sh, d_sb, d_ss, d_sh, scale_log2,
-                                   scale, causal, pairs, world, nullptr,
-                                   nullptr);
-}
-
-template <int HD, typename Mode>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        void* __restrict__ dq, int S, int H,
-                        long long q_sb, long long q_ss, long long q_sh,
-                        long long k_sb, long long k_ss, long long k_sh,
-                        long long v_sb, long long v_ss, long long v_sh,
-                        long long d_sb, long long d_ss, long long d_sh,
-                        float scale_log2, float scale, int causal,
-                        const int* __restrict__ pairs, int world) {
-  attention_bwd_dq_body<HD, Mode>(q, k, v, dout, lse, delta, dq, S, H, q_sb,
-                                  q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-                                  v_sh, d_sb, d_ss, d_sh, scale_log2, scale,
-                                  causal, pairs, world, nullptr);
-}
-
-// Launches the dk/dv kernel, then the dq kernel, each over the grid
-// (tiles, B * H, n_pairs), on `stream`; returns the first launch error.
-// st: q, k, v, do strides (batch, seq, head), in elements. The splash
-// kernel passes pairs = nullptr, n_pairs = 1, world = 1.
-template <int HD, typename Mode>
-int launch_bwd_dkv_dq(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                      const __nv_bfloat16* v, const __nv_bfloat16* dout,
-                      const float* lse, const float* delta, void* dq, void* dk,
-                      void* dv, int B, int S, int H, const long long st[12],
-                      float scale, int causal, const int* pairs, int n_pairs,
-                      int world, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<HD>();
-  static bool allowed_dkv[64] = {};
-  static bool allowed_dq[64] = {};
-  cudaError_t err = allow_smem(attention_bwd_dkv_kernel<HD, Mode>, kSmem, allowed_dkv);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem(attention_bwd_dq_kernel<HD, Mode>, kSmem, allowed_dq);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (S + kBlock - 1) / kBlock;
-  const dim3 grid(n_tiles, B * H, n_pairs);
-  const float scale_log2 = scale * kLog2e;
-  attention_bwd_dkv_kernel<HD, Mode><<<grid, kThreads, kSmem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, S, H, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2, scale,
-      causal, pairs, world);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_dq_kernel<HD, Mode><<<grid, kThreads, kSmem, stream>>>(
-      q, k, v, dout, lse, delta, dq, S, H, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2, scale,
-      causal, pairs, world);
-  return (int)cudaGetLastError();
+  if constexpr (!Mode::kFirst) mbar_wait(bar, 0);
+  add_rows<HD, Mode::kFirst>(dq_tile, acc, warp * 16 + g, scale);
+  fence_proxy_async();
+  __syncthreads();
+  if (threadIdx.x == 0) dq_tile.store(dq_map, h, q0, bw);
 }
 
 }  // namespace

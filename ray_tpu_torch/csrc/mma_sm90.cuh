@@ -20,12 +20,11 @@
 
 namespace {
 
-// Mode tags of the attention bodies (attention_fwd.cuh, attention_bwd.cuh):
-// the splash kernel over one whole sequence, or one ring step over (rank,
-// chunk) pairs. A tag is a type, so that it shows in the kernel's name.
-// kFirst: the ring's step 0, where every rank holds its own chunk, so the
-// step covers every row and writes the accumulators without reading them.
-struct SplashMode { static constexpr bool kRing = false, kFirst = false; };
+// Mode tags of the ring step's attention bodies (attention_fwd.cuh,
+// attention_bwd.cuh), which run over (rank, chunk) pairs. A tag is a type,
+// so that it shows in the kernel's name. kFirst: the ring's step 0, where
+// every rank holds its own chunk, so the step covers every row and writes
+// the accumulators without reading them.
 struct RingStepMode { static constexpr bool kRing = true, kFirst = false; };
 struct RingFirstStepMode { static constexpr bool kRing = true, kFirst = true; };
 

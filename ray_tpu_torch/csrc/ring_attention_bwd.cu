@@ -35,12 +35,13 @@
 // flops per byte. The first step reads no accumulator (63.3 MB per pair);
 // one layer's 4 launches move 860 MB, 0.257 ms (chip_smoke.py:ring_bound).
 //
-// What the design does about it: the blocks are the splash backward's
-// (attention_bwd.cuh, the design note in splash_attention_bwd.cu): s, p and
-// ds stay in registers and shared memory, at 14 * hd flops per pair (the dq
-// launch recomputes s and dp). The delta pass of the splash backward does
-// not run: the caller computes delta once from the fp32 merged o. The
-// accumulator bytes themselves:
+// What the design does about it: the blocks (attention_bwd.cuh, mma.sync)
+// split the work as the splash backward does (its design note is in
+// splash_attention_bwd.cu): a dk/dv launch and a dq launch that need no
+// atomics, s, p and ds kept in registers and shared memory, at 14 * hd flops
+// per pair (the dq launch recomputes s and dp). No delta pass runs: the
+// caller computes delta once from the fp32 merged o. The accumulator bytes
+// themselves:
 // - The first step (`first`) writes dq, dk and dv and reads none of them
 //   (adding into zeros is the block's own gradient), so the caller
 //   allocates them uninitialised and nothing fills them.
@@ -89,11 +90,10 @@ ring_attention_bwd_dkv_kernel(
     float scale_log2, float scale, int causal, const int* __restrict__ pairs,
     int world, const __grid_constant__ CUtensorMap dk_map,
     const __grid_constant__ CUtensorMap dv_map) {
-  attention_bwd_dkv_body<HD, Mode>(q, k, v, dout, lse, delta, nullptr, nullptr,
-                                   S, H, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                                   v_sb, v_ss, v_sh, d_sb, d_ss, d_sh,
-                                   scale_log2, scale, causal, pairs, world,
-                                   &dk_map, &dv_map);
+  attention_bwd_dkv_body<HD, Mode>(q, k, v, dout, lse, delta, S, H, q_sb,
+                                   q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                                   v_sh, d_sb, d_ss, d_sh, scale_log2, scale,
+                                   causal, pairs, world, &dk_map, &dv_map);
 }
 
 template <int HD, typename Mode>
@@ -107,10 +107,10 @@ ring_attention_bwd_dq_kernel(
     long long v_sh, long long d_sb, long long d_ss, long long d_sh,
     float scale_log2, float scale, int causal, const int* __restrict__ pairs,
     int world, const __grid_constant__ CUtensorMap dq_map) {
-  attention_bwd_dq_body<HD, Mode>(q, k, v, dout, lse, delta, nullptr, S, H,
-                                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                                  v_ss, v_sh, d_sb, d_ss, d_sh, scale_log2,
-                                  scale, causal, pairs, world, &dq_map);
+  attention_bwd_dq_body<HD, Mode>(q, k, v, dout, lse, delta, S, H, q_sb, q_ss,
+                                  q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                                  d_sb, d_ss, d_sh, scale_log2, scale, causal,
+                                  pairs, world, &dq_map);
 }
 
 }  // namespace

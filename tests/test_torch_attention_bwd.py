@@ -140,3 +140,25 @@ def test_backward_kernel_wrapper_refuses_before_launch(kw, err):
     delta = torch.zeros(kw["delta_shape"]) if "delta_shape" in kw else None
     with pytest.raises(err):
         attention._splash_bwd_cuda(x, x, x, x, lse, x, delta, True, 0.125)
+
+
+def test_kernel_inputs_copy_a_misaligned_do():
+    """The backward kernel's tensor maps read q, k, v and do: the qkv-split
+    views and a contiguous do pass as they are; a do whose base is not
+    16-byte aligned (as autograd may hand it over) is copied into aligned
+    storage before a map is made from it."""
+    B, S, H, hd = 2, 16, 3, 64
+    qkv = torch.randn((B, S, 3 * H * hd)).to(torch.bfloat16)
+    q, k, v = (t.view(B, S, H, hd) for t in qkv.split(H * hd, dim=-1))
+    do = torch.randn((B, S, H, hd)).to(torch.bfloat16)
+    named = {"q": q, "k": k, "v": v, "do": do}
+    assert all(y is x for x, y in zip(named.values(),
+                                      attention._kernel_inputs(named)))
+    n = B * S * H * hd
+    flat = torch.randn(n + 8).to(torch.bfloat16)
+    shifted = flat[1:1 + n].view(B, S, H, hd)  # base 2 bytes past 16
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    out = attention._kernel_inputs({**named, "do": shifted})
+    assert all(y is x for x, y in zip((q, k, v), out[:3]))
+    assert out[3].data_ptr() % 16 == 0 and attention._row_aligned(out[3])
+    assert torch.equal(out[3], shifted)

@@ -57,10 +57,14 @@ def test_kernel_matches_plain_on_gpu(shape, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,causal", [
     ((16, 1024, 12, 64), True), ((1, 1000, 12, 64), False),
-    ((1, 7, 12, 64), True), ((2, 512, 8, 128), True)])
+    ((1, 1000, 12, 64), True), ((1, 7, 12, 64), True),
+    ((3, 7, 12, 64), False), ((2, 512, 8, 128), True),
+    ((2, 512, 8, 128), False)])
 def test_backward_kernel_matches_plain_on_gpu(shape, causal):
     """q, k, v split from a fused qkv, as the model makes them; the gradient
-    through SplashAttention launches the backward kernel once."""
+    through SplashAttention launches the backward kernel once. Rows past a
+    ragged S, and the whole tile past S=7, arrive from the tensor maps as
+    zeros and must be masked."""
     _need_gpu()
     B, S, H, hd = shape
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -79,6 +83,25 @@ def test_backward_kernel_matches_plain_on_gpu(shape, causal):
                                              causal=causal)
     for g, r in zip(qkv.grad.split(H * hd, dim=-1), refs):
         assert _rel(g.reshape(shape), r) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_backward_kernel_is_deterministic_on_gpu():
+    """No atomics: two backward calls on the same inputs at the training
+    shape give dq, dk and dv equal bit for bit."""
+    _need_gpu()
+    B, S, H, hd = 16, 1024, 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    qkv = torch.randn((B, S, 3 * H * hd), generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    q, k, v = (t.view(B, S, H, hd) for t in qkv.split(H * hd, dim=-1))
+    do = torch.randn((B, S, H, hd), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    o, lse = attention.splash_attention(q, k, v, return_lse=True)
+    first = attention.splash_attention_bwd(q, k, v, o, lse, do)
+    second = attention.splash_attention_bwd(q, k, v, o, lse, do)
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
 @pytest.mark.cuda
