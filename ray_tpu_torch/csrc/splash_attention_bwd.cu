@@ -58,8 +58,9 @@
 //   that read it. The dk/dv block keeps the walked query tile's 64 lse
 //   values (base 2) and 64 delta values in shared memory beside its Q
 //   buffer, by plain loads issued one tile ahead.
-// - Each tile's products are waited for at once, within the tile: the
-//   scores and dp as one group, then the gradient products as one group.
+// - Each tile's products are waited for within the tile: the scores and dp
+//   as two groups, the exponentials running while v do^T (do v^T) is still
+//   on the tensor cores, then the gradient products as one group.
 //
 // Numerics: the forward's lse is natural-log; the kernels work in base 2
 // (exp2 of s * scale * log2(e) - lse * log2(e)). A masked (query, key) pair
@@ -314,21 +315,21 @@ splash_attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
     // and staged once every thread is done with the buffer.
     const float staged = refill ? stage_row(n + kStages) : 0.f;
 
-    // s^T = k q^T and dp^T = v do^T, one group.
+    // s^T = k q^T and dp^T = v do^T, two groups.
     mbar_wait(q_bar + buf, (n / kStages) & 1);
     mbar_wait(do_bar + buf, (n / kStages) & 1);
     fence_regs(st);
     fence_regs(dpt);
     wgmma_fence();
     ss_product<HD>(st, k_desc, kmajor_desc(q_tile));
+    wgmma_commit();
     ss_product<HD>(dpt, v_desc, kmajor_desc(do_tile));
     wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(st);
-    fence_regs(dpt);
 
-    // p^T = exp2(s^T * scale_log2 - lse); masked pairs (and rows past S)
-    // get 0 by assignment.
+    // p^T = exp2(s^T * scale_log2 - lse) while v do^T runs; masked pairs
+    // (and rows past S) get 0 by assignment.
+    wgmma_wait<1>();
+    fence_regs(st);
     const bool edge = (q0 + kBlock > S) || (kv0 + kBlock > S) ||
                       (causal && q_begin + n == kv_tile);
     const float* lseb = lse_s + buf * kBlock;
@@ -351,6 +352,8 @@ splash_attention_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
     pack_a(pa, st);
 
     // ds^T = p^T (dp^T - delta).
+    wgmma_wait<0>();
+    fence_regs(dpt);
 #pragma unroll
     for (int c = 0; c < kBlock / 8; ++c) {
       const float2 d = *reinterpret_cast<const float2*>(deltab + 8 * c + 2 * t);
@@ -466,20 +469,20 @@ splash_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     const uint32_t k_tile = base + L::kRingA + buf * L::kTile;
     const uint32_t v_tile = base + L::kRingB + buf * L::kTile;
 
-    // s = q k^T and dp = do v^T, one group.
+    // s = q k^T and dp = do v^T, two groups.
     mbar_wait(k_bar + buf, (j / kStages) & 1);
     mbar_wait(v_bar + buf, (j / kStages) & 1);
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
     ss_product<HD>(s, q_desc, kmajor_desc(k_tile));
+    wgmma_commit();
     ss_product<HD>(dp, do_desc, kmajor_desc(v_tile));
     wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
 
-    // p = exp2(s * scale_log2 - lse).
+    // p = exp2(s * scale_log2 - lse) while do v^T runs.
+    wgmma_wait<1>();
+    fence_regs(s);
     const int kv0 = j * kBlock;
     const bool edge = (kv0 + kBlock > S) || (q0 + kBlock > S) ||
                       (causal && j == q_tile);
@@ -498,6 +501,8 @@ splash_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     }
 
     // ds = p (dp - delta).
+    wgmma_wait<0>();
+    fence_regs(dp);
 #pragma unroll
     for (int c = 0; c < kBlock / 8; ++c) {
       dp[4 * c] = s[4 * c] * (dp[4 * c] - delta_a);
