@@ -7,16 +7,18 @@ Phases, each of which exits non-zero on failure:
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds every
    kernel under ``ray_tpu_torch/csrc`` from source, timing the build; prints
-   each ring kernel's and the splash forward's registers, spill bytes,
+   each ring kernel's and each splash kernel's registers, spill bytes,
    shared memory and resident blocks per SM (``resources ring ...``,
-   ``resources splash fwd hd=...``).
+   ``resources splash <fwd|dkv|dq> hd=...``).
 2. Kernels against their plain versions, each at the main path's shape and
    a few edge shapes, with its device time beside the plain version's, a
    PyTorch yardstick (the port never calls it) and the card's bound:
    - the splash attention forward against ``attention_reference`` (output
      and lse; yardstick ``F.scaled_dot_product_attention``);
    - the splash attention backward against ``attention_bwd_reference``
-     (dq, dk, dv; yardstick the backward of SDPA);
+     (dq, dk, dv; yardstick the backward of SDPA, its device time from
+     ``torch.profiler`` beside a host-clock loop), timed at the training
+     shape and at head_dim 128;
    - the fused LM-head cross-entropy forward, dx and dW against
      ``ce_fwd_reference``, ``ce_dx_reference`` and ``ce_dw_reference``
      (yardstick the dense head: bf16 logits, logsumexp and gather, and
@@ -100,9 +102,11 @@ MAIN_SHAPE = (1, 1024, 12, 64, True)
 # them fp32; both round the result to bf16 (2**-8 relative).
 BWD_RTOL = 2e-2
 # (B, S, H, hd, causal): the training shape first, q, k, v split from a
-# fused qkv as the model makes them.
+# fused qkv as the model makes them. Timed: the training shape and
+# head_dim 128.
 BWD_SHAPES = [(16, 1024, 12, 64, True), (1, 1000, 12, 64, False),
               (1, 7, 12, 64, True), (2, 512, 8, 128, True)]
+BWD_TIMED = [(16, 1024, 12, 64, True), (2, 512, 8, 128, True)]
 
 # Fused CE against its plain versions. lse and tgt are fp32 on both sides
 # from exact bf16 products summed in another order (over D and over V).
@@ -301,6 +305,30 @@ def loop_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2
     return start.elapsed_time(end) / iters
 
 
+def profiled_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2):
+    """Device time of one call: the own times of the CUDA kernels that
+    ``torch.profiler`` records over ``iters`` calls, summed, over ``iters``
+    (as ``scripts/torch_profile_serve.py:device_kernel_times`` reads them).
+    For calls that cannot be captured in a CUDA graph; unlike ``loop_ms`` it
+    leaves out the host's gaps between kernels. None when the profiler saw
+    no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else None
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -412,7 +440,7 @@ def phase_attn_bwd(peaks: Tuple[float, float]) -> Dict[str, object]:
             rel_err(a, b) for a, b in zip(ext, grads))
         if row["external_delta_rel_err"] > BWD_RTOL:
             fail(f"splash backward with an external delta differs at {shape}")
-        if n == 0:  # the training shape: time it
+        if (B, S, H, hd, causal) in BWD_TIMED:
             qt, kt, vt = (t.transpose(1, 2).detach().clone().requires_grad_()
                           for t in (q, k, v))
             out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
@@ -432,10 +460,21 @@ def phase_attn_bwd(peaks: Tuple[float, float]) -> Dict[str, object]:
 
             bound_ms, bound_by = attention_bwd_bound(B, S, H, hd, causal,
                                                      *peaks)
-            row.update(ms=device_ms(kernel), plain_ms=device_ms(plain, iters=3),
-                       library_ms=loop_ms(library), bound_ms=bound_ms,
+            # SDPA's backward is an autograd call, which a CUDA graph does
+            # not capture: its device time comes from the profiler (the
+            # kernel's own beside it, read the same way), the host-clock
+            # loop beside it.
+            library_dev, library_loop = profiled_ms(library), loop_ms(library)
+            row.update(ms=device_ms(kernel), profiled_ms=profiled_ms(kernel),
+                       plain_ms=device_ms(plain, iters=3),
+                       library_ms=(library_dev if library_dev is not None
+                                   else library_loop),
+                       library_ms_by=("profiler" if library_dev is not None
+                                      else "events_loop"),
+                       library_loop_ms=library_loop, bound_ms=bound_ms,
                        bound_by=bound_by, call_ms=time_ms(kernel))
-            main = row
+            if n == 0:
+                main = row
             del qt, kt, vt, out, dot
         rows.append(row)
         print("kernel splash_attention_bwd " + json.dumps(row), flush=True)
@@ -793,23 +832,27 @@ def ring_resources() -> Dict[str, object]:
 
 
 def splash_resources() -> Dict[str, object]:
-    """What the splash forward kernel holds on an SM, by head_dim, from
-    ``splash_attention_fwd_resources``."""
+    """What each splash kernel holds on an SM (the forward; the backward's
+    dk/dv and dq kernels), by head_dim, from the sources' ``*_resources``
+    entries."""
     import ctypes
 
     from ray_tpu_torch._private import kernel_build
 
-    fn = kernel_build.load(
-        "splash_attention_fwd").splash_attention_fwd_resources
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = {}
-    for hd in (64, 128):
-        buf = (ctypes.c_int * 5)()
-        err = fn(hd, ctypes.addressof(buf))
-        if err != 0:
-            fail(f"splash_attention_fwd_resources({hd}): CUDA error {err}")
-        out[f"fwd hd={hd}"] = dict(zip(RESOURCE_FIELDS, buf))
+    for name, kernels in (("splash_attention_fwd", ("fwd",)),
+                          ("splash_attention_bwd", ("dkv", "dq"))):
+        fn = getattr(kernel_build.load(name), f"{name}_resources")
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for hd in (64, 128):
+            buf = (ctypes.c_int * (5 * len(kernels)))()
+            err = fn(hd, ctypes.addressof(buf))
+            if err != 0:
+                fail(f"{name}_resources({hd}): CUDA error {err}")
+            for i, kernel in enumerate(kernels):
+                out[f"{kernel} hd={hd}"] = dict(
+                    zip(RESOURCE_FIELDS, buf[5 * i:5 * i + 5]))
     return out
 
 
@@ -1167,7 +1210,9 @@ def main() -> int:
               ":128), forward", [1, 3], paths("splash_attention_fwd"),
               kern["worst"], kern["main"], kern["main"]["library_ms"],
               {k: kern["main"][k] for k in ("B", "S", "H", "hd", "causal")},
-              train_shape_ms=kern["rows"][0]["ms"], resources=splash_res),
+              train_shape_ms=kern["rows"][0]["ms"],
+              resources={k: r for k, r in splash_res.items()
+                         if k.startswith("fwd")}),
         entry("splash_attention_bwd",
               "ray_tpu_torch/csrc/splash_attention_bwd.cu",
               "ray_tpu/ops/attention.py:56",
@@ -1176,7 +1221,12 @@ def main() -> int:
               paths("splash_attention_bwd"), bwd["worst_abs"], bwd["main"],
               bwd["main"]["library_ms"],
               {k: bwd["main"][k] for k in ("B", "S", "H", "hd", "causal")},
-              max_rel_err=bwd["worst_rel"]),
+              max_rel_err=bwd["worst_rel"],
+              library_ms_by=bwd["main"]["library_ms_by"],
+              library_loop_ms=bwd["main"]["library_loop_ms"],
+              profiled_ms=bwd["main"]["profiled_ms"],
+              resources={k: r for k, r in splash_res.items()
+                         if not k.startswith("fwd")}),
     ]
     for name, row_no, line, function in (
             ("fused_ce_fwd", 5, 81, "_fwd_pallas (_fwd_kernel :53)"),

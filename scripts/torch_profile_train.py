@@ -32,12 +32,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 from torch_profile_serve import device_kernel_times  # noqa: E402
 
 # Each kind's kernel names: a name is of the kind when it holds every
-# fragment of one of the alternatives; kinds are checked in order. The
-# splash and ring backward kernels share their body (csrc/attention_bwd.cuh)
-# and differ by the mode tag in their names; the ring's kernels are named
-# after their source.
+# fragment of one of the alternatives; kinds are checked in order. Every
+# kernel is named after its source, but for the splash backward's delta
+# pass.
 KINDS = (("splash_attention_fwd", (("splash_attention_fwd_kernel",),)),
-         ("splash_attention_bwd", (("attention_bwd_", "SplashMode"),
+         ("splash_attention_bwd", (("splash_attention_bwd_",),
                                    ("attention_bwd_delta_kernel",))),
          ("ring_attention_fwd", (("ring_attention_fwd_kernel",),)),
          ("ring_attention_bwd", (("ring_attention_bwd_",),)),
