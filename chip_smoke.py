@@ -66,7 +66,7 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 # Published dense peaks, one table for the port (ray_tpu_torch._private.peaks):
 # device-memory bytes/s and bf16 tensor-core flop/s by card name.
@@ -305,13 +305,15 @@ def loop_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2
     return start.elapsed_time(end) / iters
 
 
-def profiled_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2):
+def profiled_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2
+                ) -> Tuple[Optional[float], Dict[str, float]]:
     """Device time of one call: the own times of the CUDA kernels that
     ``torch.profiler`` records over ``iters`` calls, summed, over ``iters``
-    (as ``scripts/torch_profile_serve.py:device_kernel_times`` reads them).
-    For calls that cannot be captured in a CUDA graph; unlike ``loop_ms`` it
-    leaves out the host's gaps between kernels. None when the profiler saw
-    no device time."""
+    (as ``scripts/torch_profile_serve.py:device_kernel_times`` reads them),
+    and each kernel's share by name (cut to 80 characters). For calls that
+    cannot be captured in a CUDA graph; unlike ``loop_ms`` it leaves out the
+    host's gaps between kernels. None when the profiler saw no device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -324,9 +326,14 @@ def profiled_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters if us > 0 else None
+    by_kernel: Dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key[:80]
+            by_kernel[name] = (by_kernel.get(name, 0.0)
+                               + e.self_device_time_total / 1e3 / iters)
+    total = sum(by_kernel.values())
+    return (total if total > 0 else None), by_kernel
 
 
 def card_line() -> str:
@@ -464,8 +471,12 @@ def phase_attn_bwd(peaks: Tuple[float, float]) -> Dict[str, object]:
             # not capture: its device time comes from the profiler (the
             # kernel's own beside it, read the same way), the host-clock
             # loop beside it.
-            library_dev, library_loop = profiled_ms(library), loop_ms(library)
-            row.update(ms=device_ms(kernel), profiled_ms=profiled_ms(kernel),
+            (library_dev, library_kernels), library_loop = (
+                profiled_ms(library), loop_ms(library))
+            kernel_dev, kernel_kernels = profiled_ms(kernel)
+            row.update(ms=device_ms(kernel), profiled_ms=kernel_dev,
+                       profiled_by_kernel=kernel_kernels,
+                       library_by_kernel=library_kernels,
                        plain_ms=device_ms(plain, iters=3),
                        library_ms=(library_dev if library_dev is not None
                                    else library_loop),

@@ -60,7 +60,11 @@
 //   buffer, by plain loads issued one tile ahead.
 // - Each tile's products are waited for within the tile: the scores and dp
 //   as two groups, the exponentials running while v do^T (do v^T) is still
-//   on the tensor cores, then the gradient products as one group.
+//   on the tensor cores, then the gradient products as one group. The
+//   dk/dv kernel holds dk, dv, s^T and dp^T in registers: 168 at hd=64, 3
+//   blocks per SM (dq 122, 4 blocks), 237 at hd=128 (dq 176), no spills.
+//   Starting dv's product before ds is computed took 171 and a block per
+//   SM, and was slower (PERF.md, PR 7).
 //
 // Numerics: the forward's lse is natural-log; the kernels work in base 2
 // (exp2 of s * scale * log2(e) - lse * log2(e)). A masked (query, key) pair
@@ -70,8 +74,9 @@
 // carry the scale explicitly.
 //
 // Not yet done (later work): warp specialisation (a producer warp for the
-// TMA) and persistent blocks; the two score sets of a tile in flight at once
-// across tiles; a TMA store of dq, dk, dv.
+// TMA, two consumer warpgroups with setmaxnreg) and persistent blocks; the
+// next tile's scores issued under this tile's gradient products; delta
+// computed inside a pass that already reads do; a TMA store of dq, dk, dv.
 //
 // Inputs may be strided views (q, k, v split from the fused qkv have a row
 // stride of 3*D): every row of hd elements must be contiguous and every
