@@ -18,49 +18,73 @@
 // (1.28 ms at 989 TFLOP/s) against 0.1 GB of x and W; dx and dW each
 // recompute the logits and add one product of the same size (2.56 ms each).
 //
-// What the design does about it: every kernel is a block that keeps one
-// tile resident in shared memory and streams 32-row tiles of the other
-// operand through two cp.async buffers, so the next tile's load overlaps this
-// tile's math; the products run on the tensor cores through mma.sync
-// m16n8k16 (bf16 operands, fp32 accumulators) with ldmatrix operand loads,
-// eight warps a block.
-//   fwd: 64 rows of x resident; W streams past in 32-row vocab tiles; each
-//        warp owns 16 rows x 16 vocab columns of a tile and keeps an online
-//        max and sum-exp (base 2) for its columns in registers; the two
-//        column halves of a row merge once at the end.
-//   dx:  32 rows of x resident; W streams past. Per tile the 32 x 32 logits
-//        are recomputed, p - onehot goes through shared memory as bf16, and
-//        dx += p W accumulates in registers: the 32 x D fp32 tile is split
-//        over the eight warps (16 rows x D/4 columns each, 96 registers at
-//        D = 768). A 64-row tile would need twice that, more than the
-//        register file, and keeping it in shared memory (196 KB at D = 768)
-//        would leave no room for the operands; splitting D across blocks
-//        would recompute the logits once per split.
-//   dW:  the same with the roles swapped: 32 vocab rows of W resident, x
-//        streams past, dW += (p - onehot)^T x. Each block walks every row
-//        tile itself, the counterpart of the TPU's sequential grid axis
-//        (:141-147), so the sum over N needs no atomics and gives the same
-//        bits on every run.
-// Ragged N and V are masked: rows past N and vocab rows past V read as zeros,
-// get p = 0 and are never written.
+// The forward: 64 rows of x resident in shared memory, W streaming past in
+// 32-row vocab tiles through two cp.async buffers; mma.sync m16n8k16 with
+// ldmatrix operand loads, eight warps, each owning 16 rows x 16 vocab
+// columns of a tile with an online max and sum-exp (base 2) in registers;
+// the two column halves of a row merge once at the end. Known slowness: it
+// reloads its A operand for every 16 x 16 output and cannot reach the
+// tensor cores' full rate (mma.sync, not wgmma); the backward's body below
+// is the model for its redesign.
 //
-// Known slowness, for later work: W (77 MB in bf16) does not fit the 50 MB L2,
-// and with 64-row tiles the forward re-reads it once per row tile (256 times
-// at N = 16384; dx, with 32-row tiles, 512 times; dW re-reads x once per
-// vocab tile). mma.sync with a 16 x 8 or 16 x 16 warp tile also reloads its
-// A operand for every product; wgmma, TMA and larger warp tiles are the fix.
+// The backward, dx and dW: one body, the roles a template parameter.
+//   dx: R = 64 rows of x resident, S = W streaming past, out = dx (N, D);
+//   dW: R = 64 vocab rows of W resident, S = x streaming past, out = dW.
+// Per streamed tile of 32 rows the block recomputes the 64 x 32 logits
+// R S^T, forms p - onehot, rounds it to bf16 and adds P S into a 64 x D
+// fp32 accumulator in registers. Each block owns its 64 output rows and
+// walks every streamed tile itself, in one order (the counterpart of the
+// TPU's sequential grid axis, :141-147): no atomics, the same bits on every
+// run. Rows past N and vocab rows past V arrive as zeros (TMA), get p = 0
+// and are never written.
+//
+// What bounds the design, and the accumulator arithmetic:
+// - The accumulator sets the layout. 64 x 768 fp32 is 192 KB, three
+//   quarters of the register file: no tile taller than 64 rows fits, and
+//   one warpgroup cannot hold 768 columns. So D is split across D / 256
+//   consumer warpgroups (three at D = 768, one at 128 or 64): warpgroup i
+//   owns the columns D_i, which are at once the K-slice of its partial
+//   logits R[:, D_i] S[:, D_i]^T (wgmma m64n32k16, both operands K-major in
+//   shared memory) and the N-slice of its accumulator, acc_i (64 x 256
+//   fp32, 128 registers a thread) += P S[:, D_i] (wgmma m64n128k16 twice,
+//   P from registers as the A operand, S read MN-major). Three warpgroups
+//   of 128 threads leave 168 registers a thread for the accumulator, the
+//   16 of the partial logits, the 8 of P, and addresses.
+// - Each warpgroup touches only its own D-slice of R and S. The only traffic
+//   between warpgroups is the partial logits (64 x 32 fp32 each): each
+//   writes its own to shared memory, one barrier, then every warpgroup sums
+//   the partials in the same order (warpgroup 0, 1, 2), so all form the
+//   same P bits and exponentiate the whole tile (three times the
+//   exponentials of one pass: ~0.7 ms of the SFUs' time at the training
+//   shape).
+// - Loads: one thread has the TMA copy each tile by tensor map ({D, 1,
+//   rows, 1}, boxes of 64 columns, 128-byte swizzled): R once (64 rows), S
+//   through a ring of two buffers of 32 rows, one mbarrier each, a buffer
+//   refilled once every thread is past the barrier that ends its tile. dW
+//   stages each streamed tile's 32 lse values (base 2) and targets in
+//   shared memory, by plain loads issued a tile ahead.
+// - Shared memory at D = 768: R 96 KB, two S buffers 96 KB, the partials
+//   24 KB: 217 KB with the barriers and the alignment slack, one block per
+//   SM. A 64-row S tile would halve the logits' shared-memory reads per
+//   flop, but only one buffer of it fits.
+// - The grid at the training shape: 256 blocks for dx (W, 77 MB, streamed
+//   past each once from L2), 786 for dW (x, 25 MB, each).
+// Each tile's products are waited for within the tile (ptxas serialises
+// wgmma otherwise, PERF.md PR 6).
 //
 // D must be one of the instantiated widths: 768 (GPT-2 124M), 128
 // (GPTConfig.tiny()) and 64 (the ragged test case). The accumulators are
-// registers sized at compile time; the wrapper checks D.
+// registers sized at compile time; the wrapper checks D, and that x and W
+// start on 16 bytes (the tensor maps' rule).
 
-#include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
+
 
 namespace {
 
 constexpr int kThreads = 256;   // eight warps
 constexpr int kPad = 8;         // bf16 elements of padding per shared row
-constexpr int kTile = 32;       // rows of a streamed tile (and of dx/dW's resident one)
+constexpr int kTile = 32;       // rows of a streamed W tile in the forward
 constexpr int kFwdRows = 64;    // rows of x resident in the forward
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -83,85 +107,30 @@ __device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
   }
 }
 
-// c (16 x 8*NTW) = R[r0:r0+16, :D] * S[s0:s0+8*NTW, :D]^T, both row-major in
+// c (16 x 16) = R[r0:r0+16, :D] * S[s0:s0+16, :D]^T, both row-major in
 // shared memory with row stride D + kPad.
-template <int D, int NTW>
-__device__ __forceinline__ void tile_logits(float c[NTW][4], const __nv_bfloat16* R,
+template <int D>
+__device__ __forceinline__ void tile_logits(float c[2][4], const __nv_bfloat16* R,
                                             int r0, const __nv_bfloat16* S, int s0) {
   constexpr int LD = D + kPad;
   const int lane = threadIdx.x % 32;
   const int mi = lane / 8, mr = lane % 8;
 #pragma unroll
-  for (int n = 0; n < NTW; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+  for (int n = 0; n < 2; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
 #pragma unroll 4
   for (int kk = 0; kk < D / 16; ++kk) {
     uint32_t a[4];
     load_a<LD>(a, R, r0, kk);
-    if constexpr (NTW == 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, S + (s0 + (mi >> 1) * 8 + mr) * LD + kk * 16 + (mi & 1) * 8);
-      mma_16816(c[0], a, b[0], b[1]);
-      mma_16816(c[1], a, b[2], b[3]);
-    } else {
-      uint32_t b[2];
-      ldmatrix_x2(b, S + (s0 + mr) * LD + kk * 16 + (mi & 1) * 8);
-      mma_16816(c[0], a, b[0], b[1]);
-    }
-  }
-}
-
-// acc (16 x D/4) += P[r0:r0+16, 0:32] * S[0:32, d0:d0+D/4]: P is the bf16
-// (p - onehot) tile in shared memory (row stride kTile + kPad), S a streamed
-// or resident tile stored [k][n] (row stride D + kPad).
-template <int D>
-__device__ __forceinline__ void tile_product(float acc[D / 32][4],
-                                             const __nv_bfloat16* P, int r0,
-                                             const __nv_bfloat16* S, int d0) {
-  constexpr int LD = D + kPad;
-  constexpr int PLD = kTile + kPad;
-  const int lane = threadIdx.x % 32;
-  const int mi = lane / 8, mr = lane % 8;
-#pragma unroll
-  for (int kt = 0; kt < kTile / 16; ++kt) {
-    uint32_t a[4];
-    load_a<PLD>(a, P, r0, kt);
-#pragma unroll
-    for (int d = 0; d < D / 32; d += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, S + (kt * 16 + (mi & 1) * 8 + mr) * LD + d0 + d * 8 +
-                               (mi >> 1) * 8);
-      mma_16816(acc[d], a, b[0], b[1]);
-      mma_16816(acc[d + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Writes a warp's 16 x D/4 fp32 accumulator tile into a contiguous (n, D)
-// matrix at rows r (and r + 8), columns d0...; rows at or past n are skipped.
-template <int D>
-__device__ __forceinline__ void store_acc(float* out, float acc[D / 32][4], int r,
-                                          int n, int d0) {
-  const int t = (threadIdx.x % 32) % 4;
-#pragma unroll
-  for (int d = 0; d < D / 32; ++d) {
-    const int col = d0 + d * 8 + 2 * t;
-    if (r < n)
-      *reinterpret_cast<float2*>(out + (long long)r * D + col) =
-          make_float2(acc[d][0], acc[d][1]);
-    if (r + 8 < n)
-      *reinterpret_cast<float2*>(out + (long long)(r + 8) * D + col) =
-          make_float2(acc[d][2], acc[d][3]);
+    uint32_t b[4];
+    ldmatrix_x4(b, S + (s0 + (mi >> 1) * 8 + mr) * LD + kk * 16 + (mi & 1) * 8);
+    mma_16816(c[0], a, b[0], b[1]);
+    mma_16816(c[1], a, b[2], b[3]);
   }
 }
 
 template <int D>
 __host__ __device__ constexpr int fwd_smem_bytes() {
   return (kFwdRows + 2 * kTile) * (D + kPad) * 2 + 3 * kFwdRows * 4;
-}
-
-template <int D>
-__host__ __device__ constexpr int bwd_smem_bytes() {
-  return 3 * kTile * (D + kPad) * 2 + kTile * (kTile + kPad) * 2;
 }
 
 // Forward: lse[n] = logsumexp_v(x[n] . W[v]), tgt[n] = x[n] . W[t[n]].
@@ -213,7 +182,7 @@ fused_ce_fwd_kernel(const __nv_bfloat16* __restrict__ x,
     __syncthreads();
 
     float c[2][4];
-    tile_logits<D, 2>(c, x_s, rg * 16, w_s + cur * WT, cg * 16);
+    tile_logits<D>(c, x_s, rg * 16, w_s + cur * WT, cg * 16);
     const int v0 = j * kTile + cg * 16;
     float mx_a = m_a, mx_b = m_b;
 #pragma unroll
@@ -282,213 +251,379 @@ fused_ce_fwd_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// p - onehot for one 32 x 32 tile in the accumulator layout of a 16 x 8 warp
-// tile, rounded to bf16 and stored row-major into P (row stride kTile +
-// kPad). rows/cols: global indices of this thread's entries; lse_log2 and the
-// target per row or per column as the caller lays them out.
-__device__ __forceinline__ void store_p(__nv_bfloat16* P, int pr, int pc,
-                                        const float c[4], const bool valid[4],
-                                        const float lse_log2[4], const bool hot[4]) {
-  float p[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    p[e] = valid[e] ? exp2f(c[e] * kLog2e - lse_log2[e]) - (hot[e] ? 1.f : 0.f)
-                    : 0.f;
-  }
-  constexpr int PLD = kTile + kPad;
-  *reinterpret_cast<uint32_t*>(P + pr * PLD + pc) = pack_bf16(p[0], p[1]);
-  *reinterpret_cast<uint32_t*>(P + (pr + 8) * PLD + pc) = pack_bf16(p[2], p[3]);
+// ---- The backward body (dx and dW) ----
+
+constexpr int kResRows = 64;  // rows of the resident tile: wgmma's M
+constexpr int kStrRows = 32;  // rows of a streamed tile: the logits' N, P's K
+constexpr int kStages = 2;    // buffers of the streamed ring
+// One 64-column box of a tile: 64 (or 32) rows of 128 swizzled bytes.
+constexpr int kResBox = kResRows * kBoxCols * 2;
+constexpr int kStrBox = kStrRows * kBoxCols * 2;
+
+// The backward's threads and shared memory at width D, from a
+// 1024-byte-aligned base (kBytes adds the slack to reach it): the resident
+// tile (D / 64 boxes of 64 rows), kStages streamed tiles (D / 64 boxes of
+// 32 rows each), each warpgroup's partial logits (64 x 32 fp32, when D is
+// split), the streamed rows' lse (base 2) and targets per buffer (dW), and
+// the mbarriers: the resident tile's, then one per buffer.
+template <int D>
+struct BwdLayout {
+  static constexpr int kGroups = D > 384 ? D / 384 : 1;  // warpgroups
+  static constexpr int kCols = D / kGroups;  // columns a warpgroup owns
+  static constexpr int kThreads = 128 * kGroups;
+  static constexpr int kStrTile = D / kBoxCols * kStrBox;
+  static constexpr int kRes = 0;
+  static constexpr int kStr = D / kBoxCols * kResBox;
+  static constexpr int kPart = kStr + kStages * kStrTile;
+  static constexpr int kSide =
+      kPart + (kGroups > 1 ? kGroups * kResRows * kStrRows * 4 : 0);
+  static constexpr int kBars = kSide + kStages * kStrRows * 8;
+  static constexpr int kBytes = kBars + (1 + kStages) * 8 + 1024;
+  static_assert(kCols * kGroups == D && kCols % kBoxCols == 0,
+                "a warpgroup owns whole boxes");
+};
+
+// A contiguous bf16 (rows, D) matrix as the tensor {D, 1, rows, 1} whose
+// boxes are `box_rows` rows of 64 columns, 128-byte swizzled in shared
+// memory. Rows past `rows` arrive as zeros.
+inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base,
+                                   int rows, int D, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, 1, (cuuint64_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[4] = {kBoxCols, 1, (cuuint32_t)box_rows, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    const_cast<void*>(base), dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// dx[n] = sum_v (exp(x[n] . W[v] - lse[n]) - [v == t[n]]) W[v], fp32.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fused_ce_dx_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ w,
-                   const int* __restrict__ t, const float* __restrict__ lse,
-                   float* __restrict__ dx, int N, int V) {
-  constexpr int LD = D + kPad;
-  constexpr int TT = kTile * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* w_s = x_s + TT;       // two buffers
-  __nv_bfloat16* p_s = w_s + 2 * TT;   // (32 rows, 32 vocab)
-
-  const int row0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tq = lane % 4;
-  const int rg = warp & 1;   // rows rg*16 .. (both phases)
-  const int cg = warp >> 1;  // logits: vocab columns cg*8 ..; product: D quarter
-
-  load_rows_async<D>(x_s, x, row0, N, kTile);
-  load_rows_async<D>(w_s, w, 0, V, kTile);
-  cp_async_commit();
-
-  const int r_a = row0 + rg * 16 + g;
-  const int r_b = r_a + 8;
-  const float lse_a = r_a < N ? lse[r_a] * kLog2e : 0.f;
-  const float lse_b = r_b < N ? lse[r_b] * kLog2e : 0.f;
-  const int t_a = r_a < N ? t[r_a] : -1;
-  const int t_b = r_b < N ? t[r_b] : -1;
-
-  float acc[D / 32][4];
+// One thread: starts loading rows row0 .. row0 + ROWS - 1, all D columns,
+// into the tile at shared address dst (1024-byte aligned), as one arrival
+// on `bar` that expects them.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows_tma(uint32_t dst,
+                                              const CUtensorMap* map, int row0,
+                                              uint64_t* bar) {
+  constexpr int kBox = ROWS * kBoxCols * 2;
+  mbar_expect_tx(bar, D / kBoxCols * kBox);
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  const int n_vt = (V + kTile - 1) / kTile;
-  for (int j = 0; j < n_vt; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < n_vt) {
-      load_rows_async<D>(w_s + (cur ^ 1) * TT, w, (j + 1) * kTile, V, kTile);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* wb = w_s + cur * TT;
-
-    float c[1][4];
-    tile_logits<D, 1>(c, x_s, rg * 16, wb, cg * 8);
-    const int col = j * kTile + cg * 8 + 2 * tq;
-    const bool valid[4] = {r_a < N && col < V, r_a < N && col + 1 < V,
-                           r_b < N && col < V, r_b < N && col + 1 < V};
-    const float ls[4] = {lse_a, lse_a, lse_b, lse_b};
-    const bool hot[4] = {col == t_a, col + 1 == t_a, col == t_b, col + 1 == t_b};
-    store_p(p_s, rg * 16 + g, cg * 8 + 2 * tq, c[0], valid, ls, hot);
-    __syncthreads();
-
-    tile_product<D>(acc, p_s, rg * 16, wb, cg * (D / 4));
-    __syncthreads();  // p_s and buffer cur are free for the next tile
-  }
-
-  store_acc<D>(dx, acc, r_a, N, cg * (D / 4));
+  for (int c = 0; c < D / kBoxCols; ++c)
+    tensor_load(dst + c * kBox, map, c * kBoxCols, 0, row0, 0, bar);
 }
 
-// dW[v] = sum_n (exp(x[n] . W[v] - lse[n]) - [v == t[n]]) x[n], fp32.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fused_ce_dw_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ w,
-                   const int* __restrict__ t, const float* __restrict__ lse,
-                   float* __restrict__ dw, int N, int V) {
-  constexpr int LD = D + kPad;
-  constexpr int TT = kTile * LD;
+// With p[n, v] = exp(x[n] . W[v] - lse[n]) - [v == t[n]]:
+// dx (kDw false): out[n] = sum_v p[n, v] W[v];
+// dW (kDw true):  out[v] = sum_n p[n, v] x[n];
+// fp32, p - onehot rounded to bf16. res_map: the resident operand (x for
+// dx, W for dW) in 64-row boxes; str_map: the streamed one in 32-row boxes.
+template <int D, bool kDw>
+__global__ void __launch_bounds__(BwdLayout<D>::kThreads, 1)
+fused_ce_bwd_kernel(const __grid_constant__ CUtensorMap res_map,
+                    const __grid_constant__ CUtensorMap str_map,
+                    const int* __restrict__ t, const float* __restrict__ lse,
+                    float* __restrict__ out, int N, int V) {
+  using L = BwdLayout<D>;
+  constexpr int kNW = L::kCols >= 128 ? 128 : 64;  // columns of one wgmma
+  constexpr int kNC = L::kCols / kNW;              // wgmma per k-step
+  constexpr int kKS = kStrRows / 16;               // k-steps of P S
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* x_s = w_s + TT;       // two buffers
-  __nv_bfloat16* p_s = x_s + 2 * TT;   // (32 vocab, 32 rows): p^T
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* ptr = smem_raw + (base - raw);
+  uint64_t* res_bar = reinterpret_cast<uint64_t*>(ptr + L::kBars);
+  uint64_t* str_bar = res_bar + 1;
+  float4* part = reinterpret_cast<float4*>(ptr + L::kPart);
+  float* side_lse = reinterpret_cast<float*>(ptr + L::kSide);
+  int* side_t = reinterpret_cast<int*>(side_lse + kStages * kStrRows);
 
-  const int v0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tq = lane % 4;
-  const int rg = warp & 1;   // vocab rows rg*16 .. (both phases)
-  const int cg = warp >> 1;  // logits: x rows cg*8 ..; product: D quarter
+  const int n_res = kDw ? V : N;  // rows of the resident operand and of out
+  const int n_str = kDw ? N : V;  // rows of the streamed operand
+  const int r0 = blockIdx.x * kResRows;
+  const int n_tiles = (n_str + kStrRows - 1) / kStrRows;
 
-  load_rows_async<D>(w_s, w, v0, V, kTile);
-  load_rows_async<D>(x_s, x, 0, N, kTile);
-  cp_async_commit();
+  const int group = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int g = (tid % 32) / 4;  // row within the 8-row group of a fragment
+  const int tq = tid % 4;        // column pair within a fragment
+  const int row_a = r0 + (tid / 32) * 16 + g;  // this thread's two out rows
+  const int row_b = row_a + 8;
 
-  const int v_a = v0 + rg * 16 + g;
-  const int v_b = v_a + 8;
+  // dW: thread i < 32 stages the lse (base 2) of streamed row i of a tile,
+  // thread 32 + i its target; rows past N hold 0 and -1.
+  const int stage_i = threadIdx.x % kStrRows;
+  auto stage_value = [&](int j) -> uint32_t {
+    const int n = j * kStrRows + stage_i;
+    if (threadIdx.x < kStrRows)
+      return __float_as_uint(n < N ? lse[n] * kLog2e : 0.f);
+    return (uint32_t)(n < N ? t[n] : -1);
+  };
+  auto stage_store = [&](int buf, uint32_t v) {
+    if (threadIdx.x < kStrRows)
+      side_lse[buf * kStrRows + stage_i] = __uint_as_float(v);
+    else
+      side_t[buf * kStrRows + stage_i] = (int)v;
+  };
+  const bool stager = kDw && threadIdx.x < 2 * kStrRows;
 
-  float acc[D / 32][4];
-#pragma unroll
-  for (int i = 0; i < D / 32; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const CUtensorMap* smap = &str_map;
+  auto load_streamed = [&](int j) {
+    const int buf = j % kStages;
+    load_rows_tma<D, kStrRows>(base + L::kStr + buf * L::kStrTile, smap,
+                               j * kStrRows, str_bar + buf);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(res_bar + i, 1);
+    fence_mbar_init();
+    load_rows_tma<D, kResRows>(base + L::kRes, &res_map, r0, res_bar);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) load_streamed(j);
+  }
+  if (stager)
+    for (int j = 0; j < kStages && j < n_tiles; ++j)
+      stage_store(j, stage_value(j));
+  __syncthreads();
 
-  const int n_rt = (N + kTile - 1) / kTile;
-  for (int j = 0; j < n_rt; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < n_rt) {
-      load_rows_async<D>(x_s + (cur ^ 1) * TT, x, (j + 1) * kTile, N, kTile);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* xb = x_s + cur * TT;
-
-    // logits^T (32 vocab x 32 rows) = W_tile x_tile^T.
-    float c[1][4];
-    tile_logits<D, 1>(c, w_s, rg * 16, xb, cg * 8);
-    const int n = j * kTile + cg * 8 + 2 * tq;  // this thread's two rows of x
-    const bool ok0 = n < N, ok1 = n + 1 < N;
-    const float ls0 = ok0 ? lse[n] * kLog2e : 0.f;
-    const float ls1 = ok1 ? lse[n + 1] * kLog2e : 0.f;
-    const int t0 = ok0 ? t[n] : -1;
-    const int t1 = ok1 ? t[n + 1] : -1;
-    const bool valid[4] = {ok0 && v_a < V, ok1 && v_a < V, ok0 && v_b < V,
-                           ok1 && v_b < V};
-    const float ls[4] = {ls0, ls1, ls0, ls1};
-    const bool hot[4] = {t0 == v_a, t1 == v_a, t0 == v_b, t1 == v_b};
-    store_p(p_s, rg * 16 + g, cg * 8 + 2 * tq, c[0], valid, ls, hot);
-    __syncthreads();
-
-    tile_product<D>(acc, p_s, rg * 16, xb, cg * (D / 4));
-    __syncthreads();
+  // dx: lse (base 2) and target of the two rows.
+  float lse_a = 0.f, lse_b = 0.f;
+  int t_a = -1, t_b = -1;
+  if (!kDw) {
+    if (row_a < N) { lse_a = lse[row_a] * kLog2e; t_a = t[row_a]; }
+    if (row_b < N) { lse_b = lse[row_b] * kLog2e; t_b = t[row_b]; }
   }
 
-  store_acc<D>(dw, acc, v_a, V, cg * (D / 4));
+  // This warpgroup's first 64-column box.
+  const int box0 = group * (L::kCols / kBoxCols);
+  const uint64_t res_desc =
+      sw128_desc(base + L::kRes + box0 * kResBox, 16, 1024);
+
+  float acc[kNC][kNW / 2];
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int i = 0; i < kNW / 2; ++i) acc[c][i] = 0.f;
+  float z[16];  // the tile's logits (this warpgroup's partial, then whole)
+
+  mbar_wait(res_bar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j % kStages;
+    const uint32_t s_tile = base + L::kStr + buf * L::kStrTile + box0 * kStrBox;
+    const bool refill = j + kStages < n_tiles;
+    // The staged row of the tile this buffer takes next, loaded now and
+    // stored once every thread is done with the buffer.
+    const uint32_t staged = stager && refill ? stage_value(j + kStages) : 0u;
+
+    // Partial logits R[:, D_i] S[:, D_i]^T, one group.
+    mbar_wait(str_bar + buf, (j / kStages) & 1);
+    fence_regs(z);
+    wgmma_fence();
+    {
+      const uint64_t s_desc = sw128_desc(s_tile, 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < L::kCols / 16; ++kk)
+        wgmma_64x32x16_ss(
+            z, desc_at(res_desc, (kk / 4) * kResBox + (kk % 4) * 32),
+            desc_at(s_desc, (kk / 4) * kStrBox + (kk % 4) * 32), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(z);
+
+    // The whole logits: the partials summed in warpgroup order. Thread tid
+    // of every warpgroup holds the same 16 entries, so each is stored at
+    // (warpgroup, chunk, tid).
+    if constexpr (L::kGroups > 1) {
+      float4* mine = part + group * 4 * 128 + tid;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        mine[q * 128] = make_float4(z[4 * q], z[4 * q + 1], z[4 * q + 2],
+                                    z[4 * q + 3]);
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 own = make_float4(z[4 * q], z[4 * q + 1], z[4 * q + 2],
+                                       z[4 * q + 3]);
+        float4 s = group == 0 ? own : part[q * 128 + tid];
+#pragma unroll
+        for (int p = 1; p < L::kGroups; ++p) {
+          const float4 v = p == group ? own : part[(p * 4 + q) * 128 + tid];
+          s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+        }
+        z[4 * q] = s.x; z[4 * q + 1] = s.y; z[4 * q + 2] = s.z;
+        z[4 * q + 3] = s.w;
+      }
+    }
+
+    // p - onehot; rows and columns past N or V get 0 by assignment.
+    const int col0 = j * kStrRows;
+    const bool edge = col0 + kStrRows > n_str || r0 + kResRows > n_res;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int cl = 8 * q + 2 * tq;  // local column of entries 0 and 2
+      float2 ls2 = make_float2(0.f, 0.f);
+      int2 tt2 = make_int2(-1, -1);
+      if (kDw) {
+        ls2 = *reinterpret_cast<const float2*>(side_lse + buf * kStrRows + cl);
+        tt2 = *reinterpret_cast<const int2*>(side_t + buf * kStrRows + cl);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = col0 + cl + (e & 1);
+        const int row = e < 2 ? row_a : row_b;
+        float ls;
+        bool hot;
+        if (kDw) {
+          ls = (e & 1) ? ls2.y : ls2.x;
+          hot = ((e & 1) ? tt2.y : tt2.x) == row;
+        } else {
+          ls = e < 2 ? lse_a : lse_b;
+          hot = col == (e < 2 ? t_a : t_b);
+        }
+        float p = exp2f(z[4 * q + e] * kLog2e - ls) - (hot ? 1.f : 0.f);
+        if (edge && (col >= n_str || row >= n_res)) p = 0.f;
+        z[4 * q + e] = p;
+      }
+    }
+    // P in the A layout: the accumulator chunks 2kt and 2kt + 1 are k-step
+    // kt.
+    uint32_t pa[kKS][4];
+#pragma unroll
+    for (int kt = 0; kt < kKS; ++kt) {
+      pa[kt][0] = pack_bf16(z[8 * kt], z[8 * kt + 1]);
+      pa[kt][1] = pack_bf16(z[8 * kt + 2], z[8 * kt + 3]);
+      pa[kt][2] = pack_bf16(z[8 * kt + 4], z[8 * kt + 5]);
+      pa[kt][3] = pack_bf16(z[8 * kt + 6], z[8 * kt + 7]);
+    }
+
+    // acc += P S[:, D_i], one group: S read MN-major, 16 rows (2 KB of each
+    // box) per k-step, kNW columns (kNW / 64 boxes) per wgmma.
+#pragma unroll
+    for (int c = 0; c < kNC; ++c) fence_regs(acc[c]);
+#pragma unroll
+    for (int kt = 0; kt < kKS; ++kt) fence_regs(pa[kt]);
+    wgmma_fence();
+    {
+      const uint64_t b_desc = sw128_desc(s_tile, kStrBox, 1024);
+#pragma unroll
+      for (int kt = 0; kt < kKS; ++kt)
+#pragma unroll
+        for (int c = 0; c < kNC; ++c)
+          wgmma_rs<kNW>(acc[c], pa[kt],
+                        desc_at(b_desc, kt * 16 * kBoxCols * 2 +
+                                            c * (kNW / kBoxCols) * kStrBox));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kNC; ++c) fence_regs(acc[c]);
+
+    // Every thread is done with buffer buf and the partials: the buffer
+    // takes tile j + kStages. The barrier stands after every tile but the
+    // last, so that a staged row is visible before its tile is read.
+    if (j + 1 < n_tiles) {
+      __syncthreads();
+      if (refill) {
+        if (threadIdx.x == 0) load_streamed(j + kStages);
+        if (stager) stage_store(buf, staged);
+      }
+    }
+  }
+
+  // This warpgroup's columns of the two rows; rows past n_res are skipped.
+  const int col_base = group * L::kCols + 2 * tq;
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int d = 0; d < kNW / 8; ++d) {
+      const int col = col_base + c * kNW + 8 * d;
+      if (row_a < n_res)
+        *reinterpret_cast<float2*>(out + (long long)row_a * D + col) =
+            make_float2(acc[c][4 * d], acc[c][4 * d + 1]);
+      if (row_b < n_res)
+        *reinterpret_cast<float2*>(out + (long long)row_b * D + col) =
+            make_float2(acc[c][4 * d + 2], acc[c][4 * d + 3]);
+    }
 }
 
 enum class Which { kFwd, kDx, kDw };
 
+template <int D, bool kDw>
+int launch_bwd(const void* x, const void* w, const void* t, const void* lse,
+               void* out, int N, int V, cudaStream_t stream) {
+  using L = BwdLayout<D>;
+  static bool allowed[64] = {};
+  cudaError_t err =
+      allow_smem(fused_ce_bwd_kernel<D, kDw>, L::kBytes, allowed);
+  CUtensorMap res_map, str_map;
+  if (err == cudaSuccess)
+    err = encode_rows_map(&res_map, kDw ? w : x, kDw ? V : N, D, kResRows);
+  if (err == cudaSuccess)
+    err = encode_rows_map(&str_map, kDw ? x : w, kDw ? N : V, D, kStrRows);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)(((kDw ? V : N) + kResRows - 1) / kResRows);
+  fused_ce_bwd_kernel<D, kDw><<<blocks, L::kThreads, L::kBytes, stream>>>(
+      res_map, str_map, static_cast<const int*>(t),
+      static_cast<const float*>(lse), static_cast<float*>(out), N, V);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch(Which which, const void* x, const void* w, const void* t, void* a,
            void* b, int N, int V, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  const bf16* xp = static_cast<const bf16*>(x);
-  const bf16* wp = static_cast<const bf16*>(w);
-  const int* tp = static_cast<const int*>(t);
-  cudaError_t err;
-  if (which == Which::kFwd) {
-    static bool allowed[64] = {};
-    err = allow_smem(fused_ce_fwd_kernel<D>, fwd_smem_bytes<D>(), allowed);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned blocks = (unsigned)((N + kFwdRows - 1) / kFwdRows);
-    fused_ce_fwd_kernel<D><<<blocks, kThreads, fwd_smem_bytes<D>(), stream>>>(
-        xp, wp, tp, static_cast<float*>(a), static_cast<float*>(b), N, V);
-  } else if (which == Which::kDx) {
-    static bool allowed[64] = {};
-    err = allow_smem(fused_ce_dx_kernel<D>, bwd_smem_bytes<D>(), allowed);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned blocks = (unsigned)((N + kTile - 1) / kTile);
-    fused_ce_dx_kernel<D><<<blocks, kThreads, bwd_smem_bytes<D>(), stream>>>(
-        xp, wp, tp, static_cast<const float*>(a), static_cast<float*>(b), N, V);
-  } else {
-    static bool allowed[64] = {};
-    err = allow_smem(fused_ce_dw_kernel<D>, bwd_smem_bytes<D>(), allowed);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned blocks = (unsigned)((V + kTile - 1) / kTile);
-    fused_ce_dw_kernel<D><<<blocks, kThreads, bwd_smem_bytes<D>(), stream>>>(
-        xp, wp, tp, static_cast<const float*>(a), static_cast<float*>(b), N, V);
-  }
+  if (which == Which::kDx)
+    return launch_bwd<D, false>(x, w, t, a, b, N, V, stream);
+  if (which == Which::kDw)
+    return launch_bwd<D, true>(x, w, t, a, b, N, V, stream);
+  static bool allowed[64] = {};
+  const cudaError_t err =
+      allow_smem(fused_ce_fwd_kernel<D>, fwd_smem_bytes<D>(), allowed);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((N + kFwdRows - 1) / kFwdRows);
+  fused_ce_fwd_kernel<D><<<blocks, kThreads, fwd_smem_bytes<D>(), stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<const int*>(t),
+      static_cast<float*>(a), static_cast<float*>(b), N, V);
   return (int)cudaGetLastError();
+}
+
+// What the backward's kernels hold on an SM (kernel_resources in
+// mma_sm90.cuh): dx's five numbers, then dW's.
+template <int D>
+int bwd_resources(int* out) {
+  using L = BwdLayout<D>;
+  const cudaError_t err = kernel_resources(fused_ce_bwd_kernel<D, false>,
+                                           L::kThreads, L::kBytes, out);
+  if (err != cudaSuccess) return (int)err;
+  return (int)kernel_resources(fused_ce_bwd_kernel<D, true>, L::kThreads,
+                               L::kBytes, out + 5);
+}
+
+// Returns go(std::integral_constant<int, D>{}) for an instantiated width,
+// cudaErrorInvalidValue for another.
+template <typename Go>
+int width_dispatch(int D, Go go) {
+  switch (D) {
+    case 64: return go(std::integral_constant<int, 64>{});
+    case 128: return go(std::integral_constant<int, 128>{});
+    case 768: return go(std::integral_constant<int, 768>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int dispatch(Which which, const void* x, const void* w, const void* t, void* a,
              void* b, int N, int V, int D, void* stream) {
   if (N <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch<64>(which, x, w, t, a, b, N, V, st);
-    case 128: return launch<128>(which, x, w, t, a, b, N, V, st);
-    case 768: return launch<768>(which, x, w, t, a, b, N, V, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return width_dispatch(D, [&](auto d) {
+    return launch<decltype(d)::value>(which, x, w, t, a, b, N, V, st);
+  });
 }
 
 }  // namespace
 
-// Plain C entries, bound with ctypes. x (N, D) and w (V, D) contiguous bf16,
-// t (N,) int32, lse/tgt (N,) fp32, dx (N, D) and dw (V, D) fp32, all
-// contiguous. Each launches on `stream` and returns cudaGetLastError()
-// (cudaErrorInvalidValue for an unsupported D or an empty input).
+// Plain C entries, bound with ctypes. x (N, D) and w (V, D) contiguous bf16
+// (dx and dW: based on 16 bytes), t (N,) int32, lse/tgt (N,) fp32, dx (N, D)
+// and dw (V, D) fp32, all contiguous. Each launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for an unsupported D, an empty
+// input, or an input the tensor maps do not take).
 extern "C" int fused_ce_fwd(const void* x, const void* w, const void* t,
                             void* lse, void* tgt, int N, int V, int D,
                             void* stream) {
@@ -507,4 +642,12 @@ extern "C" int fused_ce_dw(const void* x, const void* w, const void* t,
                            void* stream) {
   return dispatch(Which::kDw, x, w, t, const_cast<void*>(lse), dw, N, V, D,
                   stream);
+}
+
+// The dx kernel's registers, spill bytes, static and dynamic shared bytes
+// and resident blocks per SM at width D, then the dW kernel's.
+extern "C" int fused_ce_resources(int D, int* out) {
+  return width_dispatch(D, [&](auto d) {
+    return bwd_resources<decltype(d)::value>(out);
+  });
 }

@@ -1,15 +1,15 @@
 // Hopper's warpgroup matrix multiply (wgmma) and the TMA tile loads that
-// feed it, for the attention kernels written around them
-// (splash_attention_fwd.cu):
+// feed it, for the kernels written around them (splash_attention_fwd.cu,
+// splash_attention_bwd.cu, and the fused-CE backward in fused_ce.cu):
 // - the tensor map of a bf16 (B, S, H, hd) operand, strided views of a
 //   fused qkv included, whose boxes of 64 rows by 64 columns of one head
 //   land in shared memory with the 128-byte swizzle that wgmma reads;
 // - the shared-memory matrix descriptor of such a tile, read K-major (the
 //   contracted dimension along the rows) or MN-major (the transposed read of
 //   a row-major tile);
-// - m64n64k16 with both operands in shared memory, m64n64k16 and
-//   m64n128k16 with A in registers, bf16 operands and fp32 accumulators,
-//   and the fence, commit and wait that order them.
+// - m64n32k16 and m64n64k16 with both operands in shared memory,
+//   m64n64k16 and m64n128k16 with A in registers, bf16 operands and fp32
+//   accumulators, and the fence, commit and wait that order them.
 // A warpgroup (four consecutive warps, 128 threads) issues each product
 // together, and it runs asynchronously until a wait. The accumulator of a
 // m64nNk16 gives warp w rows 16w .. 16w + 15 and, in each 8-column chunk c,
@@ -139,6 +139,26 @@ __device__ __forceinline__ void wgmma_64x64x16_ss(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 32, fp32) = a b, or d + a b when `accumulate`: a (64 x 16) and
+// b (16 x 32) bf16, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_64x32x16_ss(float (&d)[16], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

@@ -97,7 +97,14 @@ def _kernel_inputs(x2: torch.Tensor, w: torch.Tensor, t: torch.Tensor):
             f"got {D}")
     if x2.shape[0] > 2**31 - 1 or w.shape[0] > 2**31 - 1:
         raise ValueError("N and V must fit in int32")
-    return x2.contiguous(), w.contiguous(), t.to(torch.int32).contiguous()
+    return _aligned(x2), _aligned(w), t.to(torch.int32).contiguous()
+
+
+def _aligned(a: torch.Tensor) -> torch.Tensor:
+    """``a`` contiguous and starting on 16 bytes, as the backward kernels'
+    TMA tensor maps require: a view that starts elsewhere is copied."""
+    a = a.contiguous()
+    return a if a.data_ptr() % 16 == 0 else a.clone()
 
 
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int

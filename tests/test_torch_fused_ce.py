@@ -130,6 +130,21 @@ def test_kernel_wrapper_refuses_before_launch(dtype, D, err):
                                 torch.zeros(8, dtype=torch.long))
 
 
+def test_kernel_inputs_copy_a_view_off_16_bytes():
+    """The backward kernels' TMA tensor maps take a base on 16 bytes: a view
+    that starts elsewhere is copied before any launch; one that starts there
+    is passed as it is."""
+    buf = torch.arange(8 * 64 + 1, dtype=torch.float32).to(torch.bfloat16)
+    x = buf[1:].view(8, 64)
+    w = torch.ones((24, 64), dtype=torch.bfloat16)[8:]
+    assert x.data_ptr() % 16 != 0 and w.data_ptr() % 16 == 0
+    x2, w2, t2 = fused_ce._kernel_inputs(x, w, torch.zeros(8, dtype=torch.long))
+    assert x2.data_ptr() % 16 == 0 and x2.is_contiguous()
+    assert torch.equal(x2, x)
+    assert w2.data_ptr() == w.data_ptr()
+    assert t2.dtype == torch.int32
+
+
 def test_gpt2_fused_loss_matches_jax_and_dense():
     """loss_impl="fused" in the port's GPT-2 equals the JAX fused loss and
     the port's dense loss with fp32 logits (mirrors
