@@ -495,6 +495,40 @@ def phase_attn_bwd(peaks: Tuple[float, float]) -> Dict[str, object]:
     return dict(main=main, worst_abs=worst_abs, worst_rel=worst_rel, rows=rows)
 
 
+def _ce_inputs(gen, N: int, D: int, V: int):
+    """x2 (N, D), W (V, D) bf16 and t (N,): layernormed hidden states, GPT-2's
+    init scale for the head, uniform targets."""
+    import torch
+
+    x2 = torch.randn((N, D), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    w = (torch.randn((V, D), generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    t = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    return x2, w, t
+
+
+def _dense_head(x2, w, t):
+    """The dense head on the same inputs: bf16 logits, fp32 logsumexp and
+    gather, and the backward of that loss to x2 and W."""
+    import torch
+
+    x2d = x2.detach().clone().requires_grad_()
+    wd = w.detach().clone().requires_grad_()
+
+    def fwd():
+        logits = x2d @ wd.t()
+        return (torch.logsumexp(logits.float(), -1)
+                - logits.gather(1, t[:, None])[:, 0].float()).mean()
+
+    loss = fwd()
+
+    def bwd():
+        return torch.autograd.grad(loss, (x2d, wd), retain_graph=True)
+
+    return fwd, bwd
+
+
 def phase_ce(peaks: Tuple[float, float]) -> Dict[str, object]:
     import torch
 
@@ -504,12 +538,7 @@ def phase_ce(peaks: Tuple[float, float]) -> Dict[str, object]:
     out = {name: {"rows": [], "worst_abs": 0.0}
            for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")}
     for n, (N, D, V) in enumerate(CE_SHAPES):
-        # Layernormed hidden states and GPT-2's init scale for the head.
-        x2 = torch.randn((N, D), generator=gen, device="cuda",
-                         dtype=torch.bfloat16)
-        w = (torch.randn((V, D), generator=gen, device="cuda") * 0.02).to(
-            torch.bfloat16)
-        t = torch.randint(0, V, (N,), generator=gen, device="cuda")
+        x2, w, t = _ce_inputs(gen, N, D, V)
         lse, tgt = fused_ce.ce_fwd(x2, w, t)
         dx = fused_ce.ce_dx(x2, w, t, lse)
         dw = fused_ce.ce_dw(x2, w, t, lse)
@@ -537,20 +566,7 @@ def phase_ce(peaks: Tuple[float, float]) -> Dict[str, object]:
                      f"{r['rel_err']} (tol {CE_GRAD_RTOL})")
         del lse_r, tgt_r, dx_r, dw_r
         if n == 0:  # the training shape: time it
-            x2d = x2.detach().clone().requires_grad_()
-            wd = w.detach().clone().requires_grad_()
-
-            def dense_fwd():
-                logits = x2d @ wd.t()
-                return (torch.logsumexp(logits.float(), -1)
-                        - logits.gather(1, t[:, None])[:, 0].float()).mean()
-
-            dense_loss = dense_fwd()
-
-            def dense_bwd():
-                return torch.autograd.grad(dense_loss, (x2d, wd),
-                                           retain_graph=True)
-
+            dense_fwd, dense_bwd = _dense_head(x2, w, t)
             with torch.no_grad():
                 dense_fwd_ms = device_ms(dense_fwd, iters=3)
             dense_bwd_ms = loop_ms(dense_bwd, iters=3)
@@ -567,7 +583,8 @@ def phase_ce(peaks: Tuple[float, float]) -> Dict[str, object]:
                          dense_ms=dense_fwd_ms if which == "fwd"
                          else dense_bwd_ms,
                          bound_ms=bound_ms, bound_by=bound_by)
-            del x2d, wd, dense_loss
+            dxr["dx_plus_dw_ms"] = dwr["dx_plus_dw_ms"] = dxr["ms"] + dwr["ms"]
+            del dense_fwd, dense_bwd
         for name, r in (("fused_ce_fwd", fwd), ("fused_ce_dx", dxr),
                         ("fused_ce_dw", dwr)):
             out[name]["rows"].append(r)
@@ -579,6 +596,34 @@ def phase_ce(peaks: Tuple[float, float]) -> Dict[str, object]:
         del x2, w, t, lse, tgt, dx, dw
         torch.cuda.empty_cache()
     return out
+
+
+def phase_ce_yardstick(ce: Dict[str, object]) -> Dict[str, object]:
+    """The dense head's backward at the CE training shape (phase_ce's
+    inputs, from the same seed), timed on the device: the own time of each
+    CUDA kernel ``torch.profiler`` records, by name, with cuBLAS's products
+    (``matmul_ms``) apart from the softmax and other passes
+    (``other_ms``); the host-clock loop beside it, and the fused backward's
+    dx + dW from phase_ce. It runs after every other phase, as the splash
+    backward's profiled yardstick does."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x2, w, t = _ce_inputs(gen, *CE_SHAPES[0])
+    _, dense_bwd = _dense_head(x2, w, t)
+    dev, by_kernel = profiled_ms(dense_bwd, iters=3)
+    matmul = sum(ms for name, ms in by_kernel.items()
+                 if any(k in name.lower() for k in
+                        ("gemm", "xmma", "nvjet", "cutlass")))
+    row = dict(N=CE_SHAPES[0][0], D=CE_SHAPES[0][1], V=CE_SHAPES[0][2],
+               profiled_ms=dev, matmul_ms=matmul,
+               other_ms=(dev - matmul) if dev is not None else None,
+               by_kernel=by_kernel, loop_ms=loop_ms(dense_bwd, iters=3),
+               dx_plus_dw_ms=ce["fused_ce_dx"]["main"]["dx_plus_dw_ms"])
+    print("yardstick ce_dense_bwd " + json.dumps(row), flush=True)
+    del x2, w, t, dense_bwd
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_serve() -> Dict[str, object]:
@@ -815,6 +860,28 @@ def _ring_times(peaks, q, k, v, do, o, lse, causal) -> Dict[str, object]:
 # give it (kernel_resources in csrc/mma_sm90.cuh).
 RESOURCE_FIELDS = ("registers", "spill_bytes", "static_smem", "dynamic_smem",
                    "blocks_per_sm")
+
+
+def ce_resources() -> Dict[str, object]:
+    """What the fused CE backward's dx and dW kernels hold on an SM, by
+    width, from ``fused_ce_resources``."""
+    import ctypes
+
+    from ray_tpu_torch._private import kernel_build
+
+    fn = kernel_build.load("fused_ce").fused_ce_resources
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = {}
+    for D in (64, 128, 768):
+        buf = (ctypes.c_int * 10)()
+        err = fn(D, ctypes.addressof(buf))
+        if err != 0:
+            fail(f"fused_ce_resources({D}): CUDA error {err}")
+        for i, kernel in enumerate(("dx", "dw")):
+            out[f"{kernel} D={D}"] = dict(
+                zip(RESOURCE_FIELDS, buf[5 * i:5 * i + 5]))
+    return out
 
 
 def ring_resources() -> Dict[str, object]:
@@ -1178,7 +1245,7 @@ def main() -> int:
     print(f"build_seconds {time.perf_counter() - t0:.3f}", flush=True)
     for name in kernel_build.kernel_names():
         for line in kernel_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     resources = ring_resources()
     for kernel, res in resources.items():
@@ -1186,6 +1253,17 @@ def main() -> int:
     splash_res = splash_resources()
     for kernel, res in splash_res.items():
         print(f"resources splash {kernel} " + json.dumps(res), flush=True)
+    ce_res = ce_resources()
+    for kernel, res in ce_res.items():
+        print(f"resources ce {kernel} " + json.dumps(res), flush=True)
+    # The CE backward keeps its 64 x 384 fp32 accumulator in registers at
+    # D=768: a spill, or wgmma serialised by ptxas, is a fault of the build.
+    for kernel in ("dx", "dw"):
+        if ce_res[f"{kernel} D=768"]["spill_bytes"]:
+            fail(f"fused CE {kernel} spills at D=768: "
+                 f"{ce_res[f'{kernel} D=768']}")
+    if "C751" in kernel_build.build_log("fused_ce"):
+        fail("ptxas serialised the fused CE kernels' wgmma (a C751x note)")
 
     kern = phase_kernel(peaks)
     ce = phase_ce(peaks)
@@ -1196,6 +1274,7 @@ def main() -> int:
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
     bwd = phase_attn_bwd(peaks)
+    ce_dense = phase_ce_yardstick(ce)
 
     def entry(name, source, replaces, function, rows, by_path, worst, row,
               library_ms, shape, **extra):
@@ -1253,7 +1332,13 @@ def main() -> int:
             f"ray_tpu.ops.fused_ce.{function}", [row_no], paths(name),
             ce[name]["worst_abs"], main_row, None,
             {k: main_row[k] for k in ("N", "D", "V")},
-            dense_ms=main_row["dense_ms"]))
+            dense_ms=main_row["dense_ms"],
+            **({} if name == "fused_ce_fwd" else dict(
+                dx_plus_dw_ms=main_row["dx_plus_dw_ms"],
+                dense_bwd_profiled_ms=ce_dense["profiled_ms"],
+                dense_bwd_matmul_ms=ce_dense["matmul_ms"],
+                resources={k: r for k, r in ce_res.items()
+                           if k.startswith(name[-2:])}))))
     # The ring kernels' time is one layer's W=4 launches at the training
     # path's shape; SDPA is the one PyTorch call for the same attention.
     ring_shape = {k: ring["main"][k]

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Holds the attention kernels of two source trees against each other on one
-NVIDIA GPU: the ring step kernels bit for bit, the splash forward and
-backward by how far each tree is from the plain version and from the other
-tree, and the splash backward's device time.
+"""Holds the attention and fused-CE kernels of two source trees against each
+other on one NVIDIA GPU: the ring step kernels bit for bit, the splash
+forward and backward and the CE backward by how far each tree is from the
+plain version and from the other tree, the CE forward bit for bit, and the
+splash backward's and the CE kernels' device times.
 
     python3 scripts/torch_ring_compare.py --tree parent=smoke_tree/parent \\
         --tree change=. [--work ray_tpu_torch/_build/ring_compare]
 
 For each tree, in its own process (both hold a package named
-``ray_tpu_torch``) and in the order given, it builds the ring kernels and
-the splash forward and backward from that tree's ``csrc/``, prints their
-ptxas lines, a digest of the ring libraries' machine code (``sass``, from
-``cuobjdump -sass``, names left out) and what each kernel holds on an SM
-(registers, spill bytes, static and dynamic shared bytes, resident blocks
-per SM; the ring's for head_dim 64 and 128 and each step kind, the splash
-kernels' for each head_dim), and saves, all from one seed:
+``ray_tpu_torch``) and in the order given, it builds the ring kernels, the
+splash forward and backward and the fused CE kernels from that tree's
+``csrc/``, prints their ptxas lines, a digest of the ring libraries' machine
+code (``sass``, from ``cuobjdump -sass``, names left out) and what each
+kernel holds on an SM (registers, spill bytes, static and dynamic shared
+bytes, resident blocks per SM; the ring's for head_dim 64 and 128 and each
+step kind, the splash kernels' for each head_dim, the CE backward's dx and
+dW kernels for each width), and saves, all from one seed:
 
 - a whole W=4 ring forward and backward (o, lse, dq, dk, dv) at
   ``chip_smoke.py``'s four ``RING_SHAPES``;
@@ -26,15 +28,22 @@ kernels' for each head_dim), and saves, all from one seed:
   ``attention_bwd_reference`` over the reference's largest entry
   (``splash_bwd_vs_plain``), and the backward's device time (CUDA-graph
   replay, as ``chip_smoke.py:device_ms``) at ``BWD_TIMED``
-  (``splash_bwd_ms``).
+  (``splash_bwd_ms``);
+- the fused CE forward's lse and tgt and the backward's dx and dW at
+  ``chip_smoke.py``'s ``CE_SHAPES``, printing dx's and dW's largest
+  difference from their plain versions over the reference's largest entry
+  (``ce_vs_plain``), and the three kernels' device times at the training
+  shape (``ce_ms``).
 
 Then it prints, per shape and tensor, whether the trees agree bit for bit
 and by how much they differ (``bits``), ``ring_bit_equal`` (true when every
-ring tensor agrees) and ``ring_sass_equal`` (true when the ring libraries'
-machine code agrees). The splash kernels sum in the order their design
-takes, so two designs are not expected to agree bit for bit. A tree whose
-splash sources export no ``*_resources`` entry gets one from a probe source
-that includes them. Give a tree twice, in turns (parent, change, change,
+ring tensor agrees), ``ring_sass_equal`` (true when the ring libraries'
+machine code agrees), ``ce_fwd_bit_equal`` (true when every lse and tgt
+agrees) and ``ce_grad_diff`` (dx's and dW's largest difference between the
+trees per shape). The splash kernels and the CE backward sum in the order
+their design takes, so two designs are not expected to agree bit for bit.
+A tree whose splash or CE sources export no ``*_resources`` entry gets one
+from a probe source that includes them. Give a tree twice, in turns (parent, change, change,
 parent), to see the spread of the times. Saved results go to ``--work`` (a
 directory the repository's .gitignore lists).
 """
@@ -66,8 +75,12 @@ SPLASH_SHAPES = [
 BWD_SHAPES = [(16, 1024, 12, 64, True), (1, 1000, 12, 64, False),
               (1, 7, 12, 64, True), (2, 512, 8, 128, True)]
 BWD_TIMED = [(16, 1024, 12, 64, True), (2, 512, 8, 128, True)]
+# chip_smoke.py CE_SHAPES: (N, D, V); the training shape first, timed.
+CE_SHAPES = [(16384, 768, 50304), (24, 64, 96), (1000, 768, 50257)]
 RING = ("ring_attention_fwd", "ring_attention_bwd")
 SPLASH = ("splash_attention_fwd", "splash_attention_bwd")
+CE = "fused_ce"
+CE_KERNELS = ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")
 RING_TENSORS = ("o", "lse", "dq", "dk", "dv")
 GRADS = ("dq", "dk", "dv")
 
@@ -100,6 +113,24 @@ int probe(int* out) {{
 extern "C" int splash_attention_bwd_resources(int head_dim, int* out) {{
   if (head_dim == 64) return probe<64>(out);
   if (head_dim == 128) return probe<128>(out);
+  return (int)cudaErrorInvalidValue;
+}}
+""",
+    # The mma.sync dx and dW kernels, eight warps and bwd_smem_bytes each.
+    "fused_ce": """
+#include "{source}"
+template <int D>
+int probe(int* out) {{
+  cudaError_t err = kernel_resources(fused_ce_dx_kernel<D>, kThreads,
+                                     bwd_smem_bytes<D>(), out);
+  if (err != cudaSuccess) return (int)err;
+  return (int)kernel_resources(fused_ce_dw_kernel<D>, kThreads,
+                               bwd_smem_bytes<D>(), out + 5);
+}}
+extern "C" int fused_ce_resources(int D, int* out) {{
+  if (D == 64) return probe<64>(out);
+  if (D == 128) return probe<128>(out);
+  if (D == 768) return probe<768>(out);
   return (int)cudaErrorInvalidValue;
 }}
 """}
@@ -138,7 +169,7 @@ def _resources(kernel_build, work: Path, label: str) -> dict:
             for first in (0, 1):
                 res[f"{name} hd{hd}_first{first}"] = _call(fn, (hd, first),
                                                            n_kernels)
-    for name in SPLASH:
+    for name in (*SPLASH, CE):
         lib = kernel_build.load(name)
         if not hasattr(lib, f"{name}_resources"):
             src = work / f"probe_{label}_{name}.cu"
@@ -154,8 +185,9 @@ def _resources(kernel_build, work: Path, label: str) -> dict:
             lib = ctypes.CDLL(str(so))
         fn = _entry(lib, f"{name}_resources", 2)
         n_kernels = 1 if name.endswith("fwd") else 2
-        for hd in (64, 128):
-            res[f"{name} hd{hd}"] = _call(fn, (hd,), n_kernels)
+        for width in ((64, 128, 768) if name == CE else (64, 128)):
+            key = f"{name} D={width}" if name == CE else f"{name} hd{width}"
+            res[key] = _call(fn, (width,), n_kernels)
     return res
 
 
@@ -184,15 +216,15 @@ def worker(tree: Path, label: str, work: Path) -> None:
     import torch
 
     from ray_tpu_torch._private import kernel_build
-    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.ops import attention, fused_ce
     from ray_tpu_torch.ops import ring_attention as ra
 
     if not Path(kernel_build.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"imported {kernel_build.__file__}, not {tree}'s")
     import chip_smoke
 
-    kernel_build.build([*RING, *SPLASH])
-    for name in (*RING, *SPLASH):
+    kernel_build.build([*RING, *SPLASH, CE])
+    for name in (*RING, *SPLASH, CE):
         for line in kernel_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "C75" in line:
                 print(f"{label} ptxas {name}: {line.strip()}", flush=True)
@@ -258,7 +290,45 @@ def worker(tree: Path, label: str, work: Path) -> None:
         del qkv, q, k, v, o, lse, do, grads, refs
     print(f"{label} splash_bwd_vs_plain " + json.dumps(vs_plain), flush=True)
     print(f"{label} splash_bwd_ms " + json.dumps(times), flush=True)
+    _ce(fused_ce, chip_smoke, label, saved)
     torch.save(saved, work / f"bits_{label}.pt")
+
+
+def _ce(fused_ce, chip_smoke, label: str, saved: dict) -> None:
+    """The fused CE kernels at CE_SHAPES, made as chip_smoke.py's phase_ce
+    makes them: outputs saved, dx and dW against their plain versions, the
+    three kernels' device times at the training shape."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    vs_plain, times = {}, {}
+    for n, (N, D, V) in enumerate(CE_SHAPES):
+        x2 = torch.randn((N, D), generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        w = (torch.randn((V, D), generator=gen, device="cuda") * 0.02).to(
+            torch.bfloat16)
+        t = torch.randint(0, V, (N,), generator=gen, device="cuda")
+        lse, tgt = fused_ce.ce_fwd(x2, w, t)
+        dx = fused_ce.ce_dx(x2, w, t, lse)
+        dw = fused_ce.ce_dw(x2, w, t, lse)
+        shape = str((N, D, V))
+        vs_plain[shape] = {
+            "dx": chip_smoke.rel_err(dx, fused_ce.ce_dx_reference(x2, w, t,
+                                                                  lse)),
+            "dW": chip_smoke.rel_err(dw, fused_ce.ce_dw_reference(x2, w, t,
+                                                                  lse))}
+        saved[f"ce {shape}"] = {"lse": lse.cpu(), "tgt": tgt.cpu(),
+                                "dx": dx.cpu(), "dW": dw.cpu()}
+        if n == 0:
+            for name, fn in (
+                    ("fused_ce_fwd", lambda: fused_ce.ce_fwd(x2, w, t)),
+                    ("fused_ce_dx", lambda: fused_ce.ce_dx(x2, w, t, lse)),
+                    ("fused_ce_dw", lambda: fused_ce.ce_dw(x2, w, t, lse))):
+                times[name] = chip_smoke.device_ms(fn, iters=3)
+        del x2, w, t, lse, tgt, dx, dw
+        torch.cuda.empty_cache()
+    print(f"{label} ce_vs_plain " + json.dumps(vs_plain), flush=True)
+    print(f"{label} ce_ms " + json.dumps(times), flush=True)
 
 
 def compare(work: Path, a: str, b: str) -> dict:
@@ -316,6 +386,13 @@ def main() -> int:
                 else sass[0] == sass[1])
         print(f"ring_sass_equal {base} vs {label} {json.dumps(same)}",
               flush=True)
+        ce = {s: per for s, per in diff.items() if s.startswith("ce")}
+        print(f"ce_fwd_bit_equal {base} vs {label} " + json.dumps(all(
+            per[n]["equal"] for per in ce.values() for n in ("lse", "tgt"))),
+              flush=True)
+        print(f"ce_grad_diff {base} vs {label} " + json.dumps(
+            {s: {n: per[n]["max_abs_diff"] for n in ("dx", "dW")}
+             for s, per in ce.items()}), flush=True)
         finite &= all(d["finite"] for per in diff.values()
                       for d in per.values())
     return 0 if finite else 1
