@@ -41,36 +41,46 @@
 // What bounds the design, and the accumulator arithmetic:
 // - The accumulator sets the layout. 64 x 768 fp32 is 192 KB, three
 //   quarters of the register file: no tile taller than 64 rows fits, and
-//   one warpgroup cannot hold 768 columns. So D is split across D / 256
-//   consumer warpgroups (three at D = 768, one at 128 or 64): warpgroup i
-//   owns the columns D_i, which are at once the K-slice of its partial
-//   logits R[:, D_i] S[:, D_i]^T (wgmma m64n32k16, both operands K-major in
-//   shared memory) and the N-slice of its accumulator, acc_i (64 x 256
-//   fp32, 128 registers a thread) += P S[:, D_i] (wgmma m64n128k16 twice,
-//   P from registers as the A operand, S read MN-major). Three warpgroups
-//   of 128 threads leave 168 registers a thread for the accumulator, the
-//   16 of the partial logits, the 8 of P, and addresses.
+//   one warpgroup cannot hold 768 columns. So D is split across consumer
+//   warpgroups, two at D = 768 (one at 128 or 64): warpgroup i owns the
+//   columns D_i, which are at once the K-slice of its partial logits
+//   R[:, D_i] S[:, D_i]^T (wgmma m64n32k16, both operands K-major in shared
+//   memory) and the N-slice of its accumulator, acc_i (64 x 384 fp32, 192
+//   registers a thread) += P S[:, D_i] (wgmma m64n128k16 three times per
+//   k-step, P from registers as the A operand, S read MN-major). Two
+//   warpgroups of 128 threads may hold 255 registers a thread: 240 (dx)
+//   and 248 (dW) are used, no spill. Three warpgroups of 256 columns (128
+//   accumulator registers under a 168 cap) spilled 136 bytes and ptxas
+//   serialised their wgmma (C7512): 10.9 / 11.1 ms for dx / dW at the
+//   training shape on an H100 SXM (700 W), against 5.9 / 6.7 for two.
 // - Each warpgroup touches only its own D-slice of R and S. The only traffic
 //   between warpgroups is the partial logits (64 x 32 fp32 each): each
 //   writes its own to shared memory, one barrier, then every warpgroup sums
-//   the partials in the same order (warpgroup 0, 1, 2), so all form the
-//   same P bits and exponentiate the whole tile (three times the
-//   exponentials of one pass: ~0.7 ms of the SFUs' time at the training
-//   shape).
-// - Loads: one thread has the TMA copy each tile by tensor map ({D, 1,
-//   rows, 1}, boxes of 64 columns, 128-byte swizzled): R once (64 rows), S
-//   through a ring of two buffers of 32 rows, one mbarrier each, a buffer
-//   refilled once every thread is past the barrier that ends its tile. dW
+//   the partials in the same order (warpgroup 0, then 1), so both form the
+//   same P bits and exponentiate the whole tile (twice the exponentials of
+//   one pass).
+// - Loads: one thread has the TMA copy each tile by tensor map, the whole
+//   tile in one instruction ({64, rows, D / 64} with the 64-column slab as
+//   the outer index, 128-byte swizzled): R once (64 rows), S through a
+//   ring of two buffers of 32 rows, one mbarrier each, a buffer refilled
+//   once every thread is past the barrier that ends its tile. One copy per
+//   64-column box (12 at D = 768) kept every other warp waiting at the
+//   next barrier while one thread issued them: 13% of dx's time. dW
 //   stages each streamed tile's 32 lse values (base 2) and targets in
 //   shared memory, by plain loads issued a tile ahead.
 // - Shared memory at D = 768: R 96 KB, two S buffers 96 KB, the partials
-//   24 KB: 217 KB with the barriers and the alignment slack, one block per
-//   SM. A 64-row S tile would halve the logits' shared-memory reads per
-//   flop, but only one buffer of it fits.
+//   16 KB: 210 KB with the barriers and the alignment slack, one block per
+//   SM. A 64-row S tile would cut the logits' shared-memory reads per flop
+//   by a third, but only one buffer of it fits.
 // - The grid at the training shape: 256 blocks for dx (W, 77 MB, streamed
 //   past each once from L2), 786 for dW (x, 25 MB, each).
-// Each tile's products are waited for within the tile (ptxas serialises
-// wgmma otherwise, PERF.md PR 6).
+// - Each tile's products are waited for within the tile. Starting the next
+//   tile's logits before this tile's exponentials, or before its product,
+//   gives the same bits but needs a second set of logits registers: 255
+//   registers, ~500 bytes of spill, and dx / dW 10-11 / 12 ms (PERF.md,
+//   Findings). Where the time goes, by ablation
+//   (scripts/torch_ce_ablate.py): the P S product is the largest share,
+//   then the logits, the loads, the partial exchange, the exponentials.
 //
 // D must be one of the instantiated widths: 768 (GPT-2 124M), 128
 // (GPTConfig.tiny()) and 64 (the ragged test case). The accumulators are
@@ -283,32 +293,33 @@ struct BwdLayout {
                 "a warpgroup owns whole boxes");
 };
 
-// A contiguous bf16 (rows, D) matrix as the tensor {D, 1, rows, 1} whose
-// boxes are `box_rows` rows of 64 columns, 128-byte swizzled in shared
-// memory. Rows past `rows` arrive as zeros.
+// A contiguous bf16 (rows, D) matrix as the tensor {64, rows, D / 64, 1}
+// (a 64-column slab is the third index) whose box is `box_rows` rows of
+// every slab: one copy lands the D / 64 slabs one after another in shared
+// memory, each `box_rows` rows of 128 swizzled bytes, the layout wgmma
+// reads. Rows past `rows` arrive as zeros.
 inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base,
                                    int rows, int D, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, 1, (cuuint64_t)rows, 1};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)D * 2,
+  const cuuint64_t dims[4] = {kBoxCols, (cuuint64_t)rows,
+                              (cuuint64_t)D / kBoxCols, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, kBoxCols * 2,
                                  (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[4] = {kBoxCols, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[4] = {kBoxCols, (cuuint32_t)box_rows,
+                             (cuuint32_t)D / kBoxCols, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                     const_cast<void*>(base), dims, strides, box,
                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // One thread: starts loading rows row0 .. row0 + ROWS - 1, all D columns,
-// into the tile at shared address dst (1024-byte aligned), as one arrival
-// on `bar` that expects them.
+// into the tile at shared address dst (1024-byte aligned), as one copy and
+// one arrival on `bar` that expects it.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_rows_tma(uint32_t dst,
                                               const CUtensorMap* map, int row0,
                                               uint64_t* bar) {
-  constexpr int kBox = ROWS * kBoxCols * 2;
-  mbar_expect_tx(bar, D / kBoxCols * kBox);
-#pragma unroll
-  for (int c = 0; c < D / kBoxCols; ++c)
-    tensor_load(dst + c * kBox, map, c * kBoxCols, 0, row0, 0, bar);
+  mbar_expect_tx(bar, D * ROWS * 2);
+  tensor_load(dst, map, 0, row0, 0, 0, bar);
 }
 
 // With p[n, v] = exp(x[n] . W[v] - lse[n]) - [v == t[n]]:
