@@ -7,9 +7,11 @@ Phases, each of which exits non-zero on failure:
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds every
    kernel under ``ray_tpu_torch/csrc`` from source, timing the build; prints
-   each ring kernel's and each splash kernel's registers, spill bytes,
-   shared memory and resident blocks per SM (``resources ring ...``,
-   ``resources splash <fwd|dkv|dq> hd=...``).
+   each ring kernel's, each splash kernel's and the fused CE backward's
+   registers, spill bytes, shared memory and resident blocks per SM
+   (``resources ring ...``, ``resources splash <fwd|dkv|dq> hd=...``,
+   ``resources ce <dx|dw> D=...``), and fails if the CE backward spills at
+   D=768 or ptxas serialised its wgmma (a C751x note).
 2. Kernels against their plain versions, each at the main path's shape and
    a few edge shapes, with its device time beside the plain version's, a
    PyTorch yardstick (the port never calls it) and the card's bound:
@@ -23,7 +25,8 @@ Phases, each of which exits non-zero on failure:
    - the fused LM-head cross-entropy forward, dx and dW against
      ``ce_fwd_reference``, ``ce_dx_reference`` and ``ce_dw_reference``
      (yardstick the dense head: bf16 logits, logsumexp and gather, and
-     their backward).
+     their backward, the backward also timed on the device by kernel with
+     ``torch.profiler``, after every other phase, beside dx + dW).
 3. Serving: GPT-2 124M (``GPTConfig()``, bf16, random weights from a seed)
    answers unary requests through ``GPT2Next`` and streams greedy tokens
    through ``GPT2Stream``. The splash launch counter must rise by exactly
