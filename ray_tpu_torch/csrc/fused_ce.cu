@@ -92,7 +92,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // eight warps
+constexpr int kThreads = 256;   // the forward's block: eight warps
 constexpr int kPad = 8;         // bf16 elements of padding per shared row
 constexpr int kTile = 32;       // rows of a streamed W tile in the forward
 constexpr int kFwdRows = 64;    // rows of x resident in the forward

@@ -63,14 +63,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
       : "r"(smem_addr(p)));
 }
 
-// Two 8x8 b16 matrices; lanes 0..15 give the row addresses.
-__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
-}
-
 // As ldmatrix_x4, each matrix transposed (for a product that contracts over
 // the rows of a row-major tile).
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
