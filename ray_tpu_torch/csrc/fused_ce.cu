@@ -17,15 +17,42 @@
 // (N = 16 * 1024, D = 768, V = 50304) the forward is 2*N*V*D = 1.27e12 flops
 // (1.28 ms at 989 TFLOP/s) against 0.1 GB of x and W; dx and dW each
 // recompute the logits and add one product of the same size (2.56 ms each).
+// Times, ablations and the designs tried: PERF.md, Findings.
 //
-// The forward: 64 rows of x resident in shared memory, W streaming past in
-// 32-row vocab tiles through two cp.async buffers; mma.sync m16n8k16 with
-// ldmatrix operand loads, eight warps, each owning 16 rows x 16 vocab
-// columns of a tile with an online max and sum-exp (base 2) in registers;
-// the two column halves of a row merge once at the end. Known slowness: it
-// reloads its A operand for every 16 x 16 output and cannot reach the
-// tensor cores' full rate (mma.sync, not wgmma); the backward's body below
-// is the model for its redesign.
+// The forward: a block holds 64 rows of x in shared memory (one TMA copy)
+// and walks the vocabulary in tiles of 256 rows of W, each tile's logits
+// (64 x 256 fp32, 128 registers a thread) in registers and never in device
+// memory. Per tile, an online logsumexp (base 2) keeps each thread's
+// running max and sum over its 2 rows x 64 columns; a row's four
+// column-owning threads merge once, at the end. What bounds the design at
+// the training shape (N = 16384, D = 768, V = 50304):
+// - Operations: 4.95 GFLOP a block, 0.66 ms at one SM's share of the peak.
+//   The logits are wgmma m64n256k16 with both operands in shared memory:
+//   10 KB read per 128 clocks of math, under the 128 bytes a clock shared
+//   memory gives (a 32-column tile, as the backward's, would be bound by
+//   shared memory).
+// - L2: every block reads all of W (77 MB), 19.8 GB a launch at one block
+//   per 64 rows. Blocks form clusters of kFwdCluster = 2 along N: each
+//   loads half of every W chunk and the TMA multicasts it into both, which
+//   halves the L2 traffic. Clusters of 4 were slower (the slowest of four
+//   blocks sets every buffer's refill).
+// - The exponentials: 64 x 256 a tile, ~1000 clocks of the SFUs against
+//   ~6100 of products. Two consumer warpgroups take alternate vocab tiles
+//   (ping-pong) and take turns at the W stream (two named barriers), so
+//   one warpgroup's products run while the other exponentiates.
+// - The refill's round trip: W streams as chunks of 64 columns by 256
+//   vocab rows (32 KB, 128-byte swizzled, the layout wgmma reads) through a
+//   ring of kFwdStages = 4 buffers next to x's 96 KB. One producer warp
+//   issues the copies; a buffer is refilled once the consuming warpgroup
+//   of both blocks has released it (an mbarrier that counts arrivals from
+//   the cluster, made at CTA scope: at cluster scope each release was a
+//   fence that doubled the kernel's time). Tiles of 128 rows through 8
+//   buffers of 16 KB were slower: twice the chunks, each with its round
+//   trip.
+// Vocab rows past V arrive as zeros and their columns are masked out of
+// the max and the sum; rows past N are never written. Every block sums its
+// tiles in one order, and the two warpgroups' halves merge in one order,
+// so two runs give the same bits.
 //
 // The backward, dx and dW: one body, the roles a template parameter.
 //   dx: R = 64 rows of x resident, S = W streaming past, out = dx (N, D);
@@ -92,174 +119,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // the forward's block: eight warps
-constexpr int kPad = 8;         // bf16 elements of padding per shared row
-constexpr int kTile = 32;       // rows of a streamed W tile in the forward
-constexpr int kFwdRows = 64;    // rows of x resident in the forward
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
-
-// Starts copying `rows` rows of a contiguous (n_total, D) bf16 matrix from
-// row0 into shared memory with row stride D + kPad; rows at or past n_total
-// become zeros.
-template <int D>
-__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                int row0, int n_total, int rows) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const bool valid = row0 + r < n_total;
-    const __nv_bfloat16* g = src + (long long)(valid ? row0 + r : 0) * D + c;
-    cp_async16(dst + r * (D + kPad) + c, g, valid);
-  }
-}
-
-// c (16 x 16) = R[r0:r0+16, :D] * S[s0:s0+16, :D]^T, both row-major in
-// shared memory with row stride D + kPad.
-template <int D>
-__device__ __forceinline__ void tile_logits(float c[2][4], const __nv_bfloat16* R,
-                                            int r0, const __nv_bfloat16* S, int s0) {
-  constexpr int LD = D + kPad;
-  const int lane = threadIdx.x % 32;
-  const int mi = lane / 8, mr = lane % 8;
-#pragma unroll
-  for (int n = 0; n < 2; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
-#pragma unroll 4
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a<LD>(a, R, r0, kk);
-    uint32_t b[4];
-    ldmatrix_x4(b, S + (s0 + (mi >> 1) * 8 + mr) * LD + kk * 16 + (mi & 1) * 8);
-    mma_16816(c[0], a, b[0], b[1]);
-    mma_16816(c[1], a, b[2], b[3]);
-  }
-}
-
-template <int D>
-__host__ __device__ constexpr int fwd_smem_bytes() {
-  return (kFwdRows + 2 * kTile) * (D + kPad) * 2 + 3 * kFwdRows * 4;
-}
-
-// Forward: lse[n] = logsumexp_v(x[n] . W[v]), tgt[n] = x[n] . W[t[n]].
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fused_ce_fwd_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ w,
-                    const int* __restrict__ t, float* __restrict__ lse,
-                    float* __restrict__ tgt, int N, int V) {
-  constexpr int LD = D + kPad;
-  constexpr int WT = kTile * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* w_s = x_s + kFwdRows * LD;  // two buffers
-  float* m_s = reinterpret_cast<float*>(w_s + 2 * WT);
-  float* l_s = m_s + kFwdRows;
-  float* g_s = l_s + kFwdRows;
-
-  const int row0 = blockIdx.x * kFwdRows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tq = lane % 4;
-  const int rg = warp & 3;   // rows rg*16 .. of the resident tile
-  const int cg = warp >> 2;  // vocab columns cg*16 .. of each tile
-
-  load_rows_async<D>(x_s, x, row0, N, kFwdRows);
-  load_rows_async<D>(w_s, w, 0, V, kTile);
-  cp_async_commit();
-
-  const int lr_a = rg * 16 + g;  // local rows of this thread
-  const int lr_b = lr_a + 8;
-  const int t_a = row0 + lr_a < N ? t[row0 + lr_a] : -1;
-  const int t_b = row0 + lr_b < N ? t[row0 + lr_b] : -1;
-  float m_a = kMaskValue, m_b = kMaskValue;  // running max, base 2
-  float l_a = 0.f, l_b = 0.f;                // this thread's share of the sum
-  float g_a = 0.f, g_b = 0.f;                // target logit, natural units
-
-  const int n_vt = (V + kTile - 1) / kTile;
-  for (int j = 0; j < n_vt; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < n_vt) {
-      load_rows_async<D>(w_s + (cur ^ 1) * WT, w, (j + 1) * kTile, V, kTile);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float c[2][4];
-    tile_logits<D>(c, x_s, rg * 16, w_s + cur * WT, cg * 16);
-    const int v0 = j * kTile + cg * 16;
-    float mx_a = m_a, mx_b = m_b;
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = v0 + n * 8 + 2 * tq + (e & 1);
-        const float z = c[n][e];
-        if (e < 2) {
-          if (col == t_a) g_a += z;
-        } else {
-          if (col == t_b) g_b += z;
-        }
-        const float y = col < V ? z * kLog2e : kMaskValue;
-        c[n][e] = y;
-        if (e < 2) mx_a = fmaxf(mx_a, y); else mx_b = fmaxf(mx_b, y);
-      }
-    }
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-    l_a *= exp2f(m_a - mx_a);
-    l_b *= exp2f(m_b - mx_b);
-    m_a = mx_a;
-    m_b = mx_b;
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = v0 + n * 8 + 2 * tq + (e & 1);
-        if (col < V) {
-          if (e < 2) l_a += exp2f(c[n][e] - m_a); else l_b += exp2f(c[n][e] - m_b);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with buffer cur before it refills
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off *= 2) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
-    g_a += __shfl_xor_sync(0xffffffffu, g_a, off);
-    g_b += __shfl_xor_sync(0xffffffffu, g_b, off);
-  }
-  // Merge the two column halves of each row.
-  if (cg == 1 && tq == 0) {
-    m_s[lr_a] = m_a; l_s[lr_a] = l_a; g_s[lr_a] = g_a;
-    m_s[lr_b] = m_b; l_s[lr_b] = l_b; g_s[lr_b] = g_b;
-  }
-  __syncthreads();
-  if (cg == 0 && tq == 0) {
-#pragma unroll
-    for (int hlf = 0; hlf < 2; ++hlf) {
-      const int lr = hlf ? lr_b : lr_a;
-      const float m0 = hlf ? m_b : m_a, l0 = hlf ? l_b : l_a, g0 = hlf ? g_b : g_a;
-      const float m1 = m_s[lr], l1 = l_s[lr], g1 = g_s[lr];
-      const float mm = fmaxf(m0, m1);
-      const float l = l0 * exp2f(m0 - mm) + l1 * exp2f(m1 - mm);
-      if (row0 + lr < N) {
-        lse[row0 + lr] = (mm + log2f(l)) * kLn2;
-        tgt[row0 + lr] = g0 + g1;
-      }
-    }
-  }
-}
 
 // ---- The backward body (dx and dW) ----
 
@@ -295,17 +157,18 @@ struct BwdLayout {
 
 // A contiguous bf16 (rows, D) matrix as the tensor {64, rows, D / 64, 1}
 // (a 64-column slab is the third index) whose box is `box_rows` rows of
-// every slab: one copy lands the D / 64 slabs one after another in shared
+// `box_slabs` slabs: one copy lands the slabs one after another in shared
 // memory, each `box_rows` rows of 128 swizzled bytes, the layout wgmma
 // reads. Rows past `rows` arrive as zeros.
 inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base,
-                                   int rows, int D, int box_rows) {
+                                   int rows, int D, int box_rows,
+                                   int box_slabs) {
   const cuuint64_t dims[4] = {kBoxCols, (cuuint64_t)rows,
                               (cuuint64_t)D / kBoxCols, 1};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, kBoxCols * 2,
                                  (cuuint64_t)rows * D * 2};
   const cuuint32_t box[4] = {kBoxCols, (cuuint32_t)box_rows,
-                             (cuuint32_t)D / kBoxCols, 1};
+                             (cuuint32_t)box_slabs, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                     const_cast<void*>(base), dims, strides, box,
                     CU_TENSOR_MAP_SWIZZLE_128B);
@@ -554,6 +417,319 @@ fused_ce_bwd_kernel(const __grid_constant__ CUtensorMap res_map,
     }
 }
 
+// ---- The forward (lse and tgt) ----
+
+constexpr int kVocabTile = 256;  // vocab rows of a logits tile: wgmma's N
+constexpr int kFwdGroups = 2;    // consumer warpgroups, taking alternate tiles
+constexpr int kFwdCluster = 2;   // blocks along N that share every W chunk
+// One W chunk: 64 columns of kVocabTile rows, 128 swizzled bytes a row.
+constexpr int kChunkBytes = kVocabTile * kBoxCols * 2;
+constexpr int kFwdStages = 131072 / kChunkBytes;  // W chunk buffers: 128 KB
+static_assert(kFwdGroups == 1 || kFwdGroups == 2, "one or two consumers");
+
+// The forward's threads and shared memory at width D, from a
+// 1024-byte-aligned base: x's 64 rows (D / 64 boxes), kFwdStages W chunks,
+// the second warpgroup's (max, sum, target) per row for the final merge,
+// and the mbarriers: x's, then each chunk buffer's full and empty.
+template <int D>
+struct FwdLayout {
+  static constexpr int kChunks = D / kBoxCols;  // W chunks per vocab tile
+  static constexpr int kThreads = 128 * kFwdGroups + 32;  // + producer warp
+  static constexpr int kX = 0;
+  static constexpr int kW = kChunks * kResBox;
+  static constexpr int kMerge = kW + kFwdStages * kChunkBytes;
+  static constexpr int kBars = kMerge + kResRows * 3 * 4;
+  static constexpr int kBytes = kBars + (1 + 2 * kFwdStages) * 8 + 1024;
+  static_assert(kBytes <= 232448, "more shared memory than a block has");
+};
+
+// lse[n] = logsumexp_v(x[n] . W[v]) and tgt[n] = x[n] . W[t[n]], fp32.
+// x_map: x as one box of 64 rows of every slab; w_map: W in boxes of
+// kVocabTile / kFwdCluster rows of one slab. Launched in clusters of
+// kFwdCluster blocks along N (FwdLaunch).
+template <int D>
+__global__ void __launch_bounds__(FwdLayout<D>::kThreads, 1)
+fused_ce_fwd_kernel(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap w_map,
+                    const int* __restrict__ t, float* __restrict__ lse,
+                    float* __restrict__ tgt, int N, int V) {
+  using L = FwdLayout<D>;
+  constexpr int kPart = kVocabTile / kFwdCluster;  // W rows a block loads
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* ptr = smem_raw + (base - raw);
+  uint64_t* x_bar = reinterpret_cast<uint64_t*>(ptr + L::kBars);
+  uint64_t* full = x_bar + 1;           // a chunk has landed here
+  uint64_t* empty = full + kFwdStages;  // the cluster is done with a chunk
+  float* merge = reinterpret_cast<float*>(ptr + L::kMerge);
+
+  const int r0 = blockIdx.x * kResRows;
+  const int n_tiles = (V + kVocabTile - 1) / kVocabTile;
+  const int n_chunks = n_tiles * L::kChunks;
+
+  if (threadIdx.x == 0) {
+    mbar_init(x_bar, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(full + s, 1);
+      // One arrival from each warp of the consuming warpgroup of every
+      // block of the cluster.
+      mbar_init(empty + s, 4 * kFwdCluster);
+    }
+    fence_mbar_init();
+  }
+  // No block copies into a peer or arrives on its barriers before the
+  // peer's barriers are set.
+  cluster_sync();
+
+  if (threadIdx.x >= 128 * kFwdGroups) {
+    // The producer warp: one thread issues every copy. Chunk i is slab
+    // i % kChunks of vocab tile i / kChunks, in buffer i % kFwdStages; this
+    // block loads rows rank * kPart .. of it into every block of the
+    // cluster. No copy starts wholly outside its tensor: a block past N
+    // (the grid is whole clusters) loads x's last rows and writes nothing,
+    // and a part past V starts at W's last row, in columns that are masked.
+    if (threadIdx.x == 128 * kFwdGroups) {
+      const int rank = (int)cluster_ctarank();
+      load_rows_tma<D, kResRows>(base + L::kX, &x_map, min(r0, N - 1), x_bar);
+      for (int i = 0; i < n_chunks; ++i) {
+        const int s = i % kFwdStages;
+        if (i >= kFwdStages)
+          mbar_wait(empty + s, (i / kFwdStages - 1) & 1);
+        mbar_expect_tx(full + s, kChunkBytes);
+        const int v = min((i / L::kChunks) * kVocabTile + rank * kPart, V - 1);
+        const uint32_t dst =
+            base + L::kW + s * kChunkBytes + rank * (kChunkBytes / kFwdCluster);
+        if constexpr (kFwdCluster > 1)
+          tensor_load_multicast(dst, &w_map, 0, v, i % L::kChunks, 0, full + s,
+                                (uint16_t)((1 << kFwdCluster) - 1));
+        else
+          tensor_load(dst, &w_map, 0, v, i % L::kChunks, 0, full + s);
+      }
+    }
+    __syncwarp();
+  } else {
+    const int group = threadIdx.x / 128;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4;   // row within the 8-row group of a fragment
+    const int tq = lane % 4;  // column pair within a fragment
+    const int lr_a = warp * 16 + g;  // this thread's two local rows
+    const int row_a = r0 + lr_a, row_b = row_a + 8;
+    const int t_a = row_a < N ? t[row_a] : -1;
+    const int t_b = row_b < N ? t[row_b] : -1;
+    // Per row: the running max (base 2), this thread's share of the sum of
+    // 2^(z log2(e) - max) over the columns it holds, the target logit.
+    float m_a = kMaskValue, m_b = kMaskValue;
+    float l_a = 0.f, l_b = 0.f, g_a = 0.f, g_b = 0.f;
+
+    // Lane r of each warp releases a chunk buffer in block r of the cluster.
+    auto release = [&](int i) {
+      if (lane < kFwdCluster)
+        mbar_arrive_cluster(empty + i % kFwdStages, (uint32_t)lane);
+    };
+    const uint64_t x_desc = sw128_desc(base + L::kX, 16, 1024);
+    // The tile's logits: z[4q .. 4q + 3] = (row_a, columns 8q + 2tq and
+    // 8q + 2tq + 1), then row_b's same two columns.
+    float z[kVocabTile / 2];
+#pragma unroll
+    for (int i = 0; i < kVocabTile / 2; ++i) z[i] = 0.f;
+
+    mbar_wait(x_bar, 0);
+    for (int j = group; j < n_tiles; j += kFwdGroups) {
+      // Two consumers take turns: one starts waiting for tile j's chunks
+      // once the other has waited for all of tile j - 1's. A wait is by
+      // the parity of a buffer's phase, so it must not look more than one
+      // fill ahead; and so one warpgroup's products run while the other
+      // exponentiates. (Named barriers 2 and 3: warpgroup 0's and 1's turn.)
+      if constexpr (kFwdGroups > 1)
+        if (j >= kFwdGroups || group > 0)
+          named_barrier_sync(2 + group, 128 * kFwdGroups);
+      // The logits of vocab tile j, one wgmma group per chunk; a chunk's
+      // buffer is released once its products are done.
+#pragma unroll 1
+      for (int c = 0; c < L::kChunks; ++c) {
+        const int i = j * L::kChunks + c;
+        const int s = i % kFwdStages;
+        mbar_wait(full + s, (i / kFwdStages) & 1);
+        fence_regs(z);
+        wgmma_fence();
+        const uint64_t w_desc =
+            sw128_desc(base + L::kW + s * kChunkBytes, 16, 1024);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<kVocabTile>(z, desc_at(x_desc, c * kResBox + kk * 32),
+                               desc_at(w_desc, kk * 32), c > 0 || kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (c > 0) release(i - 1);
+      }
+      if constexpr (kFwdGroups > 1)
+        if (j + 1 < n_tiles)
+          named_barrier_arrive(2 + (group ^ 1), 128 * kFwdGroups);
+      wgmma_wait<0>();
+      fence_regs(z);
+      release(j * L::kChunks + L::kChunks - 1);
+
+      const int v0 = j * kVocabTile;
+      const int col0 = v0 + 2 * tq;  // the column of z[0]
+      if (v0 + kVocabTile > V) {
+        // Columns past V: -inf, not kMaskValue, so that they add nothing to
+        // the sum even of a thread that has seen no column below V (whose
+        // max is still kMaskValue).
+#pragma unroll
+        for (int q = 0; q < kVocabTile / 8; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col0 + 8 * q + (e & 1) >= V)
+              z[4 * q + e] = __int_as_float(0xff800000);  // -inf
+      }
+      if ((unsigned)(t_a - v0) < (unsigned)kVocabTile) {
+#pragma unroll
+        for (int q = 0; q < kVocabTile / 8; ++q)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (col0 + 8 * q + e == t_a) g_a += z[4 * q + e];
+      }
+      if ((unsigned)(t_b - v0) < (unsigned)kVocabTile) {
+#pragma unroll
+        for (int q = 0; q < kVocabTile / 8; ++q)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (col0 + 8 * q + e == t_b) g_b += z[4 * q + 2 + e];
+      }
+      float mx_a = z[0], mx_b = z[2];
+#pragma unroll
+      for (int q = 0; q < kVocabTile / 8; ++q) {
+        mx_a = fmaxf(mx_a, fmaxf(z[4 * q], z[4 * q + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(z[4 * q + 2], z[4 * q + 3]));
+      }
+      mx_a = fmaxf(m_a, mx_a * kLog2e);
+      mx_b = fmaxf(m_b, mx_b * kLog2e);
+      l_a *= fast_exp2(m_a - mx_a);
+      l_b *= fast_exp2(m_b - mx_b);
+      m_a = mx_a;
+      m_b = mx_b;
+#pragma unroll
+      for (int q = 0; q < kVocabTile / 8; ++q) {
+        l_a += fast_exp2(fmaf(z[4 * q], kLog2e, -m_a)) +
+               fast_exp2(fmaf(z[4 * q + 1], kLog2e, -m_a));
+        l_b += fast_exp2(fmaf(z[4 * q + 2], kLog2e, -m_b)) +
+               fast_exp2(fmaf(z[4 * q + 3], kLog2e, -m_b));
+      }
+    }
+
+    // A row's four threads, then (two consumers) the two warpgroups'
+    // halves of the vocabulary, merged in one order.
+    auto merge_into = [](float& m, float& l, float& gg, float mo, float lo,
+                         float go) {
+      const float mm = fmaxf(m, mo);
+      l = l * fast_exp2(m - mm) + lo * fast_exp2(mo - mm);
+      m = mm;
+      gg += go;
+    };
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {
+      const float ma = __shfl_xor_sync(0xffffffffu, m_a, off);
+      const float la = __shfl_xor_sync(0xffffffffu, l_a, off);
+      const float ga = __shfl_xor_sync(0xffffffffu, g_a, off);
+      const float mb = __shfl_xor_sync(0xffffffffu, m_b, off);
+      const float lb = __shfl_xor_sync(0xffffffffu, l_b, off);
+      const float gb = __shfl_xor_sync(0xffffffffu, g_b, off);
+      merge_into(m_a, l_a, g_a, ma, la, ga);
+      merge_into(m_b, l_b, g_b, mb, lb, gb);
+    }
+    if constexpr (kFwdGroups > 1) {
+      if (group == 1 && tq == 0) {
+        merge[3 * lr_a] = m_a; merge[3 * lr_a + 1] = l_a;
+        merge[3 * lr_a + 2] = g_a;
+        merge[3 * lr_a + 24] = m_b; merge[3 * lr_a + 25] = l_b;
+        merge[3 * lr_a + 26] = g_b;
+      }
+      named_barrier_sync(1, 128 * kFwdGroups);
+      if (group == 0 && tq == 0) {
+        merge_into(m_a, l_a, g_a, merge[3 * lr_a], merge[3 * lr_a + 1],
+                   merge[3 * lr_a + 2]);
+        merge_into(m_b, l_b, g_b, merge[3 * lr_a + 24], merge[3 * lr_a + 25],
+                   merge[3 * lr_a + 26]);
+      }
+    }
+    if (group == 0 && tq == 0) {
+      if (row_a < N) {
+        lse[row_a] = (m_a + log2f(l_a)) * kLn2;
+        tgt[row_a] = g_a;
+      }
+      if (row_b < N) {
+        lse[row_b] = (m_b + log2f(l_b)) * kLn2;
+        tgt[row_b] = g_b;
+      }
+    }
+  }
+  // No block leaves while a peer may still copy into it or arrive on its
+  // barriers.
+  cluster_sync();
+}
+
+// The forward's launch configuration: `blocks` blocks rounded up to whole
+// clusters of kFwdCluster along x.
+template <int D>
+struct FwdLaunch {
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute cluster[1];
+
+  FwdLaunch(int blocks, cudaStream_t stream) {
+    config.gridDim = dim3((unsigned)((blocks + kFwdCluster - 1) / kFwdCluster *
+                                     kFwdCluster));
+    config.blockDim = dim3(FwdLayout<D>::kThreads);
+    config.dynamicSmemBytes = FwdLayout<D>::kBytes;
+    config.stream = stream;
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = kFwdCluster;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    config.attrs = cluster;
+    config.numAttrs = 1;
+  }
+  FwdLaunch(const FwdLaunch&) = delete;
+};
+
+template <int D>
+int launch_fwd(const void* x, const void* w, const void* t, void* lse,
+               void* tgt, int N, int V, cudaStream_t stream) {
+  static bool allowed[64] = {};
+  cudaError_t err = allow_smem(fused_ce_fwd_kernel<D>, FwdLayout<D>::kBytes,
+                               allowed);
+  CUtensorMap x_map, w_map;
+  if (err == cudaSuccess)
+    err = encode_rows_map(&x_map, x, N, D, kResRows, D / kBoxCols);
+  if (err == cudaSuccess)
+    err = encode_rows_map(&w_map, w, V, D, kVocabTile / kFwdCluster, 1);
+  if (err != cudaSuccess) return (int)err;
+  const FwdLaunch<D> launch((N + kResRows - 1) / kResRows, stream);
+  err = cudaLaunchKernelEx(&launch.config, fused_ce_fwd_kernel<D>, x_map,
+                           w_map, static_cast<const int*>(t),
+                           static_cast<float*>(lse), static_cast<float*>(tgt),
+                           N, V);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// What the forward's kernel holds on an SM (kernel_resources' five
+// numbers), then the cluster's size and how many such clusters the card
+// holds at once (cudaOccupancyMaxActiveClusters; blocks per SM alone does
+// not see clusters).
+template <int D>
+int fwd_resources(int* out) {
+  using L = FwdLayout<D>;
+  cudaError_t err = kernel_resources(fused_ce_fwd_kernel<D>, L::kThreads,
+                                     L::kBytes, out);
+  if (err != cudaSuccess) return (int)err;
+  const FwdLaunch<D> launch(kFwdCluster, nullptr);
+  out[5] = kFwdCluster;
+  return (int)cudaOccupancyMaxActiveClusters(out + 6, fused_ce_fwd_kernel<D>,
+                                             &launch.config);
+}
+
 enum class Which { kFwd, kDx, kDw };
 
 template <int D, bool kDw>
@@ -565,9 +741,11 @@ int launch_bwd(const void* x, const void* w, const void* t, const void* lse,
       allow_smem(fused_ce_bwd_kernel<D, kDw>, L::kBytes, allowed);
   CUtensorMap res_map, str_map;
   if (err == cudaSuccess)
-    err = encode_rows_map(&res_map, kDw ? w : x, kDw ? V : N, D, kResRows);
+    err = encode_rows_map(&res_map, kDw ? w : x, kDw ? V : N, D, kResRows,
+                          D / kBoxCols);
   if (err == cudaSuccess)
-    err = encode_rows_map(&str_map, kDw ? x : w, kDw ? N : V, D, kStrRows);
+    err = encode_rows_map(&str_map, kDw ? x : w, kDw ? N : V, D, kStrRows,
+                          D / kBoxCols);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)(((kDw ? V : N) + kResRows - 1) / kResRows);
   fused_ce_bwd_kernel<D, kDw><<<blocks, L::kThreads, L::kBytes, stream>>>(
@@ -583,16 +761,7 @@ int launch(Which which, const void* x, const void* w, const void* t, void* a,
     return launch_bwd<D, false>(x, w, t, a, b, N, V, stream);
   if (which == Which::kDw)
     return launch_bwd<D, true>(x, w, t, a, b, N, V, stream);
-  static bool allowed[64] = {};
-  const cudaError_t err =
-      allow_smem(fused_ce_fwd_kernel<D>, fwd_smem_bytes<D>(), allowed);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((N + kFwdRows - 1) / kFwdRows);
-  fused_ce_fwd_kernel<D><<<blocks, kThreads, fwd_smem_bytes<D>(), stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const int*>(t),
-      static_cast<float*>(a), static_cast<float*>(b), N, V);
-  return (int)cudaGetLastError();
+  return launch_fwd<D>(x, w, t, a, b, N, V, stream);
 }
 
 // What the backward's kernels hold on an SM (kernel_resources in
@@ -660,5 +829,14 @@ extern "C" int fused_ce_dw(const void* x, const void* w, const void* t,
 extern "C" int fused_ce_resources(int D, int* out) {
   return width_dispatch(D, [&](auto d) {
     return bwd_resources<decltype(d)::value>(out);
+  });
+}
+
+// The forward kernel's registers, spill bytes, static and dynamic shared
+// bytes and resident blocks per SM at width D, then its cluster size and
+// the clusters the card holds at once: seven ints.
+extern "C" int fused_ce_fwd_resources(int D, int* out) {
+  return width_dispatch(D, [&](auto d) {
+    return fwd_resources<decltype(d)::value>(out);
   });
 }

@@ -1,15 +1,19 @@
 // Hopper's warpgroup matrix multiply (wgmma) and the TMA tile loads that
 // feed it, for the kernels written around them (splash_attention_fwd.cu,
-// splash_attention_bwd.cu, and the fused-CE backward in fused_ce.cu):
+// splash_attention_bwd.cu, and the fused-CE forward and backward in
+// fused_ce.cu):
 // - the tensor map of a bf16 (B, S, H, hd) operand, strided views of a
 //   fused qkv included, whose boxes of 64 rows by 64 columns of one head
 //   land in shared memory with the 128-byte swizzle that wgmma reads;
 // - the shared-memory matrix descriptor of such a tile, read K-major (the
 //   contracted dimension along the rows) or MN-major (the transposed read of
 //   a row-major tile);
-// - m64n32k16 and m64n64k16 with both operands in shared memory,
-//   m64n64k16 and m64n128k16 with A in registers, bf16 operands and fp32
-//   accumulators, and the fence, commit and wait that order them.
+// - m64n32k16, m64n64k16, m64n128k16 and m64n256k16 with both operands in
+//   shared memory, m64n64k16 and m64n128k16 with A in registers, bf16 operands and
+//   fp32 accumulators, and the fence, commit and wait that order them;
+// - for thread-block clusters: the block's rank, the cluster-wide barrier,
+//   an mbarrier arrival on another block of the cluster, and the TMA copy
+//   that multicasts one box into several blocks' shared memory.
 // A warpgroup (four consecutive warps, 128 threads) issues each product
 // together, and it runs asynchronously until a wait. The accumulator of a
 // m64nNk16 gives warp w rows 16w .. 16w + 15 and, in each 8-column chunk c,
@@ -162,6 +166,118 @@ __device__ __forceinline__ void wgmma_64x32x16_ss(float (&d)[16], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 128, fp32) = a b, or d + a b when `accumulate`: a (64 x 16) and
+// b (16 x 128) bf16, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_64x128x16_ss(float (&d)[64], uint64_t a,
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 256, fp32) = a b, or d + a b when `accumulate`: a (64 x 16) and
+// b (16 x 256) bf16, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_64x256x16_ss(float (&d)[128], uint64_t a,
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x N) = a b, or d + a b when `accumulate`, for N 128 or 256, both
+// operands K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  static_assert(N == 128 || N == 256, "N 128 or 256");
+  if constexpr (N == 128)
+    wgmma_64x128x16_ss(d, a, b, accumulate);
+  else
+    wgmma_64x256x16_ss(d, a, b, accumulate);
+}
+
 // d (64 x 64, fp32) += a b: a (64 x 16, bf16) in registers, b (16 x 64,
 // bf16) MN-major in shared memory.
 __device__ __forceinline__ void wgmma_64x64x16_rs(float (&d)[32],
@@ -237,6 +353,74 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
     wgmma_64x64x16_rs(d, a, b);
   else
     wgmma_64x128x16_rs(d, a, b);
+}
+
+// ---- Thread-block clusters (the fused-CE forward) ----
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: this block's earlier shared
+// writes and barrier initialisations are visible to the others after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Arrives on the mbarrier at `bar`'s shared offset in block `cta` of the
+// cluster (this block's own included). The release is the default, at CTA
+// scope, as CUTLASS's cluster pipeline has it: what it orders before a
+// peer's copy into the buffer (wgmma's reads) is complete at
+// wgmma.wait_group. `.release.cluster` here, with an `.acquire.cluster`
+// wait, cost a cluster-wide fence per buffer: the fused-CE forward took
+// twice as long (PERF.md, Findings).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" :: "r"(smem_addr(bar)), "r"(cta) : "memory");
+}
+
+// As tensor_load, the box landing at shared offset dst of every block in
+// `mask` (bit r: cluster rank r), each block's barrier at `bar`'s offset
+// completing the box's bytes.
+__device__ __forceinline__ void tensor_load_multicast(
+    uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+    uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3), "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
+// 2^x by the SFU's approximation (relative error ~2^-22), subnormals
+// flushed to zero.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Threads `count` (a multiple of 32) of the block wait for each other at
+// named barrier `id` (1-15; 0 is __syncthreads()).
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// Arrives at named barrier `id` without waiting: the threads that wait there
+// with named_barrier_sync(id, count) go on once `count` threads in all have
+// come.
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
 }  // namespace

@@ -101,8 +101,8 @@ def _kernel_inputs(x2: torch.Tensor, w: torch.Tensor, t: torch.Tensor):
 
 
 def _aligned(a: torch.Tensor) -> torch.Tensor:
-    """``a`` contiguous and starting on 16 bytes, as the backward kernels'
-    TMA tensor maps require: a view that starts elsewhere is copied."""
+    """``a`` contiguous and starting on 16 bytes, as the kernels' TMA
+    tensor maps require: a view that starts elsewhere is copied."""
     a = a.contiguous()
     return a if a.data_ptr() % 16 == 0 else a.clone()
 
