@@ -7,11 +7,12 @@ Phases, each of which exits non-zero on failure:
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds every
    kernel under ``ray_tpu_torch/csrc`` from source, timing the build; prints
-   each ring kernel's, each splash kernel's and the fused CE backward's
+   each ring kernel's, each splash kernel's and the fused CE kernels'
    registers, spill bytes, shared memory and resident blocks per SM
    (``resources ring ...``, ``resources splash <fwd|dkv|dq> hd=...``,
-   ``resources ce <dx|dw> D=...``), and fails if the CE backward spills at
-   D=768 or ptxas serialised its wgmma (a C751x note).
+   ``resources ce <fwd|dx|dw> D=...``; the CE forward's also its cluster
+   size and the clusters the card holds at once), and fails if a CE kernel
+   spills at D=768 or ptxas serialised their wgmma (a C751x note).
 2. Kernels against their plain versions, each at the main path's shape and
    a few edge shapes, with its device time beside the plain version's, a
    PyTorch yardstick (the port never calls it) and the card's bound:
@@ -26,7 +27,9 @@ Phases, each of which exits non-zero on failure:
      ``ce_fwd_reference``, ``ce_dx_reference`` and ``ce_dw_reference``
      (yardstick the dense head: bf16 logits, logsumexp and gather, and
      their backward, the backward also timed on the device by kernel with
-     ``torch.profiler``, after every other phase, beside dx + dW).
+     ``torch.profiler``, after every other phase, beside dx + dW; the
+     forward's also cuBLAS's bf16 ``x @ W^T`` alone, ``matmul_ms``: the
+     forward's tensor-core work without the logsumexp).
 3. Serving: GPT-2 124M (``GPTConfig()``, bf16, random weights from a seed)
    answers unary requests through ``GPT2Next`` and streams greedy tokens
    through ``GPT2Stream``. The splash launch counter must rise by exactly
@@ -572,6 +575,7 @@ def phase_ce(peaks: Tuple[float, float]) -> Dict[str, object]:
             dense_fwd, dense_bwd = _dense_head(x2, w, t)
             with torch.no_grad():
                 dense_fwd_ms = device_ms(dense_fwd, iters=3)
+                fwd["matmul_ms"] = device_ms(lambda: x2 @ w.t(), iters=3)
             dense_bwd_ms = loop_ms(dense_bwd, iters=3)
             for r, which, kern, plain in (
                     (fwd, "fwd", lambda: fused_ce.ce_fwd(x2, w, t),
@@ -866,19 +870,28 @@ RESOURCE_FIELDS = ("registers", "spill_bytes", "static_smem", "dynamic_smem",
 
 
 def ce_resources() -> Dict[str, object]:
-    """What the fused CE backward's dx and dW kernels hold on an SM, by
-    width, from ``fused_ce_resources``."""
+    """What the fused CE kernels hold on an SM, by width: the forward's
+    from ``fused_ce_fwd_resources`` (with its cluster size and the clusters
+    the card holds at once), dx's and dW's from ``fused_ce_resources``."""
     import ctypes
 
     from ray_tpu_torch._private import kernel_build
 
-    fn = kernel_build.load("fused_ce").fused_ce_resources
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = kernel_build.load("fused_ce")
+    for fn in (lib.fused_ce_fwd_resources, lib.fused_ce_resources):
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     out = {}
     for D in (64, 128, 768):
+        buf = (ctypes.c_int * 7)()
+        err = lib.fused_ce_fwd_resources(D, ctypes.addressof(buf))
+        if err != 0:
+            fail(f"fused_ce_fwd_resources({D}): CUDA error {err}")
+        out[f"fwd D={D}"] = dict(zip(
+            RESOURCE_FIELDS + ("cluster_size", "active_clusters"), buf))
+    for D in (64, 128, 768):
         buf = (ctypes.c_int * 10)()
-        err = fn(D, ctypes.addressof(buf))
+        err = lib.fused_ce_resources(D, ctypes.addressof(buf))
         if err != 0:
             fail(f"fused_ce_resources({D}): CUDA error {err}")
         for i, kernel in enumerate(("dx", "dw")):
@@ -1259,9 +1272,10 @@ def main() -> int:
     ce_res = ce_resources()
     for kernel, res in ce_res.items():
         print(f"resources ce {kernel} " + json.dumps(res), flush=True)
-    # The CE backward keeps its 64 x 384 fp32 accumulator in registers at
-    # D=768: a spill, or wgmma serialised by ptxas, is a fault of the build.
-    for kernel in ("dx", "dw"):
+    # The CE forward keeps a 64 x 256 fp32 logits tile in registers, the
+    # backward a 64 x 384 fp32 accumulator, at D=768: a spill, or wgmma
+    # serialised by ptxas, is a fault of the build.
+    for kernel in ("fwd", "dx", "dw"):
         if ce_res[f"{kernel} D=768"]["spill_bytes"]:
             fail(f"fused CE {kernel} spills at D=768: "
                  f"{ce_res[f'{kernel} D=768']}")
@@ -1336,12 +1350,13 @@ def main() -> int:
             ce[name]["worst_abs"], main_row, None,
             {k: main_row[k] for k in ("N", "D", "V")},
             dense_ms=main_row["dense_ms"],
-            **({} if name == "fused_ce_fwd" else dict(
-                dx_plus_dw_ms=main_row["dx_plus_dw_ms"],
-                dense_bwd_profiled_ms=ce_dense["profiled_ms"],
-                dense_bwd_matmul_ms=ce_dense["matmul_ms"],
-                resources={k: r for k, r in ce_res.items()
-                           if k.startswith(name[-2:])}))))
+            resources={k: r for k, r in ce_res.items()
+                       if k.startswith(name[len("fused_ce_"):])},
+            **(dict(matmul_ms=main_row["matmul_ms"])
+               if name == "fused_ce_fwd" else dict(
+                   dx_plus_dw_ms=main_row["dx_plus_dw_ms"],
+                   dense_bwd_profiled_ms=ce_dense["profiled_ms"],
+                   dense_bwd_matmul_ms=ce_dense["matmul_ms"]))))
     # The ring kernels' time is one layer's W=4 launches at the training
     # path's shape; SDPA is the one PyTorch call for the same attention.
     ring_shape = {k: ring["main"][k]

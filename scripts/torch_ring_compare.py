@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Holds the attention and fused-CE kernels of two source trees against each
 other on one NVIDIA GPU: the ring step kernels bit for bit, the splash
-forward and backward and the CE backward by how far each tree is from the
-plain version and from the other tree, the CE forward bit for bit, and the
-splash backward's and the CE kernels' device times.
+forward and backward and the CE forward and backward by how far each tree
+is from the plain version and from the other tree, and the splash
+backward's and the CE kernels' device times.
 
     python3 scripts/torch_ring_compare.py --tree parent=smoke_tree/parent \\
         --tree change=. [--work ray_tpu_torch/_build/ring_compare]
@@ -15,8 +15,9 @@ splash forward and backward and the fused CE kernels from that tree's
 code (``sass``, from ``cuobjdump -sass``, names left out) and what each
 kernel holds on an SM (registers, spill bytes, static and dynamic shared
 bytes, resident blocks per SM; the ring's for head_dim 64 and 128 and each
-step kind, the splash kernels' for each head_dim, the CE backward's dx and
-dW kernels for each width), and saves, all from one seed:
+step kind, the splash kernels' for each head_dim, the CE kernels for each
+width: dx and dW, and the forward where the tree exports
+``fused_ce_fwd_resources``), and saves, all from one seed:
 
 - a whole W=4 ring forward and backward (o, lse, dq, dk, dv) at
   ``chip_smoke.py``'s four ``RING_SHAPES``;
@@ -30,18 +31,22 @@ dW kernels for each width), and saves, all from one seed:
   replay, as ``chip_smoke.py:device_ms``) at ``BWD_TIMED``
   (``splash_bwd_ms``);
 - the fused CE forward's lse and tgt and the backward's dx and dW at
-  ``chip_smoke.py``'s ``CE_SHAPES``, printing dx's and dW's largest
-  difference from their plain versions over the reference's largest entry
-  (``ce_vs_plain``), and the three kernels' device times at the training
-  shape (``ce_ms``).
+  ``chip_smoke.py``'s ``CE_SHAPES``, printing lse's and tgt's largest
+  difference from ``ce_fwd_reference`` and dx's and dW's from their plain
+  versions over the reference's largest entry (``ce_vs_plain``), and the
+  three kernels' device times at the training shape (``ce_ms``).
 
 Then it prints, per shape and tensor, whether the trees agree bit for bit
 and by how much they differ (``bits``), ``ring_bit_equal`` (true when every
 ring tensor agrees), ``ring_sass_equal`` (true when the ring libraries'
-machine code agrees), ``ce_fwd_bit_equal`` (true when every lse and tgt
-agrees) and ``ce_grad_diff`` (dx's and dW's largest difference between the
-trees per shape). The splash kernels and the CE backward sum in the order
-their design takes, so two designs are not expected to agree bit for bit.
+machine code agrees), ``ce_bwd_sass_equal`` (true when the CE backward
+kernels' machine code agrees), ``ce_fwd_diff`` (lse's and tgt's largest difference
+between the trees per shape, beside each tree's largest difference from
+``ce_fwd_reference``) and ``ce_grad_diff`` (dx's and dW's largest
+difference between the trees per shape). The splash kernels and the CE
+kernels sum in the order their design takes, so two designs are not
+expected to agree bit for bit; dx and dW read the forward's lse, so a new
+forward moves their bits too.
 A tree whose splash or CE sources export no ``*_resources`` entry gets one
 from a probe source that includes them. Give a tree twice, in turns (parent, change, change,
 parent), to see the spread of the times. Saved results go to ``--work`` (a
@@ -81,6 +86,7 @@ RING = ("ring_attention_fwd", "ring_attention_bwd")
 SPLASH = ("splash_attention_fwd", "splash_attention_bwd")
 CE = "fused_ce"
 CE_KERNELS = ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")
+CE_BWD = "fused_ce bwd"  # the sass key of the CE backward's kernels
 RING_TENSORS = ("o", "lse", "dq", "dk", "dv")
 GRADS = ("dq", "dk", "dv")
 
@@ -188,13 +194,25 @@ def _resources(kernel_build, work: Path, label: str) -> dict:
         for width in ((64, 128, 768) if name == CE else (64, 128)):
             key = f"{name} D={width}" if name == CE else f"{name} hd{width}"
             res[key] = _call(fn, (width,), n_kernels)
+    lib = kernel_build.load(CE)
+    if hasattr(lib, "fused_ce_fwd_resources"):
+        fn = _entry(lib, "fused_ce_fwd_resources", 2)
+        for width in (64, 128, 768):
+            buf = (ctypes.c_int * 7)()
+            err = fn(width, ctypes.addressof(buf))
+            if err != 0:
+                raise RuntimeError(f"fused_ce_fwd_resources({width}): CUDA "
+                                   f"error {err}")
+            res[f"fused_ce_fwd D={width}"] = dict(zip(
+                _FIELDS + ("cluster_size", "active_clusters"), buf))
     return res
 
 
-def _sass_digest(kernel_build, name: str):
+def _sass_digest(kernel_build, name: str, function: str = ""):
     """sha256 of a built library's machine code, instruction lines only (the
-    names of functions in an unnamed namespace carry the source's path);
-    None where ``cuobjdump`` is missing or fails."""
+    names of functions in an unnamed namespace carry the source's path), of
+    the functions whose name contains ``function`` (every function by
+    default); None where ``cuobjdump`` is missing or fails."""
     import hashlib
 
     tool = Path(kernel_build.find_nvcc()).with_name("cuobjdump")
@@ -206,8 +224,13 @@ def _sass_digest(kernel_build, name: str):
         return None
     if out.returncode != 0:
         return None
-    code = [line.strip() for line in out.stdout.splitlines()
-            if line.strip().startswith("/*")]
+    code, keep = [], True
+    for line in out.stdout.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            keep = function in line
+        elif keep and line.startswith("/*"):
+            code.append(line)
     return hashlib.sha256("\n".join(code).encode()).hexdigest()[:16]
 
 
@@ -229,6 +252,8 @@ def worker(tree: Path, label: str, work: Path) -> None:
             if "registers" in line or "spill" in line or "C75" in line:
                 print(f"{label} ptxas {name}: {line.strip()}", flush=True)
     sass = {name: _sass_digest(kernel_build, name) for name in RING}
+    # The CE backward's dx and dW kernels, apart from the forward beside them.
+    sass[CE_BWD] = _sass_digest(kernel_build, CE, "fused_ce_bwd_kernel")
     print(f"{label} sass " + json.dumps(sass), flush=True)
     (work / f"sass_{label}.json").write_text(json.dumps(sass))
     print(f"{label} resources " + json.dumps(
@@ -290,14 +315,15 @@ def worker(tree: Path, label: str, work: Path) -> None:
         del qkv, q, k, v, o, lse, do, grads, refs
     print(f"{label} splash_bwd_vs_plain " + json.dumps(vs_plain), flush=True)
     print(f"{label} splash_bwd_ms " + json.dumps(times), flush=True)
-    _ce(fused_ce, chip_smoke, label, saved)
+    ce_vs_plain = _ce(fused_ce, chip_smoke, label, saved)
+    (work / f"ce_vs_plain_{label}.json").write_text(json.dumps(ce_vs_plain))
     torch.save(saved, work / f"bits_{label}.pt")
 
 
-def _ce(fused_ce, chip_smoke, label: str, saved: dict) -> None:
+def _ce(fused_ce, chip_smoke, label: str, saved: dict) -> dict:
     """The fused CE kernels at CE_SHAPES, made as chip_smoke.py's phase_ce
-    makes them: outputs saved, dx and dW against their plain versions, the
-    three kernels' device times at the training shape."""
+    makes them: outputs saved, each against its plain version (returned),
+    the three kernels' device times at the training shape."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -312,7 +338,10 @@ def _ce(fused_ce, chip_smoke, label: str, saved: dict) -> None:
         dx = fused_ce.ce_dx(x2, w, t, lse)
         dw = fused_ce.ce_dw(x2, w, t, lse)
         shape = str((N, D, V))
+        lse_r, tgt_r = fused_ce.ce_fwd_reference(x2, w, t)
         vs_plain[shape] = {
+            "lse": (lse - lse_r).abs().max().item(),
+            "tgt": (tgt - tgt_r).abs().max().item(),
             "dx": chip_smoke.rel_err(dx, fused_ce.ce_dx_reference(x2, w, t,
                                                                   lse)),
             "dW": chip_smoke.rel_err(dw, fused_ce.ce_dw_reference(x2, w, t,
@@ -329,6 +358,7 @@ def _ce(fused_ce, chip_smoke, label: str, saved: dict) -> None:
         torch.cuda.empty_cache()
     print(f"{label} ce_vs_plain " + json.dumps(vs_plain), flush=True)
     print(f"{label} ce_ms " + json.dumps(times), flush=True)
+    return vs_plain
 
 
 def compare(work: Path, a: str, b: str) -> dict:
@@ -382,14 +412,20 @@ def main() -> int:
               flush=True)
         sass = [json.loads((work / f"sass_{t}.json").read_text())
                 for t in (base, label)]
-        same = (None if None in (*sass[0].values(), *sass[1].values())
-                else sass[0] == sass[1])
-        print(f"ring_sass_equal {base} vs {label} {json.dumps(same)}",
-              flush=True)
+        for key, names in (("ring_sass_equal", RING),
+                           ("ce_bwd_sass_equal", (CE_BWD,))):
+            pair = [[d.get(n) for n in names] for d in sass]
+            same = None if None in pair[0] + pair[1] else pair[0] == pair[1]
+            print(f"{key} {base} vs {label} {json.dumps(same)}", flush=True)
         ce = {s: per for s, per in diff.items() if s.startswith("ce")}
-        print(f"ce_fwd_bit_equal {base} vs {label} " + json.dumps(all(
-            per[n]["equal"] for per in ce.values() for n in ("lse", "tgt"))),
-              flush=True)
+        plain = [json.loads((work / f"ce_vs_plain_{t}.json").read_text())
+                 for t in (base, label)]
+        print(f"ce_fwd_diff {base} vs {label} " + json.dumps(
+            {s: {n: dict(between=per[n]["max_abs_diff"],
+                         **{f"{t}_vs_plain": vp[s[len("ce "):]][n]
+                            for t, vp in zip((base, label), plain)})
+                 for n in ("lse", "tgt")}
+             for s, per in ce.items()}), flush=True)
         print(f"ce_grad_diff {base} vs {label} " + json.dumps(
             {s: {n: per[n]["max_abs_diff"] for n in ("dx", "dW")}
              for s, per in ce.items()}), flush=True)

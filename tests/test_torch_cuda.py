@@ -108,7 +108,8 @@ def test_backward_kernel_is_deterministic_on_gpu():
 @pytest.mark.parametrize("N,D,V", [(4096, 768, 50304), (24, 64, 96),
                                    (1000, 768, 50257), (300, 128, 1000),
                                    (7, 768, 50), (65, 768, 97),
-                                   (65, 128, 97), (7, 64, 50)])
+                                   (65, 128, 97), (7, 64, 50),
+                                   (130, 768, 50257)])
 def test_fused_ce_kernels_match_plain_on_gpu(N, D, V):
     _need_gpu()
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -131,6 +132,43 @@ def test_fused_ce_kernels_match_plain_on_gpu(N, D, V):
                 fused_ce.ce_dx_reference(x, w, t, lse)) <= 2e-2
     assert _rel(fused_ce.ce_dw(x, w, t, lse),
                 fused_ce.ce_dw_reference(x, w, t, lse)) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_fused_ce_forward_is_deterministic_on_gpu():
+    """Each block sums its vocab tiles in one order and the two consumer
+    warpgroups' halves merge in one order: two runs at GPT-2 124M's
+    training shape give the same bits."""
+    _need_gpu()
+    N, D, V = 16384, 768, 50304
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((N, D), generator=gen, device="cuda", dtype=torch.bfloat16)
+    w = (torch.randn((V, D), generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    t = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    first = fused_ce.ce_fwd(x, w, t)
+    second = fused_ce.ce_fwd(x, w, t)
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_ce_forward_takes_a_view_off_16_bytes_on_gpu():
+    """x starting 2 bytes into its storage is copied for the forward's
+    tensor maps and gives the plain version's lse and tgt."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    N, D, V = 65, 768, 97
+    buf = torch.randn(N * D + 1, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    x = buf[1:].view(N, D)
+    w = (torch.randn((V, D), generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    t = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    lse, tgt = fused_ce.ce_fwd(x, w, t)
+    lse_r, tgt_r = fused_ce.ce_fwd_reference(x, w, t)
+    assert (lse - lse_r).abs().max().item() <= 2e-3
+    assert (tgt - tgt_r).abs().max().item() <= 2e-3
 
 
 @pytest.mark.cuda
