@@ -424,7 +424,8 @@ constexpr int kFwdGroups = 2;    // consumer warpgroups, taking alternate tiles
 constexpr int kFwdCluster = 2;   // blocks along N that share every W chunk
 // One W chunk: 64 columns of kVocabTile rows, 128 swizzled bytes a row.
 constexpr int kChunkBytes = kVocabTile * kBoxCols * 2;
-constexpr int kFwdStages = 131072 / kChunkBytes;  // W chunk buffers: 128 KB
+constexpr int kFwdStages = 4;  // W chunk buffers: 128 KB beside x's 96 KB
+static_assert(kVocabTile == 256, "a logits tile is one m64n256k16 wgmma");
 static_assert(kFwdGroups == 1 || kFwdGroups == 2, "one or two consumers");
 
 // The forward's threads and shared memory at width D, from a
@@ -558,8 +559,8 @@ fused_ce_fwd_kernel(const __grid_constant__ CUtensorMap x_map,
             sw128_desc(base + L::kW + s * kChunkBytes, 16, 1024);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<kVocabTile>(z, desc_at(x_desc, c * kResBox + kk * 32),
-                               desc_at(w_desc, kk * 32), c > 0 || kk > 0);
+          wgmma_64x256x16_ss(z, desc_at(x_desc, c * kResBox + kk * 32),
+                             desc_at(w_desc, kk * 32), c > 0 || kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
         if (c > 0) release(i - 1);

@@ -8,8 +8,8 @@
 // - the shared-memory matrix descriptor of such a tile, read K-major (the
 //   contracted dimension along the rows) or MN-major (the transposed read of
 //   a row-major tile);
-// - m64n32k16, m64n64k16, m64n128k16 and m64n256k16 with both operands in
-//   shared memory, m64n64k16 and m64n128k16 with A in registers, bf16 operands and
+// - m64n32k16, m64n64k16 and m64n256k16 with both operands in shared
+//   memory, m64n64k16 and m64n128k16 with A in registers, bf16 operands and
 //   fp32 accumulators, and the fence, commit and wait that order them;
 // - for thread-block clusters: the block's rank, the cluster-wide barrier,
 //   an mbarrier arrival on another block of the cluster, and the TMA copy
@@ -166,44 +166,6 @@ __device__ __forceinline__ void wgmma_64x32x16_ss(float (&d)[16], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x 128, fp32) = a b, or d + a b when `accumulate`: a (64 x 16) and
-// b (16 x 128) bf16, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_64x128x16_ss(float (&d)[64], uint64_t a,
-                                                   uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
 // d (64 x 256, fp32) = a b, or d + a b when `accumulate`: a (64 x 16) and
 // b (16 x 256) bf16, both K-major in shared memory.
 __device__ __forceinline__ void wgmma_64x256x16_ss(float (&d)[128], uint64_t a,
@@ -264,18 +226,6 @@ __device__ __forceinline__ void wgmma_64x256x16_ss(float (&d)[128], uint64_t a,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x N) = a b, or d + a b when `accumulate`, for N 128 or 256, both
-// operands K-major in shared memory.
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  static_assert(N == 128 || N == 256, "N 128 or 256");
-  if constexpr (N == 128)
-    wgmma_64x128x16_ss(d, a, b, accumulate);
-  else
-    wgmma_64x256x16_ss(d, a, b, accumulate);
 }
 
 // d (64 x 64, fp32) += a b: a (64 x 16, bf16) in registers, b (16 x 64,

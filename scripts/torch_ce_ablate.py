@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a fused-CE kernel's time goes, by ablation, on one NVIDIA GPU.
 
-    python3 scripts/torch_ce_ablate.py [--kernel bwd|fwd] [--tree .] [--work DIR]
+    python3 scripts/torch_ce_ablate.py [--kernel bwd|fwd] [--tree .] \
+        [--work DIR]
 
 ``ncu`` does not run on the card's machine, so this takes the kernel
 apart instead: it compiles ``csrc/fused_ce.cu`` of the tree once as it is
@@ -45,8 +46,6 @@ and the designs tried and not kept:
 
 - ``cluster4``: clusters of four blocks, each loading a quarter of every
   W chunk;
-- ``tile128``: vocab tiles of 128 rows (wgmma m64n128k16) through 8 W
-  buffers of 16 KB in place of 256 through 4 of 32 KB;
 - ``cluster_release``: each buffer's release an mbarrier arrival with
   ``.release.cluster`` and the producer's wait ``.acquire.cluster``, in
   place of the default CTA scope.
@@ -74,7 +73,8 @@ _FWD_SUM = """\
                fast_exp2(fmaf(z[4 * q + 1], kLog2e, -m_a));
         l_b += fast_exp2(fmaf(z[4 * q + 2], kLog2e, -m_b)) +
                fast_exp2(fmaf(z[4 * q + 3], kLog2e, -m_b));"""
-_ONE_BLOCK = ("constexpr int kFwdCluster = 2;", "constexpr int kFwdCluster = 1;")
+_ONE_BLOCK = ("constexpr int kFwdCluster = 2;",
+              "constexpr int kFwdCluster = 1;")
 _ONE_GROUP = ("constexpr int kFwdGroups = 2;", "constexpr int kFwdGroups = 1;")
 _ACQUIRE_WAIT = """// ---- The forward (lse and tgt) ----
 
@@ -107,12 +107,13 @@ ABLATIONS = {
     },
     "fwd": {
         "no_exp": [(_FWD_SUM, _FWD_SUM.replace("fast_exp2(fmaf(", "(fmaf("))],
-        "no_logits": [("          wgmma_ss<kVocabTile>(z, desc_at(",
-                       "          if (false) wgmma_ss<kVocabTile>(z, desc_at(")],
+        "no_logits": [("          wgmma_64x256x16_ss(z, desc_at(",
+                       "          if (false) wgmma_64x256x16_ss(z, desc_at(")],
         "hot_stream": [("(i / L::kChunks) * kVocabTile + rank * kPart",
                         "(i / L::kChunks % 2) * kVocabTile + rank * kPart")],
         "no_load": [("      for (int i = 0; i < n_chunks; ++i) {",
-                     "      for (int i = 0; i < n_chunks && i < kFwdStages; ++i) {"),
+                     "      for (int i = 0; i < n_chunks && i < kFwdStages;"
+                     " ++i) {"),
                     ("        mbar_wait(full + s, (i / kFwdStages) & 1);",
                      "        if (i < kFwdStages) mbar_wait(full + s, 0);")],
         "no_multicast": [_ONE_BLOCK],
@@ -120,8 +121,6 @@ ABLATIONS = {
         "step1": [_ONE_GROUP, _ONE_BLOCK],
         "cluster4": [("constexpr int kFwdCluster = 2;",
                       "constexpr int kFwdCluster = 4;")],
-        "tile128": [("constexpr int kVocabTile = 256;",
-                     "constexpr int kVocabTile = 128;")],
         "cluster_release": [
             ("wgmma_sm90.cuh", "mbarrier.arrive.shared::cluster.b64",
              "mbarrier.arrive.release.cluster.shared::cluster.b64"),

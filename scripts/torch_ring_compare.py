@@ -40,10 +40,10 @@ Then it prints, per shape and tensor, whether the trees agree bit for bit
 and by how much they differ (``bits``), ``ring_bit_equal`` (true when every
 ring tensor agrees), ``ring_sass_equal`` (true when the ring libraries'
 machine code agrees), ``ce_bwd_sass_equal`` (true when the CE backward
-kernels' machine code agrees), ``ce_fwd_diff`` (lse's and tgt's largest difference
-between the trees per shape, beside each tree's largest difference from
-``ce_fwd_reference``) and ``ce_grad_diff`` (dx's and dW's largest
-difference between the trees per shape). The splash kernels and the CE
+kernels' machine code agrees), ``ce_fwd_diff`` (lse's and tgt's largest
+difference between the trees per shape, beside each tree's largest
+difference from ``ce_fwd_reference``) and ``ce_grad_diff`` (dx's and dW's
+largest difference between the trees per shape). The splash kernels and the CE
 kernels sum in the order their design takes, so two designs are not
 expected to agree bit for bit; dx and dW read the forward's lse, so a new
 forward moves their bits too.
