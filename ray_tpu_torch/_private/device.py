@@ -28,3 +28,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def gpu_count() -> int:
+    """The CUDA devices torch sees, without creating a CUDA context: the
+    runtime registers them as its ``GPU`` resource."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0

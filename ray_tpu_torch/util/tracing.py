@@ -1,0 +1,251 @@
+"""Distributed tracing: spans around task submit/execute (the counterpart of
+``ray_tpu/util/tracing.py``).
+
+Counterpart of the reference's OpenTelemetry integration
+(ref: util/tracing/tracing_helper.py — _OpenTelemetryProxy:34,
+_is_tracing_enabled:92): opt-in via `enable_tracing()`; when on, every task
+submission opens a submit span and every execution opens an execute span
+parented on the submitter's span — the trace context rides inside the
+TaskSpec exactly like the reference propagates it in its TaskSpec proto.
+Spans go to a pluggable exporter (default: in-memory buffer; any callable
+taking a span dict works, e.g. one that forwards to an OTLP client).
+"""
+
+from __future__ import annotations
+
+import contextvars
+import itertools
+import random
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+from collections import deque
+
+_enabled = False
+_exporter: Optional[Callable[[dict], None]] = None
+#: Default exporter: bounded ring buffer (2 spans/task would otherwise grow
+#: without limit in a long-running driver).
+_BUFFER_MAX = 100_000
+_buffer: "deque" = deque(maxlen=_BUFFER_MAX)
+_buffer_lock = threading.Lock()
+_current_span: contextvars.ContextVar = contextvars.ContextVar(
+    "ray_tpu_span", default=None)
+
+# Span/trace id generation sits on the serve hot path (several spans per
+# request, mostly on the proxy/replica event loops), so uuid4's ~2us of
+# os.urandom per id is real QPS: ids here are a random per-process base
+# XOR a golden-ratio-mixed atomic counter — ~0.1us, unique within the
+# process (odd-constant multiply is a bijection mod 2**64) and across
+# processes by the base; the mix spreads the counter into the high bits so
+# id prefixes (e.g. the per-trace timeline lanes keyed on trace_id[:8])
+# still differ.  Tracing ids need uniqueness, not unpredictability.
+_ID_BASE = random.SystemRandom().getrandbits(64)
+_id_counter = itertools.count(1)  # next() is atomic under the GIL
+_MASK64 = (1 << 64) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
+
+
+#: Span names the port opens: name -> what the span covers. Entries ending
+#: in ``::`` are prefixes for dynamic names (``f"task::{name}"``).
+SPAN_REGISTRY: Dict[str, str] = {
+    "submit::": "driver-side task submission (suffix: task name)",
+    "task::": "worker-side task execution (suffix: task name)",
+    "serve.http_request": "proxy: full HTTP request lifetime",
+    "serve.route": "router: replica pick + dispatch",
+    "serve.replica": "replica: user-handler execution",
+    "serve.stream_emit": "proxy: one streamed response, first chunk -> end",
+}
+
+
+def _new_id64() -> str:
+    return f"{_ID_BASE ^ (next(_id_counter) * _GOLDEN & _MASK64):016x}"
+
+
+def _new_trace_id() -> str:
+    return _new_id64() + f"{_ID_BASE:016x}"
+
+
+def is_tracing_enabled() -> bool:
+    """(ref: tracing_helper.py:92)."""
+    return _enabled
+
+
+def enable_tracing(exporter: Optional[Callable[[dict], None]] = None) -> None:
+    global _enabled, _exporter
+    _enabled = True
+    _exporter = exporter
+
+
+def disable_tracing() -> None:
+    global _enabled, _exporter
+    _enabled = False
+    _exporter = None
+
+
+def exported_spans() -> List[dict]:
+    """Spans captured by the default in-memory exporter."""
+    # deque.append is atomic, so the hot path exports lock-free; snapshots
+    # just retry the rare "mutated during iteration" race.
+    for _ in range(100):
+        try:
+            return list(_buffer)
+        except RuntimeError:
+            continue
+    return list(_buffer)
+
+
+def clear_spans() -> None:
+    with _buffer_lock:
+        _buffer.clear()
+
+
+def _export(span: dict) -> None:
+    if not _enabled:
+        return  # span outlived its tracing session (e.g. a parked long-poll)
+    if _exporter is not None:
+        _exporter(span)
+    else:
+        _buffer.append(span)
+
+
+def current_context() -> Optional[dict]:
+    """{"trace_id", "span_id"} of the active span, for propagation."""
+    span = _current_span.get()
+    if span is None:
+        return None
+    return {"trace_id": span["trace_id"], "span_id": span["span_id"]}
+
+
+def active_span() -> Optional[dict]:
+    """The active span dict itself (or None) — zero-allocation alternative
+    to current_context() for in-process consumers (histogram exemplars,
+    batch-span parents).  Treat it as read-only; its trace_id/span_id stay
+    valid after the span closes, but cross-process propagation must use
+    current_context() (the span dict carries arbitrary attribute objects)."""
+    return _current_span.get()
+
+
+class _NullSpan:
+    """Context manager returned when tracing is off — zero per-use cost."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, et, ev, tb):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _SpanCtx:
+    """Class-based span context manager: ~2x cheaper to enter/exit than a
+    generator @contextmanager, which matters at several spans per request."""
+
+    __slots__ = ("_s", "_token")
+
+    def __init__(self, s: dict):
+        self._s = s
+
+    def __enter__(self):
+        self._token = _current_span.set(self._s)
+        return self._s
+
+    def __exit__(self, et, ev, tb):
+        s = self._s
+        if et is not None:
+            s["status"] = f"ERROR: {et.__name__}"
+        s["end"] = _now()
+        _current_span.reset(self._token)
+        _export(s)
+        return False
+
+
+_now = time.time
+
+
+def span(name: str, parent: Optional[dict] = None,
+         attributes: Optional[Dict[str, Any]] = None):
+    """Open a span; nests under the active span unless `parent` is given.
+
+    The span takes ownership of `attributes` — callers must not mutate the
+    dict afterwards (hot path: no defensive copy)."""
+    if not _enabled:
+        return _NULL_SPAN
+    if parent is None:
+        # The active span dict itself carries trace_id/span_id — no need to
+        # build the {"trace_id", "span_id"} projection on the hot path.
+        parent = _current_span.get()
+    if parent is not None:
+        trace_id = parent.get("trace_id") or _new_trace_id()
+        parent_id = parent.get("span_id")
+    else:
+        trace_id = _new_trace_id()
+        parent_id = None
+    s = {
+        "name": name,
+        "trace_id": trace_id,
+        "span_id": _new_id64(),
+        "parent_id": parent_id,
+        "start": _now(),
+        "end": None,
+        "attributes": attributes if attributes is not None else {},
+        "status": "OK",
+    }
+    return _SpanCtx(s)
+
+
+def record_span(name: str, start: float, end: float, *,
+                trace_id: Optional[str] = None,
+                parent: Optional[dict] = None,
+                attributes: Optional[Dict[str, Any]] = None,
+                status: str = "OK") -> Optional[dict]:
+    """Export a retroactively-timed span (e.g. queue wait measured after the
+    fact from an enqueue timestamp). Returns the span dict, or None when
+    tracing is off.
+
+    Takes ownership of `attributes` (no defensive copy); passing one shared
+    dict for a whole batch of spans is fine as long as nobody mutates it."""
+    if not _enabled:
+        return None
+    if parent is None:
+        parent = _current_span.get()
+    if parent is not None:
+        tid = trace_id or parent.get("trace_id") or _new_trace_id()
+        parent_id = parent.get("span_id")
+    else:
+        tid = trace_id or _new_trace_id()
+        parent_id = None
+    s = {
+        "name": name,
+        "trace_id": tid,
+        "span_id": _new_id64(),
+        "parent_id": parent_id,
+        "start": start,
+        "end": end,
+        "attributes": attributes if attributes is not None else {},
+        "status": status,
+    }
+    _export(s)
+    return s
+
+
+def inject_task_spec(spec) -> None:
+    """Called at submit time: stamp the submitter's context onto the spec."""
+    if _enabled:
+        spec.trace_ctx = current_context()
+
+
+def task_execute_span(spec):
+    """Execute-side span parented on the submit-side context in the spec
+    (the reference wraps the worker's task execution the same way)."""
+    if not _enabled:
+        return _NULL_SPAN
+    # task_id is a str subclass — store it directly, no str() copy.
+    return span(f"task::{spec.name}",
+                parent=getattr(spec, "trace_ctx", None),
+                attributes={"task_id": spec.task_id,
+                            "attempt": spec.attempt})
