@@ -4,17 +4,22 @@
 ``GPT2Next`` answers a unary next-token request (greedy argmax at the last
 position); ``GPT2Stream`` decodes greedily, padding every step to
 ``seq_len`` as the reference does, so each token is one full forward at the
-model's fixed shape. ``__call__`` keeps the example's request contract, and
-the work is in plain methods (``next_token``, ``generate``) so a caller can
-drive a replica in-process. The HTTP proxy, router and controller around the
-replicas are not ported yet (ROADMAP.md).
+model's fixed shape. ``__call__`` keeps the example's request contract
+(``serve.run(GPT2Next.bind(...))`` serves it over HTTP), and the work is in
+plain methods (``next_token``, ``generate``) so a caller can also drive a
+replica in-process.
 
 Both default to GPT-2 124M (``GPTConfig()``) on the GPU, with attention on
-the splash kernel.
+the splash kernel. Behind ``serve.run`` a replica's methods run on the
+runtime's threads (the async ``__call__`` on the replica's event loop, each
+step of the streaming generator on whichever executor thread pulls it), so
+every forward sets the replica's device on the calling thread instead of
+relying on that thread's current device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 from typing import Iterator, List, Optional, Sequence
 
@@ -30,6 +35,10 @@ class _Replica:
                  device: DeviceLike = None, params=None):
         self.config = gpt2.GPTConfig() if config is None else config
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # Pin the card now: the threads that later run the forwards
+            # each have a current device of their own.
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if params is None:
             params = gpt2.init_params(self.config, seed, self.device)
         # Matmul weights once in the compute type: the same logits, half the
@@ -55,9 +64,11 @@ class _Replica:
     def logits_at(self, tokens: np.ndarray, pos: int) -> torch.Tensor:
         """float32 logits (V,) at position ``pos`` of the (1, S) ``tokens``.
         Only that row goes through the LM head: a request reads no other."""
-        t = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
-        x = gpt2.forward_hidden(self.params, t, self.config)
-        return gpt2.lm_head(x[0, pos], self.params["wte"], torch.float32)
+        with (torch.cuda.device(self.device) if self.device.type == "cuda"
+              else contextlib.nullcontext()):
+            t = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+            x = gpt2.forward_hidden(self.params, t, self.config)
+            return gpt2.lm_head(x[0, pos], self.params["wte"], torch.float32)
 
 
 class GPT2Next(_Replica):

@@ -311,3 +311,45 @@ def test_ring_attention_gradient_is_its_own_on_gpu():
     assert (outs[0].float() - outs[1].float()).abs().max().item() <= 2e-2
     for a, b in zip(grads[0].split(H * hd, -1), grads[1].split(H * hd, -1)):
         assert _rel(a, b) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_gpu_replica_over_http_runs_the_kernel():
+    """serve.run on the card: a GPT2Next replica holding the GPU
+    (num_gpus=1) answers a JSON POST through the HTTP proxy with the same
+    token as the same replica body in-process, and the forward behind it
+    launches the splash kernel once per layer."""
+    _need_gpu()
+    import json
+    import urllib.request
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import gpt2
+
+    config = gpt2.GPTConfig(n_layer=2)
+    params = gpt2.init_params(config, seed=0, device="cuda")
+    tokens = list(range(1, 65))
+    want = serve.GPT2Next(config, params=params).next_token(tokens)
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        assert ray_tpu_torch.cluster_resources()["GPU"] == \
+            torch.cuda.device_count()
+        serve.start(http_options={"port": 0})
+        serve.run(serve.deployment(ray_actor_options={"num_gpus": 1})(
+            serve.GPT2Next).bind(config, params=params), name="gpt2",
+            route_prefix="/gpt2")
+        from ray_tpu_torch.serve.api import _state
+
+        before = attention.LAUNCHES["splash_attention_fwd"]
+        req = urllib.request.Request(
+            f"{_state['proxy'].address}/gpt2",
+            data=json.dumps({"tokens": tokens}).encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            out = json.load(resp)
+        assert attention.LAUNCHES["splash_attention_fwd"] == \
+            before + config.n_layer
+        assert out == {"next_token": want}
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()

@@ -1,9 +1,11 @@
 """Package rules of the port (ray_tpu_torch) and chip_smoke.py.
 
 - Importing any module of the port, or chip_smoke.py, loads no JAX, no
-  Triton and nothing of ray_tpu. This runs in a subprocess: this test
-  process already has JAX (tests/conftest.py), and the name ray_tpu_torch
-  itself starts with "ray_tpu".
+  Triton and nothing of ray_tpu, nor any of the reference's dependencies
+  that the card's machine lacks (aiohttp, cloudpickle, psutil, grpc): the
+  runtime and serve control plane use the standard library. This runs in a
+  subprocess: this test process already has JAX (tests/conftest.py), and
+  the name ray_tpu_torch itself starts with "ray_tpu".
 - Entry points run on the GPU unless given device="cpu", and raise without
   one.
 - The kernel build forms the sm_90a nvcc command and raises without nvcc.
@@ -31,9 +33,15 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "ray_tpu_torch"
 
 
+#: Packages the port may not load: JAX, Triton (only inside a kernel's
+#: launcher), the reference package, and the reference's dependencies that
+#: the card's machine does not have.
+_FORBIDDEN_ROOTS = ("jax", "jaxlib", "triton", "ray_tpu", "aiohttp",
+                    "cloudpickle", "psutil", "grpc")
+
+
 def _forbidden(name):
-    return (name in ("jax", "triton", "ray_tpu") or
-            name.startswith(("jax.", "jaxlib", "triton.", "ray_tpu.")))
+    return name.split(".")[0] in _FORBIDDEN_ROOTS
 
 
 def _port_files():
@@ -65,14 +73,25 @@ print(json.dumps({"modules": mods, "loaded": sorted(sys.modules)}))
             "ray_tpu_torch._private.kernel_build",
             "ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.parallel",
             "ray_tpu_torch.parallel.mesh",
-            "ray_tpu_torch.parallel.train_state"} <= set(res["modules"])
+            "ray_tpu_torch.parallel.train_state",
+            "ray_tpu_torch._private.runtime",
+            "ray_tpu_torch._private.object_store",
+            "ray_tpu_torch._private.scheduling", "ray_tpu_torch.actor",
+            "ray_tpu_torch.remote_function", "ray_tpu_torch.exceptions",
+            "ray_tpu_torch.experimental.internal_kv",
+            "ray_tpu_torch.util.tracing", "ray_tpu_torch.util.metrics",
+            "ray_tpu_torch.serve.api", "ray_tpu_torch.serve.controller",
+            "ray_tpu_torch.serve.proxy", "ray_tpu_torch.serve.router",
+            "ray_tpu_torch.serve.replica",
+            "ray_tpu_torch.serve.deployment_state",
+            "ray_tpu_torch.examples.serve_gpt2"} <= set(res["modules"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 
 def test_sources_import_no_jax_triton_or_ray_tpu_at_module_level():
-    """AST scan: no jax or ray_tpu import anywhere in the port or
-    chip_smoke.py, and triton (where a later kernel needs it) only inside
-    the function that launches it."""
+    """AST scan: no jax, ray_tpu, aiohttp, cloudpickle, psutil or grpc
+    import anywhere in the port or chip_smoke.py, and triton (where a later
+    kernel needs it) only inside the function that launches it."""
     for path in _port_files():
         tree = ast.parse(path.read_text(), filename=str(path))
         top = set(id(n) for n in tree.body)
@@ -85,7 +104,8 @@ def test_sources_import_no_jax_triton_or_ray_tpu_at_module_level():
                 continue
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "ray_tpu"), (path, name)
+                assert root == "triton" or root not in _FORBIDDEN_ROOTS, (
+                    path, name)
                 if root == "triton":
                     assert id(node) not in top, (path, name)
 
@@ -145,6 +165,39 @@ def test_the_scan_covers_the_parallel_package():
              if PORT in p.parents}
     assert {"parallel/__init__.py", "parallel/mesh.py",
             "parallel/train_state.py", "ops/ring_attention.py"} <= files
+
+
+def test_the_scan_covers_the_runtime_serve_util_and_examples():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"_private/runtime.py", "_private/object_store.py",
+            "_private/object_ref.py", "_private/scheduling.py",
+            "_private/kv_store.py", "actor.py", "remote_function.py",
+            "experimental/internal_kv.py", "util/tracing.py",
+            "util/metrics.py", "serve/api.py", "serve/controller.py",
+            "serve/proxy.py", "serve/router.py", "serve/replica.py",
+            "serve/handle.py", "serve/long_poll.py",
+            "serve/deployment_state.py", "serve/autoscaling.py",
+            "examples/serve_gpt2.py"} <= files
+
+
+def test_runtime_and_serve_import_without_initialising_cuda():
+    """``import ray_tpu_torch`` and its serve package stay light: no CUDA
+    context, no runtime, no thread started at import."""
+    code = """
+import json, threading, torch
+before = threading.active_count()
+import ray_tpu_torch, ray_tpu_torch.serve
+print(json.dumps({"cuda": torch.cuda.is_initialized(),
+                  "runtime": ray_tpu_torch.is_initialized(),
+                  "threads": threading.active_count() - before}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "cuda": False, "runtime": False, "threads": 0}
 
 
 @pytest.mark.parametrize("header", ["attention_fwd.cuh", "attention_bwd.cuh",

@@ -161,3 +161,137 @@ def test_default_model_is_gpt2_124m_on_the_kernel(monkeypatch, cls):
     assert seen["config"].attn_impl == "auto"
     assert seen["config"].dtype == torch.bfloat16
     assert tgpt2.num_params(seen["config"]) == 124_475_904
+
+
+# ------------------------------------------------- over HTTP, through serve.run
+class _RefNextDeployment:
+    """examples/serve_gpt2.py:GPT2Next at this file's config and weights."""
+
+    def __init__(self, config, params):
+        self.params = params
+        self._fwd = jax.jit(lambda p, t: jgpt2.forward(p, t, config))
+
+    async def __call__(self, request):
+        body = await request.json()
+        tokens = np.asarray(body["tokens"], np.int32)[None, :]
+        logits = self._fwd(self.params, jnp.asarray(tokens))
+        return {"next_token": int(jnp.argmax(logits[0, -1]))}
+
+
+class _RefStreamDeployment:
+    """examples/serve_gpt2.py:GPT2Stream at this file's config and weights."""
+
+    def __init__(self, config, params):
+        self.config, self.params = config, params
+        self._fwd = jax.jit(lambda p, t: jgpt2.forward(p, t, config))
+
+    def __call__(self, request):
+        tokens = [int(t) for t in
+                  request.query_params.get("tokens", "1,2,3").split(",")]
+        n = int(request.query_params.get("max_new", "8"))
+        S = self.config.seq_len
+        for _ in range(n):
+            arr = np.zeros((1, S), np.int32)
+            arr[0, :len(tokens)] = tokens
+            logits = self._fwd(self.params, jnp.asarray(arr))
+            nxt = int(jnp.argmax(logits[0, len(tokens) - 1]))
+            tokens.append(nxt)
+            yield json.dumps({"token": nxt})
+
+
+_UNARY = [1, 2, 3, 4]
+_PROMPT, _MAX_NEW = [1, 2, 3], 5
+
+
+def _example_requests(pkg, next_cls, stream_cls, *args, **kwargs):
+    """Serve the example's two apps on ``pkg`` and send its two requests:
+    the unary POST's JSON, and the SSE stream's Content-Type and events."""
+    import importlib
+    import urllib.request
+
+    serve = importlib.import_module(pkg.__name__ + ".serve")
+    api = importlib.import_module(pkg.__name__ + ".serve.api")
+    pkg.init(num_cpus=4)
+    try:
+        serve.start(http_options={"port": 0})
+        serve.run(serve.deployment(num_replicas=1)(next_cls).bind(
+            *args, **kwargs), name="gpt2", route_prefix="/gpt2")
+        serve.run(serve.deployment(num_replicas=1)(stream_cls).bind(
+            *args, **kwargs), name="gpt2stream", route_prefix="/gpt2stream")
+        addr = api._state["proxy"].address
+        req = urllib.request.Request(
+            f"{addr}/gpt2", data=json.dumps({"tokens": _UNARY}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            unary = json.load(resp)
+        stream_req = urllib.request.Request(
+            f"{addr}/gpt2stream?tokens={','.join(map(str, _PROMPT))}"
+            f"&max_new={_MAX_NEW}", headers={"Accept": "text/event-stream"})
+        with urllib.request.urlopen(stream_req, timeout=60) as resp:
+            ctype = resp.headers["Content-Type"]
+            events = [json.loads(line[len(b"data: "):])
+                      for line in resp.read().split(b"\n\n") if line]
+        return unary, ctype, events
+    finally:
+        serve.shutdown()
+        pkg.shutdown()
+
+
+@pytest.fixture(scope="module")
+def over_http(setup):
+    """Both example apps over HTTP: the reference's (ray_tpu.serve, JAX
+    forward) and the port's (ray_tpu_torch.serve, on the CPU), one after
+    the other."""
+    import ray_tpu
+    import ray_tpu_torch
+
+    jcfg, tcfg, jparams, tparams = setup
+    ref = _example_requests(ray_tpu, _RefNextDeployment,
+                            _RefStreamDeployment, jcfg, jparams)
+    port = _example_requests(ray_tpu_torch, GPT2Next, GPT2Stream, tcfg,
+                             device="cpu", params=tparams)
+    return ref, port
+
+
+def test_http_answers_match_the_reference_example(setup, over_http):
+    jcfg, _, jparams, _ = setup
+    (ref_unary, ref_ctype, ref_events), (unary, ctype, events) = over_http
+    assert set(unary) == set(ref_unary) == {"next_token"}
+    assert ctype.startswith("text/event-stream")
+    assert ctype == ref_ctype
+    assert len(events) == len(ref_events) == _MAX_NEW
+    _, ref_logits = _RefNext(jcfg, jparams)(_UNARY)
+    assert _near_tie(unary["next_token"], ref_logits)
+    ref = _RefStream(jcfg, jparams)
+    seq = list(_PROMPT)
+    for event in events:  # the reference along the port's own trajectory
+        assert _near_tie(event["token"], ref.step_logits(seq))
+        seq.append(event["token"])
+
+
+def test_http_answers_equal_the_in_process_answers(setup, over_http):
+    """The same weights on the same path: serving over HTTP changes no
+    token."""
+    _, tcfg, _, tparams = setup
+    _, (unary, _, events) = over_http
+    assert unary == {"next_token": GPT2Next(tcfg, device="cpu",
+                                            params=tparams).next_token(_UNARY)}
+    assert [e["token"] for e in events] == list(
+        GPT2Stream(tcfg, device="cpu", params=tparams).generate(
+            _PROMPT, _MAX_NEW))
+
+
+def test_example_runs_on_the_cpu(tmp_path):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.examples.serve_gpt2",
+         "--device", "cpu", "--tiny"], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "serve_gpt2 OK"
