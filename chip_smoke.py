@@ -58,7 +58,19 @@ Phases, each of which exits non-zero on failure:
    forward and 48 ring backward launches per step, no splash or CE), and
    one B=2 step of ``attn_impl="ring"`` and of ``"ulysses"`` is held
    against the splash path.
-6. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+6. Serving through the control plane (``serve_http`` line): after the
+   in-process phases, ``ray_tpu_torch.init()`` and ``serve.start`` bring up
+   the controller and the HTTP proxy, ``serve.run`` deploys ``GPT2Next``
+   and then ``GPT2Stream`` at GPT-2 124M with the serving phase's weights,
+   each replica holding the card (``ray_actor_options={"num_gpus": 1}``; the
+   node registers one GPU, so the two apps take it in turn), and the phase's
+   requests go over HTTP: four unary JSON POSTs and one SSE stream. Every
+   answer and every token must equal the in-process one, the SSE answer's
+   Content-Type must be ``text/event-stream``, and the splash launches over
+   the HTTP requests must be exactly ``n_layer`` per forward. It prints each
+   request's HTTP latency beside the in-process one, the SSE gaps and the
+   decode rate beside the in-process rate.
+7. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -633,7 +645,31 @@ def phase_ce_yardstick(ce: Dict[str, object]) -> Dict[str, object]:
     return row
 
 
-def phase_serve() -> Dict[str, object]:
+# The serving paths' requests: four unary ones of these lengths and one
+# 64-token prompt streamed for 16 greedy tokens, from a numpy seed.
+SERVE_LENGTHS = (4, 100, 517, 1024)
+SERVE_PROMPT_LEN = 64
+SERVE_MAX_NEW = 16
+# Rounds of HTTP against in-process, in turns, for the cost of the path.
+HTTP_ROUNDS = 5
+
+
+def _serve_requests():
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    requests = [rng.integers(0, 50257, n).tolist() for n in SERVE_LENGTHS]
+    return requests, rng.integers(0, 50257, SERVE_PROMPT_LEN).tolist()
+
+
+def serve_weights():
+    """GPT-2 124M's weights from seed 0, shared by both serving paths."""
+    from ray_tpu_torch.models import gpt2
+
+    return gpt2.init_params(gpt2.GPTConfig(), seed=0, device="cuda")
+
+
+def phase_serve(params) -> Dict[str, object]:
     import numpy as np
     import torch
 
@@ -641,14 +677,11 @@ def phase_serve() -> Dict[str, object]:
     from ray_tpu_torch.serve import GPT2Next, GPT2Stream
 
     config = gpt2.GPTConfig()  # GPT-2 124M, bf16, attn_impl="auto"
-    params = gpt2.init_params(config, seed=0, device="cuda")
     nxt = GPT2Next(config, params=params)
     stream = GPT2Stream(config, params=params)
-    rng = np.random.default_rng(0)
-    lengths = (4, 100, 517, 1024)
-    requests = [rng.integers(0, 50257, n).tolist() for n in lengths]
-    prompt = rng.integers(0, 50257, 64).tolist()
-    max_new = 16
+    lengths = SERVE_LENGTHS
+    requests, prompt = _serve_requests()
+    max_new = SERVE_MAX_NEW
 
     nxt.next_token(requests[0])  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
@@ -743,6 +776,198 @@ def phase_serve() -> Dict[str, object]:
         lm_head_ms_bf16_logits=head_bf16_ms)
     print("serve " + json.dumps(result), flush=True)
     return result
+
+
+def _post_json(url: str, body: dict) -> Tuple[int, str, dict]:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.status, resp.headers["Content-Type"], json.load(resp)
+
+
+def _sse(url: str) -> Tuple[int, str, list, list]:
+    """One SSE GET: status, Content-Type, the events' JSON, and each
+    event's arrival on the host clock."""
+    import urllib.request
+
+    req = urllib.request.Request(url, headers={"Accept": "text/event-stream"})
+    events, arrivals = [], []
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        for raw in resp:
+            if raw.startswith(b"data: "):
+                arrivals.append(time.perf_counter())
+                events.append(json.loads(raw[len(b"data: "):]))
+        return resp.status, resp.headers["Content-Type"], events, arrivals
+
+
+def phase_serve_http(params, inproc: Dict[str, object]) -> Dict[str, object]:
+    """The serving path through the control plane: ``serve.run`` deploys
+    ``GPT2Next`` and ``GPT2Stream`` at GPT-2 124M, each replica holding the
+    card (``num_gpus=1``), and the port's HTTP proxy answers the same
+    requests as ``phase_serve``: four unary JSON POSTs and one SSE stream.
+    The node registers one GPU, so the two apps take the card in turn: the
+    unary app is deleted before the streaming app is deployed. Every answer
+    and every token must equal the in-process ones (same weights, same
+    deterministic kernel), and the splash launches counted over the HTTP
+    requests must be ``n_layer`` per forward: the replicas are threads of
+    this process, so the counters are the ones every other phase reads.
+
+    Then the cost of the path: each request again over HTTP and in-process
+    (a replica body called on this thread, as ``phase_serve`` calls it), in
+    turns, HTTP_ROUNDS times, with every shape already seen; medians."""
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import gpt2
+
+    config = gpt2.GPTConfig()
+    requests, prompt = _serve_requests()
+    max_new = SERVE_MAX_NEW
+    query = f"tokens={','.join(map(str, prompt))}&max_new={max_new}"
+    gpu = {"num_gpus": 1}
+    local_next = serve.GPT2Next(config, params=params)
+    local_stream = serve.GPT2Stream(config, params=params)
+
+    def inproc_unary(toks):
+        t0 = time.perf_counter()
+        out = asyncio.run(local_next(_Request(body={"tokens": toks})))
+        return (time.perf_counter() - t0) * 1e3, out["next_token"]
+
+    def inproc_stream():
+        t0 = time.perf_counter()
+        arrivals, tokens = [], []
+        for chunk in local_stream(_Request(query_params={
+                "tokens": ",".join(map(str, prompt)),
+                "max_new": str(max_new)})):
+            arrivals.append(time.perf_counter())
+            tokens.append(json.loads(chunk)["token"])
+        return t0, arrivals, tokens
+
+    ray_tpu_torch.init()
+    try:
+        registered = ray_tpu_torch.cluster_resources().get("GPU")
+        if registered != torch.cuda.device_count():
+            fail(f"the runtime registers GPU {registered}, torch counts "
+                 f"{torch.cuda.device_count()}")
+        serve.start(http_options={"port": 0})
+        from ray_tpu_torch.serve.api import _state
+
+        addr = _state["proxy"].address
+        t0 = time.perf_counter()
+        serve.run(serve.deployment(ray_actor_options=gpu)(serve.GPT2Next)
+                  .bind(config, params=params), name="gpt2",
+                  route_prefix="/gpt2")
+        deploy_next_s = time.perf_counter() - t0
+        # Warm-up on the replica's threads (cuBLAS handles): not counted.
+        _post_json(f"{addr}/gpt2", {"tokens": requests[0]})
+
+        # The main path: counts at 0 just before, read just after.
+        _reset_counts()
+        answers, latencies, statuses = [], [], set()
+        for toks in requests:
+            t0 = time.perf_counter()
+            status, ctype, out = _post_json(f"{addr}/gpt2", {"tokens": toks})
+            latencies.append((time.perf_counter() - t0) * 1e3)
+            statuses.add((status, ctype))
+            answers.append(out.get("next_token"))
+        unary_counts = _counts()
+
+        # Cost of the path: HTTP and in-process in turns, shapes warm.
+        http_ms = {n: [] for n in SERVE_LENGTHS}
+        inproc_ms = {n: [] for n in SERVE_LENGTHS}
+        for _ in range(HTTP_ROUNDS):
+            for toks in requests:
+                ms, ans = inproc_unary(toks)
+                inproc_ms[len(toks)].append(ms)
+                t0 = time.perf_counter()
+                _, _, out = _post_json(f"{addr}/gpt2", {"tokens": toks})
+                http_ms[len(toks)].append((time.perf_counter() - t0) * 1e3)
+                if out.get("next_token") != ans:
+                    fail(f"HTTP answer {out} != in-process {ans} at length "
+                         f"{len(toks)}")
+
+        t0 = time.perf_counter()
+        serve.delete("gpt2")
+        serve.run(serve.deployment(ray_actor_options=gpu)(serve.GPT2Stream)
+                  .bind(config, params=params), name="gpt2stream",
+                  route_prefix="/gpt2stream")
+        redeploy_s = time.perf_counter() - t0
+        _sse(f"{addr}/gpt2stream?tokens=1,2,3&max_new=1")  # warm-up
+
+        _reset_counts()
+        t_sse = time.perf_counter()
+        sse_status, sse_ctype, events, arrivals = _sse(
+            f"{addr}/gpt2stream?{query}")
+        stream_counts = _counts()
+
+        rates = {"http": [], "inproc": []}
+        gap_runs = {"http": [], "inproc": []}
+        for _ in range(HTTP_ROUNDS):
+            t0, arr, toks = inproc_stream()
+            rates["inproc"].append(max_new / (arr[-1] - t0))
+            gap_runs["inproc"].append(_gaps_ms(t0, arr))
+            if toks != inproc["stream_tokens"]:
+                fail(f"in-process stream {toks} != {inproc['stream_tokens']}")
+            t0 = time.perf_counter()
+            _, _, evs, arr = _sse(f"{addr}/gpt2stream?{query}")
+            rates["http"].append(max_new / (arr[-1] - t0))
+            gap_runs["http"].append(_gaps_ms(t0, arr))
+            if [e.get("token") for e in evs] != inproc["stream_tokens"]:
+                fail(f"SSE tokens {evs} != in-process {inproc['stream_tokens']}")
+        serve.delete("gpt2stream")
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+
+    counts = {k: unary_counts[k] + stream_counts[k] for k in unary_counts}
+    streamed = [e.get("token") for e in events]
+    forwards = len(requests) + max_new
+    launches = counts["splash_attention_fwd"]
+    if statuses != {(200, "application/json; charset=utf-8")}:
+        fail(f"unary HTTP answers came back as {statuses}")
+    if answers != inproc["unary_answers"]:
+        fail(f"HTTP answers {answers} != in-process {inproc['unary_answers']}")
+    if sse_status != 200 or not sse_ctype.startswith("text/event-stream"):
+        fail(f"SSE answer {sse_status} with Content-Type {sse_ctype}")
+    if streamed != inproc["stream_tokens"]:
+        fail(f"SSE tokens {streamed} != in-process {inproc['stream_tokens']}")
+    if launches != config.n_layer * forwards:
+        fail(f"splash launches over HTTP {launches} != n_layer * forwards = "
+             f"{config.n_layer} * {forwards}")
+    others = {k: n for k, n in counts.items()
+              if n and k != "splash_attention_fwd"}
+    if others:
+        fail(f"the HTTP serving path launched other kernels: {others}")
+    med = statistics.median
+    result = dict(
+        unary_lengths=list(SERVE_LENGTHS), unary_answers=answers,
+        unary_latency_ms=latencies,
+        timed_rounds=HTTP_ROUNDS,
+        unary_http_ms=[med(http_ms[n]) for n in SERVE_LENGTHS],
+        unary_inproc_ms=[med(inproc_ms[n]) for n in SERVE_LENGTHS],
+        unary_overhead_ms=[med(http_ms[n]) - med(inproc_ms[n])
+                           for n in SERVE_LENGTHS],
+        stream_prompt_len=len(prompt), stream_tokens=streamed,
+        stream_gap_ms=_gaps_ms(t_sse, arrivals),
+        decode_tokens_per_s_http=med(rates["http"]),
+        decode_tokens_per_s_inproc=med(rates["inproc"]),
+        gap_ms_median_http=med(g for run in gap_runs["http"] for g in run[1:]),
+        gap_ms_median_inproc=med(g for run in gap_runs["inproc"]
+                                 for g in run[1:]),
+        sse_content_type=sse_ctype, forwards=forwards,
+        splash_launches=launches, launches=counts,
+        deploy_next_s=deploy_next_s, delete_and_deploy_stream_s=redeploy_s)
+    print("serve_http " + json.dumps(result), flush=True)
+    return result
+
+
+def _gaps_ms(t0: float, arrivals: list) -> list:
+    """Gaps between a request's start and each token's arrival, in ms: the
+    first is the time to the first token."""
+    return [(b - a) * 1e3 for a, b in zip([t0] + arrivals, arrivals)]
 
 
 def phase_ring(peaks: Tuple[float, float]) -> Dict[str, object]:
@@ -1285,9 +1510,14 @@ def main() -> int:
     kern = phase_kernel(peaks)
     ce = phase_ce(peaks)
     ring = phase_ring(peaks)
-    serve = phase_serve()
+    weights = serve_weights()
+    serve = phase_serve(weights)
     train = phase_train(peaks, card)
     train_ring = phase_train_ring(peaks, card)
+    # After every in-process phase, so that none of their numbers moves;
+    # before the profiled ones, whose tracing slows small kernels.
+    serve_http = phase_serve_http(weights, serve)
+    del weights
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
     bwd = phase_attn_bwd(peaks)
@@ -1306,7 +1536,8 @@ def main() -> int:
     def paths(name):
         """Launches of kernel ``name`` on each main path, counted from 0
         just before the path ran."""
-        out = {"serve": serve["launches"][name]}
+        out = {"serve": serve["launches"][name],
+               "serve_http": serve_http["launches"][name]}
         for impl in ("dense", "fused"):
             out[f"train_{impl}"] = train["launches"][impl][name]
         out["train_ring"] = train_ring["run"]["launches"][name]
