@@ -717,6 +717,8 @@ class Runtime:
             error = TaskError(error, task_repr=spec.name)
         for i in range(max(spec.num_returns, 1)):
             object_id = ObjectID.for_task_return(spec.task_id, i)
+            if spec.generator and self.store.contains(object_id):
+                continue  # an item the generator yielded outlives its failure
             self.store.put_error(object_id, error)
             self._on_object_ready(object_id)
         gen_handle = self._generators.pop(spec.task_id, None)

@@ -14,6 +14,7 @@ import pytest
 
 import ray_tpu
 import ray_tpu_torch
+from _torch_runtimes import fresh_init
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
 
@@ -136,7 +137,7 @@ def _tracing_nesting(pkg, tmp_path):
 # ------------------------------------------------------------ object store
 def _refcount_free_on_release(pkg, tmp_path):
     pkg_mod = importlib.import_module(pkg)
-    pkg_mod.init(num_cpus=2)
+    fresh_init(pkg_mod, num_cpus=2)
     try:
         store = _mod(pkg, "_private.runtime").get_runtime().store
         ref = pkg_mod.put(np.zeros(1000))
@@ -151,7 +152,7 @@ def _refcount_free_on_release(pkg, tmp_path):
 
 def _refs_alive_while_nested(pkg, tmp_path):
     pkg_mod = importlib.import_module(pkg)
-    pkg_mod.init(num_cpus=2)
+    fresh_init(pkg_mod, num_cpus=2)
     try:
         store = _mod(pkg, "_private.runtime").get_runtime().store
         ref = pkg_mod.put("value")
@@ -166,7 +167,7 @@ def _refs_alive_while_nested(pkg, tmp_path):
 
 def _lineage_reconstruction(pkg, tmp_path):
     pkg_mod = importlib.import_module(pkg)
-    pkg_mod.init(num_cpus=2)
+    fresh_init(pkg_mod, num_cpus=2)
     try:
         runtime = _mod(pkg, "_private.runtime").get_runtime()
         ref = pkg_mod.remote(lambda: np.arange(100)).remote()
@@ -225,7 +226,7 @@ def test_controller_restores_apps_from_the_kv_wal(tmp_path):
     from ray_tpu_torch.serve.controller import ServeController
 
     old = (GLOBAL_CONFIG.kv_persist, GLOBAL_CONFIG.session_dir)
-    ray_tpu_torch.init(num_cpus=4)
+    fresh_init(ray_tpu_torch, num_cpus=4)
     try:
         serve.run(serve.deployment(_Restorable).bind(), name="plain",
                   route_prefix=None)

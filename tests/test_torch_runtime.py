@@ -16,6 +16,7 @@ import pytest
 
 import ray_tpu
 import ray_tpu_torch
+from _torch_runtimes import fresh_init
 
 
 class _Counter:
@@ -313,7 +314,7 @@ CASES = [
 
 
 def _run(pkg, case):
-    pkg.init(num_cpus=4)
+    fresh_init(pkg, num_cpus=4)
     try:
         return case(pkg)
     finally:
@@ -332,7 +333,7 @@ def test_port_runtime_matches_reference(case, expected):
 # ----------------------------------------------------- the port's own rules
 @pytest.fixture
 def port():
-    ray_tpu_torch.init(num_cpus=4)
+    fresh_init(ray_tpu_torch, num_cpus=4)
     yield ray_tpu_torch
     ray_tpu_torch.shutdown()
 
@@ -351,7 +352,7 @@ def test_process_tier_raises(port, kind, option):
 def test_gpu_resource_follows_num_gpus():
     """A num_gpus=1 actor is infeasible where no GPU is registered (this
     host: torch counts none) and runs once init(num_gpus=1) registers one."""
-    ray_tpu_torch.init(num_cpus=2)
+    fresh_init(ray_tpu_torch, num_cpus=2)
     try:
         assert "GPU" not in ray_tpu_torch.cluster_resources()
         a = ray_tpu_torch.remote(_Counter).options(num_gpus=1).remote()
@@ -402,3 +403,29 @@ def test_freed_object_leaves_the_store(port):
     assert get_runtime().store.contains(oid)
     del ref
     assert not get_runtime().store.contains(oid)
+
+
+@pytest.mark.parametrize("kind", ["task", "actor"])
+def test_generator_items_outlive_its_failure(port, kind):
+    """tests/test_process_tier.py:246 on the thread tier, where the
+    generator runs to its error before the consumer reads: the item it
+    yielded first stays readable, and the next one raises the error."""
+
+    def bad():
+        yield 1
+        raise RuntimeError("stream blew up")
+
+    class Gen:
+        def bad(self):
+            yield from bad()
+
+    if kind == "task":
+        gen = port.remote(bad).remote()
+    else:
+        gen = port.remote(Gen).remote().bad.remote()
+    it = iter(gen)
+    first = next(it)
+    time.sleep(0.1)  # the generator has failed by now
+    assert port.get(first) == 1
+    with pytest.raises(port.exceptions.TaskError, match="stream blew up"):
+        port.get(next(it))

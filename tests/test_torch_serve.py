@@ -26,6 +26,7 @@ import ray_tpu
 import ray_tpu.serve
 import ray_tpu_torch
 import ray_tpu_torch.serve
+from _torch_runtimes import fresh_init
 
 
 def _serve(pkg):
@@ -848,7 +849,7 @@ EXPECTED.update({
 
 
 def _run(pkg, case):
-    pkg.init(num_cpus=8)
+    fresh_init(pkg, num_cpus=8)
     serve = _serve(pkg)
     try:
         serve.start(http_options={"port": 0})
@@ -870,7 +871,7 @@ def test_port_serve_matches_reference(case):
 # ----------------------------------------------------- the port's own rules
 @pytest.fixture
 def port_serve():
-    ray_tpu_torch.init(num_cpus=4)
+    fresh_init(ray_tpu_torch, num_cpus=4)
     try:
         yield ray_tpu_torch.serve
     finally:

@@ -209,9 +209,11 @@ def _example_requests(pkg, next_cls, stream_cls, *args, **kwargs):
     import importlib
     import urllib.request
 
+    from _torch_runtimes import fresh_init
+
     serve = importlib.import_module(pkg.__name__ + ".serve")
     api = importlib.import_module(pkg.__name__ + ".serve.api")
-    pkg.init(num_cpus=4)
+    fresh_init(pkg, num_cpus=4)
     try:
         serve.start(http_options={"port": 0})
         serve.run(serve.deployment(num_replicas=1)(next_cls).bind(
