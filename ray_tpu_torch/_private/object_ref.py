@@ -10,6 +10,7 @@ borrowing protocol (they come with the process tier, ROADMAP.md).
 
 from __future__ import annotations
 
+import queue
 import threading
 from typing import Any
 
@@ -41,7 +42,7 @@ class ObjectRef:
     def _release(self) -> None:
         if not self._released:
             self._released = True
-            _refcounter.remove(self.id)
+            _refcounter.release_from_finalizer(self.id)
 
     def __del__(self) -> None:
         try:
@@ -73,12 +74,22 @@ class ObjectRef:
 
 class ReferenceCounter:
     """Process-local refcount table. On zero, the registered callback runs
-    (the runtime frees the object and its lineage)."""
+    (the runtime frees the object and its lineage).
+
+    Handles are released by their finalizer (``ObjectRef.__del__``), which
+    the garbage collector can run at any allocation, on any thread, also
+    inside this class's own critical sections: a finalizer that blocked on
+    the lock there would wait for itself. So a finalizer only tries the
+    lock, and when it is taken leaves the release on a queue that the next
+    call holding the lock applies."""
 
     def __init__(self) -> None:
         self._counts: dict = {}
         self._lock = threading.Lock()
         self._zero_callback = None
+        #: Releases that found the lock taken. SimpleQueue.put is safe to
+        #: call from a finalizer (it is reentrant).
+        self._deferred: "queue.SimpleQueue" = queue.SimpleQueue()
 
     def set_zero_callback(self, cb) -> None:
         self._zero_callback = cb
@@ -86,6 +97,7 @@ class ReferenceCounter:
     def add(self, object_id: ObjectID, n: int = 1) -> None:
         with self._lock:
             self._counts[object_id] = self._counts.get(object_id, 0) + n
+        self._apply_deferred()
 
     def add_many(self, object_ids) -> None:
         """One lock round-trip for a batch of new handles."""
@@ -93,26 +105,50 @@ class ReferenceCounter:
             counts = self._counts
             for oid in object_ids:
                 counts[oid] = counts.get(oid, 0) + 1
+        self._apply_deferred()
 
-    def remove(self, object_id: ObjectID, n: int = 1) -> None:
-        cb = None
-        with self._lock:
-            count = self._counts.get(object_id, 0) - n
-            if count <= 0:
-                self._counts.pop(object_id, None)
-                cb = self._zero_callback
-            else:
-                self._counts[object_id] = count
-        if cb is not None:
+    def release_from_finalizer(self, object_id: ObjectID) -> None:
+        """Drops one handle's count; never waits for the lock."""
+        if not self._lock.acquire(blocking=False):
+            self._deferred.put(object_id)
+            return
+        try:
+            zero = self._decrement_locked(object_id)
+        finally:
+            self._lock.release()
+        self._on_zero(object_id, zero)
+
+    def _decrement_locked(self, object_id: ObjectID) -> bool:
+        count = self._counts.get(object_id, 0) - 1
+        if count <= 0:
+            self._counts.pop(object_id, None)
+            return True
+        self._counts[object_id] = count
+        return False
+
+    def _on_zero(self, object_id: ObjectID, zero: bool) -> None:
+        cb = self._zero_callback
+        if zero and cb is not None:
             cb(object_id)
 
-    def count(self, object_id: ObjectID) -> int:
-        with self._lock:
-            return self._counts.get(object_id, 0)
+    def _apply_deferred(self) -> None:
+        while True:
+            try:
+                object_id = self._deferred.get_nowait()
+            except queue.Empty:
+                return
+            with self._lock:
+                zero = self._decrement_locked(object_id)
+            self._on_zero(object_id, zero)
 
     def clear(self) -> None:
         with self._lock:
             self._counts.clear()
+            while True:
+                try:
+                    self._deferred.get_nowait()
+                except queue.Empty:
+                    break
 
 
 _refcounter = ReferenceCounter()

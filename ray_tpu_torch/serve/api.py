@@ -17,6 +17,9 @@ from ray_tpu_torch.serve.config import AutoscalingConfig, DeploymentConfig, HTTP
 from ray_tpu_torch.serve.handle import DeploymentHandle
 
 _CONTROLLER_NAME = "SERVE_CONTROLLER"
+#: Bound on one call to the controller: a wedged control plane raises
+#: GetTimeoutError instead of hanging its caller.
+_CONTROL_TIMEOUT_S = 60.0
 _lock = threading.Lock()
 _state: Dict[str, Any] = {"controller": None, "proxy": None}
 
@@ -223,7 +226,8 @@ def run(app: Application, *, name: str = "default",
     descs, ingress_name, handle = _build_app(app, name)
     ray_tpu_torch.get(controller.deploy_application.remote(
         name, route_prefix, ingress_name, descs,
-        ingress_streaming=_ingress_streams(app.deployment.func_or_class)))
+        ingress_streaming=_ingress_streams(app.deployment.func_or_class)),
+        timeout=_CONTROL_TIMEOUT_S)
     _wait_for_application(name, timeout_s=60.0)
     if blocking:  # pragma: no cover - interactive mode
         import time as _t
@@ -244,7 +248,8 @@ def _wait_for_application(app_name: str, timeout_s: float) -> None:
     controller = _get_controller()
     deadline = time.time() + timeout_s
     while time.time() < deadline:
-        status = ray_tpu_torch.get(controller.get_deployment_status.remote())
+        status = ray_tpu_torch.get(controller.get_deployment_status.remote(),
+                                   timeout=_CONTROL_TIMEOUT_S)
         app_deps = {k: v for k, v in status.items()
                     if k.startswith(f"{app_name}#")}
         if app_deps and all(v["status"] == "HEALTHY" for v in app_deps.values()):
@@ -261,7 +266,8 @@ def _wait_for_application(app_name: str, timeout_s: float) -> None:
 def get_app_handle(name: str = "default") -> DeploymentHandle:
     """(ref: serve/api.py get_app_handle)"""
     controller = _get_controller()
-    app = ray_tpu_torch.get(controller.get_app_config.remote(name))
+    app = ray_tpu_torch.get(controller.get_app_config.remote(name),
+                            timeout=_CONTROL_TIMEOUT_S)
     if app is None:
         raise ValueError(f"Application {name!r} does not exist")
     return DeploymentHandle(app["ingress"], name)
@@ -277,25 +283,29 @@ def status() -> Dict[str, Any]:
     counts/health plus requests/errors and p50/p95/p99/mean end-to-end
     latency (ms) aggregated from every router's pushed snapshots."""
     controller = _get_controller()
-    return ray_tpu_torch.get(controller.get_deployment_status.remote())
+    return ray_tpu_torch.get(controller.get_deployment_status.remote(),
+                             timeout=_CONTROL_TIMEOUT_S)
 
 
 def list_deployments() -> list:
     """Deployment observability rows (status + route + inflight + RED
     rollups)."""
     controller = _get_controller()
-    return ray_tpu_torch.get(controller.list_deployments.remote())
+    return ray_tpu_torch.get(controller.list_deployments.remote(),
+                             timeout=_CONTROL_TIMEOUT_S)
 
 
 def list_replicas() -> list:
     """Per-replica FSM rows (state, version, uptime, health counters)."""
     controller = _get_controller()
-    return ray_tpu_torch.get(controller.list_replicas.remote())
+    return ray_tpu_torch.get(controller.list_replicas.remote(),
+                             timeout=_CONTROL_TIMEOUT_S)
 
 
 def delete(name: str, _blocking: bool = True) -> None:
     controller = _get_controller()
-    ray_tpu_torch.get(controller.delete_application.remote(name))
+    ray_tpu_torch.get(controller.delete_application.remote(name),
+                      timeout=_CONTROL_TIMEOUT_S)
 
 
 def shutdown() -> None:

@@ -8,7 +8,9 @@ requests go straight handle → replica, never through the controller.)
 
 from __future__ import annotations
 
+import queue
 import threading
+import traceback
 from typing import Any, Dict, Optional
 
 
@@ -64,6 +66,32 @@ class DeploymentResponse:
         return self._ref
 
 
+_reaper_lock = threading.Lock()
+_reaper: Optional["queue.SimpleQueue"] = None  # guarded_by: _reaper_lock
+
+
+def _reap_queue() -> "queue.SimpleQueue":
+    """The queue of the daemon thread that cancels streams their consumer
+    abandoned (started with the first stream, not at import)."""
+    global _reaper
+    with _reaper_lock:
+        if _reaper is None:
+            _reaper = queue.SimpleQueue()
+            threading.Thread(target=_reap_loop, args=(_reaper,), daemon=True,
+                             name="serve-stream-reaper").start()
+        return _reaper
+
+
+def _reap_loop(q: "queue.SimpleQueue") -> None:
+    while True:
+        gen = q.get()
+        try:
+            gen.cancel(wait=False)
+        except Exception:  # the reaper must outlive one bad stream
+            traceback.print_exc()
+        del gen
+
+
 class DeploymentResponseGenerator:
     """Streaming result of handle.options(stream=True).remote(...)
     (ref: handle.py DeploymentResponseGenerator): iterate sync or async;
@@ -92,6 +120,7 @@ class DeploymentResponseGenerator:
         #: replica holding the slot, and cancel() must still fire even
         #: though iteration already marked _finished.
         self._server_done = False
+        self._reaper = _reap_queue()
 
     def _finish(self, exc: Optional[BaseException] = None) -> None:
         if not self._finished:
@@ -197,10 +226,12 @@ class DeploymentResponseGenerator:
         self._finish()
 
     def __del__(self):
-        try:
-            self.cancel(wait=False)
-        except Exception:
-            pass
+        # The garbage collector may run this inside any critical section
+        # of this thread (the refcount table, the router's scheduler, a
+        # metric), so the cancel — which takes those locks — runs on the
+        # reaper thread instead. SimpleQueue.put is safe here.
+        if not self._server_done:
+            self._reaper.put(self)
 
 
 class DeploymentHandle:

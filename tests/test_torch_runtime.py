@@ -9,6 +9,7 @@ class name, which the two packages share.
 """
 
 import asyncio
+import threading
 import time
 
 import numpy as np
@@ -429,3 +430,30 @@ def test_generator_items_outlive_its_failure(port, kind):
     assert port.get(first) == 1
     with pytest.raises(port.exceptions.TaskError, match="stream blew up"):
         port.get(next(it))
+
+
+def test_a_release_inside_the_refcount_lock_is_deferred(port):
+    """The collector can run a handle's finalizer inside the refcount
+    table's own critical section on the same thread: the release must not
+    wait for the lock (it would wait for itself) but be applied by the next
+    call that takes it."""
+    from ray_tpu_torch._private.object_ref import global_refcounter
+    from ray_tpu_torch._private.runtime import get_runtime
+
+    counter, store = global_refcounter(), get_runtime().store
+    ref = port.put("x")
+    oid = ref.id
+    done = threading.Event()
+
+    def release_while_locked():
+        with counter._lock:  # as if the collector ran the finalizer here
+            nonlocal ref
+            del ref
+        done.set()
+
+    t = threading.Thread(target=release_while_locked, daemon=True)
+    t.start()
+    assert done.wait(10), "the finalizer waited for its own lock"
+    assert store.contains(oid)  # deferred
+    port.put("y")  # the next add applies it
+    assert not store.contains(oid)

@@ -855,8 +855,10 @@ def _run(pkg, case):
         serve.start(http_options={"port": 0})
         return case(pkg)
     finally:
-        serve.shutdown()
-        pkg.shutdown()
+        try:
+            serve.shutdown()
+        finally:
+            pkg.shutdown()
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c.__name__ for c in CASES])
@@ -875,8 +877,10 @@ def port_serve():
     try:
         yield ray_tpu_torch.serve
     finally:
-        ray_tpu_torch.serve.shutdown()
-        ray_tpu_torch.shutdown()
+        try:
+            ray_tpu_torch.serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
 
 
 def test_proxy_that_cannot_bind_raises(port_serve):
@@ -1020,3 +1024,41 @@ def test_http_request_framing(port_serve):
     # HTTP/1.0 without keep-alive: answered in 1.0, and the server closes.
     assert raw(b"GET /frame HTTP/1.0\r\n\r\n") == (b"HTTP/1.0 200 OK",
                                                    b'{"body": ""}')
+
+
+def test_abandoned_stream_is_cancelled_off_the_finalizer(port_serve):
+    """A stream its consumer drops is cancelled by the reaper thread, not
+    in the finalizer: collected inside the router's own lock, it neither
+    deadlocks nor keeps the replica's slot."""
+    import gc
+
+    @port_serve.deployment
+    class Endless:
+        def tokens(self):
+            i = 0
+            while True:
+                time.sleep(0.01)
+                yield i
+                i += 1
+
+    handle = port_serve.run(Endless.bind(), name="abandon", route_prefix=None)
+    gen = handle.options(method_name="tokens", stream=True).remote()
+    assert next(gen) == 0
+    router = handle._get_router()
+    done = threading.Event()
+
+    def drop_inside_the_router_lock():
+        nonlocal gen
+        with router._scheduler._lock:
+            del gen
+            gc.collect()
+        done.set()
+
+    t = threading.Thread(target=drop_inside_the_router_lock, daemon=True)
+    t.start()
+    assert done.wait(10), "the finalizer waited for the router's lock"
+    assert _wait_for_zero_ongoing(ray_tpu_torch, handle) == 0
+    deadline = time.time() + 10
+    while router._scheduler.total_inflight() and time.time() < deadline:
+        time.sleep(0.05)
+    assert router._scheduler.total_inflight() == 0

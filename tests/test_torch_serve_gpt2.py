@@ -235,8 +235,10 @@ def _example_requests(pkg, next_cls, stream_cls, *args, **kwargs):
                       for line in resp.read().split(b"\n\n") if line]
         return unary, ctype, events
     finally:
-        serve.shutdown()
-        pkg.shutdown()
+        try:
+            serve.shutdown()
+        finally:
+            pkg.shutdown()
 
 
 @pytest.fixture(scope="module")
