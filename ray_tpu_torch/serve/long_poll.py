@@ -12,6 +12,8 @@ import asyncio
 import threading
 from typing import Any, Callable, Dict, Tuple
 
+from ray_tpu_torch._private.runtime import get_runtime, runtime_or_none
+
 
 class LongPollHost:
     """Lives inside the controller actor's event loop."""
@@ -69,6 +71,9 @@ class LongPollClient:
 
     def __init__(self, controller_handle, key_callbacks: Dict[str, Callable[[Any], None]]):
         self._controller = controller_handle
+        #: The runtime the controller lives in: once it is shut down (or
+        #: replaced), the controller is gone and the client stops.
+        self._runtime = get_runtime()
         self._callbacks = dict(key_callbacks)
         self._snapshot_ids: Dict[str, int] = {k: 0 for k in key_callbacks}
         self._stopped = threading.Event()
@@ -81,6 +86,9 @@ class LongPollClient:
         from ray_tpu_torch.exceptions import ActorDiedError
 
         while not self._stopped.is_set():
+            if runtime_or_none() is not self._runtime:
+                self._stopped.set()
+                return
             try:
                 updates = ray_tpu_torch.get(
                     self._controller.listen_for_change.remote(

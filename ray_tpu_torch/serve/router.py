@@ -22,6 +22,7 @@ import time
 import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
+from ray_tpu_torch._private.runtime import get_runtime, runtime_or_none
 from ray_tpu_torch.serve import metrics as serve_metrics
 from ray_tpu_torch.util import metrics as _metrics
 from ray_tpu_torch.util import tracing as _tracing
@@ -162,6 +163,8 @@ class Router:
             controller_handle,
             {f"replicas::{deployment_id}": self._update_replicas},
         )
+        #: The runtime the controller lives in (see _push_metrics_loop).
+        self._runtime = get_runtime()
         self._stopped = threading.Event()
         self._metrics_thread = threading.Thread(
             target=self._push_metrics_loop, daemon=True,
@@ -184,6 +187,9 @@ class Router:
         from ray_tpu_torch.exceptions import ActorDiedError
 
         while not self._stopped.wait(METRICS_PUSH_INTERVAL_S):
+            if runtime_or_none() is not self._runtime:
+                self._stopped.set()  # the runtime, and the controller, are gone
+                return
             inflight = self._scheduler.total_inflight()
             INFLIGHT_GAUGE.set(inflight,
                                tags={"deployment": self.deployment_id})

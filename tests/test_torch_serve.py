@@ -1062,3 +1062,37 @@ def test_abandoned_stream_is_cancelled_off_the_finalizer(port_serve):
     while router._scheduler.total_inflight() and time.time() < deadline:
         time.sleep(0.05)
     assert router._scheduler.total_inflight() == 0
+
+
+def test_serve_threads_end_with_the_runtime():
+    """The proxy, the long-poll clients and the routers' metrics loops of
+    a serve instance end once it and its runtime are shut down: none keeps
+    polling a controller that is gone."""
+    before = set(threading.enumerate())
+    fresh_init(ray_tpu_torch, num_cpus=4)
+    serve = ray_tpu_torch.serve
+    try:
+        serve.start(http_options={"port": 0})
+
+        @serve.deployment
+        def hello(request=None):
+            return "hi"
+
+        handle = serve.run(hello.bind(), name="threads", route_prefix="/t")
+        assert handle.remote().result(timeout_s=10) == "hi"
+        assert _http(ray_tpu_torch, "/t")[3] == b"hi"
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+
+    def serve_threads():
+        return [t.name for t in set(threading.enumerate()) - before
+                if t.name.startswith(("serve-long-poll", "serve-router",
+                                      "serve-http-proxy"))]
+
+    deadline = time.time() + 15  # a long poll in flight ends within 10 s
+    while serve_threads() and time.time() < deadline:
+        time.sleep(0.1)
+    assert serve_threads() == []
