@@ -9,10 +9,8 @@ proxy, router and replica layers:
 
 - ``serve_request_latency_seconds``   Histogram, end-to-end handle-call
   latency per deployment (assign -> reply), trace-ID exemplars.
-- ``serve_queue_wait_seconds``        Histogram, time spent waiting in a
-  batch/continuous queue before execution started.
 - ``serve_execution_seconds``         Histogram, user-callable execution
-  time (per vectorized invocation for batched deployments).
+  time.
 - ``serve_requests_total``            Counter, completed handle calls.
 - ``serve_request_errors_total``      Counter, handle calls that raised.
 - ``serve_http_inflight``             Gauge, HTTP requests currently inside
@@ -22,10 +20,11 @@ Routers push cumulative per-deployment snapshots of these to the
 controller keyed by ``(router_id, pid)``; the controller sums the latest
 snapshot per pid (routers in one process share the process-global
 registry, so summing per-router would double count) and folds them into
-``serve.status()`` / ``/api/serve`` rollups via
+``serve.status()`` rollups via
 :func:`ray_tpu_torch.util.metrics.percentile_from_buckets`.
-The windowed accessors over the metrics agent (request rate, the LLM
-views) come with the agent (ROADMAP.md, Queue 1).
+The batch queue's wait histogram comes with ``serve.batch``, the windowed
+accessors (request rate, the LLM views) with the metrics agent (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -45,11 +44,6 @@ REQUEST_LATENCY = _metrics.Histogram(
     "End-to-end request latency per deployment (handle assign to reply)",
     boundaries=LATENCY_BOUNDARIES,
     tag_keys=("deployment",))
-QUEUE_WAIT = _metrics.Histogram(
-    "serve_queue_wait_seconds",
-    "Time a request waited in a batch queue before execution began",
-    boundaries=LATENCY_BOUNDARIES,
-    tag_keys=("deployment", "method"))
 EXECUTION = _metrics.Histogram(
     "serve_execution_seconds",
     "User-callable execution time per (possibly vectorized) invocation",
