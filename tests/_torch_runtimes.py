@@ -1,12 +1,24 @@
-"""Starting a runtime afresh in a test process shared with other tests.
+"""Running a parity case in a test process shared with other tests.
 
 pytest runs many test files in one process, and a test that ran earlier
 (some of the reference's own tests end with their runtime or serve
 instance still up) must neither make ``init`` raise nor leave a second
 runtime running beside the one a parity test starts: ``fresh_init`` ends
 both packages' serve instances and runtimes first.
+
+``gc_paused`` holds the cyclic garbage collector off while a case runs.
+The reference's ``ObjectRef`` finalizer releases its count with a blocking
+acquire of the refcount table's lock, and the collector can run that
+finalizer inside the same lock's critical section on the same thread
+(Python 3.12 collects at any eval-breaker check): the thread then waits
+for itself and the test process hangs. The port's finalizer only tries the
+lock (tests/test_torch_runtime.py holds it to that); the reference is not
+edited, so the parity cases, which run it far more than its own tests do,
+pause the collector and collect once the case is over.
 """
 
+import contextlib
+import gc
 import importlib
 
 import ray_tpu
@@ -18,3 +30,15 @@ def fresh_init(pkg, **kwargs):
         importlib.import_module(other.__name__ + ".serve").shutdown()
         other.shutdown()
     return pkg.init(**kwargs)
+
+
+@contextlib.contextmanager
+def gc_paused():
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+        gc.collect()

@@ -14,7 +14,7 @@ import pytest
 
 import ray_tpu
 import ray_tpu_torch
-from _torch_runtimes import fresh_init
+from _torch_runtimes import fresh_init, gc_paused
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
 
@@ -200,8 +200,9 @@ EXPECTED = {
 @pytest.mark.parametrize("case", CASES, ids=[c.__name__.lstrip("_")
                                              for c in CASES])
 def test_port_control_plane_matches_reference(case, tmp_path):
-    ref = case("ray_tpu", tmp_path)
-    port = case("ray_tpu_torch", tmp_path)
+    with gc_paused():
+        ref = case("ray_tpu", tmp_path)
+        port = case("ray_tpu_torch", tmp_path)
     if case.__name__ in EXPECTED:
         assert ref == EXPECTED[case.__name__]
     assert port == ref

@@ -17,7 +17,7 @@ import pytest
 
 import ray_tpu
 import ray_tpu_torch
-from _torch_runtimes import fresh_init
+from _torch_runtimes import fresh_init, gc_paused
 
 
 class _Counter:
@@ -325,8 +325,9 @@ def _run(pkg, case):
 @pytest.mark.parametrize("case,expected", CASES,
                          ids=[c.__name__ for c, _ in CASES])
 def test_port_runtime_matches_reference(case, expected):
-    ref = _run(ray_tpu, case)
-    port = _run(ray_tpu_torch, case)
+    with gc_paused():
+        ref = _run(ray_tpu, case)
+        port = _run(ray_tpu_torch, case)
     assert ref == expected
     assert port == ref
 

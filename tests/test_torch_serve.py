@@ -26,7 +26,7 @@ import ray_tpu
 import ray_tpu.serve
 import ray_tpu_torch
 import ray_tpu_torch.serve
-from _torch_runtimes import fresh_init
+from _torch_runtimes import fresh_init, gc_paused
 
 
 def _serve(pkg):
@@ -863,8 +863,9 @@ def _run(pkg, case):
 
 @pytest.mark.parametrize("case", CASES, ids=[c.__name__ for c in CASES])
 def test_port_serve_matches_reference(case):
-    ref = _run(ray_tpu, case)
-    port = _run(ray_tpu_torch, case)
+    with gc_paused():
+        ref = _run(ray_tpu, case)
+        port = _run(ray_tpu_torch, case)
     if case.__name__ in EXPECTED:
         assert ref == EXPECTED[case.__name__]
     assert port == ref

@@ -248,12 +248,14 @@ def over_http(setup):
     the other."""
     import ray_tpu
     import ray_tpu_torch
+    from _torch_runtimes import gc_paused
 
     jcfg, tcfg, jparams, tparams = setup
-    ref = _example_requests(ray_tpu, _RefNextDeployment,
-                            _RefStreamDeployment, jcfg, jparams)
-    port = _example_requests(ray_tpu_torch, GPT2Next, GPT2Stream, tcfg,
-                             device="cpu", params=tparams)
+    with gc_paused():
+        ref = _example_requests(ray_tpu, _RefNextDeployment,
+                                _RefStreamDeployment, jcfg, jparams)
+        port = _example_requests(ray_tpu_torch, GPT2Next, GPT2Stream, tcfg,
+                                 device="cpu", params=tparams)
     return ref, port
 
 
