@@ -299,6 +299,8 @@ class HTTPProxy:
                 size = int(size_line.split(b";")[0].strip(), 16)
             except ValueError:
                 raise _BadRequest("bad chunk size") from None
+            if size < 0:
+                raise _BadRequest("bad chunk size")
             if size == 0:
                 while (await cls._readline(reader)) not in (b"\r\n", b"\n", b""):
                     pass  # trailers

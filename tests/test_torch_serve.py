@@ -1020,6 +1020,8 @@ def test_http_request_framing(port_serve):
     assert status == b"HTTP/1.1 100 Continue"
     assert body.endswith(b'{"body": "hi"}')
     assert raw(b"NONSENSE\r\n\r\n")[0] == b"HTTP/1.1 400 Bad Request"
+    assert raw(b"POST /frame HTTP/1.1\r\nTransfer-Encoding: chunked\r\n\r\n"
+               b"-5\r\n")[0] == b"HTTP/1.1 400 Bad Request"
     assert raw(b"GET /" + b"a" * 70000 + b" HTTP/1.1\r\n\r\n")[0] == \
         b"HTTP/1.1 400 Bad Request"
     # HTTP/1.0 without keep-alive: answered in 1.0, and the server closes.
