@@ -32,7 +32,7 @@ __all__ = [
     "cancel", "kill", "get_actor", "method", "nodes", "cluster_resources",
     "available_resources", "timeline", "ObjectRef", "ObjectRefGenerator",
     "ActorHandle", "exceptions", "exit_actor", "get_runtime_context",
-    "resolve_device",
+    "get_gpu_ids", "resolve_device",
 ]
 
 
@@ -42,7 +42,6 @@ def init(
     num_cpus: Optional[int] = None,
     num_gpus: Optional[int] = None,
     resources: Optional[Dict[str, float]] = None,
-    labels: Optional[Dict[str, str]] = None,
     namespace: str = "default",
     ignore_reinit_error: bool = False,
     _system_config: Optional[dict] = None,
@@ -50,8 +49,8 @@ def init(
     """Start the runtime in this process (ref: worker.py:1275 ray.init).
 
     The node's resources are ``num_cpus`` CPUs (default: the host's),
-    ``num_gpus`` GPUs (default: the CUDA devices torch counts), ``memory``
-    and ``resources``. Connecting to a cluster (``address``) comes with the
+    ``num_gpus`` GPUs (default: the CUDA devices torch counts; a whole
+    number), ``memory`` and ``resources``. Connecting to a cluster (``address``) comes with the
     multi-node runtime, which is not ported yet.
     """
     if address is not None:
@@ -66,7 +65,6 @@ def init(
         num_cpus=num_cpus,
         num_gpus=num_gpus,
         resources=resources,
-        labels=labels,
         namespace=namespace,
         _system_config=_system_config,
     )
@@ -187,3 +185,11 @@ class _RuntimeContext:
 
 def get_runtime_context() -> _RuntimeContext:
     return _RuntimeContext()
+
+
+def get_gpu_ids() -> list:
+    """The GPU indices granted to the calling task, or to the actor whose
+    constructor or threaded method is running (ref: worker.py
+    ray.get_gpu_ids); empty outside them and for a lease without GPUs."""
+    ctx = _rt.current_task_context()
+    return list(ctx.gpu_ids) if ctx else []

@@ -5,7 +5,8 @@ Every flag has a typed default and can be overridden by a ``RAY_TPU_<NAME>``
 environment variable or the ``_system_config`` dict passed to
 ``ray_tpu_torch.init``. Only the thread tier's flags are here: the object
 transfer, worker-node, process-pool and memory-monitor flags come with the
-process tier (ROADMAP.md, Queue 1).
+process tier, and the placement policies' flags with the multi-node runtime
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -27,12 +28,7 @@ class Config:
     #: the host's RAM, the reference's default).
     object_store_memory: int = 0
 
-    # --- scheduling ---
-    #: Pack-then-spread crossover of the hybrid policy
-    #: (ref: hybrid_scheduling_policy.h:50 spread_threshold=0.5).
-    scheduler_spread_threshold: float = 0.5
-    #: Top-k random tie-break among candidate nodes.
-    scheduler_top_k_fraction: float = 0.2
+    # --- tasks ---
     #: Max times a task is retried on system failure (per task:
     #: options(max_retries=...)).
     task_max_retries: int = 3

@@ -32,3 +32,14 @@ def gpu_count() -> int:
     """The CUDA devices torch sees, without creating a CUDA context: the
     runtime registers them as its ``GPU`` resource."""
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def granted_cuda_device() -> torch.device:
+    """The card of the calling task or actor: the first GPU index its lease
+    was granted (``ray_tpu_torch.get_gpu_ids``), else this thread's current
+    device. Replicas on one host thus run each on the card the runtime
+    counted for it."""
+    import ray_tpu_torch
+
+    ids = ray_tpu_torch.get_gpu_ids()
+    return torch.device("cuda", ids[0] if ids else torch.cuda.current_device())

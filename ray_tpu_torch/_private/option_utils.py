@@ -2,7 +2,9 @@
 ``ray_tpu/_private/option_utils.py``; ref: ray_option_utils.py).
 
 Resources are ``CPU`` (``num_cpus``), ``GPU`` (``num_gpus``), ``memory``
-(bytes) and custom ones (``resources={...}``). Tasks and actors run on the
+(bytes) and custom ones (``resources={...}``); more than one GPU must be a
+whole number of them. ``scheduling_strategy`` is accepted and ignored: it
+chooses among nodes, and the thread tier has one. Tasks and actors run on the
 thread tier: ``isolation="process"`` and ``runtime_env`` raise
 NotImplementedError until the process tier is ported.
 """
@@ -51,6 +53,9 @@ def resolve_task_options(options: Dict[str, Any], is_actor: bool) -> Dict[str, A
         resources.setdefault("CPU", 0.0 if is_actor else 1.0)
     if options.get("num_gpus") is not None:
         resources["GPU"] = float(options["num_gpus"])
+    if resources.get("GPU", 0.0) > 1 and resources["GPU"] != int(resources["GPU"]):
+        raise ValueError(
+            f"num_gpus above 1 must be a whole number, got {resources['GPU']}")
     if options.get("memory") is not None:
         resources["memory"] = float(options["memory"])
     for key in [k for k, v in resources.items() if v == 0.0]:
@@ -58,7 +63,6 @@ def resolve_task_options(options: Dict[str, Any], is_actor: bool) -> Dict[str, A
 
     out: Dict[str, Any] = {
         "resources": resources,
-        "scheduling_strategy": options.get("scheduling_strategy"),
         "name": options.get("name"),
     }
     if is_actor:

@@ -6,14 +6,15 @@ plane:
 * task manager — pending task bookkeeping, retries, lineage-based object
   reconstruction (ref: task_manager.h:212);
 * dispatcher — dependency wait (ref: dependency_manager.h:49), then resource
-  acquisition through the ClusterScheduler, then execution on a thread;
+  acquisition through the NodeScheduler, then execution on a thread;
 * actor manager — actor FSM with restarts (ref: gcs_actor_manager.h:312),
   ordered mailboxes, threaded and async actors, named actors;
-* driver API — get/put/wait/cancel/kill, releasing a task's resources while
+* driver API — get/put/wait/cancel/kill, lending a task's CPUs back while
   it blocks in get (the reference's "worker blocked in ray.get" release).
 
 Everything runs on threads of this process, which share one CUDA context:
-a replica that serves a model on the GPU is an actor here. The process
+a replica that serves a model on the GPU is an actor here, and reads the
+card its lease was granted from ``get_gpu_ids()``. The process
 tier (``isolation="process"``, ``runtime_env``), worker nodes, borrowing
 and the memory monitor are not ported yet (ROADMAP.md, Queue 1).
 """
@@ -44,10 +45,9 @@ from ray_tpu_torch._private.ids import (
 from ray_tpu_torch._private.object_ref import ObjectRef, global_refcounter
 from ray_tpu_torch._private.object_store import ObjectStore
 from ray_tpu_torch._private.scheduling import (
-    ClusterScheduler,
-    DefaultStrategy,
     InfeasibleError,
-    SpreadStrategy,
+    Lease,
+    NodeScheduler,
 )
 from ray_tpu_torch._private.task_spec import ActorSpec, TaskSpec
 from ray_tpu_torch.exceptions import (
@@ -75,15 +75,18 @@ _task_ctx = threading.local()
 class TaskContext:
     """Per-execution context (ref: runtime_context.py RuntimeContext)."""
 
-    __slots__ = ("task_id", "actor_id", "lease_release", "lease_reacquire", "cancelled")
+    __slots__ = ("task_id", "actor_id", "lease", "cancelled", "gpu_ids")
 
     def __init__(self, task_id: TaskID, actor_id: Optional[ActorID] = None,
-                 lease_release=None, lease_reacquire=None):
+                 lease: Optional[Lease] = None, gpu_ids: Tuple[int, ...] = ()):
         self.task_id = task_id
         self.actor_id = actor_id
-        self.lease_release = lease_release
-        self.lease_reacquire = lease_reacquire
+        #: A task's own lease, lent back while the task blocks in get (an
+        #: actor's lease is held for its lifetime: None here).
+        self.lease = lease
         self.cancelled = threading.Event()
+        #: The GPU indices of the task's or actor's lease.
+        self.gpu_ids = gpu_ids
 
 
 def current_task_context() -> Optional[TaskContext]:
@@ -141,8 +144,7 @@ class _ActorState:
         # SimpleQueue: C-implemented put/get, the cheapest FIFO wake-up.
         self.mailbox: "queue.SimpleQueue" = queue.SimpleQueue()
         self.threads: List[threading.Thread] = []
-        self.node_id: Optional[NodeID] = None
-        self.release = None
+        self.lease: Optional[Lease] = None
         self.num_restarts = 0
         self.death_cause: Optional[BaseException] = None
         self.ready_event = threading.Event()
@@ -231,7 +233,6 @@ class Runtime:
         num_cpus: Optional[float] = None,
         num_gpus: Optional[float] = None,
         resources: Optional[Dict[str, float]] = None,
-        labels: Optional[Dict[str, str]] = None,
         _system_config: Optional[dict] = None,
         namespace: str = "default",
     ):
@@ -242,7 +243,6 @@ class Runtime:
         self.namespace = namespace
 
         self.store = ObjectStore()
-        self.scheduler = ClusterScheduler()
         self.refcounter = global_refcounter()
         self.refcounter.set_zero_callback(self._on_zero_refs)
 
@@ -258,7 +258,8 @@ class Runtime:
         base.update(resources or {})
         base.setdefault("memory", float(self.config.object_store_memory
                                         or _default_memory_bytes()))
-        self.head_node_id = self.scheduler.add_node(base, dict(labels or {}))
+        self.head_node_id = NodeID.from_random()
+        self.scheduler = NodeScheduler(base)
 
         # Task bookkeeping.
         self._lineage: Dict[ObjectID, TaskSpec] = {}
@@ -313,13 +314,15 @@ class Runtime:
 
     # --------------------------------------------------- cluster introspection
     def cluster_resources(self) -> Dict[str, float]:
-        return self.scheduler.cluster_resources()
+        return dict(self.scheduler.total)
 
     def available_resources(self) -> Dict[str, float]:
-        return self.scheduler.available_resources()
+        return self.scheduler.available()
 
     def nodes(self) -> List[dict]:
-        return [n.snapshot() for n in self.scheduler.nodes()]
+        return [{"NodeID": self.head_node_id, "Alive": True,
+                 "Resources": self.cluster_resources(),
+                 "Available": self.available_resources()}]
 
     def list_task_events(self) -> List[dict]:
         # Appends are lock-free; list(deque) can raise if an append lands
@@ -345,9 +348,9 @@ class Runtime:
             return values[0] if single else values
         ctx = current_task_context()
         released = False
-        if ctx is not None and ctx.lease_release is not None:
-            # Release this task's resources while blocked.
-            ctx.lease_release()
+        if ctx is not None and ctx.lease is not None:
+            # Lend this task's CPUs back while blocked.
+            self.scheduler.suspend(ctx.lease)
             released = True
         try:
             # One deadline for the whole get, however many refs wait.
@@ -358,7 +361,7 @@ class Runtime:
                 values[i] = self._get_one(ref_list[i], remaining)
         finally:
             if released:
-                ctx.lease_reacquire()
+                self.scheduler.resume(ctx.lease)
         return values[0] if single else values
 
     def _get_one(self, ref: ObjectRef, timeout: Optional[float]) -> Any:
@@ -529,15 +532,9 @@ class Runtime:
 
     @staticmethod
     def _placement_shape(spec: TaskSpec) -> tuple:
-        """Bucket key under which blocked specs are interchangeable:
-        same resource demand + same strategy semantics."""
-        res = tuple(sorted(spec.resources.items())) if spec.resources else ()
-        strat = spec.strategy
-        if strat is None or type(strat) is DefaultStrategy:
-            return (res, "DEFAULT")
-        if type(strat) is SpreadStrategy:
-            return (res, "SPREAD")
-        return (res, id(strat))
+        """Bucket key under which blocked specs are interchangeable: the
+        same resource demand."""
+        return tuple(sorted(spec.resources.items()))
 
     def _dispatch_loop(self) -> None:
         # Blocked tasks live in per-placement-shape FIFO queues: a capacity
@@ -590,39 +587,30 @@ class Runtime:
         if spec.task_id in self._cancelled:
             self._fail_task(spec, TaskCancelledError(str(spec.task_id)))
             return True
-        lease = self.scheduler.try_acquire(spec.resources, spec.strategy)
+        lease = self.scheduler.try_acquire(spec.resources)
         if lease is None:
             # Infeasible requests fail fast instead of hanging forever.
-            if not self.scheduler.feasible_anywhere(spec.resources, spec.strategy):
+            if not self.scheduler.feasible(spec.resources):
                 self._fail_task(
                     spec,
                     InfeasibleError(
-                        f"Task {spec.name} requests {spec.resources} which no node can "
-                        f"ever satisfy (cluster total: {self.scheduler.cluster_resources()})"
+                        f"Task {spec.name} requests {spec.resources} which the node can "
+                        f"never satisfy (total: {self.scheduler.total})"
                     ))
                 return True
             return False
-        node_id, release = lease
-        self._emit_event(spec.task_id, spec.name, "SUBMITTED_TO_WORKER", node_id=str(node_id))
+        self._emit_event(spec.task_id, spec.name, "SUBMITTED_TO_WORKER",
+                         node_id=str(self.head_node_id))
         try:
-            self._exec_pool.submit(self._execute_task, spec, release)
+            self._exec_pool.submit(self._execute_task, spec, lease)
         except RuntimeError:
-            release()
+            self.scheduler.release(lease)
             self._fail_task(spec, WorkerCrashedError("runtime is shutting down"))
         return True
 
     # -------------------------------------------------------------- execution
-    def _execute_task(self, spec: TaskSpec, release) -> None:
-        reacquire_box = {"release": release}
-
-        def lease_release():
-            reacquire_box["release"]()
-
-        def lease_reacquire():
-            _, new_release = self.scheduler.acquire(spec.resources, spec.strategy)
-            reacquire_box["release"] = new_release
-
-        ctx = TaskContext(spec.task_id, spec.actor_id, lease_release, lease_reacquire)
+    def _execute_task(self, spec: TaskSpec, lease: Lease) -> None:
+        ctx = TaskContext(spec.task_id, spec.actor_id, lease, lease.gpu_ids)
         self._running[spec.task_id] = ctx
         _task_ctx.ctx = ctx
         self._emit_event(spec.task_id, spec.name, "RUNNING")
@@ -644,7 +632,7 @@ class Runtime:
         finally:
             _task_ctx.ctx = None
             self._running.pop(spec.task_id, None)
-            reacquire_box["release"]()
+            self.scheduler.release(lease)
 
     def _resolve_ref(self, v: Any) -> Any:
         if not isinstance(v, ObjectRef):
@@ -772,25 +760,27 @@ class Runtime:
     def _start_actor(self, state: _ActorState, first: bool) -> None:
         spec = state.spec
         try:
-            node_id, release = self.scheduler.acquire(spec.resources, spec.strategy)
+            lease = self.scheduler.acquire(spec.resources)
         except BaseException as e:  # noqa: BLE001 — the actor's death cause
             state.death_cause = e
             state.state = _ActorState.DEAD
             state.ready_event.set()
             self._drain_mailbox(state)
             return
-        state.node_id, state.release = node_id, release
+        state.lease = lease
         try:
             args, kwargs = self._resolve_values(spec.args, spec.kwargs)
             # __init__ runs with an actor-scoped context so code inside it
             # can see the actor identity.
-            _task_ctx.ctx = TaskContext(TaskID.from_random(), spec.actor_id)
+            _task_ctx.ctx = TaskContext(TaskID.from_random(), spec.actor_id,
+                                        gpu_ids=lease.gpu_ids)
             try:
                 state.instance = spec.cls(*args, **kwargs)
             finally:
                 _task_ctx.ctx = None
         except BaseException as e:  # noqa: BLE001 — the actor's death cause
-            release()
+            self.scheduler.release(lease)
+            state.lease = None
             state.death_cause = TaskError(e, task_repr=f"{spec.cls.__name__}.__init__")
             state.state = _ActorState.DEAD
             state.ready_event.set()
@@ -878,7 +868,8 @@ class Runtime:
             loop.close()
 
     def _execute_actor_task(self, state: _ActorState, spec: TaskSpec) -> None:
-        ctx = TaskContext(spec.task_id, spec.actor_id)
+        ctx = TaskContext(spec.task_id, spec.actor_id,
+                          gpu_ids=state.lease.gpu_ids if state.lease else ())
         self._running[spec.task_id] = ctx
         _task_ctx.ctx = ctx
         self._emit_event(spec.task_id, spec.name, "RUNNING")
@@ -972,9 +963,9 @@ class Runtime:
             can_restart = (not no_restart) and (
                 spec.max_restarts == -1 or state.num_restarts < spec.max_restarts
             )
-            if state.release is not None:
-                state.release()
-                state.release = None
+            if state.lease is not None:
+                self.scheduler.release(state.lease)
+                state.lease = None
             state.instance = None
             if can_restart:
                 state.state = _ActorState.RESTARTING

@@ -1,29 +1,25 @@
-"""Cluster resource model and scheduling policies (the counterpart of
+"""The resources of the one node the thread tier runs on (the counterpart of
 ``ray_tpu/_private/scheduling.py``; ref: src/ray/raylet/scheduling/
-cluster_resource_scheduler.h:44 and policy/*.h).
+cluster_resource_scheduler.h:44).
 
-The cluster is a set of nodes with resource sets (``CPU``, ``GPU``,
-``memory`` and custom ones); a policy picks a node for each request:
+The node holds ``CPU``, ``GPU``, ``memory`` and custom resources. A request
+is granted when it fits what is free now, waits while it fits only the
+node's totals, and is infeasible when it exceeds them. A lease that holds
+GPUs names the device indices it was granted (ref: ray.get_gpu_ids), so
+each replica on a host with several cards runs on its own: a fraction of a
+GPU shares one index, a whole number of GPUs takes that many free indices.
 
-* hybrid (default) — pack onto the first node until a utilization
-  threshold, then spread; top-k random tie-break
-  (ref: hybrid_scheduling_policy.h:50);
-* ``SpreadStrategy`` — round-robin across feasible nodes;
-* ``NodeAffinitySchedulingStrategy`` / ``NodeLabelSchedulingStrategy`` —
-  pin to a node / match labels.
-
-Placement groups are not ported yet (ROADMAP.md, Queue 1).
+The reference's placement policies (hybrid pack/spread, SPREAD, node
+affinity, node labels) choose among nodes and come with the multi-node
+runtime (ROADMAP.md, Queue 1); on one node a ``scheduling_strategy`` option
+changes nothing and is ignored. Placement groups are not ported yet.
 """
 
 from __future__ import annotations
 
-import random
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
-
-from ray_tpu_torch._private.config import GLOBAL_CONFIG
-from ray_tpu_torch._private.ids import NodeID
 
 Resources = Dict[str, float]
 
@@ -44,214 +40,143 @@ def res_add(avail: Resources, req: Resources) -> None:
         avail[k] = avail.get(k, 0.0) + v
 
 
-class Node:
-    def __init__(self, node_id: NodeID, resources: Resources, labels: Optional[Dict[str, str]] = None):
-        self.id = node_id
+class InfeasibleError(RuntimeError):
+    pass
+
+
+class Lease:
+    """Resources granted to one task or actor; ``gpu_ids`` are the device
+    indices among them. While its task blocks in get, a lease lends its
+    non-GPU resources back (``suspended``) and keeps its GPUs."""
+
+    __slots__ = ("request", "gpu_ids", "released", "suspended")
+
+    def __init__(self, request: Resources, gpu_ids: Tuple[int, ...]):
+        self.request = request
+        self.gpu_ids = gpu_ids
+        self.released = False
+        self.suspended = False
+
+
+class NodeScheduler:
+    """Resource bookkeeping of the node (ref: cluster_task_manager.h:42).
+    ``acquire`` blocks until a lease is granted; ``try_acquire`` grants one
+    or returns None; a release wakes both kinds of waiter."""
+
+    def __init__(self, resources: Resources) -> None:
+        gpus = resources.get("GPU", 0.0)
+        if gpus != int(gpus):
+            raise ValueError(f"the node's GPU count must be whole, got {gpus}")
         self.total: Resources = dict(resources)
-        self.available: Resources = dict(resources)
-        self.labels = labels or {}
-        self.alive = True
-
-    def utilization(self) -> float:
-        fracs = [
-            1.0 - self.available.get(k, 0.0) / v
-            for k, v in self.total.items()
-            if v > 0
-        ]
-        return max(fracs) if fracs else 0.0
-
-    def snapshot(self) -> dict:
-        return {
-            "NodeID": self.id,
-            "Alive": self.alive,
-            "Resources": dict(self.total),
-            "Available": dict(self.available),
-            "Labels": dict(self.labels),
-        }
-
-
-class SchedulingStrategy:
-    """Base for scheduling strategies attached to tasks/actors via options()."""
-
-    name = "DEFAULT"
-
-
-class DefaultStrategy(SchedulingStrategy):
-    name = "DEFAULT"
-
-
-class SpreadStrategy(SchedulingStrategy):
-    name = "SPREAD"
-
-
-class NodeAffinitySchedulingStrategy(SchedulingStrategy):
-    name = "NODE_AFFINITY"
-
-    def __init__(self, node_id: str, soft: bool = False):
-        self.node_id = NodeID(node_id)
-        self.soft = soft
-
-
-class NodeLabelSchedulingStrategy(SchedulingStrategy):
-    name = "NODE_LABEL"
-
-    def __init__(self, hard: Optional[Dict[str, str]] = None, soft: Optional[Dict[str, str]] = None):
-        self.hard = hard or {}
-        self.soft = soft or {}
-
-
-class ClusterScheduler:
-    """Resource bookkeeping + policy dispatch (ref:
-    cluster_task_manager.h:42). ``acquire`` blocks until a lease is granted;
-    ``try_acquire`` grants one or returns None; a lease's release wakes both
-    kinds of waiter."""
-
-    def __init__(self) -> None:
-        self._nodes: Dict[NodeID, Node] = {}
+        self._available: Resources = dict(resources)
+        #: Free share of each GPU index.
+        self._gpu_free: List[float] = [1.0] * int(gpus)
         self._lock = threading.Condition()
-        #: Called (outside the lock) after every capacity-adding event —
-        #: lease release, add_node — so the dispatcher retries blocked tasks
-        #: exactly when capacity appears instead of polling.
+        #: Called (outside the lock) after every release, so the dispatcher
+        #: retries blocked tasks exactly when capacity appears.
         self.on_release: Optional[Callable[[], None]] = None
-        self._rr_counter = 0
+
+    def available(self) -> Resources:
+        with self._lock:
+            return dict(self._available)
+
+    def feasible(self, request: Resources) -> bool:
+        """Could the node ever hold ``request`` (its totals, not what is
+        free now)?"""
+        return res_fits(self.total, request)
+
+    # ---------------------------------------------------------------- leasing
+    def acquire(self, request: Resources, timeout: Optional[float] = None) -> Lease:
+        """Block until ``request`` is granted. Raises InfeasibleError for a
+        request the node can never hold."""
+        if not self.feasible(request):
+            raise InfeasibleError(
+                f"Resource request {request} is infeasible on this node "
+                f"(total={self.total})")
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._lock:
+            while True:
+                lease = self._grant_locked(request)
+                if lease is not None:
+                    return lease
+                remaining = None if deadline is None else deadline - time.monotonic()
+                if remaining is not None and remaining <= 0:
+                    raise TimeoutError(
+                        f"Could not acquire {request} within timeout; "
+                        f"available={self._available}")
+                self._lock.wait(remaining if remaining is not None else 1.0)
+
+    def try_acquire(self, request: Resources) -> Optional[Lease]:
+        with self._lock:
+            return self._grant_locked(request)
+
+    def release(self, lease: Lease) -> None:
+        """Return a lease's resources; a second release does nothing."""
+        with self._lock:
+            if lease.released:
+                return
+            lease.released = True
+            res_add(self._available, _held(lease))
+            for i in lease.gpu_ids:
+                self._gpu_free[i] += lease.request["GPU"] / len(lease.gpu_ids)
+            self._lock.notify_all()
+        self._fire_on_release()
+
+    def suspend(self, lease: Lease) -> None:
+        """Lend a lease's non-GPU resources back while its task blocks in
+        get; its GPUs stay its own (ref: the raylet releases a blocked
+        worker's CPUs)."""
+        with self._lock:
+            if lease.released or lease.suspended:
+                return
+            lease.suspended = True
+            res_add(self._available, _lendable(lease.request))
+            self._lock.notify_all()
+        self._fire_on_release()
+
+    def resume(self, lease: Lease) -> None:
+        """Take back what ``suspend`` lent, waiting until it is free."""
+        part = _lendable(lease.request)
+        with self._lock:
+            if lease.released or not lease.suspended:
+                return
+            while not res_fits(self._available, part):
+                self._lock.wait(1.0)
+            res_sub(self._available, part)
+            lease.suspended = False
+
+    def _grant_locked(self, request: Resources) -> Optional[Lease]:
+        if not res_fits(self._available, request):
+            return None
+        gpu_ids = self._pick_gpus(request.get("GPU", 0.0))
+        if gpu_ids is None:
+            return None
+        for i in gpu_ids:
+            self._gpu_free[i] -= request["GPU"] / len(gpu_ids)
+        res_sub(self._available, request)
+        return Lease(request, gpu_ids)
+
+    def _pick_gpus(self, amount: float) -> Optional[Tuple[int, ...]]:
+        """The indices for ``amount`` GPUs: a fraction takes the first index
+        with that much free, a whole number that many unused indices."""
+        if amount <= 0:
+            return ()
+        if amount < 1:
+            free = [i for i, f in enumerate(self._gpu_free) if f + _EPS >= amount]
+            return tuple(free[:1]) or None
+        whole = [i for i, f in enumerate(self._gpu_free) if f + _EPS >= 1.0]
+        n = int(amount)
+        return tuple(whole[:n]) if len(whole) >= n else None
 
     def _fire_on_release(self) -> None:
         cb = self.on_release
         if cb is not None:
             cb()
 
-    # ------------------------------------------------------------- node admin
-    def add_node(self, resources: Resources, labels: Optional[Dict[str, str]] = None,
-                 node_id: Optional[NodeID] = None) -> NodeID:
-        node_id = node_id or NodeID.from_random()
-        with self._lock:
-            self._nodes[node_id] = Node(node_id, resources, labels)
-            self._lock.notify_all()
-        self._fire_on_release()
-        return node_id
 
-    def nodes(self) -> List[Node]:
-        with self._lock:
-            return list(self._nodes.values())
-
-    def cluster_resources(self) -> Resources:
-        with self._lock:
-            total: Resources = {}
-            for n in self._nodes.values():
-                res_add(total, n.total)
-            return total
-
-    def available_resources(self) -> Resources:
-        with self._lock:
-            total: Resources = {}
-            for n in self._nodes.values():
-                res_add(total, n.available)
-            return total
-
-    # ---------------------------------------------------------------- leasing
-    def acquire(self, request: Resources, strategy: Optional[SchedulingStrategy] = None,
-                timeout: Optional[float] = None) -> Tuple[NodeID, Callable[[], None]]:
-        """Block until resources are granted; returns (node_id, release_fn).
-        Raises InfeasibleError for a request no node can ever hold."""
-        strategy = strategy or DefaultStrategy()
-        deadline = None if timeout is None else time.monotonic() + timeout
-        with self._lock:
-            while True:
-                node_id = self._try_place_locked(request, strategy)
-                if node_id is not None:
-                    return node_id, self._make_release(node_id, request)
-                remaining = None if deadline is None else deadline - time.monotonic()
-                if remaining is not None and remaining <= 0:
-                    raise TimeoutError(
-                        f"Could not acquire {request} within timeout; "
-                        f"available={self.available_resources()}")
-                if not self.feasible_anywhere(request, strategy):
-                    raise InfeasibleError(
-                        f"Resource request {request} is infeasible on this cluster "
-                        f"(total={self.cluster_resources()})")
-                self._lock.wait(remaining if remaining is not None else 1.0)
-
-    def try_acquire(self, request: Resources, strategy: Optional[SchedulingStrategy] = None):
-        strategy = strategy or DefaultStrategy()
-        with self._lock:
-            node_id = self._try_place_locked(request, strategy)
-            if node_id is None:
-                return None
-            return node_id, self._make_release(node_id, request)
-
-    def _make_release(self, node_id: NodeID, request: Resources) -> Callable[[], None]:
-        # A plain mutable cell, not a threading.Event: the authoritative
-        # test-and-set happens under self._lock.
-        released = [False]
-
-        def release() -> None:
-            if released[0]:
-                return
-            with self._lock:
-                if released[0]:
-                    return
-                released[0] = True
-                node = self._nodes.get(node_id)
-                if node is not None:
-                    res_add(node.available, request)
-                self._lock.notify_all()
-            self._fire_on_release()
-
-        return release
-
-    def feasible_anywhere(self, request: Resources,
-                          strategy: Optional[SchedulingStrategy] = None) -> bool:
-        """Could some node ever hold ``request`` (its totals, not what is
-        free now)? Callers holding the lock may call it: the Condition's
-        lock is reentrant."""
-        with self._lock:
-            if isinstance(strategy, NodeAffinitySchedulingStrategy) \
-                    and not strategy.soft:
-                node = self._nodes.get(strategy.node_id)
-                return node is not None and node.alive \
-                    and res_fits(node.total, request)
-            return any(res_fits(n.total, request)
-                       for n in self._nodes.values() if n.alive)
-
-    # ---------------------------------------------------------------- policies
-    def _try_place_locked(self, request: Resources, strategy: SchedulingStrategy) -> Optional[NodeID]:
-        feasible = [n for n in self._nodes.values()
-                    if n.alive and res_fits(n.available, request)]
-        if not feasible:
-            return None
-
-        if isinstance(strategy, NodeAffinitySchedulingStrategy):
-            node = self._nodes.get(strategy.node_id)
-            if node is not None and node.alive \
-                    and res_fits(node.available, request):
-                res_sub(node.available, request)
-                return node.id
-            if not strategy.soft:
-                return None
-        elif isinstance(strategy, NodeLabelSchedulingStrategy):
-            hard = [n for n in feasible
-                    if all(n.labels.get(k) == v for k, v in strategy.hard.items())]
-            if not hard:
-                return None
-            soft = [n for n in hard
-                    if all(n.labels.get(k) == v for k, v in strategy.soft.items())]
-            feasible = soft or hard
-        elif isinstance(strategy, SpreadStrategy):
-            self._rr_counter += 1
-            node = feasible[self._rr_counter % len(feasible)]
-            res_sub(node.available, request)
-            return node.id
-
-        # Hybrid default: pack below threshold, else least-utilized; top-k tie-break.
-        threshold = GLOBAL_CONFIG.scheduler_spread_threshold
-        below = [n for n in feasible if n.utilization() < threshold]
-        pool = below or feasible
-        pool.sort(key=lambda n: n.utilization())
-        k = max(1, int(len(pool) * GLOBAL_CONFIG.scheduler_top_k_fraction))
-        node = random.choice(pool[:k])
-        res_sub(node.available, request)
-        return node.id
+def _lendable(request: Resources) -> Resources:
+    return {k: v for k, v in request.items() if k != "GPU"}
 
 
-class InfeasibleError(RuntimeError):
-    pass
+def _held(lease: Lease) -> Resources:
+    return _lendable(lease.request) if lease.suspended else lease.request

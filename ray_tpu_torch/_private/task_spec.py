@@ -3,7 +3,7 @@
 
 A TaskSpec carries everything needed to execute (and re-execute, for
 lineage reconstruction) a task: the function, resolved-or-pending args,
-resource request, scheduling strategy, retry budget.
+resource request, retry budget.
 """
 
 from __future__ import annotations
@@ -11,14 +11,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 from ray_tpu_torch._private.ids import ActorID, TaskID
-from ray_tpu_torch._private.scheduling import SchedulingStrategy
 
 
 class TaskSpec:
     # Kept lean: a spec is built on every .remote() call.
     __slots__ = (
         "task_id", "name", "func", "args", "kwargs", "num_returns",
-        "resources", "strategy", "max_retries", "retry_exceptions",
+        "resources", "max_retries", "retry_exceptions",
         "actor_id", "method_name", "attempt", "generator", "trace_ctx",
     )
 
@@ -31,7 +30,6 @@ class TaskSpec:
         kwargs: Dict[str, Any],
         num_returns: int,
         resources: Dict[str, float],
-        strategy: Optional[SchedulingStrategy],
         max_retries: int,
         retry_exceptions: bool = False,
         actor_id: Optional[ActorID] = None,
@@ -45,7 +43,6 @@ class TaskSpec:
         self.kwargs = kwargs
         self.num_returns = num_returns
         self.resources = resources
-        self.strategy = strategy
         self.max_retries = max_retries
         self.retry_exceptions = retry_exceptions
         self.actor_id = actor_id
@@ -63,7 +60,7 @@ class TaskSpec:
 class ActorSpec:
     __slots__ = (
         "actor_id", "name", "namespace", "cls", "args", "kwargs", "resources",
-        "strategy", "max_restarts", "max_task_retries", "max_concurrency",
+        "max_restarts", "max_task_retries", "max_concurrency",
         "lifetime",
     )
 
@@ -76,7 +73,6 @@ class ActorSpec:
         args: Tuple[Any, ...],
         kwargs: Dict[str, Any],
         resources: Dict[str, float],
-        strategy: Optional[SchedulingStrategy],
         max_restarts: int,
         max_task_retries: int,
         max_concurrency: int,
@@ -89,7 +85,6 @@ class ActorSpec:
         self.args = args
         self.kwargs = kwargs
         self.resources = resources
-        self.strategy = strategy
         self.max_restarts = max_restarts
         self.max_task_retries = max_task_retries
         self.max_concurrency = max_concurrency

@@ -72,7 +72,6 @@ class ActorHandle:
             kwargs=kwargs,
             num_returns=num_returns,
             resources={},
-            strategy=None,
             max_retries=options.get("max_task_retries", self._max_task_retries),
             actor_id=self._actor_id,
             method_name=method_name,
@@ -125,7 +124,6 @@ class ActorClass:
             args=args,
             kwargs=kwargs,
             resources=opts["resources"],
-            strategy=opts["scheduling_strategy"],
             max_restarts=opts["max_restarts"],
             max_task_retries=opts["max_task_retries"],
             max_concurrency=opts["max_concurrency"],

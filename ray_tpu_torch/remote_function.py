@@ -65,7 +65,6 @@ class RemoteFunction:
             kwargs=kwargs,
             num_returns=num_returns,
             resources=opts["resources"],
-            strategy=opts["scheduling_strategy"],
             max_retries=opts["max_retries"],
             retry_exceptions=opts["retry_exceptions"],
             generator=generator,

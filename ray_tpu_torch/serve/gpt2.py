@@ -26,7 +26,8 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch._private.device import (
+    DeviceLike, granted_cuda_device, resolve_device)
 from ray_tpu_torch.models import gpt2
 
 
@@ -37,8 +38,9 @@ class _Replica:
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # Pin the card now: the threads that later run the forwards
-            # each have a current device of their own.
-            self.device = torch.device("cuda", torch.cuda.current_device())
+            # each have a current device of their own. Behind serve.run it
+            # is the card the runtime granted this replica.
+            self.device = granted_cuda_device()
         if params is None:
             params = gpt2.init_params(self.config, seed, self.device)
         # Matmul weights once in the compute type: the same logits, half the

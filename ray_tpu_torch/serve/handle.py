@@ -72,7 +72,9 @@ _reaper: Optional["queue.SimpleQueue"] = None  # guarded_by: _reaper_lock
 
 def _reap_queue() -> "queue.SimpleQueue":
     """The queue of the daemon thread that cancels streams their consumer
-    abandoned (started with the first stream, not at import)."""
+    abandoned (started with the first stream, not at import). The thread
+    is free to block, so it resolves a stream id no pull resolved yet and
+    waits for the replica to end the stream."""
     global _reaper
     with _reaper_lock:
         if _reaper is None:
@@ -86,7 +88,7 @@ def _reap_loop(q: "queue.SimpleQueue") -> None:
     while True:
         gen = q.get()
         try:
-            gen.cancel(wait=False)
+            gen.cancel(wait=True)
         except Exception:  # the reaper must outlive one bad stream
             traceback.print_exc()
         del gen
@@ -121,6 +123,11 @@ class DeploymentResponseGenerator:
         #: though iteration already marked _finished.
         self._server_done = False
         self._reaper = _reap_queue()
+        from ray_tpu_torch._private import runtime as _rt
+
+        #: The runtime the stream lives in: a cancel that runs after it shut
+        #: down sends nothing (and starts no other runtime).
+        self._runtime = _rt.runtime_or_none()
 
     def _finish(self, exc: Optional[BaseException] = None) -> None:
         if not self._finished:
@@ -207,31 +214,39 @@ class DeploymentResponseGenerator:
         has not already ended the stream — including after a local abort
         already marked iteration finished (a wedged pull or client
         disconnect must not pin the replica's slot for the idle timeout).
-        ``wait=False`` fire-and-forgets (GC finalizer: never block an
-        event loop or a tearing-down interpreter)."""
-        import ray_tpu_torch
+        ``wait=False`` fire-and-forgets, and sends nothing while no pull
+        has resolved the stream id: a caller that must not block hands the
+        stream to ``abandon`` instead."""
+        from ray_tpu_torch._private import runtime as _rt
 
         if self._server_done:
             return
         self._server_done = True  # one cancel is enough (it is idempotent)
+        rt = self._runtime
         try:
-            if self._sid is not None:
-                ref = self._actor.cancel_stream.remote(self._sid)
-                if wait:
-                    ray_tpu_torch.get(ref, timeout=10.0)
-            elif wait:
-                self._actor.cancel_stream.remote(self._resolve_sid())
+            if rt is _rt.runtime_or_none():
+                if self._sid is None and wait:
+                    self._sid = rt.get(self._sid_ref, timeout=30.0)
+                if self._sid is not None:
+                    ref = self._actor.cancel_stream.remote(self._sid)
+                    if wait:
+                        rt.get(ref, timeout=10.0)
         except Exception:
             pass
         self._finish()
+
+    def abandon(self) -> None:
+        """Cancel the replica-side stream without blocking the caller: the
+        reaper thread resolves the stream id if need be and cancels."""
+        if not self._server_done:
+            self._reaper.put(self)
 
     def __del__(self):
         # The garbage collector may run this inside any critical section
         # of this thread (the refcount table, the router's scheduler, a
         # metric), so the cancel — which takes those locks — runs on the
         # reaper thread instead. SimpleQueue.put is safe here.
-        if not self._server_done:
-            self._reaper.put(self)
+        self.abandon()
 
 
 class DeploymentHandle:

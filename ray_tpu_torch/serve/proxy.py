@@ -473,12 +473,12 @@ class HTTPProxy:
                     await writer.drain()
         except (ConnectionError, asyncio.CancelledError):
             # Client went away (or the proxy stops): release the
-            # replica-side iterator.
-            gen.cancel(wait=False)
+            # replica-side iterator, also when no pull resolved its id.
+            gen.abandon()
             conn.keep_alive = False
             raise
         except Exception as e:  # noqa: BLE001 — replica raised mid-stream
-            gen.cancel(wait=False)
+            gen.abandon()
             if not started:
                 await self._write(conn, self._error_response(e))
                 return

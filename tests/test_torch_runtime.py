@@ -380,6 +380,87 @@ def test_gpu_resource_follows_num_gpus():
         ray_tpu_torch.shutdown()
 
 
+class _GpuHolder:
+    def __init__(self):
+        from ray_tpu_torch._private.device import granted_cuda_device
+
+        self.ids = ray_tpu_torch.get_gpu_ids()
+        self.device = str(granted_cuda_device())
+
+    def get(self):
+        return self.ids, self.device, ray_tpu_torch.get_gpu_ids()
+
+
+def test_each_gpu_lease_names_its_own_card(monkeypatch):
+    """On a host with two cards (torch's count faked here), two one-GPU
+    actors are granted different indices and pin different devices; a third
+    waits for a card and gets the one its predecessor freed."""
+    monkeypatch.setattr(ray_tpu_torch._private.device, "gpu_count", lambda: 2)
+    fresh_init(ray_tpu_torch, num_cpus=4)
+    try:
+        assert ray_tpu_torch.cluster_resources()["GPU"] == 2
+        holders = [ray_tpu_torch.remote(_GpuHolder).options(num_gpus=1).remote()
+                   for _ in range(2)]
+        got = ray_tpu_torch.get([h.get.remote() for h in holders], timeout=10)
+        assert sorted(got) == [([0], "cuda:0", [0]), ([1], "cuda:1", [1])]
+        third = ray_tpu_torch.remote(_GpuHolder).options(num_gpus=1).remote()
+        ref = third.get.remote()
+        assert ray_tpu_torch.wait([ref], timeout=0.3)[0] == []
+        ray_tpu_torch.kill(holders[1])
+        assert ray_tpu_torch.get(ref, timeout=10) == got[1]
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_gpu_fractions_share_an_index(monkeypatch):
+    """Two half-GPU actors share index 0; a whole GPU then gets index 1,
+    and a task's own ids are what get_gpu_ids reads inside it."""
+    monkeypatch.setattr(ray_tpu_torch._private.device, "gpu_count", lambda: 2)
+    fresh_init(ray_tpu_torch, num_cpus=4)
+    try:
+        halves = [ray_tpu_torch.remote(_GpuHolder).options(num_gpus=0.5).remote()
+                  for _ in range(2)]
+        got = ray_tpu_torch.get([h.get.remote() for h in halves], timeout=10)
+        assert got == [([0], "cuda:0", [0])] * 2
+        whole = ray_tpu_torch.remote(num_gpus=1)(ray_tpu_torch.get_gpu_ids)
+        assert ray_tpu_torch.get(whole.remote(), timeout=10) == [1]
+        assert ray_tpu_torch.get_gpu_ids() == []  # the driver holds none
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_task_blocked_in_get_lends_its_cpu_and_keeps_its_gpu():
+    """The one CPU goes to the inner task while the outer one waits for
+    it (else this deadlocks); the outer keeps its GPU all the while."""
+    fresh_init(ray_tpu_torch, num_cpus=1, num_gpus=1)
+    try:
+        inner = ray_tpu_torch.remote(num_cpus=1)(
+            lambda: ray_tpu_torch.available_resources()["GPU"])
+
+        @ray_tpu_torch.remote(num_cpus=1, num_gpus=1)
+        def outer():
+            return ray_tpu_torch.get(inner.remote()), ray_tpu_torch.get_gpu_ids()
+
+        assert ray_tpu_torch.get(outer.remote(), timeout=10) == (0.0, [0])
+        assert ray_tpu_torch.available_resources()["CPU"] == 1
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_gpu_counts_above_one_are_whole(port):
+    with pytest.raises(ValueError, match="whole"):
+        port.remote(lambda: 1).options(num_gpus=1.5).remote()
+    port.shutdown()
+    with pytest.raises(ValueError, match="whole"):
+        port.init(num_gpus=1.5)
+
+
+def test_scheduling_strategy_is_accepted_on_one_node(port):
+    """The option chooses among nodes: on the one node it changes nothing."""
+    f = port.remote(lambda: "ran").options(scheduling_strategy="SPREAD")
+    assert port.get(f.remote(), timeout=10) == "ran"
+
+
 def test_put_holds_the_value_itself(port):
     """The thread tier stores a reference, never a copy: a tensor put and
     got back is the same object."""

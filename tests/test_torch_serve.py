@@ -1067,6 +1067,83 @@ def test_abandoned_stream_is_cancelled_off_the_finalizer(port_serve):
     assert router._scheduler.total_inflight() == 0
 
 
+def test_stream_dropped_before_its_first_pull_is_cancelled(port_serve):
+    """A stream abandoned before any pull resolved its id still ends on
+    the replica: the reaper resolves the id and cancels."""
+    import gc
+
+    @port_serve.deployment
+    class Endless:
+        def tokens(self):
+            i = 0
+            while True:
+                time.sleep(0.01)
+                yield i
+                i += 1
+
+    handle = port_serve.run(Endless.bind(), name="early", route_prefix=None)
+    gen = handle.options(method_name="tokens", stream=True).remote()
+    del gen
+    gc.collect()
+    assert _wait_for_zero_ongoing(ray_tpu_torch, handle) == 0
+
+
+def test_client_that_leaves_before_the_first_item_frees_the_replica(port_serve):
+    port_serve.start(http_options={"port": 0})
+
+    @port_serve.deployment
+    class Slow:
+        def __call__(self, request):
+            time.sleep(1.0)
+            i = 0
+            while True:
+                yield str(i)
+                time.sleep(0.01)
+                i += 1
+
+    handle = port_serve.run(Slow.bind(), name="leave", route_prefix="/leave")
+    with socket.create_connection(_host_port(ray_tpu_torch), timeout=10) as sock:
+        sock.sendall(b"GET /leave HTTP/1.1\r\nHost: x\r\n\r\n")
+        time.sleep(0.3)  # the proxy has opened the stream
+    assert _wait_for_zero_ongoing(ray_tpu_torch, handle) == 0
+
+
+def test_gpu_replicas_each_pin_their_own_card(monkeypatch):
+    """Two one-GPU replicas on a host with two cards (torch's count faked
+    here) are granted, and pin, different devices."""
+    monkeypatch.setattr(ray_tpu_torch._private.device, "gpu_count", lambda: 2)
+    fresh_init(ray_tpu_torch, num_cpus=4)
+    serve = ray_tpu_torch.serve
+    try:
+        @serve.deployment(num_replicas=2, ray_actor_options={"num_gpus": 1})
+        class OnCard:
+            def __init__(self):
+                from ray_tpu_torch._private.device import granted_cuda_device
+
+                self.device = str(granted_cuda_device())
+
+            def __call__(self):
+                return self.device
+
+        handle = serve.run(OnCard.bind(), name="cards", route_prefix=None)
+        assert handle.remote().result(timeout_s=10) in ("cuda:0", "cuda:1")
+        scheduler = handle._get_router()._scheduler
+        deadline = time.time() + 10
+        while len(scheduler._replicas) < 2 and time.time() < deadline:
+            time.sleep(0.05)
+        with scheduler._lock:
+            actors = [r["actor"] for r in scheduler._replicas]
+        devices = ray_tpu_torch.get(
+            [a.handle_request.remote("__call__") for a in actors], timeout=10)
+        assert sorted(devices) == ["cuda:0", "cuda:1"]
+        assert ray_tpu_torch.available_resources()["GPU"] == 0
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+
+
 def test_serve_threads_end_with_the_runtime():
     """The proxy, the long-poll clients and the routers' metrics loops of
     a serve instance end once it and its runtime are shut down: none keeps
