@@ -242,10 +242,6 @@ class Runtime:
         self.worker_id = WorkerID.from_random()
         self.namespace = namespace
 
-        self.store = ObjectStore()
-        self.refcounter = global_refcounter()
-        self.refcounter.set_zero_callback(self._on_zero_refs)
-
         # Head node resources: the GPUs torch counts (no CUDA context is
         # created for the count), unless the caller says how many.
         from ray_tpu_torch._private.device import gpu_count
@@ -259,7 +255,12 @@ class Runtime:
         base.setdefault("memory", float(self.config.object_store_memory
                                         or _default_memory_bytes()))
         self.head_node_id = NodeID.from_random()
+        # Validates the resources: nothing shared is touched before it.
         self.scheduler = NodeScheduler(base)
+
+        self.store = ObjectStore()
+        self.refcounter = global_refcounter()
+        self.refcounter.set_zero_callback(self._on_zero_refs)
 
         # Task bookkeeping.
         self._lineage: Dict[ObjectID, TaskSpec] = {}

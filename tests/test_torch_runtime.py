@@ -442,7 +442,12 @@ def test_task_blocked_in_get_lends_its_cpu_and_keeps_its_gpu():
             return ray_tpu_torch.get(inner.remote()), ray_tpu_torch.get_gpu_ids()
 
         assert ray_tpu_torch.get(outer.remote(), timeout=10) == (0.0, [0])
-        assert ray_tpu_torch.available_resources()["CPU"] == 1
+        # The lease goes back, whole, just after the result is stored.
+        deadline = time.monotonic() + 10
+        while ray_tpu_torch.available_resources() != ray_tpu_torch.cluster_resources() \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert ray_tpu_torch.available_resources() == ray_tpu_torch.cluster_resources()
     finally:
         ray_tpu_torch.shutdown()
 
@@ -451,8 +456,14 @@ def test_gpu_counts_above_one_are_whole(port):
     with pytest.raises(ValueError, match="whole"):
         port.remote(lambda: 1).options(num_gpus=1.5).remote()
     port.shutdown()
+    table = ray_tpu_torch._private.object_ref.global_refcounter()
+    before = table._zero_callback
     with pytest.raises(ValueError, match="whole"):
         port.init(num_gpus=1.5)
+    # The refused init left no runtime, and handed the refcount table no
+    # half-built runtime's free.
+    assert not port.is_initialized()
+    assert table._zero_callback == before
 
 
 def test_scheduling_strategy_is_accepted_on_one_node(port):
