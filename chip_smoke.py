@@ -70,7 +70,23 @@ Phases, each of which exits non-zero on failure:
    the HTTP requests must be exactly ``n_layer`` per forward. It prints each
    request's HTTP latency beside the in-process one, the SSE gaps and the
    decode rate beside the in-process rate.
-7. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+7. Batched serving through the control plane (``serve_batch`` line): the
+   same weights behind ``GPT2BatchNext`` (``@serve.batch``) beside
+   ``GPT2Next``, 64 requests of random lengths from 1, 8 and 32 concurrent
+   HTTP clients in turns; ``GPT2ContinuousStream``
+   (``@serve.continuous_batch``) streaming 8 SSE answers, half of them
+   admitted mid-flight, beside 8 concurrent ``GPT2Stream`` streams; and
+   ``GPT2MultiplexNext`` (``@serve.multiplexed``) on two replicas with
+   seeds 1 and 2 alternating, then seed 3. Each replica holds half the card.
+   It fails if an answer or token breaks the tie rule (its reference logit
+   within ``LOGIT_ATOL`` of the reference maximum), if the splash launches
+   are not ``n_layer`` per vectorized call, per continuous step or per
+   request as each path forms them, if no batch larger than 1 forms at 32
+   clients, if the continuous steps are not shared, if the second half of
+   the multiplexed traffic loads a model, or if the card does not get the
+   evicted model's memory back. It prints queries per second, batch sizes,
+   aggregate tokens per second and gaps, loads and memory.
+8. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -102,11 +118,13 @@ LSE_ATOL = 1e-3
 # difference passes through the remaining layers.
 LOGIT_ATOL = 5e-2
 
-# (B, S, H, hd, causal): the training shape (B=16), the serving shapes (B=1
-# and a batch of 8, S=1024), ragged S, and head_dim 128.
+# (B, S, H, hd, causal): the training shape (B=16), the serving shapes (B=1,
+# and batches of 8 and 32 as serve.batch forms them, at S=1024 and at a
+# ragged longest request), ragged S, and head_dim 128.
 KERNEL_SHAPES = [
     (16, 1024, 12, 64, True),
     (8, 1024, 12, 64, True), (8, 1024, 12, 64, False),
+    (32, 1024, 12, 64, True), (8, 517, 12, 64, True),
     (1, 1024, 12, 64, True), (1, 1024, 12, 64, False),
     (1, 1000, 12, 64, True), (2, 1000, 12, 64, False),
     (1, 7, 12, 64, True), (3, 7, 12, 64, False),
@@ -964,6 +982,478 @@ def phase_serve_http(params, inproc: Dict[str, object]) -> Dict[str, object]:
     return result
 
 
+# serve_batch: 64 unary requests of lengths uniform in [1, 1024] from a numpy
+# seed, sent by 1, 8 and 32 concurrent HTTP clients, batched and unbatched
+# in turns, BATCH_ROUNDS times; 8 SSE streams of their own 64-token prompts,
+# 16 tokens each, half of them admitted once the first tokens have arrived;
+# MUX_REQUESTS multiplexed requests alternating two seeds, then a third.
+BATCH_REQUESTS = 64
+BATCH_CLIENTS = (1, 8, 32)
+BATCH_ROUNDS = 2
+CONT_STREAMS = 8
+MUX_REQUESTS = 16
+
+
+def _batch_inputs():
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(1, 1025, BATCH_REQUESTS)
+    requests = [rng.integers(0, 50257, n).tolist() for n in lengths]
+    prompts = [rng.integers(0, 50257, SERVE_PROMPT_LEN).tolist()
+               for _ in range(CONT_STREAMS)]
+    return requests, prompts
+
+
+def _post_concurrently(url: str, bodies: list, clients: int
+                       ) -> Tuple[list, float]:
+    """Every body POSTed by ``clients`` threads at once; the answers in the
+    bodies' order and the wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        outs = list(pool.map(lambda b: _post_json(url, b), bodies))
+    return outs, time.perf_counter() - t0
+
+
+def _handle_concurrently(handle, bodies: list, clients: int) -> float:
+    """Every body sent through the deployment handle (no HTTP) by
+    ``clients`` threads at once; the wall time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        list(pool.map(lambda b: handle.remote(_Request(body=b)).result(
+            timeout_s=120), bodies))
+    return time.perf_counter() - t0
+
+
+def _streams_concurrently(url: str, queries: list, late_after: int
+                          ) -> Tuple[list, float]:
+    """One SSE GET per query on its own thread. The first ``late_after``
+    start at once; the others once each of those has its first token (all
+    at once when ``late_after`` covers every query). Returns per stream
+    (status, events, arrivals) and the start time."""
+    import threading
+
+    results = [None] * len(queries)
+    first = [threading.Event() for _ in queries]
+
+    def run(i):
+        import urllib.request
+
+        req = urllib.request.Request(f"{url}?{queries[i]}",
+                                     headers={"Accept": "text/event-stream"})
+        events, arrivals = [], []
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                for raw in resp:
+                    if raw.startswith(b"data: "):
+                        arrivals.append(time.perf_counter())
+                        events.append(json.loads(raw[len(b"data: "):]))
+                        first[i].set()
+                results[i] = (resp.status, events, arrivals)
+        finally:
+            first[i].set()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(queries))]
+    for t in threads[:late_after]:
+        t.start()
+    for e in first[:late_after]:
+        e.wait(120)
+    for t in threads[late_after:]:
+        t.start()
+    for t in threads:
+        t.join(300)
+    return results, t0
+
+
+def _stream_stats(results: list, t0: float) -> Dict[str, object]:
+    tokens = sum(len(events) for _, events, _ in results)
+    last = max(arrivals[-1] for _, _, arrivals in results)
+    gaps = [b - a for _, _, arr in results for a, b in zip(arr, arr[1:])]
+    gaps_ms = sorted(g * 1e3 for g in gaps)
+    return dict(tokens_per_s=tokens / (last - t0),
+                gap_ms_p50=statistics.median(gaps_ms),
+                gap_ms_p99=gaps_ms[min(len(gaps_ms) - 1,
+                                       int(0.99 * len(gaps_ms)))],
+                ttft_ms=[(arr[0] - t0) * 1e3 for _, _, arr in results])
+
+
+def phase_serve_batch(params) -> Dict[str, object]:
+    """The batched serving paths through ``serve.run`` and HTTP, at GPT-2
+    124M with the serving phases' weights, each replica on half the card
+    (``num_gpus=0.5``) so that two live at once; the replicas are threads of
+    this process, so the splash launch counters are the ones every phase
+    reads.
+
+    (a) ``GPT2BatchNext`` (``@serve.batch``, up to 32 per forward) and
+    ``GPT2Next`` answer the same 64 requests from 1, 8 and 32 concurrent
+    clients, in turns. Every answer keeps the tie rule against the
+    in-process ``GPT2Next`` logits for its tokens; the splash launches of a
+    batched run are ``n_layer`` per vectorized call, of an unbatched one
+    ``n_layer`` per request; at 32 clients a batch larger than 1 forms. The
+    64 requests' logits from in-process batched forwards (two of 32) are
+    held to the same logits, as ``phase_serve`` holds its answers.
+    (b) ``GPT2ContinuousStream`` (``@serve.continuous_batch``) streams 8 SSE
+    answers, 4 admitted while the first 4 are in flight, beside 8
+    concurrent streams of ``GPT2Stream``; every token keeps the tie rule
+    against the plain-attention model at its stream's prefix, launches are
+    ``n_layer`` per step (per token for ``GPT2Stream``), and steps are
+    shared (fewer than 8 x 16) with more than 4 streams in some step.
+    (c) ``GPT2MultiplexNext`` on two replicas, one model each: 16 requests
+    alternate seeds 1 and 2 (the first two at once, so the models land on
+    different replicas), then one asks for seed 3. Answers keep the tie
+    rule against ``GPT2Next`` built from the seed; once the router knows
+    where each model lives, the second half of the traffic loads nothing;
+    after the seed-3 eviction the card holds no more than half a weight set
+    above the level before it."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve import multiplex
+
+    config = gpt2.GPTConfig()
+    ref_config = dataclasses.replace(config, attn_impl="xla")
+    n_layer = config.n_layer
+    requests, prompts = _batch_inputs()
+    half = {"num_gpus": 0.5}
+    local_next = serve.GPT2Next(config, params=params)
+    weights = dict(local_next.params)
+    weights.update(weights.pop("blocks"))
+    weight_bytes = sum(t.numel() * t.element_size() for t in weights.values())
+    worst = 0.0
+    result: Dict[str, object] = dict(weight_set_bytes=weight_bytes)
+    totals: Dict[str, int] = {}
+
+    def take() -> int:
+        """Reads the launch counts of the window that just ended (reset
+        just before it) into the phase's totals; the splash launches."""
+        counts = _counts()
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+        return counts["splash_attention_fwd"]
+
+    def gap(ref, chosen):
+        return (ref.max() - ref[chosen]).item()
+
+    def ref_rows(arr, positions):
+        """Plain-attention logits at ``positions`` of the (B, S) tokens."""
+        dev = local_next.device
+        with torch.inference_mode():
+            t = torch.as_tensor(arr, device=dev)
+            x = gpt2.forward_hidden(local_next.params, t, ref_config)
+            x = x[torch.arange(len(positions), device=dev),
+                  torch.as_tensor(positions, device=dev)]
+            return gpt2.lm_head(x, local_next.params["wte"], torch.float32)
+
+    with torch.inference_mode():
+        ref_logits = torch.stack([local_next.logits(t) for t in requests])
+    ref_answers = torch.argmax(ref_logits, dim=-1).tolist()
+
+    # (a)'s in-process check: the 64 requests as two batched forwards.
+    local_batch = serve.GPT2BatchNext(config, params=params)
+    batched = []
+    for i in range(0, BATCH_REQUESTS, 32):
+        chunk = requests[i:i + 32]
+        arr = np.zeros((len(chunk), max(map(len, chunk))), np.int64)
+        for row, toks in enumerate(chunk):
+            arr[row, :len(toks)] = toks
+        batched.append(local_batch.logits_rows(arr, [len(t) - 1 for t in chunk]))
+    batched = torch.cat(batched)
+    if batched.shape != ref_logits.shape or not torch.isfinite(batched).all():
+        fail(f"batched logits of shape {tuple(batched.shape)} or non-finite")
+    dlogit = (batched - ref_logits).abs().max().item()
+    batched_answers = torch.argmax(batched, dim=-1).tolist()
+    worst_gap = max(gap(ref_logits[i], a) for i, a in enumerate(batched_answers))
+    if dlogit > LOGIT_ATOL or worst_gap > LOGIT_ATOL:
+        fail(f"in-process batched logits: max|dlogit| {dlogit}, a chosen "
+             f"token {worst_gap} below the B=1 maximum (tol {LOGIT_ATOL})")
+    # One vectorized call's host time at S=1024, by batch size.
+    forward_ms = {}
+    for B in (1, 8, 32):
+        arr = np.zeros((B, config.seq_len), np.int64)
+        forward_ms[B] = time_ms(lambda: local_batch.logits_rows(
+            arr, [config.seq_len - 1] * B), iters=5)
+    del local_batch, batched
+    result["inproc_batched_max_abs_logit_err"] = dlogit
+
+    ray_tpu_torch.init()
+    try:
+        serve.start(http_options={"port": 0})
+        from ray_tpu_torch.serve.api import _state
+
+        addr = _state["proxy"].address
+
+        # ------------------------------------------ (a) batched unary
+        h_batch = serve.run(
+            serve.deployment(max_ongoing_requests=64, ray_actor_options=half)(
+                serve.GPT2BatchNext).bind(config, params=params),
+            name="gpt2batch", route_prefix="/gpt2batch")
+        h_next = serve.run(
+            serve.deployment(max_ongoing_requests=64, ray_actor_options=half)(
+                serve.GPT2Next).bind(config, params=params),
+            name="gpt2", route_prefix="/gpt2")
+        bodies = [{"tokens": t} for t in requests]
+        # Warm-up, not counted: the replicas' threads, a full batch.
+        _post_concurrently(f"{addr}/gpt2", bodies[:2], 2)
+        _post_concurrently(f"{addr}/gpt2batch", bodies[:32], 32)
+
+        runs = {"batched": {c: [] for c in BATCH_CLIENTS},
+                "unbatched": {c: [] for c in BATCH_CLIENTS}}
+        sizes_by_clients = {c: [] for c in BATCH_CLIENTS}
+        differ = {"batched": 0, "unbatched": 0}
+        batched_launches = vectorized = unbatched_launches = 0
+        for clients in BATCH_CLIENTS:
+            for _ in range(BATCH_ROUNDS):
+                for kind, route in (("batched", "gpt2batch"),
+                                    ("unbatched", "gpt2")):
+                    seen = (h_batch.batch_sizes.remote().result(timeout_s=60)
+                            if kind == "batched" else None)
+                    _reset_counts()
+                    outs, secs = _post_concurrently(f"{addr}/{route}", bodies,
+                                                    clients)
+                    launches = take()
+                    runs[kind][clients].append(BATCH_REQUESTS / secs)
+                    for i, (status, _, out) in enumerate(outs):
+                        ans = out.get("next_token")
+                        if status != 200 or not isinstance(ans, int):
+                            fail(f"{kind} answer {status} {out}")
+                        g = gap(ref_logits[i], ans)
+                        worst = max(worst, g)
+                        if g > LOGIT_ATOL:
+                            fail(f"{kind} answer {ans} at {clients} clients "
+                                 f"for request {i} (length "
+                                 f"{len(requests[i])}) is {g} below the "
+                                 f"in-process maximum (tol {LOGIT_ATOL})")
+                        differ[kind] += ans != ref_answers[i]
+                    if kind == "unbatched":
+                        unbatched_launches += launches
+                        if launches != n_layer * BATCH_REQUESTS:
+                            fail(f"unbatched splash launches {launches} != "
+                                 f"{n_layer} * {BATCH_REQUESTS}")
+                        continue
+                    sizes = h_batch.batch_sizes.remote().result(
+                        timeout_s=60)[len(seen):]
+                    sizes_by_clients[clients].append(sizes)
+                    batched_launches += launches
+                    vectorized += len(sizes)
+                    if sum(sizes) != BATCH_REQUESTS:
+                        fail(f"batches {sizes} hold {sum(sizes)} requests, "
+                             f"sent {BATCH_REQUESTS}")
+                    if launches != n_layer * len(sizes):
+                        fail(f"batched splash launches {launches} != "
+                             f"n_layer * vectorized calls = {n_layer} * "
+                             f"{len(sizes)}")
+        if max(max(s) for s in sizes_by_clients[32]) <= 1:
+            fail(f"no batch larger than 1 formed at 32 clients: "
+                 f"{sizes_by_clients[32]}")
+        # Where the batched qps stops: the same traffic at 32 clients
+        # through the handle, without the proxy and the HTTP clients.
+        handle_qps = {}
+        for kind, h in (("batched", h_batch), ("unbatched", h_next)):
+            _reset_counts()
+            handle_qps[kind] = BATCH_REQUESTS / _handle_concurrently(
+                h, bodies, 32)
+            take()
+        med = statistics.median
+        result["unary"] = dict(
+            requests=BATCH_REQUESTS, rounds=BATCH_ROUNDS,
+            qps={kind: {f"c{c}": med(v) for c, v in by.items()}
+                 for kind, by in runs.items()},
+            qps_runs={kind: {f"c{c}": v for c, v in by.items()}
+                      for kind, by in runs.items()},
+            speedup={f"c{c}": med(runs["batched"][c])
+                     / med(runs["unbatched"][c]) for c in BATCH_CLIENTS},
+            batch_sizes={f"c{c}": v for c, v in sizes_by_clients.items()},
+            handle_qps_c32=handle_qps,
+            forward_ms_by_batch=forward_ms,
+            vectorized_calls=vectorized, splash_launches=batched_launches,
+            unbatched_splash_launches=unbatched_launches,
+            answers_differing_exactly=differ,
+            worst_gap_below_max=worst)
+        serve.delete("gpt2batch")
+        serve.delete("gpt2")
+
+        # --------------------------------------- (b) continuous batching
+        deploy = serve.deployment(max_ongoing_requests=64,
+                                  ray_actor_options=half)
+        h_cont = serve.run(deploy(serve.GPT2ContinuousStream)
+                           .bind(config, params=params),
+                           name="gpt2cont", route_prefix="/gpt2cont")
+        serve.run(deploy(serve.GPT2Stream).bind(config, params=params),
+                  name="gpt2stream", route_prefix="/gpt2stream")
+        for route in ("gpt2cont", "gpt2stream"):  # warm-up
+            _sse(f"{addr}/{route}?tokens=1,2,3&max_new=2")
+        queries = [f"tokens={','.join(map(str, p))}&max_new={SERVE_MAX_NEW}"
+                   for p in prompts]
+        seen = h_cont.batch_sizes.remote().result(timeout_s=60)
+        _reset_counts()
+        cont, t_cont = _streams_concurrently(f"{addr}/gpt2cont", queries,
+                                             CONT_STREAMS // 2)
+        cont_launches = take()
+        steps = h_cont.batch_sizes.remote().result(timeout_s=60)[len(seen):]
+        _reset_counts()
+        per_req, t_per = _streams_concurrently(f"{addr}/gpt2stream", queries,
+                                               CONT_STREAMS)
+        per_req_launches = take()
+        serve.delete("gpt2cont")
+        serve.delete("gpt2stream")
+        for label, runs_ in (("continuous", cont), ("per-request", per_req)):
+            for status, events, _ in runs_:
+                if status != 200 or len(events) != SERVE_MAX_NEW:
+                    fail(f"{label} stream {status} gave {len(events)} tokens")
+        total = CONT_STREAMS * SERVE_MAX_NEW
+        if cont_launches != n_layer * len(steps):
+            fail(f"continuous splash launches {cont_launches} != n_layer * "
+                 f"steps = {n_layer} * {len(steps)}")
+        if len(steps) >= total or sum(steps) != total:
+            fail(f"continuous steps {steps}: {len(steps)} steps for {total} "
+                 f"tokens shared nothing")
+        if max(steps) <= CONT_STREAMS // 2:
+            fail(f"no step held a stream admitted mid-flight: {steps}")
+        if per_req_launches != n_layer * total:
+            fail(f"per-request stream launches {per_req_launches} != "
+                 f"{n_layer} * {total}")
+        # Every token against the plain-attention model at its prefix.
+        S = config.seq_len
+        cont_gap = 0.0
+        for label, runs_ in (("continuous", cont), ("per-request", per_req)):
+            seqs = [list(p) for p in prompts]
+            for step in range(SERVE_MAX_NEW):
+                arr = np.zeros((CONT_STREAMS, S), np.int64)
+                for row, seq in enumerate(seqs):
+                    arr[row, :len(seq)] = seq
+                ref = ref_rows(arr, [len(seq) - 1 for seq in seqs])
+                for row, (_, events, _) in enumerate(runs_):
+                    tok = events[step].get("token")
+                    g = gap(ref[row], tok)
+                    cont_gap = max(cont_gap, g)
+                    if g > LOGIT_ATOL:
+                        fail(f"{label} stream {row} step {step}: token {tok} "
+                             f"is {g} below the plain model's maximum "
+                             f"(tol {LOGIT_ATOL})")
+                    seqs[row].append(tok)
+        c_stats = _stream_stats(cont, t_cont)
+        p_stats = _stream_stats(per_req, t_per)
+        result["continuous"] = dict(
+            streams=CONT_STREAMS, max_new=SERVE_MAX_NEW,
+            prompt_len=SERVE_PROMPT_LEN, steps=len(steps), step_sizes=steps,
+            splash_launches=cont_launches,
+            per_request_splash_launches=per_req_launches,
+            continuous=c_stats, per_request=p_stats,
+            tokens_per_s_ratio=c_stats["tokens_per_s"]
+            / p_stats["tokens_per_s"],
+            worst_gap_below_max=cont_gap)
+
+        # ---------------------------------------------- (c) multiplexing
+        def loads():
+            return sum(v for _, _, v in multiplex.MODEL_LOADS.samples())
+
+        def evictions():
+            return sum(v for _, _, v in multiplex.MODEL_EVICTIONS.samples())
+
+        h_mux = serve.run(
+            serve.deployment(num_replicas=2, max_ongoing_requests=64,
+                             ray_actor_options=half)(serve.GPT2MultiplexNext)
+            .bind(config, max_num_models_per_replica=1),
+            name="gpt2mux", route_prefix=None)
+        hs = {s: h_mux.options(multiplexed_model_id=f"seed-{s}")
+              for s in (1, 2, 3)}
+        mux_reqs = requests[:MUX_REQUESTS + 1]
+        seeds = [1 + i % 2 for i in range(MUX_REQUESTS)] + [3]
+        loads0 = loads()
+        _reset_counts()
+        # The first two at once: the second sees the first in flight on
+        # one replica and goes to the other.
+        pair = [hs[s].remote({"tokens": t})
+                for s, t in zip(seeds[:2], mux_reqs[:2])]
+        mux_answers = [r.result(timeout_s=300)["next_token"] for r in pair]
+        sched = h_mux._get_router()._scheduler
+        deadline = time.time() + 30
+        while True:
+            with sched._lock:
+                view = sorted(tuple(r.get("multiplexed_model_ids") or ())
+                              for r in sched._replicas)
+            if view == [("seed-1",), ("seed-2",)]:
+                break
+            if time.time() > deadline:
+                fail(f"the router's view of the replicas' models: {view}")
+            time.sleep(0.05)
+        def ask(i):
+            mux_answers.append(hs[seeds[i]].remote(
+                {"tokens": mux_reqs[i]}).result(timeout_s=300)["next_token"])
+
+        for i in range(2, MUX_REQUESTS // 2):
+            ask(i)
+        loads_first_half = loads()
+        for i in range(MUX_REQUESTS // 2, MUX_REQUESTS):
+            ask(i)
+        loads_second_half = loads() - loads_first_half
+        if loads_second_half:
+            fail(f"{loads_second_half} loads in the second half of the "
+                 f"alternating traffic: warm routing did not hold")
+        torch.cuda.synchronize()
+        gc.collect()
+        mem_before = torch.cuda.memory_allocated()
+        evict0 = evictions()
+        ask(MUX_REQUESTS)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        mux_launches = take()
+        if evictions() - evict0 != 1:
+            fail(f"seed-3 evicted {evictions() - evict0} models, wanted 1")
+        if mem_after > mem_before + weight_bytes // 2:
+            fail(f"after the eviction the card holds {mem_after} bytes, "
+                 f"{mem_after - mem_before} more than before it (one weight "
+                 f"set is {weight_bytes}): the evicted weights stayed")
+        mux_loads = loads() - loads0
+        serve.delete("gpt2mux")
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+
+    mux_gap = 0.0
+    mux_differ = 0
+    for seed in (1, 2, 3):
+        model = serve.GPT2Next(config, seed=seed)
+        with torch.inference_mode():
+            for toks, s, ans in zip(mux_reqs, seeds, mux_answers):
+                if s != seed:
+                    continue
+                logits = model.logits(toks)
+                g = gap(logits, ans)
+                mux_gap = max(mux_gap, g)
+                mux_differ += ans != int(torch.argmax(logits))
+                if g > LOGIT_ATOL:
+                    fail(f"multiplexed answer {ans} for seed-{seed} is {g} "
+                         f"below GPT2Next's maximum (tol {LOGIT_ATOL})")
+        del model
+    result["multiplex"] = dict(
+        requests=len(mux_answers), seeds=seeds, loads=mux_loads,
+        loads_second_half=loads_second_half, evictions=evictions() - evict0,
+        memory_before_seed3=mem_before, memory_after_seed3=mem_after,
+        splash_launches=mux_launches, answers_differing_exactly=mux_differ,
+        worst_gap_below_max=mux_gap)
+    others = {k: n for k, n in totals.items()
+              if n and k != "splash_attention_fwd"}
+    if others:
+        fail(f"the batched serving paths launched other kernels: {others}")
+    result["splash_launches"] = totals["splash_attention_fwd"]
+    result["launches"] = totals
+    print("serve_batch " + json.dumps(result), flush=True)
+    return result
+
+
 def _gaps_ms(t0: float, arrivals: list) -> list:
     """Gaps between a request's start and each token's arrival, in ms: the
     first is the time to the first token."""
@@ -1517,6 +2007,7 @@ def main() -> int:
     # After every in-process phase, so that none of their numbers moves;
     # before the profiled ones, whose tracing slows small kernels.
     serve_http = phase_serve_http(weights, serve)
+    serve_batch = phase_serve_batch(weights)
     del weights
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
@@ -1537,7 +2028,8 @@ def main() -> int:
         """Launches of kernel ``name`` on each main path, counted from 0
         just before the path ran."""
         out = {"serve": serve["launches"][name],
-               "serve_http": serve_http["launches"][name]}
+               "serve_http": serve_http["launches"][name],
+               "serve_batch": serve_batch["launches"][name]}
         for impl in ("dense", "fused"):
             out[f"train_{impl}"] = train["launches"][impl][name]
         out["train_ring"] = train_ring["run"]["launches"][name]
@@ -1552,6 +2044,14 @@ def main() -> int:
               kern["worst"], kern["main"], kern["main"]["library_ms"],
               {k: kern["main"][k] for k in ("B", "S", "H", "hd", "causal")},
               train_shape_ms=kern["rows"][0]["ms"],
+              serving_batch_shapes=[
+                  {k: r[k] for k in ("B", "S", "H", "hd", "causal", "ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "plain_ms")}
+                  for r in kern["rows"]
+                  if (r["B"], r["S"], r["causal"]) in ((8, 1024, True),
+                                                      (32, 1024, True),
+                                                      (8, 517, True))],
               resources={k: r for k, r in splash_res.items()
                          if k.startswith("fwd")}),
         entry("splash_attention_bwd",

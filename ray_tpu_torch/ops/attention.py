@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -30,6 +31,9 @@ from ray_tpu_torch._private import kernel_build
 #: Launches per kernel since the last reset; only a kernel launch adds one.
 LAUNCHES: Dict[str, int] = {"splash_attention_fwd": 0,
                              "splash_attention_bwd": 0}
+#: Serve replicas launch from many threads at once; ``+=`` on a dict entry
+#: is not atomic.
+_LAUNCHES_LOCK = threading.Lock()
 
 #: The splash mask's DEFAULT_MASK_VALUE: finite, so that a fully masked row
 #: gives no exp(-inf - -inf) = NaN.
@@ -39,8 +43,9 @@ _HEAD_DIMS = (64, 128)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -140,7 +145,8 @@ def _kernel_inputs(named: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
 def _launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _splash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -11,7 +11,7 @@ options with the gRPC proxy (ROADMAP.md, Queue 1).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 
 @dataclass
@@ -42,6 +42,10 @@ class AutoscalingConfig:
     #: serving set; scale-up promotes one of these instead of paying a cold
     #: start (for a model replica: the weights' load and placement).
     warm_pool_size: int = 0
+    #: Multiplexed model ids to pre-load on each warm replica via the
+    #: ``_ModelMultiplexWrapper`` load path (serve/multiplex.py) so a
+    #: promotion does not pay the weights' load either.
+    prewarm_model_ids: List[str] = field(default_factory=list)
 
     def __post_init__(self) -> None:
         if self.min_replicas < 0:

@@ -1,9 +1,10 @@
-"""Per-replica context (the counterpart of ``ray_tpu/serve/context.py``;
-ref: python/ray/serve/context.py — _get_internal_replica_context).
+"""Per-replica / per-request context (the counterpart of
+``ray_tpu/serve/context.py``; ref: python/ray/serve/context.py —
+_get_internal_replica_context, serve.get_multiplexed_model_id).
 
 Uses contextvars (not thread-locals): replica request handlers are asyncio
-tasks interleaving on one loop thread. The request-scoped multiplexed model
-id comes with ``serve/multiplex.py`` (ROADMAP.md, Queue 1).
+tasks interleaving on one loop thread, and the request-scoped model id must
+not leak across concurrently-awaiting requests.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Optional
 
 _replica_ctx: contextvars.ContextVar = contextvars.ContextVar(
     "serve_replica_ctx", default=None)
+_model_id: contextvars.ContextVar = contextvars.ContextVar(
+    "serve_multiplexed_model_id", default="")
 
 
 @dataclass
@@ -31,3 +34,12 @@ def _set_internal_replica_context(deployment: str, replica_id: str,
 
 def get_internal_replica_context() -> Optional[ReplicaContext]:
     return _replica_ctx.get()
+
+
+def _set_request_model_id(model_id: str) -> None:
+    _model_id.set(model_id)
+
+
+def get_multiplexed_model_id() -> str:
+    """(ref: serve/api.py get_multiplexed_model_id)"""
+    return _model_id.get()

@@ -227,6 +227,14 @@ class ServeController:
                 traceback.print_exc()
             await asyncio.sleep(CONTROL_LOOP_INTERVAL_S)
 
+    def record_multiplexed_model_ids(self, replica_id: str,
+                                     model_ids: List[str]) -> None:
+        """A replica's multiplex LRU changed (load or eviction).  Stamp
+        the ids onto the controller-side replica record and mark the
+        deployment changed so the next control-loop tick pushes a fresh
+        replica set — routers then prefer warm replicas for those ids."""
+        self._manager.record_multiplexed_model_ids(replica_id, model_ids)
+
     def record_handle_metrics(self, deployment_id: str, router_id: str,
                               total_inflight: int,
                               snapshot: Optional[Dict[str, Any]] = None,

@@ -140,6 +140,9 @@ class ReplicaWrapper:
         #: Why this replica left RUNNING ("unhealthy", "dead") — feeds the
         #: unhealthy gauge while it drains.
         self.unhealthy_reason: Optional[str] = None
+        #: Model ids loaded in this replica's multiplex LRU (pushed by the
+        #: replica on load/eviction) — routers prefer warm replicas.
+        self.multiplexed_model_ids: List[str] = []
         # Health-probe FSM (controller side).  The FIRST probe runs while
         # still STARTING: a replica enters RUNNING (and the routing table)
         # only after initialize + one successful check_health, which is
@@ -501,7 +504,8 @@ class DeploymentState:
     def _reconcile_warm_pool(self, now: float, config: DeploymentConfig,
                              target_version: str) -> None:
         """Keep ``warm_pool_size`` replicas pre-started outside the serving
-        set: ready them up (STARTING → WARM), health-probe them so corpses leave the pool, drain
+        set: ready them up (STARTING → WARM, then fire the multiplex
+        prewarm), health-probe them so corpses leave the pool, drain
         outdated or excess members, and start replacements."""
         autoscaling = config.autoscaling_config
         warm_target = autoscaling.warm_pool_size if autoscaling else 0
@@ -514,6 +518,12 @@ class DeploymentState:
                 ready = r.check_ready()
                 if ready is True:
                     r.state = ReplicaState.WARM
+                    if autoscaling and autoscaling.prewarm_model_ids:
+                        try:
+                            r.actor.prewarm.remote(
+                                list(autoscaling.prewarm_model_ids))
+                        except Exception:
+                            pass
                 elif ready is False:
                     self.replicas.remove(r)
                     r.hard_kill()
@@ -541,7 +551,8 @@ class DeploymentState:
         return [{"replica_id": r.replica_id, "actor": r.actor,
                  "max_ongoing_requests": self.info.config.max_ongoing_requests,
                  "max_queued_requests": self.info.config.max_queued_requests,
-                 "change_reason": self.change_reason}
+                 "change_reason": self.change_reason,
+                 "multiplexed_model_ids": list(r.multiplexed_model_ids)}
                 for r in self.replicas if r.state == ReplicaState.RUNNING]
 
     @property
@@ -592,6 +603,21 @@ class DeploymentStateManager:
     def delete(self, deployment_id: str) -> None:
         if deployment_id in self.deployments:
             self.deployments[deployment_id].delete()
+
+    def record_multiplexed_model_ids(self, replica_id: str,
+                                     model_ids: List[str]) -> bool:
+        """Stamp a replica's loaded multiplex ids and flag its deployment
+        changed (the next reconcile tick pushes the new replica set to
+        routers).  Replica ids are unique across deployments, so a scan
+        suffices.  Returns False for unknown/departed replicas."""
+        for state in self.deployments.values():
+            for r in state.replicas:
+                if r.replica_id == replica_id:
+                    if r.multiplexed_model_ids != list(model_ids):
+                        r.multiplexed_model_ids = list(model_ids)
+                        state._changed = True
+                    return True
+        return False
 
     def reconcile(self) -> Dict[str, List[Dict[str, Any]]]:
         """Tick all deployments; return {deployment_id: running_replicas}

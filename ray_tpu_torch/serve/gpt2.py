@@ -1,5 +1,5 @@
 """GPT-2 replica bodies: the port of the two deployments in
-``examples/serve_gpt2.py``.
+``examples/serve_gpt2.py``, and three that serve the same model batched.
 
 ``GPT2Next`` answers a unary next-token request (greedy argmax at the last
 position); ``GPT2Stream`` decodes greedily, padding every step to
@@ -9,19 +9,33 @@ model's fixed shape. ``__call__`` keeps the example's request contract
 plain methods (``next_token``, ``generate``) so a caller can also drive a
 replica in-process.
 
-Both default to GPT-2 124M (``GPTConfig()``) on the GPU, with attention on
+The batched bodies compose ``serve.batch``, ``serve.continuous_batch`` and
+``serve.multiplexed`` with one batched forward (``_Replica.logits_rows``):
+
+- ``GPT2BatchNext`` keeps ``GPT2Next``'s request contract; concurrent
+  requests are coalesced (up to 32, waiting at most 10 ms) into one
+  forward over the batch right-padded to its longest request. Causal
+  attention keeps the padding out of every row's last real position.
+- ``GPT2ContinuousStream`` keeps ``GPT2Stream``'s query contract; every
+  iteration steps all live streams in one (B, seq_len) forward, and a
+  stream admitted mid-flight joins at the next iteration.
+- ``GPT2MultiplexNext`` serves one weight set per multiplexed model id
+  ``"seed-<n>"`` (GPT-2 built from seed n), an LRU of them per replica; a
+  batch only ever holds requests for one model.
+
+Each defaults to GPT-2 124M (``GPTConfig()``) on the GPU, with attention on
 the splash kernel. Behind ``serve.run`` a replica's methods run on the
 runtime's threads (the async ``__call__`` on the replica's event loop, each
-step of the streaming generator on whichever executor thread pulls it), so
-every forward sets the replica's device on the calling thread instead of
-relying on that thread's current device.
+step of the streaming generator and each vectorized call on whichever
+executor thread runs it), so every forward sets the replica's device on the
+calling thread instead of relying on that thread's current device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
-from typing import Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,18 +43,58 @@ import torch
 from ray_tpu_torch._private.device import (
     DeviceLike, granted_cuda_device, resolve_device)
 from ray_tpu_torch.models import gpt2
+from ray_tpu_torch.serve._sync import run_in_executor
+from ray_tpu_torch.serve.batching import batch
+from ray_tpu_torch.serve.context import get_multiplexed_model_id
+from ray_tpu_torch.serve.continuous import EOS, Emissions, continuous_batch
+from ray_tpu_torch.serve.multiplex import multiplexed
+
+
+def _pin_device(device: DeviceLike) -> torch.device:
+    """The replica's device. A CUDA device without an index is pinned now:
+    the threads that later run the forwards each have a current device of
+    their own. Behind serve.run it is the card the runtime granted this
+    replica."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = granted_cuda_device()
+    return dev
+
+
+def _check_tokens(tokens: Sequence[int], config: gpt2.GPTConfig,
+                  extra: int = 0) -> List[int]:
+    """Validates a request's tokens; ``extra`` more positions must fit."""
+    tokens = [int(t) for t in tokens]
+    if not tokens:
+        raise ValueError("a request needs at least one token")
+    if len(tokens) + extra > config.seq_len:
+        raise ValueError(
+            f"{len(tokens)} tokens (+{extra} to generate) exceed "
+            f"seq_len {config.seq_len}")
+    bad = [t for t in tokens if not 0 <= t < config.vocab_size]
+    if bad:
+        raise ValueError(
+            f"token ids out of range [0, {config.vocab_size}): {bad[:5]}")
+    return tokens
+
+
+class _BatchLog:
+    """Keeps the size of every vectorized call a replica ran, so a caller
+    can check how its requests were batched."""
+
+    def _log_batch(self, n: int) -> None:
+        self.__dict__.setdefault("_batch_sizes", []).append(n)
+
+    def batch_sizes(self) -> List[int]:
+        """The size of every vectorized call so far, in order."""
+        return list(self.__dict__.get("_batch_sizes", ()))
 
 
 class _Replica:
     def __init__(self, config: Optional[gpt2.GPTConfig] = None, seed: int = 0,
                  device: DeviceLike = None, params=None):
         self.config = gpt2.GPTConfig() if config is None else config
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            # Pin the card now: the threads that later run the forwards
-            # each have a current device of their own. Behind serve.run it
-            # is the card the runtime granted this replica.
-            self.device = granted_cuda_device()
+        self.device = _pin_device(device)
         if params is None:
             params = gpt2.init_params(self.config, seed, self.device)
         # Matmul weights once in the compute type: the same logits, half the
@@ -48,29 +102,37 @@ class _Replica:
         self.params = gpt2.inference_params(params, self.config)
 
     def _tokens(self, tokens: Sequence[int], extra: int = 0) -> List[int]:
-        """Validates a request's tokens; ``extra`` more positions must fit."""
-        tokens = [int(t) for t in tokens]
-        if not tokens:
-            raise ValueError("a request needs at least one token")
-        if len(tokens) + extra > self.config.seq_len:
-            raise ValueError(
-                f"{len(tokens)} tokens (+{extra} to generate) exceed "
-                f"seq_len {self.config.seq_len}")
-        bad = [t for t in tokens if not 0 <= t < self.config.vocab_size]
-        if bad:
-            raise ValueError(
-                f"token ids out of range [0, {self.config.vocab_size}): {bad[:5]}")
-        return tokens
+        return _check_tokens(tokens, self.config, extra)
 
     @torch.inference_mode()
-    def logits_at(self, tokens: np.ndarray, pos: int) -> torch.Tensor:
-        """float32 logits (V,) at position ``pos`` of the (1, S) ``tokens``.
-        Only that row goes through the LM head: a request reads no other."""
+    def logits_rows(self, tokens: np.ndarray,
+                    positions: Sequence[int]) -> torch.Tensor:
+        """float32 logits (B, V): row b at position ``positions[b]`` of the
+        (B, L) ``tokens``. One forward runs over the whole batch, and only
+        the B chosen rows go through the LM head: a request reads no
+        other."""
         with (torch.cuda.device(self.device) if self.device.type == "cuda"
               else contextlib.nullcontext()):
             t = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
             x = gpt2.forward_hidden(self.params, t, self.config)
-            return gpt2.lm_head(x[0, pos], self.params["wte"], torch.float32)
+            pos = torch.as_tensor(positions, dtype=torch.long,
+                                  device=self.device)
+            x = x[torch.arange(len(pos), device=self.device), pos]
+            return gpt2.lm_head(x, self.params["wte"], torch.float32)
+
+    def logits_at(self, tokens: np.ndarray, pos: int) -> torch.Tensor:
+        """float32 logits (V,) at position ``pos`` of the (1, S) ``tokens``."""
+        return self.logits_rows(tokens, [pos])[0]
+
+    def next_tokens(self, token_lists: Sequence[Sequence[int]]) -> List[int]:
+        """The greedy next token of each request, from one forward over the
+        requests right-padded to the longest of them."""
+        lists = [self._tokens(t) for t in token_lists]
+        arr = np.zeros((len(lists), max(map(len, lists))), np.int64)
+        for row, toks in enumerate(lists):
+            arr[row, :len(toks)] = toks
+        logits = self.logits_rows(arr, [len(t) - 1 for t in lists])
+        return torch.argmax(logits, dim=-1).tolist()
 
 
 class GPT2Next(_Replica):
@@ -108,3 +170,131 @@ class GPT2Stream(_Replica):
         n = int(request.query_params.get("max_new", "8"))
         for nxt in self.generate(tokens, n):
             yield json.dumps({"token": nxt})
+
+
+class GPT2BatchNext(_Replica, _BatchLog):
+    """``GPT2Next`` with concurrent requests batched: ``@serve.batch``
+    coalesces up to 32 of them into one vectorized ``next_tokens`` call
+    (the reference bench's settings, scripts/bench_serve.py)."""
+
+    @batch(max_batch_size=32, batch_wait_timeout_s=0.01)
+    def next_token(self, token_lists: List[List[int]]) -> List[int]:
+        """Called with one request's tokens; runs with the batch's list."""
+        out = self.next_tokens(token_lists)
+        self._log_batch(len(token_lists))
+        return out
+
+    async def __call__(self, request):
+        body = await request.json()
+        tokens = self._tokens(body["tokens"])
+        return {"next_token": await self.next_token(tokens)}
+
+
+class GPT2ContinuousStream(_Replica, _BatchLog):
+    """``GPT2Stream`` with continuous batching: every iteration pads each
+    live stream to ``seq_len`` and steps all of them in one forward; a
+    stream's last token ends it in the same iteration. ``batch_sizes()``
+    gives the streams each forward stepped."""
+
+    def _admit(self, state: Dict[str, Any], request) -> None:
+        query = request.query_params
+        n = int(query.get("max_new", "8"))
+        state["tokens"] = self._tokens(query.get("tokens", "1,2,3").split(","),
+                                       extra=max(n - 1, 0))
+        state["left"] = n
+
+    @continuous_batch(max_batch_size=32)
+    def __call__(self, slots) -> List[Any]:
+        outs: List[Any] = [EOS] * len(slots)
+        live = []
+        for i, slot in enumerate(slots):
+            if "tokens" not in slot.state:
+                try:
+                    self._admit(slot.state, slot.request)
+                except Exception as e:  # noqa: BLE001 — fails this stream only
+                    outs[i] = e
+                    continue
+            if slot.state["left"] > 0:
+                live.append(i)
+        if not live:
+            return outs
+        S = self.config.seq_len
+        arr = np.zeros((len(live), S), np.int64)
+        for row, i in enumerate(live):
+            toks = slots[i].state["tokens"]
+            arr[row, :len(toks)] = toks
+        logits = self.logits_rows(
+            arr, [len(slots[i].state["tokens"]) - 1 for i in live])
+        nxt = torch.argmax(logits, dim=-1).tolist()
+        self._log_batch(len(live))
+        for i, tok in zip(live, nxt):
+            state = slots[i].state
+            state["tokens"].append(tok)
+            state["left"] -= 1
+            item = json.dumps({"token": tok})
+            outs[i] = (Emissions([item], eos=True) if state["left"] == 0
+                       else item)
+        return outs
+
+
+def _seed_of(model_id: str) -> int:
+    prefix = "seed-"
+    if not model_id.startswith(prefix) or not model_id[len(prefix):].isdigit():
+        raise ValueError(f"model id {model_id!r} is not 'seed-<n>'")
+    return int(model_id[len(prefix):])
+
+
+class GPT2MultiplexNext(_BatchLog):
+    """Next-token replica over many GPT-2 weight sets: the request's
+    multiplexed model id ``"seed-<n>"`` (``handle.options(
+    multiplexed_model_id=...)``) names the weights, built from seed n on
+    the replica's card. An LRU keeps ``max_num_models_per_replica`` of them;
+    eviction drops the evicted weights. Requests are batched per model id,
+    so one vectorized call always runs on one weight set. A request is
+    ``{"tokens": [...]}`` (or an HTTP request with that body) and the
+    answer ``{"next_token": n}``."""
+
+    def __init__(self, config: Optional[gpt2.GPTConfig] = None,
+                 device: DeviceLike = None,
+                 max_num_models_per_replica: int = 3):
+        self.config = gpt2.GPTConfig() if config is None else config
+        self.device = _pin_device(device)
+        self.get_model = multiplexed(
+            max_num_models_per_replica=max_num_models_per_replica,
+            unload=self._unload)(self._load)
+
+    async def _load(self, model_id: str) -> _Replica:
+        seed = _seed_of(model_id)
+        return await run_in_executor(_Replica, self.config, seed, self.device)
+
+    @staticmethod
+    def _unload(model_id: str, model: _Replica) -> None:
+        # A forward still running on these weights holds its own reference
+        # and frees them when it returns.
+        model.params = None
+
+    @batch(max_batch_size=32, batch_wait_timeout_s=0.01)
+    async def next_token(self, items: List[tuple]) -> List[int]:
+        """Called with one ``(model_id, tokens)``; runs with the batch's
+        list, all for the model id of the batch's queue."""
+        model_id = get_multiplexed_model_id()
+        stray = sorted({mid for mid, _ in items if mid != model_id})
+        if stray:
+            raise RuntimeError(f"a batch for model {model_id!r} holds "
+                               f"requests for {stray}")
+        model = await self.get_model(model_id)
+        out = await run_in_executor(model.next_tokens,
+                                    [toks for _, toks in items])
+        self._log_batch(len(items))
+        return out
+
+    async def __call__(self, request):
+        body = request if isinstance(request, dict) else await request.json()
+        model_id = get_multiplexed_model_id()
+        if not model_id:
+            raise ValueError("GPT2MultiplexNext serves requests that name a "
+                             "model: handle.options(multiplexed_model_id="
+                             "'seed-<n>')")
+        _seed_of(model_id)
+        tokens = _check_tokens(body["tokens"], self.config)
+        return {"next_token": await self.next_token((model_id, tokens))}

@@ -259,6 +259,7 @@ class DeploymentHandle:
         self._router = None
         self._router_lock = threading.Lock()
         self._stream = False
+        self._multiplexed_model_id = ""
 
     @property
     def deployment_id(self) -> str:
@@ -277,7 +278,9 @@ class DeploymentHandle:
             return self._router
 
     def options(self, *, method_name: Optional[str] = None,
-                stream: Optional[bool] = None) -> "DeploymentHandle":
+                stream: Optional[bool] = None,
+                multiplexed_model_id: Optional[str] = None
+                ) -> "DeploymentHandle":
         # Materialize the router BEFORE sharing: if the child built it, the
         # parent's _router would stay None and a duplicate Router (extra
         # long-poll + metrics threads, split queue accounting) would follow.
@@ -288,6 +291,9 @@ class DeploymentHandle:
         h._router = self._router
         h._router_lock = self._router_lock
         h._stream = self._stream if stream is None else bool(stream)
+        h._multiplexed_model_id = (self._multiplexed_model_id
+                                   if multiplexed_model_id is None
+                                   else multiplexed_model_id)
         return h
 
     def remote(self, *args, **kwargs):
@@ -297,6 +303,11 @@ class DeploymentHandle:
         if router is None:
             router = self._get_router()
         method = self._method_name
+        if self._multiplexed_model_id:
+            # Rides to the router (warm-replica preference) and on to the
+            # replica (request context for @serve.multiplexed loaders).
+            kwargs.setdefault("_serve_multiplexed_model_id",
+                              self._multiplexed_model_id)
         if self._stream:
             # Streaming (ref: handle.options(stream=True) → a generator of
             # results): every item is pulled from the pinned replica.
@@ -312,7 +323,8 @@ class DeploymentHandle:
     def __getstate__(self) -> Dict[str, Any]:
         return {"deployment_name": self.deployment_name,
                 "app_name": self.app_name, "_method_name": self._method_name,
-                "_stream": self._stream}
+                "_stream": self._stream,
+                "_multiplexed_model_id": self._multiplexed_model_id}
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         self.deployment_name = state["deployment_name"]
@@ -322,6 +334,7 @@ class DeploymentHandle:
         self._router = None
         self._router_lock = threading.Lock()
         self._stream = state.get("_stream", False)
+        self._multiplexed_model_id = state.get("_multiplexed_model_id", "")
 
     def __getattr__(self, name: str):
         if name.startswith("_"):

@@ -9,6 +9,9 @@ proxy, router and replica layers:
 
 - ``serve_request_latency_seconds``   Histogram, end-to-end handle-call
   latency per deployment (assign -> reply), trace-ID exemplars.
+- ``serve_queue_wait_seconds``        Histogram, time a request waited in
+  a batch queue (or a continuous-batching admission queue) before its
+  vectorized call began.
 - ``serve_execution_seconds``         Histogram, user-callable execution
   time.
 - ``serve_requests_total``            Counter, completed handle calls.
@@ -22,9 +25,8 @@ snapshot per pid (routers in one process share the process-global
 registry, so summing per-router would double count) and folds them into
 ``serve.status()`` rollups via
 :func:`ray_tpu_torch.util.metrics.percentile_from_buckets`.
-The batch queue's wait histogram comes with ``serve.batch``, the windowed
-accessors (request rate, the LLM views) with the metrics agent (ROADMAP.md,
-Queue 1).
+The windowed accessors (request rate, the LLM views) come with the metrics
+agent (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -44,6 +46,11 @@ REQUEST_LATENCY = _metrics.Histogram(
     "End-to-end request latency per deployment (handle assign to reply)",
     boundaries=LATENCY_BOUNDARIES,
     tag_keys=("deployment",))
+QUEUE_WAIT = _metrics.Histogram(
+    "serve_queue_wait_seconds",
+    "Time a request waited in a batch queue before execution began",
+    boundaries=LATENCY_BOUNDARIES,
+    tag_keys=("deployment", "method"))
 EXECUTION = _metrics.Histogram(
     "serve_execution_seconds",
     "User-callable execution time per (possibly vectorized) invocation",

@@ -157,6 +157,34 @@ class UserCallableWrapper:
         except Exception:
             pass
 
+    async def call_prewarm(self, model_ids: list) -> int:
+        """Pre-load multiplexed model ids through every @serve.multiplexed
+        loader on the callable (warm-pool pre-start: promotion then skips
+        the weights' load).  Returns the number of successful loads;
+        failures are swallowed — prewarm is an optimization."""
+        if not self._is_class or not model_ids:
+            return 0
+        loaders = []
+        seen = set()
+        for klass in type(self._callable).__mro__:
+            for name, fn in vars(klass).items():
+                if name in seen:
+                    continue
+                seen.add(name)
+                if callable(fn) and hasattr(fn, "_multiplex_wrappers"):
+                    loaders.append(fn)
+        loaded = 0
+        for fn in loaders:
+            for model_id in model_ids:
+                try:
+                    out = fn(self._callable, model_id)
+                    if inspect.isawaitable(out):
+                        await out
+                    loaded += 1
+                except Exception:
+                    pass
+        return loaded
+
     async def call_health_check(self) -> None:
         """User-overridable probe: a deployment class may define
         check_health() (sync or async); raising marks the probe failed
@@ -190,6 +218,7 @@ class ReplicaActor:
         self._num_ongoing = 0
         self._num_processed = 0
         self._user_config = user_config
+        self._multiplexed_model_ids: list = []
         self._streams: Dict[str, Any] = {}
         # Per-method (span attributes, metric tags) — invariant per method,
         # cached so the request hot path allocates neither dict.
@@ -202,6 +231,7 @@ class ReplicaActor:
 
     # ------------------------------------------------------------- requests
     async def handle_request(self, method_name: str, *args, **kwargs) -> Any:
+        mux_id = kwargs.pop("_serve_multiplexed_model_id", None)
         self._num_ongoing += 1
         t0 = time.time()
         meta = self._method_meta.get(method_name)
@@ -213,6 +243,10 @@ class ReplicaActor:
         span_attrs, metric_tags = meta
         try:
             self._set_replica_context()
+            if mux_id:
+                from ray_tpu_torch.serve import context as serve_context
+
+                serve_context._set_request_model_id(mux_id)
             # Nests under the runtime's task-execute span (which carries
             # the submitter's trace context from the TaskSpec), so the
             # replica-side work joins the request's trace.
@@ -266,6 +300,11 @@ class ReplicaActor:
 
     async def start_stream(self, method_name: str, *args, **kwargs) -> str:
         self._set_replica_context()
+        mux_id = kwargs.pop("_serve_multiplexed_model_id", None)
+        if mux_id:
+            from ray_tpu_torch.serve import context as serve_context
+
+            serve_context._set_request_model_id(mux_id)
         it = await self._wrapper.call_streaming(method_name, args, kwargs)
         return self._register_stream(it)
 
@@ -385,7 +424,24 @@ class ReplicaActor:
             "deployment": self.deployment_name,
             "num_ongoing_requests": self._num_ongoing,
             "num_processed_requests": self._num_processed,
+            "multiplexed_model_ids": list(self._multiplexed_model_ids),
         }
+
+    def record_multiplexed_model_ids(self, model_ids: list) -> None:
+        """Record loaded model ids locally AND forward them to the
+        controller, which folds them into the replica-set long-poll push
+        so routers can prefer warm replicas.  Fire-and-forget: metadata
+        is an optimization, never worth failing a load/evict over."""
+        self._multiplexed_model_ids = list(model_ids)
+        try:
+            import ray_tpu_torch
+            from ray_tpu_torch.serve.api import _CONTROLLER_NAME
+
+            controller = ray_tpu_torch.get_actor(_CONTROLLER_NAME)
+            controller.record_multiplexed_model_ids.remote(
+                self.replica_id, list(model_ids))
+        except Exception:
+            pass
 
     async def reconfigure(self, user_config: Any) -> None:
         self._user_config = user_config
@@ -394,6 +450,13 @@ class ReplicaActor:
     async def check_health(self) -> bool:
         await self._wrapper.call_health_check()
         return True
+
+    async def prewarm(self, model_ids: list) -> int:
+        """Warm-pool pre-start: load the given multiplexed model ids now so
+        a later promotion into the serving set costs a state flip, not a
+        weights' load."""
+        self._set_replica_context()
+        return await self._wrapper.call_prewarm(list(model_ids or []))
 
     async def prepare_for_shutdown(self, wait_loop_s: float = 5.0) -> None:
         """Drain: in-flight requests AND streams (both count in

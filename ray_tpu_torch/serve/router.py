@@ -8,9 +8,11 @@ lengths, pick the shorter; queue metrics are HANDLE-reported to the
 controller for autoscaling (autoscaling_state.py), never probed from
 replicas — a saturated replica couldn't answer the probe anyway.)
 
-The compiled steady-state route (``compiled_router.py``), the
-multiplexed-model preference and the LLM prefix directory are not ported
-yet (ROADMAP.md, Queue 1): every request takes the dynamic path.
+A request that carries a multiplexed model id prefers replicas that have
+that model loaded (``choose_replica(model_id=)``). The compiled
+steady-state route (``compiled_router.py``) and the LLM prefix directory
+are not ported yet (ROADMAP.md, Queue 1): every request takes the dynamic
+path.
 """
 
 from __future__ import annotations
@@ -99,13 +101,35 @@ class PowerOfTwoChoicesReplicaScheduler:
                 self._inflight[replica_id] = max(
                     0, self._inflight[replica_id] - n)
 
-    def choose_replica(self) -> Optional[Dict[str, Any]]:
-        """Queue-aware two-choice pick; a replica with a spare slot beats
-        one at or over capacity."""
+    def choose_replica(self, model_id: Optional[str] = None
+                       ) -> Optional[Dict[str, Any]]:
+        """Queue-aware two-choice pick; when the request carries a
+        multiplexed model id, replicas that already have that model
+        loaded ("warm") are preferred — but only while they have a spare
+        slot, so a saturated warm set degrades to the normal queue-aware
+        choice over everyone (a cold replica then loads the model) rather
+        than queueing behind the warm ones (ref: the reference scheduler's
+        multiplexed-model candidate ranking).  A replica with a spare slot
+        beats one at or over capacity."""
         with self._lock:
             replicas = list(self._replicas)
             if not replicas:
                 return None
+            if model_id:
+                warm = []
+                for r in replicas:
+                    q = self._inflight.get(r["replica_id"], 0)
+                    cap = int(r.get("max_ongoing_requests") or 0)
+                    if (cap <= 0 or q < cap) and model_id in (
+                            r.get("multiplexed_model_ids") or ()):
+                        warm.append(r)
+                if len(warm) == 1:
+                    return warm[0]
+                if warm:
+                    a, b = random.sample(warm, 2)
+                    qa = self._inflight.get(a["replica_id"], 0)
+                    qb = self._inflight.get(b["replica_id"], 0)
+                    return a if qa <= qb else b
             if len(replicas) == 1:
                 return replicas[0]
             a, b = random.sample(replicas, 2)
@@ -242,17 +266,18 @@ class Router:
             raise BackPressureError(self.deployment_id, inflight, capacity,
                                     max_queued)
 
-    def _dispatch(self, send):
+    def _dispatch(self, send, model_id: Optional[str] = None):
         """Shared choose-replica/retry core (ref: Router.assign_request):
         replicas dead at dispatch (a rolling update raced the long-poll)
         are dropped locally and the request re-assigned.
         ``send(replica)`` performs the (non-blocking) submit and returns
-        its result."""
+        its result.  ``model_id`` biases the pick toward warm multiplexed
+        replicas."""
         from ray_tpu_torch.exceptions import ActorDiedError
 
         deadline = time.time() + 30.0
         while True:
-            replica = self._scheduler.choose_replica()
+            replica = self._scheduler.choose_replica(model_id)
             if replica is None:
                 # Queue (don't fail) while the replica set is empty: for a
                 # scaled-to-zero deployment this parked request IS the wake
@@ -304,7 +329,8 @@ class Router:
             trace_ctx = _tracing.active_span()
             _, rid, ref = self._dispatch(
                 lambda r: r["actor"].handle_request.remote(
-                    method_name, *args, **kwargs))
+                    method_name, *args, **kwargs),
+                model_id=kwargs.get("_serve_multiplexed_model_id"))
         # Decrement the local queue estimate when the reply lands — and if
         # the reply is the replica's death, drop it from the local set at
         # once so later requests can't re-pick the corpse.
@@ -347,7 +373,8 @@ class Router:
             trace_ctx = _tracing.active_span()
             replica, rid, sid_ref = self._dispatch(
                 lambda r: r["actor"].start_stream.remote(
-                    method_name, *args, **kwargs))
+                    method_name, *args, **kwargs),
+                model_id=kwargs.get("_serve_multiplexed_model_id"))
         tags = self._metric_tags
         exemplar = serve_metrics.trace_exemplar(trace_ctx)
         from ray_tpu_torch.exceptions import ActorDiedError

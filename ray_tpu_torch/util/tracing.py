@@ -54,6 +54,8 @@ SPAN_REGISTRY: Dict[str, str] = {
     "serve.http_request": "proxy: full HTTP request lifetime",
     "serve.route": "router: replica pick + dispatch",
     "serve.replica": "replica: user-handler execution",
+    "serve.queue_wait": "batching: enqueue -> batch formation, per request",
+    "serve.batch_execute": "batching: vectorized user call, per request",
     "serve.stream_emit": "proxy: one streamed response, first chunk -> end",
 }
 
@@ -231,6 +233,33 @@ def record_span(name: str, start: float, end: float, *,
     }
     _export(s)
     return s
+
+
+def record_span_batch(name: str, intervals, *,
+                      attributes: Optional[Dict[str, Any]] = None) -> None:
+    """Export one retroactive span per (start, end, parent_ctx) interval in
+    a single tight loop — the serve batching layer attributes queue-wait
+    and execute spans to every request of a micro-batch this way, keeping
+    per-item call overhead off the replica event loop.  Intervals with a
+    None parent are skipped (request wasn't traced); all spans share the
+    `attributes` dict (callers must not mutate it afterwards)."""
+    if not _enabled:
+        return
+    attrs = attributes if attributes is not None else {}
+    emit = _exporter if _exporter is not None else _buffer.append
+    for start, end, parent in intervals:
+        if parent is None:
+            continue
+        emit({
+            "name": name,
+            "trace_id": parent.get("trace_id") or _new_trace_id(),
+            "span_id": _new_id64(),
+            "parent_id": parent.get("span_id"),
+            "start": start,
+            "end": end,
+            "attributes": attrs,
+            "status": "OK",
+        })
 
 
 def inject_task_spec(spec) -> None:

@@ -28,6 +28,26 @@ def _rel(x, ref):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 517, 12, 64), (32, 1024, 12, 64)])
+def test_kernel_matches_plain_at_batched_serving_shapes_on_gpu(shape):
+    """The batches ``serve.batch`` forms for GPT-2 124M: up to 32 requests
+    right-padded to the longest, which is mostly not a multiple of the
+    kernel's tile."""
+    _need_gpu()
+    B, S, H, hd = shape
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    qkv = torch.randn((B, S, 3 * H * hd), generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    q, k, v = (t.view(B, S, H, hd) for t in qkv.split(H * hd, dim=-1))
+    o, lse = attention.splash_attention(q, k, v, causal=True,
+                                        return_lse=True)
+    o_ref, lse_ref = attention.attention_reference(q, k, v, causal=True)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,causal", [
     ((8, 1024, 12, 64), True), ((1, 1000, 12, 64), False),
     ((1, 1000, 12, 64), True), ((1, 7, 12, 64), True),
