@@ -1119,7 +1119,8 @@ def phase_serve_batch(params) -> Dict[str, object]:
     import ray_tpu_torch
     from ray_tpu_torch import serve
     from ray_tpu_torch.models import gpt2
-    from ray_tpu_torch.serve import multiplex
+    from ray_tpu_torch.serve import batching, multiplex
+    from ray_tpu_torch.serve import metrics as serve_metrics
 
     config = gpt2.GPTConfig()
     ref_config = dataclasses.replace(config, attn_impl="xla")
@@ -1209,6 +1210,7 @@ def phase_serve_batch(params) -> Dict[str, object]:
 
         runs = {"batched": {c: [] for c in BATCH_CLIENTS},
                 "unbatched": {c: [] for c in BATCH_CLIENTS}}
+        batch_tags = {"deployment": "GPT2BatchNext", "method": "next_token"}
         sizes_by_clients = {c: [] for c in BATCH_CLIENTS}
         differ = {"batched": 0, "unbatched": 0}
         batched_launches = vectorized = unbatched_launches = 0
@@ -1216,8 +1218,7 @@ def phase_serve_batch(params) -> Dict[str, object]:
             for _ in range(BATCH_ROUNDS):
                 for kind, route in (("batched", "gpt2batch"),
                                     ("unbatched", "gpt2")):
-                    seen = (h_batch.batch_sizes.remote().result(timeout_s=60)
-                            if kind == "batched" else None)
+                    seen = batching.BATCH_SIZE_HISTOGRAM.get(tags=batch_tags)
                     _reset_counts()
                     outs, secs = _post_concurrently(f"{addr}/{route}", bodies,
                                                     clients)
@@ -1241,19 +1242,21 @@ def phase_serve_batch(params) -> Dict[str, object]:
                             fail(f"unbatched splash launches {launches} != "
                                  f"{n_layer} * {BATCH_REQUESTS}")
                         continue
-                    sizes = h_batch.batch_sizes.remote().result(
-                        timeout_s=60)[len(seen):]
+                    # serve_batch_size over this run: one observation per
+                    # vectorized call, its value the call's batch size.
+                    sizes = _since(batching.BATCH_SIZE_HISTOGRAM, batch_tags,
+                                   seen)
                     sizes_by_clients[clients].append(sizes)
                     batched_launches += launches
-                    vectorized += len(sizes)
-                    if sum(sizes) != BATCH_REQUESTS:
-                        fail(f"batches {sizes} hold {sum(sizes)} requests, "
-                             f"sent {BATCH_REQUESTS}")
-                    if launches != n_layer * len(sizes):
+                    vectorized += sizes["count"]
+                    if sizes["sum"] != BATCH_REQUESTS:
+                        fail(f"batches {sizes} hold {sizes['sum']} "
+                             f"requests, sent {BATCH_REQUESTS}")
+                    if launches != n_layer * sizes["count"]:
                         fail(f"batched splash launches {launches} != "
                              f"n_layer * vectorized calls = {n_layer} * "
-                             f"{len(sizes)}")
-        if max(max(s) for s in sizes_by_clients[32]) <= 1:
+                             f"{sizes['count']}")
+        if all(s["sum"] <= s["count"] for s in sizes_by_clients[32]):
             fail(f"no batch larger than 1 formed at 32 clients: "
                  f"{sizes_by_clients[32]}")
         # Where the batched qps stops: the same traffic at 32 clients
@@ -1286,21 +1289,25 @@ def phase_serve_batch(params) -> Dict[str, object]:
         # --------------------------------------- (b) continuous batching
         deploy = serve.deployment(max_ongoing_requests=64,
                                   ray_actor_options=half)
-        h_cont = serve.run(deploy(serve.GPT2ContinuousStream)
-                           .bind(config, params=params),
-                           name="gpt2cont", route_prefix="/gpt2cont")
+        serve.run(deploy(serve.GPT2ContinuousStream).bind(config, params=params),
+                  name="gpt2cont", route_prefix="/gpt2cont")
         serve.run(deploy(serve.GPT2Stream).bind(config, params=params),
                   name="gpt2stream", route_prefix="/gpt2stream")
         for route in ("gpt2cont", "gpt2stream"):  # warm-up
             _sse(f"{addr}/{route}?tokens=1,2,3&max_new=2")
         queries = [f"tokens={','.join(map(str, p))}&max_new={SERVE_MAX_NEW}"
                    for p in prompts]
-        seen = h_cont.batch_sizes.remote().result(timeout_s=60)
+        # The engine observes serve_execution_seconds once per step. Only
+        # streams reach this deployment, and a stream's request adds no
+        # observation of its own under these tags.
+        step_tags = {"deployment": "GPT2ContinuousStream",
+                     "method": "__call__"}
+        seen = serve_metrics.EXECUTION.get(tags=step_tags)
         _reset_counts()
         cont, t_cont = _streams_concurrently(f"{addr}/gpt2cont", queries,
                                              CONT_STREAMS // 2)
         cont_launches = take()
-        steps = h_cont.batch_sizes.remote().result(timeout_s=60)[len(seen):]
+        steps = _since(serve_metrics.EXECUTION, step_tags, seen)["count"]
         _reset_counts()
         per_req, t_per = _streams_concurrently(f"{addr}/gpt2stream", queries,
                                                CONT_STREAMS)
@@ -1312,14 +1319,17 @@ def phase_serve_batch(params) -> Dict[str, object]:
                 if status != 200 or len(events) != SERVE_MAX_NEW:
                     fail(f"{label} stream {status} gave {len(events)} tokens")
         total = CONT_STREAMS * SERVE_MAX_NEW
-        if cont_launches != n_layer * len(steps):
+        if cont_launches != n_layer * steps:
             fail(f"continuous splash launches {cont_launches} != n_layer * "
-                 f"steps = {n_layer} * {len(steps)}")
-        if len(steps) >= total or sum(steps) != total:
-            fail(f"continuous steps {steps}: {len(steps)} steps for {total} "
-                 f"tokens shared nothing")
-        if max(steps) <= CONT_STREAMS // 2:
-            fail(f"no step held a stream admitted mid-flight: {steps}")
+                 f"steps = {n_layer} * {steps}")
+        if steps >= total:
+            fail(f"{steps} continuous steps for {total} tokens shared "
+                 f"nothing")
+        # Each step emits one token per stream it holds: with at most
+        # CONT_STREAMS // 2 per step, the tokens would need this many steps.
+        if steps >= total // (CONT_STREAMS // 2):
+            fail(f"{steps} continuous steps for {total} tokens: no step held "
+                 f"a stream admitted mid-flight")
         if per_req_launches != n_layer * total:
             fail(f"per-request stream launches {per_req_launches} != "
                  f"{n_layer} * {total}")
@@ -1346,7 +1356,7 @@ def phase_serve_batch(params) -> Dict[str, object]:
         p_stats = _stream_stats(per_req, t_per)
         result["continuous"] = dict(
             streams=CONT_STREAMS, max_new=SERVE_MAX_NEW,
-            prompt_len=SERVE_PROMPT_LEN, steps=len(steps), step_sizes=steps,
+            prompt_len=SERVE_PROMPT_LEN, steps=steps,
             splash_launches=cont_launches,
             per_request_splash_launches=per_req_launches,
             continuous=c_stats, per_request=p_stats,
@@ -1452,6 +1462,17 @@ def phase_serve_batch(params) -> Dict[str, object]:
     result["launches"] = totals
     print("serve_batch " + json.dumps(result), flush=True)
     return result
+
+
+def _since(hist, tags: dict, before: dict) -> Dict[str, object]:
+    """A histogram's observations since the snapshot ``before``: their
+    number, their sum, and their number in each bucket by upper bound."""
+    now = hist.get(tags=tags)
+    labels = [str(b) for b in now["boundaries"]] + ["inf"]
+    return {"count": now["count"] - before["count"],
+            "sum": now["sum"] - before["sum"],
+            "by_bucket": {le: a - b for le, a, b in zip(
+                labels, now["counts"], before["counts"]) if a - b}}
 
 
 def _gaps_ms(t0: float, arrivals: list) -> list:

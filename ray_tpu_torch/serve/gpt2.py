@@ -78,18 +78,6 @@ def _check_tokens(tokens: Sequence[int], config: gpt2.GPTConfig,
     return tokens
 
 
-class _BatchLog:
-    """Keeps the size of every vectorized call a replica ran, so a caller
-    can check how its requests were batched."""
-
-    def _log_batch(self, n: int) -> None:
-        self.__dict__.setdefault("_batch_sizes", []).append(n)
-
-    def batch_sizes(self) -> List[int]:
-        """The size of every vectorized call so far, in order."""
-        return list(self.__dict__.get("_batch_sizes", ()))
-
-
 class _Replica:
     def __init__(self, config: Optional[gpt2.GPTConfig] = None, seed: int = 0,
                  device: DeviceLike = None, params=None):
@@ -172,7 +160,7 @@ class GPT2Stream(_Replica):
             yield json.dumps({"token": nxt})
 
 
-class GPT2BatchNext(_Replica, _BatchLog):
+class GPT2BatchNext(_Replica):
     """``GPT2Next`` with concurrent requests batched: ``@serve.batch``
     coalesces up to 32 of them into one vectorized ``next_tokens`` call
     (the reference bench's settings, scripts/bench_serve.py)."""
@@ -180,9 +168,7 @@ class GPT2BatchNext(_Replica, _BatchLog):
     @batch(max_batch_size=32, batch_wait_timeout_s=0.01)
     def next_token(self, token_lists: List[List[int]]) -> List[int]:
         """Called with one request's tokens; runs with the batch's list."""
-        out = self.next_tokens(token_lists)
-        self._log_batch(len(token_lists))
-        return out
+        return self.next_tokens(token_lists)
 
     async def __call__(self, request):
         body = await request.json()
@@ -190,11 +176,10 @@ class GPT2BatchNext(_Replica, _BatchLog):
         return {"next_token": await self.next_token(tokens)}
 
 
-class GPT2ContinuousStream(_Replica, _BatchLog):
+class GPT2ContinuousStream(_Replica):
     """``GPT2Stream`` with continuous batching: every iteration pads each
     live stream to ``seq_len`` and steps all of them in one forward; a
-    stream's last token ends it in the same iteration. ``batch_sizes()``
-    gives the streams each forward stepped."""
+    stream's last token ends it in the same iteration."""
 
     def _admit(self, state: Dict[str, Any], request) -> None:
         query = request.query_params
@@ -226,7 +211,6 @@ class GPT2ContinuousStream(_Replica, _BatchLog):
         logits = self.logits_rows(
             arr, [len(slots[i].state["tokens"]) - 1 for i in live])
         nxt = torch.argmax(logits, dim=-1).tolist()
-        self._log_batch(len(live))
         for i, tok in zip(live, nxt):
             state = slots[i].state
             state["tokens"].append(tok)
@@ -244,15 +228,16 @@ def _seed_of(model_id: str) -> int:
     return int(model_id[len(prefix):])
 
 
-class GPT2MultiplexNext(_BatchLog):
+class GPT2MultiplexNext:
     """Next-token replica over many GPT-2 weight sets: the request's
     multiplexed model id ``"seed-<n>"`` (``handle.options(
     multiplexed_model_id=...)``) names the weights, built from seed n on
-    the replica's card. An LRU keeps ``max_num_models_per_replica`` of them;
-    eviction drops the evicted weights. Requests are batched per model id,
-    so one vectorized call always runs on one weight set. A request is
-    ``{"tokens": [...]}`` (or an HTTP request with that body) and the
-    answer ``{"next_token": n}``."""
+    the replica's card. An LRU keeps ``max_num_models_per_replica`` of them.
+    Eviction only drops the LRU's reference: a batch still running on the
+    evicted weights keeps them whole, and they are freed when it returns.
+    Requests are batched per model id, so one vectorized call always runs
+    on one weight set. A request is ``{"tokens": [...]}`` (or an HTTP
+    request with that body) and the answer ``{"next_token": n}``."""
 
     def __init__(self, config: Optional[gpt2.GPTConfig] = None,
                  device: DeviceLike = None,
@@ -260,18 +245,11 @@ class GPT2MultiplexNext(_BatchLog):
         self.config = gpt2.GPTConfig() if config is None else config
         self.device = _pin_device(device)
         self.get_model = multiplexed(
-            max_num_models_per_replica=max_num_models_per_replica,
-            unload=self._unload)(self._load)
+            max_num_models_per_replica=max_num_models_per_replica)(self._load)
 
     async def _load(self, model_id: str) -> _Replica:
         seed = _seed_of(model_id)
         return await run_in_executor(_Replica, self.config, seed, self.device)
-
-    @staticmethod
-    def _unload(model_id: str, model: _Replica) -> None:
-        # A forward still running on these weights holds its own reference
-        # and frees them when it returns.
-        model.params = None
 
     @batch(max_batch_size=32, batch_wait_timeout_s=0.01)
     async def next_token(self, items: List[tuple]) -> List[int]:
@@ -283,10 +261,8 @@ class GPT2MultiplexNext(_BatchLog):
             raise RuntimeError(f"a batch for model {model_id!r} holds "
                                f"requests for {stray}")
         model = await self.get_model(model_id)
-        out = await run_in_executor(model.next_tokens,
-                                    [toks for _, toks in items])
-        self._log_batch(len(items))
-        return out
+        return await run_in_executor(model.next_tokens,
+                                     [toks for _, toks in items])
 
     async def __call__(self, request):
         body = request if isinstance(request, dict) else await request.json()

@@ -535,6 +535,31 @@ class _RefContinuousStream:
         return [outs[id(s)] for s in slots]
 
 
+class _LoggedBatchNext(GPT2BatchNext):
+    """``GPT2BatchNext`` that keeps the size of every vectorized call."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.batch_sizes = []
+
+    def next_tokens(self, token_lists):
+        self.batch_sizes.append(len(token_lists))
+        return super().next_tokens(token_lists)
+
+
+class _LoggedContinuousStream(GPT2ContinuousStream):
+    """``GPT2ContinuousStream`` that keeps the streams each forward
+    stepped."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.batch_sizes = []
+
+    def logits_rows(self, tokens, positions):
+        self.batch_sizes.append(len(positions))
+        return super().logits_rows(tokens, positions)
+
+
 class _Request:
     def __init__(self, body=None, query_params=None):
         self._body = body
@@ -575,9 +600,11 @@ def test_batched_logits_equal_the_single_request_ones(setup):
 
 
 def test_batch_next_matches_the_reference_twin(setup):
+    from ray_tpu_torch.serve import batching
+
     jcfg, tcfg, jparams, tparams, fwd = setup
     reqs = _requests(40, seed=2)
-    replica = GPT2BatchNext(tcfg, device="cpu", params=tparams)
+    replica = _LoggedBatchNext(tcfg, device="cpu", params=tparams)
     twin = _RefBatchNext(fwd, jparams)
 
     async def port():
@@ -588,10 +615,17 @@ def test_batch_next_matches_the_reference_twin(setup):
         return await asyncio.gather(*[twin.next_token(t) for t in reqs])
 
     ref_answers = asyncio.run(ref())
+    tags = {"deployment": "", "method": "next_token"}
+    before = batching.BATCH_SIZE_HISTOGRAM.get(tags=tags)
     answers = asyncio.run(port())
+    after = batching.BATCH_SIZE_HISTOGRAM.get(tags=tags)
     assert all(set(a) == {"next_token"} for a in answers)
     # Forty requests queued at once: a full batch of 32, then the rest.
-    assert replica.batch_sizes() == twin.batch_sizes == [32, 8]
+    assert replica.batch_sizes == twin.batch_sizes == [32, 8]
+    # serve_batch_size saw the same: one observation per vectorized call,
+    # their sum the requests.
+    assert after["count"] - before["count"] == 2
+    assert after["sum"] - before["sum"] == 40
     for toks, ans, ref_ans in zip(reqs, answers, ref_answers):
         logits = _ref_logits(fwd, jparams, toks)
         assert _near_tie(ans["next_token"], logits)
@@ -600,7 +634,7 @@ def test_batch_next_matches_the_reference_twin(setup):
 
 def test_batch_next_rejects_a_bad_request_alone(setup):
     _, tcfg, _, tparams, _ = setup
-    replica = GPT2BatchNext(tcfg, device="cpu", params=tparams)
+    replica = _LoggedBatchNext(tcfg, device="cpu", params=tparams)
 
     async def main():
         return await asyncio.gather(
@@ -615,7 +649,7 @@ def test_batch_next_rejects_a_bad_request_alone(setup):
     single = GPT2Next(tcfg, device="cpu", params=tparams)
     assert good == {"next_token": single.next_token([1, 2])}
     assert other == {"next_token": single.next_token([3])}
-    assert replica.batch_sizes() == [2]
+    assert replica.batch_sizes == [2]
 
 
 def _stream_query(prompt, max_new):
@@ -630,7 +664,7 @@ def test_continuous_stream_matches_the_reference_twin(setup):
     jcfg, tcfg, jparams, tparams, fwd = setup
     prompts = _requests(5, seed=3, high=40)
     max_new = [6, 3, 8, 1, 5]
-    replica = GPT2ContinuousStream(tcfg, device="cpu", params=tparams)
+    replica = _LoggedContinuousStream(tcfg, device="cpu", params=tparams)
     twin = _RefContinuousStream(fwd, jparams, tcfg.seq_len)
 
     async def drive(call):
@@ -660,7 +694,7 @@ def test_continuous_stream_matches_the_reference_twin(setup):
             seq.append(tok)
     # Both engines start with the three first streams, admit the late two
     # mid-flight, share steps, and step each stream once per token.
-    for sizes in (replica.batch_sizes(), twin.batch_sizes):
+    for sizes in (replica.batch_sizes, twin.batch_sizes):
         assert sizes[0] == 3 and max(sizes) > 3
         assert sum(sizes) == sum(max_new) and len(sizes) < sum(max_new)
 

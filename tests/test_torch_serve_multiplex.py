@@ -11,9 +11,11 @@ reference's half runs with the cyclic collector paused
 """
 
 import asyncio
+import gc
 import http.client
 import importlib
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -428,7 +430,8 @@ def _close_to(single, seed, tokens, answer):
 
 
 def test_gpt2_multiplex_in_process_evicts_and_batches_per_model():
-    from ray_tpu_torch.serve import GPT2MultiplexNext, GPT2Next, context
+    from ray_tpu_torch.serve import (GPT2MultiplexNext, GPT2Next, batching,
+                                     context)
 
     cfg = _config()
     single = {s: GPT2Next(cfg, seed=s, device="cpu") for s in (1, 2, 3)}
@@ -441,21 +444,81 @@ def test_gpt2_multiplex_in_process_evicts_and_batches_per_model():
         return (await replica({"tokens": toks}))["next_token"]
 
     async def main():
-        first = await replica.get_model("seed-1")
+        first = weakref.ref(await replica.get_model("seed-1"))
         answers = await asyncio.gather(*[
             ask(f"seed-{1 + i % 2}", t) for i, t in enumerate(reqs[:6])])
         third = await ask("seed-3", reqs[6])  # evicts seed-1, the LRU
         (wrapper,) = replica.get_model._multiplex_wrappers.values()
         return first, answers, third, wrapper.loaded_model_ids
 
+    tags = {"deployment": "", "method": "next_token"}
+    before = batching.BATCH_SIZE_HISTOGRAM.get(tags=tags)
     first, answers, third, loaded = asyncio.run(main())
+    after = batching.BATCH_SIZE_HISTOGRAM.get(tags=tags)
     for i, (toks, ans) in enumerate(zip(reqs, answers)):
         assert _close_to(single, 1 + i % 2, toks, ans)
     assert _close_to(single, 3, reqs[6], third)
     assert loaded == ["seed-2", "seed-3"]
-    assert first.params is None  # the evicted weights were dropped
-    # One batch per model id, never mixed; then seed-3 alone.
-    assert sorted(replica.batch_sizes()) == [1, 3, 3]
+    gc.collect()
+    assert first() is None  # nothing holds the evicted weights
+    # One batch per model id, never mixed (3 + 3), then seed-3 alone.
+    assert after["count"] - before["count"] == 3
+    assert after["sum"] - before["sum"] == 7
+    assert [b - a for a, b in zip(before["counts"], after["counts"])][:3] \
+        == [1, 0, 2]  # one batch of 1, two of 3 (the bucket up to 4)
+
+
+def test_gpt2_multiplex_evicts_a_model_a_batch_is_running_on(monkeypatch):
+    """One replica holding one model at a time, requests for two: the first
+    forward waits, between its blocks and its LM head, until the other
+    model's batch has evicted its weights (or finds them evicted already).
+    The running batch keeps them and every request is answered."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve import GPT2MultiplexNext, GPT2Next, context
+
+    cfg = _config()
+    single = {s: GPT2Next(cfg, seed=s, device="cpu") for s in (1, 2)}
+    reqs = _tokens(6, seed=7)
+    models = {}
+    paused = []
+
+    class Replica(GPT2MultiplexNext):
+        async def _load(self, model_id):
+            models[model_id] = await super()._load(model_id)
+            return models[model_id]
+
+    replica = Replica(cfg, device="cpu", max_num_models_per_replica=1)
+    forward_hidden = gpt2.forward_hidden
+
+    def resident(params):
+        (wrapper,) = replica.get_model._multiplex_wrappers.values()
+        return [m for m in wrapper.loaded_model_ids
+                if models[m].params is params]
+
+    def paused_forward(params, tokens, config):
+        x = forward_hidden(params, tokens, config)
+        if not paused:
+            deadline = time.time() + 30
+            while resident(params) and time.time() < deadline:
+                time.sleep(0.01)
+            paused.append(resident(params))
+        return x
+
+    monkeypatch.setattr(gpt2, "forward_hidden", paused_forward)
+
+    async def ask(model_id, toks):
+        context._set_request_model_id(model_id)
+        return (await replica({"tokens": toks}))["next_token"]
+
+    async def main():
+        return await asyncio.gather(*[
+            ask(f"seed-{1 + i % 2}", t) for i, t in enumerate(reqs)])
+
+    answers = asyncio.run(main())
+    # The paused forward went on to its LM head on evicted weights.
+    assert paused == [[]]
+    for i, (toks, ans) in enumerate(zip(reqs, answers)):
+        assert _close_to(single, 1 + i % 2, toks, ans)
 
 
 @pytest.mark.parametrize("model_id,error", [
