@@ -86,7 +86,22 @@ Phases, each of which exits non-zero on failure:
    the multiplexed traffic loads a model, or if the card does not get the
    evicted model's memory back. It prints queries per second, batch sizes,
    aggregate tokens per second and gaps, loads and memory.
-8. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+8. SLO objectives and autoscaling through the control plane (``serve_slo``
+   line): ``GPT2Next`` under the target-qps policy takes 12 s of HTTP
+   traffic from 8 clients and must scale 1 -> 2 with reason
+   ``"target_qps"``, the second replica on ``cuda:0`` answering too; then
+   ``GPT2Next`` under one availability objective and the SLO-burn policy
+   (upscale delay 60 s) takes 6 s in which every third request is too long
+   (a real error), then 8 s of valid requests, while a dashboard reads
+   ``/api/serve/slo`` from a ``MetricsAgent``. The watchdog must alert on
+   the share of errors sent, the controller scale 1 -> 2 with reason
+   ``"slo_burn"``, the alert clear within one fast window with one
+   ``serve.slo_burn`` span and one ``slo_breach`` postmortem, and the route
+   agree with ``serve.status()``. Every answer keeps the tie rule and the
+   splash launches are ``n_layer`` per answered request. It prints the
+   decision latencies, the cold start of the second replica, requests/s
+   with one and two replicas, and the burn rates at the alert.
+9. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -1481,6 +1496,423 @@ def _gaps_ms(t0: float, arrivals: list) -> list:
     return [(b - a) * 1e3 for a, b in zip([t0] + arrivals, arrivals)]
 
 
+# The serve_slo phase: its clients, the seconds of each part of its traffic,
+# and the period at which its dashboard reads /api/serve/slo.
+SLO_CLIENTS = 8
+SLO_QPS_SECONDS = 12.0
+SLO_ERROR_SECONDS = 6.0
+SLO_CLEAN_SECONDS = 8.0
+SLO_SCRAPE_S = 0.25
+# In-flight requests a replica is sized for: twice the clients, so that the
+# queue-depth policy asks for one replica and each part's decision is the
+# policy under test's (the policies compose by max, and the larger desire's
+# reason decides whether the upscale delay is bypassed).
+SLO_ONGOING = 2.0 * SLO_CLIENTS
+
+
+def _post_status(url: str, body: dict) -> Tuple[int, Optional[dict]]:
+    """One JSON POST: its status, and its JSON answer when it is 200."""
+    import urllib.error
+
+    try:
+        status, _, out = _post_json(url, body)
+        return status, out
+    except urllib.error.HTTPError as e:
+        e.read()
+        e.close()
+        return e.code, None
+
+
+def _traffic(url: str, bodies: list, clients: int, seconds: float
+             ) -> list:
+    """``clients`` threads POST ``bodies`` round-robin (client k sends
+    bodies k, k + clients, ...) for ``seconds``. Returns per request
+    (body index, sent, done, status, answer), times on ``time.time()``."""
+    import threading
+
+    log = []
+    lock = threading.Lock()
+    end = time.time() + seconds
+
+    def client(k):
+        i = k
+        while time.time() < end:
+            sent = time.time()
+            status, out = _post_status(url, bodies[i % len(bodies)])
+            with lock:
+                log.append((i % len(bodies), sent, time.time(), status, out))
+            i += clients
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(seconds + 150)
+    if any(t.is_alive() for t in threads):
+        fail(f"a client of {url} did not finish")
+    return log
+
+
+def phase_serve_slo(params) -> Dict[str, object]:
+    """SLO objectives and the autoscaler's target-qps and SLO-burn policies
+    through ``serve.run`` and HTTP, at GPT-2 124M with the serving phases'
+    weights, each replica on half the card (``num_gpus=0.5``).
+
+    Both apps size a replica for 16 requests in flight, so that the
+    queue-depth policy, which the other two compose with by max, asks for
+    one replica.
+    (a) ``GPT2Next`` under ``target_qps_per_replica=15`` over a 5 s window
+    (upscale delay 1 s, metrics every 0.5 s) takes 12 s of HTTP requests
+    from 8 clients (``serve_batch``'s 64 prompts, cycled). The controller
+    must apply target 2 with reason ``"target_qps"``, a second replica must reach RUNNING on a lease naming
+    ``cuda:0``, and both replicas must answer (their processed counts).
+    It prints the seconds from the first request to the decision and from
+    the decision to the second replica's first answer, and requests/s
+    before and after that answer.
+    (b) ``GPT2Next`` with ``use_slo_burn=True`` and an upscale delay of 60 s,
+    under one availability objective (target 0.9, windows 2 s and 6 s, burn
+    threshold 2): 6 s in which every third request has 1025 tokens (the
+    replica rejects it: an error in the router's RED counters), then 8 s of
+    valid requests, while a dashboard reads ``/api/serve/slo`` from a
+    ``MetricsAgent`` on port 0 every 0.25 s. The watchdog must alert, its
+    fast window's bad fraction (read while the window lies in the error
+    part) within 0.05 of the share of errors sent; the controller must
+    apply target 2 with reason ``"slo_burn"`` while the errors last; the
+    alert must clear within one fast window of the last error, with exactly
+    one ``serve.slo_burn`` span (``ERROR: SLOBurn``) and one ``slo_breach``
+    postmortem in a temporary ``RAY_TPU_POSTMORTEM_DIR``; and
+    ``/api/serve/slo`` must agree with ``serve.status()`` on the objectives
+    and the alert state, during the alert and after it. It prints the
+    seconds from the first error to the alert and from the alert to the
+    decision, and the burn rates at the alert.
+    In both, every answer keeps the tie rule against the in-process
+    ``GPT2Next`` logits for its tokens, and the splash launches are
+    ``n_layer`` per answered request (a rejected one launches none)."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.metrics_agent import MetricsAgent
+    from ray_tpu_torch._private.runtime import get_runtime
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve import autoscaling
+    from ray_tpu_torch.serve.slo import SLOObjective
+    from ray_tpu_torch.util import tracing
+
+    config = gpt2.GPTConfig()
+    n_layer = config.n_layer
+    requests, _ = _batch_inputs()
+    local = serve.GPT2Next(config, params=params)
+    with torch.inference_mode():
+        ref_logits = torch.stack([local.logits(t) for t in requests])
+    del local
+    half = {"num_gpus": 0.5}
+    bodies = [{"tokens": t} for t in requests]
+    result: Dict[str, object] = {}
+    totals: Dict[str, int] = {}
+    worst = [0.0]
+
+    def take() -> int:
+        counts = _counts()
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+        return counts["splash_attention_fwd"]
+
+    def answered(label, log, request_of) -> int:
+        """Checks each answer of ``log`` (``request_of(i)`` is body i's
+        request, None for a body the replica must reject); the number of
+        answered requests."""
+        n = 0
+        for i, _, _, status, out in log:
+            r = request_of(i)
+            if r is None:
+                if status != 500:
+                    fail(f"{label}: a 1025-token request got {status}")
+                continue
+            ans = (out or {}).get("next_token")
+            if status != 200 or not isinstance(ans, int):
+                fail(f"{label}: answer {status} {out}")
+            g = (ref_logits[r].max() - ref_logits[r][ans]).item()
+            worst[0] = max(worst[0], g)
+            if g > LOGIT_ATOL:
+                fail(f"{label}: answer {ans} for request {r} is {g} below "
+                     f"the in-process maximum (tol {LOGIT_ATOL})")
+            n += 1
+        return n
+
+    def decisions(dep):
+        """The applied target changes of ``dep`` by reason (the
+        autoscaler's decision counter), its target and the time of its last
+        change (``serve.status()``). The flight recorder's rows say the
+        same, but with tracing on the ring turns over in seconds."""
+        by_reason = {tags["reason"]: int(v)
+                     for _, tags, v in autoscaling.DECISIONS.samples()
+                     if tags["deployment"] == dep}
+        st = serve.status()[dep]
+        return (by_reason, st["target_num_replicas"],
+                st["autoscale"]["last_change_at"])
+
+    def replicas(handle, n=1):
+        """The deployment's running replicas as the handle's router knows
+        them, once it knows at least ``n``."""
+        sched = handle._get_router()._scheduler
+        deadline = time.time() + 60
+        while True:
+            with sched._lock:
+                out = [(r["replica_id"], r["actor"]) for r in sched._replicas]
+            if len(out) >= n:
+                return out
+            if time.time() > deadline:
+                fail(f"the router knows {len(out)} replicas, wanted {n}")
+            time.sleep(0.05)
+
+    def processed(actor) -> int:
+        return ray_tpu_torch.get(actor.get_metadata.remote(),
+                                 timeout=30)["num_processed_requests"]
+
+    pm_dir = tempfile.mkdtemp(prefix="serve_slo_postmortems_")
+    env_before = os.environ.get("RAY_TPU_POSTMORTEM_DIR")
+    os.environ["RAY_TPU_POSTMORTEM_DIR"] = pm_dir
+    serve.slo._reset_watchdog()
+    burns = []
+    ray_tpu_torch.init()
+    agent = None
+    try:
+        serve.start(http_options={"port": 0})
+        from ray_tpu_torch.serve.api import _state
+
+        addr = _state["proxy"].address
+
+        # ------------------------------------------- (a) target qps
+        dep = "gpt2qps#GPT2Next"
+        h = serve.run(serve.deployment(
+            max_ongoing_requests=64, ray_actor_options=half,
+            autoscaling_config=serve.AutoscalingConfig(
+                min_replicas=1, max_replicas=2, target_qps_per_replica=15.0,
+                target_ongoing_requests=SLO_ONGOING,
+                qps_window_s=5.0, metrics_interval_s=0.5,
+                upscale_delay_s=1.0, downscale_delay_s=600.0,
+                use_slo_burn=False))(serve.GPT2Next).bind(
+                    config, params=params),
+            name="gpt2qps", route_prefix="/gpt2qps")
+        _post_json(f"{addr}/gpt2qps", bodies[0])  # warm-up, not counted
+        ((first_rid, _),) = replicas(h)
+        marks: Dict[str, float] = {}
+        stop = threading.Event()
+
+        def watch():
+            """The second replica's first answer, by its processed count."""
+            while not stop.is_set() and "second_answer" not in marks:
+                for rid, actor in replicas(h, 0):
+                    if rid != first_rid and processed(actor) > 0:
+                        marks["second_answer"] = time.time()
+                stop.wait(0.05)
+
+        watcher = threading.Thread(target=watch)
+        watcher.start()
+        _reset_counts()
+        log = _traffic(f"{addr}/gpt2qps", bodies, SLO_CLIENTS,
+                       SLO_QPS_SECONDS)
+        stop.set()
+        watcher.join(60)
+        launches = take()
+        n_ok = answered("target_qps", log, lambda i: i)
+        if launches != n_layer * n_ok:
+            fail(f"target_qps: {launches} splash launches for {n_ok} "
+                 f"answers, want {n_layer} each")
+        applied = decisions(dep)
+        if applied[:2] != ({"target_qps": 1}, 2):
+            fail(f"target_qps: the controller applied {applied}")
+        st = serve.status()[dep]
+        if st["running_replicas"] != 2:
+            fail(f"target_qps: {st['running_replicas']} replicas running")
+        reps = replicas(h, 2)
+        rt = get_runtime()
+        cards = []
+        for _, actor in reps:
+            lease = rt.get_actor_state(actor._actor_id).lease
+            cards.append(f"cuda:{lease.gpu_ids[0]}" if lease.gpu_ids
+                         else None)
+        served = [processed(actor) for _, actor in reps]
+        if len(reps) != 2 or cards != ["cuda:0", "cuda:0"] or min(served) < 1:
+            fail(f"target_qps: replicas {[r for r, _ in reps]} on {cards} "
+                 f"answered {served}")
+        if "second_answer" not in marks:
+            fail("target_qps: the second replica's first answer was missed")
+        t_first = min(sent for _, sent, _, _, _ in log)
+        t_last = max(done for _, _, done, _, _ in log)
+        t_decision = applied[2]
+        t_second = marks["second_answer"]
+        result["target_qps"] = dict(
+            requests=len(log), answered=n_ok, splash_launches=launches,
+            decision_s=t_decision - t_first,
+            cold_start_s=t_second - t_decision,
+            qps_one_replica=sum(done < t_second for _, _, done, _, _ in log)
+            / (t_second - t_first),
+            qps_two_replicas=sum(done >= t_second
+                                 for _, _, done, _, _ in log)
+            / (t_last - t_second),
+            replicas=[r for r, _ in reps], cards=cards,
+            processed_by_replica=served)
+        serve.delete("gpt2qps")
+
+        # ---------------------------------------------- (b) SLO burn
+        dep = "gpt2burn#GPT2Next"
+        objective = SLOObjective("availability", target=0.9,
+                                 fast_window_s=2.0, slow_window_s=6.0,
+                                 burn_threshold=2.0)
+        serve.run(serve.deployment(
+            max_ongoing_requests=64, ray_actor_options=half,
+            autoscaling_config=serve.AutoscalingConfig(
+                min_replicas=1, max_replicas=2, use_slo_burn=True,
+                target_ongoing_requests=SLO_ONGOING,
+                upscale_delay_s=60.0))(serve.GPT2Next).bind(
+                    config, params=params),
+            name="gpt2burn", route_prefix="/gpt2burn")
+        serve.slo.get_watchdog().set_objectives(dep, [objective])
+        _post_json(f"{addr}/gpt2burn", bodies[0])  # warm-up, not counted
+        tracing.enable_tracing(
+            exporter=lambda s: burns.append(s)
+            if s["name"] == "serve.slo_burn" else None)
+        agent = MetricsAgent(get_runtime(), port=0)
+        scrapes = []
+        during = {}
+        stop = threading.Event()
+
+        def dashboard():
+            url = f"http://127.0.0.1:{agent.port}/api/serve/slo"
+            while not stop.is_set():
+                with urllib.request.urlopen(url, timeout=30) as resp:
+                    row = json.load(resp)["deployments"][dep]
+                scrapes.append((time.time(), row))
+                if row["alerting"] and not during:
+                    during["route"] = row
+                    during["status"] = serve.status()[dep]["slo"]
+                stop.wait(SLO_SCRAPE_S)
+
+        scraper = threading.Thread(target=dashboard)
+        scraper.start()
+        time.sleep(4 * SLO_SCRAPE_S)  # the counters' baseline samples
+        too_long = {"tokens": [0] * (config.seq_len + 1)}
+        mixed = [too_long if j % 3 == 2 else bodies[j % len(bodies)]
+                 for j in range(3 * len(bodies))]
+        _reset_counts()
+        log_err = _traffic(f"{addr}/gpt2burn", mixed, SLO_CLIENTS,
+                           SLO_ERROR_SECONDS)
+        log_ok = _traffic(f"{addr}/gpt2burn", bodies, SLO_CLIENTS,
+                          SLO_CLEAN_SECONDS)
+        time.sleep(4 * SLO_SCRAPE_S)
+        stop.set()
+        scraper.join(60)
+        tracing.disable_tracing()
+        launches = take()
+        n_ok = (answered("slo_burn", log_err,
+                         lambda j: None if j % 3 == 2 else j % len(bodies))
+                + answered("slo_burn", log_ok, lambda i: i))
+        if launches != n_layer * n_ok:
+            fail(f"slo_burn: {launches} splash launches for {n_ok} answers, "
+                 f"want {n_layer} each")
+        errors = [(sent, done) for j, sent, done, _, _ in log_err
+                  if j % 3 == 2]
+        share = len(errors) / len(log_err)
+        t_err0 = min(sent for sent, _ in errors)
+        t_err1 = max(done for _, done in errors)
+        alerts = [(t, row) for t, row in scrapes
+                  if row["objectives"]["availability"]["alerting"]]
+        if not alerts:
+            fail("slo_burn: the watchdog never alerted")
+        at_alert = alerts[0][1]["objectives"]["availability"]
+        t_alert = at_alert["since"]
+        # The fast window's bad fraction once the window lies wholly in the
+        # error part (the first errors precede their series' first sample).
+        steady = [row["objectives"]["availability"] for t, row in alerts
+                  if t_err0 + objective.fast_window_s + SLO_SCRAPE_S
+                  <= t <= t_err1]
+        if not steady:
+            fail("slo_burn: no alerting read with the fast window in the "
+                 "error part")
+        bad_fast = steady[-1]["bad_fraction_fast"]
+        if abs(bad_fast - share) > 0.05:
+            fail(f"slo_burn: bad_fraction_fast {bad_fast} against "
+                 f"{share} of the requests sent failing")
+        applied = decisions(dep)
+        if applied[:2] != ({"slo_burn": 1}, 2) or not applied[2] < t_err1:
+            fail(f"slo_burn: the controller applied {applied} (errors "
+                 f"{t_err0} to {t_err1})")
+        t_decision = applied[2]
+        if len(burns) != 1 or burns[0]["status"] != "ERROR: SLOBurn":
+            fail(f"slo_burn: serve.slo_burn spans {burns}")
+        t_clear = burns[0]["end"]
+        if burns[0]["start"] != t_alert \
+                or not 0.0 < t_clear - t_err1 <= objective.fast_window_s:
+            fail(f"slo_burn: the burn span {burns[0]['start']} to {t_clear}"
+                 f", the alert at {t_alert}, the last error at {t_err1}")
+        dumps = glob.glob(os.path.join(pm_dir, "*-slo_breach.json"))
+        if len(dumps) != 1:
+            fail(f"slo_burn: postmortems {dumps}")
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{agent.port}/api/serve/slo",
+                timeout=30) as resp:
+            after_route = json.load(resp)["deployments"][dep]
+        after_status = serve.status()[dep]["slo"]
+        keys = ("target", "threshold_ms", "fast_window_s", "slow_window_s",
+                "burn_threshold", "alerting")
+
+        def view(slo_row):
+            return (slo_row["alerting"], {
+                name: {k: o[k] for k in keys}
+                for name, o in slo_row["objectives"].items()})
+
+        agree = {"during": view(during["route"]) == view(during["status"]),
+                 "after": view(after_route) == view(after_status)}
+        if not all(agree.values()) or not view(during["route"])[0] \
+                or view(after_route)[0]:
+            fail(f"slo_burn: /api/serve/slo {during['route']} and "
+                 f"{after_route} against serve.status() {during['status']} "
+                 f"and {after_status}")
+        result["slo_burn"] = dict(
+            requests=len(log_err) + len(log_ok), errors=len(errors),
+            error_share_sent=share, answered=n_ok, splash_launches=launches,
+            first_error_to_alert_s=t_alert - t_err0,
+            alert_to_decision_s=t_decision - t_alert,
+            last_error_to_clear_s=t_clear - t_err1,
+            at_alert={k: at_alert[k] for k in (
+                "burn_fast", "burn_slow", "bad_fraction_fast",
+                "bad_fraction_slow", "events_fast", "events_slow")},
+            bad_fraction_fast_steady=bad_fast, scrapes=len(scrapes),
+            route_agrees_with_status=agree, postmortems=len(dumps))
+        serve.delete("gpt2burn")
+    finally:
+        tracing.disable_tracing()
+        if agent is not None:
+            agent.stop()
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+        serve.slo._reset_watchdog()
+        if env_before is None:
+            os.environ.pop("RAY_TPU_POSTMORTEM_DIR", None)
+        else:
+            os.environ["RAY_TPU_POSTMORTEM_DIR"] = env_before
+        shutil.rmtree(pm_dir, ignore_errors=True)
+    others = {k: n for k, n in totals.items()
+              if n and k != "splash_attention_fwd"}
+    if others:
+        fail(f"the SLO serving paths launched other kernels: {others}")
+    result["worst_gap_below_max"] = worst[0]
+    result["splash_launches"] = totals["splash_attention_fwd"]
+    result["launches"] = totals
+    print("serve_slo " + json.dumps(result), flush=True)
+    return result
+
+
 def phase_ring(peaks: Tuple[float, float]) -> Dict[str, object]:
     import torch
 
@@ -2029,6 +2461,7 @@ def main() -> int:
     # before the profiled ones, whose tracing slows small kernels.
     serve_http = phase_serve_http(weights, serve)
     serve_batch = phase_serve_batch(weights)
+    serve_slo = phase_serve_slo(weights)
     del weights
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
@@ -2050,7 +2483,8 @@ def main() -> int:
         just before the path ran."""
         out = {"serve": serve["launches"][name],
                "serve_http": serve_http["launches"][name],
-               "serve_batch": serve_batch["launches"][name]}
+               "serve_batch": serve_batch["launches"][name],
+               "serve_slo": serve_slo["launches"][name]}
         for impl in ("dense", "fused"):
             out[f"train_{impl}"] = train["launches"][impl][name]
         out["train_ring"] = train_ring["run"]["launches"][name]

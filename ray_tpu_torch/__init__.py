@@ -149,10 +149,19 @@ def available_resources() -> Dict[str, float]:
     return _ensure_init().available_resources()
 
 
-def timeline() -> list:
-    """The raw task-event dicts (ref: _private/state.py:960 ray.timeline);
-    the chrome-trace export comes with the profiling module."""
-    return _ensure_init().list_task_events()
+def timeline(filename: Optional[str] = None) -> list:
+    """Task timeline (ref: _private/state.py:960 ray.timeline).
+
+    With no filename: the raw task-event dicts.  With a filename: writes
+    chrome://tracing JSON (load at chrome://tracing / ui.perfetto.dev) and
+    returns the chrome-trace event list.
+    """
+    runtime = _ensure_init()
+    if filename is not None:
+        from ray_tpu_torch._private import profiling
+
+        return profiling.dump_timeline(filename)
+    return runtime.list_task_events()
 
 
 class _RuntimeContext:

@@ -3,10 +3,10 @@
 
 Every flag has a typed default and can be overridden by a ``RAY_TPU_<NAME>``
 environment variable or the ``_system_config`` dict passed to
-``ray_tpu_torch.init``. Only the thread tier's flags are here: the object
-transfer, worker-node, process-pool and memory-monitor flags come with the
-process tier, and the placement policies' flags with the multi-node runtime
-(ROADMAP.md, Queue 1).
+``ray_tpu_torch.init``. Only the thread tier's flags (and the chaos flags of
+``_private/fault_injection.py``) are here: the object transfer, worker-node,
+process-pool and memory-monitor flags come with the process tier, and the
+placement policies' flags with the multi-node runtime (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -36,6 +36,13 @@ class Config:
     # --- events ---
     #: Keep at most this many task events.
     max_task_events: int = 100_000
+
+    # --- testing / chaos (ref: rpc/rpc_chaos.h:22, RAY_testing_rpc_failure) ---
+    #: "<point>=<probability>[:<max_failures>]" comma list; the named failure
+    #: points raise a transient error (_private/fault_injection.py).
+    testing_rpc_failure: str = ""
+    #: Microseconds of delay every configured failure point sleeps.
+    testing_delay_us: int = 0
 
     # --- control-plane persistence (ref: gcs_kv_manager.h) ---
     #: Persist the internal KV to a WAL under session_dir, so deployed serve
@@ -70,3 +77,12 @@ def _coerce(value: str, typ: Any) -> Any:
 
 
 GLOBAL_CONFIG = Config()
+
+
+def session_subdir(name: str, env_var: str) -> str:
+    """Resolve <session_dir>/<name>, unless ``env_var`` names a directory
+    (e.g. ``RAY_TPU_POSTMORTEM_DIR``), and create it."""
+    d = os.environ.get(env_var) or os.path.join(GLOBAL_CONFIG.session_dir,
+                                                name)
+    os.makedirs(d, exist_ok=True)
+    return d

@@ -153,8 +153,30 @@ class ObjectStore:
             entry.value = None
         self._signal(entry)
 
+    def bytes_used(self) -> int:
+        """Bytes held by READY values whose size their type states (arrays,
+        tensors, byte strings): the store keeps references, so other
+        values count 0."""
+        with self._lock:
+            return sum(_nbytes(e.value) for e in self._entries.values()
+                       if e.state == ObjectState.READY)
+
+    def object_summaries(self) -> List[dict]:
+        """Per-object view for the metrics agent (ref: `ray list
+        objects`)."""
+        with self._lock:
+            return [{"object_id": str(oid), "state": e.state}
+                    for oid, e in self._entries.items()]
+
     def shutdown(self) -> None:
         with self._lock:
             # Detach the table first: dropping values can run ObjectRef
             # finalizers that re-enter free() on this thread (RLock).
             self._entries = {}
+
+
+def _nbytes(value: Any) -> int:
+    if isinstance(value, (bytes, bytearray)):
+        return len(value)
+    n = getattr(value, "nbytes", None)  # numpy arrays, torch tensors
+    return n if isinstance(n, int) else 0

@@ -32,6 +32,7 @@ import traceback
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from ray_tpu_torch._private import metrics_agent
 from ray_tpu_torch._private.config import GLOBAL_CONFIG, Config
 from ray_tpu_torch._private.ids import (
     ActorID,
@@ -304,6 +305,8 @@ class Runtime:
             {"task_id": str(task_id), "name": name, "state": state,
              "time": time.time(), **extra}
         )
+        if state in ("FINISHED", "FAILED"):
+            metrics_agent.record_task_finished(state == "FINISHED")
 
     # ------------------------------------------------------------------- puts
     def put(self, value: Any) -> ObjectRef:
@@ -998,6 +1001,19 @@ class Runtime:
 
     def get_actor_state(self, actor_id: ActorID) -> Optional[_ActorState]:
         return self._actors.get(actor_id)
+
+    def list_actor_states(self) -> List[dict]:
+        with self._actors_lock:
+            return [
+                {
+                    "actor_id": str(aid),
+                    "class_name": st.spec.cls.__name__,
+                    "state": st.state,
+                    "name": st.spec.name or "",
+                    "num_restarts": st.num_restarts,
+                }
+                for aid, st in self._actors.items()
+            ]
 
     def get_named_actor(self, name: str, namespace: Optional[str] = None) -> ActorID:
         key = (namespace or self.namespace, name)

@@ -11,14 +11,15 @@ in one shared call per iteration, and ``@serve.multiplexed`` keeps an LRU
 of models per replica. ``GPT2Next`` and ``GPT2Stream`` are the GPT-2
 replica bodies of ``examples/serve_gpt2.py``; ``GPT2BatchNext``,
 ``GPT2ContinuousStream`` and ``GPT2MultiplexNext`` serve the same model
-through those three.
+through those three. ``slo`` holds the SLO objectives and the burn-rate
+watchdog that ``serve.status()``, the metrics agent's ``/api/serve/slo``
+and the autoscaler's SLO-burn policy read.
 
-Not ported yet (ROADMAP.md, Queue 1): SLO objectives and the metrics
-agent, the compiled router, the gRPC proxy, the LLM stack and the process
-tier.
+Not ported yet (ROADMAP.md, Queue 1): the compiled router, the gRPC proxy,
+the LLM engine and the process tier.
 """
 
-from ray_tpu_torch.serve import metrics
+from ray_tpu_torch.serve import metrics, slo
 from ray_tpu_torch.serve.api import (Application, Deployment, delete,
                                      deployment, get_app_handle,
                                      get_deployment_handle, list_deployments,
@@ -37,6 +38,7 @@ from ray_tpu_torch.serve.gpt2 import (GPT2BatchNext, GPT2ContinuousStream,
 from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
 from ray_tpu_torch.serve.multiplex import multiplexed
 from ray_tpu_torch.serve.proxy import Request
+from ray_tpu_torch.serve.slo import SLOObjective
 
 __all__ = [
     "Application", "Deployment", "deployment", "run", "start", "shutdown",
@@ -45,7 +47,8 @@ __all__ = [
     "DeploymentConfig", "HTTPOptions", "DeploymentHandle",
     "DeploymentResponse", "Request", "multiplexed",
     "get_multiplexed_model_id", "batch", "continuous_batch", "EOS",
-    "Emissions", "SequenceSlot", "BackPressureError", "metrics",
+    "Emissions", "SequenceSlot", "BackPressureError", "SLOObjective",
+    "metrics", "slo",
     "GPT2Next", "GPT2Stream", "GPT2BatchNext", "GPT2ContinuousStream",
     "GPT2MultiplexNext",
 ]

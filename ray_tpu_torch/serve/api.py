@@ -281,10 +281,25 @@ def get_deployment_handle(deployment_name: str,
 def status() -> Dict[str, Any]:
     """Per-deployment status INCLUDING the RED latency rollup: replica
     counts/health plus requests/errors and p50/p95/p99/mean end-to-end
-    latency (ms) aggregated from every router's pushed snapshots."""
+    latency (ms) aggregated from every router's pushed snapshots.  When
+    the SLO watchdog (serve/slo.py) has objectives registered, each
+    deployment row also carries its fresh ``"slo"`` evaluation."""
     controller = _get_controller()
-    return ray_tpu_torch.get(controller.get_deployment_status.remote(),
-                             timeout=_CONTROL_TIMEOUT_S)
+    out = ray_tpu_torch.get(controller.get_deployment_status.remote(),
+                            timeout=_CONTROL_TIMEOUT_S)
+    from ray_tpu_torch.serve import slo as _slo
+
+    watchdog = _slo.get_watchdog()
+    if watchdog.has_objectives():
+        slo_payload = watchdog.evaluate()
+        for dep_id, row in out.items():
+            # Objectives may be keyed by the full "app#name" id or the
+            # bare deployment name — match either.
+            for key in (dep_id, dep_id.split("#", 1)[-1]):
+                if key in slo_payload:
+                    row["slo"] = slo_payload[key]
+                    break
+    return out
 
 
 def list_deployments() -> list:

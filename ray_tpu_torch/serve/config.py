@@ -2,10 +2,7 @@
 ref: python/ray/serve/config.py — AutoscalingConfig, HTTPOptions;
 python/ray/serve/_private/config.py DeploymentConfig).
 
-The autoscaler here runs the queue-depth policy with hysteresis,
-cooldowns, scale-to-zero and a warm pool. The target-qps and SLO-burn
-policies come with ``serve/slo.py`` and the metrics agent, and the gRPC
-options with the gRPC proxy (ROADMAP.md, Queue 1).
+The gRPC options come with the gRPC proxy (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -17,7 +14,12 @@ from typing import Any, Dict, List, Optional
 @dataclass
 class AutoscalingConfig:
     """(ref: serve/config.py AutoscalingConfig — request-based policy driven
-    by handle-reported queue metrics, with scale-to-zero and warm pools).
+    by handle-reported queue metrics, extended with target-qps and SLO
+    burn-rate policies, scale-to-zero, and warm pools).
+
+    Desired counts from the enabled policies (queue depth, target-qps, SLO
+    burn) are composed by max — any policy can force capacity up, all must
+    agree before it comes down.
     """
 
     #: 0 enables scale-to-zero: after ``scale_to_zero_idle_s`` of no traffic
@@ -31,6 +33,19 @@ class AutoscalingConfig:
     downscale_delay_s: float = 30.0
     metrics_interval_s: float = 1.0
     initial_replicas: Optional[int] = None
+    #: Per-replica sustainable request rate; enables the target-qps policy
+    #: (windowed ``serve.metrics.request_rate`` / this), with saturated
+    #: continuous batches (``batch_occupancy`` >= 0.95) forcing one extra
+    #: replica even when the rate alone would not.
+    target_qps_per_replica: Optional[float] = None
+    #: Window for the request-rate sample feeding the target-qps policy.
+    qps_window_s: float = 10.0
+    #: Let the SLO burn-rate watchdog (serve/slo.py) drive scaling: while a
+    #: fast-window burn is alerting, upscale bypasses the hysteresis delay
+    #: and multiplies the target by ``burn_upscale_factor``; scale-down is
+    #: held until every window of every objective is quiet.
+    use_slo_burn: bool = True
+    burn_upscale_factor: float = 2.0
     #: Per-direction cooldowns — minimum spacing between consecutive scale
     #: events in the same direction, independent of the hysteresis delays.
     upscale_cooldown_s: float = 5.0
@@ -64,13 +79,19 @@ class AutoscalingConfig:
                 f"[{self.min_replicas}, {self.max_replicas}]")
         if self.target_ongoing_requests <= 0:
             raise ValueError("target_ongoing_requests must be > 0")
+        if self.target_qps_per_replica is not None \
+                and self.target_qps_per_replica <= 0:
+            raise ValueError("target_qps_per_replica must be > 0")
         if self.warm_pool_size < 0:
             raise ValueError("warm_pool_size must be >= 0")
         for name in ("upscale_delay_s", "downscale_delay_s",
-                     "metrics_interval_s", "upscale_cooldown_s",
-                     "downscale_cooldown_s", "scale_to_zero_idle_s"):
+                     "metrics_interval_s", "qps_window_s",
+                     "upscale_cooldown_s", "downscale_cooldown_s",
+                     "scale_to_zero_idle_s"):
             if getattr(self, name) < 0:
                 raise ValueError(f"{name} must be >= 0")
+        if self.burn_upscale_factor < 1.0:
+            raise ValueError("burn_upscale_factor must be >= 1.0")
 
     @classmethod
     def default(cls) -> "AutoscalingConfig":

@@ -14,8 +14,9 @@ import io
 import logging
 import pickle
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
+from ray_tpu_torch._private import fault_injection
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch.serve import autoscaling as _autoscaling
 from ray_tpu_torch.serve.config import DeploymentConfig
@@ -263,11 +264,20 @@ class ServeController:
         return serve_metrics.rollup(snaps)
 
     async def _autoscale_tick(self) -> None:
-        """Feed each autoscaled deployment's policy layer
-        (serve/autoscaling.py — the queue-depth policy with hysteresis,
-        cooldowns and the crash-loop interlock) one sensing snapshot and
-        apply the decision."""
+        """SLO-driven autoscaling: feed each deployment's policy layer
+        (serve/autoscaling.py — queue depth, target-qps, and burn-rate
+        policies composed by max, with hysteresis/cooldowns/crash-loop
+        interlock) one sensing snapshot and apply the decision.
+
+        The ``serve_autoscale`` fault point is consulted BEFORE
+        set_target_num: an injected scale-decision failure leaves the
+        target — and therefore the replica FSM — untouched."""
+        from ray_tpu_torch.serve import metrics as serve_metrics
+        from ray_tpu_torch.serve import slo as serve_slo
+
         now = time.time()
+        slo_payload = None
+        watchdog = serve_slo.get_watchdog()
         for dep_id, state in list(self._manager.deployments.items()):
             cfg = state.info.config.autoscaling_config
             if cfg is None or state.deleting:
@@ -286,20 +296,58 @@ class ServeController:
             queued = sum(q for q, ts in
                          self._queued_metrics.get(dep_id, {}).values()
                          if now - ts < 2.0)
+            burn_alerting, burn_quiet = False, True
+            if cfg.use_slo_burn and watchdog.has_objectives():
+                if slo_payload is None:  # one evaluate() per tick, shared
+                    slo_payload = watchdog.evaluate(now=now)
+                burn_alerting, burn_quiet = self._burn_state(
+                    slo_payload, dep_id)
+            rate = 0.0
+            if cfg.target_qps_per_replica:
+                rate = serve_metrics.request_rate(
+                    dep_id, window_s=cfg.qps_window_s, now=now)
             inputs = _autoscaling.PolicyInputs(
                 now=now,
                 num_running=state.num_running(),
                 target_num=state.target_num,
                 total_inflight=sum(fresh),
                 queued_requests=queued,
+                request_rate=rate,
+                batch_occupancy=serve_metrics.batch_occupancy(
+                    window_s=cfg.qps_window_s, now=now)
+                if cfg.target_qps_per_replica else 0.0,
+                burn_alerting=burn_alerting,
+                burn_quiet=burn_quiet,
                 in_backoff=now < state.backoff_until)
             decision = scaler.decide(inputs)
             if not decision.changed or decision.target == state.target_num:
+                continue
+            try:
+                fault_injection.check("serve_autoscale")
+            except fault_injection.InjectedFailure:
+                _autoscaling.record_rejected(dep_id)
                 continue
             old = state.target_num
             state.set_target_num(decision.target)
             _autoscaling.record_applied(dep_id, old, decision.target,
                                         decision.reason)
+
+    @staticmethod
+    def _burn_state(slo_payload: Dict[str, Any],
+                    dep_id: str) -> Tuple[bool, bool]:
+        """(alerting, all-windows-quiet) for one deployment from a shared
+        watchdog evaluation (objectives may key the full "app#name" id or
+        the bare deployment name)."""
+        for key in (dep_id, dep_id.partition("#")[2]):
+            dep_slo = slo_payload.get(key)
+            if not dep_slo:
+                continue
+            quiet = all(
+                o.get("burn_fast", 0.0) < o.get("burn_threshold", 1.0)
+                and o.get("burn_slow", 0.0) < o.get("burn_threshold", 1.0)
+                for o in dep_slo.get("objectives", {}).values())
+            return bool(dep_slo.get("alerting")), quiet
+        return False, True
 
     # --------------------------------------------------------------- queries
     async def listen_for_change(self, keys_to_snapshot_ids: Dict[str, int],

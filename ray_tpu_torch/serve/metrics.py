@@ -24,9 +24,9 @@ controller keyed by ``(router_id, pid)``; the controller sums the latest
 snapshot per pid (routers in one process share the process-global
 registry, so summing per-router would double count) and folds them into
 ``serve.status()`` rollups via
-:func:`ray_tpu_torch.util.metrics.percentile_from_buckets`.
-The windowed accessors (request rate, the LLM views) come with the metrics
-agent (ROADMAP.md, Queue 1).
+:func:`ray_tpu_torch.util.metrics.percentile_from_buckets`.  The windowed
+accessors (request rate, the LLM views) read the process
+:class:`~ray_tpu_torch.util.metrics_agent.TimeSeriesAggregator`.
 """
 
 from __future__ import annotations
@@ -115,6 +115,187 @@ def merge_snapshots(snapshots: Iterable[Dict[str, Any]]) -> Dict[str, Any]:
         errors += float(snap.get("errors", 0.0))
     return {"boundaries": boundaries, "counts": counts, "count": total,
             "sum": lat_sum, "requests": requests, "errors": errors}
+
+
+def process_totals() -> Dict[str, Dict[str, float]]:
+    """Per-deployment request/error totals as counted by THIS process —
+    the cheap serve row the per-node dashboard summaries embed."""
+    out: Dict[str, Dict[str, float]] = {}
+    for _, tags, value in REQUESTS_TOTAL.samples():
+        dep = tags.get("deployment", "")
+        out.setdefault(dep, {"requests": 0.0, "errors": 0.0})
+        out[dep]["requests"] += value
+    for _, tags, value in ERRORS_TOTAL.samples():
+        dep = tags.get("deployment", "")
+        out.setdefault(dep, {"requests": 0.0, "errors": 0.0})
+        out[dep]["errors"] += value
+    return out
+
+
+def request_rate(deployment: str, window_s: float = 60.0,
+                 now: Optional[float] = None) -> float:
+    """Requests/second for a deployment over the trailing window, from the
+    process-wide TimeSeriesAggregator (util/metrics_agent.py) — the signal
+    the target-qps autoscaling policy scales on.  The
+    aggregator must be fed on a cadence (the agent's ``/timeseries`` scrape
+    or an explicit ``sample_registry()``); returns 0.0 before any samples
+    land — cold start reads as "no traffic", never an error."""
+    from ray_tpu_torch.util.metrics_agent import get_aggregator
+
+    agg = get_aggregator()
+    agg.sample_registry()
+    return agg.window_rate("serve_requests_total",
+                           {"deployment": deployment}, window_s, now)
+
+
+# ----------------------------------------------------- LLM windowed view
+# Accessors over the attribution layer's raw per-request points
+# (serve/llm/attribution.py feeds the process aggregator directly), shaped
+# for the autoscaler and the SLO watchdog: exact windowed percentiles, not
+# histogram-bucket estimates.  The engine series (KV blocks, occupancy,
+# decode, speculation, prefix cache) read 0.0 until the LLM engine lands
+# (ROADMAP.md, Queue 1 item 13), as they do before any point lands.  Deployment tags on LLM
+# series use the bare replica-context name; callers holding a full
+# "app#name" id fall back to the name part automatically.
+
+
+def _dep_tag_candidates(deployment: Optional[str]):
+    if not deployment:
+        return (None,)
+    if "#" in deployment:
+        return ({"deployment": deployment},
+                {"deployment": deployment.split("#", 1)[1]})
+    return ({"deployment": deployment},)
+
+
+def _windowed_percentile(name: str, q: float, deployment: Optional[str],
+                         window_s: float, now: Optional[float]) -> float:
+    from ray_tpu_torch.util.metrics_agent import get_aggregator
+
+    agg = get_aggregator()
+    for tags in _dep_tag_candidates(deployment):
+        vals = sorted(agg.window_values(name, tags, window_s, now))
+        if vals:
+            rank = min(len(vals) - 1,
+                       int(round((q / 100.0) * (len(vals) - 1))))
+            return vals[rank]
+    return 0.0
+
+
+def ttft_p99(deployment: Optional[str] = None, window_s: float = 60.0,
+             now: Optional[float] = None, q: float = 99.0) -> float:
+    """Windowed time-to-first-token percentile (seconds) across every
+    request the attribution layer finalized; 0.0 before any land."""
+    return _windowed_percentile("ray_tpu_llm_ttft_seconds", q, deployment,
+                                window_s, now)
+
+
+def inter_token_p99(deployment: Optional[str] = None,
+                    window_s: float = 60.0, now: Optional[float] = None,
+                    q: float = 99.0) -> float:
+    """Windowed inter-token-gap percentile (seconds)."""
+    return _windowed_percentile("ray_tpu_llm_inter_token_seconds", q,
+                                deployment, window_s, now)
+
+
+def _pool_tags(pool: Optional[str]) -> Optional[Dict[str, str]]:
+    return {"pool": pool} if pool else None
+
+
+def kv_utilization(pool: Optional[str] = None, window_s: float = 60.0,
+                   now: Optional[float] = None) -> float:
+    """Windowed mean KV-block utilization (in-use / total, 0..1) for one
+    pool or (subset rollup) across all pools."""
+    from ray_tpu_torch.util.metrics_agent import get_aggregator
+
+    agg = get_aggregator()
+    agg.sample_registry()
+    tags = _pool_tags(pool)
+    total = agg.window_rate("ray_tpu_llm_kv_blocks_total", tags,
+                            window_s, now)
+    if total <= 0.0:
+        return 0.0
+    in_use = agg.window_rate("ray_tpu_llm_kv_blocks_in_use", tags,
+                             window_s, now)
+    return in_use / total
+
+
+def batch_occupancy(pool: Optional[str] = None, window_s: float = 60.0,
+                    now: Optional[float] = None) -> float:
+    """Windowed mean continuous-batch fill fraction (0..1)."""
+    from ray_tpu_torch.util.metrics_agent import get_aggregator
+
+    agg = get_aggregator()
+    agg.sample_registry()
+    return agg.window_rate("ray_tpu_llm_batch_occupancy", _pool_tags(pool),
+                           window_s, now)
+
+
+def goodput_tokens_per_s(pool: Optional[str] = None,
+                         window_s: float = 60.0,
+                         now: Optional[float] = None) -> float:
+    """Decode tokens actually emitted per second over the window."""
+    from ray_tpu_torch.util.metrics_agent import get_aggregator
+
+    agg = get_aggregator()
+    agg.sample_registry()
+    return agg.window_rate("ray_tpu_llm_decode_tokens_total",
+                           _pool_tags(pool), window_s, now)
+
+
+def acceptance_rate(pool: Optional[str] = None, window_s: float = 60.0,
+                    now: Optional[float] = None) -> float:
+    """Windowed speculative-decoding acceptance: draft tokens the target
+    verification accepted over draft tokens proposed, 0..1 across every
+    stream in the pool (per-stream tallies live on ``Sequence.spec_*``).
+    Returns 0.0 when spec decode is off or no proposals landed in the
+    window — cold start reads as "no speculation", never an error."""
+    from ray_tpu_torch.util.metrics_agent import get_aggregator
+
+    agg = get_aggregator()
+    agg.sample_registry()
+    tags = _pool_tags(pool)
+    proposed = agg.window_rate("ray_tpu_llm_spec_proposed_tokens_total",
+                               tags, window_s, now)
+    if proposed <= 0.0:
+        return 0.0
+    accepted = agg.window_rate("ray_tpu_llm_spec_accepted_tokens_total",
+                               tags, window_s, now)
+    return min(1.0, accepted / proposed)
+
+
+def prefix_hit_rate(pool: Optional[str] = None, window_s: float = 60.0,
+                    now: Optional[float] = None) -> float:
+    """Windowed prefix-cache hit rate: prompt tokens served from cached
+    blocks (or promoted tier pages) over full-block prompt tokens looked
+    up, 0..1 across the pool's prefills.  Returns 0.0 when the cache is
+    off or no lookups landed in the window — cold start reads as "no
+    reuse", never an error."""
+    from ray_tpu_torch.util.metrics_agent import get_aggregator
+
+    agg = get_aggregator()
+    agg.sample_registry()
+    tags = _pool_tags(pool)
+    lookup = agg.window_rate("ray_tpu_llm_prefix_lookup_tokens_total",
+                             tags, window_s, now)
+    if lookup <= 0.0:
+        return 0.0
+    hit = agg.window_rate("ray_tpu_llm_prefix_hit_tokens_total",
+                          tags, window_s, now)
+    return min(1.0, hit / lookup)
+
+
+def recompute_waste_tokens_per_s(pool: Optional[str] = None,
+                                 window_s: float = 60.0,
+                                 now: Optional[float] = None) -> float:
+    """Tokens re-prefilled after preemption/recovery per second — the
+    waste term against :func:`goodput_tokens_per_s`."""
+    from ray_tpu_torch.util.metrics_agent import get_aggregator
+
+    agg = get_aggregator()
+    agg.sample_registry()
+    return agg.window_rate("ray_tpu_llm_recompute_tokens_total",
+                           _pool_tags(pool), window_s, now)
 
 
 def rollup(snapshots: Iterable[Dict[str, Any]]) -> Dict[str, Any]:

@@ -5,8 +5,8 @@ Counterpart of the reference's `ray.util.metrics`
 (ref: python/ray/util/metrics.py — Counter:137, Histogram:187, Gauge:262):
 the same three metric types with tag support, backed by a process-local
 registry that renders itself in Prometheus text exposition format
-(``registry().prometheus_text()``). The metrics agent that serves it over
-HTTP is not ported yet (ROADMAP.md, Queue 1).
+(``registry().prometheus_text()``), which the metrics agent
+(``_private/metrics_agent.py``) serves over HTTP.
 """
 
 from __future__ import annotations

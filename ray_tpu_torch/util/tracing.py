@@ -47,7 +47,8 @@ _GOLDEN = 0x9E3779B97F4A7C15
 
 
 #: Span names the port opens: name -> what the span covers. Entries ending
-#: in ``::`` are prefixes for dynamic names (``f"task::{name}"``).
+#: in ``::`` or ``_`` are prefixes for dynamic names (``f"task::{name}"``,
+#: ``f"serve.ttft_{bucket}"``).
 SPAN_REGISTRY: Dict[str, str] = {
     "submit::": "driver-side task submission (suffix: task name)",
     "task::": "worker-side task execution (suffix: task name)",
@@ -57,6 +58,13 @@ SPAN_REGISTRY: Dict[str, str] = {
     "serve.queue_wait": "batching: enqueue -> batch formation, per request",
     "serve.batch_execute": "batching: vectorized user call, per request",
     "serve.stream_emit": "proxy: one streamed response, first chunk -> end",
+    "serve.ttft_": "llm: one TTFT attribution bucket (suffix: queue | "
+                   "admission | prefill | handoff | residual)",
+    "serve.preempt_recompute": "llm: prefill re-run of already-generated "
+                               "tokens after a preemption",
+    "serve.slo_burn": "slo: one deployment's burn episode, alert -> clear",
+    "forensics.dump": "flight recorder: one postmortem dump, trigger -> "
+                      "file written",
 }
 
 
@@ -102,7 +110,23 @@ def clear_spans() -> None:
         _buffer.clear()
 
 
+#: Passive span tap (flight recorder): sees every span the exporter sees,
+#: including ones that outlive their tracing session — the recorder is a
+#: black box, not a tracing consumer.  One global load + None check on the
+#: hot path when no tap is installed.
+_tap: Optional[Callable[[dict], None]] = None
+
+
+def set_span_tap(fn: Optional[Callable[[dict], None]]) -> None:
+    """Install (or clear with None) the passive span tap.  The tap must be
+    cheap and must never raise — it runs inline on every span export."""
+    global _tap
+    _tap = fn
+
+
 def _export(span: dict) -> None:
+    if _tap is not None:
+        _tap(span)
     if not _enabled:
         return  # span outlived its tracing session (e.g. a parked long-poll)
     if _exporter is not None:
@@ -247,10 +271,11 @@ def record_span_batch(name: str, intervals, *,
         return
     attrs = attributes if attributes is not None else {}
     emit = _exporter if _exporter is not None else _buffer.append
+    tap = _tap
     for start, end, parent in intervals:
         if parent is None:
             continue
-        emit({
+        s = {
             "name": name,
             "trace_id": parent.get("trace_id") or _new_trace_id(),
             "span_id": _new_id64(),
@@ -259,7 +284,10 @@ def record_span_batch(name: str, intervals, *,
             "end": end,
             "attributes": attrs,
             "status": "OK",
-        })
+        }
+        if tap is not None:
+            tap(s)
+        emit(s)
 
 
 def inject_task_spec(spec) -> None:

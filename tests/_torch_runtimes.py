@@ -14,7 +14,8 @@ finalizer inside the same lock's critical section on the same thread
 for itself and the test process hangs. The port's finalizer only tries the
 lock (tests/test_torch_runtime.py holds it to that); the reference is not
 edited, so the parity cases, which run it far more than its own tests do,
-pause the collector and collect once the case is over.
+pause the collector around the reference's half and collect once it is
+over. The port's half runs with the collector on.
 """
 
 import contextlib

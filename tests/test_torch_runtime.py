@@ -327,7 +327,7 @@ def _run(pkg, case):
 def test_port_runtime_matches_reference(case, expected):
     with gc_paused():
         ref = _run(ray_tpu, case)
-        port = _run(ray_tpu_torch, case)
+    port = _run(ray_tpu_torch, case)
     assert ref == expected
     assert port == ref
 

@@ -865,7 +865,7 @@ def _run(pkg, case):
 def test_port_serve_matches_reference(case):
     with gc_paused():
         ref = _run(ray_tpu, case)
-        port = _run(ray_tpu_torch, case)
+    port = _run(ray_tpu_torch, case)
     if case.__name__ in EXPECTED:
         assert ref == EXPECTED[case.__name__]
     assert port == ref
