@@ -1831,18 +1831,21 @@ def phase_serve_slo(params) -> Dict[str, object]:
             fail("slo_burn: the watchdog never alerted")
         at_alert = alerts[0][1]["objectives"]["availability"]
         t_alert = at_alert["since"]
-        # The fast window's bad fraction once the window lies wholly in the
-        # error part (the first errors precede their series' first sample).
-        steady = [row["objectives"]["availability"] for t, row in alerts
+        # The fast window's bad fraction at every read that has the window
+        # wholly in the error part (the first errors precede their series'
+        # first sample, so the reads at the alert count too few of them).
+        steady = [row["objectives"]["availability"]["bad_fraction_fast"]
+                  for t, row in alerts
                   if t_err0 + objective.fast_window_s + SLO_SCRAPE_S
                   <= t <= t_err1]
         if not steady:
             fail("slo_burn: no alerting read with the fast window in the "
                  "error part")
-        bad_fast = steady[-1]["bad_fraction_fast"]
-        if abs(bad_fast - share) > 0.05:
-            fail(f"slo_burn: bad_fraction_fast {bad_fast} against "
-                 f"{share} of the requests sent failing")
+        off = [b for b in steady if abs(b - share) > 0.05]
+        if off:
+            fail(f"slo_burn: bad_fraction_fast {off} of the {len(steady)} "
+                 f"reads in the error part against {share} of the requests "
+                 f"sent failing")
         applied = decisions(dep)
         if applied[:2] != ({"slo_burn": 1}, 2) or not applied[2] < t_err1:
             fail(f"slo_burn: the controller applied {applied} (errors "
@@ -1887,7 +1890,10 @@ def phase_serve_slo(params) -> Dict[str, object]:
             at_alert={k: at_alert[k] for k in (
                 "burn_fast", "burn_slow", "bad_fraction_fast",
                 "bad_fraction_slow", "events_fast", "events_slow")},
-            bad_fraction_fast_steady=bad_fast, scrapes=len(scrapes),
+            bad_fraction_fast_steady=dict(
+                reads=len(steady), min=min(steady),
+                median=statistics.median(steady), max=max(steady)),
+            scrapes=len(scrapes),
             route_agrees_with_status=agree, postmortems=len(dumps))
         serve.delete("gpt2burn")
     finally:

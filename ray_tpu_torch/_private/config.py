@@ -3,7 +3,7 @@
 
 Every flag has a typed default and can be overridden by a ``RAY_TPU_<NAME>``
 environment variable or the ``_system_config`` dict passed to
-``ray_tpu_torch.init``. Only the thread tier's flags (and the chaos flags of
+``ray_tpu_torch.init``. Only the thread tier's flags (and the chaos flag of
 ``_private/fault_injection.py``) are here: the object transfer, worker-node,
 process-pool and memory-monitor flags come with the process tier, and the
 placement policies' flags with the multi-node runtime (ROADMAP.md, Queue 1).
@@ -41,8 +41,6 @@ class Config:
     #: "<point>=<probability>[:<max_failures>]" comma list; the named failure
     #: points raise a transient error (_private/fault_injection.py).
     testing_rpc_failure: str = ""
-    #: Microseconds of delay every configured failure point sleeps.
-    testing_delay_us: int = 0
 
     # --- control-plane persistence (ref: gcs_kv_manager.h) ---
     #: Persist the internal KV to a WAL under session_dir, so deployed serve

@@ -1,35 +1,30 @@
 """Fault injection for chaos testing (the counterpart of
 ``ray_tpu/_private/fault_injection.py``; ref: src/ray/rpc/rpc_chaos.h:22
-RpcFailure driven by RAY_testing_rpc_failure, ray_config_def.h:850-857
-RAY_testing_asio_delay_us).
+RpcFailure driven by RAY_testing_rpc_failure).
 
 Internal operations consult the injector at named failure points and
 probabilistically raise a transient ``InjectedFailure`` (a subclass of
 WorkerCrashedError, so retry machinery treats it as a system fault, not an
-app error) or sleep an injected delay.
+app error).
 
 Enable via config (env RAY_TPU_TESTING_RPC_FAILURE or _system_config):
     testing_rpc_failure = "serve_autoscale=0.3,forensics_dump=1.0:4"
 Each entry is <point>=<probability>[:<max_failures>]; max_failures caps how
-many times the point fires (unbounded if omitted).  Delays:
-    testing_delay_us = 500   # every CONFIGURED point sleeps 500us
-(points with no spec entry skip the delay — unconfigured points on hot
-paths must stay a cheap dict miss).
+many times the point fires (unbounded if omitted).  The reference's
+injected delays come with the port's chaos tests (ROADMAP.md, Queue 1).
 
 Every failure point the port consults is declared in :data:`FAULT_POINTS`;
 the reference's other points come with the modules that consult them
 (ROADMAP.md, Queue 1).  Tests may use ad-hoc points against a local
 ``FaultInjector``.
 
-Deterministic across runs for a fixed RAY_TPU_TESTING_CHAOS_SEED.
+Deterministic across runs for a fixed ``seed``.
 """
 
 from __future__ import annotations
 
-import os
 import random
 import threading
-import time
 from typing import Dict, Optional, Tuple
 
 from ray_tpu_torch.exceptions import WorkerCrashedError
@@ -54,13 +49,10 @@ FAULT_POINTS: Dict[str, str] = {
 
 
 class FaultInjector:
-    def __init__(self, spec: str, delay_us: int = 0, seed: Optional[int] = None):
+    def __init__(self, spec: str, seed: Optional[int] = None):
         #: point -> (probability, remaining_budget or None)
         self._points: Dict[str, Tuple[float, Optional[int]]] = {}  # guarded_by: _lock
         self._lock = threading.Lock()
-        self._delay_us = delay_us
-        if seed is None:
-            seed = int(os.environ.get("RAY_TPU_TESTING_CHAOS_SEED", "0")) or None
         self._rng = random.Random(seed)
         for entry in filter(None, (e.strip() for e in spec.split(","))):
             point, _, rest = entry.partition("=")
@@ -70,34 +62,26 @@ class FaultInjector:
         # The set of configured points is fixed after construction (budgets
         # decrement but entries never appear/disappear), so enabled-ness is
         # immutable.
-        self._enabled = bool(self._points) or self._delay_us > 0
+        self._enabled = bool(self._points)
 
     @property
     def enabled(self) -> bool:
         return self._enabled
 
     def fires(self, point: str) -> bool:
-        """Evaluate a failure point (consumes budget when it fires).
-
-        One locked read-evaluate-update; the injected delay applies only
-        to CONFIGURED points and happens outside the lock so a slow point
-        cannot serialize every other thread's evaluation.
-        """
-        fired = False
-        configured = False
+        """Evaluate a failure point (consumes budget when it fires), in one
+        locked read-evaluate-update."""
         with self._lock:
             entry = self._points.get(point)
-            if entry is not None:
-                configured = True
-                prob, budget = entry
-                if (budget is None or budget > 0) \
-                        and self._rng.random() < prob:
-                    fired = True
-                    if budget is not None:
-                        self._points[point] = (prob, budget - 1)
-        if configured and self._delay_us:
-            time.sleep(self._delay_us / 1e6)
-        return fired
+            if entry is None:
+                return False
+            prob, budget = entry
+            if (budget is not None and budget <= 0) \
+                    or self._rng.random() >= prob:
+                return False
+            if budget is not None:
+                self._points[point] = (prob, budget - 1)
+            return True
 
     def check(self, point: str) -> None:
         """Raise InjectedFailure if the point fires."""
@@ -118,8 +102,7 @@ def get_injector() -> FaultInjector:
             if _injector is None:
                 from ray_tpu_torch._private.config import GLOBAL_CONFIG
 
-                _injector = FaultInjector(GLOBAL_CONFIG.testing_rpc_failure,
-                                          GLOBAL_CONFIG.testing_delay_us)
+                _injector = FaultInjector(GLOBAL_CONFIG.testing_rpc_failure)
     return _injector
 
 

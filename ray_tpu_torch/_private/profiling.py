@@ -1,10 +1,8 @@
-"""Task profiling and chrome-tracing timeline export (the counterpart of
-``ray_tpu/_private/profiling.py``; ref: _private/profiling.py profile():84
-and _private/state.py timeline():960).
+"""Chrome-tracing timeline export (the counterpart of
+``ray_tpu/_private/profiling.py``; ref: _private/state.py timeline():960).
 
-``profile("name")`` emits paired span events into the runtime's task-event
-log, and ``chrome_trace()`` folds that log and the exported tracing spans
-into chrome://tracing "X" (complete) events — load the JSON at
+``chrome_trace()`` folds the runtime's task-event log and the exported
+tracing spans into chrome://tracing "X" (complete) events — load the JSON at
 chrome://tracing or ui.perfetto.dev.  SLO burn episodes share one "serve"
 lane there.  The reference's postmortem-bundle lanes come with its
 forensics bundles (ROADMAP.md, Queue 1 item 13.8).
@@ -13,26 +11,7 @@ forensics bundles (ROADMAP.md, Queue 1 item 13.8).
 from __future__ import annotations
 
 import json
-import time
-from contextlib import contextmanager
 from typing import Dict, List, Optional
-
-
-@contextmanager
-def profile(event_name: str, extra_data: Optional[dict] = None):
-    """User-defined span, attributed to the current task if inside one
-    (ref: _private/profiling.py:84)."""
-    from ray_tpu_torch._private import runtime as _rt
-
-    rt = _rt.get_runtime()
-    ctx = _rt.current_task_context()
-    task_id = ctx.task_id if ctx else rt.job_id
-    start = time.time()
-    rt._emit_event(task_id, event_name, "PROFILE_BEGIN", **(extra_data or {}))
-    try:
-        yield
-    finally:
-        rt._emit_event(task_id, event_name, "PROFILE_END", begin=start)
 
 
 #: Span-name prefixes folded into the shared "train" timeline lane: one
@@ -103,8 +82,7 @@ def chrome_trace(events: Optional[List[dict]] = None,
     """Fold the task-event log into chrome-tracing events.
 
     Execution spans: RUNNING→FINISHED/FAILED pairs per task attempt.
-    Profile spans: PROFILE_BEGIN/PROFILE_END pairs.  Instant events for
-    submits/retries.  When tracing is on (util.tracing), the exported
+    Instant events for submits/retries.  When tracing is on (util.tracing), the exported
     distributed-trace spans — serve request timelines included — fold in
     as their own per-trace lanes (``include_spans=False`` to opt out).
     """
@@ -121,7 +99,6 @@ def chrome_trace(events: Optional[List[dict]] = None,
 
     out: List[dict] = []
     running: Dict[str, dict] = {}
-    profiling: Dict[tuple, dict] = {}
     for ev in events:
         state = ev.get("state", "")
         tid = ev["task_id"]
@@ -137,16 +114,6 @@ def chrome_trace(events: Optional[List[dict]] = None,
                 "args": {"task_id": tid, "state": state},
                 "cname": ("thread_state_running" if state == "FINISHED"
                           else "terrible"),
-            })
-        elif state == "PROFILE_BEGIN":
-            profiling[(tid, ev.get("name"))] = ev
-        elif state == "PROFILE_END":
-            beg = profiling.pop((tid, ev.get("name")), None)
-            beg_ts = (beg["time"] if beg else ev.get("begin", ev["time"])) * 1e6
-            out.append({
-                "ph": "X", "cat": "profile", "name": ev.get("name", ""),
-                "pid": "profile", "tid": tid,
-                "ts": beg_ts, "dur": us - beg_ts,
             })
         elif state in ("SUBMITTED_TO_WORKER", "RETRYING", "RESUBMITTED"):
             out.append({

@@ -32,7 +32,7 @@ import traceback
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from ray_tpu_torch._private import metrics_agent
+from ray_tpu_torch._private import fault_injection, metrics_agent
 from ray_tpu_torch._private.config import GLOBAL_CONFIG, Config
 from ray_tpu_torch._private.ids import (
     ActorID,
@@ -239,6 +239,8 @@ class Runtime:
     ):
         GLOBAL_CONFIG.apply_overrides(_system_config)
         self.config: Config = GLOBAL_CONFIG
+        # The chaos flag may have changed: rebuild the injector from it.
+        fault_injection.reset_injector()
         self.job_id = JobID.from_random()
         self.worker_id = WorkerID.from_random()
         self.namespace = namespace

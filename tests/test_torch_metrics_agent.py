@@ -193,30 +193,29 @@ def test_port_agent_routes():
 # ------------------------------------------------------------- timeline
 def _timeline(pkg, path):
     fresh_init(pkg, num_cpus=4)
-    profiling = importlib.import_module(f"{pkg.__name__}._private.profiling")
     try:
         @pkg.remote
         def traced():
-            with profiling.profile("inner_work", {"step": 1}):
-                time.sleep(0.01)
+            time.sleep(0.01)
             return 1
 
         pkg.get(traced.remote())
         events = pkg.timeline(str(path))
         data = json.loads(path.read_text())
-        span = next(e for e in data if e["cat"] == "profile")
+        span = next(e for e in data if e["cat"] == "task")
         return [data == events, sorted({e["cat"] for e in data}),
                 span["name"], span["dur"] >= 10_000 * 0.5,
-                sorted((e["cat"], e["ph"], e["name"]) for e in data)]
+                sorted((e["cat"], e["ph"], e["name"])
+                       for e in data)]
     finally:
         pkg.shutdown()
 
 
 def test_timeline_chrome_export(tmp_path):
-    """tests/test_observability.py's timeline case: a profiled task, then
+    """tests/test_observability.py's timeline case: a task, then
     ``timeline(filename)``, on each package in turn."""
     with gc_paused():
         ref = _timeline(ray_tpu, tmp_path / "ref.json")
     port = _timeline(ray_tpu_torch, tmp_path / "port.json")
-    assert ref[:4] == [True, ["profile", "sched", "task"], "inner_work", True]
+    assert ref[:4] == [True, ["sched", "task"], "traced", True]
     assert port == ref

@@ -7,7 +7,8 @@ The policies run under a deterministic clock: each case feeds the same
 ``PolicyInputs`` sequence to both packages' ``DeploymentAutoscaler`` and
 the decisions (target, reason, changed) must be equal, exactly. The
 reconciler cases drive ``DeploymentState`` with fake replicas, no runtime.
-The live cases run a serve instance of each package in turn; the last
+The live cases run a serve instance of each package in turn, one of them
+under tests/test_serve_chaos.py's ``serve_autoscale`` fault point; the last
 drives the port's controller end to end with GPT-2 in the tiny config on
 the CPU: one deployment scales 1 -> 2 on its request rate
 (``"target_qps"``), another on the SLO burn of real request errors
@@ -367,6 +368,84 @@ def test_autoscale_status_and_flight_recorder_rows():
     port = _autoscale_rows(ray_tpu_torch)
     assert ref == [0, list(range(12)), True, "queue_depth", "autoscale", 1,
                    3, True, True]
+    assert port == ref
+
+
+def _injected_autoscale_failures(pkg):
+    """tests/test_serve_chaos.py's ``serve_autoscale=1.0:4`` case: while the
+    injection budget lasts, every decision the controller would apply is
+    rejected, counted under ``fault_injected``, and the target and the
+    replica set stay where they were; once it runs out, the scale-up
+    applies."""
+    fresh_init(pkg, num_cpus=8,
+               _system_config={"testing_rpc_failure": "serve_autoscale=1.0:4"})
+    serve = importlib.import_module(f"{pkg.__name__}.serve")
+    autoscaling = _mod(pkg.__name__, "autoscaling")
+    faults = importlib.import_module(f"{pkg.__name__}._private.fault_injection")
+    config = importlib.import_module(f"{pkg.__name__}._private.config")
+    try:
+        serve.start(http_options={"port": 0})
+        asc = serve.AutoscalingConfig(
+            min_replicas=1, max_replicas=3, metrics_interval_s=0.05,
+            upscale_delay_s=0.0, upscale_cooldown_s=0.0,
+            target_ongoing_requests=1.0, use_slo_burn=False)
+
+        @serve.deployment(autoscaling_config=asc)
+        class Slow:
+            def __call__(self, x):
+                time.sleep(0.3)
+                return x
+
+        handle = serve.run(Slow.bind(), name="aschaos-parity",
+                           route_prefix=None)
+        dep = "aschaos-parity#Slow"
+        tags = {"deployment": dep, "reason": "fault_injected"}
+        base = autoscaling.DECISIONS.get(tags=tags)
+
+        def rejected():
+            return autoscaling.DECISIONS.get(tags=tags) - base
+
+        # (target, replica rows) sampled while the budget lasts; a sample is
+        # kept only if no decision was rejected while it was taken, so a
+        # budget-exhausting tick between the reads cannot count a rightful
+        # scale-up against the injection.
+        held = set()
+
+        def sample():
+            before = rejected()
+            target = serve.status()[dep]["target_num_replicas"]
+            rows = sum(r["deployment_id"] == dep
+                       for r in serve.list_replicas())
+            if rejected() == before < 4:
+                held.add((target, rows))
+
+        first = handle.remote(0).result(timeout_s=30)
+        sample()
+        futs = [handle.remote(i) for i in range(24)]
+        deadline = time.time() + 30
+        while time.time() < deadline and rejected() < 4:
+            sample()
+            time.sleep(0.02)
+        _wait(lambda: serve.status()[dep]["target_num_replicas"] > 1, 30,
+              "the scale-up never applied once the budget ran out")
+        answers = [f.result(timeout_s=30) for f in futs]
+        draining = [r for r in serve.list_replicas()
+                    if r["deployment_id"] == dep and r["state"] == "DRAINING"]
+        return [first, sorted(held), rejected(), answers, draining]
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            pkg.shutdown()
+            config.GLOBAL_CONFIG.testing_rpc_failure = ""
+            faults.reset_injector()
+
+
+def test_injected_autoscale_failures_leave_target_unchanged():
+    with gc_paused():
+        ref = _injected_autoscale_failures(ray_tpu)
+    port = _injected_autoscale_failures(ray_tpu_torch)
+    assert ref == [0, [(1, 1)], 4, list(range(24)), []]
     assert port == ref
 
 
