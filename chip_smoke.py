@@ -101,7 +101,31 @@ Phases, each of which exits non-zero on failure:
    splash launches are ``n_layer`` per answered request. It prints the
    decision latencies, the cold start of the second replica, requests/s
    with one and two replicas, and the burn rates at the alert.
-9. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+9. The process tier (``serve_process`` line): GPT-2 124M in worker
+   processes of the runtime, each seeing only the card its lease names and
+   building the weights from seed 0 there. (a) A ``num_gpus=1,
+   isolation="process"`` task answers the serving phase's four requests, a
+   CUDA tensor sent to a process task arrives as a host copy, a process
+   generator task streams its 16 tokens, and a process actor
+   (``num_gpus=0.5, max_restarts=1``) answers, has its worker killed,
+   restarts in a new process and answers again. (b) ``GPT2Next`` on
+   process replicas (``ray_actor_options={"isolation": "process",
+   "num_gpus": 0.5}``, a subclass defined here and pickled by value, which
+   reports its process's launch counts) and on thread replicas, one and
+   then two of each, take 8 HTTP clients for 6 s each, in turns, and so do
+   process replicas that take one request at a time; then ``GPT2Stream``
+   on a process replica answers one SSE stream. (c) After
+   ``serve.shutdown()`` and ``ray_tpu_torch.shutdown()`` no worker process
+   is alive and nvidia-smi lists what it listed before the phase. It fails
+   if an answer breaks the tie rule or a streamed token differs from the
+   in-process one, if a worker runs in this process, sees another card or
+   compiles a kernel, if the splash launches are not ``n_layer`` per
+   forward in the workers or any are made in this process, if two replicas
+   share a process, or if the actor does not restart. It prints requests/s
+   of each tier at one and two replicas and each process replica's cold
+   start (spawn to worker loop, to the replica's constructor, the
+   constructor, the first answer, the kernel library's load).
+10. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -1919,6 +1943,511 @@ def phase_serve_slo(params) -> Dict[str, object]:
     return result
 
 
+# serve_process: the clients and seconds of each measured load, and the
+# rounds of thread-tier against process-tier replicas in turns.
+PROC_CLIENTS = 8
+PROC_SECONDS = 6.0
+PROC_ROUNDS = 2
+
+
+def _compute_apps() -> list:
+    """The processes that hold a CUDA context, as nvidia-smi lists them.
+    Its pids may be another pid namespace's, so lists are compared with
+    each other, never with this process's pids."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi exited {out.returncode}: {out.stderr.strip()}")
+    return sorted(line.strip() for line in out.stdout.splitlines()
+                  if line.strip())
+
+
+def _card_uuid(index: int = 0) -> str:
+    import torch
+
+    props = torch.cuda.get_device_properties(index)
+    return str(getattr(props, "uuid", f"{props.name}/{props.total_memory}"))
+
+
+def _process_report(built=None) -> Dict[str, object]:
+    """What a process worker says of itself: its pid, the cards it sees, the
+    kernel libraries it loaded and the compiles it ran, when its worker
+    loop started, and its kernels' launch counts."""
+    import os
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private import kernel_build, process_pool
+
+    return dict(pid=os.getpid(), gpu_ids=ray_tpu_torch.get_gpu_ids(),
+                visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                device_count=torch.cuda.device_count(), uuid=_card_uuid(),
+                nvcc_runs=kernel_build.NVCC_RUNS,
+                load_s=dict(kernel_build.LOAD_SECONDS),
+                main_at=process_pool.WORKER_MAIN_AT, built=built,
+                launches=_counts())
+
+
+def _reporting(base):
+    """``base`` (a GPT-2 replica body) that also reports on its process.
+    Defined in a function of this script, so that it is pickled by value
+    into the worker that hosts it."""
+    class Reporting(base):
+        def __init__(self, *args, **kwargs):
+            import torch
+
+            t0 = time.time()
+            super().__init__(*args, **kwargs)
+            torch.cuda.synchronize(self.device)
+            self.built = (t0, time.time())
+
+        def report(self):
+            return _process_report(self.built)
+
+        def reset_launches(self):
+            _reset_counts()
+
+    Reporting.__name__ = Reporting.__qualname__ = f"Proc{base.__name__}"
+    return Reporting
+
+
+def _answer_in_worker(requests):
+    """A process task: GPT-2 124M from seed 0 on the card its lease names
+    answers the serving requests."""
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve import GPT2Next
+
+    t0 = time.time()
+    model = GPT2Next(gpt2.GPTConfig(), seed=0)
+    torch.cuda.synchronize(model.device)
+    built = (t0, time.time())
+    model.next_token(requests[0])  # warm-up: loads the kernel library
+    torch.cuda.synchronize(model.device)
+    _reset_counts()
+    answers = [model.next_token(t) for t in requests]
+    return answers, _process_report(built)
+
+
+def _tensor_in_worker(t):
+    """A process task given a CUDA tensor: the device it arrived on, and
+    it doubled on the worker's own card (which travels back as a host
+    copy too)."""
+    from ray_tpu_torch._private.device import granted_cuda_device
+
+    return t.device.type, t.to(granted_cuda_device()) * 2
+
+
+def _stream_in_worker(prompt, max_new):
+    """A process generator task: the greedy stream, then its report."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve import GPT2Stream
+
+    model = GPT2Stream(gpt2.GPTConfig(), seed=0)
+    _reset_counts()
+    yield from model.generate(prompt, max_new)
+    yield _process_report()
+
+
+def phase_serve_process(params, inproc: Dict[str, object]
+                        ) -> Dict[str, object]:
+    """GPT-2 124M in worker processes of the runtime's process tier, each
+    on the card its lease names, at full width and depth from seed 0.
+
+    (a) Tasks and actors: a ``num_gpus=1, isolation="process"`` task builds
+    the model and answers ``phase_serve``'s four requests; a CUDA tensor
+    sent to a process task arrives there, and comes back, as a host copy;
+    a process generator task streams its 16 greedy tokens; a process actor
+    (``num_gpus=0.5, max_restarts=1``) answers, has its worker killed
+    (SIGKILL), restarts in a new process and answers again.
+    (b) Serving: ``GPT2Next`` on process replicas
+    (``ray_actor_options={"isolation": "process", "num_gpus": 0.5}``) and on
+    thread replicas (``num_gpus=0.5``), one replica each and then two, take
+    PROC_CLIENTS HTTP clients for PROC_SECONDS each, in turns
+    (PROC_ROUNDS rounds), and process replicas that run one call at a time
+    (``max_concurrency=1``: a thread replica's event loop runs
+    ``GPT2Next``'s forwards one at a time) at one and two replicas; then
+    ``GPT2Stream`` on a process replica answers one SSE stream. The process replicas' class is a subclass defined in
+    this script, sent by value, that reports its process's launch counts.
+    (c) After ``serve.shutdown()`` and ``ray_tpu_torch.shutdown()`` no
+    worker process is alive and nvidia-smi lists the processes it listed
+    before the phase.
+
+    Every answer keeps the tie rule against the in-process ``GPT2Next``
+    logits (the stream against ``GPT2Stream``'s along its tokens); every
+    worker is another process than this one, sees one card, this one, and
+    loads the kernel libraries this process built without compiling; the
+    splash launches are ``n_layer`` per forward in the workers and none in
+    this process. It prints requests/s of each tier at one and two
+    replicas, and each process replica's cold start."""
+    import multiprocessing
+    import os
+    import signal
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.runtime import get_runtime
+    from ray_tpu_torch.models import gpt2
+
+    config = gpt2.GPTConfig()
+    n_layer = config.n_layer
+    me = os.getpid()
+    uuid = _card_uuid()
+    serve_requests, prompt = _serve_requests()
+    bodies_requests, _ = _batch_inputs()
+    bodies = [{"tokens": t} for t in bodies_requests]
+    local = serve.GPT2Next(config, params=params)
+    local_stream = serve.GPT2Stream(config, params=params)
+    with torch.inference_mode():
+        ref_serve = torch.stack([local.logits(t) for t in serve_requests])
+        ref_bodies = torch.stack([local.logits(t) for t in bodies_requests])
+    worst = [0.0]
+    totals: Dict[str, int] = {}
+    pids_seen: set = set()
+    result: Dict[str, object] = {}
+
+    def tie(label, ref, chosen):
+        gap = (ref.max() - ref[chosen]).item()
+        worst[0] = max(worst[0], gap)
+        if gap > LOGIT_ATOL:
+            fail(f"{label}: token {chosen} is {gap} below the in-process "
+                 f"maximum (tol {LOGIT_ATOL})")
+
+    def stream_ties(label, tokens):
+        seq = list(prompt)
+        with torch.inference_mode():
+            for tok in tokens:
+                arr = np.zeros((1, config.seq_len), np.int64)
+                arr[0, :len(seq)] = seq
+                tie(f"{label} step {len(seq) - len(prompt)}",
+                    local_stream.logits_at(arr, len(seq) - 1), tok)
+                seq.append(tok)
+
+    def check_worker(label, rep):
+        pids_seen.add(rep["pid"])
+        if rep["pid"] == me:
+            fail(f"{label}: ran in this process")
+        if rep["device_count"] != 1 or rep["uuid"] != uuid:
+            fail(f"{label}: the worker sees {rep['device_count']} cards "
+                 f"({rep['uuid']}), not this one ({uuid})")
+        if rep["nvcc_runs"]:
+            fail(f"{label}: the worker compiled {rep['nvcc_runs']} kernels")
+        if "splash_attention_fwd" not in rep["load_s"]:
+            fail(f"{label}: the worker never loaded the splash kernel")
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+
+    def driver_quiet(label):
+        mine = {k: n for k, n in _counts().items() if n}
+        if mine:
+            fail(f"{label}: this process launched {mine}")
+
+    def reap_check(label, baseline):
+        live = [p.pid for p in multiprocessing.active_children()]
+        alive = []
+        for pid in sorted(pids_seen):
+            try:
+                os.kill(pid, 0)
+                alive.append(pid)
+            except ProcessLookupError:
+                pass
+        apps = _compute_apps()
+        if live or alive or apps != baseline:
+            fail(f"{label}: after shutdown children {live}, workers alive "
+                 f"{alive}, compute apps {apps} (before: {baseline})")
+        return apps
+
+    baseline = _compute_apps()
+    result["compute_apps_before"] = baseline
+
+    # ------------------------------------------- (a) tasks and actors
+    _reset_counts()
+    ray_tpu_torch.init()
+    try:
+        t0 = time.time()
+        answers, rep = ray_tpu_torch.get(
+            ray_tpu_torch.remote(_answer_in_worker).options(
+                num_gpus=1, isolation="process").remote(serve_requests),
+            timeout=600)
+        task_s = time.time() - t0
+        check_worker("task", rep)
+        for i, ans in enumerate(answers):
+            tie(f"task request {i}", ref_serve[i], ans)
+        if rep["launches"]["splash_attention_fwd"] != n_layer * len(answers):
+            fail(f"task: {rep['launches']} for {len(answers)} forwards")
+        add(rep["launches"])
+        x = torch.arange(8.0, device="cuda")
+        arrived, back = ray_tpu_torch.get(
+            ray_tpu_torch.remote(_tensor_in_worker).options(
+                num_gpus=1, isolation="process").remote(x), timeout=600)
+        if arrived != "cpu" or back.device.type != "cpu" \
+                or not torch.equal(back, (x * 2).cpu()):
+            fail(f"a CUDA tensor crossed as a {arrived} tensor and came back "
+                 f"as {back.device} {back.tolist()}")
+        streamed = list(ray_tpu_torch.get(list(
+            ray_tpu_torch.remote(_stream_in_worker).options(
+                num_gpus=1, isolation="process").remote(
+                    prompt, SERVE_MAX_NEW)), timeout=600))
+        srep, streamed = streamed[-1], streamed[:-1]
+        check_worker("stream", srep)
+        if srep["launches"]["splash_attention_fwd"] != n_layer * len(streamed):
+            fail(f"stream: {srep['launches']} for {len(streamed)} tokens")
+        add(srep["launches"])
+
+        # A process actor's methods are sync (GPT2Next's __call__ is not):
+        # GPT2Stream's body answers next-token requests with next_tokens.
+        actor = ray_tpu_torch.remote(_reporting(serve.GPT2Stream)).options(
+            isolation="process", num_gpus=0.5, max_restarts=1).remote(
+                config, seed=0)
+
+        def next_of(toks):
+            return ray_tpu_torch.get(actor.next_tokens.remote([toks]),
+                                     timeout=600)[0]
+
+        first = next_of(serve_requests[0])
+        arep = ray_tpu_torch.get(actor.report.remote(), timeout=60)
+        check_worker("actor", arep)
+        t_kill = time.time()
+        os.kill(arep["pid"], signal.SIGKILL)
+        try:
+            next_of(serve_requests[0])
+            fail("actor: a call after its worker was killed was answered")
+        except ray_tpu_torch.exceptions.ActorDiedError:
+            pass
+        deadline = time.time() + 600
+        while True:
+            try:
+                again = next_of(serve_requests[0])
+                break
+            except ray_tpu_torch.exceptions.ActorDiedError:
+                if time.time() > deadline:
+                    fail("actor: no restart within 600 s")
+                time.sleep(0.1)
+        t_back = time.time()
+        ray_tpu_torch.get(actor.reset_launches.remote(), timeout=60)
+        next_of(serve_requests[1])
+        brep = ray_tpu_torch.get(actor.report.remote(), timeout=60)
+        check_worker("restarted actor", brep)
+        restarts = get_runtime().get_actor_state(
+            actor._ray_actor_id).num_restarts
+        if brep["pid"] == arep["pid"] or restarts != 1:
+            fail(f"actor: pid {arep['pid']} -> {brep['pid']} after "
+                 f"{restarts} restarts")
+        if brep["launches"]["splash_attention_fwd"] != n_layer:
+            fail(f"restarted actor: {brep['launches']} for one forward")
+        add(brep["launches"])
+        for label, ans in (("actor", first), ("restarted actor", again)):
+            tie(label, ref_serve[0], ans)
+        ray_tpu_torch.kill(actor)
+        driver_quiet("tasks and actors")
+        stream_ties("process stream", streamed)  # forwards in this process
+        result["tasks"] = dict(
+            answers=answers, equal_to_inprocess=answers == inproc[
+                "unary_answers"], task_s=task_s, worker=rep,
+            cuda_tensor_arrived_as=arrived,
+            stream_tokens=streamed,
+            stream_equal_to_inprocess=streamed == inproc["stream_tokens"],
+            actor_answers=[first, again], actor_pids=[arep["pid"],
+                                                      brep["pid"]],
+            kill_to_answer_s=t_back - t_kill,
+            restarted_actor_built_s=brep["built"][1] - brep["built"][0])
+    finally:
+        ray_tpu_torch.shutdown()
+    reap_check("tasks and actors", baseline)
+
+    # ------------------------------------------------------ (b) serving
+    ray_tpu_torch.init()
+    runs = []
+    cold = []
+    try:
+        serve.start(http_options={"port": 0})
+        from ray_tpu_torch.serve.api import _state
+
+        addr = _state["proxy"].address
+        rt = get_runtime()
+        Proc = _reporting(serve.GPT2Next)
+        gpu = {"num_gpus": 0.5}
+        proc_gpu = {"isolation": "process", "num_gpus": 0.5}
+
+        def deploy(tier, n):
+            """``tier`` "thread" or "process" (64 requests in flight a
+            replica), or "serial": process replicas whose actor runs one
+            call at a time, as a thread replica's event loop runs
+            ``GPT2Next``'s forwards (its ``__call__`` computes without
+            awaiting)."""
+            in_process = tier != "thread"
+            opts = dict(proc_gpu if in_process else gpu)
+            if tier == "serial":
+                opts["max_concurrency"] = 1
+            handle = serve.run(serve.deployment(
+                num_replicas=n,
+                max_ongoing_requests=1 if tier == "serial" else 64,
+                ray_actor_options=opts)(
+                    Proc if in_process else serve.GPT2Next).bind(
+                        config, **(dict(seed=0) if in_process
+                                   else dict(params=params))),
+                name=tier, route_prefix=f"/{tier}")
+            reps = replicas(handle, n)
+            for rid, a in reps:  # warm-up on each replica, not counted
+                t1 = time.time()
+                ray_tpu_torch.get(a.handle_request.remote(
+                    "next_token", bodies_requests[0]), timeout=600)
+                if in_process and rid not in {c["replica"] for c in cold}:
+                    r = ray_tpu_torch.get(a.handle_request.remote("report"),
+                                          timeout=60)
+                    w = rt.get_actor_state(a._actor_id).proc_worker
+                    check_worker(f"replica {rid}", r)
+                    cold.append(dict(
+                        replica=rid, pid=r["pid"],
+                        spawn_to_worker_main_s=r["main_at"] - w.spawned_at,
+                        worker_main_to_init_s=r["built"][0] - r["main_at"],
+                        init_s=r["built"][1] - r["built"][0],
+                        spawn_to_ready_s=r["built"][1] - w.spawned_at,
+                        first_answer_s=time.time() - t1,
+                        kernel_load_s=r["load_s"]["splash_attention_fwd"]))
+            return handle
+
+        def replicas(handle, n):
+            sched = handle._get_router()._scheduler
+            deadline = time.time() + 120
+            while True:
+                with sched._lock:
+                    out = [(r["replica_id"], r["actor"])
+                           for r in sched._replicas]
+                if len(out) >= n:
+                    return out
+                if time.time() > deadline:
+                    fail(f"the router knows {len(out)} replicas, wanted {n}")
+                time.sleep(0.05)
+
+        def measure(tier, handle, n):
+            reps = replicas(handle, n)
+            if tier != "thread":
+                for _, a in reps:
+                    ray_tpu_torch.get(a.handle_request.remote(
+                        "reset_launches"), timeout=60)
+            _reset_counts()
+            log = _traffic(f"{addr}/{tier}", bodies, PROC_CLIENTS,
+                           PROC_SECONDS)
+            n_ok = 0
+            for i, _, _, status, out in log:
+                ans = (out or {}).get("next_token")
+                if status != 200 or not isinstance(ans, int):
+                    fail(f"{tier} x{n}: answer {status} {out}")
+                tie(f"{tier} x{n} request {i}", ref_bodies[i], ans)
+                n_ok += 1
+            t_first = min(sent for _, sent, _, _, _ in log)
+            t_last = max(done for _, _, done, _, _ in log)
+            if tier != "thread":
+                driver_quiet(f"process x{n}")
+                reports = [ray_tpu_torch.get(a.handle_request.remote(
+                    "report"), timeout=60) for _, a in reps]
+                for r in reports:
+                    check_worker(f"process x{n}", r)
+                    add(r["launches"])
+                pids = {r["pid"] for r in reports}
+                if len(pids) != n:
+                    fail(f"process x{n}: replicas in processes {pids}")
+                launches = sum(r["launches"]["splash_attention_fwd"]
+                               for r in reports)
+                by_replica = [r["launches"]["splash_attention_fwd"] // n_layer
+                              for r in reports]
+            else:
+                launches = _counts()["splash_attention_fwd"]
+                by_replica = None
+            if launches != n_layer * n_ok:
+                fail(f"{tier} x{n}: {launches} splash launches for {n_ok} "
+                     f"answers, want {n_layer} each")
+            run = dict(tier=tier, replicas=n, answered=n_ok,
+                       qps=n_ok / (t_last - t_first),
+                       answered_by_replica=by_replica)
+            runs.append(run)
+            print(f"serve_process load {json.dumps(run)}", flush=True)
+
+        handles = {"thread": deploy("thread", 1),
+                   "process": deploy("process", 1)}
+        result["compute_apps_serving"] = _compute_apps()
+        for _ in range(PROC_ROUNDS):
+            for tier in ("thread", "process"):
+                measure(tier, handles[tier], 1)
+        for _ in range(PROC_ROUNDS):
+            for tier, other in (("process", "thread"), ("thread", "process")):
+                serve.delete(other)
+                measure(tier, deploy(tier, 2), 2)
+        serve.delete("thread")
+        # Process replicas that run one forward at a time: what the
+        # concurrent forwards of one process cost.
+        for n in (1, 2):
+            measure("serial", deploy("serial", n), n)
+        serve.delete("serial")
+
+        PStream = _reporting(serve.GPT2Stream)
+        h = serve.run(serve.deployment(ray_actor_options=proc_gpu)(
+            PStream).bind(config, seed=0), name="pstream",
+            route_prefix="/pstream")
+        ((_, sactor),) = replicas(h, 1)
+        _sse(f"{addr}/pstream?tokens=1,2,3&max_new=1")  # warm-up
+        ray_tpu_torch.get(sactor.handle_request.remote("reset_launches"),
+                          timeout=60)
+        _reset_counts()
+        query = f"tokens={','.join(map(str, prompt))}&max_new={SERVE_MAX_NEW}"
+        status, ctype, events, _ = _sse(f"{addr}/pstream?{query}")
+        srep = ray_tpu_torch.get(sactor.handle_request.remote("report"),
+                                 timeout=60)
+        check_worker("stream replica", srep)
+        sse_tokens = [e.get("token") for e in events]
+        if status != 200 or not ctype.startswith("text/event-stream"):
+            fail(f"process SSE answer {status} with Content-Type {ctype}")
+        if sse_tokens != inproc["stream_tokens"]:
+            fail(f"process SSE tokens {sse_tokens} != in-process "
+                 f"{inproc['stream_tokens']}")
+        if srep["launches"]["splash_attention_fwd"] != n_layer * SERVE_MAX_NEW:
+            fail(f"process SSE: {srep['launches']} for {SERVE_MAX_NEW} "
+                 "tokens")
+        add(srep["launches"])
+        driver_quiet("process SSE")
+        stream_ties("process SSE", sse_tokens)
+        serve.delete("pstream")
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    result["compute_apps_after"] = reap_check("serving", baseline)
+
+    others = {k: n for k, n in totals.items()
+              if n and k != "splash_attention_fwd"}
+    if others:
+        fail(f"the process serving paths launched other kernels: {others}")
+
+    def qps(tier, n):
+        return [r["qps"] for r in runs
+                if r["tier"] == tier and r["replicas"] == n]
+
+    result.update(
+        card=card_line(), clients=PROC_CLIENTS, seconds_per_run=PROC_SECONDS,
+        runs=runs,
+        qps_thread_x1=qps("thread", 1), qps_thread_x2=qps("thread", 2),
+        qps_process_x1=qps("process", 1), qps_process_x2=qps("process", 2),
+        qps_serial_x1=qps("serial", 1), qps_serial_x2=qps("serial", 2),
+        process_x2_over_x1=statistics.median(qps("process", 2))
+        / statistics.median(qps("process", 1)),
+        thread_x2_over_x1=statistics.median(qps("thread", 2))
+        / statistics.median(qps("thread", 1)),
+        cold_start=cold, sse_tokens=sse_tokens,
+        worker_pids=sorted(pids_seen), worst_gap_below_max=worst[0],
+        splash_launches=totals.get("splash_attention_fwd", 0),
+        launches=totals)
+    print("serve_process " + json.dumps(result), flush=True)
+    return result
+
+
 def phase_ring(peaks: Tuple[float, float]) -> Dict[str, object]:
     import torch
 
@@ -2468,6 +2997,7 @@ def main() -> int:
     serve_http = phase_serve_http(weights, serve)
     serve_batch = phase_serve_batch(weights)
     serve_slo = phase_serve_slo(weights)
+    serve_process = phase_serve_process(weights, serve)
     del weights
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
@@ -2490,7 +3020,8 @@ def main() -> int:
         out = {"serve": serve["launches"][name],
                "serve_http": serve_http["launches"][name],
                "serve_batch": serve_batch["launches"][name],
-               "serve_slo": serve_slo["launches"][name]}
+               "serve_slo": serve_slo["launches"][name],
+               "serve_process": serve_process["launches"].get(name, 0)}
         for impl in ("dense", "fused"):
             out[f"train_{impl}"] = train["launches"][impl][name]
         out["train_ring"] = train_ring["run"]["launches"][name]

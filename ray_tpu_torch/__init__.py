@@ -6,8 +6,10 @@ and imports nothing of it. Every Pallas kernel of ``ray_tpu`` becomes a CUDA
 kernel written by hand for sm_90a, under ``csrc/``, built at first use.
 
 The core API is the reference's (ref: python/ray/_private/worker.py —
-init:1275, get:2668, put:2804, wait:2869) on the thread tier: tasks and
-actors run on threads of this process, which share its CUDA context. Entry
+init:1275, get:2668, put:2804, wait:2869): tasks and actors run on threads
+of this process, which share its CUDA context, or, with
+``isolation="process"`` or a ``runtime_env``, in spawned worker processes
+that see only the cards their lease names. Entry
 points that touch a model run on the GPU unless the caller passes
 ``device="cpu"``. Importing the package initialises no CUDA.
 """

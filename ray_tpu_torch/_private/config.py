@@ -3,10 +3,11 @@
 
 Every flag has a typed default and can be overridden by a ``RAY_TPU_<NAME>``
 environment variable or the ``_system_config`` dict passed to
-``ray_tpu_torch.init``. Only the thread tier's flags (and the chaos flag of
-``_private/fault_injection.py``) are here: the object transfer, worker-node,
-process-pool and memory-monitor flags come with the process tier, and the
-placement policies' flags with the multi-node runtime (ROADMAP.md, Queue 1).
+``ray_tpu_torch.init``. The thread tier's flags (and the chaos flag of
+``_private/fault_injection.py``) are here: the object
+transfer, worker-node and memory-monitor flags come with the serialized
+object tier and the multi-node runtime, and the placement policies' flags
+with the multi-node runtime (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -77,10 +78,18 @@ def _coerce(value: str, typ: Any) -> Any:
 GLOBAL_CONFIG = Config()
 
 
-def session_subdir(name: str, env_var: str) -> str:
+def session_subdir(name: str, env_var: str, *, export: bool = False) -> str:
     """Resolve <session_dir>/<name>, unless ``env_var`` names a directory
-    (e.g. ``RAY_TPU_POSTMORTEM_DIR``), and create it."""
-    d = os.environ.get(env_var) or os.path.join(GLOBAL_CONFIG.session_dir,
-                                                name)
+    (e.g. ``RAY_TPU_POSTMORTEM_DIR``), and create it. ``export=True``
+    resolves from the live config and publishes that path in ``env_var``
+    before the driver spawns process workers, which see only the config's
+    defaults: a later runtime with another ``session_dir`` exports its own."""
+    env = os.environ.get(env_var)
+    if env and not export:
+        os.makedirs(env, exist_ok=True)
+        return env
+    d = os.path.join(GLOBAL_CONFIG.session_dir, name)
     os.makedirs(d, exist_ok=True)
+    if export:
+        os.environ[env_var] = d
     return d

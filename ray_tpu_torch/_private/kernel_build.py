@@ -7,6 +7,9 @@ and the flags, so an edited source is rebuilt and an unchanged one is not.
 Several sources are compiled at once, one ``nvcc`` each.
 
 There is no fallback: a missing ``nvcc`` or a failed compile raises.
+``NVCC_RUNS`` counts this process's compiles and ``LOAD_SECONDS`` the time
+each library took to become usable in it (its build included): a process
+worker loads the libraries its driver built and compiles none.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
@@ -30,6 +34,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+#: nvcc processes this process started.
+NVCC_RUNS = 0
+#: Seconds from the first ``load(name)`` to the library being loaded.
+LOAD_SECONDS: Dict[str, float] = {}
 
 
 def find_nvcc() -> str:
@@ -72,6 +81,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     todo = [n for n in names if not libs[n].exists()]
     if not todo:
         return libs
+    global NVCC_RUNS
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -83,6 +93,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         procs[n] = (tmp, subprocess.Popen(
             nvcc_command(nvcc, src, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
+        NVCC_RUNS += 1
     failed = []
     for n, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
@@ -108,6 +119,8 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(build([name])[name]))
             _loaded[name] = lib
+            LOAD_SECONDS[name] = time.perf_counter() - t0
         return lib

@@ -11,8 +11,9 @@ It samples the runtime's state into gauges (the role of the C++
   (util/metrics_agent.py) as OpenMetrics text;
 - ``/api/serve``: deployment and replica rows from the serve controller;
 - ``/api/serve/slo``: one fresh SLO watchdog evaluation (serve/slo.py);
-- ``/api/stacks`` and ``/api/memory``: this process's thread stacks and
-  tracemalloc heap summary.
+- ``/api/stacks`` and ``/api/memory``: the thread stacks of this process
+  and of every process worker (``stack_profiler.collect_all_stacks``), and
+  this process's tracemalloc heap summary.
 
 The reference's routes over the state API and jobs answer 404 until those
 land (ROADMAP.md, Queue 1 item 15), and so do its node pages and postmortem

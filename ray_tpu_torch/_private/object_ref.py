@@ -4,8 +4,10 @@ and src/ray/core_worker/reference_count.h:66).
 
 Each ref release (GC or explicit) decrements the process-local count; when
 it reaches zero the runtime frees the store entry and drops the lineage.
-The thread tier never serializes a ref, so there is no owner address and no
-borrowing protocol (they come with the process tier, ROADMAP.md).
+A ref that crosses to a process worker is pickled as its id, and the driver
+keeps it alive while the worker may use it (``client_runtime.py``); there
+is no owner address and no borrowing protocol across nodes (they come with
+the multi-node runtime, ROADMAP.md).
 """
 
 from __future__ import annotations

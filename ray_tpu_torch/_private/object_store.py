@@ -4,8 +4,9 @@ store_provider/memory_store/memory_store.h:42).
 
 Thread workers share the driver's address space, so an entry holds the
 value itself: a put stores a reference, never a copy (a torch tensor on the
-GPU stays where it is). The serialized tier (the shared-memory arena,
-spilling to disk) comes with the process tier (ROADMAP.md, Queue 1).
+GPU stays where it is). Process workers send their values through their
+pipe (``process_pool.py``); the serialized tier (the shared-memory arena,
+spilling to disk) is not ported yet (ROADMAP.md, Queue 1 item 13.8).
 """
 
 from __future__ import annotations

@@ -4,9 +4,10 @@
 Resources are ``CPU`` (``num_cpus``), ``GPU`` (``num_gpus``), ``memory``
 (bytes) and custom ones (``resources={...}``); more than one GPU must be a
 whole number of them. ``scheduling_strategy`` is accepted and ignored: it
-chooses among nodes, and the thread tier has one. Tasks and actors run on the
-thread tier: ``isolation="process"`` and ``runtime_env`` raise
-NotImplementedError until the process tier is ported.
+chooses among nodes, and the runtime has one. Tasks and actors run on the
+thread tier unless they give ``isolation="process"`` or a ``runtime_env``
+(``_private/runtime_env.py``, staged when the task runs), which run them in
+worker processes.
 """
 
 from __future__ import annotations
@@ -23,11 +24,6 @@ _ACTOR_KEYS = _COMMON_KEYS | {
     "namespace", "max_pending_calls",
 }
 
-_NO_PROCESS_TIER = (
-    "ray_tpu_torch runs tasks and actors on threads only: the process tier "
-    "(isolation='process', runtime_env) is not ported yet "
-    "(ROADMAP.md, Queue 1)")
-
 
 def resolve_task_options(options: Dict[str, Any], is_actor: bool) -> Dict[str, Any]:
     allowed = _ACTOR_KEYS if is_actor else _TASK_KEYS
@@ -37,8 +33,6 @@ def resolve_task_options(options: Dict[str, Any], is_actor: bool) -> Dict[str, A
     isolation = options.get("isolation", "thread")
     if isolation not in ("thread", "process"):
         raise ValueError("isolation must be 'thread' or 'process'")
-    if isolation == "process" or options.get("runtime_env"):
-        raise NotImplementedError(_NO_PROCESS_TIER)
 
     resources: Dict[str, float] = dict(options.get("resources") or {})
     if "num_cpus" in options and options["num_cpus"] is not None:
@@ -64,6 +58,8 @@ def resolve_task_options(options: Dict[str, Any], is_actor: bool) -> Dict[str, A
     out: Dict[str, Any] = {
         "resources": resources,
         "name": options.get("name"),
+        "isolation": isolation,
+        "runtime_env": options.get("runtime_env"),
     }
     if is_actor:
         out["max_restarts"] = int(options.get("max_restarts", 0))

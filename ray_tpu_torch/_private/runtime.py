@@ -12,11 +12,14 @@ plane:
 * driver API — get/put/wait/cancel/kill, lending a task's CPUs back while
   it blocks in get (the reference's "worker blocked in ray.get" release).
 
-Everything runs on threads of this process, which share one CUDA context:
-a replica that serves a model on the GPU is an actor here, and reads the
-card its lease was granted from ``get_gpu_ids()``. The process
-tier (``isolation="process"``, ``runtime_env``), worker nodes, borrowing
-and the memory monitor are not ported yet (ROADMAP.md, Queue 1).
+Tasks and actors run on threads of this process, which share one CUDA
+context, unless they ask for the process tier (``isolation="process"`` or a
+``runtime_env``): then they run in spawned worker processes of
+``_private/process_pool.py``, each of which sees only the cards its lease
+was granted. A replica that serves a model on the GPU is an actor here, and
+reads the card its lease was granted from ``get_gpu_ids()``. Worker nodes,
+the serialized object tier, borrowing and the memory monitor are not ported
+yet (ROADMAP.md, Queue 1 item 13.8).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import traceback
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from ray_tpu_torch._private import fault_injection, metrics_agent
+from ray_tpu_torch._private import fault_injection, metrics_agent, serialization
 from ray_tpu_torch._private.config import GLOBAL_CONFIG, Config
 from ray_tpu_torch._private.ids import (
     ActorID,
@@ -45,6 +48,7 @@ from ray_tpu_torch._private.ids import (
 )
 from ray_tpu_torch._private.object_ref import ObjectRef, global_refcounter
 from ray_tpu_torch._private.object_store import ObjectStore
+from ray_tpu_torch._private.process_pool import ProcessPool, stop_log_monitor
 from ray_tpu_torch._private.scheduling import (
     InfeasibleError,
     Lease,
@@ -146,6 +150,9 @@ class _ActorState:
         self.mailbox: "queue.SimpleQueue" = queue.SimpleQueue()
         self.threads: List[threading.Thread] = []
         self.lease: Optional[Lease] = None
+        #: The dedicated worker process hosting the instance, when the actor
+        #: asked for the process tier (see _start_actor).
+        self.proc_worker = None
         self.num_restarts = 0
         self.death_cause: Optional[BaseException] = None
         self.ready_event = threading.Event()
@@ -289,6 +296,11 @@ class Runtime:
         # Task events for the state API (ref: gcs_task_manager.h:86).
         self.task_events: deque = deque(maxlen=self.config.max_task_events)
 
+        # The process tier: spawned workers, and those busy with a task.
+        self.process_pool = ProcessPool()
+        self._leased_workers: Dict[int, Any] = {}
+        self._leased_lock = threading.Lock()
+
         # Thread cache for tasks; resource accounting limits concurrency.
         self._exec_pool = _LeanExecPool(max_threads=512, name="ray_tpu_torch_worker")
         self._dispatcher_stop = threading.Event()
@@ -317,6 +329,18 @@ class Runtime:
         object_id = ObjectID.from_put(put_counter.next(), self.worker_id[:8])
         self.store.put(object_id, value)
         return ObjectRef(object_id, owner="driver")
+
+    # ------------------------------------------------------- leased workers
+    def _track_leased_worker(self, worker) -> None:
+        """Register a process worker busy with a task (stack dumps and
+        shutdown find it here; the reference's memory monitor also picks
+        its victims among these)."""
+        with self._leased_lock:
+            self._leased_workers[id(worker)] = worker
+
+    def _untrack_leased_worker(self, worker) -> None:
+        with self._leased_lock:
+            self._leased_workers.pop(id(worker), None)
 
     # --------------------------------------------------- cluster introspection
     def cluster_resources(self) -> Dict[str, float]:
@@ -623,7 +647,18 @@ class Runtime:
         try:
             with tracing.task_execute_span(spec):
                 args, kwargs = self._resolve_args(spec)
-                if spec.generator:
+                if spec.isolation == "process" or spec.runtime_env:
+                    # A runtime env implies the process tier: envs are
+                    # per-worker-process state (ref: worker_pool.h
+                    # env-keyed workers).
+                    if spec.generator:
+                        self._run_generator_in_process(
+                            spec, args, kwargs, lease.gpu_ids)
+                        result = None
+                    else:
+                        result = self._run_in_process(
+                            spec, args, kwargs, lease.gpu_ids)
+                elif spec.generator:
                     self._run_generator(spec, args, kwargs)
                     result = None
                 else:
@@ -650,11 +685,64 @@ class Runtime:
         kwargs = {k: self._resolve_ref(v) for k, v in spec.kwargs.items()}
         return args, kwargs
 
-    def _run_generator(self, spec: TaskSpec, args, kwargs) -> None:
+    def _lease_env_worker(self, runtime_env, gpu_ids):
+        """Stage a runtime env (if any) and lease a process worker of that
+        env that sees the cards ``gpu_ids``."""
+        env_key, env_payload = "", None
+        if runtime_env:
+            from ray_tpu_torch._private.runtime_env import (RuntimeEnv,
+                                                            payload_key)
+
+            env_payload = RuntimeEnv.normalize(runtime_env).stage()
+            env_key = payload_key(env_payload)
+        return self.process_pool.lease(env_key, env_payload, gpu_ids)
+
+    @staticmethod
+    def _fn_id(fn) -> str:
+        return getattr(fn, "__qualname__", "fn") + ":" + str(id(fn))
+
+    def _run_in_process(self, spec: TaskSpec, args, kwargs, gpu_ids):
+        worker = self._lease_env_worker(spec.runtime_env, gpu_ids)
+        self._track_leased_worker(worker)
+        try:
+            result = worker.execute(self._fn_id(spec.func), spec.func,
+                                    args, kwargs)
+        except (TaskError, WorkerCrashedError):
+            self.process_pool.discard(worker)
+            raise
+        finally:
+            self._untrack_leased_worker(worker)
+        self.process_pool.release(worker)
+        return result
+
+    def _run_generator_in_process(self, spec: TaskSpec, args, kwargs,
+                                  gpu_ids) -> None:
+        """A streaming generator task on a leased process worker: items
+        arrive over the multiplexed pipe and feed the ordinary generator
+        machinery, so the items yielded before an error outlive it."""
+        worker = self._lease_env_worker(spec.runtime_env, gpu_ids)
+        self._track_leased_worker(worker)
+        ok = False
+        try:
+            self._run_generator(
+                spec, args, kwargs, iterator=worker.execute_gen(
+                    self._fn_id(spec.func), spec.func, args, kwargs))
+            ok = True
+        finally:
+            self._untrack_leased_worker(worker)
+            if ok:
+                self.process_pool.release(worker)
+            else:
+                self.process_pool.discard(worker)
+
+    def _run_generator(self, spec: TaskSpec, args, kwargs,
+                       iterator=None) -> None:
         gen_handle = self._generators.get(spec.task_id)
         index = 0
+        if iterator is None:
+            iterator = spec.func(*args, **kwargs)
         try:
-            for value in spec.func(*args, **kwargs):
+            for value in iterator:
                 if spec.task_id in self._cancelled:
                     raise TaskCancelledError(str(spec.task_id))
                 object_id = ObjectID.for_task_return(spec.task_id, index)
@@ -776,14 +864,28 @@ class Runtime:
         state.lease = lease
         try:
             args, kwargs = self._resolve_values(spec.args, spec.kwargs)
-            # __init__ runs with an actor-scoped context so code inside it
-            # can see the actor identity.
-            _task_ctx.ctx = TaskContext(TaskID.from_random(), spec.actor_id,
-                                        gpu_ids=lease.gpu_ids)
-            try:
-                state.instance = spec.cls(*args, **kwargs)
-            finally:
-                _task_ctx.ctx = None
+            if spec.isolation == "process" or spec.runtime_env:
+                # A dedicated worker process hosts the instance (the
+                # reference's default: one worker process per actor).
+                worker = self._lease_env_worker(spec.runtime_env,
+                                                lease.gpu_ids)
+                try:
+                    worker.actor_new(serialization.dumps(spec.cls),
+                                     spec.actor_id, args, kwargs)
+                except BaseException:
+                    self.process_pool.discard(worker)
+                    raise
+                state.proc_worker = worker
+            else:
+                # __init__ runs with an actor-scoped context so code inside
+                # it can see the actor identity.
+                _task_ctx.ctx = TaskContext(TaskID.from_random(),
+                                            spec.actor_id,
+                                            gpu_ids=lease.gpu_ids)
+                try:
+                    state.instance = spec.cls(*args, **kwargs)
+                finally:
+                    _task_ctx.ctx = None
         except BaseException as e:  # noqa: BLE001 — the actor's death cause
             self.scheduler.release(lease)
             state.lease = None
@@ -879,11 +981,24 @@ class Runtime:
         self._running[spec.task_id] = ctx
         _task_ctx.ctx = ctx
         self._emit_event(spec.task_id, spec.name, "RUNNING")
+        worker = state.proc_worker
         try:
             with tracing.task_execute_span(spec):
                 args, kwargs = self._resolve_args(spec)
-                method = getattr(state.instance, spec.method_name)
-                if spec.generator:
+                if worker is not None:
+                    if spec.generator:
+                        # The method's items stream over the worker's pipe
+                        # into the generator machinery.
+                        self._run_generator(
+                            spec, args, kwargs,
+                            iterator=worker.actor_call_gen(
+                                spec.method_name, args, kwargs))
+                        result = None
+                    else:
+                        result = worker.actor_call(spec.method_name, args,
+                                                   kwargs)
+                elif spec.generator:
+                    method = getattr(state.instance, spec.method_name)
                     saved, spec.func = spec.func, method
                     try:
                         self._run_generator(spec, args, kwargs)
@@ -891,6 +1006,7 @@ class Runtime:
                         spec.func = saved
                     result = None
                 else:
+                    method = getattr(state.instance, spec.method_name)
                     result = method(*args, **kwargs)
             if not spec.generator:
                 self._store_results(spec, result)
@@ -898,6 +1014,17 @@ class Runtime:
         except _ActorExit:
             self._store_results(spec, None)
             self._kill_actor_state(state, ActorDiedError("exit_actor() was called"), no_restart=True)
+        except WorkerCrashedError as e:
+            # The actor's process died: fail this call and run the restart
+            # FSM (ref: gcs_actor_manager.h restart on worker death). Only
+            # the thread whose crash matches the current worker restarts
+            # it: with max_concurrency > 1, the other calls that saw the
+            # same crash must not discard the restarted worker.
+            self._fail_task(spec, ActorDiedError(cause=e))
+            if state.proc_worker is worker:
+                self._kill_actor_state(
+                    state, ActorDiedError(f"actor worker process died: {e}"),
+                    no_restart=False)
         except BaseException as e:  # noqa: BLE001 — stored as the call's result
             self._fail_task(spec, TaskError(e, task_repr=spec.name))
         finally:
@@ -973,6 +1100,9 @@ class Runtime:
                 self.scheduler.release(state.lease)
                 state.lease = None
             state.instance = None
+            if state.proc_worker is not None:
+                self.process_pool.discard(state.proc_worker)
+                state.proc_worker = None
             if can_restart:
                 state.state = _ActorState.RESTARTING
                 state.num_restarts += 1
@@ -1033,8 +1163,14 @@ class Runtime:
             actors = list(self._actors.values())
         for state in actors:
             state.state = _ActorState.DEAD
+            # Cleared first: a call that sees its worker die below must not
+            # restart the actor.
+            state.proc_worker = None
             for _ in state.threads or [None]:
                 state.mailbox.put(None)
+        # Every worker process ends and is reaped before the runtime does.
+        self.process_pool.shutdown()
+        stop_log_monitor()
         # Give the actors' threads a moment to take their sentinel and end
         # (a method still running is not waited for past the deadline).
         deadline = time.monotonic() + _SHUTDOWN_JOIN_S
@@ -1068,6 +1204,14 @@ def get_runtime() -> Runtime:
 
 def runtime_or_none() -> Optional[Runtime]:
     return _runtime
+
+
+def install_runtime(rt) -> None:
+    """Install a runtime implementation (process workers install their
+    ClientRuntime proxy here, so the whole API works in the child)."""
+    global _runtime
+    with _runtime_lock:
+        _runtime = rt
 
 
 def init_runtime(**kwargs) -> Runtime:

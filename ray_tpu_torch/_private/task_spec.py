@@ -19,6 +19,7 @@ class TaskSpec:
         "task_id", "name", "func", "args", "kwargs", "num_returns",
         "resources", "max_retries", "retry_exceptions",
         "actor_id", "method_name", "attempt", "generator", "trace_ctx",
+        "isolation", "runtime_env",
     )
 
     def __init__(
@@ -35,6 +36,8 @@ class TaskSpec:
         actor_id: Optional[ActorID] = None,
         method_name: str = "",
         generator: bool = False,
+        isolation: str = "thread",
+        runtime_env: Optional[dict] = None,
     ):
         self.task_id = task_id
         self.name = name
@@ -49,6 +52,9 @@ class TaskSpec:
         self.method_name = method_name
         self.attempt = 0
         self.generator = generator
+        #: "process" (or a runtime_env) runs the task in a worker process.
+        self.isolation = isolation
+        self.runtime_env = runtime_env
         #: Submitter's tracing context (util/tracing.py), propagated to the
         #: execute-side span.
         self.trace_ctx: Optional[dict] = None
@@ -61,7 +67,7 @@ class ActorSpec:
     __slots__ = (
         "actor_id", "name", "namespace", "cls", "args", "kwargs", "resources",
         "max_restarts", "max_task_retries", "max_concurrency",
-        "lifetime",
+        "lifetime", "isolation", "runtime_env",
     )
 
     def __init__(
@@ -77,6 +83,8 @@ class ActorSpec:
         max_task_retries: int,
         max_concurrency: int,
         lifetime: Optional[str],
+        isolation: str = "thread",
+        runtime_env: Optional[dict] = None,
     ):
         self.actor_id = actor_id
         self.name = name
@@ -89,3 +97,5 @@ class ActorSpec:
         self.max_task_retries = max_task_retries
         self.max_concurrency = max_concurrency
         self.lifetime = lifetime
+        self.isolation = isolation
+        self.runtime_env = runtime_env

@@ -115,6 +115,18 @@ class ActorClass:
     def _remote(self, args, kwargs, **options) -> ActorHandle:
         runtime = get_runtime()
         opts = resolve_task_options(options, is_actor=True)
+        if opts["isolation"] == "process" or opts["runtime_env"]:
+            has_async = any(
+                inspect.iscoroutinefunction(getattr(self._cls, m, None))
+                for m in dir(self._cls)
+                if not m.startswith("__") or m == "__call__")
+            if has_async:
+                # Fail at creation, not as an opaque ActorDiedError on the
+                # first method call.
+                raise ValueError(
+                    "async actors cannot use isolation='process' or a "
+                    "runtime_env (the dedicated worker runs methods "
+                    "synchronously)")
         actor_id = ActorID.from_random()
         spec = ActorSpec(
             actor_id=actor_id,
@@ -128,6 +140,8 @@ class ActorClass:
             max_task_retries=opts["max_task_retries"],
             max_concurrency=opts["max_concurrency"],
             lifetime=opts["lifetime"],
+            isolation=opts["isolation"],
+            runtime_env=opts["runtime_env"],
         )
         runtime.create_actor(spec)
         return ActorHandle(actor_id, self._cls, opts["max_task_retries"])

@@ -2,8 +2,9 @@
 ref: python/ray/experimental/internal_kv.py — _internal_kv_get/put/del/
 exists/list over the GCS KV tier).
 
-One store per process, created at first use: the thread tier has no worker
-processes to route calls from. Persistence is opt-in via
+One store per driver, created at first use; in a process worker the calls
+go over the worker's backchannel to the driver's store (the reference's one
+KV tier per cluster). Persistence is opt-in via
 ``RAY_TPU_KV_PERSIST=1`` (or ``_system_config={"kv_persist": True}``),
 which writes a WAL under the session dir so control-plane metadata (the
 serve controller's applications) survives a restart.
@@ -34,6 +35,14 @@ def _get_store() -> KVStore:
         return _store
 
 
+def _remote_call():
+    """The driver-routing callable when this process is a worker (its
+    runtime proxies the nested API), else None (this is the driver)."""
+    from ray_tpu_torch._private.runtime import runtime_or_none
+
+    return getattr(runtime_or_none(), "kv_call", None)
+
+
 def _internal_kv_reset() -> None:
     """Testing hook: drop the in-memory store (the WAL, if any, remains —
     a fresh store replays it, which is exactly the restart path)."""
@@ -53,6 +62,9 @@ def _internal_kv_initialized() -> bool:
 
 
 def _internal_kv_get(key: Union[str, bytes], *, namespace: str = "") -> Optional[bytes]:
+    call = _remote_call()
+    if call is not None:
+        return call("get", _as_bytes(key), namespace)
     return _get_store().get(_as_bytes(key), namespace=namespace)
 
 
@@ -61,18 +73,31 @@ def _internal_kv_put(key: Union[str, bytes], value: Union[str, bytes],
     """Returns True when the key ALREADY EXISTED (whether or not it was then
     overwritten) — the reference's inverted contract, where GCS Put reports
     added=0 for any existing key."""
+    call = _remote_call()
+    if call is not None:
+        return call("put", _as_bytes(key), _as_bytes(value), overwrite,
+                    namespace)
     newly_added = _get_store().put(_as_bytes(key), _as_bytes(value),
                                    overwrite=overwrite, namespace=namespace)
     return not newly_added
 
 
 def _internal_kv_del(key: Union[str, bytes], *, namespace: str = "") -> int:
+    call = _remote_call()
+    if call is not None:
+        return call("del", _as_bytes(key), namespace)
     return _get_store().delete(_as_bytes(key), namespace=namespace)
 
 
 def _internal_kv_exists(key: Union[str, bytes], *, namespace: str = "") -> bool:
+    call = _remote_call()
+    if call is not None:
+        return call("exists", _as_bytes(key), namespace)
     return _get_store().exists(_as_bytes(key), namespace=namespace)
 
 
 def _internal_kv_list(prefix: Union[str, bytes], *, namespace: str = "") -> List[bytes]:
+    call = _remote_call()
+    if call is not None:
+        return call("list", _as_bytes(prefix), namespace)
     return _get_store().keys(_as_bytes(prefix), namespace=namespace)

@@ -68,5 +68,7 @@ class RemoteFunction:
             max_retries=opts["max_retries"],
             retry_exceptions=opts["retry_exceptions"],
             generator=generator,
+            isolation=opts["isolation"],
+            runtime_env=opts["runtime_env"],
         )
         return runtime.submit_task(spec)

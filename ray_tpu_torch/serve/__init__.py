@@ -15,8 +15,11 @@ through those three. ``slo`` holds the SLO objectives and the burn-rate
 watchdog that ``serve.status()``, the metrics agent's ``/api/serve/slo``
 and the autoscaler's SLO-burn policy read.
 
-Not ported yet (ROADMAP.md, Queue 1): the compiled router, the gRPC proxy,
-the LLM engine and the process tier.
+Replicas are async actors of the thread tier, or, with
+``ray_actor_options={"isolation": "process"}`` (or a ``runtime_env``),
+``SyncReplicaActor`` in worker processes of their own. Not ported yet
+(ROADMAP.md, Queue 1): the compiled router, the gRPC proxy and the LLM
+engine.
 """
 
 from ray_tpu_torch.serve import metrics, slo
@@ -32,9 +35,6 @@ from ray_tpu_torch.serve.context import get_multiplexed_model_id
 from ray_tpu_torch.serve.continuous import (EOS, Emissions, SequenceSlot,
                                             continuous_batch)
 from ray_tpu_torch.serve.exceptions import BackPressureError
-from ray_tpu_torch.serve.gpt2 import (GPT2BatchNext, GPT2ContinuousStream,
-                                      GPT2MultiplexNext, GPT2Next,
-                                      GPT2Stream)
 from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
 from ray_tpu_torch.serve.multiplex import multiplexed
 from ray_tpu_torch.serve.proxy import Request
@@ -52,3 +52,16 @@ __all__ = [
     "GPT2Next", "GPT2Stream", "GPT2BatchNext", "GPT2ContinuousStream",
     "GPT2MultiplexNext",
 ]
+
+#: The GPT-2 bodies (``serve/gpt2.py``) load torch, so they are imported on
+#: first use: a process replica that serves no model starts without torch.
+_GPT2 = ("GPT2Next", "GPT2Stream", "GPT2BatchNext", "GPT2ContinuousStream",
+         "GPT2MultiplexNext")
+
+
+def __getattr__(name):
+    if name in _GPT2:
+        from ray_tpu_torch.serve import gpt2
+
+        return getattr(gpt2, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -31,7 +31,8 @@ back an async iterator of emitted items — so a continuous-batched
 HTTP proxy and ``handle.options(stream=True)`` work unchanged.
 
 Requires thread-tier (async) replicas: the engine loop lives on the
-replica's event loop (the process tier is not ported yet).
+replica's event loop, which a process-tier replica (``SyncReplicaActor``,
+one event loop per call) does not keep.
 """
 
 from __future__ import annotations

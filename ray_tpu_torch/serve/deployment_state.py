@@ -27,7 +27,7 @@ import ray_tpu_torch
 from ray_tpu_torch.exceptions import ActorDiedError
 from ray_tpu_torch.serve import autoscaling as _autoscaling
 from ray_tpu_torch.serve.config import DeploymentConfig
-from ray_tpu_torch.serve.replica import ReplicaActor
+from ray_tpu_torch.serve.replica import ReplicaActor, SyncReplicaActor
 from ray_tpu_torch.util import metrics as _metrics
 
 #: Exponential crash-loop backoff for replica replacement after failed
@@ -157,12 +157,23 @@ class ReplicaWrapper:
         self._drain_wait_loop_s = info.config.graceful_shutdown_wait_loop_s
         self._drain_timeout_s = info.config.graceful_shutdown_timeout_s
         opts = dict(info.config.ray_actor_options)
-        # +3 headroom keeps control-plane calls (check_health,
+        if opts.get("isolation") == "process" or opts.get("runtime_env"):
+            # Process-tier replica: a sync actor class (an async actor
+            # cannot cross the process boundary); GIL isolation for the
+            # data plane (ref: every reference replica is its own worker
+            # process).
+            actor_cls = SyncReplicaActor
+        else:
+            actor_cls = ReplicaActor
+        # Real per-replica concurrency on both tiers: thread replicas via
+        # mailbox threads; process replicas via the seq-multiplexed worker
+        # pipe and in-worker threads (_private/process_pool.py). +3
+        # headroom keeps control-plane calls (check_health,
         # prepare_for_shutdown, cancel_stream) from starving behind a
         # data-saturated semaphore.
         opts.setdefault("max_concurrency",
                         max(1, info.config.max_ongoing_requests) + 3)
-        self.actor = ray_tpu_torch.remote(ReplicaActor).options(**opts).remote(
+        self.actor = ray_tpu_torch.remote(actor_cls).options(**opts).remote(
             info.name, self.replica_id, info.deployment_def,
             info.init_args, dict(info.init_kwargs),
             user_config=info.config.user_config,

@@ -5,11 +5,13 @@
 UserCallableWrapper:1017 which invokes the user's sync/async
 callable/generator; queue length reported for the pow-2 router.)
 
-Replicas are async actors of the thread tier, so a replica that serves a
-model on the GPU runs its CUDA work on the runtime's threads: the replica
-body sets its device on whichever thread calls it
-(``ray_tpu_torch/serve/gpt2.py``). The process-tier replica
-(``SyncReplicaActor``) comes with the process tier (ROADMAP.md).
+``ReplicaActor`` is an async actor of the thread tier, so a replica that
+serves a model on the GPU runs its CUDA work on the runtime's threads: the
+replica body sets its device on whichever thread calls it
+(``ray_tpu_torch/serve/gpt2.py``). ``SyncReplicaActor`` is the process-tier
+replica (``ray_actor_options={"isolation": "process"}`` or a
+``runtime_env``): its own OS process, with its own interpreter lock and its
+own CUDA context on the card its lease names.
 """
 
 from __future__ import annotations
@@ -469,3 +471,98 @@ class ReplicaActor:
             await asyncio.sleep(0.02)
         self._set_replica_context()
         await self._wrapper.call_drain()
+
+
+class SyncReplicaActor(ReplicaActor):
+    """Process-tier replica: every async endpoint re-exposed sync so the
+    actor can run in its own OS process (isolation='process'), giving the
+    data plane real GIL isolation (the reference gets this for free — every
+    Serve replica is its own worker process; thread-tier replicas here share
+    the driver's interpreter).
+
+    Async user callables still work: each call drives them on a private
+    event loop via asyncio.run. Only sync generators stream: an async
+    generator cannot resume across the per-call event loops.
+    """
+
+    def initialize_and_get_metadata(self) -> Dict[str, Any]:
+        if self._user_config is not None:
+            asyncio.run(self._wrapper.call_reconfigure(self._user_config))
+        return {"replica_id": self.replica_id}
+
+    def handle_request(self, method_name: str, *args, **kwargs) -> Any:
+        mux_id = kwargs.pop("_serve_multiplexed_model_id", None)
+        self._num_ongoing += 1
+        t0 = time.time()
+        try:
+            self._set_replica_context()
+            if mux_id:
+                from ray_tpu_torch.serve import context as serve_context
+
+                serve_context._set_request_model_id(mux_id)
+            with _tracing.span("serve.replica",
+                               attributes={"deployment": self.deployment_name,
+                                           "replica": self.replica_id,
+                                           "method": method_name}):
+                return asyncio.run(
+                    self._wrapper.call(method_name, args, kwargs))
+        finally:
+            from ray_tpu_torch.serve import metrics as serve_metrics
+
+            serve_metrics.EXECUTION.observe(
+                time.time() - t0,
+                tags={"deployment": self.deployment_name,
+                      "method": method_name},
+                exemplar=serve_metrics.trace_exemplar())
+            self._num_ongoing -= 1
+            self._num_processed += 1
+
+    def start_stream(self, method_name: str, *args, **kwargs) -> str:
+        self._set_replica_context()
+        mux_id = kwargs.pop("_serve_multiplexed_model_id", None)
+        if mux_id:
+            from ray_tpu_torch.serve import context as serve_context
+
+            serve_context._set_request_model_id(mux_id)
+        result = self._wrapper._target(method_name)(*args, **kwargs)
+        if not inspect.isgenerator(result):
+            raise TypeError(
+                "process-tier replicas stream SYNC generators only (an "
+                "async generator cannot resume across the per-call event "
+                "loops); use a thread-tier replica for async streaming")
+        return self._register_stream(result)
+
+    def next_stream(self, stream_id: str):
+        entry = self._streams.get(stream_id)
+        if entry is None:
+            raise ValueError(f"unknown or finished stream {stream_id}")
+        entry[1] = time.time()
+        self._set_replica_context()
+        try:
+            try:
+                return ("item", next(entry[0]))
+            except StopIteration:
+                self._end_stream(stream_id)
+                return ("done", None)
+        except Exception:
+            self._end_stream(stream_id)
+            raise
+
+    def reconfigure(self, user_config: Any) -> None:
+        self._user_config = user_config
+        asyncio.run(self._wrapper.call_reconfigure(user_config))
+
+    def check_health(self) -> bool:
+        asyncio.run(self._wrapper.call_health_check())
+        return True
+
+    def prewarm(self, model_ids: list) -> int:
+        self._set_replica_context()
+        return asyncio.run(self._wrapper.call_prewarm(list(model_ids or [])))
+
+    def prepare_for_shutdown(self, wait_loop_s: float = 5.0) -> None:
+        deadline = time.time() + wait_loop_s
+        while self._num_ongoing > 0 and time.time() < deadline:
+            time.sleep(0.02)
+        self._set_replica_context()
+        asyncio.run(self._wrapper.call_drain())

@@ -21,6 +21,8 @@ over. The port's half runs with the collector on.
 import contextlib
 import gc
 import importlib
+import queue
+import threading
 
 import ray_tpu
 import ray_tpu_torch
@@ -31,6 +33,25 @@ def fresh_init(pkg, **kwargs):
         importlib.import_module(other.__name__ + ".serve").shutdown()
         other.shutdown()
     return pkg.init(**kwargs)
+
+
+def bounded(fn, timeout):
+    """``fn()``, run on a daemon thread so that a call that never returns
+    (a stream that never ends, a wedged worker) fails its test after
+    ``timeout`` seconds with ``queue.Empty`` instead of stalling the run."""
+    out: "queue.Queue" = queue.Queue()
+
+    def run():
+        try:
+            out.put((True, fn()))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            out.put((False, e))
+
+    threading.Thread(target=run, daemon=True).start()
+    ok, value = out.get(timeout=timeout)
+    if not ok:
+        raise value
+    return value
 
 
 @contextlib.contextmanager

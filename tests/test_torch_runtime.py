@@ -343,12 +343,28 @@ def port():
 @pytest.mark.parametrize("kind", ["task", "actor"])
 @pytest.mark.parametrize("option", [{"isolation": "process"},
                                     {"runtime_env": {"env_vars": {"A": "1"}}}])
-def test_process_tier_raises(port, kind, option):
-    """The thread tier is all there is: asking for a worker process raises
-    NotImplementedError naming ROADMAP.md, it never runs on a thread."""
-    target = port.remote(lambda: 1) if kind == "task" else port.remote(_Counter)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        target.options(**option).remote()
+def test_process_tier_runs_in_a_worker(port, kind, option):
+    """Both options run the call in a spawned worker process, never on a
+    thread: its pid is not the driver's, and its environment is the
+    worker's (the runtime env's variable; with no GPU leased, no card)."""
+    import os
+
+    def probe():
+        return (os.getpid(), os.environ.get("A"),
+                os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+    class Probe:
+        def probe(self):
+            return probe()
+
+    if kind == "task":
+        ref = port.remote(probe).options(**option).remote()
+    else:
+        ref = port.remote(Probe).options(**option).remote().probe.remote()
+    pid, a, visible = port.get(ref, timeout=60)
+    assert pid != os.getpid()
+    assert a == ("1" if "runtime_env" in option else None)
+    assert visible == ""
 
 
 def test_gpu_resource_follows_num_gpus():

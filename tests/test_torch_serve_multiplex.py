@@ -14,6 +14,8 @@ import asyncio
 import gc
 import http.client
 import importlib
+import itertools
+import threading
 import time
 import weakref
 
@@ -469,9 +471,9 @@ def test_gpt2_multiplex_in_process_evicts_and_batches_per_model():
 
 
 def test_gpt2_multiplex_evicts_a_model_a_batch_is_running_on(monkeypatch):
-    """One replica holding one model at a time, requests for two: the first
-    forward waits, between its blocks and its LM head, until the other
-    model's batch has evicted its weights (or finds them evicted already).
+    """One replica holding one model at a time, requests for two: the
+    first model's forward waits, between its blocks and its LM head, until
+    the second model's requests, sent only then, have evicted its weights.
     The running batch keeps them and every request is answered."""
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.serve import GPT2MultiplexNext, GPT2Next, context
@@ -481,6 +483,8 @@ def test_gpt2_multiplex_evicts_a_model_a_batch_is_running_on(monkeypatch):
     reqs = _tokens(6, seed=7)
     models = {}
     paused = []
+    forwards = itertools.count()  # next() is atomic: one forward is first
+    waiting = threading.Event()
 
     class Replica(GPT2MultiplexNext):
         async def _load(self, model_id):
@@ -496,8 +500,10 @@ def test_gpt2_multiplex_evicts_a_model_a_batch_is_running_on(monkeypatch):
                 if models[m].params is params]
 
     def paused_forward(params, tokens, config):
+        first = next(forwards) == 0
         x = forward_hidden(params, tokens, config)
-        if not paused:
+        if first:
+            waiting.set()
             deadline = time.time() + 30
             while resident(params) and time.time() < deadline:
                 time.sleep(0.01)
@@ -511,8 +517,14 @@ def test_gpt2_multiplex_evicts_a_model_a_batch_is_running_on(monkeypatch):
         return (await replica({"tokens": toks}))["next_token"]
 
     async def main():
-        return await asyncio.gather(*[
-            ask(f"seed-{1 + i % 2}", t) for i, t in enumerate(reqs)])
+        ones = [asyncio.ensure_future(ask("seed-1", t)) for t in reqs[0::2]]
+        deadline = time.time() + 30
+        while not waiting.is_set() and time.time() < deadline:
+            await asyncio.sleep(0.01)
+        twos = [ask("seed-2", t) for t in reqs[1::2]]
+        ones, twos = await asyncio.gather(asyncio.gather(*ones),
+                                          asyncio.gather(*twos))
+        return [a for pair in zip(ones, twos) for a in pair]
 
     answers = asyncio.run(main())
     # The paused forward went on to its LM head on evicted weights.
