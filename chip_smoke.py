@@ -125,7 +125,30 @@ Phases, each of which exits non-zero on failure:
    of each tier at one and two replicas and each process replica's cold
    start (spawn to worker loop, to the replica's constructor, the
    constructor, the first answer, the kernel library's load).
-10. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+10. Ray Data on the card (``data_batch`` line). (a) Batch scoring: 2048
+    windows of 1025 token ids (numpy ``default_rng(0)`` over 50257) in 16
+    blocks of 128 rows go through ``Dataset.map_batches(GPT2Scorer,
+    batch_size=32, num_gpus=1, concurrency=1)`` (GPT-2 124M from seed 0,
+    one pool actor on the card its lease names), each row's greedy next
+    token and mean next-token loss from the splash and fused CE forward
+    kernels; in turns with the same scorer called in this process on the
+    same 64 batches ("direct"), twice each. It fails unless every row comes
+    back once, Data's answers equal direct's bit for bit, the first batch
+    keeps the tie rule and its losses lie within ``LOGIT_ATOL`` of plain
+    attention with the plain CE forward, each pass launches exactly 12 × 64
+    splash and 64 CE forwards and no plain version, the actor's lease names
+    card 0 and its weights are on ``cuda:0``, the actor is gone and the
+    card free after the pass, and neither pyarrow nor pandas was imported.
+    (b) Streaming ingest to the card: ``StreamingIngest`` feeds 512 of
+    those rows at B=16 through ``IngestShard.iter_batches(device=cuda:0)``
+    (pinned buffers, a side stream) into the fused-loss eval step; every
+    row once, each device batch equal byte for byte to the host batch of a
+    second ingest with the same seed, finite losses, 12 splash and 1 CE
+    forward a batch. It prints rows/s and tokens/s of Data and direct,
+    their ratio, the actor's constructor seconds, one scoring batch's
+    device ms, and ms per ingest batch beside the same loop copying each
+    host batch synchronously.
+11. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -2448,6 +2471,269 @@ def phase_serve_process(params, inproc: Dict[str, object]
     return result
 
 
+DATA_ROWS = 2048
+DATA_BLOCKS = 16
+DATA_BATCH = 32
+INGEST_ROWS = 512
+INGEST_BATCH = 16
+DATA_ROUNDS = 2
+
+
+def _plain_counting():
+    """Counts the calls of the data path's two plain versions while
+    installed: (counts, restore)."""
+    from ray_tpu_torch.ops import attention, fused_ce
+
+    calls = {"attention_reference": 0, "ce_fwd_reference": 0}
+    saved = []
+    for mod, name in ((attention, "attention_reference"),
+                      (fused_ce, "ce_fwd_reference")):
+        orig = getattr(mod, name)
+        saved.append((mod, name, orig))
+
+        def counted(*args, _orig=orig, _name=name, **kwargs):
+            calls[_name] += 1
+            return _orig(*args, **kwargs)
+
+        setattr(mod, name, counted)
+
+    def restore():
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+    return calls, restore
+
+
+def _released(label: str) -> None:
+    """After a pass: the pool's actor is gone and the card is free again."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private.runtime import get_runtime
+
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline:
+        alive = [a for a in get_runtime().list_actor_states()
+                 if a["class_name"] == "MapWorker" and a["state"] != "DEAD"]
+        if not alive and ray_tpu_torch.available_resources().get(
+                "GPU") == 1.0:
+            return
+        time.sleep(0.05)
+    fail(f"{label}: pool actor {alive} still up or the card not back "
+         f"({ray_tpu_torch.available_resources()})")
+
+
+def phase_data_batch() -> Dict[str, object]:
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.data.ingest import IngestShard, StreamingIngest
+    from ray_tpu_torch.examples import batch_inference as bi
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import fused_ce
+
+    optional = ("pyarrow", "pandas")
+    loaded_before = {m for m in sys.modules if m.split(".")[0] in optional}
+    config = gpt2.GPTConfig()  # GPT-2 124M, bf16, splash attention
+    S, n_layer, B = config.seq_len, config.n_layer, DATA_BATCH
+    n_batches = DATA_ROWS // B
+    tokens = bi.token_windows(DATA_ROWS, S, 50257)  # default_rng(0)
+    direct = bi.GPT2Scorer(config, seed=0, device="cuda:0")
+    direct.score(tokens[:B])  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    result: Dict[str, object] = {"card": card_line(), "rows": DATA_ROWS,
+                                 "blocks": DATA_BLOCKS, "batch": B,
+                                 "seq_len": S}
+
+    def run_direct():
+        t0 = time.perf_counter()
+        outs = [direct.score(tokens[i * B:(i + 1) * B])
+                for i in range(n_batches)]
+        dt = time.perf_counter() - t0
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}, dt
+
+    ray_tpu_torch.init()
+    try:
+        if ray_tpu_torch.available_resources().get("GPU") != 1.0:
+            fail(f"the runtime registers {ray_tpu_torch.available_resources()}"
+                 " (one card expected)")
+        ds = bi.token_dataset(tokens, DATA_BLOCKS)
+        sizes = [ray_tpu_torch.get(r).num_rows for r in ds.iter_block_refs()]
+        if sizes != [DATA_ROWS // DATA_BLOCKS] * DATA_BLOCKS:
+            fail(f"token dataset blocks {sizes}")
+
+        def run_data(label):
+            before = len(bi.CONSTRUCTED)
+            _reset_counts()
+            plain, restore = _plain_counting()
+            try:
+                t0 = time.perf_counter()
+                got = list(ds.map_batches(
+                    bi.GPT2Scorer, batch_size=B, num_gpus=1,
+                    concurrency=1).iter_batches(batch_size=B))
+                dt = time.perf_counter() - t0
+            finally:
+                restore()
+            counts = _counts()
+            built = bi.CONSTRUCTED[before:]
+            out = {k: np.concatenate([g[k] for g in got]) for k in got[0]}
+            if not np.array_equal(np.sort(out["row"]), np.arange(DATA_ROWS)):
+                fail(f"{label}: rows {len(out['row'])} came back, not each "
+                     f"of {DATA_ROWS} once")
+            want = {k: 0 for k in counts}
+            want.update(splash_attention_fwd=n_layer * n_batches,
+                        fused_ce_fwd=n_batches)
+            if counts != want or any(plain.values()):
+                fail(f"{label}: launches {counts} (want {want}), plain "
+                     f"versions {plain}")
+            if len(built) != 1 or built[0]["gpu_ids"] != [0] or \
+                    built[0]["device"] != "cuda:0":
+                fail(f"{label}: pool actors {built} (one on card 0 wanted)")
+            _released(label)
+            order = np.argsort(out["row"])
+            return ({k: v[order] for k, v in out.items()}, dt, counts,
+                    built[0]["seconds"])
+
+        turns = []
+        for r in range(DATA_ROUNDS):
+            d_out, d_s = run_direct()
+            m_out, m_s, counts, ctor_s = run_data(f"data pass {r}")
+            for key in ("next_token", "nll"):
+                a, b = d_out[key], m_out[key]
+                if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                    fail(f"data pass {r}: {key} differs from the direct "
+                         f"scorer's in {int((a != b).sum())} rows")
+            turns.append(dict(direct_s=d_s, data_s=m_s, actor_ctor_s=ctor_s,
+                              launches=counts))
+        launches = {k: sum(t["launches"][k] for t in turns) for k in counts}
+
+        # The first batch against plain attention and the plain CE forward.
+        ref_config = dataclasses.replace(config, attn_impl="xla")
+        wte = direct.params["wte"]
+        with torch.inference_mode():
+            t = torch.as_tensor(tokens[:B], device="cuda")
+            x = gpt2.forward_hidden(direct.params, t[:, :S], ref_config)
+            ref_last = gpt2.lm_head(x[:, -1], wte, torch.float32)
+            lse, tgt = fused_ce.ce_fwd_reference(
+                x.reshape(B * S, -1), wte, t[:, 1:].reshape(-1))
+            ref_nll = (lse - tgt).view(B, S).mean(dim=1).cpu().numpy()
+            chosen = torch.as_tensor(d_out["next_token"][:B], device="cuda")
+            gaps = (ref_last.max(dim=1).values - ref_last.gather(
+                1, chosen[:, None])[:, 0]).cpu().numpy()
+            del x, lse, tgt
+        nll_err = float(np.abs(d_out["nll"][:B] - ref_nll).max())
+        if not np.isfinite(d_out["nll"]).all() or \
+                gaps.max() > LOGIT_ATOL or nll_err > LOGIT_ATOL:
+            fail(f"first batch against the plain path: worst gap below the "
+                 f"max {gaps.max()}, nll error {nll_err} (tol {LOGIT_ATOL})")
+
+        # Device time of one scoring batch (graph replay) and one call.
+        t_dev = torch.as_tensor(tokens[:B], device="cuda")
+
+        def score_on_device():
+            xh = gpt2.forward_hidden(direct.params, t_dev[:, :S], config)
+            fused_ce.ce_fwd(xh.reshape(B * S, -1), wte,
+                            t_dev[:, 1:].reshape(-1))
+            return torch.argmax(gpt2.lm_head(xh[:, -1], wte, torch.float32),
+                                dim=-1)
+
+        with torch.inference_mode():
+            score_device_ms = device_ms(score_on_device, iters=3)
+        score_call_ms = time_ms(lambda: direct.score(tokens[:B]), iters=10)
+
+        # (b) Streaming ingest to the card: the eval step on each batch.
+        ids = bi.token_dataset(tokens[:INGEST_ROWS],
+                               INGEST_ROWS // (DATA_ROWS // DATA_BLOCKS))
+        step = gpt2.make_eval_step(dataclasses.replace(config,
+                                                       loss_impl="fused"))
+        dev = torch.device("cuda", 0)
+        n_ingest = INGEST_ROWS // INGEST_BATCH
+
+        def ingest_loop(prefetch):
+            shard = IngestShard(StreamingIngest(ids, seed=0))
+            batches, losses = [], []
+            _reset_counts()
+            t0 = time.perf_counter()
+            if prefetch:
+                for b in shard.iter_batches(batch_size=INGEST_BATCH,
+                                            device=dev):
+                    tok = b["tokens"]
+                    losses.append(step(direct.params, tok[:, :S], tok[:, 1:]))
+                    batches.append(b)
+            else:
+                for b in shard.iter_batches(batch_size=INGEST_BATCH):
+                    tok = torch.from_numpy(np.array(b["tokens"])).to(dev)
+                    losses.append(step(direct.params, tok[:, :S], tok[:, 1:]))
+                    batches.append(b)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / max(1, len(batches))
+            return batches, losses, ms, _counts()
+
+        ingest_loop(False)  # warm-up
+        host_ref = [b for b in IngestShard(StreamingIngest(
+            ids, seed=0)).iter_batches(batch_size=INGEST_BATCH)]
+        ms = {"prefetch": [], "sync_copy": []}
+        ingest_launches = {k: 0 for k in launches}
+        for r in range(DATA_ROUNDS):
+            for mode in (("prefetch", "sync_copy") if r % 2 == 0
+                         else ("sync_copy", "prefetch")):
+                batches, losses, per, counts = ingest_loop(mode == "prefetch")
+                ms[mode].append(per)
+                want = {k: 0 for k in counts}
+                want.update(splash_attention_fwd=n_layer * n_ingest,
+                            fused_ce_fwd=n_ingest)
+                if counts != want:
+                    fail(f"ingest {mode}: launches {counts} (want {want})")
+                vals = torch.stack(losses).float().cpu()
+                if len(batches) != n_ingest or not torch.isfinite(vals).all():
+                    fail(f"ingest {mode}: {len(batches)} batches, losses "
+                         f"{vals.tolist()}")
+                if mode != "prefetch":
+                    continue
+                for k in launches:
+                    ingest_launches[k] += counts[k]
+                rows = np.concatenate([b["row"].cpu().numpy()
+                                       for b in batches])
+                if not np.array_equal(np.sort(rows), np.arange(INGEST_ROWS)):
+                    fail("ingest: rows not each once")
+                for i, (got, ref) in enumerate(zip(batches, host_ref)):
+                    for key in ("row", "tokens"):
+                        if not got[key].is_cuda or got[key].device != dev:
+                            fail(f"ingest batch {i} {key} on "
+                                 f"{got[key].device}")
+                        if got[key].cpu().numpy().tobytes() != \
+                                np.asarray(ref[key]).tobytes():
+                            fail(f"ingest batch {i}: {key} differs from the "
+                                 "host batch")
+        first_loss, last_loss = float(vals[0]), float(vals[-1])
+    finally:
+        ray_tpu_torch.shutdown()
+    loaded = {m for m in sys.modules if m.split(".")[0] in optional}
+    if loaded - loaded_before:
+        fail(f"the data path imported {sorted(loaded - loaded_before)}")
+
+    for k in launches:
+        launches[k] += ingest_launches[k]
+    tokens_per_row = S
+    result.update(
+        direct_rows_per_s=[DATA_ROWS / t["direct_s"] for t in turns],
+        data_rows_per_s=[DATA_ROWS / t["data_s"] for t in turns],
+        direct_tokens_per_s=[DATA_ROWS * tokens_per_row / t["direct_s"]
+                             for t in turns],
+        data_tokens_per_s=[DATA_ROWS * tokens_per_row / t["data_s"]
+                           for t in turns],
+        data_over_direct=[t["data_s"] / t["direct_s"] for t in turns],
+        actor_ctor_s=[t["actor_ctor_s"] for t in turns],
+        score_device_ms=score_device_ms, score_call_ms=score_call_ms,
+        first_batch_worst_gap=float(gaps.max()), first_batch_nll_err=nll_err,
+        ingest_rows=INGEST_ROWS, ingest_batch=INGEST_BATCH,
+        ingest_ms_per_batch_prefetch=ms["prefetch"],
+        ingest_ms_per_batch_sync_copy=ms["sync_copy"],
+        ingest_first_loss=first_loss, ingest_last_loss=last_loss,
+        launches_per_pass=turns[0]["launches"], launches=launches)
+    print("data_batch " + json.dumps(result), flush=True)
+    return result
+
+
 def phase_ring(peaks: Tuple[float, float]) -> Dict[str, object]:
     import torch
 
@@ -2999,6 +3285,7 @@ def main() -> int:
     serve_slo = phase_serve_slo(weights)
     serve_process = phase_serve_process(weights, serve)
     del weights
+    data_batch = phase_data_batch()
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
     bwd = phase_attn_bwd(peaks)
@@ -3021,7 +3308,8 @@ def main() -> int:
                "serve_http": serve_http["launches"][name],
                "serve_batch": serve_batch["launches"][name],
                "serve_slo": serve_slo["launches"][name],
-               "serve_process": serve_process["launches"].get(name, 0)}
+               "serve_process": serve_process["launches"].get(name, 0),
+               "data_batch": data_batch["launches"].get(name, 0)}
         for impl in ("dense", "fused"):
             out[f"train_{impl}"] = train["launches"][impl][name]
         out["train_ring"] = train_ring["run"]["launches"][name]

@@ -45,6 +45,11 @@ FAULT_POINTS: Dict[str, str] = {
                       "fails; every trigger site absorbs it (a forensics "
                       "failure must never worsen the failure being "
                       "recorded)",
+    "data_ingest_fetch": "block materialization in the ingest stream — the "
+                         "fetch retries (bounded) before surfacing to the "
+                         "training loop",
+    "data_ingest_prefetch": "host->device batch transfer dispatch — retried "
+                            "once before surfacing",
 }
 
 

@@ -40,9 +40,12 @@ _RESOLVED = (ObjectState.READY, ObjectState.FAILED)
 
 
 class ObjectStore:
-    def __init__(self) -> None:
+    def __init__(self, capacity_bytes: int = 0) -> None:
         self._entries: Dict[ObjectID, _Entry] = {}
         self._lock = threading.RLock()
+        #: The node's object memory (the ``memory`` resource), which data
+        #: pipelines size their in-flight byte budgets from.
+        self.capacity_bytes = capacity_bytes
 
     def _signal(self, entry: _Entry) -> None:
         """Wake waiters after a state transition (made under the lock; a
@@ -98,6 +101,14 @@ class ObjectStore:
         with self._lock:
             e = self._entries.get(object_id)
             return e.state if e is not None else None
+
+    def size_of(self, object_id: ObjectID) -> int:
+        """Byte size of a READY value whose size its type states (0 if
+        unknown or absent; see ``bytes_used``)."""
+        with self._lock:
+            e = self._entries.get(object_id)
+            return _nbytes(e.value) if e is not None and \
+                e.state == ObjectState.READY else 0
 
     def wait_ready(self, object_id: ObjectID, timeout: Optional[float]) -> bool:
         return self._wait_entry(self._ensure(object_id), timeout)
@@ -179,5 +190,5 @@ class ObjectStore:
 def _nbytes(value: Any) -> int:
     if isinstance(value, (bytes, bytearray)):
         return len(value)
-    n = getattr(value, "nbytes", None)  # numpy arrays, torch tensors
+    n = getattr(value, "nbytes", None)  # numpy arrays, tensors, data blocks
     return n if isinstance(n, int) else 0

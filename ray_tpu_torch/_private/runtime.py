@@ -268,7 +268,7 @@ class Runtime:
         # Validates the resources: nothing shared is touched before it.
         self.scheduler = NodeScheduler(base)
 
-        self.store = ObjectStore()
+        self.store = ObjectStore(int(base["memory"]))
         self.refcounter = global_refcounter()
         self.refcounter.set_zero_callback(self._on_zero_refs)
 
@@ -343,6 +343,12 @@ class Runtime:
             self._leased_workers.pop(id(worker), None)
 
     # --------------------------------------------------- cluster introspection
+    def _remote_owner_addr(self, ref) -> str:
+        """The address of the node holding ``ref``'s value: ``""``, this
+        node, since the runtime has one (the reference names a remote node
+        here; data ingest orders its shard claims by it)."""
+        return ""
+
     def cluster_resources(self) -> Dict[str, float]:
         return dict(self.scheduler.total)
 

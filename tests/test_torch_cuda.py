@@ -373,3 +373,40 @@ def test_gpu_replica_over_http_runs_the_kernel():
     finally:
         serve.shutdown()
         ray_tpu_torch.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("consumer_ms", [0, 20])
+def test_device_batch_iterator_bytes_equal_host_batches_on_gpu(consumer_ms):
+    """``DeviceBatchIterator`` stages each batch in pinned buffers that are
+    reused in turn and copies them on a side stream: every device batch,
+    read back, must equal its host batch byte for byte, with a consumer
+    that takes each batch at once and one slower than the copy (a buffer
+    reused before its copy finished would corrupt a later batch
+    silently)."""
+    _need_gpu()
+    import time
+
+    import numpy as np
+
+    from ray_tpu_torch.data.ingest import DeviceBatchIterator
+
+    rng = np.random.default_rng(0)
+    host = [{"tokens": rng.integers(0, 50257, (16, 1025), dtype=np.int64),
+             "w": rng.standard_normal((16, 4096)).astype(np.float32),
+             "name": np.asarray([f"b{i}"] * 16, dtype=object)}
+            for i in range(12)]
+    it = DeviceBatchIterator(iter(host), device="cuda:0")
+    got = []
+    for batch in it:
+        assert batch["tokens"].is_cuda and batch["w"].is_cuda
+        assert batch["name"] is not None and batch["name"].dtype == object
+        # Work on the consumer's stream, then a read-back through it.
+        got.append({k: (v * 1).cpu().numpy() if isinstance(v, torch.Tensor)
+                    else v for k, v in batch.items()})
+        time.sleep(consumer_ms / 1000)
+    assert len(got) == len(host)
+    for h, g in zip(host, got):
+        assert g["tokens"].tobytes() == h["tokens"].tobytes()
+        assert g["w"].tobytes() == h["w"].tobytes()
+        assert list(g["name"]) == list(h["name"])
