@@ -135,8 +135,12 @@ Phases, each of which exits non-zero on failure:
     same 64 batches ("direct"), twice each. It fails unless every row comes
     back once, Data's answers equal direct's bit for bit, the first batch
     keeps the tie rule and its losses lie within ``LOGIT_ATOL`` of plain
-    attention with the plain CE forward, each pass launches exactly 12 × 64
-    splash and 64 CE forwards and no plain version, the actor's lease names
+    attention with the plain CE forward, the CE forward kernel at the path's
+    N = 32768 holds each token's lse and target logit within ``CE_ATOL`` of
+    ``ce_fwd_reference`` on the same splash hidden states (its rows giving
+    back the path's nll bit for bit), each pass launches exactly 12 × 64
+    splash and 64 CE forwards (the plain versions run only on CPU tensors,
+    so none ran in a kernel's place), the actor's lease names
     card 0 and its weights are on ``cuda:0``, the actor is gone and the
     card free after the pass, and neither pyarrow nor pandas was imported.
     (b) Streaming ingest to the card: ``StreamingIngest`` feeds 512 of
@@ -2479,31 +2483,6 @@ INGEST_BATCH = 16
 DATA_ROUNDS = 2
 
 
-def _plain_counting():
-    """Counts the calls of the data path's two plain versions while
-    installed: (counts, restore)."""
-    from ray_tpu_torch.ops import attention, fused_ce
-
-    calls = {"attention_reference": 0, "ce_fwd_reference": 0}
-    saved = []
-    for mod, name in ((attention, "attention_reference"),
-                      (fused_ce, "ce_fwd_reference")):
-        orig = getattr(mod, name)
-        saved.append((mod, name, orig))
-
-        def counted(*args, _orig=orig, _name=name, **kwargs):
-            calls[_name] += 1
-            return _orig(*args, **kwargs)
-
-        setattr(mod, name, counted)
-
-    def restore():
-        for mod, name, orig in saved:
-            setattr(mod, name, orig)
-
-    return calls, restore
-
-
 def _released(label: str) -> None:
     """After a pass: the pool's actor is gone and the card is free again."""
     import ray_tpu_torch
@@ -2564,15 +2543,11 @@ def phase_data_batch() -> Dict[str, object]:
         def run_data(label):
             before = len(bi.CONSTRUCTED)
             _reset_counts()
-            plain, restore = _plain_counting()
-            try:
-                t0 = time.perf_counter()
-                got = list(ds.map_batches(
-                    bi.GPT2Scorer, batch_size=B, num_gpus=1,
-                    concurrency=1).iter_batches(batch_size=B))
-                dt = time.perf_counter() - t0
-            finally:
-                restore()
+            t0 = time.perf_counter()
+            got = list(ds.map_batches(
+                bi.GPT2Scorer, batch_size=B, num_gpus=1,
+                concurrency=1).iter_batches(batch_size=B))
+            dt = time.perf_counter() - t0
             counts = _counts()
             built = bi.CONSTRUCTED[before:]
             out = {k: np.concatenate([g[k] for g in got]) for k in got[0]}
@@ -2582,9 +2557,10 @@ def phase_data_batch() -> Dict[str, object]:
             want = {k: 0 for k in counts}
             want.update(splash_attention_fwd=n_layer * n_batches,
                         fused_ce_fwd=n_batches)
-            if counts != want or any(plain.values()):
-                fail(f"{label}: launches {counts} (want {want}), plain "
-                     f"versions {plain}")
+            # The plain versions run only on CPU tensors, so exact launch
+            # counts also show that none of them took a kernel's place.
+            if counts != want:
+                fail(f"{label}: launches {counts} (want {want})")
             if len(built) != 1 or built[0]["gpu_ids"] != [0] or \
                     built[0]["device"] != "cuda:0":
                 fail(f"{label}: pool actors {built} (one on card 0 wanted)")
@@ -2606,15 +2582,41 @@ def phase_data_batch() -> Dict[str, object]:
                               launches=counts))
         launches = {k: sum(t["launches"][k] for t in turns) for k in counts}
 
-        # The first batch against plain attention and the plain CE forward.
-        ref_config = dataclasses.replace(config, attn_impl="xla")
+        # The first batch's CE forward at the path's shape (N = B·S), the
+        # kernel and its plain version on the same splash hidden states,
+        # each token's lse and target logit within CE_ATOL; the kernel's
+        # rows give back the path's nll bit for bit.
         wte = direct.params["wte"]
         with torch.inference_mode():
             t = torch.as_tensor(tokens[:B], device="cuda")
+            x2 = gpt2.forward_hidden(direct.params, t[:, :S],
+                                     config).reshape(B * S, -1)
+            t2 = t[:, 1:].reshape(-1)
+            lse, tgt = fused_ce.ce_fwd(x2, wte, t2)
+            lse_r, tgt_r = fused_ce.ce_fwd_reference(x2, wte, t2)
+            ce_check = dict(
+                N=B * S, D=x2.shape[1], V=wte.shape[0],
+                lse_abs_err=(lse - lse_r).abs().max().item(),
+                tgt_abs_err=(tgt - tgt_r).abs().max().item())
+            ce_check["max_abs_err"] = max(ce_check["lse_abs_err"],
+                                          ce_check["tgt_abs_err"])
+            path_nll = (lse - tgt).view(B, S).mean(dim=1).float().cpu()
+            finite = bool(torch.isfinite(lse).all() and
+                          torch.isfinite(tgt).all())
+            del x2, lse, tgt, lse_r, tgt_r
+        if not finite or ce_check["max_abs_err"] > CE_ATOL:
+            fail(f"fused_ce_fwd disagrees with ce_fwd_reference on the first "
+                 f"batch's hidden states: {ce_check} (tol {CE_ATOL})")
+        if path_nll.numpy().tobytes() != d_out["nll"][:B].tobytes():
+            fail("the first batch's nll differs from the checked CE forward's")
+
+        # The first batch against plain attention and the plain CE forward.
+        ref_config = dataclasses.replace(config, attn_impl="xla")
+        with torch.inference_mode():
             x = gpt2.forward_hidden(direct.params, t[:, :S], ref_config)
             ref_last = gpt2.lm_head(x[:, -1], wte, torch.float32)
             lse, tgt = fused_ce.ce_fwd_reference(
-                x.reshape(B * S, -1), wte, t[:, 1:].reshape(-1))
+                x.reshape(B * S, -1), wte, t2)
             ref_nll = (lse - tgt).view(B, S).mean(dim=1).cpu().numpy()
             chosen = torch.as_tensor(d_out["next_token"][:B], device="cuda")
             gaps = (ref_last.max(dim=1).values - ref_last.gather(
@@ -2724,6 +2726,7 @@ def phase_data_batch() -> Dict[str, object]:
         data_over_direct=[t["data_s"] / t["direct_s"] for t in turns],
         actor_ctor_s=[t["actor_ctor_s"] for t in turns],
         score_device_ms=score_device_ms, score_call_ms=score_call_ms,
+        ce_fwd_at_path=ce_check,
         first_batch_worst_gap=float(gaps.max()), first_batch_nll_err=nll_err,
         ingest_rows=INGEST_ROWS, ingest_batch=INGEST_BATCH,
         ingest_ms_per_batch_prefetch=ms["prefetch"],
@@ -3286,6 +3289,9 @@ def main() -> int:
     serve_process = phase_serve_process(weights, serve)
     del weights
     data_batch = phase_data_batch()
+    ce["fused_ce_fwd"]["worst_abs"] = max(
+        ce["fused_ce_fwd"]["worst_abs"],
+        data_batch["ce_fwd_at_path"]["max_abs_err"])
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
     bwd = phase_attn_bwd(peaks)
