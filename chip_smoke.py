@@ -152,7 +152,36 @@ Phases, each of which exits non-zero on failure:
     their ratio, the actor's constructor seconds, one scoring batch's
     device ms, and ms per ingest batch beside the same loop copying each
     host batch synchronously.
-11. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+11. GPT-2 124M trained through the Train API (``train_fit`` lines):
+    ``CudaTrainer.fit()`` runs ``examples/train_gpt2.py``'s loop (fused
+    loss, ``attn_outside``, AdamW 3e-4, weights from seed 0; the gradients
+    all-reduced through ``ray_tpu_torch.collective``) on windows of (10)'s
+    token ids. (a) Two thread ranks share the card (``gpus_per_worker=0.5``),
+    each taking 8 rows of one B=16 batch for 5 steps, in turns with the
+    same steps at B=16 without a trainer ("direct") and through the
+    trainer on one rank, twice each: both ranks
+    on card 0 with the oversubscription warning, step 1's mean gradient
+    within ``GRAD_RTOL`` of direct's per leaf, the ranks' mean losses
+    within ``FIT_LOSS_ATOL`` of direct's, exactly 2 x (12 + 12) splash and
+    2 of each CE launch a step, and the placement group gone with the card
+    free after. (b) The same two ranks read 512 rows in 8 blocks through
+    ``datasets=`` (streaming ingest to the card), one epoch at 8 rows a
+    rank: every block trained once on one rank (the ingest's audit; the
+    first rank to start claims up to 8 shards before it learns their size,
+    so one rank may train them all),
+    finite losses, a non-zero ``data_wait`` bucket. (c) One rank, a
+    checkpoint every 2 steps (two kept), fails before step 5 of its first
+    attempt and resumes: one restart, the restored weights and moments
+    equal the checkpointed ones bit for bit, steps 5-8 within
+    ``FIT_LOSS_ATOL`` of an uninterrupted run. (d) One process rank
+    (``worker_mode="processes"``) on NCCL for 5 steps: its own pid, backend
+    ``nccl`` on ``cuda:0``, 5 all-reduces, losses within ``FIT_LOSS_ATOL``
+    of (c)'s uninterrupted rank, exact launches in the worker and none in
+    this process, its checkpoint loaded here by value, and its process
+    gone after. It prints tokens/s of the fit and of direct, the step
+    profiler's buckets per step, the checkpoint's save ms and bytes, the
+    failure-to-resumed seconds and the process rank's cold start.
+12. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -2737,6 +2766,450 @@ def phase_data_batch() -> Dict[str, object]:
     return result
 
 
+FIT_ROWS = 512
+FIT_BLOCKS = 8
+FIT_BATCH = 16  # the global batch of (a) and of direct; 8 per rank
+FIT_STEPS = 5
+FIT_ROUNDS = 2
+RESTORE_STEPS = 8
+RESTORE_FAIL_AT = 4  # raise before step 5 of the first attempt
+RESTORE_CKPT_EVERY = 2
+# Two ranks at B=8 against one loop at B=16 (and a resumed run against an
+# uninterrupted one): the same arithmetic in bf16, the batch's rows summed
+# in other groupings and the mean gradient formed after the all-reduce.
+FIT_LOSS_ATOL = 1e-2
+
+
+def _fit_config(**kw):
+    """The Train-API loop's config on the card (``examples/train_gpt2``):
+    GPT-2 124M from seed 0, ``loss_impl="fused"``,
+    ``remat_policy="attn_outside"``, AdamW 3e-4, diagnostics on."""
+    return dict(seed=0, lr=3e-4, diagnostics=True, **kw)
+
+
+def _fit_buckets(trainer) -> Dict[str, object]:
+    """Each rank's StepProfiler attribution in ms per step, over steps 2 on
+    (the first holds the loop's start-up), and the first step's apart."""
+    out = {}
+    for s in trainer.sessions:
+        hist = list(s.profiler.history)
+        row = {"steps": len(hist)}
+        for label, rows in (("per_step", hist[1:]), ("first", hist[:1])):
+            n = max(1, len(rows))
+            row[label] = {b: 1e3 * sum(r[b] for r in rows) / n
+                          for b in ("wall", "compute", "data_wait", "h2d",
+                                    "collective", "ckpt_block")}
+        out[f"rank{s.context.world_rank}"] = row
+    return out
+
+
+def _gone(label: str, pg_table) -> None:
+    """After a fit: no placement group left and the card free again."""
+    import ray_tpu_torch
+
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline:
+        if not pg_table() and ray_tpu_torch.available_resources().get(
+                "GPU") == 1.0:
+            return
+        time.sleep(0.05)
+    fail(f"{label}: placement groups {pg_table()} or the card not back "
+         f"({ray_tpu_torch.available_resources()})")
+
+
+def phase_train_fit() -> Dict[str, object]:
+    """GPT-2 124M trained through ``CudaTrainer.fit()`` on the card: (a) two
+    thread ranks sharing it against the same steps without a trainer, (b)
+    streaming ingest, (c) a failure and the restore, (d) one process rank
+    on NCCL. Each gate fails the script."""
+    import multiprocessing
+    import os
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.examples import batch_inference as bi
+    from ray_tpu_torch.examples import train_gpt2
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.optim import tree_leaves, tree_map
+    from ray_tpu_torch.train import (
+        CheckpointConfig,
+        CudaTrainer,
+        FailureConfig,
+        RunConfig,
+        ScalingConfig,
+    )
+    from ray_tpu_torch.util.placement_group import placement_group_table
+
+    cfg = train_gpt2.model_config()
+    S, L = cfg.seq_len, cfg.n_layer
+    tokens = bi.token_windows(FIT_ROWS, S, 50257)  # default_rng(0)
+    batch = tokens[:FIT_BATCH]
+    storage = tempfile.mkdtemp(prefix="chip_smoke_train_fit_")
+    result: Dict[str, object] = {"card": card_line(), "batch": FIT_BATCH,
+                                 "steps": FIT_STEPS, "seq_len": S}
+    path_launches = {k: 0 for k in _counts()}
+
+    def add_launches(counts):
+        for k, v in counts.items():
+            path_launches[k] += v
+
+    def want_counts(forwards):
+        """Launches of ``forwards`` training steps of one rank's batch."""
+        want = {k: 0 for k in _counts()}
+        want.update(splash_attention_fwd=L * forwards,
+                    splash_attention_bwd=L * forwards, fused_ce_fwd=forwards,
+                    fused_ce_dx=forwards, fused_ce_dw=forwards)
+        return want
+
+    # ------------------------------- direct: the same steps, no trainer
+    def run_direct():
+        params = gpt2.init_params(cfg, seed=0, device="cuda")
+        optimizer = gpt2.make_optimizer(3e-4)
+        opt_state = optimizer.init(params)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        tok = torch.as_tensor(batch, device="cuda")
+        losses, ends, first_grads = [], [], None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(FIT_STEPS):
+            loss = gpt2.loss_fn(params, tok[:, :S], tok[:, 1:], cfg)
+            grads = torch.autograd.grad(loss, leaves)
+            if i == 0:
+                first_grads = [g.clone() for g in grads]
+            it = iter(grads)
+            opt_state = optimizer.update(tree_map(lambda _: next(it), params),
+                                         opt_state, params)
+            losses.append(float(loss))
+            ends.append(time.perf_counter())
+        return dict(losses=losses, wall_s=ends[-1] - t0,
+                    steps_s=ends[-1] - ends[0],
+                    names=list(_leaf_names(params))), first_grads
+
+    ray_tpu_torch.init()
+    try:
+        if ray_tpu_torch.available_resources().get("GPU") != 1.0:
+            fail(f"the runtime registers {ray_tpu_torch.available_resources()}"
+                 " (one card expected)")
+
+        # --------------------- (a) two thread ranks sharing the card
+        def run_one_rank(label):
+            """One thread rank at B=16 through the trainer: what the fit
+            costs without a second rank (tokens/s over steps 2-5)."""
+            trainer = CudaTrainer(
+                train_gpt2.train_loop_per_worker,
+                train_loop_config=_fit_config(
+                    steps=FIT_STEPS, batch_size=FIT_BATCH, tokens=batch),
+                scaling_config=ScalingConfig(num_workers=1),
+                run_config=RunConfig(name=label, storage_path=storage))
+            _reset_counts()
+            res = trainer.fit()
+            counts = _counts()
+            times = [m["time"] for m in res.metrics_history]
+            if res.error is not None or counts != want_counts(FIT_STEPS):
+                fail(f"{label}: error {res.error!r}, launches {counts}")
+            _gone(label, placement_group_table)
+            return counts, (FIT_STEPS - 1) * FIT_BATCH * S / (
+                times[-1] - times[0]), _fit_buckets(trainer)
+
+        def run_fit(label):
+            seen = {"loss": {}, "grads": None}
+
+            def probe(event, rank, step, **info):
+                if event != "step":
+                    return
+                seen["loss"][(rank, step)] = info["loss"]
+                if step == 1 and rank == 0:
+                    seen["grads"] = [g.detach().clone()
+                                     for g in tree_leaves(info["grads"])]
+
+            trainer = CudaTrainer(
+                train_gpt2.train_loop_per_worker,
+                train_loop_config=_fit_config(
+                    steps=FIT_STEPS, batch_size=FIT_BATCH // 2, tokens=batch,
+                    probe=probe),
+                scaling_config=ScalingConfig(num_workers=2,
+                                             gpus_per_worker=0.5),
+                run_config=RunConfig(name=label, storage_path=storage))
+            _reset_counts()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                res = trainer.fit()
+                wall = time.perf_counter() - t0
+            counts = _counts()
+            if res.error is not None:
+                fail(f"{label}: fit failed: {res.error!r}")
+            hist = res.metrics_history
+            if [m["step"] for m in hist] != list(range(1, FIT_STEPS + 1)):
+                fail(f"{label}: rank 0 reported {hist}")
+            warned = [str(w.message) for w in caught
+                      if issubclass(w.category, RuntimeWarning)
+                      and "ranks share devices" in str(w.message)]
+            last = hist[-1]
+            if last["gpu_ids"] != [0] or last["device"] != "cuda:0" or \
+                    not last["oversubscribed"] or not warned:
+                fail(f"{label}: ranks on {last['gpu_ids']} {last['device']}, "
+                     f"oversubscribed {last['oversubscribed']}, warnings "
+                     f"{warned}")
+            if counts != {k: 2 * v for k, v in want_counts(FIT_STEPS).items()}:
+                fail(f"{label}: launches {counts}, want 2 ranks x "
+                     f"{want_counts(FIT_STEPS)}")
+            _gone(label, placement_group_table)
+            return trainer, res, seen, counts, wall, [m["time"] for m in hist]
+
+        turns = []
+        for r in range(FIT_ROUNDS):
+            direct, direct_grads = run_direct()
+            trainer, res, seen, counts, wall, times = run_fit(f"fit_{r}")
+            add_launches(counts)
+            one_counts, one_tokens_per_s, one_buckets = run_one_rank(
+                f"fit_one_{r}")
+            add_launches(one_counts)
+            losses = [(seen["loss"][(0, s)] + seen["loss"][(1, s)]) / 2
+                      for s in range(1, FIT_STEPS + 1)]
+            loss_err = max(abs(a - b) for a, b in zip(losses, direct["losses"]))
+            grad_err = {n: rel_err(g, d) for n, g, d in zip(
+                direct["names"], seen["grads"], direct_grads)}
+            worst = max(grad_err, key=grad_err.get)
+            if loss_err > FIT_LOSS_ATOL or grad_err[worst] > GRAD_RTOL or \
+                    not np.isfinite(losses).all():
+                fail(f"fit round {r}: losses {losses} vs direct "
+                     f"{direct['losses']} (tol {FIT_LOSS_ATOL}); step-1 "
+                     f"gradient {worst} off by {grad_err[worst]} (tol "
+                     f"{GRAD_RTOL})")
+            tokens_per_step = FIT_BATCH * S
+            turns.append(dict(
+                direct_losses=direct["losses"], fit_losses=losses,
+                rank_losses={f"rank{k}": [seen["loss"][(k, s)] for s in
+                                          range(1, FIT_STEPS + 1)]
+                             for k in range(2)},
+                loss_max_abs_err=loss_err, grad_rel_err_worst=grad_err[worst],
+                grad_worst_leaf=worst,
+                direct_tokens_per_s=(FIT_STEPS - 1) * tokens_per_step
+                / direct["steps_s"],
+                fit_tokens_per_s=(FIT_STEPS - 1) * tokens_per_step
+                / (times[-1] - times[0]),
+                one_rank_tokens_per_s=one_tokens_per_s,
+                one_rank_buckets_ms=one_buckets,
+                direct_wall_s=direct["wall_s"], fit_wall_s=wall,
+                buckets_ms=_fit_buckets(trainer)))
+            turns[-1]["fit_over_direct"] = (
+                turns[-1]["direct_tokens_per_s"] / turns[-1]["fit_tokens_per_s"])
+            del direct_grads, seen
+            torch.cuda.empty_cache()
+        result["a"] = dict(turns=turns, launches_per_fit=counts)
+        print("train_fit_a " + json.dumps(result["a"]), flush=True)
+
+        # ---------------------------------------- (b) streaming ingest
+        ds = bi.token_dataset(tokens, FIT_BLOCKS)
+        b_losses, b_rows = [], {0: 0, 1: 0}
+
+        def probe_b(event, rank, step, **info):
+            if event == "step":
+                b_losses.append(info["loss"])
+                b_rows[rank] += FIT_BATCH // 2
+
+        trainer = CudaTrainer(
+            train_gpt2.train_loop_per_worker,
+            train_loop_config=_fit_config(batch_size=FIT_BATCH // 2,
+                                          probe=probe_b),
+            scaling_config=ScalingConfig(num_workers=2, gpus_per_worker=0.5),
+            run_config=RunConfig(name="fit_ingest", storage_path=storage),
+            datasets={"train": ds})
+        _reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # 2 ranks, 1 card
+            res = trainer.fit()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        add_launches(counts)
+        audit = trainer.streaming_ingests["train"].audit(0)
+        buckets = _fit_buckets(trainer)
+        data_wait = sum(r["data_wait"] for s in trainer.sessions
+                        for r in s.profiler.history)
+        forwards = sum(b_rows.values()) // (FIT_BATCH // 2)
+        if res.error is not None or audit["double_trained"] or \
+                audit["untrained"] or sum(b_rows.values()) != FIT_ROWS or \
+                sorted(audit["trained_counts"].values()) != [1] * FIT_BLOCKS:
+            fail(f"ingest fit: error {res.error!r}, audit {audit}, rows "
+                 f"{b_rows}")
+        if not np.isfinite(b_losses).all() or not data_wait > 0:
+            fail(f"ingest fit: losses {b_losses}, data_wait {buckets}")
+        if counts != want_counts(forwards):
+            fail(f"ingest fit: launches {counts}, want {want_counts(forwards)}")
+        _gone("ingest fit", placement_group_table)
+        result["b"] = dict(rows=b_rows, blocks=FIT_BLOCKS, wall_s=wall,
+                           tokens_per_s=FIT_ROWS * S / wall,
+                           first_loss=b_losses[0], last_loss=b_losses[-1],
+                           audit=audit, buckets_ms=buckets, launches=counts)
+        print("train_fit_b " + json.dumps(result["b"]), flush=True)
+
+        # --------------------------------- (c) a failure and the restore
+        def run_restore(label, fail_at):
+            seen = {}
+
+            def probe_c(event, rank, step, **info):
+                if event == "restore" or (event == "checkpoint"
+                                          and step == fail_at):
+                    st = info["state"]
+                    seen[event] = [t.detach().to("cpu", copy=True) for t in
+                                   tree_leaves(st["params"])
+                                   + tree_leaves(st["opt_state"]["mu"])
+                                   + tree_leaves(st["opt_state"]["nu"])]
+                    seen[event + "_step"] = step
+
+            trainer = CudaTrainer(
+                train_gpt2.train_loop_per_worker,
+                train_loop_config=_fit_config(
+                    steps=RESTORE_STEPS, batch_size=FIT_BATCH, tokens=batch,
+                    ckpt_every=RESTORE_CKPT_EVERY, fail_at_step=fail_at,
+                    probe=probe_c),
+                scaling_config=ScalingConfig(num_workers=1),
+                run_config=RunConfig(
+                    name=label, storage_path=storage,
+                    checkpoint_config=CheckpointConfig(num_to_keep=2),
+                    failure_config=FailureConfig(max_failures=1)))
+            _reset_counts()
+            res = trainer.fit()
+            counts = _counts()
+            if res.error is not None:
+                fail(f"{label}: fit failed: {res.error!r}")
+            _gone(label, placement_group_table)
+            return res, seen, counts
+
+        broken, seen, counts_c = run_restore("fit_restore", RESTORE_FAIL_AT)
+        add_launches(counts_c)
+        whole, _, counts_w = run_restore("fit_whole", None)
+        add_launches(counts_w)
+        got = {m["step"]: m["loss"] for m in broken.metrics_history}
+        want = {m["step"]: m["loss"] for m in whole.metrics_history}
+        late = range(RESTORE_FAIL_AT + 1, RESTORE_STEPS + 1)
+        kept = sorted(os.listdir(os.path.dirname(broken.checkpoint.path)))
+        bit_equal_state = (
+            seen.get("restore_step") == RESTORE_FAIL_AT and
+            len(seen["restore"]) == len(seen["checkpoint"]) and
+            all(a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(seen["restore"], seen["checkpoint"])))
+        saves = [m for m in broken.metrics_history if "save_ms" in m]
+        if len(broken.restarts) != 1 or not bit_equal_state or \
+                max(abs(got[s] - want[s]) for s in late) > FIT_LOSS_ATOL or \
+                len(kept) != 2:
+            fail(f"restore: restarts {broken.restarts}, restored state equal "
+                 f"{bit_equal_state}, losses {got} vs {want}, kept {kept}")
+        if counts_c != want_counts(RESTORE_STEPS) or \
+                counts_w != want_counts(RESTORE_STEPS):
+            fail(f"restore: launches {counts_c}, {counts_w}, want "
+                 f"{want_counts(RESTORE_STEPS)} each")
+        result["c"] = dict(
+            restarts=len(broken.restarts),
+            resumed_s=broken.restarts[0]["resumed_s"],
+            restored_step=seen["restore_step"],
+            restored_state_bit_equal=bit_equal_state,
+            late_losses=[got[s] for s in late],
+            uninterrupted_late_losses=[want[s] for s in late],
+            late_losses_bit_equal=all(got[s] == want[s] for s in late),
+            late_max_abs_err=max(abs(got[s] - want[s]) for s in late),
+            kept=kept, save_ms=[m["save_ms"] for m in saves],
+            ckpt_bytes=saves[0]["ckpt_bytes"])
+        print("train_fit_c " + json.dumps(result["c"]), flush=True)
+        del seen
+        torch.cuda.empty_cache()
+
+        # -------------------------------- (d) one process rank on NCCL
+        baseline = _compute_apps()
+        _reset_counts()
+        trainer = CudaTrainer(
+            train_gpt2.train_loop_per_worker,
+            train_loop_config=_fit_config(steps=FIT_STEPS,
+                                          batch_size=FIT_BATCH, tokens=batch,
+                                          ckpt_every=FIT_STEPS),
+            scaling_config=ScalingConfig(num_workers=1,
+                                         worker_mode="processes"),
+            run_config=RunConfig(name="fit_process", storage_path=storage))
+        t0 = time.time()
+        res = trainer.fit()
+        wall = time.time() - t0
+        driver_counts = _counts()
+        if res.error is not None:
+            fail(f"process fit: {res.error!r}")
+        hist = res.metrics_history
+        last = hist[-1]
+        pid = last["pid"]
+        worker_counts = {k: last["launches"].get(k, 0) for k in driver_counts}
+        add_launches(worker_counts)
+        ckpt = res.checkpoint.to_pytree()
+        want_losses = [want[s] for s in range(1, FIT_STEPS + 1)]
+        d_err = max(abs(m["loss"] - w) for m, w in zip(hist, want_losses))
+        deadline = time.monotonic() + 15.0
+        while True:
+            # active_children() reaps the killed worker, which would else
+            # linger as a zombie that os.kill(pid, 0) still finds.
+            alive = pid in [p.pid for p in multiprocessing.active_children()]
+            apps = _compute_apps()
+            if (not alive and apps == baseline) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        if pid == os.getpid() or last["backend"] != "nccl" or \
+                last["device"] != "cuda:0" or last["gpu_ids"] != [0] or \
+                last["collective_ops"] != {"allreduce": FIT_STEPS} or \
+                trainer.process_topology[0]["backend"] != "nccl":
+            fail(f"process fit: rank {last}, topology "
+                 f"{trainer.process_topology}")
+        if d_err > FIT_LOSS_ATOL or [m["step"] for m in hist] != \
+                list(range(1, FIT_STEPS + 1)):
+            fail(f"process fit: losses {[m['loss'] for m in hist]} vs one "
+                 f"thread rank's {want_losses}")
+        if worker_counts != want_counts(FIT_STEPS) or \
+                any(driver_counts.values()):
+            fail(f"process fit: worker launches {worker_counts} (want "
+                 f"{want_counts(FIT_STEPS)}), driver {driver_counts}")
+        if ckpt["step"] != FIT_STEPS or not all(
+                torch.isfinite(t).all() for t in tree_leaves(ckpt["params"])):
+            fail(f"process fit: the checkpoint by value holds step "
+                 f"{ckpt['step']}")
+        if alive or apps != baseline:
+            fail(f"process fit: worker {pid} alive {alive}, compute apps "
+                 f"{apps} (before {baseline})")
+        _gone("process fit", placement_group_table)
+        topo = trainer.process_topology[0]
+        result["d"] = dict(
+            pid=pid, backend=last["backend"], device=last["device"],
+            collective_ops=last["collective_ops"],
+            losses=[m["loss"] for m in hist], loss_max_abs_err=d_err,
+            cold_start_s=hist[0]["time"] - t0, wall_s=wall,
+            cold_start_split_s=dict(
+                to_worker_main=topo["worker_main_at"] - t0,
+                to_setup=topo["setup_at"] - topo["worker_main_at"],
+                nccl_join=topo["joined_at"] - topo["setup_at"],
+                to_first_report=hist[0]["time"] - topo["joined_at"]),
+            # Steps 2-4: step 5's time holds its checkpoint's save.
+            steps_per_s=(FIT_STEPS - 2) / (hist[-2]["time"] - hist[0]["time"]),
+            worker_launches=worker_counts, checkpoint_step=ckpt["step"])
+        print("train_fit_d " + json.dumps(result["d"]), flush=True)
+        del ckpt
+    finally:
+        ray_tpu_torch.shutdown()
+        import shutil
+
+        shutil.rmtree(storage, ignore_errors=True)
+    torch.cuda.empty_cache()
+    result["launches"] = path_launches
+    print("train_fit " + json.dumps({
+        k: result[k] for k in ("card", "launches")} | {
+        "fit_over_direct": [t["fit_over_direct"] for t in result["a"]["turns"]],
+        "restore_resumed_s": result["c"]["resumed_s"],
+        "process_cold_start_s": result["d"]["cold_start_s"]}), flush=True)
+    return result
+
+
 def phase_ring(peaks: Tuple[float, float]) -> Dict[str, object]:
     import torch
 
@@ -3292,6 +3765,7 @@ def main() -> int:
     ce["fused_ce_fwd"]["worst_abs"] = max(
         ce["fused_ce_fwd"]["worst_abs"],
         data_batch["ce_fwd_at_path"]["max_abs_err"])
+    train_fit = phase_train_fit()
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
     bwd = phase_attn_bwd(peaks)
@@ -3315,7 +3789,8 @@ def main() -> int:
                "serve_batch": serve_batch["launches"][name],
                "serve_slo": serve_slo["launches"][name],
                "serve_process": serve_process["launches"].get(name, 0),
-               "data_batch": data_batch["launches"].get(name, 0)}
+               "data_batch": data_batch["launches"].get(name, 0),
+               "train_fit": train_fit["launches"].get(name, 0)}
         for impl in ("dense", "fused"):
             out[f"train_{impl}"] = train["launches"][impl][name]
         out["train_ring"] = train_ring["run"]["launches"][name]

@@ -22,6 +22,7 @@ import threading
 from typing import Any, Optional, Sequence
 
 from ray_tpu_torch._private import serialization
+from ray_tpu_torch._private.process_pool import recv_bytes
 
 
 class _ProxiedRefGenerator:
@@ -78,7 +79,7 @@ class ClientRuntime:
         req = serialization.dumps_inband((kind, payload))
         with self._lock:
             self._conn.send_bytes(req)
-            status, blob = serialization.loads(self._conn.recv_bytes())
+            status, blob = serialization.loads(recv_bytes(self._conn))
         if status == "err":
             exc, tb = serialization.loads(blob)
             raise exc
@@ -183,7 +184,7 @@ def serve_backchannel(conn, describe: str = "") -> None:
     state: dict = {"gens": {}}  # live proxied generators, per connection
     while True:
         try:
-            msg = conn.recv_bytes()
+            msg = recv_bytes(conn)
         except (EOFError, OSError):
             return
         try:

@@ -34,6 +34,12 @@ class Config:
     #: options(max_retries=...)).
     task_max_retries: int = 3
 
+    # --- collectives ---
+    #: Seconds a rank waits in a thread-tier collective rendezvous before it
+    #: withdraws and raises, so a lost rank cannot hold the others hostage
+    #: (per group: init_collective_group's timeout_s).
+    collective_timeout_s: float = 300.0
+
     # --- events ---
     #: Keep at most this many task events.
     max_task_events: int = 100_000

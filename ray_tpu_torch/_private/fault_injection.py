@@ -50,6 +50,10 @@ FAULT_POINTS: Dict[str, str] = {
                          "training loop",
     "data_ingest_prefetch": "host->device batch transfer dispatch — retried "
                             "once before surfacing",
+    "train_worker_run": "train worker step boundary (run entry + every "
+                        "report()) — the attempt fails and the trainer "
+                        "restarts it from the newest checkpoint, within "
+                        "FailureConfig.max_failures",
 }
 
 

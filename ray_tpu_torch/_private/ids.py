@@ -57,6 +57,10 @@ class TaskID(BaseID):
     __slots__ = ()
 
 
+class PlacementGroupID(BaseID):
+    __slots__ = ()
+
+
 class ObjectID(BaseID):
     """``<task-part>:<index>`` — created by task ``task-part`` as its
     ``index``-th output."""

@@ -11,6 +11,7 @@ It samples the runtime's state into gauges (the role of the C++
   (util/metrics_agent.py) as OpenMetrics text;
 - ``/api/serve``: deployment and replica rows from the serve controller;
 - ``/api/serve/slo``: one fresh SLO watchdog evaluation (serve/slo.py);
+- ``/api/train_runs``: the train run registry's rows (train/run_registry.py);
 - ``/api/stacks`` and ``/api/memory``: the thread stacks of this process
   and of every process worker (``stack_profiler.collect_all_stacks``), and
   this process's tracemalloc heap summary.
@@ -170,6 +171,10 @@ def _api_payload(path: str):
             "objectives_registry": sorted(_slo.SLO_OBJECTIVES),
             "deployments": watchdog.evaluate(),
         }
+    if path == "/api/train_runs":
+        from ray_tpu_torch.train import run_registry
+
+        return run_registry.list_runs()
     if path == "/api/stacks":
         from ray_tpu_torch._private import stack_profiler
 

@@ -3,11 +3,12 @@
 
 Resources are ``CPU`` (``num_cpus``), ``GPU`` (``num_gpus``), ``memory``
 (bytes) and custom ones (``resources={...}``); more than one GPU must be a
-whole number of them. ``scheduling_strategy`` is accepted and ignored: it
-chooses among nodes, and the runtime has one. Tasks and actors run on the
-thread tier unless they give ``isolation="process"`` or a ``runtime_env``
-(``_private/runtime_env.py``, staged when the task runs), which run them in
-worker processes.
+whole number of them. A ``PlacementGroupSchedulingStrategy`` leases from
+its group's bundle; any other ``scheduling_strategy`` chooses among nodes
+and is accepted and ignored, since the runtime has one. Tasks and actors
+run on the thread tier unless they give ``isolation="process"`` or a
+``runtime_env`` (``_private/runtime_env.py``, staged when the task runs),
+which run them in worker processes.
 """
 
 from __future__ import annotations
@@ -60,6 +61,8 @@ def resolve_task_options(options: Dict[str, Any], is_actor: bool) -> Dict[str, A
         "name": options.get("name"),
         "isolation": isolation,
         "runtime_env": options.get("runtime_env"),
+        "scheduling_strategy": _placement_strategy(
+            options.get("scheduling_strategy")),
     }
     if is_actor:
         out["max_restarts"] = int(options.get("max_restarts", 0))
@@ -78,3 +81,14 @@ def resolve_task_options(options: Dict[str, Any], is_actor: bool) -> Dict[str, A
         out["max_retries"] = GLOBAL_CONFIG.task_max_retries if mr is None else int(mr)
         out["retry_exceptions"] = bool(options.get("retry_exceptions", False))
     return out
+
+
+def _placement_strategy(strategy: Any) -> Any:
+    """The strategy the one-node scheduler acts on: a placement group's,
+    else None."""
+    from ray_tpu_torch._private.scheduling import (
+        PlacementGroupSchedulingStrategy,
+    )
+
+    return strategy if isinstance(strategy,
+                                  PlacementGroupSchedulingStrategy) else None

@@ -39,6 +39,13 @@ actor calls + streaming generator protocol, _raylet.pyx:1097). Functions
 are cached worker-side by fn_id, so hot loops ship only args (ref: function
 table export via GCS KV, _private/function_manager.py). A second pipe
 carries the worker's own calls into the runtime (``client_runtime.py``).
+
+Messages are read with ``recv_bytes`` below, not ``Connection.recv_bytes``:
+the standard library asks the kernel for the whole rest of a message on
+every read and allocates that much each time, while a pipe hands over at
+most its buffer per read, so a message costs time quadratic in its size
+where allocation is not free (on an NVIDIA H100 host, 400 MB from a
+worker took 57 s through ``Connection.recv_bytes``).
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import itertools
 import multiprocessing as mp
 import os
 import queue
+import struct
 import sys
 import threading
 import time
@@ -54,6 +62,32 @@ from contextlib import contextmanager
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ray_tpu_torch._private import serialization
+
+def _read_into(fd: int, size: int, first: bool = False) -> bytearray:
+    """Exactly ``size`` bytes of the pipe ``fd``, read into one buffer."""
+    buf = bytearray(size)
+    view = memoryview(buf)
+    pos = 0
+    while pos < size:
+        n = os.readv(fd, [view[pos:]])
+        if n == 0:
+            if first and pos == 0:
+                raise EOFError
+            raise OSError("got end of file during message")
+        pos += n
+    return buf
+
+
+def recv_bytes(conn) -> bytearray:
+    """One message of a ``multiprocessing`` connection, framed as
+    ``Connection.send_bytes`` frames it (a 4-byte big-endian size, or -1
+    and an 8-byte size), in time linear in its size."""
+    fd = conn.fileno()
+    size, = struct.unpack("!i", _read_into(fd, 4, first=True))
+    if size == -1:
+        size, = struct.unpack("!Q", _read_into(fd, 8))
+    return _read_into(fd, size)
+
 
 #: The cards a worker was granted, as the driver numbers them (set in the
 #: worker's environment; absent in the driver).
@@ -222,7 +256,7 @@ def _worker_main(conn, back_conn, visible_devices: str,
 
     while True:
         try:
-            msg = conn.recv_bytes()
+            msg = recv_bytes(conn)
         except (EOFError, OSError):
             return
         req = serialization.loads(msg)
@@ -412,7 +446,7 @@ class _ProcWorker:
     def _read_loop(self) -> None:
         while True:
             try:
-                reply = serialization.loads(self.conn.recv_bytes())
+                reply = serialization.loads(recv_bytes(self.conn))
             except Exception:  # EOF, a closed pipe, a torn message
                 break
             rkind, seq, payload = reply

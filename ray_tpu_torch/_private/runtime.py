@@ -266,7 +266,7 @@ class Runtime:
                                         or _default_memory_bytes()))
         self.head_node_id = NodeID.from_random()
         # Validates the resources: nothing shared is touched before it.
-        self.scheduler = NodeScheduler(base)
+        self.scheduler = NodeScheduler(base, self.head_node_id)
 
         self.store = ObjectStore(int(base["memory"]))
         self.refcounter = global_refcounter()
@@ -569,8 +569,9 @@ class Runtime:
     @staticmethod
     def _placement_shape(spec: TaskSpec) -> tuple:
         """Bucket key under which blocked specs are interchangeable: the
-        same resource demand."""
-        return tuple(sorted(spec.resources.items()))
+        same resource demand from the same pool (the node, or one
+        placement-group strategy)."""
+        return (tuple(sorted(spec.resources.items())), id(spec.strategy))
 
     def _dispatch_loop(self) -> None:
         # Blocked tasks live in per-placement-shape FIFO queues: a capacity
@@ -623,15 +624,18 @@ class Runtime:
         if spec.task_id in self._cancelled:
             self._fail_task(spec, TaskCancelledError(str(spec.task_id)))
             return True
-        lease = self.scheduler.try_acquire(spec.resources)
+        lease = self.scheduler.try_acquire(spec.resources, spec.strategy)
         if lease is None:
             # Infeasible requests fail fast instead of hanging forever.
-            if not self.scheduler.feasible(spec.resources):
+            if not self.scheduler.feasible(spec.resources, spec.strategy):
                 self._fail_task(
                     spec,
                     InfeasibleError(
-                        f"Task {spec.name} requests {spec.resources} which the node can "
-                        f"never satisfy (total: {self.scheduler.total})"
+                        f"Task {spec.name} requests {spec.resources} which "
+                        + ("its placement group (removed, or no bundle that "
+                           "large) can" if spec.strategy is not None
+                           else "the node can")
+                        + f" never satisfy (node total: {self.scheduler.total})"
                     ))
                 return True
             return False
@@ -860,7 +864,8 @@ class Runtime:
     def _start_actor(self, state: _ActorState, first: bool) -> None:
         spec = state.spec
         try:
-            lease = self.scheduler.acquire(spec.resources)
+            lease = self.scheduler.acquire(spec.resources,
+                                           strategy=spec.strategy)
         except BaseException as e:  # noqa: BLE001 — the actor's death cause
             state.death_cause = e
             state.state = _ActorState.DEAD

@@ -19,7 +19,7 @@ class TaskSpec:
         "task_id", "name", "func", "args", "kwargs", "num_returns",
         "resources", "max_retries", "retry_exceptions",
         "actor_id", "method_name", "attempt", "generator", "trace_ctx",
-        "isolation", "runtime_env",
+        "isolation", "runtime_env", "strategy",
     )
 
     def __init__(
@@ -38,6 +38,7 @@ class TaskSpec:
         generator: bool = False,
         isolation: str = "thread",
         runtime_env: Optional[dict] = None,
+        strategy: Any = None,
     ):
         self.task_id = task_id
         self.name = name
@@ -55,6 +56,8 @@ class TaskSpec:
         #: "process" (or a runtime_env) runs the task in a worker process.
         self.isolation = isolation
         self.runtime_env = runtime_env
+        #: A PlacementGroupSchedulingStrategy, or None (the node).
+        self.strategy = strategy
         #: Submitter's tracing context (util/tracing.py), propagated to the
         #: execute-side span.
         self.trace_ctx: Optional[dict] = None
@@ -67,7 +70,7 @@ class ActorSpec:
     __slots__ = (
         "actor_id", "name", "namespace", "cls", "args", "kwargs", "resources",
         "max_restarts", "max_task_retries", "max_concurrency",
-        "lifetime", "isolation", "runtime_env",
+        "lifetime", "isolation", "runtime_env", "strategy",
     )
 
     def __init__(
@@ -85,6 +88,7 @@ class ActorSpec:
         lifetime: Optional[str],
         isolation: str = "thread",
         runtime_env: Optional[dict] = None,
+        strategy: Any = None,
     ):
         self.actor_id = actor_id
         self.name = name
@@ -99,3 +103,4 @@ class ActorSpec:
         self.lifetime = lifetime
         self.isolation = isolation
         self.runtime_env = runtime_env
+        self.strategy = strategy

@@ -142,6 +142,7 @@ class ActorClass:
             lifetime=opts["lifetime"],
             isolation=opts["isolation"],
             runtime_env=opts["runtime_env"],
+            strategy=opts["scheduling_strategy"],
         )
         runtime.create_actor(spec)
         return ActorHandle(actor_id, self._cls, opts["max_task_retries"])

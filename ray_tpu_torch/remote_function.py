@@ -70,5 +70,6 @@ class RemoteFunction:
             generator=generator,
             isolation=opts["isolation"],
             runtime_env=opts["runtime_env"],
+            strategy=opts["scheduling_strategy"],
         )
         return runtime.submit_task(spec)

@@ -1,0 +1,704 @@
+"""Trainers and the training controller (the counterpart of
+``ray_tpu/train/trainer.py``).
+
+Modeled on the reference's Train v2 architecture (ref: python/ray/train/v2/
+_internal/execution/controller.py:73 TrainController — a standalone control
+loop polling a WorkerGroup, with a FailurePolicy). Workers are actors (ref:
+_internal/worker_group.py:102 WorkerGroup, RayTrainWorker:19), gang-
+scheduled through a placement group whose bundles name their cards. On one
+node they are thread actors sharing this process and its CUDA context, and
+the loop syncs gradients through ``ray_tpu_torch.collective`` (the thread
+tier); with ``ScalingConfig(worker_mode="processes")`` each worker is its
+own process, joined into one ``torch.distributed`` group, NCCL on its card
+(``CudaDistTrainWorker``).
+
+Recovery (ref: v2 FailurePolicy): a worker failure tears down the group,
+and the whole group restarts from the newest registered checkpoint —
+delivered to workers via ``train.get_checkpoint()`` — up to
+``FailureConfig.max_failures`` times.
+
+Not ported yet, each refused when the Trainer is built: the elastic world
+(``ScalingConfig.elastic``: the autoscaler's capacity view, the sample
+ledger's resharding, ``ElasticDatasetShard`` and the replica tier; ROADMAP.md
+Queue 1 item 5), async sharded checkpoints (``CheckpointConfig.async_save``,
+the ``checkpoint/`` package, item 6) and node preemption (item 13.8).
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import shutil
+import sys
+import tempfile
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import ray_tpu_torch
+from ray_tpu_torch import collective
+from ray_tpu_torch._private import fault_injection
+from ray_tpu_torch.exceptions import RayTpuError, TaskError
+from ray_tpu_torch.train import metrics as train_metrics
+from ray_tpu_torch.train import run_registry
+from ray_tpu_torch.train.checkpoint import (
+    Checkpoint,
+    CheckpointManager,
+    pack_checkpoint,
+    unpack_checkpoint,
+)
+from ray_tpu_torch.train.config import DatasetConfig, RunConfig, ScalingConfig
+from ray_tpu_torch.train.profiler import StepProfiler
+from ray_tpu_torch.train.session import (
+    TrainContext,
+    TrainSession,
+    clear_session,
+    init_session,
+)
+from ray_tpu_torch.util import flight_recorder
+from ray_tpu_torch.util.placement_group import (
+    PlacementGroupSchedulingStrategy,
+    placement_group,
+    remove_placement_group,
+)
+
+#: Seconds a gang reservation may wait for its placement group.
+PG_WAIT_S = 60.0
+
+
+class Result:
+    """(ref: python/ray/train/result.py Result)"""
+
+    def __init__(self, metrics: Optional[Dict[str, Any]], checkpoint: Optional[Checkpoint],
+                 path: str, error: Optional[BaseException] = None,
+                 metrics_history: Optional[List[Dict[str, Any]]] = None,
+                 restarts: Optional[List[Dict[str, Any]]] = None):
+        self.metrics = metrics
+        self.checkpoint = checkpoint
+        self.path = path
+        self.error = error
+        self.metrics_history = metrics_history or []
+        #: One record per failed attempt the run restarted from: the
+        #: attempt, its error, and ``resumed_s`` — seconds from the failure
+        #: to the first report of the next attempt (None if none came).
+        self.restarts = restarts or []
+
+    def __repr__(self) -> str:
+        return f"Result(metrics={self.metrics}, checkpoint={self.checkpoint}, error={self.error})"
+
+
+def invoke_train_loop(train_loop: Callable,
+                      loop_config: Optional[Dict[str, Any]]) -> None:
+    """Signature-dispatch shared by every worker kind (ref: the reference
+    accepts both `def loop()` and `def loop(config)`)."""
+    import inspect
+
+    sig = inspect.signature(train_loop)
+    if len(sig.parameters) >= 1:
+        train_loop(loop_config or {})
+    else:
+        train_loop()
+
+
+@ray_tpu_torch.remote
+class TrainWorker:
+    """A thread-tier rank (ref: _internal/worker_group.py:19 RayTrainWorker)."""
+
+    def __init__(self, rank: int, world_size: int, group_name: str):
+        self.rank = rank
+        self.world_size = world_size
+        # A process launched into a torch.distributed group by its operator
+        # (RAY_TPU_COORDINATOR/...) joins it first (ref:
+        # train/torch/config.py:66 _setup_torch_process_group).
+        from ray_tpu_torch.collective import distributed
+
+        distributed.auto_initialize()
+        collective.init_collective_group(world_size, rank,
+                                         group_name=group_name)
+
+    def run(self, train_loop: Callable, loop_config: Optional[Dict[str, Any]],
+            session: TrainSession) -> str:
+        # Chaos: a worker dying right at run entry (the other half of the
+        # per-report() consultation in TrainSession.report).
+        fault_injection.check("train_worker_run")
+        init_session(session)
+        try:
+            invoke_train_loop(train_loop, loop_config)
+            return "done"
+        except StopIteration:
+            return "stopped"
+        finally:
+            clear_session()
+
+
+def _reserve_addr() -> str:
+    """A free port on this host as "127.0.0.1:port": the rendezvous address
+    rank 0 advertises. The runtime has one node, so the loopback address
+    reaches every rank. TOCTOU-racy by nature; the rendezvous is bounded
+    (``distributed.INIT_TIMEOUT_S``) for exactly that reason."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return f"127.0.0.1:{port}"
+
+
+def _drive_worker_refs(refs, drain) -> None:
+    """Poll a worker group's run() refs to completion, draining the report
+    channel as results stream in; re-raises the first worker error (shared
+    by the process-tier controllers)."""
+    pending = list(refs)
+    while pending:
+        ready, pending = ray_tpu_torch.wait(pending, num_returns=len(pending),
+                                            timeout=0.05)
+        drain()
+        for r in ready:
+            ray_tpu_torch.get(r)  # raise worker errors here
+    drain()
+
+
+class DistTrainSession:
+    """Pickle-safe session for process-tier workers: report() ships metrics
+    and the checkpoint directory BY VALUE (a tar) through an actor-backed
+    queue (ref: _TrainSession:112 contract; train/_internal/storage.py
+    checkpoint upload)."""
+
+    def __init__(self, context: TrainContext, report_queue,
+                 checkpoint_to_restore: Optional[Checkpoint] = None):
+        self.context = context
+        self._queue = report_queue
+        self.checkpoint_to_restore = checkpoint_to_restore
+        self.dataset_shards: Dict[str, Any] = {}
+        self.stop_requested = threading.Event()
+
+    def report(self, metrics: Dict[str, Any],
+               checkpoint: Optional[Any] = None) -> None:
+        if checkpoint is not None and not isinstance(checkpoint, Checkpoint):
+            checkpoint = Checkpoint.from_pytree(checkpoint)
+        try:
+            self._queue.put({
+                "rank": self.context.world_rank,
+                "metrics": dict(metrics),
+                "checkpoint_blob": pack_checkpoint(checkpoint),
+            })
+        finally:
+            if checkpoint is not None:
+                # Shipped by value: the local copy is this worker's scratch.
+                shutil.rmtree(checkpoint.path, ignore_errors=True)
+
+
+@ray_tpu_torch.remote
+class CudaDistTrainWorker:
+    """One torch.distributed rank in its own OS process: the counterpart of
+    ``JaxDistTrainWorker`` (ref: _internal/backend_executor.py:69 — the
+    worker group's actors bootstrapped into one process group;
+    train/torch/config.py:66,115 _setup_torch_process_group).
+
+    The process sees only its lease's cards; ``setup`` selects the granted
+    one and joins the group through rank 0's reserved address, NCCL on the
+    card (gloo for a rank without one). ``ray_tpu_torch.collective`` ops
+    then run as process-group calls (collective/process_group.py). Always
+    created with isolation='process'."""
+
+    def __init__(self, rank: int, world_size: int, group_name: str):
+        self.rank = rank
+        self.world = world_size
+        self.group_name = group_name
+
+    def reserve_coordinator(self) -> str:
+        """Rank 0 picks the process group's rendezvous address."""
+        return _reserve_addr()
+
+    def setup(self, coordinator: str) -> Dict[str, Any]:
+        """Join the process group; returns the topology for checks, with
+        when the worker's main loop started and when this call entered and
+        joined (``time.time()``). Called CONCURRENTLY on all ranks
+        (initialization is a barrier)."""
+        from ray_tpu_torch._private import process_pool
+        from ray_tpu_torch.collective import distributed
+
+        entered = time.time()
+        backend = distributed.initialize(coordinator, self.world, self.rank)
+        collective.init_collective_group(self.world, self.rank,
+                                         group_name=self.group_name)
+        return {"rank": self.rank, "backend": backend, "pid": os.getpid(),
+                "process_count": distributed.process_count(),
+                "worker_main_at": process_pool.WORKER_MAIN_AT,
+                "setup_at": entered, "joined_at": time.time()}
+
+    def run(self, train_loop: Callable, loop_config: Optional[Dict[str, Any]],
+            context: TrainContext, report_queue,
+            restore_blob: Optional[bytes]) -> str:
+        restore = unpack_checkpoint(restore_blob)
+        session = DistTrainSession(context, report_queue, restore)
+        init_session(session)
+        try:
+            invoke_train_loop(train_loop, loop_config)
+            return "done"
+        finally:
+            clear_session()
+            if restore is not None:
+                # The unpacked restore dir is this attempt's scratch copy.
+                shutil.rmtree(restore.path, ignore_errors=True)
+
+    def teardown(self) -> None:
+        collective.destroy_collective_group(self.group_name)
+        from ray_tpu_torch.collective import distributed
+
+        distributed.shutdown()
+
+
+class DataParallelTrainer:
+    """(ref: python/ray/train/data_parallel_trainer.py:25)"""
+
+    _collective_counter = 0
+
+    def __init__(
+        self,
+        train_loop_per_worker: Callable,
+        *,
+        train_loop_config: Optional[Dict[str, Any]] = None,
+        scaling_config: Optional[ScalingConfig] = None,
+        run_config: Optional[RunConfig] = None,
+        datasets: Optional[Dict[str, Any]] = None,
+        dataset_config: Optional[DatasetConfig] = None,
+        resume_from_checkpoint: Optional[Checkpoint] = None,
+    ):
+        self.train_loop = train_loop_per_worker
+        self.train_loop_config = train_loop_config
+        self.scaling_config = scaling_config or ScalingConfig()
+        self.run_config = run_config or RunConfig()
+        self.datasets = datasets or {}
+        self.dataset_config = dataset_config or DatasetConfig()
+        self.resume_from_checkpoint = resume_from_checkpoint
+        if self.scaling_config.elastic is not None:
+            raise NotImplementedError(
+                "ScalingConfig.elastic needs the elastic path (the "
+                "autoscaler's elastic.py, the sample ledger's resharding, "
+                "ElasticDatasetShard and the replica tier), which is not "
+                "ported yet (ROADMAP.md, Queue 1 item 5)")
+        if self.run_config.checkpoint_config.async_save:
+            raise NotImplementedError(
+                "CheckpointConfig.async_save needs the checkpoint/ package, "
+                "which is not ported yet (ROADMAP.md, Queue 1 item 6)")
+        #: One dict per named dataset on the streaming path (tests audit
+        #: per-shard exactly-once accounting after fit() returns).
+        self.streaming_ingests: Dict[str, Any] = {}
+
+    # ------------------------------------------------------------------ fit
+    def fit(self) -> Result:
+        if not ray_tpu_torch.is_initialized():
+            ray_tpu_torch.init()
+        scfg = self.scaling_config
+        if scfg.use_gpu and scfg.resources_per_worker is None:
+            have = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
+            if have < scfg.gpus_per_worker:
+                raise RuntimeError(
+                    f"ScalingConfig(use_gpu=True) needs a card, and the node "
+                    f"has {have} GPUs (torch finds no CUDA device?); pass "
+                    f"use_gpu=False to train on the CPU")
+        run_name = self.run_config.name or f"train_{int(time.time())}"
+        storage = self.run_config.storage_path or tempfile.mkdtemp(
+            prefix="ray_tpu_torch_train_")
+        experiment_path = os.path.join(storage, run_name)
+        ckpt_conf = self.run_config.checkpoint_config
+        manager = CheckpointManager(
+            os.path.join(experiment_path, "checkpoints"),
+            num_to_keep=ckpt_conf.num_to_keep,
+            score_attribute=ckpt_conf.checkpoint_score_attribute,
+            score_order=ckpt_conf.checkpoint_score_order,
+        )
+        # The run is visible to /api/train_runs for its whole lifetime.
+        run_registry.register_run(run_name, world_size=scfg.num_workers,
+                                  target_world=scfg.num_workers,
+                                  path=experiment_path)
+        # Streaming data plane: with DatasetConfig(streaming=True) — the
+        # default — every lazy Dataset becomes a StreamingIngest shared
+        # across attempts: workers claim source shards through a per-epoch
+        # ledger and stream them through backpressure -> windowed shuffle
+        # -> rebatch -> prefetch. Other datasets take the legacy split.
+        dcfg = self.dataset_config
+        ingests: Dict[str, Any] = {}
+        if dcfg.streaming:
+            from ray_tpu_torch.data.ingest import StreamingIngest
+
+            for name, ds in self.datasets.items():
+                if hasattr(ds, "_op"):
+                    ingests[name] = StreamingIngest(
+                        ds,
+                        window_blocks=dcfg.shuffle_window_blocks,
+                        window_bytes=dcfg.window_bytes,
+                        seed=dcfg.shuffle_seed,
+                        prefetch_batches=dcfg.prefetch_batches)
+        self.streaming_ingests = ingests
+
+        max_failures = self.run_config.failure_config.max_failures
+        failures = 0
+        attempt_no = 1
+        restore_ckpt = self.resume_from_checkpoint
+        history: List[Dict[str, Any]] = []
+        restarts: List[Dict[str, Any]] = []
+
+        def result(outcome: Dict, error: Optional[BaseException]) -> Result:
+            return Result(metrics=outcome["last_metrics"],
+                          checkpoint=manager.latest_checkpoint(),
+                          path=experiment_path, error=error,
+                          metrics_history=history, restarts=restarts)
+
+        try:
+            while True:
+                outcome = self._run_attempt(run_name, manager, restore_ckpt,
+                                            ingests)
+                history.extend(outcome["history"])
+                if restarts and restarts[-1]["resumed_s"] is None:
+                    first = outcome.get("first_report_at")
+                    if first is not None:
+                        restarts[-1]["resumed_s"] = \
+                            first - restarts[-1]["failed_at"]
+                if outcome["status"] == "finished":
+                    run_registry.finish_run(run_name, "finished")
+                    for ingest in ingests.values():
+                        # Claims the prefetch pump made but whose batches
+                        # the loop never consumed roll back, so audit()
+                        # never reports them trained.
+                        ingest.finish()
+                    return result(outcome, None)
+                error = outcome["error"]
+                failures += 1
+                # "fatal" = retrying cannot help (e.g. infeasible
+                # resources): return even under max_failures=-1.
+                if outcome["status"] == "fatal" or (
+                        max_failures >= 0 and failures > max_failures):
+                    run_registry.finish_run(run_name, "failed")
+                    flight_recorder.trigger_dump("train_failed", {
+                        "run": run_name, "attempts": attempt_no,
+                        "error": repr(error)})
+                    return result(outcome, error)
+                restarts.append({"attempt": attempt_no, "error": repr(error),
+                                 "failed_at": outcome["failed_at"],
+                                 "resumed_s": None})
+                flight_recorder.record_event(f"train.restart:{run_name}", {
+                    "attempt": attempt_no, "error": repr(error)}, kind="train")
+                time.sleep(min(2.0 ** min(failures, 5) * 0.1, 5.0))  # backoff
+                # Restart from the newest checkpoint (ref: v2 controller
+                # RESTARTING state).
+                restore_ckpt = (manager.latest_checkpoint()
+                                or self.resume_from_checkpoint)
+                # The restarted attempt re-runs the user loop from its own
+                # epoch 0: ingest epochs start fresh too.
+                for ingest in ingests.values():
+                    ingest.reset()
+                attempt_no += 1
+                run_registry.update_run(run_name, attempts=attempt_no)
+        finally:
+            # Device-telemetry rollup for the run row, when that plane is
+            # loaded (ROADMAP.md, Queue 1 item 11) — best-effort.
+            telemetry = sys.modules.get("ray_tpu_torch.util.device_telemetry")
+            if telemetry is not None:
+                try:
+                    run_registry.update_run(
+                        run_name, device_telemetry=telemetry.snapshot())
+                except Exception:
+                    pass
+            # A raise out of the attempt loop must not leave the registry
+            # row "running" forever.
+            row = run_registry.get_run(run_name)
+            if row is not None and row["status"] == "running":
+                run_registry.finish_run(run_name, "failed")
+
+    # ---------------------------------------------------------- one attempt
+    def _run_attempt(self, run_name: str, manager: CheckpointManager,
+                     restore_ckpt: Optional[Checkpoint],
+                     ingests: Dict[str, Any]) -> Dict:
+        scfg = self.scaling_config
+        world = scfg.num_workers
+        DataParallelTrainer._collective_counter += 1
+        group_name = f"train-{run_name}-{DataParallelTrainer._collective_counter}"
+
+        # Gang-schedule the worker group via a placement group
+        # (ref: backend_executor.py placement group per worker group).
+        bundles = [scfg.worker_resources() for _ in range(world)]
+        # Infeasible-by-construction requests fail now, not after the
+        # reservation timeout.
+        from ray_tpu_torch._private.runtime import get_runtime
+
+        scheduler = get_runtime().scheduler
+        for bundle in bundles:
+            if not scheduler.feasible(bundle):
+                return {"status": "fatal", "last_metrics": None, "history": [],
+                        "error": RuntimeError(
+                            f"Worker bundle {bundle} fits no node in the cluster "
+                            f"(total: {ray_tpu_torch.cluster_resources()})")}
+        pg = placement_group(bundles, strategy=scfg.placement_strategy)
+        try:
+            if not pg.wait(timeout_seconds=PG_WAIT_S):
+                return {"status": "failed", "last_metrics": None,
+                        "history": [], "failed_at": time.monotonic(),
+                        "error": RuntimeError(
+                            f"Could not reserve {world}x{scfg.worker_resources()} "
+                            f"for the worker group within {PG_WAIT_S:.0f}s "
+                            f"(cluster: {ray_tpu_torch.cluster_resources()}). "
+                            f"Reduce num_workers/resources_per_worker.")}
+            return self._run_with_pg(pg, run_name, group_name, manager,
+                                     restore_ckpt, ingests)
+        finally:
+            collective.destroy_collective_group(group_name)
+            remove_placement_group(pg)
+
+    def _worker_mode(self, pg) -> str:
+        """threads (one host, shared process) vs processes (one
+        torch.distributed rank per worker process — required once the
+        group spans nodes: a thread here cannot run on another host)."""
+        mode = self.scaling_config.worker_mode
+        if mode in ("threads", "processes"):
+            return mode
+        if mode != "auto":
+            raise ValueError(f"worker_mode must be auto|threads|processes, got {mode!r}")
+        from ray_tpu_torch._private.runtime import get_runtime
+
+        head = str(get_runtime().head_node_id)
+        return "processes" if any(
+            n is not None and n != head for n in pg.bundle_node_ids()
+        ) else "threads"
+
+    def _run_with_pg(self, pg, run_name: str, group_name: str,
+                     manager: CheckpointManager, restore_ckpt,
+                     ingests: Dict[str, Any]) -> Dict:
+        if self._worker_mode(pg) == "processes":
+            return self._run_distributed(pg, run_name, group_name, manager,
+                                         restore_ckpt)
+        scfg = self.scaling_config
+        world = scfg.num_workers
+        train_metrics.WORLD_SIZE.set(world)
+        run_registry.update_run(run_name, world_size=world)
+        dataset_shards = self._split_datasets(world, exclude=set(ingests))
+        sessions: List[TrainSession] = []
+        workers = []
+        for rank in range(world):
+            ctx = TrainContext(world_rank=rank, world_size=world, local_rank=rank,
+                               trial_name=run_name, experiment_name=run_name,
+                               group_name=group_name)
+            session = TrainSession(ctx, checkpoint_to_restore=restore_ckpt,
+                                   dataset_shards=dataset_shards[rank],
+                                   dataset_config=self.dataset_config,
+                                   profiler=(StepProfiler(run_name=run_name,
+                                                          rank=rank)
+                                             if self.run_config.profile
+                                             else None))
+            # Streaming datasets: a per-session view onto the shared ingest.
+            for name, ingest in ingests.items():
+                session.dataset_shards[name] = ingest.make_shard(session)
+            sessions.append(session)
+            workers.append(
+                TrainWorker.options(
+                    resources=scfg.worker_resources(),
+                    scheduling_strategy=PlacementGroupSchedulingStrategy(
+                        placement_group=pg, placement_group_bundle_index=rank),
+                ).remote(rank, world, group_name)
+            )
+        #: The last attempt's sessions (their profilers hold the per-step
+        #: attribution rows).
+        self.sessions = sessions
+        refs = [w.run.remote(self.train_loop, self.train_loop_config, s)
+                for w, s in zip(workers, sessions)]
+
+        drained = _Drain(manager)
+        pending = list(refs)
+        last_health = 0.0
+        try:
+            while pending:
+                ready, pending = ray_tpu_torch.wait(
+                    pending, num_returns=len(pending), timeout=0.05)
+                drained.sessions(sessions)
+                now = time.monotonic()
+                # Liveness: a killed thread-tier worker's actor dies but its
+                # in-flight run() thread does NOT — the ref would never
+                # resolve, so the controller polls actor health itself.
+                if now - last_health >= 0.25:
+                    last_health = now
+                    dead = self._dead_workers(workers)
+                    if dead:
+                        from ray_tpu_torch.exceptions import WorkerCrashedError
+
+                        raise WorkerCrashedError(
+                            f"{len(dead)} train worker(s) died (ranks "
+                            f"{sorted(dead)})")
+                for r in ready:
+                    ray_tpu_torch.get(r)  # raise worker errors
+            drained.sessions(sessions)
+            return drained.outcome("finished")
+        except (TaskError, RayTpuError) as e:  # a worker failed
+            failed_at = time.monotonic()
+            for s in sessions:
+                s.stop_requested.set()
+            # Wake any worker blocked in a collective rendezvous NOW.
+            try:
+                collective.get_collective_group(group_name).destroy()
+            except ValueError:
+                pass
+            # Keep results reported before the crash (checkpoints
+            # especially — the restart resumes from the last one).
+            drained.sessions(sessions)
+            return drained.outcome("failed", error=e, failed_at=failed_at)
+        finally:
+            for w in workers:
+                ray_tpu_torch.kill(w)
+
+    def _dead_workers(self, workers) -> List[int]:
+        """Ranks whose worker actor is no longer alive (killed)."""
+        from ray_tpu_torch._private.runtime import get_runtime
+
+        runtime = get_runtime()
+        dead = []
+        for rank, w in enumerate(workers):
+            state = runtime.get_actor_state(w._ray_actor_id)
+            if state is None or state.state == "DEAD":
+                dead.append(rank)
+        return dead
+
+    # --------------------------------------------------- process attempt
+    def _run_distributed(self, pg, run_name: str, group_name: str,
+                         manager: CheckpointManager, restore_ckpt) -> Dict:
+        """One attempt with process-tier workers: rank 0 reserves the
+        rendezvous address, every worker joins with its placement-group
+        rank, and the group's collectives become process-group calls (ref:
+        backend_executor.py _setup_worker_group + torch/config.py:115)."""
+        from ray_tpu_torch.util.queue import Empty, Queue
+
+        scfg = self.scaling_config
+        world = scfg.num_workers
+        if self.datasets:
+            return {"status": "fatal", "last_metrics": None, "history": [],
+                    "error": ValueError(
+                        "datasets= require thread-tier workers (streaming "
+                        "iterators cannot cross process boundaries); use "
+                        "ScalingConfig(worker_mode='threads') or load data "
+                        "inside the train_loop")}
+        workers = []
+        contexts: List[TrainContext] = []
+        for rank in range(world):
+            contexts.append(TrainContext(
+                world_rank=rank, world_size=world, local_rank=rank,
+                trial_name=run_name, experiment_name=run_name,
+                group_name=group_name))
+            workers.append(
+                CudaDistTrainWorker.options(
+                    isolation="process",
+                    resources=scfg.worker_resources(),
+                    scheduling_strategy=PlacementGroupSchedulingStrategy(
+                        placement_group=pg, placement_group_bundle_index=rank),
+                ).remote(rank, world, group_name))
+
+        report_queue = Queue()
+        drained = _Drain(manager)
+
+        def drain() -> None:
+            while True:
+                try:
+                    item = report_queue.get_nowait()
+                except Empty:
+                    return
+                drained.item(item["rank"], item["metrics"],
+                             unpack_checkpoint(item["checkpoint_blob"]))
+
+        try:
+            coord = ray_tpu_torch.get(workers[0].reserve_coordinator.remote(),
+                                      timeout=120)
+            #: The ranks' topology as each reported it from setup().
+            self.process_topology = ray_tpu_torch.get(
+                [w.setup.remote(coord) for w in workers], timeout=300)
+            blob = pack_checkpoint(restore_ckpt)
+            refs = [w.run.remote(self.train_loop, self.train_loop_config, ctx,
+                                 report_queue, blob)
+                    for w, ctx in zip(workers, contexts)]
+            _drive_worker_refs(refs, drain)
+            for w in workers:
+                try:
+                    ray_tpu_torch.get(w.teardown.remote(), timeout=15)
+                except (TaskError, RayTpuError):
+                    pass  # the process is discarded below either way
+            return drained.outcome("finished")
+        except (TaskError, RayTpuError) as e:
+            # A dead worker leaves the others wedged inside a collective;
+            # killing their processes (finally below) unblocks the restart.
+            failed_at = time.monotonic()
+            drain()
+            return drained.outcome("failed", error=e, failed_at=failed_at)
+        finally:
+            for w in workers:
+                ray_tpu_torch.kill(w)
+            report_queue.shutdown()
+
+    def _split_datasets(self, world: int, exclude=()) -> List[Dict[str, Any]]:
+        """Per-rank dataset shards (ref: StreamSplitDataIterator coordinated
+        split for Train ingest, data/_internal/iterator/stream_split_iterator.py:31).
+        Names in ``exclude`` are served by streaming ingest instead."""
+        shards: List[Dict[str, Any]] = [{} for _ in range(world)]
+        for name, ds in self.datasets.items():
+            if name in exclude:
+                continue
+            if hasattr(ds, "streaming_split"):
+                its = ds.streaming_split(world)
+                for rank in range(world):
+                    shards[rank][name] = its[rank]
+            else:
+                for rank in range(world):
+                    shards[rank][name] = ds
+        return shards
+
+
+class _Drain:
+    """What one attempt's reports leave behind: checkpoints from ANY rank
+    are registered (a loop where a non-zero rank carries the checkpoint
+    must not lose progress); metrics history follows rank 0 (the
+    reference's convention)."""
+
+    def __init__(self, manager: CheckpointManager):
+        self.manager = manager
+        self.last_metrics: Optional[Dict[str, Any]] = None
+        self.history: List[Dict[str, Any]] = []
+        self.first_report_at: Optional[float] = None
+
+    def item(self, rank: int, metrics: Dict[str, Any],
+             checkpoint: Optional[Checkpoint]) -> None:
+        if self.first_report_at is None:
+            self.first_report_at = time.monotonic()
+        if checkpoint is not None:
+            self.manager.register(checkpoint, metrics)
+        if rank == 0:
+            self.last_metrics = metrics
+            self.history.append(metrics)
+
+    def sessions(self, sessions: List[TrainSession]) -> None:
+        for session in sessions:
+            while True:
+                try:
+                    item = session.results.get_nowait()
+                except queue.Empty:
+                    break
+                self.item(item["rank"], item["metrics"], item["checkpoint"])
+
+    def outcome(self, status: str, error: Optional[BaseException] = None,
+                failed_at: Optional[float] = None) -> Dict[str, Any]:
+        return {"status": status, "last_metrics": self.last_metrics,
+                "history": self.history, "error": error,
+                "failed_at": failed_at,
+                "first_report_at": self.first_report_at}
+
+
+class CudaTrainer(DataParallelTrainer):
+    """The GPU trainer: the counterpart of ``JaxTrainer`` (BASELINE north
+    star: ``JaxTrainer`` pinning workers to TPU processes; here workers
+    pinned to cards). The same controller; ``use_gpu`` (the default)
+    reserves ``gpus_per_worker`` of a card per worker, each rank reads its
+    card from ``get_gpu_ids()`` (``_private/device.py:granted_cuda_device``),
+    and ``ray_tpu_torch.collective.allreduce`` inside the loop syncs the
+    gradients.
+
+    On one node the workers are threads sharing the process and its CUDA
+    context; ranks that share a card share it. With
+    ``ScalingConfig(worker_mode="processes")`` each worker is its own
+    process on its own card, joined into one NCCL group, and the same
+    train_loop runs unchanged."""

@@ -410,3 +410,79 @@ def test_device_batch_iterator_bytes_equal_host_batches_on_gpu(consumer_ms):
         assert g["tokens"].tobytes() == h["tokens"].tobytes()
         assert g["w"].tobytes() == h["w"].tobytes()
         assert list(g["name"]) == list(h["name"])
+
+
+@pytest.mark.cuda
+def test_thread_ranks_allreduce_off_other_streams_on_gpu():
+    """Two thread ranks on one card: rank 0's batches come off
+    ``DeviceBatchIterator``'s side stream and its contribution is made on a
+    stream of its own behind a long device sleep; rank 1 works on the
+    default stream. The op must wait for each contributor's stream (and
+    each rank for the op's), so every round equals the host's sum; an op
+    that read rank 0's tensor early would sum stale bytes."""
+    _need_gpu()
+    import warnings
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from ray_tpu_torch.collective.thread_group import ThreadCollectiveGroup
+    from ray_tpu_torch.data.ingest import DeviceBatchIterator
+
+    rng = np.random.default_rng(0)
+    rounds = [[rng.standard_normal((4, 1 << 20)).astype(np.float32)
+               for _ in range(2)] for _ in range(3)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # 2 ranks, 1 card
+        group = ThreadCollectiveGroup("side-streams", 2,
+                                      devices=[torch.device("cuda", 0)])
+
+    def rank0():
+        out = []
+        side = torch.cuda.Stream()
+        batches = DeviceBatchIterator(({"x": r[0]} for r in rounds),
+                                      device="cuda:0")
+        for batch in batches:
+            with torch.cuda.stream(side):
+                side.wait_stream(torch.cuda.current_stream())
+                torch.cuda._sleep(200_000_000)
+                y = torch.zeros_like(batch["x"])
+                y.copy_(batch["x"])
+                out.append(group.allreduce(0, y * 2 + 1).cpu())
+        return out
+
+    def rank1():
+        return [group.allreduce(1, torch.from_numpy(r[1]).cuda()).cpu()
+                for r in rounds]
+
+    with ThreadPoolExecutor(2) as pool:
+        f0, f1 = pool.submit(rank0), pool.submit(rank1)
+        outs = [f0.result(timeout=120), f1.result(timeout=120)]
+    for i, (a, b) in enumerate(rounds):
+        want = torch.from_numpy(a * 2 + 1 + b)
+        for out in outs:
+            assert torch.equal(out[i], want), i
+
+
+@pytest.mark.cuda
+def test_world_one_nccl_group_allreduces_on_gpu():
+    """A process group of one rank still initialises NCCL on the card, and
+    the collective API's op is its all_reduce there."""
+    _need_gpu()
+    from ray_tpu_torch import collective
+    from ray_tpu_torch.collective import distributed
+    from ray_tpu_torch.train.trainer import _reserve_addr
+
+    backend = distributed.initialize(_reserve_addr(), 1, 0)
+    try:
+        assert backend == "nccl" == torch.distributed.get_backend()
+        collective.init_collective_group(1, 0, group_name="nccl-1")
+        group = collective.get_collective_group("nccl-1")
+        assert type(group).__name__ == "ProcessCollectiveGroup"
+        x = torch.arange(1 << 20, device="cuda", dtype=torch.float32)
+        out = collective.allreduce(x, group_name="nccl-1")
+        assert out.is_cuda and torch.equal(out, x)
+        assert group.ops == {"allreduce": 1}
+    finally:
+        collective.destroy_collective_group("nccl-1")
+        distributed.shutdown()

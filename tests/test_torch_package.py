@@ -102,7 +102,17 @@ print(json.dumps({"modules": mods, "loaded": sorted(sys.modules)}))
             "ray_tpu_torch.data.ingest.ingest",
             "ray_tpu_torch.data.ingest.prefetch",
             "ray_tpu_torch.train.elastic",
-            "ray_tpu_torch.examples.batch_inference"} <= set(res["modules"])
+            "ray_tpu_torch.examples.batch_inference",
+            "ray_tpu_torch.collective",
+            "ray_tpu_torch.collective.thread_group",
+            "ray_tpu_torch.collective.process_group",
+            "ray_tpu_torch.collective.distributed",
+            "ray_tpu_torch.train", "ray_tpu_torch.train.trainer",
+            "ray_tpu_torch.train.torch_trainer",
+            "ray_tpu_torch.train.checkpoint", "ray_tpu_torch.train.session",
+            "ray_tpu_torch.train.profiler", "ray_tpu_torch.util.watchdog",
+            "ray_tpu_torch.util.queue", "ray_tpu_torch.util.placement_group",
+            "ray_tpu_torch.examples.train_gpt2"} <= set(res["modules"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 
@@ -200,6 +210,54 @@ def test_the_scan_covers_the_runtime_serve_util_and_examples():
             "data/executor.py", "data/exchange.py", "data/tfrecords.py",
             "data/ingest/ingest.py", "data/ingest/prefetch.py",
             "train/elastic.py"} <= files
+
+
+def test_the_scan_covers_collective_train_and_util():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"collective/__init__.py", "collective/thread_group.py",
+            "collective/process_group.py", "collective/distributed.py",
+            "train/__init__.py", "train/config.py", "train/checkpoint.py",
+            "train/session.py", "train/profiler.py", "train/metrics.py",
+            "train/run_registry.py", "train/trainer.py",
+            "train/torch_trainer.py", "util/watchdog.py", "util/queue.py",
+            "util/placement_group.py", "util/scheduling_strategies.py",
+            "examples/train_gpt2.py"} <= files
+
+
+#: Imported only inside the functions that use them in collective/ and
+#: train/, so that importing either package sets up no process group.
+_DISTRIBUTED = ("torch.distributed", "torch.nn.parallel")
+
+
+def test_collective_and_train_import_torch_distributed_in_functions():
+    for path in sorted((PORT / "collective").rglob("*.py")) + \
+            sorted((PORT / "train").rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert not name.startswith(_DISTRIBUTED), (path, name)
+
+
+def test_importing_collective_and_train_sets_up_no_process_group():
+    code = """
+import json, sys
+import ray_tpu_torch.collective, ray_tpu_torch.train
+import torch.distributed as dist
+print(json.dumps({"initialized": dist.is_initialized()}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "initialized": False}
 
 
 def test_runtime_and_serve_import_without_initialising_cuda():

@@ -888,3 +888,28 @@ def test_cuda_tensor_crosses_as_a_host_copy(port):
     assert arrived == "cpu" and back.device.type == "cpu"
     assert torch.equal(back, (x * 2).cpu())
     pkg.shutdown()
+
+
+def test_pipe_messages_keep_connection_framing():
+    """``process_pool.recv_bytes`` reads what ``Connection.send_bytes``
+    writes: empty, short (header and payload in one write), long (header
+    then payload) and several in a row, then EOF at a message boundary."""
+    from ray_tpu_torch._private.process_pool import recv_bytes
+
+    a, b = multiprocessing.Pipe(duplex=False)
+    msgs = [b"", b"x" * 10, os.urandom(1 << 20), b"tail"]
+
+    def send():
+        for m in msgs:
+            b.send_bytes(m)
+        b.close()
+
+    import threading
+
+    t = threading.Thread(target=send)
+    t.start()
+    got = [bytes(recv_bytes(a)) for _ in msgs]
+    with pytest.raises(EOFError):
+        recv_bytes(a)
+    t.join(timeout=10)
+    assert got == msgs
