@@ -161,14 +161,15 @@ Phases, each of which exits non-zero on failure:
     same steps at B=16 without a trainer ("direct") and through the
     trainer on one rank, twice each: both ranks
     on card 0 with the oversubscription warning, step 1's mean gradient
-    within ``GRAD_RTOL`` of direct's per leaf, the ranks' mean losses
+    within ``GRAD_RTOL`` of direct's per leaf while rank 0's own gradient
+    before the all-reduce (the control: a sync that returned one rank's
+    gradient) is farther than that in some leaf, the ranks' mean losses
     within ``FIT_LOSS_ATOL`` of direct's, exactly 2 x (12 + 12) splash and
     2 of each CE launch a step, and the placement group gone with the card
-    free after. (b) The same two ranks read 512 rows in 8 blocks through
-    ``datasets=`` (streaming ingest to the card), one epoch at 8 rows a
-    rank: every block trained once on one rank (the ingest's audit; the
-    first rank to start claims up to 8 shards before it learns their size,
-    so one rank may train them all),
+    free after. (b) The same two ranks read the 512 rows in 64 blocks
+    through ``datasets=`` (streaming ingest to the card), one epoch at 8
+    rows a rank: every block trained once on one rank (the ingest's
+    audit), each rank at least one block (rows counted from the batches),
     finite losses, a non-zero ``data_wait`` bucket. (c) One rank, a
     checkpoint every 2 steps (two kept), fails before step 5 of its first
     attempt and resumes: one restart, the restored weights and moments
@@ -234,10 +235,11 @@ MAIN_SHAPE = (1, 1024, 12, 64, True)
 # them fp32; both round the result to bf16 (2**-8 relative).
 BWD_RTOL = 2e-2
 # (B, S, H, hd, causal): the training shape first, q, k, v split from a
-# fused qkv as the model makes them. Timed: the training shape and
-# head_dim 128.
-BWD_SHAPES = [(16, 1024, 12, 64, True), (1, 1000, 12, 64, False),
-              (1, 7, 12, 64, True), (2, 512, 8, 128, True)]
+# fused qkv as the model makes them, then train_fit's rank shape (B=8 of
+# the B=16 batch). Timed: the training shape and head_dim 128.
+BWD_SHAPES = [(16, 1024, 12, 64, True), (8, 1024, 12, 64, True),
+              (1, 1000, 12, 64, False), (1, 7, 12, 64, True),
+              (2, 512, 8, 128, True)]
 BWD_TIMED = [(16, 1024, 12, 64, True), (2, 512, 8, 128, True)]
 
 # Fused CE against its plain versions. lse and tgt are fp32 on both sides
@@ -246,10 +248,11 @@ BWD_TIMED = [(16, 1024, 12, 64, True), (2, 512, 8, 128, True)]
 # on a rounding boundary may round one ulp apart (2**-8 relative).
 CE_ATOL = 2e-3
 CE_GRAD_RTOL = 2e-2
-# (N, D, V): GPT-2 124M's training shape (16 x 1024 tokens), the reference
-# test's ragged 24 x 96 case, and an N and V (GPT-2's unpadded vocab) that
-# are multiples of no tile.
-CE_SHAPES = [(16384, 768, 50304), (24, 64, 96), (1000, 768, 50257)]
+# (N, D, V): GPT-2 124M's training shape (16 x 1024 tokens), train_fit's
+# rank shape (8 x 1024), the reference test's ragged 24 x 96 case, and an N
+# and V (GPT-2's unpadded vocab) that are multiples of no tile.
+CE_SHAPES = [(16384, 768, 50304), (8192, 768, 50304), (24, 64, 96),
+             (1000, 768, 50257)]
 
 # Ring kernels (rows 8, 9) against their plain versions: (B, S_local, H, hd,
 # causal) over W=4 ranks. The training path's per-step shape first, then a
@@ -2767,7 +2770,10 @@ def phase_data_batch() -> Dict[str, object]:
 
 
 FIT_ROWS = 512
-FIT_BLOCKS = 8
+# (b) streams the rows in blocks of one rank's batch: a rank claims up to
+# its task cap (8) and shuffle window (16) of blocks before it learns their
+# size, so 8 blocks all went to the first rank to ask.
+FIT_INGEST_BLOCKS = 64
 FIT_BATCH = 16  # the global batch of (a) and of direct; 8 per rank
 FIT_STEPS = 5
 FIT_ROUNDS = 2
@@ -2918,7 +2924,7 @@ def phase_train_fit() -> Dict[str, object]:
                 times[-1] - times[0]), _fit_buckets(trainer)
 
         def run_fit(label):
-            seen = {"loss": {}, "grads": None}
+            seen = {"loss": {}, "grads": None, "own": None}
 
             def probe(event, rank, step, **info):
                 if event != "step":
@@ -2927,6 +2933,8 @@ def phase_train_fit() -> Dict[str, object]:
                 if step == 1 and rank == 0:
                     seen["grads"] = [g.detach().clone()
                                      for g in tree_leaves(info["grads"])]
+                    seen["own"] = [g.detach().clone() for g in
+                                   tree_leaves(info["local_grads"])]
 
             trainer = CudaTrainer(
                 train_gpt2.train_loop_per_worker,
@@ -2977,12 +2985,23 @@ def phase_train_fit() -> Dict[str, object]:
             grad_err = {n: rel_err(g, d) for n, g, d in zip(
                 direct["names"], seen["grads"], direct_grads)}
             worst = max(grad_err, key=grad_err.get)
+            # The control: rank 0's own B=8 gradient, as an all-reduce that
+            # returned one rank's gradient would leave it, against direct's
+            # B=16. The gate must be able to fail it.
+            own_err = {n: rel_err(g, d) for n, g, d in zip(
+                direct["names"], seen["own"], direct_grads)}
+            own_worst = max(own_err, key=own_err.get)
             if loss_err > FIT_LOSS_ATOL or grad_err[worst] > GRAD_RTOL or \
                     not np.isfinite(losses).all():
                 fail(f"fit round {r}: losses {losses} vs direct "
                      f"{direct['losses']} (tol {FIT_LOSS_ATOL}); step-1 "
                      f"gradient {worst} off by {grad_err[worst]} (tol "
                      f"{GRAD_RTOL})")
+            if not own_err[own_worst] > GRAD_RTOL:
+                fail(f"fit round {r}: rank 0's unreduced gradient is within "
+                     f"{own_err[own_worst]} of direct's ({own_worst}): the "
+                     f"gate (tol {GRAD_RTOL}) cannot tell a missing "
+                     f"all-reduce")
             tokens_per_step = FIT_BATCH * S
             turns.append(dict(
                 direct_losses=direct["losses"], fit_losses=losses,
@@ -2990,7 +3009,13 @@ def phase_train_fit() -> Dict[str, object]:
                                           range(1, FIT_STEPS + 1)]
                              for k in range(2)},
                 loss_max_abs_err=loss_err, grad_rel_err_worst=grad_err[worst],
-                grad_worst_leaf=worst,
+                grad_worst_leaf=worst, grad_rel_tol=GRAD_RTOL,
+                control_unreduced_rel_err_worst=own_err[own_worst],
+                control_worst_leaf=own_worst,
+                control_unreduced_rel_err_least=min(own_err.values()),
+                control_leaves_over_tol=sum(
+                    e > GRAD_RTOL for e in own_err.values()),
+                leaves=len(own_err),
                 direct_tokens_per_s=(FIT_STEPS - 1) * tokens_per_step
                 / direct["steps_s"],
                 fit_tokens_per_s=(FIT_STEPS - 1) * tokens_per_step
@@ -3007,13 +3032,14 @@ def phase_train_fit() -> Dict[str, object]:
         print("train_fit_a " + json.dumps(result["a"]), flush=True)
 
         # ---------------------------------------- (b) streaming ingest
-        ds = bi.token_dataset(tokens, FIT_BLOCKS)
-        b_losses, b_rows = [], {0: 0, 1: 0}
+        ds = bi.token_dataset(tokens, FIT_INGEST_BLOCKS)
+        b_losses, b_rows, b_steps = [], {0: 0, 1: 0}, {0: 0, 1: 0}
 
         def probe_b(event, rank, step, **info):
             if event == "step":
                 b_losses.append(info["loss"])
-                b_rows[rank] += FIT_BATCH // 2
+                b_rows[rank] += info["rows"]
+                b_steps[rank] += 1
 
         trainer = CudaTrainer(
             train_gpt2.train_loop_per_worker,
@@ -3034,18 +3060,22 @@ def phase_train_fit() -> Dict[str, object]:
         buckets = _fit_buckets(trainer)
         data_wait = sum(r["data_wait"] for s in trainer.sessions
                         for r in s.profiler.history)
-        forwards = sum(b_rows.values()) // (FIT_BATCH // 2)
+        forwards = sum(b_steps.values())
+        block_rows = FIT_ROWS // FIT_INGEST_BLOCKS
         if res.error is not None or audit["double_trained"] or \
                 audit["untrained"] or sum(b_rows.values()) != FIT_ROWS or \
-                sorted(audit["trained_counts"].values()) != [1] * FIT_BLOCKS:
+                sorted(audit["trained_counts"].values()) != \
+                [1] * FIT_INGEST_BLOCKS or \
+                min(b_rows.values()) < block_rows:
             fail(f"ingest fit: error {res.error!r}, audit {audit}, rows "
-                 f"{b_rows}")
+                 f"{b_rows} (each rank must train a block of {block_rows})")
         if not np.isfinite(b_losses).all() or not data_wait > 0:
             fail(f"ingest fit: losses {b_losses}, data_wait {buckets}")
         if counts != want_counts(forwards):
             fail(f"ingest fit: launches {counts}, want {want_counts(forwards)}")
         _gone("ingest fit", placement_group_table)
-        result["b"] = dict(rows=b_rows, blocks=FIT_BLOCKS, wall_s=wall,
+        result["b"] = dict(rows=b_rows, steps=b_steps,
+                           blocks=FIT_INGEST_BLOCKS, wall_s=wall,
                            tokens_per_s=FIT_ROWS * S / wall,
                            first_loss=b_losses[0], last_loss=b_losses[-1],
                            audit=audit, buckets_ms=buckets, launches=counts)

@@ -569,9 +569,13 @@ class Runtime:
     @staticmethod
     def _placement_shape(spec: TaskSpec) -> tuple:
         """Bucket key under which blocked specs are interchangeable: the
-        same resource demand from the same pool (the node, or one
-        placement-group strategy)."""
-        return (tuple(sorted(spec.resources.items())), id(spec.strategy))
+        same resource demand from the same pool: the node, or one bundle
+        of a placement group (-1: the group's first bundle with room),
+        however many strategy objects name it."""
+        strat = spec.strategy
+        pool = None if strat is None else (strat.placement_group.id,
+                                           strat.bundle_index)
+        return (tuple(sorted(spec.resources.items())), pool)
 
     def _dispatch_loop(self) -> None:
         # Blocked tasks live in per-placement-shape FIFO queues: a capacity

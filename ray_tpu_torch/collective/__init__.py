@@ -10,9 +10,15 @@ of one process rendezvous in-process (``thread_group.py``), and ranks that
 are the processes of one ``torch.distributed`` group (one rank per
 process, ``distributed.initialize``) run each op as a process-group call,
 NCCL on their cards or gloo on the CPU (``process_group.py``). Backends are
-``"nccl"`` (the default) and ``"gloo"``. Rank identity comes from the
-calling actor or task's declared rank (passed at init), exactly like the
-reference.
+``"nccl"`` (the default) and ``"gloo"``; any other name raises. The
+transport is the process group's, which ``distributed.initialize`` chose
+(NCCL when the rank holds a card, gloo on the host): ``"gloo"`` on a rank
+whose process group is NCCL raises rather than run over NCCL, and
+``"nccl"`` on a host-only rank runs over its gloo group. The thread tier
+has no transport (its ops run in-process on the contributions' device),
+so there the name is the reference's API and chooses nothing. Rank
+identity comes from the calling actor or task's declared rank (passed at
+init), exactly like the reference.
 
 ``torch.distributed`` is imported only by the process tier's functions:
 importing this package sets up no process group.
@@ -68,6 +74,12 @@ class GroupManager:
                 if nproc >= 1 and world_size == nproc:
                     group = ProcessCollectiveGroup(group_name, world_size,
                                                    devices, timeout_s=timeout_s)
+                    if backend == "gloo" and group.backend == "nccl":
+                        raise ValueError(
+                            f"Group '{group_name}': backend 'gloo' asked on "
+                            f"a rank whose process group is NCCL on its "
+                            f"card; join with distributed.initialize(..., "
+                            f"backend='gloo') to run it over gloo")
                 else:
                     group = ThreadCollectiveGroup(group_name, world_size,
                                                   devices, timeout_s=timeout_s)

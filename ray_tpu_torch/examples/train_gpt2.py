@@ -75,7 +75,8 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
     ``tokens`` (numpy (N, S + 1), when no dataset is given),
     ``fail_at_step`` (raise there once, in an attempt with nothing to
     restore), ``diagnostics`` (add where it ran to each report) and
-    ``probe`` (a callable given each step's loss, mean gradients and
+    ``probe`` (a callable given each step's loss, batch rows, mean
+    gradients, this rank's own gradients before the all-reduce and the
     updated parameters, and the restored and the checkpointed state; it
     runs in the rank, so a process rank's gets a copy)."""
     import torch
@@ -166,8 +167,11 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
         metrics = {"step": step, "loss": float(loss.detach()),
                    "tokens": tok.shape[0] * S}
         if probe is not None:
+            it = iter(grads)
             probe("step", rank=rank, step=step, loss=metrics["loss"],
-                  grads=grad_tree, params=params)
+                  rows=tok.shape[0], grads=grad_tree,
+                  local_grads=tree_map(lambda _: next(it), params),
+                  params=params)
         checkpoint = None
         if ckpt_every and step % ckpt_every == 0 and rank == 0:
             state = {"params": params, "opt_state": opt_state, "step": step}

@@ -252,6 +252,33 @@ def test_bad_backend():
         ray_tpu.shutdown()
 
 
+
+def test_gloo_is_refused_on_an_nccl_process_group(monkeypatch):
+    """The process tier's transport is the process group's: a rank whose
+    group is NCCL (it holds a card) refuses "gloo" instead of running over
+    NCCL, and makes no group; "nccl" there is that group."""
+    from ray_tpu_torch.collective import process_group
+
+    class NcclGroup:
+        def __init__(self, group_name, world_size, devices, timeout_s=None):
+            self.world_size, self.backend = world_size, "nccl"
+
+        def destroy(self):
+            pass
+
+    monkeypatch.setattr(process_group, "multiprocess_world", lambda: 1)
+    monkeypatch.setattr(process_group, "ProcessCollectiveGroup", NcclGroup)
+    col = ray_tpu_torch.collective
+    with pytest.raises(ValueError, match="process group is NCCL"):
+        col.init_collective_group(1, 0, backend="gloo", group_name="g")
+    with pytest.raises(ValueError, match="not initialized"):
+        col.get_collective_group("g")
+    col.init_collective_group(1, 0, backend="nccl", group_name="n")
+    try:
+        assert type(col.get_collective_group("n")) is NcclGroup
+    finally:
+        col.destroy_collective_group("n")
+
 def test_oversubscribed_group_warns_loudly():
     """99 ranks on 8 devices: the reference's 8 CPU devices, the port's
     eight given devices (on the card, its cards)."""

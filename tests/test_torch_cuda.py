@@ -483,6 +483,9 @@ def test_world_one_nccl_group_allreduces_on_gpu():
         out = collective.allreduce(x, group_name="nccl-1")
         assert out.is_cuda and torch.equal(out, x)
         assert group.ops == {"allreduce": 1}
+        with pytest.raises(ValueError, match="process group is NCCL"):
+            collective.init_collective_group(1, 0, backend="gloo",
+                                             group_name="gloo-1")
     finally:
         collective.destroy_collective_group("nccl-1")
         distributed.shutdown()

@@ -259,3 +259,37 @@ def test_a_full_bundle_queues_its_next_lease():
         assert ray_tpu_torch.get([a, b], timeout=T) == ["first", "second"]
     finally:
         ray_tpu_torch.shutdown()
+
+
+def test_blocked_leases_queue_by_bundle_not_by_strategy_object():
+    """Specs blocked on one bundle share one FIFO bucket however many
+    strategy objects name it; another bundle, another group or the node is
+    another bucket."""
+    from types import SimpleNamespace
+
+    from ray_tpu_torch._private.runtime import Runtime
+    from ray_tpu_torch.util.placement_group import placement_group
+    from ray_tpu_torch.util.scheduling_strategies import (
+        PlacementGroupSchedulingStrategy,
+    )
+
+    fresh_init(ray_tpu_torch, num_cpus=4)
+    try:
+        pg, other = placement_group([{"CPU": 1}] * 2), placement_group(
+            [{"CPU": 1}])
+        assert pg.wait(5) and other.wait(5)
+
+        def key(strategy):
+            return Runtime._placement_shape(SimpleNamespace(
+                resources={"CPU": 1.0}, strategy=strategy))
+
+        same = {key(PlacementGroupSchedulingStrategy(pg, 0))
+                for _ in range(3)}
+        assert len(same) == 1
+        keys = [key(PlacementGroupSchedulingStrategy(pg, 0)),
+                key(PlacementGroupSchedulingStrategy(pg, 1)),
+                key(PlacementGroupSchedulingStrategy(pg, -1)),
+                key(PlacementGroupSchedulingStrategy(other, 0)), key(None)]
+        assert len(set(keys)) == len(keys)
+    finally:
+        ray_tpu_torch.shutdown()

@@ -170,6 +170,41 @@ def test_gpt2_tiny_fit_matches_jax_trainer(init, tokens):
         np.testing.assert_array_equal(p0, final[1][name])
 
 
+
+def test_probe_sees_each_rank_gradient_before_and_after_the_allreduce(
+        init, tokens):
+    """The loop's probe gets each rank's batch rows and its own gradient
+    besides the mean: the mean over ranks of the own gradients is the
+    reduced one, and no rank's own gradient is it (what the card's parity
+    gate reads as its control)."""
+    from ray_tpu_torch.optim import tree_leaves
+
+    seen = {}
+
+    def probe(event, rank, step, **info):
+        if event == "step":
+            seen[rank] = (info["rows"],
+                          [t.detach().clone() for t in
+                           tree_leaves(info["local_grads"])],
+                          [t.detach().clone() for t in
+                           tree_leaves(info["grads"])])
+
+    fresh_init(ray_tpu_torch, num_cpus=4)
+    try:
+        result, _, _ = bounded(lambda: _port_fit(init, tokens, steps=1,
+                                                 probe=probe), CASE_S)
+    finally:
+        ray_tpu_torch.shutdown()
+    assert result.error is None, result.error
+    assert sorted(seen) == list(range(W))
+    assert [seen[r][0] for r in range(W)] == [B] * W
+    for i, mean in enumerate(seen[0][2]):
+        own = [seen[r][1][i] for r in range(W)]
+        torch.testing.assert_close(sum(own) / W, mean, rtol=0, atol=1e-6)
+        torch.testing.assert_close(seen[1][2][i], mean, rtol=0, atol=0)
+    assert any(not torch.allclose(seen[0][1][i], mean, rtol=0, atol=1e-4)
+               for i, mean in enumerate(seen[0][2]))
+
 def test_two_gloo_processes_sync_their_gradients(init, tokens):
     """Two process ranks on gloo (worker_mode="processes"): after one step
     their parameters are equal, and equal one process's step on the
