@@ -174,7 +174,19 @@ Phases, each of which exits non-zero on failure:
     checkpoint every 2 steps (two kept), fails before step 5 of its first
     attempt and resumes: one restart, the restored weights and moments
     equal the checkpointed ones bit for bit, steps 5-8 within
-    ``FIT_LOSS_ATOL`` of an uninterrupted run. (d) One process rank
+    ``FIT_LOSS_ATOL`` of an uninterrupted run. (e) Async checkpoints
+    (``CheckpointConfig(async_save=True)``): the same rank fails before
+    step 5 and restores the coordinator's newest committed step from the
+    memory replicas (``ray_tpu_ckpt_restores_total{source="memory"}`` up
+    by one), params, bf16 mu and nu equal the snapshot bit for bit, steps
+    5-8 within ``FIT_LOSS_ATOL`` of an uninterrupted async run, two
+    committed steps kept, the last one restored on the CPU and on the card
+    equal to the card's state; two thread ranks save one step in two
+    shards, restored at world size 1 bit for bit; exact launches; the
+    median async block at most ``ASYNC_BLOCK_RATIO`` of (c)'s median sync
+    save. It prints each save's block (the first apart), persist and
+    commit times, bytes per shard, restore times by source, and the step
+    ms beside a persist and clear of one. (d) One process rank
     (``worker_mode="processes"``) on NCCL for 5 steps: its own pid, backend
     ``nccl`` on ``cuda:0``, 5 all-reduces, losses within ``FIT_LOSS_ATOL``
     of (c)'s uninterrupted rank, exact launches in the worker and none in
@@ -2784,6 +2796,10 @@ RESTORE_CKPT_EVERY = 2
 # uninterrupted one): the same arithmetic in bf16, the batch's rows summed
 # in other groupings and the mean gradient formed after the all-reduce.
 FIT_LOSS_ATOL = 1e-2
+# (e): the median async save may block the step for at most this share of
+# (c)'s median sync save (the reference's acceptance bound,
+# tests/test_checkpoint_subsystem.py:537-550).
+ASYNC_BLOCK_RATIO = 0.25
 
 
 def _fit_config(**kw):
@@ -2821,6 +2837,247 @@ def _gone(label: str, pg_table) -> None:
         time.sleep(0.05)
     fail(f"{label}: placement groups {pg_table()} or the card not back "
          f"({ray_tpu_torch.available_resources()})")
+
+
+def _overlap_ms(marks, windows):
+    """Step ms from a probe's marks, split by whether a persist window
+    overlaps the step. ``marks``: (step, start, end) ``time.time()``."""
+    over, clear = [], []
+    for _, t0, t1 in marks:
+        hit = any(a < t1 and t0 < b for a, b in windows)
+        (over if hit else clear).append(1e3 * (t1 - t0))
+    return over, clear
+
+
+def _fit_async(storage, batch, want_counts, add_launches, sync_save_ms,
+               want_late) -> Dict[str, object]:
+    """(e) Async sharded checkpoints from the card: one thread rank fails
+    before step 5 and restores from the memory replicas; an uninterrupted
+    async run is its yardstick and measures steps beside persists; two
+    thread ranks write one step in two shards, restored at world size 1.
+    The gate holds the median async block to ``ASYNC_BLOCK_RATIO`` of
+    (c)'s median sync save, in the same call."""
+    import os
+    import warnings
+
+    import torch
+
+    from ray_tpu_torch import checkpoint as ckpt
+    from ray_tpu_torch.checkpoint import metrics as ckpt_metrics
+    from ray_tpu_torch.examples import train_gpt2
+    from ray_tpu_torch.optim import tree_leaves
+    from ray_tpu_torch.train import (
+        Checkpoint,
+        CheckpointConfig,
+        CudaTrainer,
+        FailureConfig,
+        RunConfig,
+        ScalingConfig,
+    )
+    from ray_tpu_torch.train.session import get_session
+    from ray_tpu_torch.util.placement_group import placement_group_table
+
+    def flat(state):
+        """params, mu and nu, each part's leaves by sorted name (a restored
+        dict's keys come back sorted, as JAX orders them)."""
+        out = []
+        for part in (state["params"], state["opt_state"]["mu"],
+                     state["opt_state"]["nu"]):
+            names = list(_leaf_names(part))
+            out += [t for _, t in sorted(zip(names, tree_leaves(part)),
+                                         key=lambda x: x[0])]
+        return out
+
+    def restores(source):
+        return sum(v for _, tags, v in ckpt_metrics.RESTORES.samples()
+                   if tags.get("source") == source)
+
+    def commit_stats():
+        """(commits, their seconds) so far."""
+        got = {name: v for name, _, v in
+               ckpt_metrics.COMMIT_SECONDS.samples()}
+        return got.get("_count", 0), got.get("_sum", 0.0)
+
+    def run(label, fail_at, workers=1, steps=RESTORE_STEPS, keep=(),
+            batch_size=FIT_BATCH):
+        seen = {"loss": {}, "states": {}, "handles": [], "marks": [],
+                "restore": None, "last": None}
+
+        def probe(event, rank, step, **info):
+            now = time.time()
+            if event == "step" and rank == 0:
+                seen["loss"][step] = info["loss"]
+                if seen["last"] is not None:
+                    seen["marks"].append((step, seen["last"], now))
+            if event == "checkpoint" and rank == 0 and step in keep:
+                seen["states"][step] = [t.detach().to("cpu", copy=True)
+                                        for t in flat(info["state"])]
+            if event == "saved" and rank == 0:
+                seen["handles"].append((step, get_session().last_save_handle))
+            if event == "restore" and rank == 0:
+                seen["restore"] = (step, info["seconds"],
+                                   [t.detach().to("cpu", copy=True)
+                                    for t in flat(info["state"])])
+            if rank == 0 and event in ("step", "saved", "restore"):
+                seen["last"] = time.time()
+
+        trainer = CudaTrainer(
+            train_gpt2.train_loop_per_worker,
+            train_loop_config=_fit_config(
+                steps=steps, batch_size=batch_size, tokens=batch,
+                ckpt_every=RESTORE_CKPT_EVERY, fail_at_step=fail_at,
+                async_save=True, probe=probe),
+            scaling_config=ScalingConfig(
+                num_workers=workers, gpus_per_worker=1.0 / workers),
+            run_config=RunConfig(
+                name=label, storage_path=storage,
+                checkpoint_config=CheckpointConfig(num_to_keep=2,
+                                                   async_save=True),
+                failure_config=FailureConfig(max_failures=1)))
+        _reset_counts()
+        memory0, commits0 = restores("memory"), commit_stats()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # ranks share
+            res = trainer.fit()
+        counts = _counts()
+        commits1 = commit_stats()
+        if res.error is not None:
+            fail(f"{label}: fit failed: {res.error!r}")
+        _gone(label, placement_group_table)
+        forwards = workers * len(res.metrics_history)  # rank 0's reports
+        if counts != want_counts(forwards):
+            fail(f"{label}: launches {counts}, want {want_counts(forwards)}")
+        add_launches(counts)
+        seen["res"] = res
+        seen["memory_restores"] = restores("memory") - memory0
+        seen["commits"] = commits1[0] - commits0[0]
+        seen["commit_ms"] = (1e3 * (commits1[1] - commits0[1])
+                             / max(1, seen["commits"]))
+        seen["root"] = os.path.join(storage, label, "checkpoints", "sharded")
+        return seen
+
+    broken = run("fit_async", RESTORE_FAIL_AT,
+                 keep=(2, RESTORE_FAIL_AT, RESTORE_STEPS))
+    whole = run("fit_async_whole", None)
+    res = broken["res"]
+    committed = ckpt.list_committed_steps(broken["root"])
+    rst = res.restarts[0].get("restore") if res.restarts else None
+    r_step, r_seconds, r_state = broken["restore"] or (None, None, None)
+    saved = broken["states"].get(r_step)
+    restored_equal = saved is not None and r_state is not None and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(r_state, saved))
+    got = {m["step"]: m["loss"] for m in res.metrics_history}
+    ref = {m["step"]: m["loss"] for m in whole["res"].metrics_history}
+    late = sorted(want_late)
+    late_err = max(abs(got[s] - ref[s]) for s in late)
+    # The final committed dir, restored on the CPU, against the card's
+    # state at the last save (captured by the probe).
+    final = Checkpoint(os.path.join(broken["root"],
+                                    ckpt.layout.step_dirname(committed[-1])))
+    t0 = time.perf_counter()
+    on_cpu = final.to_pytree()
+    disk_cpu_ms = 1e3 * (time.perf_counter() - t0)
+    final_equal = int(on_cpu["step"]) == RESTORE_STEPS and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(flat(on_cpu), broken["states"][RESTORE_STEPS]))
+    del on_cpu
+    # The same dir restored onto the card.
+    t0 = time.perf_counter()
+    onto = ckpt.restore_pytree(final.path, device="cuda")
+    torch.cuda.synchronize()
+    disk_card_ms = 1e3 * (time.perf_counter() - t0)
+    card_equal = all(a.is_cuda and a.dtype == b.dtype and torch.equal(
+        a.cpu(), b) for a, b in zip(flat(onto),
+                                    broken["states"][RESTORE_STEPS]))
+    del onto
+    if len(res.restarts) != 1 or rst is None or rst["source"] != "memory" \
+            or broken["memory_restores"] != 1 or not restored_equal or \
+            r_step not in (2, RESTORE_FAIL_AT) or \
+            late_err > FIT_LOSS_ATOL or len(committed) != 2 or \
+            not final_equal or not card_equal:
+        fail(f"async restore: restarts {res.restarts}, memory restores "
+             f"{broken['memory_restores']}, restored step {r_step} equal "
+             f"{restored_equal}, late losses {[got[s] for s in late]} vs "
+             f"{[ref[s] for s in late]}, committed {committed}, final dir "
+             f"equal on the CPU {final_equal}, on the card {card_equal}")
+
+    def saves(seen):
+        """Each save's block, persist and bytes; a save queued when its
+        attempt failed is aborted (``abort``: the error's name)."""
+        out = []
+        for step, h in seen["handles"]:
+            exc = h.exception(timeout=600)
+            a, b = h.persist_window
+            out.append(dict(step=step, block_ms=1e3 * h.block_seconds,
+                            persist_s=b - a,
+                            bytes=None if exc else h.result()["bytes"],
+                            abort=type(exc).__name__ if exc else None))
+        return out
+
+    b_saves, w_saves = saves(broken), saves(whole)
+    blocks = [x["block_ms"] for x in b_saves]
+    ratio = statistics.median(blocks) / statistics.median(sync_save_ms)
+    windows = [h.persist_window for _, h in whole["handles"]]
+    over, clear = _overlap_ms(whole["marks"], windows)
+
+    # Two thread ranks, one save: two shards, restored at world size 1.
+    two = run("fit_async_two", None, workers=2, steps=RESTORE_CKPT_EVERY,
+              keep=(RESTORE_CKPT_EVERY,), batch_size=FIT_BATCH // 2)
+    (two_step,) = ckpt.list_committed_steps(two["root"])
+    two_dir = os.path.join(two["root"], ckpt.layout.step_dirname(two_step))
+    with open(os.path.join(two_dir, ckpt.layout.GLOBAL_MANIFEST)) as f:
+        two_manifest = json.load(f)
+    doc, _, _ = ckpt.layout.read_skeleton(two_dir)
+    sharded = sum(m["partition"]["kind"] == "sharded" for m in doc["leaves"])
+    t0 = time.perf_counter()
+    at_one = ckpt.restore_pytree(two_dir, device="cuda")
+    torch.cuda.synchronize()
+    two_restore_ms = 1e3 * (time.perf_counter() - t0)
+    two_equal = all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                    for a, b in zip(flat(at_one),
+                                    two["states"][RESTORE_CKPT_EVERY]))
+    del at_one
+    if two_manifest["num_shards"] != 2 or not sharded or not two_equal:
+        fail(f"two shards: manifest {two_manifest['num_shards']} shards, "
+             f"{sharded} sharded leaves, restored at world 1 equal "
+             f"{two_equal}")
+    out = dict(
+        card=card_line(),
+        blocks_ms=blocks, first_block_ms=blocks[0],
+        later_blocks_ms=blocks[1:],
+        whole_run_blocks_ms=[x["block_ms"] for x in w_saves],
+        sync_save_ms=sync_save_ms,
+        median_block_over_sync=ratio, gate=ASYNC_BLOCK_RATIO,
+        persist_s=[x["persist_s"] for x in b_saves + w_saves
+                   if not x["abort"]],
+        aborted_saves=[(x["step"], x["abort"]) for x in b_saves
+                       if x["abort"]],
+        commit_ms=broken["commit_ms"], whole_commit_ms=whole["commit_ms"],
+        bytes_per_shard=w_saves[0]["bytes"],
+        two_rank_bytes_per_shard=[m["bytes"] for _, m in sorted(
+            two_manifest["shards"].items())],
+        restore_ms=dict(
+            memory_materialize=1e3 * rst["seconds"],
+            memory_to_card=1e3 * r_seconds,
+            disk_to_cpu=disk_cpu_ms, disk_to_card=disk_card_ms,
+            two_shards_to_card_at_world_1=two_restore_ms),
+        restored_step=r_step, restored_state_bit_equal=restored_equal,
+        late_max_abs_err=late_err,
+        late_losses=[got[s] for s in late],
+        uninterrupted_late_losses=[ref[s] for s in late],
+        sync_run_late_losses=[want_late[s] for s in late],
+        committed_kept=committed, final_dir_bit_equal=final_equal,
+        steps_ms_beside_persist=over, steps_ms_clear=clear,
+        two_shards=dict(num_shards=two_manifest["num_shards"],
+                        sharded_leaves=sharded, leaves=len(doc["leaves"]),
+                        restored_at_world_1_bit_equal=two_equal),
+        resumed_s=res.restarts[0]["resumed_s"])
+    print("train_fit_e " + json.dumps(out), flush=True)
+    if not ratio <= ASYNC_BLOCK_RATIO:
+        fail(f"async saves block {blocks} ms (median) against sync saves "
+             f"{sync_save_ms} ms: ratio {ratio:.3f} > {ASYNC_BLOCK_RATIO}")
+    return out
 
 
 def phase_train_fit() -> Dict[str, object]:
@@ -3152,6 +3409,12 @@ def phase_train_fit() -> Dict[str, object]:
         del seen
         torch.cuda.empty_cache()
 
+        # ------------------------- (e) async checkpoints from the card
+        result["e"] = _fit_async(storage, batch, want_counts, add_launches,
+                                 [m["save_ms"] for m in saves],
+                                 {s: want[s] for s in late})
+        torch.cuda.empty_cache()
+
         # -------------------------------- (d) one process rank on NCCL
         baseline = _compute_apps()
         _reset_counts()
@@ -3236,6 +3499,7 @@ def phase_train_fit() -> Dict[str, object]:
         k: result[k] for k in ("card", "launches")} | {
         "fit_over_direct": [t["fit_over_direct"] for t in result["a"]["turns"]],
         "restore_resumed_s": result["c"]["resumed_s"],
+        "async_block_over_sync": result["e"]["median_block_over_sync"],
         "process_cold_start_s": result["d"]["cold_start_s"]}), flush=True)
     return result
 

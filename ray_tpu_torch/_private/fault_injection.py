@@ -54,6 +54,12 @@ FAULT_POINTS: Dict[str, str] = {
                         "report()) — the attempt fails and the trainer "
                         "restarts it from the newest checkpoint, within "
                         "FailureConfig.max_failures",
+    # checkpoint subsystem (tests/test_torch_checkpoint_chaos.py)
+    "ckpt_shard_write": "shard persist in the writer thread — kills a save "
+                        "mid-flight; the pending step aborts",
+    "ckpt_commit": "coordinator commit phase, before the atomic rename — "
+                   "the step stays uncommitted, restore skips it",
+    "ckpt_restore": "restore entry (restore_pytree) — retryable",
 }
 
 

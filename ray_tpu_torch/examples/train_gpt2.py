@@ -14,8 +14,9 @@ device=card)`` when the trainer was given ``datasets={"train": ...}`` (a
 [r·B, (r+1)·B) of each step's global batch of the ``tokens`` array in its
 config. It reports ``{"step", "loss", "tokens"}``, rank 0 with a
 checkpoint of ``{"params", "opt_state", "step"}`` every ``ckpt_every``
-steps (the ranks' states are equal), and resumes from
-``train.get_checkpoint()``.
+steps (the ranks' states are equal) — every rank reports the raw tree
+under ``async_save`` (``CheckpointConfig(async_save=True)``: each saves
+its shard) — and resumes from ``train.get_checkpoint()``.
 
 Run on the card (two thread ranks sharing it):
 ``python3 -m ray_tpu_torch.examples.train_gpt2``; on the CPU at a tiny
@@ -74,11 +75,13 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
     the rank's card), ``seed`` or ``init_params`` (a numpy tree),
     ``tokens`` (numpy (N, S + 1), when no dataset is given),
     ``fail_at_step`` (raise there once, in an attempt with nothing to
-    restore), ``diagnostics`` (add where it ran to each report) and
-    ``probe`` (a callable given each step's loss, batch rows, mean
-    gradients, this rank's own gradients before the all-reduce and the
-    updated parameters, and the restored and the checkpointed state; it
-    runs in the rank, so a process rank's gets a copy)."""
+    restore), ``async_save`` (every rank reports the raw state tree, for
+    the trainer's shard writers), ``diagnostics`` (add where it ran to each
+    report) and ``probe`` (a callable given each step's loss, batch rows,
+    mean gradients, this rank's own gradients before the all-reduce and
+    the updated parameters, the restored state with the seconds its
+    restore took, the checkpointed state, and the seconds a checkpointing
+    report took; it runs in the rank, so a process rank's gets a copy)."""
     import torch
 
     from ray_tpu_torch import collective, train
@@ -106,12 +109,15 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
     step = 0
     restored = train.get_checkpoint()
     if restored is not None:
+        t0 = time.perf_counter()
         state = restored.to_pytree({"params": params, "opt_state": opt_state,
                                     "step": 0})
+        seconds = time.perf_counter() - t0
         params, opt_state, step = (state["params"], state["opt_state"],
                                    int(state["step"]))
         if probe is not None:
-            probe("restore", rank=rank, step=step, state=state)
+            probe("restore", rank=rank, step=step, state=state,
+                  seconds=seconds)
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -173,19 +179,27 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
                   local_grads=tree_map(lambda _: next(it), params),
                   params=params)
         checkpoint = None
-        if ckpt_every and step % ckpt_every == 0 and rank == 0:
+        saving = ckpt_every and step % ckpt_every == 0
+        if saving and (rank == 0 or config.get("async_save")):
             state = {"params": params, "opt_state": opt_state, "step": step}
             if probe is not None:
                 probe("checkpoint", rank=rank, step=step, state=state)
-            t0 = time.perf_counter()
-            checkpoint = train.Checkpoint.from_pytree(state)
-            metrics["save_ms"] = (time.perf_counter() - t0) * 1e3
-            metrics["ckpt_bytes"] = sum(
-                os.path.getsize(os.path.join(d, f))
-                for d, _, files in os.walk(checkpoint.path) for f in files)
+            checkpoint = state
+            if not config.get("async_save"):
+                t0 = time.perf_counter()
+                checkpoint = train.Checkpoint.from_pytree(state)
+                metrics["save_ms"] = (time.perf_counter() - t0) * 1e3
+                metrics["ckpt_bytes"] = sum(
+                    os.path.getsize(os.path.join(d, f))
+                    for d, _, files in os.walk(checkpoint.path)
+                    for f in files)
         if config.get("diagnostics"):
             metrics.update(_diagnostics(group), device=str(dev))
+        t0 = time.perf_counter()
         train.report(metrics, checkpoint=checkpoint)
+        if checkpoint is not None and probe is not None:
+            probe("saved", rank=rank, step=step,
+                  seconds=time.perf_counter() - t0)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

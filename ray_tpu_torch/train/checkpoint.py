@@ -11,17 +11,16 @@ on the CPU), numpy leaves become tensors, and ``torch.load(weights_only=
 True)`` reads it back. ``load_pytree(path, template)`` puts each leaf back
 on its template leaf's device and dtype.
 
-The committed sharded layout (a ``checkpoint_NNNNNN`` directory with a
-``COMMIT`` marker) is written by the reference's ``checkpoint/`` package,
-which the port does not have yet (ROADMAP.md, Queue 1 item 6):
-``to_pytree`` raises on one.
+A committed sharded checkpoint (a ``checkpoint_NNNNNN`` directory with a
+``COMMIT`` marker, written by ``ray_tpu_torch.checkpoint``) restores
+through that package: one handle type serves both layouts, which is what
+lets the Trainer's restarts hand either kind to ``train.get_checkpoint()``.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import re
 import shutil
 import tempfile
 import threading
@@ -30,27 +29,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ray_tpu_torch.checkpoint.layout import COMMIT_MARKER, parse_step
+
 #: The file of a saved tree inside its directory.
 TREE_FILE = "tree.pt"
 #: Temp directories of from_pytree (single-use: register() moves them).
 TMP_PREFIX = "ray_tpu_torch_ckpt_"
-
-COMMIT_MARKER = "COMMIT"
-_STEP_RE = re.compile(r"^checkpoint_(\d{6,})$")
-
-
-def parse_step(dirname: str) -> Optional[int]:
-    m = _STEP_RE.match(dirname)
-    return int(m.group(1)) if m else None
-
-
-def is_committed_dir(path: str) -> bool:
-    """A committed sharded checkpoint: a final ``checkpoint_NNNNNN`` name
-    and the COMMIT marker."""
-    name = os.path.basename(os.path.normpath(path))
-    return parse_step(name) is not None and \
-        os.path.exists(os.path.join(path, COMMIT_MARKER))
-
 
 class Checkpoint:
     """A handle to a checkpoint directory (ref: _checkpoint.py:56)."""
@@ -70,11 +54,10 @@ class Checkpoint:
         return cls(path)
 
     def to_pytree(self, template: Optional[Any] = None) -> Any:
+        from ray_tpu_torch.checkpoint import is_committed_dir, restore_pytree
+
         if is_committed_dir(self.path):
-            raise NotImplementedError(
-                f"{self.path} is a committed sharded checkpoint, whose reader "
-                "is the checkpoint/ package (not ported yet: ROADMAP.md, "
-                "Queue 1 item 6)")
+            return restore_pytree(self.path, template)
         return load_pytree(os.path.join(self.path, "pytree"), template)
 
     def as_directory(self):
@@ -219,8 +202,13 @@ class CheckpointManager:
     def _rescan(self) -> None:
         for name in sorted(os.listdir(self.storage_path)):
             path = os.path.join(self.storage_path, name)
-            if not os.path.isdir(path) or not name.startswith("checkpoint_"):
+            if not os.path.isdir(path) or not name.startswith("checkpoint_") \
+                    or name.endswith(".tmp") or name.endswith(".old"):
                 continue
+            has_shards = any(e.startswith("shard_") for e in os.listdir(path))
+            if has_shards and not os.path.exists(os.path.join(path,
+                                                              COMMIT_MARKER)):
+                continue  # torn sharded save — never register it
             ckpt = Checkpoint(path)
             meta = ckpt.get_metadata()
             idx = meta.get("index")
@@ -241,9 +229,15 @@ class CheckpointManager:
     def register(self, checkpoint: Checkpoint, metrics: Dict[str, Any]) -> Checkpoint:
         """Move/copy the checkpoint into managed storage and apply retention."""
         with self._lock:
-            self._counter += 1
-            dest = os.path.join(self.storage_path,
-                                f"checkpoint_{self._counter:06d}")
+            while True:
+                self._counter += 1
+                dest = os.path.join(self.storage_path,
+                                    f"checkpoint_{self._counter:06d}")
+                # Never clobber a coordinator-committed sharded step that
+                # landed after the rescan (the two sides number dirs from
+                # independent counters): move the counter past it.
+                if not os.path.exists(os.path.join(dest, COMMIT_MARKER)):
+                    break
             if os.path.abspath(checkpoint.path) != dest:
                 if os.path.exists(dest):
                     shutil.rmtree(dest)
@@ -270,6 +264,11 @@ class CheckpointManager:
         reverse = self.score_order == "max"
         self._checkpoints.sort(key=lambda t: t[0], reverse=reverse)
         for _, ckpt, _ in self._checkpoints[self.num_to_keep:]:
+            # Coordinator-committed sharded dirs are the coordinator's to
+            # retire (its own keep= policy): evict from this registry but
+            # leave the directory alone.
+            if os.path.exists(os.path.join(ckpt.path, COMMIT_MARKER)):
+                continue
             shutil.rmtree(ckpt.path, ignore_errors=True)
         self._checkpoints = self._checkpoints[: self.num_to_keep]
 

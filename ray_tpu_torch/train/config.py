@@ -114,10 +114,12 @@ class FailureConfig:
 class CheckpointConfig:
     """(ref: air/config.py CheckpointConfig) top-K retention.
 
-    async_save (the reference's sharded background save through its
-    checkpoint subsystem) waits for the port's ``checkpoint/`` package
-    (ROADMAP.md, Queue 1 item 6); a Trainer given it raises.
-    replica_memory_steps belongs to the same subsystem.
+    async_save: ``report(checkpoint=<tree>)`` saves through
+    ``ray_tpu_torch.checkpoint`` — each rank's shard snapshotted to
+    page-locked host memory on the step, persisted and two-phase-committed
+    in the background under ``checkpoints/sharded`` (thread-tier ranks).
+    replica_memory_steps: committed steps whose shards stay in the object
+    store for restarts to restore from memory.
     """
 
     num_to_keep: Optional[int] = None

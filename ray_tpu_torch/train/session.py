@@ -59,7 +59,8 @@ class TrainSession:
     def __init__(self, context: TrainContext,
                  checkpoint_to_restore: Optional[Checkpoint] = None,
                  dataset_shards: Optional[Dict[str, Any]] = None,
-                 start_step: int = 0, dataset_config=None, profiler=None):
+                 shard_writer=None, start_step: int = 0,
+                 dataset_config=None, profiler=None):
         self.context = context
         self.results: "queue.Queue" = queue.Queue()
         self.checkpoint_to_restore = checkpoint_to_restore
@@ -68,10 +69,21 @@ class TrainSession:
         #: train.get_dataset_config() for prefetch/shuffle tuning knobs.
         self.dataset_config = dataset_config
         self.stop_requested = threading.Event()
-        #: the checkpoint step streaming ingest tags this session's shard
-        #: claims with (fixed per attempt until async checkpoints commit
-        #: steps, ROADMAP.md Queue 1 item 6).
+        #: ray_tpu_torch.checkpoint.ShardWriter when async checkpointing is
+        #: on (CheckpointConfig.async_save) — report(checkpoint=<tree>) then
+        #: goes through the coordinator's two-phase commit instead of the
+        #: in-band queue, blocking only for the device->host snapshot.
+        self.shard_writer = shard_writer
+        #: next coordinator step id; starts past the latest committed step
+        #: so a resumed attempt never collides with history (streaming
+        #: ingest tags this session's shard claims with it).
         self._ckpt_step = start_step
+        #: how many async saves this session handed to the shard writer,
+        #: and the newest SaveHandle — the trainer checks these after the
+        #: run so an every-save-failed run cannot finish silently with no
+        #: checkpoint and no error.
+        self.async_saves_reported = 0
+        self.last_save_handle = None
         #: the StepProfiler when step profiling is on (RunConfig.profile,
         #: the default) — activated on the worker thread with the session
         #: itself; report() is its step boundary.
@@ -89,12 +101,21 @@ class TrainSession:
 
         fault_injection.check("train_worker_run")
         if checkpoint is not None and not isinstance(checkpoint, Checkpoint):
-            # A raw tree: wrap it in a directory checkpoint.
-            checkpoint = Checkpoint.from_pytree(checkpoint)
+            # A raw tree: async sharded save when wired, else wrap it in a
+            # directory checkpoint.
+            if self.shard_writer is not None:
+                step = self._ckpt_step
+                self._ckpt_step += 1
+                self.last_save_handle = self.shard_writer.save_async(
+                    step, checkpoint)
+                self.async_saves_reported += 1
+                checkpoint = None
+            else:
+                checkpoint = Checkpoint.from_pytree(checkpoint)
         self.results.put({"metrics": metrics, "checkpoint": checkpoint,
                           "rank": self.context.world_rank})
         # report() IS the step boundary: close the profiled step (spans +
-        # live gauges).
+        # live gauges) now that its checkpoint-block time is recorded.
         if self.profiler is not None:
             self.profiler.step_boundary()
         if self.stop_requested.is_set():

@@ -11,7 +11,8 @@ rank) that rendezvous over a TCP store: NCCL when the rank holds a card,
 gloo otherwise. Results flow back through an actor-backed report queue (the
 thread tier's in-memory TrainSession cannot cross a process boundary). As
 in the reference, ``datasets=`` and ``ScalingConfig.elastic`` are refused:
-``CudaTrainer`` takes datasets.
+``CudaTrainer`` takes datasets. So is ``CheckpointConfig(async_save=True)``:
+the port's shard writers run in thread ranks (``CudaTrainer``).
 """
 
 from __future__ import annotations
@@ -126,10 +127,15 @@ class TorchTrainer(DataParallelTrainer):
                 "TorchTrainer does not support datasets= (process workers "
                 "cannot receive streaming iterators); load data inside the "
                 "train_loop or use CudaTrainer")
+        if self.run_config.checkpoint_config.async_save:
+            raise ValueError(
+                "TorchTrainer does not support CheckpointConfig(async_save="
+                "True) (a process rank's shard writer is not ported: "
+                "ROADMAP.md, Queue 1 item 6); use CudaTrainer")
 
     def _run_with_pg(self, pg, run_name: str, group_name: str,
                      manager: CheckpointManager, restore_ckpt,
-                     ingests=None) -> Dict:
+                     ingests=None, coordinator=None) -> Dict:
         import time
 
         from ray_tpu_torch.exceptions import RayTpuError, TaskError

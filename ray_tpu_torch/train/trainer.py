@@ -17,11 +17,17 @@ and the whole group restarts from the newest registered checkpoint —
 delivered to workers via ``train.get_checkpoint()`` — up to
 ``FailureConfig.max_failures`` times.
 
+Async checkpoints (``CheckpointConfig(async_save=True)``, thread-tier
+ranks): a ``CheckpointCoordinator`` actor owns ``checkpoints/sharded``,
+each rank gets a ``ShardWriter`` per attempt, and ``report(checkpoint=
+<tree>)`` blocks only for the device->host snapshot; a restart restores
+the coordinator's newest committed step, from its in-memory replicas when
+they are whole, else from the committed directory.
+
 Not ported yet, each refused when the Trainer is built: the elastic world
 (``ScalingConfig.elastic``: the autoscaler's capacity view, the sample
-ledger's resharding, ``ElasticDatasetShard`` and the replica tier; ROADMAP.md
-Queue 1 item 5), async sharded checkpoints (``CheckpointConfig.async_save``,
-the ``checkpoint/`` package, item 6) and node preemption (item 13.8).
+ledger's resharding, ``ElasticDatasetShard``; ROADMAP.md Queue 1 item 5)
+and node preemption (item 13.8).
 """
 
 from __future__ import annotations
@@ -64,6 +70,22 @@ from ray_tpu_torch.util.placement_group import (
 
 #: Seconds a gang reservation may wait for its placement group.
 PG_WAIT_S = 60.0
+#: Seconds an attempt's end waits for each rank's async saves to land.
+SAVE_DRAIN_S = 120.0
+
+
+def _settle(writers) -> None:
+    """Wait (bounded) for each shard writer's persists, then close it."""
+    import logging
+
+    for wtr in writers:
+        try:
+            wtr.drain(timeout=SAVE_DRAIN_S)
+        except TimeoutError:
+            logging.getLogger(__name__).warning(
+                "shard %s: async saves still persisting after %.0f s",
+                wtr.shard_id, SAVE_DRAIN_S)
+        wtr.close()
 
 
 class Result:
@@ -79,8 +101,11 @@ class Result:
         self.error = error
         self.metrics_history = metrics_history or []
         #: One record per failed attempt the run restarted from: the
-        #: attempt, its error, and ``resumed_s`` — seconds from the failure
-        #: to the first report of the next attempt (None if none came).
+        #: attempt, its error, ``resumed_s`` — seconds from the failure
+        #: to the first report of the next attempt (None if none came) —
+        #: and, under async saves, ``restore``: the coordinator step the
+        #: restart restored, its ``source`` ("memory" or "disk") and the
+        #: ``seconds`` that took (None: no committed step).
         self.restarts = restarts or []
 
     def __repr__(self) -> str:
@@ -279,10 +304,6 @@ class DataParallelTrainer:
                 "autoscaler's elastic.py, the sample ledger's resharding, "
                 "ElasticDatasetShard and the replica tier), which is not "
                 "ported yet (ROADMAP.md, Queue 1 item 5)")
-        if self.run_config.checkpoint_config.async_save:
-            raise NotImplementedError(
-                "CheckpointConfig.async_save needs the checkpoint/ package, "
-                "which is not ported yet (ROADMAP.md, Queue 1 item 6)")
         #: One dict per named dataset on the streaming path (tests audit
         #: per-shard exactly-once accounting after fit() returns).
         self.streaming_ingests: Dict[str, Any] = {}
@@ -310,6 +331,28 @@ class DataParallelTrainer:
             score_attribute=ckpt_conf.checkpoint_score_attribute,
             score_order=ckpt_conf.checkpoint_score_order,
         )
+        # Async checkpointing (CheckpointConfig.async_save): a
+        # CheckpointCoordinator actor owns its own subdirectory (it and the
+        # CheckpointManager number checkpoint_NNNNNN dirs from independent
+        # counters) and two-phase-commits the sharded saves flowing out of
+        # report(checkpoint=<tree>); restarts restore from its latest
+        # committed step. The reference pins it to the head node, which is
+        # the port's one node.
+        coordinator = None
+        #: each rank's page-locked snapshot buffers, for every attempt
+        self._snapshot_pools: List[Any] = []
+        if ckpt_conf.async_save:
+            from ray_tpu_torch.checkpoint import (
+                CheckpointCoordinator,
+                PinnedPool,
+            )
+
+            coordinator = ray_tpu_torch.remote(CheckpointCoordinator).remote(
+                os.path.join(experiment_path, "checkpoints", "sharded"),
+                keep=ckpt_conf.num_to_keep,
+                replica_steps=ckpt_conf.replica_memory_steps)
+            self._snapshot_pools = [PinnedPool()
+                                    for _ in range(scfg.num_workers)]
         # The run is visible to /api/train_runs for its whole lifetime.
         run_registry.register_run(run_name, world_size=scfg.num_workers,
                                   target_world=scfg.num_workers,
@@ -331,7 +374,8 @@ class DataParallelTrainer:
                         window_blocks=dcfg.shuffle_window_blocks,
                         window_bytes=dcfg.window_bytes,
                         seed=dcfg.shuffle_seed,
-                        prefetch_batches=dcfg.prefetch_batches)
+                        prefetch_batches=dcfg.prefetch_batches,
+                        seal_on_claim=coordinator is None)
         self.streaming_ingests = ingests
 
         max_failures = self.run_config.failure_config.max_failures
@@ -343,14 +387,16 @@ class DataParallelTrainer:
 
         def result(outcome: Dict, error: Optional[BaseException]) -> Result:
             return Result(metrics=outcome["last_metrics"],
-                          checkpoint=manager.latest_checkpoint(),
+                          checkpoint=(manager.latest_checkpoint()
+                                      or self._coordinator_checkpoint(
+                                          coordinator, from_memory=False)),
                           path=experiment_path, error=error,
                           metrics_history=history, restarts=restarts)
 
         try:
             while True:
                 outcome = self._run_attempt(run_name, manager, restore_ckpt,
-                                            ingests)
+                                            ingests, coordinator)
                 history.extend(outcome["history"])
                 if restarts and restarts[-1]["resumed_s"] is None:
                     first = outcome.get("first_report_at")
@@ -364,7 +410,9 @@ class DataParallelTrainer:
                         # the loop never consumed roll back, so audit()
                         # never reports them trained.
                         ingest.finish()
-                    return result(outcome, None)
+                    # Surfaces e.g. "every async save failed": training
+                    # succeeded but the run has no usable checkpoint.
+                    return result(outcome, outcome["error"])
                 error = outcome["error"]
                 failures += 1
                 # "fatal" = retrying cannot help (e.g. infeasible
@@ -383,8 +431,14 @@ class DataParallelTrainer:
                     "attempt": attempt_no, "error": repr(error)}, kind="train")
                 time.sleep(min(2.0 ** min(failures, 5) * 0.1, 5.0))  # backoff
                 # Restart from the newest checkpoint (ref: v2 controller
-                # RESTARTING state).
-                restore_ckpt = (manager.latest_checkpoint()
+                # RESTARTING state). The coordinator's committed step wins —
+                # its replica tier restores without re-reading storage.
+                t0 = time.monotonic()
+                restore_ckpt = self._coordinator_checkpoint(coordinator)
+                restarts[-1]["restore"] = self._last_restore
+                if restore_ckpt is not None:
+                    self._last_restore["seconds"] = time.monotonic() - t0
+                restore_ckpt = (restore_ckpt or manager.latest_checkpoint()
                                 or self.resume_from_checkpoint)
                 # The restarted attempt re-runs the user loop from its own
                 # epoch 0: ingest epochs start fresh too.
@@ -407,11 +461,103 @@ class DataParallelTrainer:
             row = run_registry.get_run(run_name)
             if row is not None and row["status"] == "running":
                 run_registry.finish_run(run_name, "failed")
+            if coordinator is not None:
+                ray_tpu_torch.kill(coordinator)
+            self._snapshot_pools = []
+
+    # ------------------------------------------------ coordinator restore
+    def _coordinator_checkpoint(self, coordinator,
+                                from_memory: bool = True
+                                ) -> Optional[Checkpoint]:
+        """Checkpoint handle for the coordinator's latest committed step.
+
+        Prefers the in-memory replica tier (full shard set resident): the
+        payloads are materialized into a fresh local committed dir, so the
+        handle's to_pytree() never touches the original storage; the
+        committed dir on storage is the floor. ``_last_restore`` records
+        which ({"source", "step"}), or None."""
+        self._last_restore = None
+        if coordinator is None:
+            return None
+        try:
+            src = ray_tpu_torch.get(coordinator.restore_source.remote(),
+                                    timeout=30)
+        except (TaskError, RayTpuError):
+            return None
+        if src is None:
+            return None
+        if from_memory:
+            ckpt = self._materialize_memory(src)
+            if ckpt is not None:
+                self._last_restore = {"source": "memory", "step": src["step"]}
+                return ckpt
+        self._last_restore = {"source": "disk", "step": src["step"]}
+        return Checkpoint(src["path"])
+
+    def _materialize_memory(self, src: Dict) -> Optional[Checkpoint]:
+        """Local committed dir built from the object-store replica refs;
+        None when the set is absent or any ref is unfetchable within the
+        bound."""
+        if not src.get("replicas"):
+            return None
+        from ray_tpu_torch.checkpoint import materialize_from_payloads
+        from ray_tpu_torch.checkpoint import metrics as ckpt_metrics
+
+        try:
+            refs = src["replicas"]["refs"]
+            payloads = {int(sid): ray_tpu_torch.get(w["ref"], timeout=20)
+                        for sid, w in refs.items()}
+            local_root = tempfile.mkdtemp(prefix="ray_tpu_torch_ckpt_mem_")
+            path = materialize_from_payloads(local_root, src["step"],
+                                             payloads)
+        except Exception:
+            return None
+        ckpt_metrics.RESTORES.inc(tags={"source": "memory"})
+        return Checkpoint(path)
+
+    def _check_async_saves(self, sessions: List[TrainSession],
+                           coordinator) -> Optional[BaseException]:
+        """Async saves fail out-of-band (drain deliberately swallows them so
+        a later commit can supersede); a run where NO save ever committed
+        must not finish silently with checkpoint=None and no error."""
+        reported = sum(s.async_saves_reported for s in sessions)
+        if not reported or coordinator is None:
+            return None
+        try:
+            latest = ray_tpu_torch.get(coordinator.latest_committed.remote(),
+                                       timeout=30)
+        except (TaskError, RayTpuError):
+            return None
+        if latest is not None:
+            return None
+        causes = []
+        for s in sessions:
+            handle = s.last_save_handle
+            if handle is None or not handle.done():
+                continue
+            exc = handle.exception(timeout=0)
+            if exc is not None:
+                causes.append(repr(exc))
+        import logging
+
+        err = RuntimeError(
+            f"{reported} async checkpoint save(s) were reported but no step "
+            "ever committed — the run finished without a usable checkpoint"
+            + (f"; last shard errors: {causes}" if causes else ""))
+        logging.getLogger(__name__).warning("%s", err)
+        return err
+
+    def _committed_step(self, coordinator) -> Optional[int]:
+        try:
+            return ray_tpu_torch.get(coordinator.latest_committed.remote(),
+                                     timeout=30)
+        except (TaskError, RayTpuError):
+            return None
 
     # ---------------------------------------------------------- one attempt
     def _run_attempt(self, run_name: str, manager: CheckpointManager,
                      restore_ckpt: Optional[Checkpoint],
-                     ingests: Dict[str, Any]) -> Dict:
+                     ingests: Dict[str, Any], coordinator=None) -> Dict:
         scfg = self.scaling_config
         world = scfg.num_workers
         DataParallelTrainer._collective_counter += 1
@@ -442,7 +588,7 @@ class DataParallelTrainer:
                             f"(cluster: {ray_tpu_torch.cluster_resources()}). "
                             f"Reduce num_workers/resources_per_worker.")}
             return self._run_with_pg(pg, run_name, group_name, manager,
-                                     restore_ckpt, ingests)
+                                     restore_ckpt, ingests, coordinator)
         finally:
             collective.destroy_collective_group(group_name)
             remove_placement_group(pg)
@@ -465,8 +611,15 @@ class DataParallelTrainer:
 
     def _run_with_pg(self, pg, run_name: str, group_name: str,
                      manager: CheckpointManager, restore_ckpt,
-                     ingests: Dict[str, Any]) -> Dict:
+                     ingests: Dict[str, Any], coordinator=None) -> Dict:
         if self._worker_mode(pg) == "processes":
+            if coordinator is not None:
+                return {"status": "fatal", "last_metrics": None,
+                        "history": [], "error": ValueError(
+                            "CheckpointConfig(async_save=True) needs "
+                            "thread-tier workers (a process rank's shard "
+                            "writer is not ported: ROADMAP.md, Queue 1 item "
+                            "6); use ScalingConfig(worker_mode='threads')")}
             return self._run_distributed(pg, run_name, group_name, manager,
                                          restore_ckpt)
         scfg = self.scaling_config
@@ -474,6 +627,21 @@ class DataParallelTrainer:
         train_metrics.WORLD_SIZE.set(world)
         run_registry.update_run(run_name, world_size=world)
         dataset_shards = self._split_datasets(world, exclude=set(ingests))
+        writers: List = []
+        start_step = 0
+        if coordinator is not None:
+            from ray_tpu_torch.checkpoint import ShardWriter
+
+            # New attempt = new epoch: shards from a crashed attempt's
+            # in-flight saves can no longer mix into this attempt's steps.
+            epoch = ray_tpu_torch.get(coordinator.new_epoch.remote(),
+                                      timeout=30)
+            latest = self._committed_step(coordinator)
+            start_step = (latest + 1) if latest is not None else 0
+            writers = [ShardWriter(coordinator, shard_id=rank,
+                                   world_size=world, epoch=epoch,
+                                   pool=self._snapshot_pools[rank])
+                       for rank in range(world)]
         sessions: List[TrainSession] = []
         workers = []
         for rank in range(world):
@@ -482,6 +650,9 @@ class DataParallelTrainer:
                                group_name=group_name)
             session = TrainSession(ctx, checkpoint_to_restore=restore_ckpt,
                                    dataset_shards=dataset_shards[rank],
+                                   shard_writer=(writers[rank] if writers
+                                                 else None),
+                                   start_step=start_step,
                                    dataset_config=self.dataset_config,
                                    profiler=(StepProfiler(run_name=run_name,
                                                           rank=rank)
@@ -506,13 +677,28 @@ class DataParallelTrainer:
 
         drained = _Drain(manager)
         pending = list(refs)
-        last_health = 0.0
+        last_health = last_seal = 0.0
+
+        def seal_committed() -> None:
+            # Streaming-ingest claims are provisional under async saves:
+            # seal them as the coordinator commits their steps.
+            committed = self._committed_step(coordinator)
+            if committed is not None:
+                run_registry.update_run(run_name,
+                                        last_committed_step=committed)
+                for ingest in ingests.values():
+                    ingest.seal(committed)
+
         try:
             while pending:
                 ready, pending = ray_tpu_torch.wait(
                     pending, num_returns=len(pending), timeout=0.05)
                 drained.sessions(sessions)
                 now = time.monotonic()
+                if ingests and coordinator is not None and \
+                        now - last_seal >= 0.25:
+                    last_seal = now
+                    seal_committed()
                 # Liveness: a killed thread-tier worker's actor dies but its
                 # in-flight run() thread does NOT — the ref would never
                 # resolve, so the controller polls actor health itself.
@@ -528,7 +714,14 @@ class DataParallelTrainer:
                 for r in ready:
                     ray_tpu_torch.get(r)  # raise worker errors
             drained.sessions(sessions)
-            return drained.outcome("finished")
+            # Async saves still persisting belong to this run: let them land
+            # (and commit) before declaring it finished.
+            _settle(writers)
+            if ingests and coordinator is not None:
+                seal_committed()
+            return drained.outcome(
+                "finished", error=self._check_async_saves(sessions,
+                                                          coordinator))
         except (TaskError, RayTpuError) as e:  # a worker failed
             failed_at = time.monotonic()
             for s in sessions:
@@ -538,6 +731,14 @@ class DataParallelTrainer:
                 collective.get_collective_group(group_name).destroy()
             except ValueError:
                 pass
+            # Queued-but-unstarted async saves die with the attempt (their
+            # epoch is stale anyway). The persist in flight may still
+            # commit, which is always safe — its snapshot is whole — and
+            # is waited for (bounded), so that the restart's restore point
+            # includes it: on the card a persist outlasts a few steps.
+            for wtr in writers:
+                wtr.abort()
+            _settle(writers)
             # Keep results reported before the crash (checkpoints
             # especially — the restart resumes from the last one).
             drained.sessions(sessions)

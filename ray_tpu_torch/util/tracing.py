@@ -65,6 +65,22 @@ SPAN_REGISTRY: Dict[str, str] = {
     "serve.slo_burn": "slo: one deployment's burn episode, alert -> clear",
     "forensics.dump": "flight recorder: one postmortem dump, trigger -> "
                       "file written",
+    "data.ingest": "ingest: one source shard, first pull -> last block out",
+    "data.locality_claim": "ingest: one locality-aware shard claim "
+                           "(attrs: preferred, local)",
+    "data.prefetch": "ingest: host->device transfer dispatch, per batch",
+    "train.step": "profiler: one training step, report() to report()",
+    "train.data_wait": "profiler: step blocked on the input pipeline",
+    "train.h2d": "profiler: host->device batch transfer within a step",
+    "train.compute": "profiler: step compute residual (wall - waits)",
+    "train.collective": "profiler: gradient-sync rendezvous within a step",
+    "train.ckpt_block": "profiler: device->host snapshot blocking a step",
+    "train.stall": "watchdog: detected progress stall, last progress -> "
+                   "detection (status ERROR)",
+    "checkpoint.save": "writer: device->host snapshot, shard serialize + "
+                       "persist",
+    "checkpoint.commit": "coordinator: commit phase up to atomic rename",
+    "checkpoint.restore": "restore_pytree entry",
 }
 
 

@@ -489,3 +489,48 @@ def test_world_one_nccl_group_allreduces_on_gpu():
     finally:
         collective.destroy_collective_group("nccl-1")
         distributed.shutdown()
+
+
+@pytest.mark.cuda
+def test_snapshot_reads_what_the_compute_stream_wrote_on_gpu():
+    """``snapshot_to_host`` copies CUDA leaves (fp32, bf16, a transposed
+    view, int64) into page-locked buffers from its pool, on a side stream
+    that waits for the caller's stream: a leaf written by a long queue of
+    work on a side compute stream is copied after that work, bit for bit;
+    the pool page-locks both its buffers at the first snapshot, and the
+    next snapshots reuse them."""
+    _need_gpu()
+    from ray_tpu_torch.checkpoint.writer import PinnedPool, snapshot_to_host
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tree = {"w": torch.randn(1024, 77, generator=gen, device="cuda"),
+            "mu": torch.randn(33, 9, generator=gen,
+                              device="cuda").to(torch.bfloat16),
+            "t": torch.randn(64, 48, generator=gen, device="cuda").t(),
+            "i": torch.arange(5, device="cuda"), "count": 3}
+    want_w = tree["w"].cpu() + 1
+    pool = PinnedPool(2)
+    made = []
+    allocate = pool._allocate
+    pool._allocate = lambda nbytes: made.append(nbytes) or allocate(nbytes)
+    compute = torch.cuda.Stream()
+    compute.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(compute):
+        big = torch.randn(4096, 4096, generator=gen, device="cuda")
+        for _ in range(20):  # keeps the stream busy past the snapshot call
+            big = big @ big
+            big = big / big.abs().max()
+        tree["w"].add_(big[:1024, :77].isfinite().float())
+        host, lease = snapshot_to_host(tree, pool)
+    compute.synchronize()
+    assert torch.equal(host["w"], want_w)
+    for k in ("w", "mu", "t", "i"):
+        assert host[k].is_pinned() and host[k].dtype == tree[k].dtype
+        assert torch.equal(host[k], tree[k].cpu()), k
+    assert host["count"] == 3 and len(made) == 2
+    pool.release(lease)
+    for _ in range(3):
+        again, lease = snapshot_to_host(tree, pool)
+        assert torch.equal(again["mu"], tree["mu"].cpu())
+        pool.release(lease)
+    assert len(made) == 2

@@ -628,12 +628,22 @@ def test_save_pytree_crash_mid_save_preserves_previous(tmp_path, monkeypatch):
 
 
 def test_committed_sharded_dir_waits_for_the_checkpoint_package(tmp_path):
+    """A committed sharded dir restores through the checkpoint package
+    (it waited for it until the package was ported); a dir that only looks
+    committed, a marker without shards, does not restore."""
+    from ray_tpu_torch.checkpoint import CheckpointCoordinator, ShardWriter
     from ray_tpu_torch.train import Checkpoint
 
-    d = tmp_path / "checkpoint_000003"
+    coord = CheckpointCoordinator(str(tmp_path), replicate_to_peer=False)
+    w = ShardWriter(coord, shard_id=0, world_size=1, replicate=False)
+    w.save_async(3, {"w": torch.arange(4.0)}).result(timeout=30)
+    w.close()
+    got = Checkpoint(str(tmp_path / "checkpoint_000003")).to_pytree()
+    assert torch.equal(got["w"], torch.arange(4.0))
+    d = tmp_path / "checkpoint_000004"
     d.mkdir()
     (d / "COMMIT").write_text("")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(FileNotFoundError):
         Checkpoint(str(d)).to_pytree()
 
 
@@ -682,11 +692,11 @@ def test_what_waits_is_refused_when_built():
     with pytest.raises(NotImplementedError, match="item 5"):
         CudaTrainer(lambda: None, scaling_config=ScalingConfig(
             elastic=ElasticConfig()))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        CudaTrainer(lambda: None, run_config=RunConfig(
-            checkpoint_config=CheckpointConfig(async_save=True)))
     with pytest.raises(ValueError, match="datasets="):
         TorchTrainer(lambda: None, datasets={"train": [1, 2]})
+    with pytest.raises(ValueError, match="async_save"):
+        TorchTrainer(lambda: None, run_config=RunConfig(
+            checkpoint_config=CheckpointConfig(async_save=True)))
     with pytest.raises(NotImplementedError, match="item 5"):
         TorchTrainer(lambda: None, scaling_config=ScalingConfig(
             elastic=ElasticConfig()))

@@ -367,3 +367,97 @@ def test_streaming_ingest_with_uneven_shards(init):
     # 3 blocks of 16 rows over 2 ranks: never an even split.
     assert sum(rows.values()) == 48 and rows[0] != rows[1]
     assert np.isfinite(losses).all()
+
+
+def test_async_checkpoints_resume_from_memory(init, tokens):
+    """Two ranks save asynchronously (``CheckpointConfig(async_save=True)``,
+    every rank its shard, every 2 steps), fail after step 3 of the first
+    attempt and resume: the restart restores the coordinator's newest
+    committed step from the memory replicas, bit for bit, and every step's
+    loss is within TOL of an uninterrupted async run's. A run whose every
+    save fails finishes with ``result.error`` saying so."""
+    from ray_tpu_torch._private import fault_injection
+    from ray_tpu_torch._private.config import GLOBAL_CONFIG
+    from ray_tpu_torch.checkpoint import layout
+    from ray_tpu_torch.checkpoint import metrics as ckpt_metrics
+    from ray_tpu_torch.optim import tree_leaves
+    from ray_tpu_torch.train import (
+        CheckpointConfig,
+        CudaTrainer,
+        FailureConfig,
+        RunConfig,
+        ScalingConfig,
+    )
+
+    def memory_restores():
+        return ckpt_metrics.RESTORES.get(tags={"source": "memory"})
+
+    def fit(**extra):
+        seen = {"restore": [], "checkpoint": {}}
+
+        def probe(event, rank, step, **info):
+            if event in ("restore", "checkpoint") and rank == 0:
+                state = info["state"]
+                leaves = [t.detach().clone() for t in
+                          tree_leaves(state["params"]) +
+                          tree_leaves(state["opt_state"]["mu"]) +
+                          tree_leaves(state["opt_state"]["nu"])]
+                if event == "restore":
+                    seen["restore"].append((step, leaves))
+                else:
+                    seen["checkpoint"][step] = leaves
+
+        storage = tempfile.mkdtemp()
+        config = dict(steps=6, batch_size=B, tiny=True, device="cpu",
+                      init_params=init, tokens=tokens, lr=LR, ckpt_every=2,
+                      async_save=True, probe=probe)
+        config.update(extra)
+        result = CudaTrainer(
+            train_gpt2.train_loop_per_worker, train_loop_config=config,
+            scaling_config=ScalingConfig(num_workers=W, use_gpu=False),
+            run_config=RunConfig(
+                name="async", storage_path=storage,
+                checkpoint_config=CheckpointConfig(num_to_keep=2,
+                                                   async_save=True),
+                failure_config=FailureConfig(max_failures=1))).fit()
+        root = os.path.join(storage, "async", "checkpoints", "sharded")
+        return result, seen, layout.list_committed_steps(root)
+
+    fresh_init(ray_tpu_torch, num_cpus=4)
+    try:
+        before = memory_restores()
+        broken, seen, committed = bounded(lambda: fit(fail_at_step=3),
+                                          CASE_S)
+        restored_from_memory = memory_restores() - before
+        whole, _, _ = bounded(fit, CASE_S)
+    finally:
+        ray_tpu_torch.shutdown()
+    assert broken.error is None and len(broken.restarts) == 1
+    restore = broken.restarts[0]["restore"]
+    assert restore["source"] == "memory" and restored_from_memory == 1
+    (restored_step, restored), = seen["restore"]
+    assert restored_step == 2 * (restore["step"] + 1)
+    for a, b in zip(restored, seen["checkpoint"][restored_step]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert any(a.dtype == torch.bfloat16 for a in restored)
+    want = {m["step"]: m["loss"] for m in whole.metrics_history}
+    got = [(m["step"], m["loss"]) for m in broken.metrics_history]
+    assert [s for s, _ in got] == [1, 2, 3] + list(
+        range(restored_step + 1, 7))
+    assert all(abs(loss - want[step]) <= TOL for step, loss in got), \
+        (got, want)
+    assert len(committed) == 2
+    assert int(broken.checkpoint.to_pytree()["step"]) == 6
+
+    GLOBAL_CONFIG.testing_rpc_failure = "ckpt_shard_write=1:1000"
+    fault_injection.reset_injector()
+    fresh_init(ray_tpu_torch, num_cpus=4)
+    try:
+        failed, _, committed = bounded(lambda: fit(steps=2), CASE_S)
+    finally:
+        GLOBAL_CONFIG.testing_rpc_failure = ""
+        fault_injection.reset_injector()
+        ray_tpu_torch.shutdown()
+    assert [m["step"] for m in failed.metrics_history] == [1, 2]
+    assert "no step ever committed" in str(failed.error)
+    assert committed == [] and failed.checkpoint is None
