@@ -175,18 +175,22 @@ Phases, each of which exits non-zero on failure:
     attempt and resumes: one restart, the restored weights and moments
     equal the checkpointed ones bit for bit, steps 5-8 within
     ``FIT_LOSS_ATOL`` of an uninterrupted run. (e) Async checkpoints
-    (``CheckpointConfig(async_save=True)``): the same rank fails before
-    step 5 and restores the coordinator's newest committed step from the
-    memory replicas (``ray_tpu_ckpt_restores_total{source="memory"}`` up
-    by one), params, bf16 mu and nu equal the snapshot bit for bit, steps
-    5-8 within ``FIT_LOSS_ATOL`` of an uninterrupted async run, two
-    committed steps kept, the last one restored on the CPU and on the card
-    equal to the card's state; two thread ranks save one step in two
-    shards, restored at world size 1 bit for bit; exact launches; the
-    median async block at most ``ASYNC_BLOCK_RATIO`` of (c)'s median sync
-    save. It prints each save's block (the first apart), persist and
-    commit times, bytes per shard, restore times by source, and the step
-    ms beside a persist and clear of one. (d) One process rank
+    (``CheckpointConfig(async_save=True)``), its fits in turns with (c)'s:
+    the same rank fails before step 5 and restores the coordinator's
+    newest committed step from the memory replicas
+    (``ray_tpu_ckpt_restores_total{source="memory"}`` up by one), params,
+    bf16 mu and nu equal the snapshot bit for bit, steps 5-8 within
+    ``FIT_LOSS_ATOL`` of an uninterrupted async run that waits for its
+    persists before each save, two committed steps kept, the last one
+    restored on the CPU and on the card equal to the card's state; two
+    thread ranks save one step in two shards, restored at world size 1
+    bit for bit; exact launches; the median block of the uninterrupted
+    run at most ``ASYNC_BLOCK_RATIO`` of (c)'s median sync save. A third
+    async run saves at the same cadence without waiting: each save's wait
+    for a free pinned buffer, its snapshot, and the step ms beside a
+    persist and clear of one. It prints each save's block (the first
+    apart), persist and commit times, bytes per shard and restore times by
+    source. (d) One process rank
     (``worker_mode="processes"``) on NCCL for 5 steps: its own pid, backend
     ``nccl`` on ``cuda:0``, 5 all-reduces, losses within ``FIT_LOSS_ATOL``
     of (c)'s uninterrupted rank, exact launches in the worker and none in
@@ -2849,25 +2853,50 @@ def _overlap_ms(marks, windows):
     return over, clear
 
 
-def _fit_async(storage, batch, want_counts, add_launches, sync_save_ms,
-               want_late) -> Dict[str, object]:
-    """(e) Async sharded checkpoints from the card: one thread rank fails
-    before step 5 and restores from the memory replicas; an uninterrupted
-    async run is its yardstick and measures steps beside persists; two
-    thread ranks write one step in two shards, restored at world size 1.
-    The gate holds the median async block to ``ASYNC_BLOCK_RATIO`` of
-    (c)'s median sync save, in the same call."""
+def _flat_state(state):
+    """params, mu and nu of a training state, each part's leaves by sorted
+    name (a restored dict's keys come back sorted, as JAX orders them)."""
+    from ray_tpu_torch.optim import tree_leaves
+
+    out = []
+    for part in (state["params"], state["opt_state"]["mu"],
+                 state["opt_state"]["nu"]):
+        names = list(_leaf_names(part))
+        out += [t for _, t in sorted(zip(names, tree_leaves(part)),
+                                     key=lambda x: x[0])]
+    return out
+
+
+def _ckpt_restores(source):
+    from ray_tpu_torch.checkpoint import metrics as ckpt_metrics
+
+    return sum(v for _, tags, v in ckpt_metrics.RESTORES.samples()
+               if tags.get("source") == source)
+
+
+def _commit_stats():
+    """(commits, their seconds) so far."""
+    from ray_tpu_torch.checkpoint import metrics as ckpt_metrics
+
+    got = {name: v for name, _, v in ckpt_metrics.COMMIT_SECONDS.samples()}
+    return got.get("_count", 0), got.get("_sum", 0.0)
+
+
+def _async_fit(label, storage, batch, want_counts, add_launches, fail_at,
+               workers=1, steps=RESTORE_STEPS, keep=(), batch_size=FIT_BATCH,
+               drain=False):
+    """One ``CudaTrainer.fit()`` of (e) with ``async_save=True`` and a save
+    every ``RESTORE_CKPT_EVERY`` steps; exact launches. ``drain``: rank 0
+    waits for its writer's earlier persists before each save, so that the
+    save's block is the snapshot alone (the reference's envelope saves
+    with no step between, into memory without bound). Returns what the
+    probe saw: losses, states at the steps in ``keep``, save handles, step
+    marks, the restore."""
     import os
     import warnings
 
-    import torch
-
-    from ray_tpu_torch import checkpoint as ckpt
-    from ray_tpu_torch.checkpoint import metrics as ckpt_metrics
     from ray_tpu_torch.examples import train_gpt2
-    from ray_tpu_torch.optim import tree_leaves
     from ray_tpu_torch.train import (
-        Checkpoint,
         CheckpointConfig,
         CudaTrainer,
         FailureConfig,
@@ -2877,88 +2906,100 @@ def _fit_async(storage, batch, want_counts, add_launches, sync_save_ms,
     from ray_tpu_torch.train.session import get_session
     from ray_tpu_torch.util.placement_group import placement_group_table
 
-    def flat(state):
-        """params, mu and nu, each part's leaves by sorted name (a restored
-        dict's keys come back sorted, as JAX orders them)."""
-        out = []
-        for part in (state["params"], state["opt_state"]["mu"],
-                     state["opt_state"]["nu"]):
-            names = list(_leaf_names(part))
-            out += [t for _, t in sorted(zip(names, tree_leaves(part)),
-                                         key=lambda x: x[0])]
-        return out
+    seen = {"loss": {}, "states": {}, "handles": [], "marks": [],
+            "restore": None, "last": None}
 
-    def restores(source):
-        return sum(v for _, tags, v in ckpt_metrics.RESTORES.samples()
-                   if tags.get("source") == source)
-
-    def commit_stats():
-        """(commits, their seconds) so far."""
-        got = {name: v for name, _, v in
-               ckpt_metrics.COMMIT_SECONDS.samples()}
-        return got.get("_count", 0), got.get("_sum", 0.0)
-
-    def run(label, fail_at, workers=1, steps=RESTORE_STEPS, keep=(),
-            batch_size=FIT_BATCH):
-        seen = {"loss": {}, "states": {}, "handles": [], "marks": [],
-                "restore": None, "last": None}
-
-        def probe(event, rank, step, **info):
-            now = time.time()
-            if event == "step" and rank == 0:
-                seen["loss"][step] = info["loss"]
-                if seen["last"] is not None:
-                    seen["marks"].append((step, seen["last"], now))
-            if event == "checkpoint" and rank == 0 and step in keep:
+    def probe(event, rank, step, **info):
+        now = time.time()
+        if event == "step" and rank == 0:
+            seen["loss"][step] = info["loss"]
+            if seen["last"] is not None:
+                seen["marks"].append((step, seen["last"], now))
+        if event == "checkpoint" and rank == 0:
+            if step in keep:
                 seen["states"][step] = [t.detach().to("cpu", copy=True)
-                                        for t in flat(info["state"])]
-            if event == "saved" and rank == 0:
-                seen["handles"].append((step, get_session().last_save_handle))
-            if event == "restore" and rank == 0:
-                seen["restore"] = (step, info["seconds"],
-                                   [t.detach().to("cpu", copy=True)
-                                    for t in flat(info["state"])])
-            if rank == 0 and event in ("step", "saved", "restore"):
-                seen["last"] = time.time()
+                                        for t in _flat_state(info["state"])]
+            if drain:
+                get_session().shard_writer.drain(timeout=600)
+        if event == "saved" and rank == 0:
+            seen["handles"].append((step, get_session().last_save_handle))
+        if event == "restore" and rank == 0:
+            seen["restore"] = (step, info["seconds"],
+                               [t.detach().to("cpu", copy=True)
+                                for t in _flat_state(info["state"])])
+        if rank == 0 and event in ("step", "saved", "restore"):
+            seen["last"] = time.time()
 
-        trainer = CudaTrainer(
-            train_gpt2.train_loop_per_worker,
-            train_loop_config=_fit_config(
-                steps=steps, batch_size=batch_size, tokens=batch,
-                ckpt_every=RESTORE_CKPT_EVERY, fail_at_step=fail_at,
-                async_save=True, probe=probe),
-            scaling_config=ScalingConfig(
-                num_workers=workers, gpus_per_worker=1.0 / workers),
-            run_config=RunConfig(
-                name=label, storage_path=storage,
-                checkpoint_config=CheckpointConfig(num_to_keep=2,
-                                                   async_save=True),
-                failure_config=FailureConfig(max_failures=1)))
-        _reset_counts()
-        memory0, commits0 = restores("memory"), commit_stats()
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", RuntimeWarning)  # ranks share
-            res = trainer.fit()
-        counts = _counts()
-        commits1 = commit_stats()
-        if res.error is not None:
-            fail(f"{label}: fit failed: {res.error!r}")
-        _gone(label, placement_group_table)
-        forwards = workers * len(res.metrics_history)  # rank 0's reports
-        if counts != want_counts(forwards):
-            fail(f"{label}: launches {counts}, want {want_counts(forwards)}")
-        add_launches(counts)
-        seen["res"] = res
-        seen["memory_restores"] = restores("memory") - memory0
-        seen["commits"] = commits1[0] - commits0[0]
-        seen["commit_ms"] = (1e3 * (commits1[1] - commits0[1])
-                             / max(1, seen["commits"]))
-        seen["root"] = os.path.join(storage, label, "checkpoints", "sharded")
-        return seen
+    trainer = CudaTrainer(
+        train_gpt2.train_loop_per_worker,
+        train_loop_config=_fit_config(
+            steps=steps, batch_size=batch_size, tokens=batch,
+            ckpt_every=RESTORE_CKPT_EVERY, fail_at_step=fail_at,
+            async_save=True, probe=probe),
+        scaling_config=ScalingConfig(
+            num_workers=workers, gpus_per_worker=1.0 / workers),
+        run_config=RunConfig(
+            name=label, storage_path=storage,
+            checkpoint_config=CheckpointConfig(num_to_keep=2,
+                                               async_save=True),
+            failure_config=FailureConfig(max_failures=1)))
+    _reset_counts()
+    memory0, commits0 = _ckpt_restores("memory"), _commit_stats()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # ranks share
+        res = trainer.fit()
+    counts = _counts()
+    commits1 = _commit_stats()
+    if res.error is not None:
+        fail(f"{label}: fit failed: {res.error!r}")
+    _gone(label, placement_group_table)
+    forwards = workers * len(res.metrics_history)  # rank 0's reports
+    if counts != want_counts(forwards):
+        fail(f"{label}: launches {counts}, want {want_counts(forwards)}")
+    add_launches(counts)
+    seen["res"] = res
+    seen["memory_restores"] = _ckpt_restores("memory") - memory0
+    seen["commits"] = commits1[0] - commits0[0]
+    seen["commit_ms"] = (1e3 * (commits1[1] - commits0[1])
+                         / max(1, seen["commits"]))
+    seen["root"] = os.path.join(storage, label, "checkpoints", "sharded")
+    return seen
 
-    broken = run("fit_async", RESTORE_FAIL_AT,
-                 keep=(2, RESTORE_FAIL_AT, RESTORE_STEPS))
-    whole = run("fit_async_whole", None)
+
+def _saves(seen):
+    """Each save's block, its wait for a free buffer, persist and bytes; a
+    save queued when its attempt failed is aborted (``abort``: the error's
+    name)."""
+    out = []
+    for step, h in seen["handles"]:
+        exc = h.exception(timeout=600)
+        a, b = h.persist_window
+        out.append(dict(step=step, block_ms=1e3 * h.block_seconds,
+                        wait_ms=1e3 * h.wait_seconds, persist_s=b - a,
+                        bytes=None if exc else h.result()["bytes"],
+                        abort=type(exc).__name__ if exc else None))
+    return out
+
+
+def _fit_async(storage, batch, want_counts, add_launches, broken, drained,
+               cadence, sync_save_ms, want_late) -> Dict[str, object]:
+    """(e) Async sharded checkpoints from the card, from three fits run in
+    turns with (c)'s: ``broken`` fails before step 5 and restores from the
+    memory replicas; ``drained`` runs uninterrupted, its yardstick, and
+    waits for the persists before each save; ``cadence`` runs
+    uninterrupted at the same cadence without waiting, and measures the
+    saves' waits for a free buffer and the steps beside persists. Then
+    two thread ranks write one step in two shards, restored at world size
+    1. The gate holds ``drained``'s median block to ``ASYNC_BLOCK_RATIO``
+    of (c)'s median sync save, in the same call."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch import checkpoint as ckpt
+    from ray_tpu_torch.train import Checkpoint
+
+    flat = _flat_state
     res = broken["res"]
     committed = ckpt.list_committed_steps(broken["root"])
     rst = res.restarts[0].get("restore") if res.restarts else None
@@ -2968,7 +3009,7 @@ def _fit_async(storage, batch, want_counts, add_launches, sync_save_ms,
         a.dtype == b.dtype and torch.equal(a, b)
         for a, b in zip(r_state, saved))
     got = {m["step"]: m["loss"] for m in res.metrics_history}
-    ref = {m["step"]: m["loss"] for m in whole["res"].metrics_history}
+    ref = {m["step"]: m["loss"] for m in drained["res"].metrics_history}
     late = sorted(want_late)
     late_err = max(abs(got[s] - ref[s]) for s in late)
     # The final committed dir, restored on the CPU, against the card's
@@ -3002,28 +3043,18 @@ def _fit_async(storage, batch, want_counts, add_launches, sync_save_ms,
              f"{[ref[s] for s in late]}, committed {committed}, final dir "
              f"equal on the CPU {final_equal}, on the card {card_equal}")
 
-    def saves(seen):
-        """Each save's block, persist and bytes; a save queued when its
-        attempt failed is aborted (``abort``: the error's name)."""
-        out = []
-        for step, h in seen["handles"]:
-            exc = h.exception(timeout=600)
-            a, b = h.persist_window
-            out.append(dict(step=step, block_ms=1e3 * h.block_seconds,
-                            persist_s=b - a,
-                            bytes=None if exc else h.result()["bytes"],
-                            abort=type(exc).__name__ if exc else None))
-        return out
-
-    b_saves, w_saves = saves(broken), saves(whole)
-    blocks = [x["block_ms"] for x in b_saves]
+    b_saves, d_saves, c_saves = _saves(broken), _saves(drained), \
+        _saves(cadence)
+    blocks = [x["block_ms"] for x in d_saves]
     ratio = statistics.median(blocks) / statistics.median(sync_save_ms)
-    windows = [h.persist_window for _, h in whole["handles"]]
-    over, clear = _overlap_ms(whole["marks"], windows)
+    c_blocks = [x["block_ms"] for x in c_saves]
+    windows = [h.persist_window for _, h in cadence["handles"]]
+    over, clear = _overlap_ms(cadence["marks"], windows)
 
     # Two thread ranks, one save: two shards, restored at world size 1.
-    two = run("fit_async_two", None, workers=2, steps=RESTORE_CKPT_EVERY,
-              keep=(RESTORE_CKPT_EVERY,), batch_size=FIT_BATCH // 2)
+    two = _async_fit("fit_async_two", storage, batch, want_counts,
+                     add_launches, None, workers=2, steps=RESTORE_CKPT_EVERY,
+                     keep=(RESTORE_CKPT_EVERY,), batch_size=FIT_BATCH // 2)
     (two_step,) = ckpt.list_committed_steps(two["root"])
     two_dir = os.path.join(two["root"], ckpt.layout.step_dirname(two_step))
     with open(os.path.join(two_dir, ckpt.layout.GLOBAL_MANIFEST)) as f:
@@ -3046,19 +3077,27 @@ def _fit_async(storage, batch, want_counts, add_launches, sync_save_ms,
         card=card_line(),
         blocks_ms=blocks, first_block_ms=blocks[0],
         later_blocks_ms=blocks[1:],
-        whole_run_blocks_ms=[x["block_ms"] for x in w_saves],
         sync_save_ms=sync_save_ms,
         median_block_over_sync=ratio, gate=ASYNC_BLOCK_RATIO,
-        persist_s=[x["persist_s"] for x in b_saves + w_saves
+        cadence=dict(
+            every_steps=RESTORE_CKPT_EVERY, blocks_ms=c_blocks,
+            buffer_wait_ms=[x["wait_ms"] for x in c_saves],
+            snapshot_ms=[x["block_ms"] - x["wait_ms"] for x in c_saves],
+            median_block_over_sync=(statistics.median(c_blocks)
+                                    / statistics.median(sync_save_ms)),
+            persist_s=[x["persist_s"] for x in c_saves],
+            commit_ms=cadence["commit_ms"]),
+        broken_run_blocks_ms=[x["block_ms"] for x in b_saves],
+        persist_s=[x["persist_s"] for x in b_saves + d_saves
                    if not x["abort"]],
         aborted_saves=[(x["step"], x["abort"]) for x in b_saves
                        if x["abort"]],
-        commit_ms=broken["commit_ms"], whole_commit_ms=whole["commit_ms"],
-        bytes_per_shard=w_saves[0]["bytes"],
+        commit_ms=broken["commit_ms"], drained_commit_ms=drained["commit_ms"],
+        bytes_per_shard=d_saves[0]["bytes"],
         two_rank_bytes_per_shard=[m["bytes"] for _, m in sorted(
             two_manifest["shards"].items())],
         restore_ms=dict(
-            memory_materialize=1e3 * rst["seconds"],
+            memory_fetch=1e3 * rst["seconds"],
             memory_to_card=1e3 * r_seconds,
             disk_to_cpu=disk_cpu_ms, disk_to_card=disk_card_ms,
             two_shards_to_card_at_world_1=two_restore_ms),
@@ -3371,10 +3410,20 @@ def phase_train_fit() -> Dict[str, object]:
             _gone(label, placement_group_table)
             return res, seen, counts
 
+        # (c) and (e) in turns: sync failing, async failing, sync whole,
+        # async whole (drained before each save), async whole at cadence.
+        def async_fit(label, fail_at, **kw):
+            return _async_fit(label, storage, batch, want_counts,
+                              add_launches, fail_at, **kw)
+
         broken, seen, counts_c = run_restore("fit_restore", RESTORE_FAIL_AT)
         add_launches(counts_c)
+        e_broken = async_fit("fit_async", RESTORE_FAIL_AT,
+                             keep=(2, RESTORE_FAIL_AT, RESTORE_STEPS))
         whole, _, counts_w = run_restore("fit_whole", None)
         add_launches(counts_w)
+        e_drained = async_fit("fit_async_whole", None, drain=True)
+        e_cadence = async_fit("fit_async_cadence", None)
         got = {m["step"]: m["loss"] for m in broken.metrics_history}
         want = {m["step"]: m["loss"] for m in whole.metrics_history}
         late = range(RESTORE_FAIL_AT + 1, RESTORE_STEPS + 1)
@@ -3385,6 +3434,7 @@ def phase_train_fit() -> Dict[str, object]:
             all(a.dtype == b.dtype and torch.equal(a, b)
                 for a, b in zip(seen["restore"], seen["checkpoint"])))
         saves = [m for m in broken.metrics_history if "save_ms" in m]
+        whole_saves = [m for m in whole.metrics_history if "save_ms" in m]
         if len(broken.restarts) != 1 or not bit_equal_state or \
                 max(abs(got[s] - want[s]) for s in late) > FIT_LOSS_ATOL or \
                 len(kept) != 2:
@@ -3404,15 +3454,18 @@ def phase_train_fit() -> Dict[str, object]:
             late_losses_bit_equal=all(got[s] == want[s] for s in late),
             late_max_abs_err=max(abs(got[s] - want[s]) for s in late),
             kept=kept, save_ms=[m["save_ms"] for m in saves],
+            whole_save_ms=[m["save_ms"] for m in whole_saves],
             ckpt_bytes=saves[0]["ckpt_bytes"])
         print("train_fit_c " + json.dumps(result["c"]), flush=True)
         del seen
         torch.cuda.empty_cache()
 
         # ------------------------- (e) async checkpoints from the card
-        result["e"] = _fit_async(storage, batch, want_counts, add_launches,
-                                 [m["save_ms"] for m in saves],
-                                 {s: want[s] for s in late})
+        result["e"] = _fit_async(
+            storage, batch, want_counts, add_launches, e_broken, e_drained,
+            e_cadence, [m["save_ms"] for m in saves + whole_saves],
+            {s: want[s] for s in late})
+        del e_broken, e_drained, e_cadence
         torch.cuda.empty_cache()
 
         # -------------------------------- (d) one process rank on NCCL

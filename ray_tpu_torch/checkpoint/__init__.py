@@ -11,7 +11,8 @@ counterpart of ``ray_tpu.checkpoint``; the same on-disk layout).
   object store (Gemini); the peer-node mirror waits for the port's
   virtual nodes (ROADMAP.md, Queue 1 item 13.8a).
 * ``restore_pytree`` / ``reshard_tree`` — restore from any committed
-  step, written at any world size, onto a device.
+  step, written at any world size, onto a device;
+  ``restore_from_payloads`` the same from the memory replicas.
 
 Chaos fault points: ``ckpt_shard_write``, ``ckpt_commit``,
 ``ckpt_restore`` (ray_tpu_torch._private.fault_injection).
@@ -43,7 +44,8 @@ __all__ = [
     "CheckpointCoordinator", "PinnedPool", "ReplicaHolder", "SaveHandle",
     "ShardWriter", "is_committed_dir", "latest_committed_step",
     "list_committed_steps", "materialize_from_payloads", "reshard_tree",
-    "restore_latest", "restore_pytree", "snapshot_to_host",
+    "restore_from_payloads", "restore_latest", "restore_pytree",
+    "snapshot_to_host",
 ]
 
 
@@ -93,6 +95,33 @@ def restore_latest(root: str, template: Optional[Any] = None, *,
     return restore_pytree(layout.final_dir(root, step), template,
                           device=device, mesh=mesh, pspec=pspec,
                           pspec_fn=pspec_fn)
+
+
+def restore_from_payloads(payloads: Dict[int, dict],
+                          template: Optional[Any] = None, *,
+                          device=None) -> Any:
+    """Restore the full tree from one step's in-memory replica payloads
+    (shard id -> payload), as ``restore_pytree`` does from its committed
+    dir: no file is written or read. The leaves own their bytes (the
+    payloads stay whole). Observes the restore's seconds under
+    ``source="memory"``; the caller that chose the replicas counts the
+    restore (``ray_tpu_ckpt_restores_total``)."""
+    from ray_tpu_torch._private import fault_injection
+    from ray_tpu_torch.util import tracing
+
+    t0 = time.monotonic()
+    with tracing.span("checkpoint.restore",
+                      attributes={"step": payloads[0]["step"],
+                                  "source": "memory"}):
+        fault_injection.check("ckpt_restore")
+        tree = layout.assemble_from_payloads(payloads)
+        if template is not None:
+            _check_template(tree, template)
+        if template is not None or device is not None:
+            tree = reshard_tree(tree, device=device, template=template)
+    ckpt_metrics.RESTORE_SECONDS.observe(time.monotonic() - t0,
+                                         tags={"source": "memory"})
+    return tree
 
 
 def materialize_from_payloads(root: str, step: int,

@@ -51,6 +51,7 @@ import json
 import os
 import pickle
 import re
+import struct
 import zipfile
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
@@ -319,15 +320,17 @@ def build_shard(host_tree: Any, shard_id: int, world_size: int):
     return doc, skeleton, kind, arrays
 
 
-def _write_npz(path: str, arrays: Dict[str, np.ndarray]) -> None:
+def _write_npz(path: str, arrays: Dict[str, np.ndarray]) -> int:
     """``np.savez``'s file, made durable: a stored zip with one ``.npy``
     entry per array, each array's bytes written straight from its own
     memory (the reference builds the whole file in memory first). The
     writes and their checksums run outside the interpreter lock, so the
-    training thread beside a persist keeps it."""
+    training thread beside a persist keeps it. Returns the file's CRC-32
+    (the manifest's ``crc32``), built from the entries' CRCs that the zip
+    writer computed as it wrote: the data is not read twice."""
     from numpy.lib import format as npy
 
-    with open(path, "wb") as f:
+    with open(path, "w+b") as f:
         with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED,
                              allowZip64=True) as zf:
             for key, a in arrays.items():
@@ -340,20 +343,62 @@ def _write_npz(path: str, arrays: Dict[str, np.ndarray]) -> None:
                     if a.size:  # in the order the header names, as numpy
                         flat = a.T if header["fortran_order"] else a
                         fid.write(flat.reshape(-1).view(np.uint8))
+            infos = zf.infolist()
         f.flush()
+        crc = _stored_zip_crc32(f.fileno(), infos)
         os.fsync(f.fileno())
+    return crc
 
 
-def _file_crc32(path: str) -> int:
-    crc = 0
-    buf = bytearray(1 << 24)
-    view = memoryview(buf)
-    with open(path, "rb") as f:
-        while True:
-            n = f.readinto(buf)
-            if not n:
-                return crc & 0xFFFFFFFF
-            crc = zlib.crc32(view[:n], crc)
+def _stored_zip_crc32(fd: int, infos: List[zipfile.ZipInfo]) -> int:
+    """The CRC-32 of a whole stored zip file: the bytes around the entries'
+    data (local headers, the central directory) are read and checksummed,
+    and each entry's data comes in through its own CRC by
+    ``_crc32_combine``."""
+    crc, pos = 0, 0
+    for info in sorted(infos, key=lambda i: i.header_offset):
+        names, extra = struct.unpack(
+            "<HH", os.pread(fd, 4, info.header_offset + 26))
+        start = info.header_offset + 30 + names + extra
+        crc = zlib.crc32(os.pread(fd, start - pos, pos), crc)
+        crc = _crc32_combine(crc, info.CRC, info.compress_size)
+        pos = start + info.compress_size
+    tail = os.fstat(fd).st_size - pos
+    return zlib.crc32(os.pread(fd, tail, pos), crc) & 0xFFFFFFFF
+
+
+# zlib's ``crc32_combine``, which Python's zlib does not expose.
+#: CRC-32's polynomial, bit-reflected.
+_POLY = 0xEDB88320
+
+
+def _multmodp(a: int, b: int) -> int:
+    """a * b modulo the CRC polynomial (bit 31 is x^0); a is not 0."""
+    m, p = 1 << 31, 0
+    while True:
+        if a & m:
+            p ^= b
+            if not a & (m - 1):
+                return p
+        m >>= 1
+        b = (b >> 1) ^ _POLY if b & 1 else b >> 1
+
+
+#: x^(2^k) modulo the polynomial, for k = 0..31.
+_X2N = [1 << 30]
+for _ in range(31):
+    _X2N.append(_multmodp(_X2N[-1], _X2N[-1]))
+
+
+def _crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """CRC-32 of A + B from crc1 = crc(A), crc2 = crc(B) and len(B)."""
+    p, k = 1 << 31, 3  # x^(8 len2): each byte shifts crc1 by x^8
+    while len2:
+        if len2 & 1:
+            p = _multmodp(_X2N[k & 31], p)
+        len2 >>= 1
+        k += 1
+    return _multmodp(p, crc1) ^ crc2
 
 
 def write_shard(step_dir: str, shard_id: int, doc: dict, skeleton: Any,
@@ -363,10 +408,9 @@ def write_shard(step_dir: str, shard_id: int, doc: dict, skeleton: Any,
     sdir = os.path.join(step_dir, shard_dirname(shard_id))
     os.makedirs(sdir, exist_ok=True)
     npz_path = os.path.join(sdir, "leaves.npz")
-    _write_npz(npz_path + ".tmp", arrays)
+    crc = _write_npz(npz_path + ".tmp", arrays)
     os.replace(npz_path + ".tmp", npz_path)
     total = os.path.getsize(npz_path)
-    crc = _file_crc32(npz_path)
     if shard_id == 0:
         if kind == "json":
             atomic_write_json(os.path.join(sdir, "skeleton.json"), doc)

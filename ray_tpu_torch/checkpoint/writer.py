@@ -79,20 +79,20 @@ def _invoke(coordinator, method: str, *args):
 
 
 class PinnedPool:
-    """Page-locked host buffers for snapshots: at most ``depth`` exist at
-    once. ``acquire`` hands out a free one large enough, else allocates
-    every empty slot at once (page-locking is slow: the first snapshot
-    pays for the pool, later ones find a buffer ready), else waits for a
-    ``release``. Also keeps one side stream per device for the copies."""
+    """Page-locked host buffers for snapshots: at most ``PINNED_BUFFERS``
+    exist at once. ``acquire`` hands out a free one large enough, else
+    allocates every empty slot at once (page-locking is slow: the first
+    snapshot pays for the pool, later ones find a buffer ready), else
+    waits for a ``release``; ``wait_seconds`` sums those waits. Also keeps
+    one side stream per device for the copies."""
 
-    def __init__(self, depth: int = PINNED_BUFFERS):
-        if depth < 1:
-            raise ValueError(f"depth must be >= 1, got {depth}")
-        self.depth = int(depth)
+    def __init__(self):
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._free: List[Any] = []  # guarded_by: _lock
         self._leased = 0  # guarded_by: _lock
+        #: seconds ``acquire`` has waited for a buffer to come back
+        self.wait_seconds = 0.0
         self._streams: Dict[Any, Any] = {}
 
     def acquire(self, nbytes: int):
@@ -106,13 +106,15 @@ class PinnedPool:
                     return self._free.pop(best)
                 # Free buffers too small for this tree go, for larger ones.
                 self._free.clear()
-                room = self.depth - self._leased
+                room = PINNED_BUFFERS - self._leased
                 if room:
                     # Under the lock: a release waits for this, the once.
                     self._free.extend(self._allocate(nbytes)
                                       for _ in range(room))
                 else:
+                    t0 = time.monotonic()
                     self._cond.wait()
+                    self.wait_seconds += time.monotonic() - t0
 
     @staticmethod
     def _allocate(nbytes: int):
@@ -135,15 +137,14 @@ class PinnedPool:
         return s
 
 
-def snapshot_to_host(tree: Any, pool: Optional[PinnedPool] = None
-                     ) -> Tuple[Any, Any]:
+def snapshot_to_host(tree: Any, pool: PinnedPool) -> Tuple[Any, Any]:
     """-> (host tree, its buffer to give back to ``pool``, or None): the
     only step-blocking work.
 
-    CUDA leaves land in one page-locked buffer from ``pool`` (else from a
-    pool of one for this call) through a side stream per device; the call
-    returns once the copies have landed. Host tensors and numpy arrays are
-    copied; other leaves are kept as they are."""
+    CUDA leaves land in one page-locked buffer from ``pool`` through a side
+    stream per device; the call returns once the copies have landed. Host
+    tensors and numpy arrays are copied; other leaves are kept as they
+    are."""
     import torch
     from torch.utils import _pytree
 
@@ -164,7 +165,6 @@ def snapshot_to_host(tree: Any, pool: Optional[PinnedPool] = None
             out[i] = leaf.copy()
     if not on_card:
         return _pytree.tree_unflatten(out, spec), None
-    pool = pool if pool is not None else PinnedPool(1)
     buf = pool.acquire(nbytes)
     try:
         events = []
@@ -190,11 +190,14 @@ def snapshot_to_host(tree: Any, pool: Optional[PinnedPool] = None
 class SaveHandle:
     """Future-ish handle for one async save."""
 
-    def __init__(self, step: int, block_seconds: float):
+    def __init__(self, step: int, block_seconds: float,
+                 wait_seconds: float):
         self._future: Optional[Future] = None
         self.step = step
         #: seconds the caller was blocked (a free buffer, the snapshot)
         self.block_seconds = block_seconds
+        #: the part of ``block_seconds`` spent waiting for a free buffer
+        self.wait_seconds = wait_seconds
         #: (start, end) ``time.time()`` of the persist, once it has run
         self.persist_window: Optional[Tuple[float, float]] = None
 
@@ -231,6 +234,7 @@ class ShardWriter:
         device->host copy (and a free pinned buffer)."""
         t0 = time.monotonic()
         w0 = time.time()
+        waited = self._pool.wait_seconds
         with tracing.span("checkpoint.save",
                           attributes={"step": step, "shard": self.shard_id,
                                       "phase": "snapshot"}):
@@ -240,7 +244,7 @@ class ShardWriter:
         # The snapshot is the only save work blocking the training step —
         # attribute exactly it to the step profiler's ckpt_block bucket.
         _profiler_record("ckpt_block", w0, w0 + block)
-        handle = SaveHandle(step, block)
+        handle = SaveHandle(step, block, self._pool.wait_seconds - waited)
         try:
             handle._future = self._exec.submit(self._persist, step,
                                                host_tree, lease, handle)

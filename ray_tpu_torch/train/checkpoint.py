@@ -84,6 +84,21 @@ class Checkpoint:
         return f"Checkpoint({self.path})"
 
 
+class ReplicaCheckpoint(Checkpoint):
+    """A committed step held by its in-memory replicas: ``path`` names the
+    step's committed dir on storage (the same bytes), and ``to_pytree``
+    assembles the tree from the replica payloads without touching it."""
+
+    def __init__(self, path: str, payloads: Dict[int, dict]):
+        super().__init__(path)
+        self._payloads = payloads
+
+    def to_pytree(self, template: Optional[Any] = None) -> Any:
+        from ray_tpu_torch.checkpoint import restore_from_payloads
+
+        return restore_from_payloads(self._payloads, template)
+
+
 def _to_host(tree: Any) -> Any:
     import torch
 

@@ -472,10 +472,10 @@ class DataParallelTrainer:
         """Checkpoint handle for the coordinator's latest committed step.
 
         Prefers the in-memory replica tier (full shard set resident): the
-        payloads are materialized into a fresh local committed dir, so the
-        handle's to_pytree() never touches the original storage; the
-        committed dir on storage is the floor. ``_last_restore`` records
-        which ({"source", "step"}), or None."""
+        handle's to_pytree() assembles the tree from the payloads and never
+        touches the storage (the reference writes them to a local dir and
+        reads that back); the committed dir on storage is the floor.
+        ``_last_restore`` records which ({"source", "step"}), or None."""
         self._last_restore = None
         if coordinator is None:
             return None
@@ -487,33 +487,29 @@ class DataParallelTrainer:
         if src is None:
             return None
         if from_memory:
-            ckpt = self._materialize_memory(src)
+            ckpt = self._memory_checkpoint(src)
             if ckpt is not None:
                 self._last_restore = {"source": "memory", "step": src["step"]}
                 return ckpt
         self._last_restore = {"source": "disk", "step": src["step"]}
         return Checkpoint(src["path"])
 
-    def _materialize_memory(self, src: Dict) -> Optional[Checkpoint]:
-        """Local committed dir built from the object-store replica refs;
-        None when the set is absent or any ref is unfetchable within the
-        bound."""
+    def _memory_checkpoint(self, src: Dict) -> Optional[Checkpoint]:
+        """A handle on the object-store replica payloads; None when the set
+        is absent or any ref is unfetchable within the bound."""
         if not src.get("replicas"):
             return None
-        from ray_tpu_torch.checkpoint import materialize_from_payloads
         from ray_tpu_torch.checkpoint import metrics as ckpt_metrics
+        from ray_tpu_torch.train.checkpoint import ReplicaCheckpoint
 
         try:
             refs = src["replicas"]["refs"]
             payloads = {int(sid): ray_tpu_torch.get(w["ref"], timeout=20)
                         for sid, w in refs.items()}
-            local_root = tempfile.mkdtemp(prefix="ray_tpu_torch_ckpt_mem_")
-            path = materialize_from_payloads(local_root, src["step"],
-                                             payloads)
         except Exception:
             return None
         ckpt_metrics.RESTORES.inc(tags={"source": "memory"})
-        return Checkpoint(path)
+        return ReplicaCheckpoint(src["path"], payloads)
 
     def _check_async_saves(self, sessions: List[TrainSession],
                            coordinator) -> Optional[BaseException]:

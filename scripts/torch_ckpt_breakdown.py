@@ -11,12 +11,13 @@ AdamW's first moment in bf16 (1,244,769,841 bytes at full size). It times
 each stage once: the snapshot into a fresh page-locked pool (the
 allocation) and into a warm one; one shard's
 build; ``leaves.npz`` written and made durable; the same bytes written to
-the page cache and then flushed with ``fsync``, apart; the file's crc32
-read back; the replica payload's own copy; a whole synchronous save
-through a ``CheckpointCoordinator`` (persist and commit); the restore
-from disk to the host and to the card; and the assembly from in-memory
-replica payloads. It prints one JSON line, with the card and its power
-limit.
+the page cache and then flushed with ``fsync``, apart; the crc32 of the
+same bytes in memory (what the zip writer computes for its entries, and
+what the manifest's crc32 is built from); the replica payload's own copy;
+a whole synchronous save through a ``CheckpointCoordinator`` (persist and
+commit); the restore from disk to the host and to the card; and the
+restore from in-memory replica payloads to the host and to the card. It
+prints one JSON line, with the card and its power limit.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if _REPO not in sys.path:
@@ -59,6 +61,7 @@ def main(argv=None) -> int:
         PinnedPool,
         ShardWriter,
         layout,
+        restore_from_payloads,
         restore_pytree,
         snapshot_to_host,
     )
@@ -107,7 +110,8 @@ def main(argv=None) -> int:
         _, out["write_npz_durable_s"] = timed(
             lambda: layout._write_npz(npz, arrays))
         out["npz_bytes"] = os.path.getsize(npz)
-        _, out["crc32_read_back_s"] = timed(lambda: layout._file_crc32(npz))
+        _, out["entries_crc32_s"] = timed(lambda: [
+            zlib.crc32(a.reshape(-1).view(np.uint8)) for a in arrays.values()])
         raw = os.path.join(root, "raw.bin")
         nbytes = sum(a.nbytes for a in arrays.values())
         with open(raw, "wb") as f:
@@ -123,7 +127,7 @@ def main(argv=None) -> int:
         payload_arrays, out["replica_copy_s"] = timed(
             lambda: {k: np.array(a) for k, a in arrays.items()})
         payload = {"doc": doc, "skeleton": skeleton, "kind": kind,
-                   "arrays": payload_arrays}
+                   "arrays": payload_arrays, "shard_id": 0, "step": 0}
         release(lease)
         del host, arrays
 
@@ -144,8 +148,10 @@ def main(argv=None) -> int:
         _, out["restore_to_host_s"] = timed(lambda: restore_pytree(path))
         _, out["restore_to_device_s"] = timed(
             lambda: restore_pytree(path, device=dev))
-        _, out["assemble_from_memory_s"] = timed(
-            lambda: layout.assemble_from_payloads({0: payload}))
+        _, out["restore_from_memory_to_host_s"] = timed(
+            lambda: restore_from_payloads({0: payload}))
+        _, out["restore_from_memory_to_device_s"] = timed(
+            lambda: restore_from_payloads({0: payload}, device=dev))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps(out), flush=True)

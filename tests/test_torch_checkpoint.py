@@ -25,6 +25,7 @@ import json
 import os
 import shutil
 import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -791,13 +792,13 @@ def test_every_bf16_pattern_round_trips_bit_for_bit(tmp_path):
 def test_pinned_pool_never_holds_more_than_its_depth(monkeypatch):
     """Threads (more than cores, a short switch interval) take and give
     back snapshot buffers of three sizes: at no time are more than
-    ``depth`` leased, and every one comes back."""
+    ``PINNED_BUFFERS`` leased, and every one comes back."""
     import sys
     import threading
 
-    from ray_tpu_torch.checkpoint.writer import PinnedPool
+    from ray_tpu_torch.checkpoint.writer import PINNED_BUFFERS, PinnedPool
 
-    pool = PinnedPool(2)
+    pool = PinnedPool()
     made = []
 
     def allocate(nbytes):  # the card's page-locked memory, faked
@@ -834,8 +835,31 @@ def test_pinned_pool_never_holds_more_than_its_depth(monkeypatch):
     finally:
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads) and state["done"] == 8
-    assert state["peak"] <= 2
-    assert pool._leased == 0 and len(pool._free) <= 2
+    assert state["peak"] <= PINNED_BUFFERS
+    assert pool._leased == 0 and len(pool._free) <= PINNED_BUFFERS
+
+
+def test_pinned_pool_counts_the_wait_for_a_buffer(monkeypatch):
+    """A save that finds every buffer leased waits for a release, and the
+    wait lands in ``wait_seconds`` (what ``SaveHandle.wait_seconds``
+    reports); acquires that find a buffer free add nothing."""
+    import threading
+
+    from ray_tpu_torch.checkpoint.writer import PINNED_BUFFERS, PinnedPool
+
+    pool = PinnedPool()
+    monkeypatch.setattr(pool, "_allocate", lambda nbytes: torch.empty(
+        nbytes, dtype=torch.uint8))
+    held = [pool.acquire(64) for _ in range(PINNED_BUFFERS)]
+    assert pool.wait_seconds == 0.0
+    got = []
+    waiter = threading.Thread(target=lambda: got.append(pool.acquire(64)))
+    waiter.start()
+    time.sleep(0.2)
+    assert not got
+    pool.release(held.pop())
+    waiter.join(timeout=10)
+    assert len(got) == 1 and 0.15 <= pool.wait_seconds < 10
 
 
 def test_shard_file_entries_are_what_np_savez_writes(tmp_path):
@@ -862,3 +886,83 @@ def test_shard_file_entries_are_what_np_savez_writes(tmp_path):
         for name in b.namelist():
             assert a.read(name) == b.read(name), name
     assert os.path.getsize(ours) == os.path.getsize(theirs)
+
+
+@pytest.mark.parametrize("arrays", ["none", "one", "mixed"])
+def test_shard_manifest_crc_is_the_files_crc(tmp_path, arrays):
+    """The manifest's ``crc32`` is built from the zip entries' own CRCs
+    (the data is not read back), and equals ``zlib.crc32`` of the whole
+    ``leaves.npz``, as the reference computes it over its in-memory file;
+    the combine step agrees with zlib on random splits."""
+    import zlib
+
+    from ray_tpu_torch.checkpoint import layout
+
+    rng = np.random.default_rng(3)
+    for _ in range(50):
+        a = rng.bytes(int(rng.integers(0, 5000)))
+        b = rng.bytes(int(rng.integers(0, 5000)))
+        assert layout._crc32_combine(zlib.crc32(a), zlib.crc32(b),
+                                     len(b)) == zlib.crc32(a + b)
+    tree = {"none": {"s": 3, "t": "x"},
+            "one": {"w": rng.normal(size=(64, 33)).astype(np.float32)},
+            "mixed": {"w": rng.normal(size=(8, 5)),
+                      "mu": torch.from_numpy(rng.normal(size=(4, 9)).astype(
+                          np.float32)).to(torch.bfloat16),
+                      "f": np.asfortranarray(rng.normal(size=(5, 6))),
+                      "e": np.zeros((0, 2)), "n": np.int64(7)}}[arrays]
+    doc, skeleton, kind, arr = layout.build_shard(tree, 0, 1)
+    manifest = layout.write_shard(str(tmp_path), 0, doc, skeleton, kind,
+                                  arr, 1)
+    with open(tmp_path / layout.shard_dirname(0) / "leaves.npz", "rb") as f:
+        assert manifest["crc32"] == zlib.crc32(f.read())
+
+
+def test_restore_from_payloads_equals_the_committed_dir(tmp_path):
+    """The memory tier's restore: two shards' replica payloads assemble
+    into the tree that ``restore_pytree`` reads from the same step's
+    committed dir, bf16 bit for bit, with and without a template; writing
+    into the restored leaves leaves the payloads whole; a
+    ``ReplicaCheckpoint`` reads the payloads, not its dir."""
+    from ray_tpu_torch import checkpoint as ck
+    from ray_tpu_torch.checkpoint import layout
+    from ray_tpu_torch.train.checkpoint import ReplicaCheckpoint
+
+    rng = np.random.default_rng(11)
+    tree = {"w": torch.from_numpy(rng.normal(size=(6, 5)).astype(
+                np.float32)),
+            "mu": torch.from_numpy(rng.normal(size=(4, 3)).astype(
+                np.float32)).to(torch.bfloat16),
+            "b": torch.arange(3, dtype=torch.int64), "step": 7}
+    payloads, manifests = {}, {}
+    tmp = layout.tmp_dir(str(tmp_path), 7)
+    for sid in range(2):
+        doc, skeleton, kind, arrays = layout.build_shard(tree, sid, 2)
+        payloads[sid] = {"doc": doc, "skeleton": skeleton, "kind": kind,
+                         "arrays": arrays, "shard_id": sid, "step": 7}
+        manifests[sid] = layout.write_shard(tmp, sid, doc, skeleton, kind,
+                                            arrays, 7)
+    path = layout.commit_step_dir(str(tmp_path), 7, manifests)
+    kept = {sid: {k: a.copy() for k, a in p["arrays"].items()}
+            for sid, p in payloads.items()}
+    template = {"step": 0, "w": torch.zeros(6, 5), "b": torch.zeros(3),
+                "mu": torch.zeros(4, 3, dtype=torch.bfloat16)}
+    for tmpl in (None, template):
+        got = ck.restore_from_payloads(payloads, tmpl)
+        want = ck.restore_pytree(path, tmpl)
+        assert list(got) == list(want)
+        for k in want:
+            if isinstance(want[k], torch.Tensor):
+                assert got[k].dtype == want[k].dtype
+                assert torch.equal(got[k].reshape(-1).view(torch.uint8),
+                                   want[k].reshape(-1).view(torch.uint8)), k
+            else:
+                assert got[k] == want[k]
+        got["w"].add_(1.0)
+        got["mu"].add_(1.0)
+    for sid, p in payloads.items():
+        for k, a in p["arrays"].items():
+            assert np.array_equal(a, kept[sid][k])
+    shutil.rmtree(path)  # the handle reads the payloads alone
+    handle = ReplicaCheckpoint(path, payloads)
+    assert torch.equal(handle.to_pytree()["w"], tree["w"])

@@ -509,7 +509,7 @@ def test_snapshot_reads_what_the_compute_stream_wrote_on_gpu():
             "t": torch.randn(64, 48, generator=gen, device="cuda").t(),
             "i": torch.arange(5, device="cuda"), "count": 3}
     want_w = tree["w"].cpu() + 1
-    pool = PinnedPool(2)
+    pool = PinnedPool()
     made = []
     allocate = pool._allocate
     pool._allocate = lambda nbytes: made.append(nbytes) or allocate(nbytes)
