@@ -198,7 +198,32 @@ Phases, each of which exits non-zero on failure:
     gone after. It prints tokens/s of the fit and of direct, the step
     profiler's buckets per step, the checkpoint's save ms and bytes, the
     failure-to-resumed seconds and the process rank's cold start.
-12. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+12. GPT-2 124M tuned through ``Tuner.fit()`` (``tune_fit`` lines), the
+    model of (11) at B=8 on its token windows, each trial building it on
+    the card its lease names (``granted_cuda_device()`` in the trial's
+    thread). (a) ASHA (``max_t=8, grace_period=2, reduction_factor=2``)
+    over four function trials (``lr`` by grid, one report a step,
+    ``trial_resources={"GPU": 0.5}``, a ``TBXLoggerCallback``), in turns
+    with the same steps at B=8 and B=16 without Tune: every trial's lease
+    and device card 0, two trials' steps overlapping, each step-1 loss
+    within ``FIT_LOSS_ATOL`` of direct's, at least one trial stopped before
+    ``max_t``, exactly 12 + 12 splash and one of each CE launch per step
+    the functions ran (they run past a stop until their next report), one
+    logged scalar row per consumed result, and afterwards no trial actor
+    or thread alive and the card's allocated memory at most
+    ``TUNE_MEM_SLACK`` above its value before the phase. (b) A ``CudaTrainer`` of one rank at half the card
+    inside each of two ``{"CPU": 1}`` trials, 4 steps: losses within
+    ``FIT_LOSS_ATOL`` of the same steps at each trial's ``lr`` without
+    Tune, both placement groups alive at once, none left after. (c) PBT
+    (``perturbation_interval=2``, seed 0) over two class trials saving
+    params and moments with ``save_pytree``: at least one exploit, the
+    clone's restored state equal to the donor's saved one bit for bit on
+    the clone's card, finite losses. It prints each trial's tokens/s,
+    cold start (thread start to first report), steps past its stop and the
+    controller's ms from a consumed result to the next ``train()`` call;
+    two trials' tokens/s at once beside direct's; the saves' and
+    restores' ms.
+13. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -3557,6 +3582,523 @@ def phase_train_fit() -> Dict[str, object]:
     return result
 
 
+TUNE_BATCH = 8  # rows a trial trains per step (two trials share the card)
+ASHA_LRS = (1e-4, 3e-4, 1e-3, 1e-2)
+ASHA_MAX_T = 8
+TRAINER_LRS = (3e-4, 1e-3)
+TRAINER_STEPS = 4
+PBT_LRS = (1e-4, 1e-2)
+PBT_STOP = 6
+# After Tuner.fit() every trial's weights and moments must be freed: the
+# card's allocated memory, read after a collection with PyTorch's cuBLAS
+# workspaces cleared (each thread's handle keeps one, 32 MiB, for the life
+# of the process), may exceed its value before the phase by this much.
+TUNE_MEM_SLACK = 64 << 20
+
+
+def _tune_model(cfg, dev, lr):
+    """GPT-2 from seed 0 on ``dev``, its leaves taking gradients, and
+    AdamW at ``lr`` (``examples/train_gpt2.py``'s optimizer)."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.optim import tree_leaves
+
+    params = gpt2.init_params(cfg, seed=0, device=dev)
+    optimizer = gpt2.make_optimizer(lr)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    return params, leaves, optimizer, optimizer.init(params)
+
+
+def _tune_step(cfg, params, leaves, optimizer, opt_state, tok):
+    """One training step on a (B, S + 1) batch: (new state, loss)."""
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.optim import tree_map
+
+    S = cfg.seq_len
+    loss = gpt2.loss_fn(params, tok[:, :S], tok[:, 1:], cfg)
+    it = iter(torch.autograd.grad(loss, leaves))
+    opt_state = optimizer.update(tree_map(lambda _: next(it), params),
+                                 opt_state, params)
+    return opt_state, float(loss.detach())
+
+
+def _tune_direct(cfg, tokens, batch, steps, lr):
+    """The same steps without Tune: losses, and tokens/s over steps 2 on."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    params, leaves, optimizer, opt_state = _tune_model(cfg, dev, lr)
+    losses, ends = [], []
+    for i in range(steps):
+        tok = torch.as_tensor(tokens[i * batch:(i + 1) * batch], device=dev)
+        opt_state, loss = _tune_step(cfg, params, leaves, optimizer,
+                                     opt_state, tok)
+        losses.append(loss)
+        ends.append(time.perf_counter())
+    return dict(losses=losses, tokens_per_s=(steps - 1) * batch
+                * cfg.seq_len / (ends[-1] - ends[0]))
+
+
+def _trial_actors_alive():
+    from ray_tpu_torch._private.runtime import _ActorState, get_runtime
+
+    return [s for s in list(get_runtime()._actors.values())
+            if s.spec.cls.__name__ == "_TrainableActor"
+            and s.state != _ActorState.DEAD]
+
+
+def _tensor_bytes():
+    """Allocated device bytes after a collection (earlier phases leave
+    garbage), with and without PyTorch's cuBLAS workspaces (one per
+    thread's cuBLAS handle and stream, kept after the thread ends)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    with_workspaces = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    return with_workspaces, torch.cuda.memory_allocated()
+
+
+def _tune_after(label, threads, mem_before):
+    """After a Tuner.fit(): every trial's thread ended, no trial actor
+    alive, the card back to its lease-free state and its memory back."""
+    import ray_tpu_torch
+
+    for t in threads:
+        t.join(timeout=30)
+    deadline = time.monotonic() + 10.0
+    while _trial_actors_alive() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    with_workspaces, mem = _tensor_bytes()
+    alive = [t.name for t in threads if t.is_alive()]
+    actors = len(_trial_actors_alive())
+    gpu = ray_tpu_torch.available_resources().get("GPU")
+    if alive or actors or gpu != 1.0 or \
+            mem - mem_before > TUNE_MEM_SLACK:
+        fail(f"{label}: trial threads alive {alive}, trial actors alive "
+             f"{actors}, free GPU {gpu}, memory {mem} vs {mem_before} "
+             f"before (slack {TUNE_MEM_SLACK})")
+    return dict(memory_before=mem_before, memory_after=mem,
+                memory_after_with_workspaces=with_workspaces)
+
+
+def _scalar_rows(result):
+    """The TensorBoard logger's rows of one trial: (tag, step) per scalar
+    from its JSONL fallback (tensorboardX is not installed on the card's
+    machine), else None."""
+    import os
+
+    path = os.path.join(result.path, f"{result.metrics['trial_id']}.jsonl")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    return [(r["tag"], r["step"]) for r in rows if r["type"] == "scalar"]
+
+
+def phase_tune_fit() -> Dict[str, object]:
+    """GPT-2 124M tuned through ``Tuner.fit()`` on the card: (a) ASHA over
+    four function trials at half the card each, (b) a ``CudaTrainer``
+    inside each of two trials, (c) PBT over two class trials with
+    checkpoints. Each gate fails the script."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch._private.device import granted_cuda_device
+    from ray_tpu_torch.air.integrations import TBXLoggerCallback
+    from ray_tpu_torch.examples import batch_inference as bi
+    from ray_tpu_torch.examples import train_gpt2
+    from ray_tpu_torch.optim import tree_leaves
+    from ray_tpu_torch.train import (
+        CudaTrainer,
+        RunConfig,
+        ScalingConfig,
+        load_pytree,
+        save_pytree,
+    )
+    from ray_tpu_torch.tune.schedulers import (
+        ASHAScheduler,
+        PopulationBasedTraining,
+    )
+    from ray_tpu_torch.tune.trainable import wrap_function
+    from ray_tpu_torch.util.placement_group import placement_group_table
+
+    cfg = train_gpt2.model_config()
+    S, L, B = cfg.seq_len, cfg.n_layer, TUNE_BATCH
+    tokens = bi.token_windows(FIT_ROWS, S, 50257)  # train_fit's windows
+    storage = tempfile.mkdtemp(prefix="chip_smoke_tune_fit_")
+    result: Dict[str, object] = {"card": card_line(), "batch": B,
+                                 "seq_len": S}
+    path_launches = {k: 0 for k in _counts()}
+
+    def want_counts(steps):
+        want = {k: 0 for k in _counts()}
+        want.update(splash_attention_fwd=L * steps,
+                    splash_attention_bwd=L * steps, fused_ce_fwd=steps,
+                    fused_ce_dx=steps, fused_ce_dw=steps)
+        return want
+
+    def launches_of(label, steps):
+        counts = _counts()
+        if counts != want_counts(steps):
+            fail(f"{label}: launches {counts}, want {want_counts(steps)} "
+                 f"for the {steps} steps the trials ran")
+        for k, v in counts.items():
+            path_launches[k] += v
+        return counts
+
+    mem_before = _tensor_bytes()[1]
+    ray_tpu_torch.init()
+    try:
+        if ray_tpu_torch.available_resources().get("GPU") != 1.0:
+            fail(f"the runtime registers {ray_tpu_torch.available_resources()}"
+                 " (one card expected)")
+
+        # --------------------------- (a) ASHA over four function trials
+        runs: Dict[float, Dict[str, object]] = {}
+        train_calls: Dict[str, list] = {}
+        consumed: Dict[str, list] = {}
+
+        def asha_trial(config):
+            lr = config["lr"]
+            dev = granted_cuda_device()
+            torch.cuda.set_device(dev)
+            run = runs[lr] = dict(started=time.time(), windows=[],
+                                  losses=[], gpu_ids=ray_tpu_torch
+                                  .get_gpu_ids(), device=str(dev),
+                                  thread=threading.current_thread())
+            params, leaves, optimizer, opt_state = _tune_model(cfg, dev, lr)
+            for step in range(1, ASHA_MAX_T + 1):
+                tok = torch.as_tensor(tokens[(step - 1) * B:step * B],
+                                      device=dev)
+                t0 = time.time()
+                opt_state, loss = _tune_step(cfg, params, leaves, optimizer,
+                                             opt_state, tok)
+                run["windows"].append((t0, time.time()))
+                run["losses"].append(loss)
+                tune.report({"loss": loss, "step": step,
+                             "reported_at": time.time()})
+
+        class TimedTrial(wrap_function(asha_trial)):
+            """Notes when the controller calls train()."""
+
+            def train(self):
+                train_calls.setdefault(self.trial_id, []).append(time.time())
+                return super().train()
+
+        class Consumed:
+            def on_trial_result(self, trial, result):
+                consumed.setdefault(trial.trial_id, []).append(
+                    (time.time(), result.get("reported_at")))
+
+        def direct_turns():
+            return {b: _tune_direct(cfg, tokens, b, ASHA_MAX_T, 3e-4)
+                    for b in (B, 2 * B)}
+
+        turns = [direct_turns()]
+        _reset_counts()
+        t0 = time.perf_counter()
+        grid = tune.Tuner(
+            TimedTrial, param_space={"lr": tune.grid_search(list(ASHA_LRS))},
+            # The Tuner's metric and mode are the scheduler's: it hands
+            # them down (TuneConfig's default mode, "max", would win).
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min",
+                scheduler=ASHAScheduler(metric="loss", mode="min",
+                                        max_t=ASHA_MAX_T, grace_period=2,
+                                        reduction_factor=2),
+                trial_resources={"GPU": 0.5}),
+            run_config=RunConfig(name="tune_asha", storage_path=storage,
+                                 callbacks=[TBXLoggerCallback(), Consumed()])
+        ).fit()
+        fit_s = time.perf_counter() - t0
+        threads = [r["thread"] for r in runs.values()]
+        for t in threads:
+            t.join(timeout=30)
+        steps_run = {lr: len(r["losses"]) for lr, r in runs.items()}
+        counts_a = launches_of("tune_fit_a", sum(steps_run.values()))
+        after_a = _tune_after("tune_fit_a", threads, mem_before)
+        turns.append(direct_turns())
+        if grid.num_errors or sorted(runs) != sorted(ASHA_LRS):
+            fail(f"tune_fit_a: errors {grid.errors}, trials ran {sorted(runs)}")
+        by_lr = {r.metrics["config"]["lr"]: r for r in grid}
+        stopped = {lr: max(m["training_iteration"] for m in
+                           by_lr[lr].metrics_history) for lr in ASHA_LRS}
+        direct_step1 = turns[0][B]["losses"][0]
+        step1_err = max(abs(r["losses"][0] - direct_step1)
+                        for r in runs.values())
+        spans = sorted((r["windows"][0][0], r["windows"][-1][1])
+                       for r in runs.values())
+        overlap = any(a[1] > b[0] for a, b in zip(spans, spans[1:]))
+        logs = {}
+        for lr, r in by_lr.items():
+            rows = _scalar_rows(r)
+            logs[lr] = None if rows is None else dict(
+                results=len(r.metrics_history),
+                rows=sum(tag == "training_iteration" for tag, _ in rows),
+                loss_rows=sum(tag == "loss" for tag, _ in rows),
+                loss_results=sum("loss" in m for m in r.metrics_history))
+        if any(r["gpu_ids"] != [0] or r["device"] != "cuda:0"
+               for r in runs.values()):
+            fail("tune_fit_a: trials on " + str(
+                {lr: (r["gpu_ids"], r["device"]) for lr, r in runs.items()}))
+        if not overlap:
+            fail(f"tune_fit_a: no two trials' steps overlap: {spans}")
+        if step1_err > FIT_LOSS_ATOL:
+            fail(f"tune_fit_a: step-1 losses "
+                 f"{[r['losses'][0] for r in runs.values()]} vs direct "
+                 f"{direct_step1} (tol {FIT_LOSS_ATOL})")
+        if not min(stopped.values()) < ASHA_MAX_T:
+            fail(f"tune_fit_a: ASHA stopped no trial early: {stopped}")
+        if any(v is None or v["rows"] != v["results"]
+               or v["loss_rows"] != v["loss_results"] for v in logs.values()):
+            fail(f"tune_fit_a: TensorBoard log rows vs results {logs}")
+        per_trial = {}
+        for lr, r in runs.items():
+            ends = [w[1] for w in r["windows"]]
+            tid = by_lr[lr].metrics["trial_id"]
+            gaps = [c - t for t, c in zip(
+                [t for t, _ in consumed.get(tid, [])],
+                train_calls.get(tid, [])[1:])]
+            per_trial[str(lr)] = dict(
+                steps_run=steps_run[lr], stopped_at=stopped[lr],
+                past_stop=steps_run[lr] - stopped[lr],
+                losses=r["losses"],
+                cold_start_s=r["windows"][0][1] - r["started"],
+                tokens_per_s=(len(ends) - 1) * B * S / (ends[-1] - ends[0])
+                if len(ends) > 1 else None,
+                consumed_to_train_ms=[1e3 * g for g in gaps],
+                report_to_consumed_ms=[1e3 * (c - rep) for c, rep in
+                                       consumed.get(tid, []) if rep])
+        # Two trials at once: the tokens both trained in the window they
+        # were both stepping in (each step's share by its time inside),
+        # over that window.
+        first, second = (runs[lr] for lr in ASHA_LRS[:2])
+        lo = max(first["windows"][0][0], second["windows"][0][0])
+        hi = min(first["windows"][-1][1], second["windows"][-1][1])
+        inside = sum(max(0.0, min(b, hi) - max(a, lo)) / (b - a)
+                     for r in (first, second) for a, b in r["windows"])
+        gaps = [g for v in per_trial.values()
+                for g in v["consumed_to_train_ms"]]
+        result["a"] = dict(
+            trials=per_trial, fit_s=fit_s, step1_max_abs_err=step1_err,
+            direct_step1_loss=direct_step1, logs={str(k): v for k, v in
+                                                  logs.items()},
+            concurrent_tokens_per_s=inside * B * S / (hi - lo)
+            if hi > lo else None,
+            direct_tokens_per_s={f"B={b}": [t[b]["tokens_per_s"]
+                                            for t in turns]
+                                 for b in (B, 2 * B)},
+            consumed_to_train_ms_median=statistics.median(gaps)
+            if gaps else None, launches=counts_a, **after_a)
+        print("tune_fit_a " + json.dumps(result["a"]), flush=True)
+        del grid, by_lr, runs
+        torch.cuda.empty_cache()
+
+        # --------------------- (b) a CudaTrainer inside each of two trials
+        b_rows = tokens[:TRAINER_STEPS * B]
+        groups_seen: Dict[float, list] = {}
+        b_threads = []
+
+        def trainer_trial(config):
+            lr = config["lr"]
+            b_threads.append(threading.current_thread())
+            seen = groups_seen[lr] = []
+
+            def probe(event, rank, step, **info):
+                if event == "step":
+                    seen.append(len(placement_group_table()))
+
+            res = CudaTrainer(
+                train_gpt2.train_loop_per_worker,
+                train_loop_config=dict(seed=0, lr=lr, diagnostics=True,
+                                       steps=TRAINER_STEPS, batch_size=B,
+                                       tokens=b_rows, probe=probe),
+                scaling_config=ScalingConfig(num_workers=1,
+                                             gpus_per_worker=0.5),
+                run_config=RunConfig(name=f"tune_trainer_{lr}",
+                                     storage_path=storage)).fit()
+            if res.error is not None:
+                raise res.error
+            hist = res.metrics_history
+            tune.report({"losses": [m["loss"] for m in hist],
+                         "devices": sorted({m["device"] for m in hist}),
+                         "gpu_ids": sorted({g for m in hist
+                                            for g in m["gpu_ids"]})})
+
+        direct_b = {lr: _tune_direct(cfg, b_rows, B, TRAINER_STEPS, lr)
+                    for lr in TRAINER_LRS}
+        _reset_counts()
+        t0 = time.perf_counter()
+        grid = tune.Tuner(
+            trainer_trial,
+            param_space={"lr": tune.grid_search(list(TRAINER_LRS))},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        trial_resources={"CPU": 1}),
+            run_config=RunConfig(name="tune_trainer", storage_path=storage)
+        ).fit()
+        fit_s = time.perf_counter() - t0
+        counts_b = launches_of("tune_fit_b", len(TRAINER_LRS) * TRAINER_STEPS)
+        _gone("tune_fit_b", placement_group_table)
+        after_b = _tune_after("tune_fit_b", b_threads, mem_before)
+        if grid.num_errors:
+            fail(f"tune_fit_b: {grid.errors}")
+        b_losses = {}
+        for r in grid:
+            got = [m for m in r.metrics_history if "losses" in m][0]
+            lr = r.metrics["config"]["lr"]
+            b_losses[lr] = got["losses"]
+            if got["devices"] != ["cuda:0"] or got["gpu_ids"] != [0]:
+                fail(f"tune_fit_b: the trainer of lr {lr} ran on {got}")
+        b_err = max(abs(a - w) for lr in TRAINER_LRS for a, w in
+                    zip(b_losses[lr], direct_b[lr]["losses"]))
+        if sorted(b_losses) != sorted(TRAINER_LRS) or any(
+                len(b_losses[lr]) != TRAINER_STEPS for lr in TRAINER_LRS) \
+                or b_err > FIT_LOSS_ATOL:
+            fail(f"tune_fit_b: losses {b_losses} vs direct "
+                 f"{ {lr: d['losses'] for lr, d in direct_b.items()} } "
+                 f"(tol {FIT_LOSS_ATOL})")
+        if max(max(v) for v in groups_seen.values()) < 2:
+            fail(f"tune_fit_b: the two trials' placement groups never "
+                 f"existed at once: {groups_seen}")
+        result["b"] = dict(
+            losses={str(k): v for k, v in b_losses.items()},
+            direct_losses={str(k): v["losses"] for k, v in direct_b.items()},
+            loss_max_abs_err=b_err, fit_s=fit_s,
+            groups_seen={str(k): v for k, v in groups_seen.items()},
+            launches=counts_b, **after_b)
+        print("tune_fit_b " + json.dumps(result["b"]), flush=True)
+        del grid
+        torch.cuda.empty_cache()
+
+        # ------------------------- (c) PBT over two class trials
+        saved: Dict[str, list] = {}
+        c = dict(steps=0, saves_ms=[], restores=[], threads=[])
+
+        class PBTTrial(tune.Trainable):
+            """One GPT-2 step per train(); its params and moments saved
+            with ``save_pytree`` and restored onto its own lease's card."""
+
+            def setup(self, config):
+                self.dev = granted_cuda_device()
+                torch.cuda.set_device(self.dev)
+                (self.params, self.leaves, self.optimizer,
+                 self.opt_state) = _tune_model(cfg, self.dev, config["lr"])
+
+            def step(self):
+                i = self.iteration % (len(tokens) // B)
+                tok = torch.as_tensor(tokens[i * B:(i + 1) * B],
+                                      device=self.dev)
+                self.opt_state, loss = _tune_step(
+                    cfg, self.params, self.leaves, self.optimizer,
+                    self.opt_state, tok)
+                c["steps"] += 1
+                return {"loss": loss, "lr": self.config["lr"],
+                        "device": str(self.dev),
+                        "gpu_ids": ray_tpu_torch.get_gpu_ids()}
+
+            def _state(self):
+                return {"params": self.params, "opt_state": self.opt_state}
+
+            def save_checkpoint(self, checkpoint_dir):
+                t0 = time.perf_counter()
+                save_pytree(self._state(), os.path.join(checkpoint_dir,
+                                                        "state"))
+                c["saves_ms"].append(1e3 * (time.perf_counter() - t0))
+                saved[checkpoint_dir] = [
+                    t.detach().to("cpu", copy=True)
+                    for t in _flat_state(self._state())]
+                return None
+
+            def load_checkpoint(self, data, checkpoint_dir):
+                t0 = time.perf_counter()
+                state = load_pytree(os.path.join(checkpoint_dir, "state"),
+                                    self._state())
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                got = _flat_state(state)
+                want = saved.get(checkpoint_dir, [])
+                c["restores"].append(dict(ms=ms, bit_equal=len(got) == len(
+                    want) and all(a.device == self.dev and a.dtype == b.dtype
+                                  and torch.equal(a.cpu(), b)
+                                  for a, b in zip(got, want)),
+                    device=str(self.dev), leaves=len(got)))
+                self.params, self.opt_state = state["params"], \
+                    state["opt_state"]
+                self.leaves = tree_leaves(self.params)
+                for p in self.leaves:
+                    p.requires_grad_(True)
+
+            def cleanup(self):
+                self.params = self.leaves = self.opt_state = None
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        grid = tune.Tuner(
+            PBTTrial, param_space={"lr": tune.grid_search(list(PBT_LRS))},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min",
+                scheduler=PopulationBasedTraining(
+                    metric="loss", mode="min", perturbation_interval=2,
+                    hyperparam_mutations={"lr": [1e-4, 3e-4, 1e-3]},
+                    seed=0),
+                trial_resources={"GPU": 0.5}),
+            run_config=RunConfig(name="tune_pbt", storage_path=storage,
+                                 stop={"training_iteration": PBT_STOP})
+        ).fit()
+        fit_s = time.perf_counter() - t0
+        counts_c = launches_of("tune_fit_c", c["steps"])
+        after_c = _tune_after("tune_fit_c", [], mem_before)
+        losses = {r.metrics["trial_id"]: [m["loss"] for m in
+                                          r.metrics_history if "loss" in m]
+                  for r in grid}
+        if grid.num_errors or grid.num_terminated != len(PBT_LRS):
+            fail(f"tune_fit_c: errors {grid.errors}, terminated "
+                 f"{grid.num_terminated}")
+        if not c["restores"] or not all(r["bit_equal"] and
+                                        r["device"] == "cuda:0"
+                                        for r in c["restores"]):
+            fail(f"tune_fit_c: exploits restored {c['restores']} (one at "
+                 "least, bit for bit on the clone's card)")
+        if not all(np.isfinite(v).all() for v in losses.values()):
+            fail(f"tune_fit_c: losses {losses}")
+        result["c"] = dict(
+            exploits=len(c["restores"]), steps=c["steps"], fit_s=fit_s,
+            save_ms=c["saves_ms"], restore_ms=[r["ms"] for r in
+                                               c["restores"]],
+            restored_bit_equal=all(r["bit_equal"] for r in c["restores"]),
+            final_configs=sorted(r.metrics["config"]["lr"] for r in grid),
+            losses=list(losses.values()), launches=counts_c, **after_c)
+        print("tune_fit_c " + json.dumps(result["c"]), flush=True)
+        del grid, saved
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    torch.cuda.empty_cache()
+    result["launches"] = path_launches
+    print("tune_fit " + json.dumps({
+        "card": result["card"], "launches": path_launches,
+        "asha_stopped_early": sum(v["stopped_at"] < ASHA_MAX_T
+                                  for v in result["a"]["trials"].values()),
+        "steps_past_stop": {k: v["past_stop"] for k, v in
+                            result["a"]["trials"].items()},
+        "pbt_exploits": result["c"]["exploits"]}), flush=True)
+    return result
+
+
 def phase_ring(peaks: Tuple[float, float]) -> Dict[str, object]:
     import torch
 
@@ -4113,6 +4655,7 @@ def main() -> int:
         ce["fused_ce_fwd"]["worst_abs"],
         data_batch["ce_fwd_at_path"]["max_abs_err"])
     train_fit = phase_train_fit()
+    tune_fit = phase_tune_fit()
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
     bwd = phase_attn_bwd(peaks)
@@ -4137,7 +4680,8 @@ def main() -> int:
                "serve_slo": serve_slo["launches"][name],
                "serve_process": serve_process["launches"].get(name, 0),
                "data_batch": data_batch["launches"].get(name, 0),
-               "train_fit": train_fit["launches"].get(name, 0)}
+               "train_fit": train_fit["launches"].get(name, 0),
+               "tune_fit": tune_fit["launches"].get(name, 0)}
         for impl in ("dense", "fused"):
             out[f"train_{impl}"] = train["launches"][impl][name]
         out["train_ring"] = train_ring["run"]["launches"][name]

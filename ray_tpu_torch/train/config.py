@@ -142,7 +142,7 @@ class RunConfig:
     stop: Optional[Dict[str, Any]] = None
     verbose: int = 0
     #: Tune/experiment callbacks (ref: air RunConfig.callbacks); read by
-    #: tune, which is not ported yet.
+    #: ``ray_tpu_torch.tune``'s Tuner, which hands them to its controller.
     callbacks: Optional[list] = None
     #: Step-time attribution: every worker gets a StepProfiler that splits
     #: each step's wall time into data-wait / h2d / compute /

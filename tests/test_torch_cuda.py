@@ -534,3 +534,63 @@ def test_snapshot_reads_what_the_compute_stream_wrote_on_gpu():
         assert torch.equal(again["mu"], tree["mu"].cpu())
         pool.release(lease)
     assert len(made) == 2
+
+
+@pytest.mark.cuda
+def test_function_trials_share_the_card_on_gpu():
+    """Two {"GPU": 0.5} function trials of a two-layer GPT-2 at full width
+    run at once on the card: each trial's thread is granted card 0
+    (``granted_cuda_device()`` reads its lease), trains there through the
+    splash and fused CE kernels, and reports finite losses."""
+    _need_gpu()
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch._private.device import granted_cuda_device
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.optim import tree_leaves, tree_map
+
+    cfg = gpt2.GPTConfig(n_layer=2, loss_impl="fused",
+                         remat_policy="attn_outside", scan_layers=False)
+    tokens = np.random.default_rng(0).integers(
+        0, 50257, (2, cfg.seq_len + 1), dtype=np.int64)
+
+    def trial(config):
+        dev = granted_cuda_device()
+        torch.cuda.set_device(dev)
+        params = gpt2.init_params(cfg, seed=0, device=dev)
+        optimizer = gpt2.make_optimizer(config["lr"])
+        state = optimizer.init(params)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        tok = torch.as_tensor(tokens, device=dev)
+        for _ in range(3):
+            loss = gpt2.loss_fn(params, tok[:, :-1], tok[:, 1:], cfg)
+            it = iter(torch.autograd.grad(loss, leaves))
+            state = optimizer.update(tree_map(lambda _: next(it), params),
+                                     state, params)
+            tune.report({"loss": float(loss.detach()), "device": str(dev),
+                         "gpu_ids": ray_tpu_torch.get_gpu_ids()})
+
+    before = attention.LAUNCHES["splash_attention_fwd"]
+    ce_before = fused_ce.LAUNCHES["fused_ce_fwd"]
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        grid = tune.Tuner(
+            trial, param_space={"lr": tune.grid_search([1e-4, 1e-3])},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        trial_resources={"GPU": 0.5})).fit()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert grid.num_errors == 0, grid.errors
+    for r in grid:
+        reports = [m for m in r.metrics_history if "loss" in m]
+        losses = [m["loss"] for m in reports]
+        assert len(losses) == 3 and np.isfinite(losses).all(), losses
+        assert {(m["device"], tuple(m["gpu_ids"])) for m in reports} == \
+            {("cuda:0", (0,))}
+    assert attention.LAUNCHES["splash_attention_fwd"] - before == \
+        2 * 3 * cfg.n_layer
+    assert fused_ce.LAUNCHES["fused_ce_fwd"] - ce_before == 2 * 3

@@ -225,6 +225,44 @@ def test_the_scan_covers_collective_train_and_util():
             "examples/train_gpt2.py"} <= files
 
 
+def test_the_scan_covers_tune_and_air():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"tune/__init__.py", "tune/search_space.py",
+            "tune/search/__init__.py", "tune/search/bohb.py",
+            "tune/search/optuna.py", "tune/schedulers.py", "tune/trial.py",
+            "tune/trainable.py", "tune/tune_controller.py",
+            "tune/result_grid.py", "tune/tuner.py", "air/__init__.py",
+            "air/integrations/__init__.py", "air/integrations/_common.py",
+            "air/integrations/tensorboard.py", "air/integrations/wandb.py",
+            "air/integrations/mlflow.py"} <= files
+
+
+def test_tune_and_air_import_without_initialising_cuda():
+    """Tune's trial actor class is made at import: that, and the logger
+    integrations, start no CUDA context, no runtime and no thread, and
+    import none of the tracking libraries (each is imported where a trial
+    is logged)."""
+    code = """
+import json, sys, threading, torch
+before = threading.active_count()
+import ray_tpu_torch.tune, ray_tpu_torch.air, ray_tpu_torch.air.integrations
+import ray_tpu_torch.tune.search.bohb, ray_tpu_torch.tune.search.optuna
+print(json.dumps({"cuda": torch.cuda.is_initialized(),
+                  "runtime": ray_tpu_torch.is_initialized(),
+                  "threads": threading.active_count() - before,
+                  "libs": sorted(m for m in ("tensorboardX", "wandb", "mlflow",
+                                             "optuna", "ConfigSpace", "pandas")
+                                 if m in sys.modules)}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "cuda": False, "runtime": False, "threads": 0, "libs": []}
+
+
 #: Imported only inside the functions that use them in collective/ and
 #: train/, so that importing either package sets up no process group.
 _DISTRIBUTED = ("torch.distributed", "torch.nn.parallel")
