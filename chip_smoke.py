@@ -223,7 +223,33 @@ Phases, each of which exits non-zero on failure:
     controller's ms from a consumed result to the next ``train()`` call;
     two trials' tokens/s at once beside direct's; the saves' and
     restores' ms.
-13. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+13. The small libraries with GPT-2 124M (``workflow_fit`` lines), the
+    model of (11) at B=8, in a runtime with one card. (a) ``ActorPool``
+    over two ``GPT2Scorer`` actors at ``num_gpus=0.5`` scores 8 batches of
+    (8, 1025) ids through ``map`` and ``map_unordered``: results in order
+    and equal to the scorer called here bit for bit, the same multiset
+    unordered, exactly 12 x 8 splash and 8 CE forwards each, the actors
+    ``ALIVE`` in ``util.state.list_actors`` and ``DEAD`` after ``kill``.
+    (b) A durable workflow ``init -> chunk -> chunk -> chunk``, each a
+    ``num_gpus=1`` function step that loads ``{params, opt_state, step}``
+    with ``load_pytree`` onto its card, trains 2 steps and saves with
+    ``save_pytree``: the second chunk raises on its first attempt, so
+    ``workflow.run`` raises and the status is ``FAILED``; ``resume`` is
+    ``SUCCESSFUL`` with exactly 2 chunks x 2 steps of launches (the first
+    chunk not rerun), and the six losses within ``WF_LOSS_ATOL`` of the
+    same steps in one loop; after a restart of the runtime ``get_output``
+    gives the same value. (c) ``examples/train_gpt2.py`` as a job
+    (``--workers 1 --steps 3``) reaches ``SUCCEEDED`` with its logged
+    losses within ``WF_LOSS_ATOL`` of direct's on its own tokens; a second
+    job of 100000 steps is stopped after its first logged step and is
+    ``STOPPED`` within ``JOB_GRACE_S`` + 5 s, the card's free memory back
+    within ``JOB_MEM_SLACK``. (d) ``summarize_tasks`` counts each chunk's
+    attempts, ``/api/tasks``, ``/api/actors`` and ``/api/jobs`` over HTTP
+    equal the library's rows, and no actor, placement group or thread of
+    the phase is left. It prints the pool's batches/s beside direct's, a
+    chunk's load, steps and save, each step checkpoint's write, and the
+    jobs' cold start (submit to first logged step).
+14. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -4099,6 +4125,526 @@ def phase_tune_fit() -> Dict[str, object]:
     return result
 
 
+WF_BATCH = 8  # rows a scoring batch, a chunk's step and the job's step take
+WF_POOL_BATCHES = 8
+WF_CHUNKS = 3
+WF_CHUNK_STEPS = 2
+WF_FAIL_CHUNK = 1  # the chunk that raises on its first attempt
+WF_LR = 3e-4
+WF_LOSS_ATOL = 1e-3
+JOB_STEPS = 3
+JOB_GRACE_S = 3.0
+# A stopped job's process must give the card its memory back: the free
+# memory nvidia's driver reports may differ from its value before the job
+# by this much.
+JOB_MEM_SLACK = 256 << 20
+
+
+def _wf_device(tiny):
+    import torch
+
+    from ray_tpu_torch._private.device import granted_cuda_device
+
+    if tiny:
+        return torch.device("cpu")
+    dev = granted_cuda_device()
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def _wf_init(out, tiny):
+    """The workflow's first step: GPT-2 from seed 0 and AdamW's state on the
+    step's card, saved with ``save_pytree``; returns the path."""
+    from ray_tpu_torch.examples import train_gpt2
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import save_pytree
+
+    cfg = train_gpt2.model_config(tiny)
+    params = gpt2.init_params(cfg, seed=0, device=_wf_device(tiny))
+    save_pytree({"params": params,
+                 "opt_state": gpt2.make_optimizer(WF_LR).init(params),
+                 "step": 0}, out)
+    return out
+
+
+def _wf_chunk(prev, index, out, fail_marker, tiny):
+    """One chunk of the workflow: load ``{params, opt_state, step}`` from
+    the path its upstream returned onto the step's card, train
+    ``WF_CHUNK_STEPS`` steps at B=``WF_BATCH`` on its rows of the token
+    windows, save; returns ``(path, losses)``. Its load, steps and save
+    times go to ``<out>.times.json``, beside the state it saved.
+    Raises once, before touching the card, while ``fail_marker`` exists."""
+    import os
+
+    import torch
+
+    from ray_tpu_torch.examples import batch_inference as bi
+    from ray_tpu_torch.examples import train_gpt2
+    from ray_tpu_torch.train import load_pytree, save_pytree
+
+    if os.path.exists(fail_marker):
+        os.remove(fail_marker)
+        raise RuntimeError(f"chunk {index}: failure injected")
+    dev = _wf_device(tiny)
+    cfg = train_gpt2.model_config(tiny)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    params, _, optimizer, opt_state = _tune_model(cfg, dev, WF_LR)
+    state = load_pytree(prev if isinstance(prev, str) else prev[0],
+                        {"params": params, "opt_state": opt_state,
+                         "step": 0})
+    params, opt_state = state["params"], state["opt_state"]
+    leaves = _wf_leaves(params)
+    sync()
+    t1 = time.perf_counter()
+    tokens = bi.token_windows(WF_CHUNKS * WF_CHUNK_STEPS * WF_BATCH,
+                              cfg.seq_len, min(cfg.vocab_size, 50257))
+    losses = []
+    for j in range(WF_CHUNK_STEPS):
+        i = index * WF_CHUNK_STEPS + j
+        tok = torch.as_tensor(tokens[i * WF_BATCH:(i + 1) * WF_BATCH],
+                              device=dev)
+        opt_state, loss = _tune_step(cfg, params, leaves, optimizer,
+                                     opt_state, tok)
+        losses.append(loss)
+    sync()
+    t2 = time.perf_counter()
+    save_pytree({"params": params, "opt_state": opt_state,
+                 "step": int(state["step"]) + WF_CHUNK_STEPS}, out)
+    t3 = time.perf_counter()
+    with open(out + ".times.json", "w") as f:
+        json.dump({"load_s": t1 - t0, "steps_s": t2 - t1,
+                   "save_s": t3 - t2}, f)
+    return out, losses
+
+
+def _wf_leaves(params):
+    from ray_tpu_torch.optim import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    return leaves
+
+
+def _wf_direct(cfg, dev, tokens_per_step):
+    """The same steps in one loop on ``dev``, no workflow: the losses."""
+    import torch
+
+    params, leaves, optimizer, opt_state = _tune_model(cfg, dev, WF_LR)
+    losses = []
+    for rows in tokens_per_step:
+        tok = torch.as_tensor(rows, device=dev)
+        opt_state, loss = _tune_step(cfg, params, leaves, optimizer,
+                                     opt_state, tok)
+        losses.append(loss)
+    return losses
+
+
+def _wf_collect(on_card):
+    """Frees what a part left (the card's cached blocks too)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _job_losses(logs):
+    """The example's per-step log lines: {step: loss}."""
+    import re
+
+    return {int(s): float(x) for s, x in re.findall(
+        r"^train_gpt2 step (\d+) loss ([0-9.eE+-]+)$", logs, re.M)}
+
+
+def phase_workflow_fit(tiny: bool = False) -> Dict[str, object]:
+    """The small libraries on the card with GPT-2 124M (``workflow_fit``
+    lines): (a) an ``ActorPool`` of two scorers at half the card each,
+    (b) a durable workflow of training chunks that fails and is resumed
+    without rerunning its finished chunk, (c) the training example as a
+    job that succeeds and one that is stopped, (d) all of it through the
+    state API, in the library and over HTTP. Each gate fails the script.
+    ``tiny`` runs the same control flow on the CPU at the tiny size (the
+    kernels' plain versions, which count no launch): a rehearsal."""
+    import os
+    import re
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch._private import serialization
+    from ray_tpu_torch._private.metrics_agent import MetricsAgent
+    from ray_tpu_torch._private.runtime import get_runtime
+    from ray_tpu_torch.examples import batch_inference as bi
+    from ray_tpu_torch.examples import train_gpt2
+    from ray_tpu_torch.job import JobStatus, job_manager
+    from ray_tpu_torch.util import state
+    from ray_tpu_torch.util.actor_pool import ActorPool
+    from ray_tpu_torch.util.placement_group import placement_group_table
+    from ray_tpu_torch.workflow import api as wf_api
+
+    on_card = not tiny
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    cfg = train_gpt2.model_config(tiny)
+    S, L, B = cfg.seq_len, cfg.n_layer, WF_BATCH
+    vocab = min(cfg.vocab_size, 50257)
+    storage = tempfile.mkdtemp(prefix="chip_smoke_workflow_fit_")
+    result: Dict[str, object] = {"card": card_line() if on_card else "cpu",
+                                 "batch": B, "seq_len": S}
+    path_launches = {k: 0 for k in _counts()}
+
+    def want_counts(fwd_layers, steps, ce_fwd):
+        """Launches on the card; the plain versions count none."""
+        want = {k: 0 for k in _counts()}
+        if on_card:
+            want.update(splash_attention_fwd=fwd_layers,
+                        splash_attention_bwd=L * steps, fused_ce_fwd=ce_fwd,
+                        fused_ce_dx=steps, fused_ce_dw=steps)
+        return want
+
+    def launches_of(label, want):
+        counts = _counts()
+        if counts != want:
+            fail(f"{label}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            path_launches[k] += v
+        return counts
+
+    threads_before = set(threading.enumerate())
+    ray_tpu_torch.init(**({} if on_card else {"num_gpus": 0}))
+    try:
+        if on_card and ray_tpu_torch.available_resources().get("GPU") != 1.0:
+            fail(f"the runtime registers {ray_tpu_torch.available_resources()}"
+                 " (one card expected)")
+        agent = MetricsAgent(get_runtime(), port=0)
+
+        # --------------------------------------------- (a) an ActorPool
+        tokens = bi.token_windows(WF_POOL_BATCHES * B, S, vocab)
+        batches = [tokens[i * B:(i + 1) * B] for i in range(WF_POOL_BATCHES)]
+        direct = bi.GPT2Scorer(cfg, seed=0, device=dev)
+        direct.score(batches[0])  # warm-up: cuBLAS handles, allocator
+        t0 = time.perf_counter()
+        want = [direct.score(b) for b in batches]
+        direct_s = time.perf_counter() - t0
+        Scorer = ray_tpu_torch.remote(
+            num_gpus=0.5 if on_card else 0)(bi.GPT2Scorer)
+        scorers = [Scorer.remote(cfg, 0, None if on_card else "cpu")
+                   for _ in range(2)]
+        pool = ActorPool(scorers)
+        _reset_counts()
+        t0 = time.perf_counter()
+        got = list(pool.map(lambda a, b: a.score.remote(b), batches))
+        pool_s = time.perf_counter() - t0
+        counts_map = launches_of("workflow_fit_a map", want_counts(
+            L * WF_POOL_BATCHES, 0, WF_POOL_BATCHES))
+        _reset_counts()
+        unordered = list(pool.map_unordered(
+            lambda a, b: a.score.remote(b), batches))
+        launches_of("workflow_fit_a map_unordered", want_counts(
+            L * WF_POOL_BATCHES, 0, WF_POOL_BATCHES))
+
+        def same(x, y):
+            return all(x[k].dtype == y[k].dtype and
+                       x[k].tobytes() == y[k].tobytes() for k in x)
+
+        in_order = len(got) == len(want) and all(
+            same(g, w) for g, w in zip(got, want))
+        key = [(w["next_token"].tobytes(), w["nll"].tobytes()) for w in want]
+        multiset = sorted(key) == sorted(
+            (u["next_token"].tobytes(), u["nll"].tobytes())
+            for u in unordered)
+        if not in_order or not multiset:
+            fail(f"workflow_fit_a: pool results in order and bit for bit "
+                 f"{in_order}, map_unordered's multiset {multiset}")
+        rows = state.list_actors(
+            filters=[("class_name", "=", "GPT2Scorer")])
+        alive = sorted(r["state"] for r in rows)
+        for a in scorers:
+            ray_tpu_torch.kill(a)
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            dead = sorted(r["state"] for r in state.list_actors(
+                filters=[("class_name", "=", "GPT2Scorer")]))
+            if dead == ["DEAD", "DEAD"]:
+                break
+            time.sleep(0.05)
+        if alive != ["ALIVE", "ALIVE"] or dead != ["DEAD", "DEAD"]:
+            fail(f"workflow_fit_a: scorer rows {alive} while the pool ran, "
+                 f"{dead} after kill")
+        result["a"] = dict(
+            batches=WF_POOL_BATCHES, in_order_bit_equal=in_order,
+            unordered_same_multiset=multiset,
+            pool_batches_per_s=WF_POOL_BATCHES / pool_s,
+            direct_batches_per_s=WF_POOL_BATCHES / direct_s,
+            pool_over_direct=direct_s / pool_s, launches=counts_map,
+            actor_states=[alive, dead])
+        print("workflow_fit_a " + json.dumps(result["a"]), flush=True)
+        del direct, scorers, pool, got, unordered
+        _wf_collect(on_card)
+
+        # ------------------------------------ (b) a durable workflow
+        workflow.init_storage(os.path.join(storage, "workflows"))
+        states = os.path.join(storage, "states")
+        os.makedirs(states)
+        marker = os.path.join(storage, f"fail-chunk-{WF_FAIL_CHUNK}")
+        gpus = 1 if on_card else 0
+        node = ray_tpu_torch.remote(num_gpus=gpus)(_wf_init).options(
+            name="wf_init").bind(os.path.join(states, "state-0"), tiny)
+        for index in range(WF_CHUNKS):
+            node = ray_tpu_torch.remote(num_gpus=gpus)(_wf_chunk).options(
+                name=f"wf_chunk_{index}").bind(
+                    node, index, os.path.join(states, f"state-{index + 1}"),
+                    marker if index == WF_FAIL_CHUNK else "", tiny)
+        dag = node
+        step_writes = []
+        atomic_write = wf_api._atomic_write
+
+        def timed_write(path, data):
+            t = time.perf_counter()
+            atomic_write(path, data)
+            if os.sep + "steps" + os.sep in path:
+                step_writes.append(dict(path=os.path.basename(path),
+                                        bytes=len(data),
+                                        s=time.perf_counter() - t))
+
+        wf_api._atomic_write = timed_write
+        try:
+            with open(marker, "w") as f:
+                f.write("fail once")
+            _reset_counts()
+            t0 = time.perf_counter()
+            try:
+                workflow.run(dag, workflow_id="gpt2-chunks")
+            except Exception as e:  # noqa: BLE001 — the injected failure
+                run_error = repr(e)
+            else:
+                run_error = None
+            run_s = time.perf_counter() - t0
+            status_failed = workflow.get_status("gpt2-chunks")
+            counts_run = launches_of("workflow_fit_b run", want_counts(
+                L * WF_CHUNK_STEPS, WF_CHUNK_STEPS, WF_CHUNK_STEPS))
+            if run_error is None or "failure injected" not in run_error or \
+                    status_failed != workflow.WorkflowStatus.FAILED:
+                fail(f"workflow_fit_b: the run gave {run_error}, status "
+                     f"{status_failed}")
+            _reset_counts()
+            t0 = time.perf_counter()
+            path, last = workflow.resume("gpt2-chunks")
+            resume_s = time.perf_counter() - t0
+            resumed = 2 * WF_CHUNK_STEPS  # chunks 1 and 2, not chunk 0
+            counts_resume = launches_of("workflow_fit_b resume", want_counts(
+                L * resumed, resumed, resumed))
+        finally:
+            wf_api._atomic_write = atomic_write
+        status_ok = workflow.get_status("gpt2-chunks")
+        output = workflow.get_output("gpt2-chunks")
+        ids = wf_api._step_ids(dag)
+        losses = []
+        for n in dag._topo():
+            with open(os.path.join(storage, "workflows", "gpt2-chunks",
+                                   "steps", f"{ids[id(n)]}.pkl"), "rb") as f:
+                value = serialization.loads(f.read())
+            if isinstance(value, tuple):
+                losses.extend(value[1])
+        all_tokens = bi.token_windows(WF_CHUNKS * WF_CHUNK_STEPS * B, S,
+                                      vocab)
+        direct_losses = _wf_direct(cfg, dev, [
+            all_tokens[i * B:(i + 1) * B]
+            for i in range(WF_CHUNKS * WF_CHUNK_STEPS)])
+        loss_err = max(abs(a - b) for a, b in zip(losses, direct_losses)) \
+            if len(losses) == len(direct_losses) else float("inf")
+        if status_ok != workflow.WorkflowStatus.SUCCESSFUL or \
+                loss_err > WF_LOSS_ATOL or last != losses[-WF_CHUNK_STEPS:] \
+                or output != (path, last) or not np.isfinite(losses).all():
+            fail(f"workflow_fit_b: status {status_ok}, losses {losses} vs "
+                 f"direct {direct_losses} (tol {WF_LOSS_ATOL}), output "
+                 f"{output} vs {(path, last)}")
+        chunk_times = []
+        for index in range(WF_CHUNKS):
+            with open(os.path.join(states, f"state-{index + 1}.times.json")
+                      ) as f:
+                chunk_times.append(json.load(f))
+        result["b"] = dict(
+            losses=losses, direct_losses=direct_losses,
+            loss_max_abs_err=loss_err,
+            bit_equal=losses == direct_losses, run_s=run_s,
+            resume_s=resume_s, chunk_times=chunk_times,
+            step_checkpoint_writes=step_writes,
+            launches_run=counts_run, launches_resume=counts_resume,
+            statuses=[status_failed, status_ok])
+        print("workflow_fit_b " + json.dumps(result["b"]), flush=True)
+        _wf_collect(on_card)
+
+        # ------------------------------------------------------- (c) jobs
+        jm = job_manager()
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = {"env_vars": {"PYTHONPATH": here}}
+        # B=8 rows a step: the example's default batch for one rank.
+        example = (f"{sys.executable} -m ray_tpu_torch.examples.train_gpt2 "
+                   "--workers 1" + (" --device cpu --tiny" if tiny else ""))
+
+        def first_step(job_id, timeout):
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < timeout:
+                if 1 in _job_losses(jm.get_job_logs(job_id)):
+                    return
+                if jm.get_job_status(job_id) in JobStatus.TERMINAL:
+                    break
+                time.sleep(0.05)
+            fail(f"workflow_fit_c: job {job_id} logged no step: "
+                 f"{jm.get_job_logs(job_id)[-3000:]}")
+
+        t0 = time.perf_counter()
+        ok_job = jm.submit_job(f"{example} --steps {JOB_STEPS}",
+                               runtime_env=env)
+        first_step(ok_job, 300)
+        cold_start_s = time.perf_counter() - t0
+        ok_status = jm.wait_job(ok_job, timeout=300)
+        ok_s = time.perf_counter() - t0
+        ok_logs = jm.get_job_logs(ok_job)
+        job_losses = _job_losses(ok_logs)
+        # The example's own clock around CudaTrainer.fit(): the rest of the
+        # job is the interpreter, imports and init.
+        fit_s = re.search(r" elapsed=([0-9.]+)s ", ok_logs)
+        job_tokens = np.random.default_rng(0).integers(
+            0, vocab, (B, S + 1), dtype=np.int64)  # the example's own
+        job_direct = _wf_direct(cfg, dev, [job_tokens] * JOB_STEPS)
+        job_err = max(abs(job_losses.get(i + 1, float("inf")) - want)
+                      for i, want in enumerate(job_direct))
+        if ok_status != JobStatus.SUCCEEDED or \
+                sorted(job_losses) != list(range(1, JOB_STEPS + 1)) or \
+                job_err > WF_LOSS_ATOL:
+            fail(f"workflow_fit_c: job {ok_status}, logged losses "
+                 f"{job_losses} vs direct {job_direct} (tol {WF_LOSS_ATOL})"
+                 f": {jm.get_job_logs(ok_job)[-3000:]}")
+        _wf_collect(on_card)
+        free_before = torch.cuda.mem_get_info(0)[0] if on_card else None
+        t0 = time.perf_counter()
+        long_job = jm.submit_job(f"{example} --steps 100000",
+                                 runtime_env=env)
+        first_step(long_job, 300)
+        long_cold_s = time.perf_counter() - t0
+        free_running = torch.cuda.mem_get_info(0)[0] if on_card else None
+        t0 = time.perf_counter()
+        jm.stop_job(long_job, grace_s=JOB_GRACE_S)
+        stop_status = jm.wait_job(long_job, timeout=JOB_GRACE_S + 5)
+        stop_s = time.perf_counter() - t0
+        free_after, back_s = None, None
+        if on_card:
+            while time.perf_counter() - t0 < JOB_GRACE_S + 5:
+                free_after = torch.cuda.mem_get_info(0)[0]
+                if abs(free_after - free_before) <= JOB_MEM_SLACK:
+                    back_s = time.perf_counter() - t0
+                    break
+                time.sleep(0.05)
+        if stop_status != JobStatus.STOPPED or \
+                stop_s > JOB_GRACE_S + 5 or (on_card and back_s is None):
+            fail(f"workflow_fit_c: the stopped job is {stop_status} after "
+                 f"{stop_s:.2f} s; free memory {free_after} vs "
+                 f"{free_before} before (slack {JOB_MEM_SLACK})")
+        result["c"] = dict(
+            entrypoint=example, job_losses=[job_losses[i + 1] for i in
+                                            range(JOB_STEPS)],
+            direct_losses=job_direct, loss_max_abs_err=job_err,
+            cold_start_s=cold_start_s, job_s=ok_s,
+            job_fit_s=float(fit_s.group(1)) if fit_s else None,
+            stopped_cold_start_s=long_cold_s,
+            stop_s=stop_s, memory_back_s=back_s, free_before=free_before,
+            free_running=free_running, free_after=free_after,
+            statuses=[ok_status, stop_status])
+        print("workflow_fit_c " + json.dumps(result["c"]), flush=True)
+
+        # ---------------------------------------------------- (d) state
+        summary = state.summarize_tasks()["by_func"]
+        chunk_rows = {name: summary.get(name, {}) for name in
+                      ["wf_init"] + [f"wf_chunk_{i}"
+                                     for i in range(WF_CHUNKS)]}
+        # The failed chunk's attempts, and the chunk after it, which failed
+        # on its upstream's error in the run and finished in the resume.
+        if chunk_rows != {"wf_init": {"FINISHED": 1},
+                          "wf_chunk_0": {"FINISHED": 1},
+                          "wf_chunk_1": {"FAILED": 1, "FINISHED": 1},
+                          "wf_chunk_2": {"FAILED": 1, "FINISHED": 1}}:
+            fail(f"workflow_fit_d: task summary {chunk_rows}")
+
+        def fetch(route):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{agent.port}{route}",
+                    timeout=30) as resp:
+                return json.loads(resp.read())
+
+        def plain(rows):
+            return json.loads(json.dumps(rows, default=str))
+
+        over_http = {route: fetch(route) for route in
+                     ("/api/tasks", "/api/actors", "/api/jobs")}
+        library = {
+            "/api/tasks": plain(state.list_tasks()),
+            "/api/actors": plain(state.list_actors()),
+            "/api/jobs": plain([dict(job_id=j.job_id, status=j.status,
+                                     entrypoint=j.entrypoint,
+                                     log_path=j.log_path)
+                                for j in jm.list_jobs()])}
+        equal = {route: over_http[route] == library[route]
+                 for route in over_http}
+        if not all(equal.values()) or len(over_http["/api/jobs"]) != 2:
+            fail(f"workflow_fit_d: HTTP rows equal to the library's: {equal}"
+                 f"; jobs {over_http['/api/jobs']}")
+        agent.stop()
+        left = dict(actors=[r for r in state.list_actors()
+                            if r["state"] != "DEAD"],
+                    placement_groups=placement_group_table())
+        if left["actors"] or left["placement_groups"]:
+            fail(f"workflow_fit_d: left alive {left}")
+        result["d"] = dict(task_summary=chunk_rows, http_equal=equal,
+                           rows={k: len(v) for k, v in over_http.items()})
+    finally:
+        ray_tpu_torch.shutdown()
+
+    # The workflow's output after a restart of the runtime.
+    ray_tpu_torch.init(**({} if on_card else {"num_gpus": 0}))
+    try:
+        after_restart = workflow.get_output("gpt2-chunks")
+    finally:
+        ray_tpu_torch.shutdown()
+    shutil.rmtree(storage, ignore_errors=True)
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline:
+        new = [t.name for t in threading.enumerate()
+               if t not in threads_before and t.is_alive()]
+        if not new:
+            break
+        time.sleep(0.05)
+    if new or after_restart != output:
+        fail(f"workflow_fit: threads left {new}; output after a restart "
+             f"{after_restart} vs {output}")
+    result["d"]["threads_left"] = new
+    print("workflow_fit_d " + json.dumps(result["d"]), flush=True)
+    if on_card:
+        torch.cuda.empty_cache()
+    result["launches"] = path_launches
+    print("workflow_fit " + json.dumps({
+        "card": result["card"], "launches": path_launches,
+        "output_after_restart_equal": True,
+        "chunk_s": [sum(t.values()) for t in result["b"]["chunk_times"]],
+        "job_cold_start_s": result["c"]["cold_start_s"]}), flush=True)
+    return result
+
+
 def phase_ring(peaks: Tuple[float, float]) -> Dict[str, object]:
     import torch
 
@@ -4656,6 +5202,7 @@ def main() -> int:
         data_batch["ce_fwd_at_path"]["max_abs_err"])
     train_fit = phase_train_fit()
     tune_fit = phase_tune_fit()
+    workflow_fit = phase_workflow_fit()
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
     bwd = phase_attn_bwd(peaks)
@@ -4681,7 +5228,8 @@ def main() -> int:
                "serve_process": serve_process["launches"].get(name, 0),
                "data_batch": data_batch["launches"].get(name, 0),
                "train_fit": train_fit["launches"].get(name, 0),
-               "tune_fit": tune_fit["launches"].get(name, 0)}
+               "tune_fit": tune_fit["launches"].get(name, 0),
+               "workflow_fit": workflow_fit["launches"].get(name, 0)}
         for impl in ("dense", "fused"):
             out[f"train_{impl}"] = train["launches"][impl][name]
         out["train_ring"] = train_ring["run"]["launches"][name]

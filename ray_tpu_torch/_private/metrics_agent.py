@@ -9,16 +9,22 @@ It samples the runtime's state into gauges (the role of the C++
   util/metrics.py) in Prometheus text format;
 - ``/timeseries``: the process aggregator's windowed rollups
   (util/metrics_agent.py) as OpenMetrics text;
+- ``/api/tasks``, ``/api/actors``, ``/api/objects``, ``/api/nodes``,
+  ``/api/placement_groups``, ``/api/train_runs``: the state API's rows
+  (util/state);
+- ``/api/postmortems``, ``/api/postmortems/<id>``,
+  ``/api/postmortems/bundle``: the flight-recorder dumps' index, one dump,
+  and the merged bundle (util/forensics.py);
+- ``/api/jobs``: the submitted jobs (job/job_manager.py);
 - ``/api/serve``: deployment and replica rows from the serve controller;
 - ``/api/serve/slo``: one fresh SLO watchdog evaluation (serve/slo.py);
-- ``/api/train_runs``: the train run registry's rows (train/run_registry.py);
 - ``/api/stacks`` and ``/api/memory``: the thread stacks of this process
   and of every process worker (``stack_profiler.collect_all_stacks``), and
   this process's tracemalloc heap summary.
 
-The reference's routes over the state API and jobs answer 404 until those
-land (ROADMAP.md, Queue 1 item 15), and so do its node pages and postmortem
-bundles (item 13.8).  One agent per runtime, started on demand.
+The reference's cluster and node pages (``/api/cluster``,
+``/api/node/<id>``) answer 404 until the port has its nodes (ROADMAP.md,
+Queue 1 item 13.8).  One agent per runtime, started on demand.
 """
 
 from __future__ import annotations
@@ -157,8 +163,46 @@ class MetricsAgent:
 
 
 def _api_payload(path: str):
-    """JSON views (ref: dashboard state_head.py:47 and serve_head.py); None
-    for a route the port does not serve yet."""
+    """JSON views (ref: dashboard state_head.py:47 — the same rows `ray list
+    ...` prints — and serve_head.py); None for a route the port does not
+    serve yet."""
+    from ray_tpu_torch.util import state as state_api
+
+    listings = {
+        "/api/tasks": state_api.list_tasks,
+        "/api/actors": state_api.list_actors,
+        "/api/objects": state_api.list_objects,
+        "/api/nodes": state_api.list_nodes,
+        "/api/placement_groups": state_api.list_placement_groups,
+        "/api/train_runs": state_api.list_train_runs,
+        "/api/postmortems": state_api.list_postmortems,
+    }
+    fn = listings.get(path)
+    if fn is not None:
+        return fn()
+    if path == "/api/postmortems/bundle":
+        # Full postmortem: every dump merged with the recent time-series
+        # window and the run registry.
+        from ray_tpu_torch.util import forensics
+
+        return forensics.build_bundle()
+    if path.startswith("/api/postmortems/"):
+        from ray_tpu_torch.util import forensics
+
+        return forensics.load_postmortem(path[len("/api/postmortems/"):])
+    if path == "/api/jobs":
+        import importlib
+
+        # By module path: the package's ``job_manager`` is the function,
+        # which hides the module of the same name from ``import ... as``
+        # (the reference's route reads the function and answers 500).
+        jm_mod = importlib.import_module("ray_tpu_torch.job.job_manager")
+        mgr = jm_mod._MANAGER  # peek, never create on a GET
+        if mgr is None:
+            return []
+        return [dict(job_id=j.job_id, status=j.status,
+                     entrypoint=j.entrypoint, log_path=j.log_path)
+                for j in mgr.list_jobs()]
     if path == "/api/serve":
         return _serve_payload()
     if path == "/api/serve/slo":
@@ -171,10 +215,6 @@ def _api_payload(path: str):
             "objectives_registry": sorted(_slo.SLO_OBJECTIVES),
             "deployments": watchdog.evaluate(),
         }
-    if path == "/api/train_runs":
-        from ray_tpu_torch.train import run_registry
-
-        return run_registry.list_runs()
     if path == "/api/stacks":
         from ray_tpu_torch._private import stack_profiler
 

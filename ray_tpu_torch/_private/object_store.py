@@ -174,10 +174,12 @@ class ObjectStore:
                        if e.state == ObjectState.READY)
 
     def object_summaries(self) -> List[dict]:
-        """Per-object view for the metrics agent (ref: `ray list
-        objects`)."""
+        """Per-object view for the state API and the metrics agent (ref:
+        `ray list objects`); ``size`` as ``size_of`` counts it."""
         with self._lock:
-            return [{"object_id": str(oid), "state": e.state}
+            return [{"object_id": str(oid), "state": e.state,
+                     "size": _nbytes(e.value)
+                     if e.state == ObjectState.READY else 0}
                     for oid, e in self._entries.items()]
 
     def shutdown(self) -> None:

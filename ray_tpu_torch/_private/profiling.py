@@ -4,14 +4,14 @@
 ``chrome_trace()`` folds the runtime's task-event log and the exported
 tracing spans into chrome://tracing "X" (complete) events — load the JSON at
 chrome://tracing or ui.perfetto.dev.  SLO burn episodes share one "serve"
-lane there.  The reference's postmortem-bundle lanes come with its
-forensics bundles (ROADMAP.md, Queue 1 item 13.8).
+lane there.  ``postmortem_chrome_events`` lays out a forensics bundle
+(``util/forensics.py``): one lane per dumped process.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 
 #: Span-name prefixes folded into the shared "train" timeline lane: one
@@ -74,6 +74,51 @@ def spans_to_chrome_events(spans: List[dict]) -> List[dict]:
         if s.get("status", "OK") != "OK":
             ev["cname"] = "terrible"
         out.append(ev)
+    return out
+
+
+def postmortem_chrome_events(bundle: Dict[str, Any]) -> List[dict]:
+    """Fold a forensics postmortem bundle (util.forensics.build_bundle)
+    into chrome-tracing events: one Perfetto process lane per dumped
+    process holding the spans its flight-recorder ring captured, with
+    instant markers ("i" events, rendered as flow arrows/flags) at state
+    transitions, dump triggers, and stall/death moments — so "replica
+    died mid-batch" or "worker wedged in a rendezvous" reads directly off
+    the fused timeline."""
+    out: List[dict] = []
+    for dump in bundle.get("dumps", []):
+        pid = f"pid:{dump.get('pid')}"
+        for row in dump.get("ring", []):
+            kind = row.get("kind", "event")
+            name = row.get("name", "")
+            status = row.get("status", "OK")
+            if kind == "span":
+                ev = {
+                    "ph": "X", "cat": "forensics", "name": name,
+                    "pid": pid, "tid": name,
+                    "ts": row.get("start", 0.0) * 1e6,
+                    "dur": max(0.0, (row.get("end", 0.0)
+                                     - row.get("start", 0.0)) * 1e6),
+                    "args": {"status": status, "seq": row.get("seq")},
+                }
+            else:
+                ev = {
+                    "ph": "i", "cat": "forensics", "name": f"{kind}:{name}",
+                    "pid": pid, "tid": kind,
+                    "ts": row.get("start", 0.0) * 1e6, "s": "p",
+                    "args": {"status": status, "seq": row.get("seq")},
+                }
+            if status != "OK" or kind in ("stall", "trigger"):
+                ev["cname"] = "terrible"
+            out.append(ev)
+        # The dump moment itself: the death/breach marker, process-scoped.
+        out.append({
+            "ph": "i", "cat": "forensics",
+            "name": f"dump:{dump.get('reason')}", "pid": pid, "tid": "dump",
+            "ts": (dump.get("ts") or 0.0) * 1e6, "s": "p",
+            "args": {"reason": dump.get("reason"), "id": dump.get("id")},
+            "cname": "terrible",
+        })
     return out
 
 

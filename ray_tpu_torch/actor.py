@@ -33,6 +33,12 @@ class ActorMethod:
     def remote(self, *args, **kwargs):
         return self._handle._submit_method(self._method_name, args, kwargs, self._options)
 
+    def bind(self, *args, **kwargs):
+        """A lazy DAG node for this method on a live actor (dag/)."""
+        from ray_tpu_torch.dag import ActorMethodNode
+
+        return ActorMethodNode(self._handle, self._method_name, args, kwargs)
+
     def __call__(self, *args, **kwargs):
         raise TypeError(
             f"Actor method '{self._method_name}' cannot be called directly; "
@@ -146,6 +152,12 @@ class ActorClass:
         )
         runtime.create_actor(spec)
         return ActorHandle(actor_id, self._cls, opts["max_task_retries"])
+
+    def bind(self, *args, **kwargs):
+        """A lazy DAG node creating the actor at first execute (dag/)."""
+        from ray_tpu_torch.dag import ClassNode
+
+        return ClassNode(self, args, kwargs)
 
 
 def exit_actor() -> None:

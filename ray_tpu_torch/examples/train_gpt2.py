@@ -221,6 +221,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     tokens = np.random.default_rng(0).integers(
         0, min(cfg.vocab_size, 50257), (args.workers * args.batch,
                                         cfg.seq_len + 1), dtype=np.int64)
+
+    def log_step(event, rank, step, **info):
+        """One line per step of rank 0 (a job's log follows the run)."""
+        if event == "step" and rank == 0:
+            print(f"train_gpt2 step {step} loss {info['loss']:.6f}",
+                  flush=True)
+
     ray_tpu_torch.init(ignore_reinit_error=True,
                        **({"num_gpus": 0} if on_cpu else {}))
     try:
@@ -229,7 +236,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             train_loop_per_worker,
             train_loop_config=dict(steps=args.steps, batch_size=args.batch,
                                    tiny=args.tiny, device=args.device,
-                                   tokens=tokens),
+                                   tokens=tokens, probe=log_step),
             scaling_config=ScalingConfig(
                 num_workers=args.workers, use_gpu=not on_cpu,
                 gpus_per_worker=1.0 / args.workers)).fit()

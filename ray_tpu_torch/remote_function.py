@@ -73,3 +73,10 @@ class RemoteFunction:
             strategy=opts["scheduling_strategy"],
         )
         return runtime.submit_task(spec)
+
+    def bind(self, *args, **kwargs):
+        """DAG-building entry point (ref: dag/dag_node.py); returns a lazy
+        node."""
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)

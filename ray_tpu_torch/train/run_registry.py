@@ -4,10 +4,9 @@
 The training counterpart of the serve controller's deployment table: the
 controller (``DataParallelTrainer.fit``) registers its run at start and
 keeps the row current — world size, attempts, final status — so the
-metrics agent's ``/api/train_runs`` route (and the state API's
-``list_train_runs``, which comes with ``util/state``, ROADMAP.md Queue 1
-item 15) return a consistent snapshot of live and finished runs without
-touching the trainer's internals.
+metrics agent's ``/api/train_runs`` route and the state API's
+``list_train_runs`` (``util/state``) return a consistent snapshot of live
+and finished runs without touching the trainer's internals.
 
 Rows live in the controller's process (thread-tier training runs there);
 the registry is bounded so a long-lived driver launching many fits never

@@ -594,3 +594,99 @@ def test_function_trials_share_the_card_on_gpu():
     assert attention.LAUNCHES["splash_attention_fwd"] - before == \
         2 * 3 * cfg.n_layer
     assert fused_ce.LAUNCHES["fused_ce_fwd"] - ce_before == 2 * 3
+
+
+# A workflow's steps, importable so that ``dag.pkl`` names them.
+_SEEN_ON_GPU = []
+
+
+def _attention_on_gpu():
+    """A step's value made on the card by the splash kernel."""
+    from ray_tpu_torch._private.device import granted_cuda_device
+
+    dev = granted_cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((1, 128, 2, 64), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    o = attention.splash_attention(q, k, v, causal=True)
+    _SEEN_ON_GPU.append(("made", o.detach().clone()))
+    return {"o": o, "device": str(o.device)}
+
+
+def _consume_on_gpu(value):
+    o = value["o"]
+    _SEEN_ON_GPU.append(("used", str(o.device), o.dtype, o.clone()))
+    if sum(s[0] == "used" for s in _SEEN_ON_GPU) == 1:
+        raise RuntimeError("fail the first run")
+    return {"sum": o.float().sum().item(), "device": str(o.device)}
+
+
+@pytest.mark.cuda
+def test_resumed_step_gets_its_input_as_in_a_first_run_on_gpu(tmp_path):
+    """The workflow device rule (workflow/api.py): a step's CUDA tensor
+    reaches the next step on the host, in the first run (through the object
+    store) and after a resume (read from ``steps/<id>.pkl``) alike, equal
+    bit for bit to what the kernel wrote."""
+    _need_gpu()
+    import ray_tpu_torch
+    from ray_tpu_torch import workflow
+
+    del _SEEN_ON_GPU[:]
+    workflow.init_storage(str(tmp_path))
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        make = ray_tpu_torch.remote(num_gpus=1)(_attention_on_gpu)
+        use = ray_tpu_torch.remote(num_gpus=1)(_consume_on_gpu)
+        dag = use.bind(make.bind())
+        with pytest.raises(Exception, match="fail the first run"):
+            workflow.run(dag, workflow_id="gpu-rule")
+        out = workflow.resume("gpu-rule")
+    finally:
+        ray_tpu_torch.shutdown()
+    made = [s for s in _SEEN_ON_GPU if s[0] == "made"]
+    used = [s for s in _SEEN_ON_GPU if s[0] == "used"]
+    assert len(made) == 1 and len(used) == 2  # the first step ran once
+    want = made[0][1]
+    assert want.is_cuda
+    for _, device, dtype, got in used:
+        assert (device, dtype) == ("cpu", torch.bfloat16)
+        assert torch.equal(got, want.cpu())
+    # Summed on the host, as the step summed it.
+    assert out == {"sum": want.cpu().float().sum().item(), "device": "cpu"}
+
+
+@pytest.mark.cuda
+def test_step_value_read_back_from_its_checkpoint_on_gpu(tmp_path):
+    """A step's CUDA output is written to its checkpoint as a host copy:
+    the file, the workflow's output and ``get_output`` after a restart of
+    the runtime give the kernel's bits back on the host."""
+    _need_gpu()
+    import os
+
+    import ray_tpu_torch
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch._private import serialization
+    from ray_tpu_torch.workflow import api
+
+    del _SEEN_ON_GPU[:]
+    workflow.init_storage(str(tmp_path))
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        dag = ray_tpu_torch.remote(num_gpus=1)(_attention_on_gpu).bind()
+        out = workflow.run(dag, workflow_id="gpu-ckpt")
+        sid = api._step_ids(dag)[id(dag)]
+    finally:
+        ray_tpu_torch.shutdown()
+    want = _SEEN_ON_GPU[0][1].cpu()
+    with open(os.path.join(str(tmp_path), "gpu-ckpt", "steps",
+                           f"{sid}.pkl"), "rb") as f:
+        stored = serialization.loads(f.read())
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        again = workflow.get_output("gpu-ckpt")
+    finally:
+        ray_tpu_torch.shutdown()
+    for value in (out, stored, again):
+        assert value["device"] == "cuda:0"  # where the step made it
+        assert value["o"].device.type == "cpu"
+        assert torch.equal(value["o"], want)

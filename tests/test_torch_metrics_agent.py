@@ -11,7 +11,7 @@ reference's.
   ``openmetrics_text`` must agree: rates within
   1e-12 relative, values and text exactly.
 - The agent's other routes: what the port serves, and 404 for the
-  reference's routes over modules the port has not yet.
+  reference's cluster and node pages, which need its nodes.
 - ``test_timeline_chrome_export`` of tests/test_observability.py: a
   profiled task's chrome trace through ``timeline(filename)``.
 """
@@ -178,10 +178,17 @@ def test_port_agent_routes():
         assert any("MainThread" in n for n in json.loads(body)["driver"])
         status, _, body = _get(agent.port, "/api/memory")
         assert status == 200 and "traced_current_bytes" in json.loads(body)
-        # The reference's routes over the state API, jobs, nodes and
-        # postmortem bundles, which the port does not serve yet.
-        for path in ("/api", "/api/tasks", "/api/jobs", "/api/nodes",
-                     "/api/postmortems", "/api/node/x", "/", "/nope"):
+        # The state API's, the jobs' and the postmortems' routes answer
+        # (tests/test_torch_state.py holds their rows to the reference's);
+        # the reference's cluster and node pages, which need its nodes, and
+        # a postmortem id with no dump do not.
+        for path in ("/api/tasks", "/api/actors", "/api/objects",
+                     "/api/nodes", "/api/placement_groups", "/api/jobs",
+                     "/api/postmortems", "/api/postmortems/bundle"):
+            status, ctype, _ = _get(agent.port, path)
+            assert (status, ctype) == (200, "application/json"), path
+        for path in ("/api", "/api/cluster", "/api/node/x",
+                     "/api/postmortems/no-such-dump", "/", "/nope"):
             assert _get(agent.port, path)[0] == 404, path
     finally:
         agent.stop()

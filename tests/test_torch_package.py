@@ -42,9 +42,9 @@ _FORBIDDEN_ROOTS = ("jax", "jaxlib", "ray_tpu", "aiohttp", "cloudpickle",
 
 
 #: Packages the port imports only inside the function that needs them:
-#: Triton in a kernel's launcher, and Data's optional formats, which the
-#: card's machine lacks.
-_LAZY_ROOTS = ("triton", "pyarrow", "pandas", "google")
+#: Triton in a kernel's launcher, Data's optional formats, which the card's
+#: machine lacks, and joblib (util/joblib.py's backend; it loads psutil).
+_LAZY_ROOTS = ("triton", "pyarrow", "pandas", "google", "joblib")
 
 
 def _forbidden(name):
@@ -112,7 +112,14 @@ print(json.dumps({"modules": mods, "loaded": sorted(sys.modules)}))
             "ray_tpu_torch.train.checkpoint", "ray_tpu_torch.train.session",
             "ray_tpu_torch.train.profiler", "ray_tpu_torch.util.watchdog",
             "ray_tpu_torch.util.queue", "ray_tpu_torch.util.placement_group",
-            "ray_tpu_torch.examples.train_gpt2"} <= set(res["modules"])
+            "ray_tpu_torch.examples.train_gpt2",
+            "ray_tpu_torch.util.actor_pool", "ray_tpu_torch.util.pubsub",
+            "ray_tpu_torch.util.multiprocessing",
+            "ray_tpu_torch.util.joblib", "ray_tpu_torch.util.forensics",
+            "ray_tpu_torch.util.state", "ray_tpu_torch.dag",
+            "ray_tpu_torch.dag.dag_node", "ray_tpu_torch.workflow",
+            "ray_tpu_torch.workflow.api", "ray_tpu_torch.job",
+            "ray_tpu_torch.job.job_manager"} <= set(res["modules"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 
@@ -236,6 +243,41 @@ def test_the_scan_covers_tune_and_air():
             "air/integrations/__init__.py", "air/integrations/_common.py",
             "air/integrations/tensorboard.py", "air/integrations/wandb.py",
             "air/integrations/mlflow.py"} <= files
+
+
+def test_the_scan_covers_the_small_libraries():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"util/actor_pool.py", "util/pubsub.py", "util/multiprocessing.py",
+            "util/joblib.py", "util/forensics.py", "util/state/__init__.py",
+            "dag/__init__.py", "dag/dag_node.py", "workflow/__init__.py",
+            "workflow/api.py", "job/__init__.py",
+            "job/job_manager.py"} <= files
+
+
+def test_the_small_libraries_import_without_initialising_cuda():
+    """The multiprocessing Pool's remote chunk function is made at import:
+    that, and the other small libraries, start no CUDA context, no runtime
+    and no thread, and load neither joblib nor psutil."""
+    code = """
+import json, sys, threading, torch
+before = threading.active_count()
+import ray_tpu_torch.util.actor_pool, ray_tpu_torch.util.pubsub
+import ray_tpu_torch.util.multiprocessing, ray_tpu_torch.util.joblib
+import ray_tpu_torch.util.state, ray_tpu_torch.util.forensics
+import ray_tpu_torch.dag, ray_tpu_torch.workflow, ray_tpu_torch.job
+print(json.dumps({"cuda": torch.cuda.is_initialized(),
+                  "runtime": ray_tpu_torch.is_initialized(),
+                  "threads": threading.active_count() - before,
+                  "libs": sorted(m for m in ("joblib", "psutil")
+                                 if m in sys.modules)}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "cuda": False, "runtime": False, "threads": 0, "libs": []}
 
 
 def test_tune_and_air_import_without_initialising_cuda():
