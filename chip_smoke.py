@@ -4140,34 +4140,32 @@ JOB_GRACE_S = 3.0
 JOB_MEM_SLACK = 256 << 20
 
 
-def _wf_device(tiny):
+def _wf_device():
     import torch
 
     from ray_tpu_torch._private.device import granted_cuda_device
 
-    if tiny:
-        return torch.device("cpu")
     dev = granted_cuda_device()
     torch.cuda.set_device(dev)
     return dev
 
 
-def _wf_init(out, tiny):
+def _wf_init(out):
     """The workflow's first step: GPT-2 from seed 0 and AdamW's state on the
     step's card, saved with ``save_pytree``; returns the path."""
     from ray_tpu_torch.examples import train_gpt2
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.train import save_pytree
 
-    cfg = train_gpt2.model_config(tiny)
-    params = gpt2.init_params(cfg, seed=0, device=_wf_device(tiny))
+    cfg = train_gpt2.model_config()
+    params = gpt2.init_params(cfg, seed=0, device=_wf_device())
     save_pytree({"params": params,
                  "opt_state": gpt2.make_optimizer(WF_LR).init(params),
                  "step": 0}, out)
     return out
 
 
-def _wf_chunk(prev, index, out, fail_marker, tiny):
+def _wf_chunk(prev, index, out, fail_marker):
     """One chunk of the workflow: load ``{params, opt_state, step}`` from
     the path its upstream returned onto the step's card, train
     ``WF_CHUNK_STEPS`` steps at B=``WF_BATCH`` on its rows of the token
@@ -4185,12 +4183,8 @@ def _wf_chunk(prev, index, out, fail_marker, tiny):
     if os.path.exists(fail_marker):
         os.remove(fail_marker)
         raise RuntimeError(f"chunk {index}: failure injected")
-    dev = _wf_device(tiny)
-    cfg = train_gpt2.model_config(tiny)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+    dev = _wf_device()
+    cfg = train_gpt2.model_config()
 
     t0 = time.perf_counter()
     params, _, optimizer, opt_state = _tune_model(cfg, dev, WF_LR)
@@ -4199,7 +4193,7 @@ def _wf_chunk(prev, index, out, fail_marker, tiny):
                          "step": 0})
     params, opt_state = state["params"], state["opt_state"]
     leaves = _wf_leaves(params)
-    sync()
+    torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
     tokens = bi.token_windows(WF_CHUNKS * WF_CHUNK_STEPS * WF_BATCH,
                               cfg.seq_len, min(cfg.vocab_size, 50257))
@@ -4211,7 +4205,7 @@ def _wf_chunk(prev, index, out, fail_marker, tiny):
         opt_state, loss = _tune_step(cfg, params, leaves, optimizer,
                                      opt_state, tok)
         losses.append(loss)
-    sync()
+    torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
     save_pytree({"params": params, "opt_state": opt_state,
                  "step": int(state["step"]) + WF_CHUNK_STEPS}, out)
@@ -4245,16 +4239,15 @@ def _wf_direct(cfg, dev, tokens_per_step):
     return losses
 
 
-def _wf_collect(on_card):
+def _wf_collect():
     """Frees what a part left (the card's cached blocks too)."""
     import gc
 
     import torch
 
     gc.collect()
-    if on_card:
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def _job_losses(logs):
@@ -4265,15 +4258,13 @@ def _job_losses(logs):
         r"^train_gpt2 step (\d+) loss ([0-9.eE+-]+)$", logs, re.M)}
 
 
-def phase_workflow_fit(tiny: bool = False) -> Dict[str, object]:
+def phase_workflow_fit() -> Dict[str, object]:
     """The small libraries on the card with GPT-2 124M (``workflow_fit``
     lines): (a) an ``ActorPool`` of two scorers at half the card each,
     (b) a durable workflow of training chunks that fails and is resumed
     without rerunning its finished chunk, (c) the training example as a
     job that succeeds and one that is stopped, (d) all of it through the
-    state API, in the library and over HTTP. Each gate fails the script.
-    ``tiny`` runs the same control flow on the CPU at the tiny size (the
-    kernels' plain versions, which count no launch): a rehearsal."""
+    state API, in the library and over HTTP. Each gate fails the script."""
     import os
     import re
     import shutil
@@ -4297,23 +4288,20 @@ def phase_workflow_fit(tiny: bool = False) -> Dict[str, object]:
     from ray_tpu_torch.util.placement_group import placement_group_table
     from ray_tpu_torch.workflow import api as wf_api
 
-    on_card = not tiny
-    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
-    cfg = train_gpt2.model_config(tiny)
+    dev = torch.device("cuda", 0)
+    cfg = train_gpt2.model_config()
     S, L, B = cfg.seq_len, cfg.n_layer, WF_BATCH
     vocab = min(cfg.vocab_size, 50257)
     storage = tempfile.mkdtemp(prefix="chip_smoke_workflow_fit_")
-    result: Dict[str, object] = {"card": card_line() if on_card else "cpu",
-                                 "batch": B, "seq_len": S}
+    result: Dict[str, object] = {"card": card_line(), "batch": B,
+                                 "seq_len": S}
     path_launches = {k: 0 for k in _counts()}
 
     def want_counts(fwd_layers, steps, ce_fwd):
-        """Launches on the card; the plain versions count none."""
         want = {k: 0 for k in _counts()}
-        if on_card:
-            want.update(splash_attention_fwd=fwd_layers,
-                        splash_attention_bwd=L * steps, fused_ce_fwd=ce_fwd,
-                        fused_ce_dx=steps, fused_ce_dw=steps)
+        want.update(splash_attention_fwd=fwd_layers,
+                    splash_attention_bwd=L * steps, fused_ce_fwd=ce_fwd,
+                    fused_ce_dx=steps, fused_ce_dw=steps)
         return want
 
     def launches_of(label, want):
@@ -4325,9 +4313,9 @@ def phase_workflow_fit(tiny: bool = False) -> Dict[str, object]:
         return counts
 
     threads_before = set(threading.enumerate())
-    ray_tpu_torch.init(**({} if on_card else {"num_gpus": 0}))
+    ray_tpu_torch.init()
     try:
-        if on_card and ray_tpu_torch.available_resources().get("GPU") != 1.0:
+        if ray_tpu_torch.available_resources().get("GPU") != 1.0:
             fail(f"the runtime registers {ray_tpu_torch.available_resources()}"
                  " (one card expected)")
         agent = MetricsAgent(get_runtime(), port=0)
@@ -4340,10 +4328,8 @@ def phase_workflow_fit(tiny: bool = False) -> Dict[str, object]:
         t0 = time.perf_counter()
         want = [direct.score(b) for b in batches]
         direct_s = time.perf_counter() - t0
-        Scorer = ray_tpu_torch.remote(
-            num_gpus=0.5 if on_card else 0)(bi.GPT2Scorer)
-        scorers = [Scorer.remote(cfg, 0, None if on_card else "cpu")
-                   for _ in range(2)]
+        Scorer = ray_tpu_torch.remote(num_gpus=0.5)(bi.GPT2Scorer)
+        scorers = [Scorer.remote(cfg, 0) for _ in range(2)]
         pool = ActorPool(scorers)
         _reset_counts()
         t0 = time.perf_counter()
@@ -4394,21 +4380,20 @@ def phase_workflow_fit(tiny: bool = False) -> Dict[str, object]:
             actor_states=[alive, dead])
         print("workflow_fit_a " + json.dumps(result["a"]), flush=True)
         del direct, scorers, pool, got, unordered
-        _wf_collect(on_card)
+        _wf_collect()
 
         # ------------------------------------ (b) a durable workflow
         workflow.init_storage(os.path.join(storage, "workflows"))
         states = os.path.join(storage, "states")
         os.makedirs(states)
         marker = os.path.join(storage, f"fail-chunk-{WF_FAIL_CHUNK}")
-        gpus = 1 if on_card else 0
-        node = ray_tpu_torch.remote(num_gpus=gpus)(_wf_init).options(
-            name="wf_init").bind(os.path.join(states, "state-0"), tiny)
+        node = ray_tpu_torch.remote(num_gpus=1)(_wf_init).options(
+            name="wf_init").bind(os.path.join(states, "state-0"))
         for index in range(WF_CHUNKS):
-            node = ray_tpu_torch.remote(num_gpus=gpus)(_wf_chunk).options(
+            node = ray_tpu_torch.remote(num_gpus=1)(_wf_chunk).options(
                 name=f"wf_chunk_{index}").bind(
                     node, index, os.path.join(states, f"state-{index + 1}"),
-                    marker if index == WF_FAIL_CHUNK else "", tiny)
+                    marker if index == WF_FAIL_CHUNK else "")
         dag = node
         step_writes = []
         atomic_write = wf_api._atomic_write
@@ -4487,7 +4472,7 @@ def phase_workflow_fit(tiny: bool = False) -> Dict[str, object]:
             launches_run=counts_run, launches_resume=counts_resume,
             statuses=[status_failed, status_ok])
         print("workflow_fit_b " + json.dumps(result["b"]), flush=True)
-        _wf_collect(on_card)
+        _wf_collect()
 
         # ------------------------------------------------------- (c) jobs
         jm = job_manager()
@@ -4495,7 +4480,7 @@ def phase_workflow_fit(tiny: bool = False) -> Dict[str, object]:
         env = {"env_vars": {"PYTHONPATH": here}}
         # B=8 rows a step: the example's default batch for one rank.
         example = (f"{sys.executable} -m ray_tpu_torch.examples.train_gpt2 "
-                   "--workers 1" + (" --device cpu --tiny" if tiny else ""))
+                   "--workers 1")
 
         def first_step(job_id, timeout):
             t0 = time.perf_counter()
@@ -4531,28 +4516,27 @@ def phase_workflow_fit(tiny: bool = False) -> Dict[str, object]:
             fail(f"workflow_fit_c: job {ok_status}, logged losses "
                  f"{job_losses} vs direct {job_direct} (tol {WF_LOSS_ATOL})"
                  f": {jm.get_job_logs(ok_job)[-3000:]}")
-        _wf_collect(on_card)
-        free_before = torch.cuda.mem_get_info(0)[0] if on_card else None
+        _wf_collect()
+        free_before = torch.cuda.mem_get_info(0)[0]
         t0 = time.perf_counter()
         long_job = jm.submit_job(f"{example} --steps 100000",
                                  runtime_env=env)
         first_step(long_job, 300)
         long_cold_s = time.perf_counter() - t0
-        free_running = torch.cuda.mem_get_info(0)[0] if on_card else None
+        free_running = torch.cuda.mem_get_info(0)[0]
         t0 = time.perf_counter()
         jm.stop_job(long_job, grace_s=JOB_GRACE_S)
         stop_status = jm.wait_job(long_job, timeout=JOB_GRACE_S + 5)
         stop_s = time.perf_counter() - t0
         free_after, back_s = None, None
-        if on_card:
-            while time.perf_counter() - t0 < JOB_GRACE_S + 5:
-                free_after = torch.cuda.mem_get_info(0)[0]
-                if abs(free_after - free_before) <= JOB_MEM_SLACK:
-                    back_s = time.perf_counter() - t0
-                    break
-                time.sleep(0.05)
+        while time.perf_counter() - t0 < JOB_GRACE_S + 5:
+            free_after = torch.cuda.mem_get_info(0)[0]
+            if abs(free_after - free_before) <= JOB_MEM_SLACK:
+                back_s = time.perf_counter() - t0
+                break
+            time.sleep(0.05)
         if stop_status != JobStatus.STOPPED or \
-                stop_s > JOB_GRACE_S + 5 or (on_card and back_s is None):
+                stop_s > JOB_GRACE_S + 5 or back_s is None:
             fail(f"workflow_fit_c: the stopped job is {stop_status} after "
                  f"{stop_s:.2f} s; free memory {free_after} vs "
                  f"{free_before} before (slack {JOB_MEM_SLACK})")
@@ -4616,7 +4600,7 @@ def phase_workflow_fit(tiny: bool = False) -> Dict[str, object]:
         ray_tpu_torch.shutdown()
 
     # The workflow's output after a restart of the runtime.
-    ray_tpu_torch.init(**({} if on_card else {"num_gpus": 0}))
+    ray_tpu_torch.init()
     try:
         after_restart = workflow.get_output("gpt2-chunks")
     finally:
@@ -4634,8 +4618,7 @@ def phase_workflow_fit(tiny: bool = False) -> Dict[str, object]:
              f"{after_restart} vs {output}")
     result["d"]["threads_left"] = new
     print("workflow_fit_d " + json.dumps(result["d"]), flush=True)
-    if on_card:
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     result["launches"] = path_launches
     print("workflow_fit " + json.dumps({
         "card": result["card"], "launches": path_launches,

@@ -220,15 +220,30 @@ class JobManager:
 
 
 def _group_alive(pgid: int) -> bool:
-    """Whether any process (a zombie not yet reaped included) is left in
-    the process group."""
+    """Whether a live process is left in the process group. A zombie holds
+    no memory and may wait long for its reaper (an orphan's reaper may
+    never come), so a group of zombies counts as gone."""
     try:
         os.killpg(pgid, 0)
     except ProcessLookupError:
         return False
     except PermissionError:
         return True
-    return True
+    try:
+        pids = [name for name in os.listdir("/proc") if name.isdigit()]
+    except OSError:  # no procfs: the group is there, zombies or not
+        return True
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # state, ppid, pgrp follow the command name, which may hold ")"
+        fields = stat[stat.rindex(")") + 2:].split()
+        if int(fields[2]) == pgid and fields[0] not in ("Z", "X"):
+            return True
+    return False
 
 
 _MANAGER: Optional[JobManager] = None

@@ -10,6 +10,7 @@ then on the port's, and the observations must be equal.
 import importlib
 import os
 import re
+import signal
 import sys
 import time
 
@@ -162,6 +163,84 @@ def test_stop_job_ends_the_whole_process_group(tmp_path):
             f"the job's child {pid} outlived stop_job"
         time.sleep(0.05)
     assert 1.0 <= waited < 5.0
+
+
+_ZOMBIE_MAKER = """\
+import os, sys, time
+zombie = os.fork()
+if zombie == 0:
+    os._exit(0)
+os.setpgid(0, 0)  # out of the job's group; its unreaped child stays there
+with open(sys.argv[1] + ".tmp", "w") as f:
+    f.write(f"{os.getpid()} {zombie}")
+os.rename(sys.argv[1] + ".tmp", sys.argv[1])
+time.sleep(60)
+"""
+
+
+def _stat(pid):
+    """(state, pgrp) of ``pid`` from /proc."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return fields[0], int(fields[2])
+
+
+def test_stop_job_does_not_wait_for_a_group_of_zombies(tmp_path):
+    """A group that holds only zombies is gone: ``stop_job`` returns once
+    its live processes have ended, not after the whole grace period. The
+    job's zombie is the child of a process that left the group and never
+    reaps it, as an orphan waits for a reaper that may never come."""
+    from ray_tpu_torch.job import JobManager
+
+    jm = JobManager(log_root=str(tmp_path))
+    script = tmp_path / "zombie_maker.py"
+    script.write_text(_ZOMBIE_MAKER)
+    pid_file = str(tmp_path / "pids")
+    job_id = jm.submit_job(f"{sys.executable} {script} {pid_file} & wait")
+    deadline = time.monotonic() + 10
+    while not os.path.exists(pid_file):
+        assert time.monotonic() < deadline, jm.get_job_logs(job_id)
+        time.sleep(0.05)
+    parent, zombie = map(int, open(pid_file).read().split())
+    try:
+        pgid = jm._procs[job_id].pid
+        while _stat(zombie)[0] != "Z":
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        assert _stat(zombie)[1] == pgid and _stat(parent)[1] != pgid
+        t0 = time.monotonic()
+        assert jm.stop_job(job_id, grace_s=5.0)
+        waited = time.monotonic() - t0
+        assert jm.wait_job(job_id, timeout=10) == "STOPPED"
+        assert _stat(zombie)[0] == "Z"  # still unreaped when stop returned
+        assert waited < 2.5, waited
+    finally:
+        os.kill(parent, signal.SIGKILL)
+
+
+def test_group_alive_counts_only_live_processes():
+    """``_group_alive``: a live group is alive; a group whose only member
+    is an exited, unreaped leader (a zombie) is gone; so is a group that
+    no longer exists."""
+    import subprocess
+
+    from ray_tpu_torch.job.job_manager import _group_alive
+
+    proc = subprocess.Popen([sys.executable, "-c", "import sys; "
+                             "sys.stdin.read()"], stdin=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        assert _group_alive(proc.pid)
+        proc.stdin.close()
+        deadline = time.monotonic() + 10
+        while _stat(proc.pid)[0] != "Z":
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        assert not _group_alive(proc.pid)
+    finally:
+        proc.kill()
+        proc.wait()
+    assert not _group_alive(proc.pid)
 
 
 def test_default_log_root_is_the_sessions(tmp_path, monkeypatch):

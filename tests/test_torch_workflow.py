@@ -539,28 +539,3 @@ def test_gpt2_chunks_fail_resume_and_match_jax(tmp_path, chunk_inputs):
 
     walk(ref_final, got)
 
-
-# ------------------------------------------- chip_smoke.py's phase, rehearsed
-def test_chip_smoke_workflow_fit_runs_on_the_cpu():
-    """``chip_smoke.py``'s ``workflow_fit`` phase at the tiny size on the
-    CPU (``tiny=True``: the kernels' plain versions, which count no
-    launch): the pool, the workflow's failure and resume, the jobs and the
-    state API take the card's control flow, and every gate that needs no
-    card holds. Run from the file, so its steps pickle by value as they do
-    when the script runs."""
-    import runpy
-
-    for pkg in (ray_tpu, ray_tpu_torch):
-        importlib.import_module(pkg.__name__ + ".serve").shutdown()
-        pkg.shutdown()
-    phase = runpy.run_path(os.path.join(REPO, "chip_smoke.py"),
-                           run_name="chip_smoke_rehearsal")
-    result = bounded(lambda: phase["phase_workflow_fit"](tiny=True), 300)
-    assert result["a"]["in_order_bit_equal"]
-    assert result["b"]["statuses"] == ["FAILED", "SUCCESSFUL"]
-    assert result["b"]["bit_equal"]
-    assert result["c"]["statuses"] == ["SUCCEEDED", "STOPPED"]
-    assert result["d"]["http_equal"] == {"/api/tasks": True,
-                                         "/api/actors": True,
-                                         "/api/jobs": True}
-    assert not ray_tpu_torch.is_initialized()
