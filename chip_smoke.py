@@ -198,7 +198,32 @@ Phases, each of which exits non-zero on failure:
     gone after. It prints tokens/s of the fit and of direct, the step
     profiler's buckets per step, the checkpoint's save ms and bytes, the
     failure-to-resumed seconds and the process rank's cold start.
-12. GPT-2 124M tuned through ``Tuner.fit()`` (``tune_fit`` lines), the
+12. GPT-2 124M elastic training on virtual nodes (``train_elastic``
+    lines), after (11): a head without a GPU (the controller and the
+    checkpoint coordinator) and two worker nodes of one CPU and half of
+    card 0 each; ``CudaTrainer`` runs (11)'s loop at B=8 a rank over 200
+    windows of 1025 ids (``default_rng(0)``) handed out by the exactly-once
+    sample ledger (``ElasticDatasetShard``), two thread ranks at half the
+    card (``ElasticConfig(min_workers=1)``), an async save every 3 steps
+    (memory replicas of two steps). Rank 0 waits after the second save
+    until rank 1's node is preempted (``simulate_preemption``) once two
+    steps have committed; after two steps at world 1 a node is added back.
+    It fails unless the events are exactly one shrink 2 -> 1 and one grow
+    1 -> 2 with the last world 2 and no error, the shrink restored the
+    newest step committed at the failure, the restored params, bf16 mu,
+    nu, step and AdamW count equal that step read from disk bit for bit,
+    the first step after the restore has the loss of a direct forward of
+    the restored parameters on its rows within ``ELASTIC_LOSS_RTOL``, no
+    row is trained twice or dropped, every forward a rank started (the
+    failed attempt's included) made exactly 12 + 12 splash launches and
+    one of each CE kernel, a ``train.elastic`` span was recorded, and the
+    card's allocated memory after the fit is within ``ELASTIC_MEM_SLACK``
+    of its value before; and unless each rank batch it ran is a shape at
+    which phase 2 held the kernels to their plain versions. It prints the
+    recovery and grow seconds, lost steps and requeued rows, tokens/s at
+    world 2, at world 1 and at world 2 again, and the phase's wall time,
+    each with the card's name and power limit.
+13. GPT-2 124M tuned through ``Tuner.fit()`` (``tune_fit`` lines), the
     model of (11) at B=8 on its token windows, each trial building it on
     the card its lease names (``granted_cuda_device()`` in the trial's
     thread). (a) ASHA (``max_t=8, grace_period=2, reduction_factor=2``)
@@ -223,7 +248,7 @@ Phases, each of which exits non-zero on failure:
     controller's ms from a consumed result to the next ``train()`` call;
     two trials' tokens/s at once beside direct's; the saves' and
     restores' ms.
-13. The small libraries with GPT-2 124M (``workflow_fit`` lines), the
+14. The small libraries with GPT-2 124M (``workflow_fit`` lines), the
     model of (11) at B=8, in a runtime with one card. (a) ``ActorPool``
     over two ``GPT2Scorer`` actors at ``num_gpus=0.5`` scores 8 batches of
     (8, 1025) ids through ``map`` and ``map_unordered``: results in order
@@ -249,7 +274,7 @@ Phases, each of which exits non-zero on failure:
     the phase is left. It prints the pool's batches/s beside direct's, a
     chunk's load, steps and save, each step checkpoint's write, and the
     jobs' cold start (submit to first logged step).
-14. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+15. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -4628,6 +4653,275 @@ def phase_workflow_fit() -> Dict[str, object]:
     return result
 
 
+ELASTIC_ROWS = 200  # windows of 1025 ids: 25 claims of 8 rows
+ELASTIC_BATCH = 8  # rows a rank claims a step
+ELASTIC_CKPT_EVERY = 3  # an async save every 3 steps
+ELASTIC_WORLD1_STEPS = 2  # steps at world 1 before a node comes back
+# After the fit the preempted rank's tensors must be freed: the card's
+# allocated memory (after a collection, cuBLAS workspaces cleared) may
+# exceed its value before the fit by this much.
+ELASTIC_MEM_SLACK = 64 << 20
+# The first loss after the restore against a direct forward of the
+# restored parameters on the same rows: the same kernels on the same
+# inputs, so only a restore that is not bit for bit can move it.
+ELASTIC_LOSS_RTOL = 1e-6
+
+
+def phase_train_elastic() -> Dict[str, object]:
+    """GPT-2 124M elastic training on a virtual cluster: a head without a
+    GPU and two worker nodes of one CPU and half of card 0. One node is
+    preempted after the second committed save (world 2 -> 1), one added
+    back after a few steps at world 1 (1 -> 2 at the next boundary), and
+    the fit runs the sized dataset out. Each gate fails the script."""
+    import os
+    import tempfile
+    import threading
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private.runtime import current_task_context, get_runtime
+    from ray_tpu_torch.autoscaler.elastic import simulate_preemption
+    from ray_tpu_torch.checkpoint import layout, restore_pytree
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.examples import batch_inference as bi
+    from ray_tpu_torch.examples import train_gpt2
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.optim import tree_map
+    from ray_tpu_torch.train import (
+        CheckpointConfig,
+        CudaTrainer,
+        ElasticConfig,
+        FailureConfig,
+        RunConfig,
+        ScalingConfig,
+    )
+    from ray_tpu_torch.util import tracing
+
+    card = card_line()
+    cfg = train_gpt2.model_config()
+    S, L = cfg.seq_len, cfg.n_layer
+    rows = bi.token_windows(ELASTIC_ROWS, S, 50257)  # default_rng(0)
+    storage = tempfile.mkdtemp(prefix="chip_smoke_train_elastic_")
+    root = os.path.join(storage, "elastic", "checkpoints", "sharded")
+    lock = threading.Lock()
+    at_save, preempted = threading.Event(), threading.Event()
+    seen = {"forwards": {0: 0, 1: 0}, "nodes": {}, "restores": [],
+            "first": None, "marks": [], "shapes": set()}
+
+    def to_cpu(tree):
+        return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+    def probe(event, rank, step, **info):
+        with lock:
+            attempt = len(seen["restores"])
+            if event == "forward":
+                seen["forwards"][rank] += 1
+                if rank not in seen["nodes"]:
+                    state = get_runtime().get_actor_state(
+                        current_task_context().actor_id)
+                    seen["nodes"][rank] = str(state.node_id)
+            elif event == "restore" and rank == 0:
+                st = info["state"]
+                seen["restores"].append(dict(
+                    step=step, seconds=info["seconds"],
+                    params=to_cpu(st["params"]),
+                    flat=[t.detach().to("cpu", copy=True)
+                          for t in _flat_state(st)],
+                    count=int(st["opt_state"]["count"]),
+                    state_step=int(st["step"])))
+            elif event == "step":
+                seen["shapes"].add(tuple(info["tokens"].shape))
+                if rank == 0:
+                    seen["marks"].append((attempt, step, time.time()))
+                if attempt == 1 and rank == 0 and seen["first"] is None:
+                    seen["first"] = (step, info["loss"],
+                                     info["tokens"].detach().clone())
+        # Rank 0 holds after the second save of the first attempt until the
+        # node of rank 1 is gone: the preemption lands after a known step.
+        if event == "saved" and rank == 0 and attempt == 0 and \
+                step == 2 * ELASTIC_CKPT_EVERY:
+            at_save.set()
+            preempted.wait(300)
+
+    cluster = Cluster(initialize_head=True,
+                      head_node_args={"num_cpus": 2, "num_gpus": 0})
+    result: Dict[str, object] = {"card": card, "rows": ELASTIC_ROWS,
+                                 "batch_per_rank": ELASTIC_BATCH,
+                                 "ckpt_every": ELASTIC_CKPT_EVERY}
+    try:
+        for _ in range(2):
+            cluster.add_node(num_cpus=1, num_gpus=0.5)
+        if ray_tpu_torch.cluster_resources().get("GPU") != 1.0:
+            fail(f"train_elastic: the cluster registers "
+                 f"{ray_tpu_torch.cluster_resources()} (two halves of card 0 "
+                 f"expected)")
+        trainer = CudaTrainer(
+            train_gpt2.train_loop_per_worker,
+            train_loop_config=_fit_config(
+                batch_size=ELASTIC_BATCH, ckpt_every=ELASTIC_CKPT_EVERY,
+                async_save=True, probe=probe),
+            scaling_config=ScalingConfig(
+                num_workers=2, gpus_per_worker=0.5, worker_mode="threads",
+                elastic=ElasticConfig(min_workers=1,
+                                      grow_check_period_s=0.5)),
+            datasets={"train": rows},
+            run_config=RunConfig(
+                name="elastic", storage_path=storage,
+                checkpoint_config=CheckpointConfig(async_save=True,
+                                                   replica_memory_steps=2),
+                failure_config=FailureConfig(max_failures=2)))
+        tracing.clear_spans()
+        tracing.enable_tracing()
+        _tensor_bytes()
+        mem_before = torch.cuda.memory_allocated()
+        _reset_counts()
+        box: Dict[str, object] = {}
+        t0 = time.perf_counter()
+        fit_thread = threading.Thread(
+            target=lambda: box.update(res=trainer.fit()), daemon=True)
+        fit_thread.start()
+        # 1. After the second committed save: take out rank 1's node.
+        if not at_save.wait(300):
+            fail("train_elastic: rank 0 never reached its second save")
+        deadline = time.monotonic() + 120
+        while len(layout.list_committed_steps(root)) < 2:
+            if time.monotonic() > deadline:
+                fail(f"train_elastic: committed steps "
+                     f"{layout.list_committed_steps(root)} after 120 s")
+            time.sleep(0.05)
+        committed_at_failure = layout.latest_committed_step(root)
+        victim = seen["nodes"][1]
+        failed_at = time.perf_counter()
+        if simulate_preemption(victim) != victim:
+            fail(f"train_elastic: node {victim} was not preempted")
+        preempted.set()
+        # 2. A few steps at world 1, then a node comes back.
+        deadline = time.monotonic() + 300
+        while sum(1 for a, _, _ in seen["marks"] if a == 1) < \
+                ELASTIC_WORLD1_STEPS:
+            if time.monotonic() > deadline or not fit_thread.is_alive():
+                fail(f"train_elastic: {ELASTIC_WORLD1_STEPS} steps at world "
+                     f"1 never came ({box})")
+            time.sleep(0.05)
+        added_at = time.perf_counter()
+        cluster.add_node(num_cpus=1, num_gpus=0.5)
+        fit_thread.join(600)
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        if fit_thread.is_alive():
+            fail("train_elastic: fit() did not end within 600 s")
+        res = box["res"]
+        spans = [s for s in tracing.exported_spans()
+                 if s["name"] == "train.elastic"]
+        tracing.disable_tracing()
+        tracing.clear_spans()
+        events = res.elastic_events
+        kinds = [(e["type"], e["from_world"], e["to_world"]) for e in events]
+        world = (res.metrics or {}).get("world")
+        if res.error is not None or world != 2 or \
+                kinds != [("shrink", 2, 1), ("grow", 1, 2)]:
+            fail(f"train_elastic: error {res.error!r}, events {events}, "
+                 f"last metrics {res.metrics}")
+        shrink, grow = events
+        if shrink["restore_step"] != committed_at_failure:
+            fail(f"train_elastic: the shrink restored step "
+                 f"{shrink['restore_step']}, the coordinator's newest "
+                 f"committed step at the failure was {committed_at_failure}")
+        led = trainer.sample_ledgers["train"]
+        if led.double_trained() or led.untrained():
+            fail(f"train_elastic: double-trained {led.double_trained()}, "
+                 f"untrained {led.untrained()}")
+        # Exact launches: 12 + 12 splash and one of each CE kernel for every
+        # forward a rank started, the failed attempt's included.
+        forwards = sum(seen["forwards"].values())
+        want = {k: 0 for k in counts}
+        want.update(splash_attention_fwd=L * forwards,
+                    splash_attention_bwd=L * forwards, fused_ce_fwd=forwards,
+                    fused_ce_dx=forwards, fused_ce_dw=forwards)
+        if counts != want:
+            fail(f"train_elastic: launches {counts}, want {want} for "
+                 f"{seen['forwards']} forwards")
+        if not spans:
+            fail("train_elastic: no train.elastic span was recorded")
+        # The restored state against the committed step on disk.
+        restore = seen["restores"][0]
+        disk = restore_pytree(layout.final_dir(root, committed_at_failure))
+        disk_flat = [t.to("cpu") for t in _flat_state(disk)]
+        bad = [i for i, (a, b) in enumerate(zip(restore["flat"], disk_flat))
+               if a.dtype != b.dtype or not torch.equal(a, b)]
+        n = len(disk_flat) // 3  # params, mu, nu
+        mu_bf16 = all(t.dtype == torch.bfloat16 for t in disk_flat[n:2 * n])
+        if bad or len(disk_flat) != len(restore["flat"]) or not mu_bf16 or \
+                restore["state_step"] != int(disk["step"]) or \
+                restore["count"] != int(disk["opt_state"]["count"]) or \
+                restore["step"] != ELASTIC_CKPT_EVERY * (
+                    committed_at_failure + 1):
+            fail(f"train_elastic: the restored state differs from step "
+                 f"{committed_at_failure} on disk (leaves {bad[:5]}, mu "
+                 f"bf16 {mu_bf16}, step {restore['state_step']} vs "
+                 f"{int(disk['step'])}, count {restore['count']} vs "
+                 f"{int(disk['opt_state']['count'])})")
+        del disk, disk_flat
+        # The first step after the restore against a direct forward.
+        first_step, first_loss, first_tok = seen["first"]
+        params = tree_map(lambda t: t.to("cuda"), restore["params"])
+        with torch.no_grad():
+            direct = float(gpt2.loss_fn(params, first_tok[:, :S],
+                                        first_tok[:, 1:], cfg))
+        del params
+        loss_rel = abs(first_loss - direct) / abs(direct)
+        if first_step != restore["step"] + 1 or \
+                loss_rel > ELASTIC_LOSS_RTOL:
+            fail(f"train_elastic: step {first_step} after the restore to "
+                 f"{restore['step']}: loss {first_loss} vs a direct forward "
+                 f"{direct} (rel {loss_rel})")
+        # Tokens/s of each attempt from rank 0's step marks (steps 2 on).
+        rates = []
+        for attempt, world in enumerate((2, 1, 2)):
+            marks = [t for a, _, t in seen["marks"] if a == attempt]
+            rates.append(ELASTIC_BATCH * world * S * (len(marks) - 1)
+                         / (marks[-1] - marks[0]) if len(marks) > 1 else None)
+        shapes = sorted(seen["shapes"])
+        restore_seconds = restore["seconds"]
+        del seen["restores"], seen["first"], restore, first_tok
+        del res, trainer, box
+        _, mem_after = _tensor_bytes()
+        if mem_after - mem_before > ELASTIC_MEM_SLACK:
+            fail(f"train_elastic: memory {mem_after} after the fit vs "
+                 f"{mem_before} before (slack {ELASTIC_MEM_SLACK})")
+        result.update(
+            launches=counts, forwards=dict(seen["forwards"]),
+            rank_shapes=shapes, wall_s=wall,
+            recovery_s=shrink.get("recovery_seconds"),
+            grow_s=grow.get("recovery_seconds"),
+            preempt_to_node_added_s=added_at - failed_at,
+            restore_step=shrink["restore_step"],
+            restored_train_step=first_step - 1,
+            lost_steps=shrink["lost_steps"],
+            requeued_samples=shrink["requeued_samples"],
+            grow_restore_step=grow["restore_step"],
+            restore_seconds=restore_seconds,
+            first_loss=first_loss, first_loss_direct=direct,
+            first_loss_rel=loss_rel,
+            tokens_per_s={"world2_before": rates[0], "world1": rates[1],
+                          "world2_after": rates[2]},
+            memory_before=mem_before, memory_after=mem_after,
+            spans=len(spans))
+    finally:
+        tracing.disable_tracing()
+        cluster.shutdown()
+        import shutil
+
+        shutil.rmtree(storage, ignore_errors=True)
+    for key in ("recovery_s", "grow_s", "lost_steps", "requeued_samples",
+                "tokens_per_s", "wall_s"):
+        print(f"train_elastic_{key} " + json.dumps(
+            {"card": card, key: result[key]}), flush=True)
+    print("train_elastic " + json.dumps(result), flush=True)
+    return result
+
+
 def phase_ring(peaks: Tuple[float, float]) -> Dict[str, object]:
     import torch
 
@@ -5184,6 +5478,16 @@ def main() -> int:
         ce["fused_ce_fwd"]["worst_abs"],
         data_batch["ce_fwd_at_path"]["max_abs_err"])
     train_fit = phase_train_fit()
+    train_elastic = phase_train_elastic()
+    # The phase's ranks ran at these batches: each kernel was held to its
+    # plain version at their shapes by phase 2 (the forward and CE
+    # kernels) and below (the splash backward).
+    for b, s in train_elastic["rank_shapes"]:
+        if (b, s - 1, 12, 64, True) not in KERNEL_SHAPES or \
+                (b, s - 1, 12, 64, True) not in BWD_SHAPES or \
+                (b * (s - 1), 768, 50304) not in CE_SHAPES:
+            fail(f"train_elastic ran a rank batch of {b} x {s} that no "
+                 f"kernel check covers")
     tune_fit = phase_tune_fit()
     workflow_fit = phase_workflow_fit()
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
@@ -5211,6 +5515,7 @@ def main() -> int:
                "serve_process": serve_process["launches"].get(name, 0),
                "data_batch": data_batch["launches"].get(name, 0),
                "train_fit": train_fit["launches"].get(name, 0),
+               "train_elastic": train_elastic["launches"].get(name, 0),
                "tune_fit": tune_fit["launches"].get(name, 0),
                "workflow_fit": workflow_fit["launches"].get(name, 0)}
         for impl in ("dense", "fused"):

@@ -47,13 +47,16 @@ def init(
     namespace: str = "default",
     ignore_reinit_error: bool = False,
     _system_config: Optional[dict] = None,
+    labels: Optional[Dict[str, str]] = None,
 ):
     """Start the runtime in this process (ref: worker.py:1275 ray.init).
 
-    The node's resources are ``num_cpus`` CPUs (default: the host's),
+    The head node's resources are ``num_cpus`` CPUs (default: the host's),
     ``num_gpus`` GPUs (default: the CUDA devices torch counts; a whole
-    number), ``memory`` and ``resources``. Connecting to a cluster (``address``) comes with the
-    multi-node runtime, which is not ported yet.
+    number), ``memory`` and ``resources``; its labels are ``labels`` over
+    the detected ``accelerator-type``. Virtual nodes join through
+    ``cluster_utils.Cluster``; connecting to a cluster (``address``) comes
+    with real worker nodes, which are not ported yet.
     """
     if address is not None:
         raise NotImplementedError(
@@ -69,6 +72,7 @@ def init(
         resources=resources,
         namespace=namespace,
         _system_config=_system_config,
+        labels=labels,
     )
 
 

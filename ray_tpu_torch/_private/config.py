@@ -4,10 +4,9 @@
 Every flag has a typed default and can be overridden by a ``RAY_TPU_<NAME>``
 environment variable or the ``_system_config`` dict passed to
 ``ray_tpu_torch.init``. The thread tier's flags (and the chaos flag of
-``_private/fault_injection.py``) are here: the object
-transfer, worker-node and memory-monitor flags come with the serialized
-object tier and the multi-node runtime, and the placement policies' flags
-with the multi-node runtime (ROADMAP.md, Queue 1).
+``_private/fault_injection.py``) and the placement policies' are here: the
+object transfer, worker-node and memory-monitor flags come with the
+serialized object tier and real worker nodes (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -28,6 +27,13 @@ class Config:
     #: Bytes the node advertises as its ``memory`` resource (0 = 30% of
     #: the host's RAM, the reference's default).
     object_store_memory: int = 0
+
+    # --- scheduling ---
+    #: Pack-then-spread crossover used by the hybrid policy
+    #: (ref: hybrid_scheduling_policy.h:50 spread_threshold=0.5).
+    scheduler_spread_threshold: float = 0.5
+    #: Top-k random tie-break among candidate nodes (ref: scheduler_top_k_fraction).
+    scheduler_top_k_fraction: float = 0.2
 
     # --- tasks ---
     #: Max times a task is retried on system failure (per task:

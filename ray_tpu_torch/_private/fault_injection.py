@@ -53,7 +53,11 @@ FAULT_POINTS: Dict[str, str] = {
     "train_worker_run": "train worker step boundary (run entry + every "
                         "report()) — the attempt fails and the trainer "
                         "restarts it from the newest checkpoint, within "
-                        "FailureConfig.max_failures",
+                        "FailureConfig.max_failures; the elastic controller "
+                        "shrinks and resumes",
+    "preempt_node": "trainer controller tick — a whole worker-group node is "
+                    "preempted (actors killed + node removed), simulating a "
+                    "node vanishing",
     # checkpoint subsystem (tests/test_torch_checkpoint_chaos.py)
     "ckpt_shard_write": "shard persist in the writer thread — kills a save "
                         "mid-flight; the pending step aborts",

@@ -3,9 +3,9 @@
 
 Resources are ``CPU`` (``num_cpus``), ``GPU`` (``num_gpus``), ``memory``
 (bytes) and custom ones (``resources={...}``); more than one GPU must be a
-whole number of them. A ``PlacementGroupSchedulingStrategy`` leases from
-its group's bundle; any other ``scheduling_strategy`` chooses among nodes
-and is accepted and ignored, since the runtime has one. Tasks and actors
+whole number of them. A ``scheduling_strategy`` of
+``util/scheduling_strategies.py`` chooses the node, and a
+``PlacementGroupSchedulingStrategy`` leases from its group's bundle. Tasks and actors
 run on the thread tier unless they give ``isolation="process"`` or a
 ``runtime_env`` (``_private/runtime_env.py``, staged when the task runs),
 which run them in worker processes.
@@ -84,11 +84,14 @@ def resolve_task_options(options: Dict[str, Any], is_actor: bool) -> Dict[str, A
 
 
 def _placement_strategy(strategy: Any) -> Any:
-    """The strategy the one-node scheduler acts on: a placement group's,
-    else None."""
+    """The strategy the scheduler acts on: a strategy object, else None
+    (the default, hybrid policy)."""
     from ray_tpu_torch._private.scheduling import (
-        PlacementGroupSchedulingStrategy,
+        DefaultStrategy,
+        SchedulingStrategy,
     )
 
-    return strategy if isinstance(strategy,
-                                  PlacementGroupSchedulingStrategy) else None
+    if isinstance(strategy, SchedulingStrategy) and \
+            type(strategy) is not DefaultStrategy:
+        return strategy
+    return None

@@ -6,7 +6,7 @@ plane:
 * task manager — pending task bookkeeping, retries, lineage-based object
   reconstruction (ref: task_manager.h:212);
 * dispatcher — dependency wait (ref: dependency_manager.h:49), then resource
-  acquisition through the NodeScheduler, then execution on a thread;
+  acquisition through the ClusterScheduler, then execution on a thread;
 * actor manager — actor FSM with restarts (ref: gcs_actor_manager.h:312),
   ordered mailboxes, threaded and async actors, named actors;
 * driver API — get/put/wait/cancel/kill, lending a task's CPUs back while
@@ -17,9 +17,18 @@ context, unless they ask for the process tier (``isolation="process"`` or a
 ``runtime_env``): then they run in spawned worker processes of
 ``_private/process_pool.py``, each of which sees only the cards its lease
 was granted. A replica that serves a model on the GPU is an actor here, and
-reads the card its lease was granted from ``get_gpu_ids()``. Worker nodes,
-the serialized object tier, borrowing and the memory monitor are not ported
-yet (ROADMAP.md, Queue 1 item 13.8).
+reads the card its lease was granted from ``get_gpu_ids()``.
+
+The head is one node of the scheduler; ``cluster_utils.Cluster`` adds
+virtual nodes beside it, each with its resources, labels and its share of
+the host's cards. Work placed on a virtual node runs in this process like
+the head's. ``remove_node`` takes a node out as its loss would: the tasks
+running there fail over (retried elsewhere within their ``max_retries``,
+else ``WorkerCrashedError``; a thread that cannot be stopped runs on and its
+result is dropped), and its actors restart elsewhere within
+``max_restarts`` or die with ``ActorDiedError``. Real worker nodes, the
+serialized object tier, borrowing and the memory monitor are not ported
+yet (ROADMAP.md, Queue 1 item 13.8b).
 """
 
 from __future__ import annotations
@@ -50,9 +59,10 @@ from ray_tpu_torch._private.object_ref import ObjectRef, global_refcounter
 from ray_tpu_torch._private.object_store import ObjectStore
 from ray_tpu_torch._private.process_pool import ProcessPool, stop_log_monitor
 from ray_tpu_torch._private.scheduling import (
+    ClusterScheduler,
     InfeasibleError,
     Lease,
-    NodeScheduler,
+    SpreadStrategy,
 )
 from ray_tpu_torch._private.task_spec import ActorSpec, TaskSpec
 from ray_tpu_torch.exceptions import (
@@ -80,7 +90,8 @@ _task_ctx = threading.local()
 class TaskContext:
     """Per-execution context (ref: runtime_context.py RuntimeContext)."""
 
-    __slots__ = ("task_id", "actor_id", "lease", "cancelled", "gpu_ids")
+    __slots__ = ("task_id", "actor_id", "lease", "cancelled", "gpu_ids",
+                 "node_lost")
 
     def __init__(self, task_id: TaskID, actor_id: Optional[ActorID] = None,
                  lease: Optional[Lease] = None, gpu_ids: Tuple[int, ...] = ()):
@@ -92,6 +103,9 @@ class TaskContext:
         self.cancelled = threading.Event()
         #: The GPU indices of the task's or actor's lease.
         self.gpu_ids = gpu_ids
+        #: Set when the task's node was removed under it: the task already
+        #: failed over, and what its thread returns is dropped.
+        self.node_lost = False
 
 
 def current_task_context() -> Optional[TaskContext]:
@@ -157,6 +171,8 @@ class _ActorState:
         self.death_cause: Optional[BaseException] = None
         self.ready_event = threading.Event()
         self.lock = threading.Lock()
+        #: The node the instance was placed on (its lease's).
+        self.node_id: Optional[NodeID] = None
         self.is_async = any(
             inspect.iscoroutinefunction(getattr(spec.cls, m, None))
             for m in dir(spec.cls)
@@ -243,6 +259,7 @@ class Runtime:
         resources: Optional[Dict[str, float]] = None,
         _system_config: Optional[dict] = None,
         namespace: str = "default",
+        labels: Optional[Dict[str, str]] = None,
     ):
         GLOBAL_CONFIG.apply_overrides(_system_config)
         self.config: Config = GLOBAL_CONFIG
@@ -252,21 +269,24 @@ class Runtime:
         self.worker_id = WorkerID.from_random()
         self.namespace = namespace
 
-        # Head node resources: the GPUs torch counts (no CUDA context is
-        # created for the count), unless the caller says how many.
-        from ray_tpu_torch._private.device import gpu_count
+        # Head node resources: the cards torch counts (no CUDA context is
+        # created for the count), unless the caller says how many; the
+        # caller's labels over the detected ones.
+        from ray_tpu_torch._private.accelerators import detect_accelerators
 
         base: Dict[str, float] = {
             "CPU": float(num_cpus if num_cpus is not None else (os.cpu_count() or 1))}
-        gpus = gpu_count() if num_gpus is None else num_gpus
-        if gpus:
-            base["GPU"] = float(gpus)
+        accel_res, accel_labels = detect_accelerators()
+        if num_gpus is not None:
+            accel_res = {"GPU": float(num_gpus)} if num_gpus else {}
+        base.update(accel_res)
         base.update(resources or {})
         base.setdefault("memory", float(self.config.object_store_memory
                                         or _default_memory_bytes()))
-        self.head_node_id = NodeID.from_random()
+        self.scheduler = ClusterScheduler()
         # Validates the resources: nothing shared is touched before it.
-        self.scheduler = NodeScheduler(base, self.head_node_id)
+        self.head_node_id = self.scheduler.add_node(
+            base, {**accel_labels, **(labels or {})})
 
         self.store = ObjectStore(int(base["memory"]))
         self.refcounter = global_refcounter()
@@ -282,6 +302,9 @@ class Runtime:
         self._deps_lock = threading.Lock()
         self._ready: "queue.Queue" = queue.Queue()
         self._running: Dict[TaskID, TaskContext] = {}
+        #: The specs of the tasks in ``_running`` (a node's loss fails
+        #: them over).
+        self._running_specs: Dict[TaskID, TaskSpec] = {}
         self._cancelled: set = set()
         self._generators: Dict[TaskID, ObjectRefGenerator] = {}
         #: Tasks submitted but not yet finished/failed — lets get() tell
@@ -350,15 +373,38 @@ class Runtime:
         return ""
 
     def cluster_resources(self) -> Dict[str, float]:
-        return dict(self.scheduler.total)
+        return self.scheduler.cluster_resources()
 
     def available_resources(self) -> Dict[str, float]:
-        return self.scheduler.available()
+        return self.scheduler.available_resources()
 
     def nodes(self) -> List[dict]:
-        return [{"NodeID": self.head_node_id, "Alive": True,
-                 "Resources": self.cluster_resources(),
-                 "Available": self.available_resources()}]
+        return [n.snapshot() for n in self.scheduler.nodes()]
+
+    def remove_node(self, node_id) -> bool:
+        """Take a node out as its loss would (ref: the raylet's node-death
+        handling, node_manager.h): the tasks running there fail over and
+        its actors restart elsewhere or die. False for an unknown node."""
+        node = self.scheduler.get_node(node_id)
+        if node is None or not self.scheduler.remove_node(node.id):
+            return False
+        lost = [ctx for ctx in list(self._running.values())
+                if ctx.actor_id is None and ctx.lease is not None
+                and ctx.lease.node_id == node.id]
+        for ctx in lost:
+            ctx.node_lost = True
+            spec = self._running_specs.get(ctx.task_id)
+            if spec is not None:
+                self._handle_task_failure(spec, WorkerCrashedError(
+                    f"task {spec.name}: its node {node.id} died"))
+        with self._actors_lock:
+            actors = [st for st in self._actors.values()
+                      if st.node_id == node.id
+                      and st.state != _ActorState.DEAD]
+        for state in actors:
+            self._kill_actor_state(state, ActorDiedError(
+                f"actor's node {node.id} died"), no_restart=False)
+        return True
 
     def list_task_events(self) -> List[dict]:
         # Appends are lock-free; list(deque) can raise if an append lands
@@ -569,13 +615,22 @@ class Runtime:
     @staticmethod
     def _placement_shape(spec: TaskSpec) -> tuple:
         """Bucket key under which blocked specs are interchangeable: the
-        same resource demand from the same pool: the node, or one bundle
-        of a placement group (-1: the group's first bundle with room),
-        however many strategy objects name it."""
+        same resource demand under the same placement, however many
+        strategy objects name it: the default or SPREAD, one bundle of a
+        placement group (-1: the group's first bundle with room), one node
+        (hard or soft), or one set of labels."""
         strat = spec.strategy
-        pool = None if strat is None else (strat.placement_group.id,
-                                           strat.bundle_index)
-        return (tuple(sorted(spec.resources.items())), pool)
+        res = tuple(sorted(spec.resources.items()))
+        if strat is None:
+            return (res, "DEFAULT")
+        if isinstance(strat, SpreadStrategy):
+            return (res, "SPREAD")
+        if hasattr(strat, "placement_group"):
+            return (res, strat.placement_group.id, strat.bundle_index)
+        if hasattr(strat, "node_id"):
+            return (res, str(strat.node_id), strat.soft)
+        return (res, tuple(sorted(strat.hard.items())),
+                tuple(sorted(strat.soft.items())))
 
     def _dispatch_loop(self) -> None:
         # Blocked tasks live in per-placement-shape FIFO queues: a capacity
@@ -626,25 +681,32 @@ class Runtime:
 
     def _try_dispatch(self, spec: TaskSpec) -> bool:
         if spec.task_id in self._cancelled:
+            self.scheduler.clear_task_demand(spec.task_id)
             self._fail_task(spec, TaskCancelledError(str(spec.task_id)))
             return True
         lease = self.scheduler.try_acquire(spec.resources, spec.strategy)
         if lease is None:
             # Infeasible requests fail fast instead of hanging forever.
             if not self.scheduler.feasible(spec.resources, spec.strategy):
+                self.scheduler.clear_task_demand(spec.task_id)
+                in_group = hasattr(spec.strategy, "placement_group")
                 self._fail_task(
                     spec,
                     InfeasibleError(
                         f"Task {spec.name} requests {spec.resources} which "
                         + ("its placement group (removed, or no bundle that "
-                           "large) can" if spec.strategy is not None
-                           else "the node can")
-                        + f" never satisfy (node total: {self.scheduler.total})"
+                           "large) can never" if in_group
+                           else "no node can ever")
+                        + " satisfy (cluster total: "
+                        f"{self.scheduler.cluster_resources()})"
                     ))
                 return True
+            # Blocked: visible to the autoscaler as unmet demand.
+            self.scheduler.report_task_demand(spec.task_id, spec.resources)
             return False
+        self.scheduler.clear_task_demand(spec.task_id)
         self._emit_event(spec.task_id, spec.name, "SUBMITTED_TO_WORKER",
-                         node_id=str(self.head_node_id))
+                         node_id=str(lease.node_id))
         try:
             self._exec_pool.submit(self._execute_task, spec, lease)
         except RuntimeError:
@@ -656,6 +718,7 @@ class Runtime:
     def _execute_task(self, spec: TaskSpec, lease: Lease) -> None:
         ctx = TaskContext(spec.task_id, spec.actor_id, lease, lease.gpu_ids)
         self._running[spec.task_id] = ctx
+        self._running_specs[spec.task_id] = spec
         _task_ctx.ctx = ctx
         self._emit_event(spec.task_id, spec.name, "RUNNING")
         try:
@@ -677,16 +740,22 @@ class Runtime:
                     result = None
                 else:
                     result = spec.func(*args, **kwargs)
+            if ctx.node_lost:
+                return  # failed over when its node died
             if spec.task_id in self._cancelled:
                 raise TaskCancelledError(str(spec.task_id))
             if not spec.generator:
                 self._store_results(spec, result)
             self._emit_event(spec.task_id, spec.name, "FINISHED")
         except BaseException as e:  # noqa: BLE001 — stored as the task's result
-            self._handle_task_failure(spec, e)
+            if not ctx.node_lost:
+                self._handle_task_failure(spec, e)
         finally:
             _task_ctx.ctx = None
-            self._running.pop(spec.task_id, None)
+            # A retry after the node's loss runs under the same task id.
+            if self._running.get(spec.task_id) is ctx:
+                self._running.pop(spec.task_id, None)
+                self._running_specs.pop(spec.task_id, None)
             self.scheduler.release(lease)
 
     def _resolve_ref(self, v: Any) -> Any:
@@ -877,6 +946,7 @@ class Runtime:
             self._drain_mailbox(state)
             return
         state.lease = lease
+        state.node_id = lease.node_id
         try:
             args, kwargs = self._resolve_values(spec.args, spec.kwargs)
             if spec.isolation == "process" or spec.runtime_env:

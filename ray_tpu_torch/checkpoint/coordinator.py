@@ -14,7 +14,7 @@ It doubles as the registry for the in-memory replica tier (Gemini, SOSP
 the refs here; the last ``replica_steps`` committed steps stay resident,
 optionally mirrored into a ReplicaHolder actor on a *different* node so
 one node loss cannot take out both the workers and their fast-restore
-copies (the port's runtime is one node, so no holder starts: replica.py).
+copies.
 
 Run it as an actor
 (``ray_tpu_torch.remote(CheckpointCoordinator).remote(...)``)

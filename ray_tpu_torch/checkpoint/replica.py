@@ -11,8 +11,7 @@ remote) checkpoint storage.
 On a single-node cluster there is no peer to place the holder on;
 ``start_peer_holder`` returns None and the tier degrades to the object
 store copy alone — still enough for worker-death (not node-death)
-recovery. The port's runtime is one node: the peer case waits for its
-virtual nodes and node affinity (ROADMAP.md, Queue 1 item 13.8a).
+recovery.
 """
 
 from __future__ import annotations
@@ -64,23 +63,37 @@ class ReplicaHolder:
 
 
 def _pick_peer_node() -> Optional[str]:
-    """A live node other than this one (head, where the coordinator runs),
-    or None. The port's runtime lists one node, so this is None."""
+    """A live node other than this one (the head, where the coordinator
+    runs), the one hosting the fewest live actors: a holder beside a train
+    worker dies in the very preemption it exists to survive. None on a
+    single-node cluster."""
     from ray_tpu_torch._private.runtime import get_runtime
 
     runtime = get_runtime()
     head = str(runtime.head_node_id)
-    others = [str(n["NodeID"]) for n in runtime.nodes()
-              if n.get("Alive") and str(n["NodeID"]) != head]
-    return others[0] if others else None
+    load: Dict[str, int] = {}
+    for st in list(runtime._actors.values()):
+        if st.state == "ALIVE" and st.node_id is not None:
+            load[str(st.node_id)] = load.get(str(st.node_id), 0) + 1
+    candidates = [str(n.id) for n in runtime.scheduler.nodes()
+                  if n.alive and str(n.id) != head]
+    if not candidates:
+        return None
+    return min(candidates, key=lambda nid: load.get(nid, 0))
 
 
 def start_peer_holder():
-    """Start a ReplicaHolder on a peer node, or return None when the
-    cluster has nowhere else to put it."""
+    """Start a ReplicaHolder on a peer node (soft node affinity), or return
+    None when the cluster has nowhere else to put it."""
     node_id = _pick_peer_node()
     if node_id is None:
         return None
-    raise NotImplementedError(
-        f"placing the replica holder on node {node_id} needs node affinity "
-        "(ROADMAP.md, Queue 1 item 13.8a)")
+    import ray_tpu_torch
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+
+    return (ray_tpu_torch.remote(ReplicaHolder)
+            .options(scheduling_strategy=NodeAffinitySchedulingStrategy(
+                node_id, soft=True))
+            .remote())

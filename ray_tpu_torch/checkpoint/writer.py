@@ -21,7 +21,11 @@ none free waits for one (that wait is part of its block time), and a
 replica payload holds its own copy of the bytes, never a pooled buffer.
 A failed page-locked allocation raises; no pageable copy stands in for
 it. Host leaves are copied as well (a tensor updated in place after the
-save must not change it).
+save must not change it), and a tree with no CUDA leaf takes a slot of the
+pool without a buffer: on the host too, at most ``PINNED_BUFFERS`` saves
+of a writer are in flight, so a step can be reported at most that many
+saves ahead of its last commit (the elastic Trainer's lost steps stay
+within ``replica_memory_steps`` however slow the persists are).
 
 The writer talks to a CheckpointCoordinator that may be a plain local
 object (single-process) or an actor handle (multi-worker) — ``_invoke``
@@ -55,6 +59,8 @@ _ALIGN = 64
 #: Pinned snapshot buffers per writer: the snapshot being taken and one
 #: persisting; a third save waits for the older persist to finish.
 PINNED_BUFFERS = 2
+#: A host tree's lease: a slot of the pool that holds no buffer.
+_HOST_SLOT = object()
 
 
 def _profiler_record(bucket: str, start: float, end: float) -> None:
@@ -83,8 +89,9 @@ class PinnedPool:
     exist at once. ``acquire`` hands out a free one large enough, else
     allocates every empty slot at once (page-locking is slow: the first
     snapshot pays for the pool, later ones find a buffer ready), else
-    waits for a ``release``; ``wait_seconds`` sums those waits. Also keeps
-    one side stream per device for the copies."""
+    waits for a ``release``; ``wait_seconds`` sums those waits.
+    ``acquire(0)`` takes a slot without a buffer (a tree on the host). Also
+    keeps one side stream per device for the copies."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -98,23 +105,29 @@ class PinnedPool:
     def acquire(self, nbytes: int):
         with self._lock:
             while True:
-                fits = [i for i, b in enumerate(self._free)
-                        if b.numel() >= nbytes]
-                if fits:
-                    best = min(fits, key=lambda i: self._free[i].numel())
-                    self._leased += 1
-                    return self._free.pop(best)
-                # Free buffers too small for this tree go, for larger ones.
-                self._free.clear()
-                room = PINNED_BUFFERS - self._leased
-                if room:
-                    # Under the lock: a release waits for this, the once.
-                    self._free.extend(self._allocate(nbytes)
-                                      for _ in range(room))
+                if not nbytes:
+                    if self._leased < PINNED_BUFFERS:
+                        self._leased += 1
+                        return _HOST_SLOT
                 else:
-                    t0 = time.monotonic()
-                    self._cond.wait()
-                    self.wait_seconds += time.monotonic() - t0
+                    fits = [i for i, b in enumerate(self._free)
+                            if b.numel() >= nbytes]
+                    if fits:
+                        best = min(fits, key=lambda i: self._free[i].numel())
+                        self._leased += 1
+                        return self._free.pop(best)
+                    # Free buffers too small for this tree go, for larger
+                    # ones.
+                    self._free.clear()
+                    room = PINNED_BUFFERS - self._leased
+                    if room:
+                        # Under the lock: a release waits for this, the once.
+                        self._free.extend(self._allocate(nbytes)
+                                          for _ in range(room))
+                        continue
+                t0 = time.monotonic()
+                self._cond.wait()
+                self.wait_seconds += time.monotonic() - t0
 
     @staticmethod
     def _allocate(nbytes: int):
@@ -125,7 +138,8 @@ class PinnedPool:
     def release(self, buf) -> None:
         with self._lock:
             self._leased -= 1
-            self._free.append(buf)
+            if buf is not _HOST_SLOT:
+                self._free.append(buf)
             self._cond.notify()
 
     def stream(self, device):
@@ -138,8 +152,8 @@ class PinnedPool:
 
 
 def snapshot_to_host(tree: Any, pool: PinnedPool) -> Tuple[Any, Any]:
-    """-> (host tree, its buffer to give back to ``pool``, or None): the
-    only step-blocking work.
+    """-> (host tree, its lease to give back to ``pool``): the only
+    step-blocking work.
 
     CUDA leaves land in one page-locked buffer from ``pool`` through a side
     stream per device; the call returns once the copies have landed. Host
@@ -164,7 +178,7 @@ def snapshot_to_host(tree: Any, pool: PinnedPool) -> Tuple[Any, Any]:
         elif isinstance(leaf, np.ndarray):
             out[i] = leaf.copy()
     if not on_card:
-        return _pytree.tree_unflatten(out, spec), None
+        return _pytree.tree_unflatten(out, spec), pool.acquire(0)
     buf = pool.acquire(nbytes)
     try:
         events = []
@@ -249,8 +263,7 @@ class ShardWriter:
             handle._future = self._exec.submit(self._persist, step,
                                                host_tree, lease, handle)
         except BaseException:
-            if lease is not None:
-                self._pool.release(lease)
+            self._pool.release(lease)
             raise
         return handle
 
@@ -275,8 +288,7 @@ class ShardWriter:
         finally:
             # The snapshot's pinned buffer is free again once its bytes are
             # on storage (and copied into the replica payload).
-            if lease is not None:
-                self._pool.release(lease)
+            self._pool.release(lease)
             if handle is not None:
                 handle.persist_window = (start, time.time())
 

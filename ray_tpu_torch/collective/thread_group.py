@@ -249,10 +249,14 @@ class ThreadCollectiveGroup:
         self._rendezvous: Dict[Tuple[str, int], _Rendezvous] = {}
         self._rv_lock = threading.Lock()
         self._op_seq: Dict[str, int] = {}
+        self._destroyed = False
 
     def _rendezvous_for(self, op: str, n_participants: Optional[int] = None) -> _Rendezvous:
         n = n_participants if n_participants is not None else self.world_size
         with self._rv_lock:
+            if self._destroyed:
+                raise RuntimeError(
+                    f"collective group '{self.group_name}' was destroyed")
             seq = self._op_seq.get(op, 0)
             key = (op, seq)
             rv = self._rendezvous.get(key)
@@ -365,8 +369,10 @@ class ThreadCollectiveGroup:
     def destroy(self) -> None:
         # Poison in-flight rounds so blocked participants wake immediately
         # instead of sitting out the rendezvous timeout (the controller
-        # destroys the group when a worker fails).
+        # destroys the group when a worker fails), and refuse later ones: a
+        # rank that arrives after must not wait for partners that stopped.
         with self._rv_lock:
+            self._destroyed = True
             rvs = list(self._rendezvous.values())
             self._rendezvous.clear()
         for rv in rvs:

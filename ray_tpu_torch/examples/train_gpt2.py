@@ -9,10 +9,14 @@ from seed 0 or from given numpy weights, and per step:
 gradients (their mean over the ranks that had a batch),
 ``optimizer.update``. It reads
 ``train.get_dataset_shard("train").iter_batches(batch_size=B,
-device=card)`` when the trainer was given ``datasets={"train": ...}`` (a
-``tokens`` column of S + 1 ids per row), else rank r takes rows
+device=card)`` when the trainer was given a Dataset in
+``datasets={"train": ...}`` (a ``tokens`` column of S + 1 ids per row);
+under elastic training a sized dataset of S + 1-id rows gives an
+``ElasticDatasetShard``, whose batches are the ``(indices, rows)`` the
+sample ledger hands out, as the reference's elastic loops read them (a
+batch of fewer than B rows at the end). Else rank r takes rows
 [r·B, (r+1)·B) of each step's global batch of the ``tokens`` array in its
-config. It reports ``{"step", "loss", "tokens"}``, rank 0 with a
+config. It reports ``{"step", "loss", "tokens", "world"}``, rank 0 with a
 checkpoint of ``{"params", "opt_state", "step"}`` every ``ckpt_every``
 steps (the ranks' states are equal) — every rank reports the raw tree
 under ``async_save`` (``CheckpointConfig(async_save=True)``: each saves
@@ -77,9 +81,10 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
     ``fail_at_step`` (raise there once, in an attempt with nothing to
     restore), ``async_save`` (every rank reports the raw state tree, for
     the trainer's shard writers), ``diagnostics`` (add where it ran to each
-    report) and ``probe`` (a callable given each step's loss, batch rows,
+    report) and ``probe`` (a callable told of each forward a rank starts,
+    given each step's loss, batch rows,
     mean gradients, this rank's own gradients before the all-reduce and
-    the updated parameters, the restored state with the seconds its
+    the updated parameters, the batch, the restored state with the seconds its
     restore took, the checkpointed state, and the seconds a checkpointing
     report took; it runs in the rank, so a process rank's gets a copy)."""
     import torch
@@ -123,7 +128,12 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
         p.requires_grad_(True)
 
     shard = train.get_dataset_shard("train")
-    if shard is not None:
+    if isinstance(shard, train.ElasticDatasetShard):
+        # Each claim is tagged with the step it trains, so that a restore
+        # rolls back exactly the rows of the steps it undoes.
+        batches = (torch.as_tensor(np.asarray(rows), device=dev)
+                   for _, rows in shard.iter_batches(B))
+    elif shard is not None:
         batches = (b["tokens"] for b in shard.iter_batches(batch_size=B,
                                                           device=dev))
     else:
@@ -153,6 +163,8 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
         # done. Streaming ingest hands shards out as ranks ask, so their
         # counts differ.
         if tok is not None:
+            if probe is not None:
+                probe("forward", rank=rank, step=step + 1)
             loss = gpt2.loss_fn(params, tok[:, :S], tok[:, 1:], cfg)
             grads = torch.autograd.grad(loss, leaves)
             flat = torch.cat([g.reshape(-1) for g in grads]
@@ -171,11 +183,11 @@ def train_loop_per_worker(config: Dict[str, Any]) -> None:
         if tok is None:
             continue
         metrics = {"step": step, "loss": float(loss.detach()),
-                   "tokens": tok.shape[0] * S}
+                   "tokens": tok.shape[0] * S, "world": world}
         if probe is not None:
             it = iter(grads)
             probe("step", rank=rank, step=step, loss=metrics["loss"],
-                  rows=tok.shape[0], grads=grad_tree,
+                  rows=tok.shape[0], tokens=tok, grads=grad_tree,
                   local_grads=tree_map(lambda _: next(it), params),
                   params=params)
         checkpoint = None

@@ -1,9 +1,7 @@
 """ray_tpu_torch.train — distributed training library (the counterpart of
 ``ray_tpu.train``; ref: python/ray/train).
 
-``CudaTrainer`` takes the place of ``JaxTrainer``. ``ElasticDatasetShard``
-waits for the elastic path (ROADMAP.md, Queue 1 item 5); the sample ledger
-it reads, ``SampleLedger``, is here for streaming ingest.
+``CudaTrainer`` takes the place of ``JaxTrainer``.
 """
 
 from ray_tpu_torch.train.checkpoint import (
@@ -20,7 +18,7 @@ from ray_tpu_torch.train.config import (
     RunConfig,
     ScalingConfig,
 )
-from ray_tpu_torch.train.elastic import SampleLedger
+from ray_tpu_torch.train.elastic import ElasticDatasetShard, SampleLedger
 from ray_tpu_torch.train.profiler import StepProfiler, active_profiler
 from ray_tpu_torch.train.profiler import configure as configure_profiler
 from ray_tpu_torch.train.session import (
@@ -35,7 +33,8 @@ from ray_tpu_torch.train.trainer import CudaTrainer, DataParallelTrainer, Result
 
 __all__ = [
     "Checkpoint", "CheckpointManager", "CheckpointConfig", "CudaTrainer",
-    "DataParallelTrainer", "DatasetConfig", "ElasticConfig", "FailureConfig",
+    "DataParallelTrainer", "DatasetConfig", "ElasticConfig",
+    "ElasticDatasetShard", "FailureConfig",
     "Result", "RunConfig", "SampleLedger", "ScalingConfig", "StepProfiler",
     "active_profiler", "configure_profiler",
     "get_checkpoint", "get_context", "get_dataset_config",

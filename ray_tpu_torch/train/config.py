@@ -33,8 +33,8 @@ class ScalingConfig:
     #: across nodes); "auto" — processes iff the placement group's bundles
     #: land on nodes beyond the head, so threads on the one node.
     worker_mode: str = "auto"
-    #: Dynamic world size (preemption-tolerant training): not ported yet
-    #: (ROADMAP.md, Queue 1 item 5); a Trainer given one raises.
+    #: Dynamic world size (preemption-tolerant training, thread-tier ranks
+    #: only); None = a lost worker restarts the attempt at the same world.
     elastic: Optional["ElasticConfig"] = None
 
     def worker_resources(self) -> Dict[str, float]:
@@ -48,9 +48,8 @@ class ScalingConfig:
 
 @dataclass
 class ElasticConfig:
-    """Preemption-tolerant dynamic world size (the reference's; the port's
-    Trainer refuses it until the elastic path is ported, ROADMAP.md
-    Queue 1 item 5).
+    """Preemption-tolerant dynamic world size (thread-tier ranks; the
+    Trainer refuses it for ``worker_mode="processes"``, as the reference).
 
     With ``ScalingConfig(elastic=ElasticConfig(...))`` the Trainer treats
     ``num_workers`` as a *target*, not a contract: on worker/node loss it

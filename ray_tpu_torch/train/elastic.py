@@ -1,7 +1,7 @@
 """Elastic data plane: the exactly-once sample ledger (the counterpart of
-``ray_tpu/train/elastic.py``: its ``PROVISIONAL_STEP`` and ``SampleLedger``,
-which streaming ingest claims source shards through; the worker-side
-``ElasticDatasetShard`` comes with the Trainer).
+``ray_tpu/train/elastic.py``: ``PROVISIONAL_STEP``, ``SampleLedger``, which
+the elastic Trainer and streaming ingest claim through, and the worker's
+view of it, ``ElasticDatasetShard``).
 
 The reshard guarantee: across any sequence of preemptions, shrinks and
 grows inside one ``fit()``, every sample is trained by exactly one worker
@@ -16,7 +16,8 @@ trained).  On a preemption the model rolls back to the last committed step
 S, so every provisional claim past S describes an update the restored model
 never saw: those samples are requeued (front of the queue, original order)
 and handed to a surviving worker.  Claims at or below S sealed with the
-restore.
+restore.  Shrink and grow need no repartitioning step at all: exclusive
+claiming IS the reshard.
 
 Without an async-checkpoint coordinator there is no committed-step signal;
 ``seal_on_claim=True`` degrades to claim-is-trained (a failure loses those
@@ -27,6 +28,7 @@ double-trained).
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -217,3 +219,48 @@ class SampleLedger:
     def untrained(self) -> List[int]:
         counts = self.trained_counts()
         return [i for i in range(len(self._dataset)) if counts.get(i, 0) == 0]
+
+
+class ElasticDatasetShard:
+    """A worker's view of the shared ledger, handed out by
+    ``train.get_dataset_shard()`` when elastic training is on.
+
+    Batches are claimed tagged with the session's next checkpoint step —
+    the step whose ``report()`` has not happened yet — so the ledger can
+    tell exactly which claims a restore to step S rolls back.
+    """
+
+    def __init__(self, ledger: SampleLedger, session=None):
+        self._ledger = ledger
+        self._session = session
+
+    def next_batch(self, batch_size: int):
+        """(indices, samples) for an exclusively claimed batch, or None
+        when every sample has been handed out (or this attempt is being
+        torn down — see the fence note on SampleLedger.claim)."""
+        from ray_tpu_torch.train import profiler as _profiler
+
+        step = fence = None
+        if self._session is not None:
+            step = self._session.current_checkpoint_step()
+            fence = self._session.stop_requested
+        # Claim + fetch is the worker's input-pipeline time on the elastic
+        # path: the step profiler's data_wait bucket.
+        w0 = time.time()
+        try:
+            indices = self._ledger.claim(batch_size, step, fence=fence)
+            if indices is None:
+                return None
+            return indices, self._ledger.fetch(indices)
+        finally:
+            _profiler.record("data_wait", w0, time.time())
+
+    def iter_batches(self, batch_size: int):
+        while True:
+            batch = self.next_batch(batch_size)
+            if batch is None:
+                return
+            yield batch
+
+    def __len__(self) -> int:
+        return len(self._ledger)

@@ -1,19 +1,52 @@
 """Train metrics (the counterpart of ``ray_tpu/train/metrics.py``).
 
 Declared at import time like the serve metric modules; exported on
-``/metrics`` through the process registry (util/metrics.py). The
-reference's elastic series (preemptions, shrink and grow events, lost
-steps, recovery seconds) come with the elastic path (ROADMAP.md, Queue 1
-item 5); the world size keeps the reference's name.
+``/metrics`` through the process registry (util/metrics.py).
+
+The elastic series are what an operator of preemption-tolerant training
+watches: how often nodes vanish, how the trainer responded (shrink and
+grow), how much work each recovery cost (lost steps, bounded by
+``CheckpointConfig.replica_memory_steps`` when the memory tier is on), and
+how long a failure took to resume training.
 """
 
 from __future__ import annotations
 
 from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
 
+PREEMPTIONS = Counter(
+    "ray_tpu_elastic_preemptions_total",
+    "Worker/node preemptions observed by the elastic training layer "
+    "(simulated ones from the preempt_node chaos hook included)",
+)
+
+SHRINK_EVENTS = Counter(
+    "ray_tpu_elastic_shrink_events_total",
+    "Times the elastic trainer shrank its world size to surviving "
+    "capacity after a worker or node loss",
+)
+
+GROW_EVENTS = Counter(
+    "ray_tpu_elastic_grow_events_total",
+    "Times the elastic trainer grew its world size back at a checkpoint "
+    "boundary after capacity returned",
+)
+
+LOST_STEPS = Counter(
+    "ray_tpu_elastic_lost_steps_total",
+    "Training steps rolled back across all elastic recoveries (steps "
+    "reported after the last committed checkpoint at failure time)",
+)
+
+RECOVERY_SECONDS = Histogram(
+    "ray_tpu_elastic_recovery_seconds",
+    "Seconds from failure detection to the first report() of the resumed "
+    "attempt (restore + group reform + data reshard)",
+)
+
 WORLD_SIZE = Gauge(
     "ray_tpu_elastic_world_size",
-    "Current world size of the training worker group",
+    "Current world size of the elastic training worker group",
 )
 
 # ---------------------------------------------------------------- profiler

@@ -88,9 +88,20 @@ class TrainSession:
         #: the default) — activated on the worker thread with the session
         #: itself; report() is its step boundary.
         self.profiler = profiler
+        #: set by the controller when this rank's actor died (killed, or
+        #: its node preempted): the thread runs on until a boundary, and
+        #: what it reports is dropped.
+        self.fenced = False
+
+    def fence(self) -> None:
+        """Drop this rank's reports from now on, and stop it at the next."""
+        self.fenced = True
+        self.stop_requested.set()
 
     def current_checkpoint_step(self) -> int:
-        """The checkpoint step the step being trained belongs to."""
+        """The checkpoint step the next report() saves as — the step being
+        trained. The elastic sample ledger tags claims with it, so that a
+        restore knows exactly which claims roll back."""
         return self._ckpt_step
 
     def report(self, metrics: Dict[str, Any],
@@ -99,6 +110,8 @@ class TrainSession:
         # entry by TrainWorker).
         from ray_tpu_torch._private import fault_injection
 
+        if self.fenced:
+            raise StopIteration("this rank's actor died; its report is dropped")
         fault_injection.check("train_worker_run")
         if checkpoint is not None and not isinstance(checkpoint, Checkpoint):
             # A raw tree: async sharded save when wired, else wrap it in a

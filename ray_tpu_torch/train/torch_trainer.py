@@ -11,7 +11,7 @@ rank) that rendezvous over a TCP store: NCCL when the rank holds a card,
 gloo otherwise. Results flow back through an actor-backed report queue (the
 thread tier's in-memory TrainSession cannot cross a process boundary). As
 in the reference, ``datasets=`` and ``ScalingConfig.elastic`` are refused:
-``CudaTrainer`` takes datasets. So is ``CheckpointConfig(async_save=True)``:
+``CudaTrainer`` takes both. So is ``CheckpointConfig(async_save=True)``:
 the port's shard writers run in thread ranks (``CudaTrainer``).
 """
 
@@ -135,13 +135,23 @@ class TorchTrainer(DataParallelTrainer):
 
     def _run_with_pg(self, pg, run_name: str, group_name: str,
                      manager: CheckpointManager, restore_ckpt,
-                     ingests=None, coordinator=None) -> Dict:
+                     ingests=None, coordinator=None, world=None,
+                     ledgers=None) -> Dict:
+        # The elastic world, ledgers and ingests are the thread tier's: no
+        # datasets= here, and ScalingConfig.elastic is refused.
         import time
 
         from ray_tpu_torch.exceptions import RayTpuError, TaskError
         from ray_tpu_torch.util.queue import Empty, Queue
 
         scfg = self.scaling_config
+        if scfg.elastic is not None:
+            return {"status": "fatal", "last_metrics": None, "history": [],
+                    "error": ValueError(
+                        "elastic training requires thread-tier workers; "
+                        "TorchTrainer ranks are process-tier (use "
+                        "CudaTrainer with ScalingConfig(worker_mode="
+                        "'threads'))")}
         world = scfg.num_workers
         report_queue = Queue()
         workers = []

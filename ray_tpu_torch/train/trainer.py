@@ -18,16 +18,22 @@ delivered to workers via ``train.get_checkpoint()`` — up to
 ``FailureConfig.max_failures`` times.
 
 Async checkpoints (``CheckpointConfig(async_save=True)``, thread-tier
-ranks): a ``CheckpointCoordinator`` actor owns ``checkpoints/sharded``,
-each rank gets a ``ShardWriter`` per attempt, and ``report(checkpoint=
-<tree>)`` blocks only for the device->host snapshot; a restart restores
-the coordinator's newest committed step, from its in-memory replicas when
-they are whole, else from the committed directory.
+ranks): a ``CheckpointCoordinator`` actor on the head owns
+``checkpoints/sharded``, each rank gets a ``ShardWriter`` per attempt, and
+``report(checkpoint=<tree>)`` blocks only for the device->host snapshot; a
+restart restores the coordinator's newest committed step, from its
+in-memory replicas when they are whole, then the peer holder's copies,
+else from the committed directory.
 
-Not ported yet, each refused when the Trainer is built: the elastic world
-(``ScalingConfig.elastic``: the autoscaler's capacity view, the sample
-ledger's resharding, ``ElasticDatasetShard``; ROADMAP.md Queue 1 item 5)
-and node preemption (item 13.8).
+Elastic training (``ScalingConfig(elastic=ElasticConfig(...))``,
+thread-tier ranks): the world size is dynamic. A lost rank or node shrinks
+the group to what the live cluster can host (``autoscaler/elastic.py``),
+restores the last committed step — memory replicas first — rolls the
+exactly-once sample ledgers back (``train/elastic.py``) and resumes inside
+the same ``fit()``; when capacity comes back the group grows again at the
+next checkpoint boundary. Ranks reach a failed attempt's stop at their next
+boundary (a report, a collective, a ledger claim); what they reported
+before is kept, and what a rank whose actor died reports after is dropped.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from ray_tpu_torch.train.checkpoint import (
     unpack_checkpoint,
 )
 from ray_tpu_torch.train.config import DatasetConfig, RunConfig, ScalingConfig
+from ray_tpu_torch.train.elastic import ElasticDatasetShard, SampleLedger
 from ray_tpu_torch.train.profiler import StepProfiler
 from ray_tpu_torch.train.session import (
     TrainContext,
@@ -61,7 +68,7 @@ from ray_tpu_torch.train.session import (
     clear_session,
     init_session,
 )
-from ray_tpu_torch.util import flight_recorder
+from ray_tpu_torch.util import flight_recorder, tracing
 from ray_tpu_torch.util.placement_group import (
     PlacementGroupSchedulingStrategy,
     placement_group,
@@ -72,6 +79,23 @@ from ray_tpu_torch.util.placement_group import (
 PG_WAIT_S = 60.0
 #: Seconds an attempt's end waits for each rank's async saves to land.
 SAVE_DRAIN_S = 120.0
+#: Seconds a failed attempt waits for its ranks to reach their stop.
+RANK_STOP_S = 30.0
+
+
+def _drop_frames(err: BaseException) -> BaseException:
+    """``err`` without its frames: a rank's error holds the frames of its
+    loop, and they its tensors (on the card, its whole state). The message
+    and the formatted remote traceback stay."""
+    seen, todo = set(), [err]
+    while todo:
+        x = todo.pop()
+        if not isinstance(x, BaseException) or id(x) in seen:
+            continue
+        seen.add(id(x))
+        x.__traceback__ = None
+        todo += [getattr(x, "cause", None), x.__cause__, x.__context__]
+    return err
 
 
 def _settle(writers) -> None:
@@ -94,7 +118,8 @@ class Result:
     def __init__(self, metrics: Optional[Dict[str, Any]], checkpoint: Optional[Checkpoint],
                  path: str, error: Optional[BaseException] = None,
                  metrics_history: Optional[List[Dict[str, Any]]] = None,
-                 restarts: Optional[List[Dict[str, Any]]] = None):
+                 restarts: Optional[List[Dict[str, Any]]] = None,
+                 elastic_events: Optional[List[Dict[str, Any]]] = None):
         self.metrics = metrics
         self.checkpoint = checkpoint
         self.path = path
@@ -107,6 +132,10 @@ class Result:
         #: restart restored, its ``source`` ("memory" or "disk") and the
         #: ``seconds`` that took (None: no committed step).
         self.restarts = restarts or []
+        #: shrink/recover/grow records of elastic training (empty unless
+        #: ScalingConfig.elastic): type, from_world/to_world, restore_step,
+        #: lost_steps, requeued_samples, recovery_seconds.
+        self.elastic_events = elastic_events or []
 
     def __repr__(self) -> str:
         return f"Result(metrics={self.metrics}, checkpoint={self.checkpoint}, error={self.error})"
@@ -298,28 +327,30 @@ class DataParallelTrainer:
         self.datasets = datasets or {}
         self.dataset_config = dataset_config or DatasetConfig()
         self.resume_from_checkpoint = resume_from_checkpoint
-        if self.scaling_config.elastic is not None:
-            raise NotImplementedError(
-                "ScalingConfig.elastic needs the elastic path (the "
-                "autoscaler's elastic.py, the sample ledger's resharding, "
-                "ElasticDatasetShard and the replica tier), which is not "
-                "ported yet (ROADMAP.md, Queue 1 item 5)")
         #: One dict per named dataset on the streaming path (tests audit
         #: per-shard exactly-once accounting after fit() returns).
         self.streaming_ingests: Dict[str, Any] = {}
+        #: The elastic path's exactly-once ledgers, one per sized dataset
+        #: (tests audit them after fit() returns).
+        self.sample_ledgers: Dict[str, SampleLedger] = {}
+        # Elastic recovery clock: set at a shrink or grow, closed by the
+        # first report of the resumed attempt (failure -> resumed).
+        self._recovery_t0: Optional[float] = None
+        self._recovery_event: Optional[Dict[str, Any]] = None
 
     # ------------------------------------------------------------------ fit
     def fit(self) -> Result:
         if not ray_tpu_torch.is_initialized():
             ray_tpu_torch.init()
         scfg = self.scaling_config
+        elastic = scfg.elastic
         if scfg.use_gpu and scfg.resources_per_worker is None:
             have = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
             if have < scfg.gpus_per_worker:
                 raise RuntimeError(
-                    f"ScalingConfig(use_gpu=True) needs a card, and the node "
-                    f"has {have} GPUs (torch finds no CUDA device?); pass "
-                    f"use_gpu=False to train on the CPU")
+                    f"ScalingConfig(use_gpu=True) needs a card, and the "
+                    f"cluster has {have} GPUs (torch finds no CUDA device?); "
+                    f"pass use_gpu=False to train on the CPU")
         run_name = self.run_config.name or f"train_{int(time.time())}"
         storage = self.run_config.storage_path or tempfile.mkdtemp(
             prefix="ray_tpu_torch_train_")
@@ -331,44 +362,72 @@ class DataParallelTrainer:
             score_attribute=ckpt_conf.checkpoint_score_attribute,
             score_order=ckpt_conf.checkpoint_score_order,
         )
+        # The most ranks an attempt can have.
+        max_world = (max(scfg.num_workers, elastic.resolve_max(scfg.num_workers))
+                     if elastic is not None else scfg.num_workers)
         # Async checkpointing (CheckpointConfig.async_save): a
         # CheckpointCoordinator actor owns its own subdirectory (it and the
         # CheckpointManager number checkpoint_NNNNNN dirs from independent
         # counters) and two-phase-commits the sharded saves flowing out of
         # report(checkpoint=<tree>); restarts restore from its latest
-        # committed step. The reference pins it to the head node, which is
-        # the port's one node.
+        # committed step. It is pinned to the head, where this controller
+        # runs: a preempted worker node must never take the commit
+        # authority with it (elastic recovery asks it what to restore).
         coordinator = None
         #: each rank's page-locked snapshot buffers, for every attempt
         self._snapshot_pools: List[Any] = []
         if ckpt_conf.async_save:
+            from ray_tpu_torch._private.runtime import get_runtime
             from ray_tpu_torch.checkpoint import (
                 CheckpointCoordinator,
                 PinnedPool,
             )
+            from ray_tpu_torch.util.scheduling_strategies import (
+                NodeAffinitySchedulingStrategy,
+            )
 
-            coordinator = ray_tpu_torch.remote(CheckpointCoordinator).remote(
+            coordinator = ray_tpu_torch.remote(CheckpointCoordinator).options(
+                scheduling_strategy=NodeAffinitySchedulingStrategy(
+                    str(get_runtime().head_node_id), soft=True),
+            ).remote(
                 os.path.join(experiment_path, "checkpoints", "sharded"),
                 keep=ckpt_conf.num_to_keep,
                 replica_steps=ckpt_conf.replica_memory_steps)
-            self._snapshot_pools = [PinnedPool()
-                                    for _ in range(scfg.num_workers)]
+            self._snapshot_pools = [PinnedPool() for _ in range(max_world)]
+        cur_world = scfg.num_workers
+        elastic_events: List[Dict[str, Any]] = []
         # The run is visible to /api/train_runs for its whole lifetime.
-        run_registry.register_run(run_name, world_size=scfg.num_workers,
-                                  target_world=scfg.num_workers,
-                                  path=experiment_path)
+        run_registry.register_run(run_name, world_size=cur_world,
+                                  target_world=cur_world,
+                                  path=experiment_path,
+                                  elastic=elastic is not None)
+        self._recovery_t0 = None
+        self._recovery_event = None
+        # Elastic data plane: every sized dataset becomes a shared
+        # exactly-once ledger that outlives the attempts (exclusive
+        # claiming IS the reshard; train/elastic.py).
+        ledgers: Dict[str, SampleLedger] = {}
+        if elastic is not None:
+            for name, ds in self.datasets.items():
+                if (not hasattr(ds, "streaming_split")
+                        and hasattr(ds, "__len__")
+                        and hasattr(ds, "__getitem__")):
+                    ledgers[name] = SampleLedger(
+                        ds, seal_on_claim=coordinator is None)
+        self.sample_ledgers = ledgers
         # Streaming data plane: with DatasetConfig(streaming=True) — the
         # default — every lazy Dataset becomes a StreamingIngest shared
         # across attempts: workers claim source shards through a per-epoch
-        # ledger and stream them through backpressure -> windowed shuffle
-        # -> rebatch -> prefetch. Other datasets take the legacy split.
+        # ledger (claiming IS the resplit when the world changes) and
+        # stream them through backpressure -> windowed shuffle -> rebatch
+        # -> prefetch. Other datasets take the legacy split.
         dcfg = self.dataset_config
         ingests: Dict[str, Any] = {}
         if dcfg.streaming:
             from ray_tpu_torch.data.ingest import StreamingIngest
 
             for name, ds in self.datasets.items():
-                if hasattr(ds, "_op"):
+                if name not in ledgers and hasattr(ds, "_op"):
                     ingests[name] = StreamingIngest(
                         ds,
                         window_blocks=dcfg.shuffle_window_blocks,
@@ -382,6 +441,7 @@ class DataParallelTrainer:
         failures = 0
         attempt_no = 1
         restore_ckpt = self.resume_from_checkpoint
+        last_restore_step: Optional[int] = None
         history: List[Dict[str, Any]] = []
         restarts: List[Dict[str, Any]] = []
 
@@ -391,12 +451,14 @@ class DataParallelTrainer:
                                       or self._coordinator_checkpoint(
                                           coordinator, from_memory=False)),
                           path=experiment_path, error=error,
-                          metrics_history=history, restarts=restarts)
+                          metrics_history=history, restarts=restarts,
+                          elastic_events=elastic_events)
 
         try:
             while True:
                 outcome = self._run_attempt(run_name, manager, restore_ckpt,
-                                            ingests, coordinator)
+                                            ingests, coordinator,
+                                            world=cur_world, ledgers=ledgers)
                 history.extend(outcome["history"])
                 if restarts and restarts[-1]["resumed_s"] is None:
                     first = outcome.get("first_report_at")
@@ -405,6 +467,8 @@ class DataParallelTrainer:
                             first - restarts[-1]["failed_at"]
                 if outcome["status"] == "finished":
                     run_registry.finish_run(run_name, "finished")
+                    for ledger in ledgers.values():
+                        ledger.seal_all()  # clean finish: nothing rolls back
                     for ingest in ingests.values():
                         # Claims the prefetch pump made but whose batches
                         # the loop never consumed roll back, so audit()
@@ -413,37 +477,98 @@ class DataParallelTrainer:
                     # Surfaces e.g. "every async save failed": training
                     # succeeded but the run has no usable checkpoint.
                     return result(outcome, outcome["error"])
+                if outcome["status"] == "grow":
+                    # Capacity came back and every rank stopped at a
+                    # checkpoint boundary: restore the committed step (its
+                    # save drained before we got here) and run the next
+                    # attempt at the bigger world. Not a failure.
+                    new_world = outcome["new_world"]
+                    restore_ckpt, step = self._elastic_restore_point(
+                        coordinator, manager)
+                    for ledger in ledgers.values():
+                        ledger.rollback(step)
+                    for ingest in ingests.values():
+                        ingest.rollback(step)
+                    train_metrics.GROW_EVENTS.inc()
+                    event = {"type": "grow", "from_world": cur_world,
+                             "to_world": new_world, "restore_step": step,
+                             "time": time.time()}
+                    self._elastic_event(run_name, elastic_events, event,
+                                        time.monotonic())
+                    cur_world = new_world
+                    attempt_no += 1
+                    run_registry.update_run(run_name, attempts=attempt_no)
+                    if step is not None:
+                        last_restore_step = step
+                    continue
                 error = outcome["error"]
-                failures += 1
+                fatal = outcome["status"] == "fatal"
+                handled = False
+                if not fatal and elastic is not None:
+                    from ray_tpu_torch.autoscaler.elastic import worker_capacity
+
+                    # Shrink (or hold) the world to what the live cluster
+                    # can host, restore the last committed step — memory
+                    # replicas first — and requeue every rolled-back claim.
+                    cap = worker_capacity(scfg.worker_resources())
+                    target = max(elastic.min_workers,
+                                 min(cap, elastic.resolve_max(scfg.num_workers)))
+                    restore_ckpt, step = self._elastic_restore_point(
+                        coordinator, manager)
+                    if restore_ckpt is None:
+                        restore_ckpt = self.resume_from_checkpoint
+                    requeued = sum(ledger.rollback(step)
+                                   for ledger in ledgers.values())
+                    requeued += sum(ingest.rollback(step)
+                                    for ingest in ingests.values())
+                    last_step = outcome.get("last_step")
+                    lost = 0
+                    if last_step is not None:
+                        lost = max(0, last_step
+                                   - (step if step is not None else -1))
+                    train_metrics.LOST_STEPS.inc(lost)
+                    if target < cur_world:
+                        train_metrics.SHRINK_EVENTS.inc()
+                    event = {"type": "shrink" if target < cur_world
+                             else "recover",
+                             "from_world": cur_world, "to_world": target,
+                             "restore_step": step, "lost_steps": lost,
+                             "requeued_samples": requeued,
+                             "time": time.time()}
+                    self._elastic_event(run_name, elastic_events, event,
+                                        outcome.get("failed_at")
+                                        or time.monotonic())
+                    # Preemption forensics: snapshot the black box before
+                    # the recovery attempt overwrites the ring.
+                    flight_recorder.trigger_dump("elastic_preempt", {
+                        "run": run_name, "event": event,
+                        "error": str(error) if error else ""})
+                    cur_world = target
+                    # A recovery "handles" the failure only when the
+                    # cluster can still run AND the restore point advanced
+                    # since the last one: failures pinned to one step burn
+                    # max_failures like any other crash loop.
+                    progressed = step is not None and (
+                        last_restore_step is None or step > last_restore_step)
+                    if step is not None:
+                        last_restore_step = step
+                    handled = cap >= elastic.min_workers and progressed
+                if not handled:
+                    failures += 1
                 # "fatal" = retrying cannot help (e.g. infeasible
                 # resources): return even under max_failures=-1.
-                if outcome["status"] == "fatal" or (
-                        max_failures >= 0 and failures > max_failures):
+                if fatal or (max_failures >= 0 and failures > max_failures):
                     run_registry.finish_run(run_name, "failed")
                     flight_recorder.trigger_dump("train_failed", {
                         "run": run_name, "attempts": attempt_no,
                         "error": repr(error)})
                     return result(outcome, error)
-                restarts.append({"attempt": attempt_no, "error": repr(error),
-                                 "failed_at": outcome["failed_at"],
-                                 "resumed_s": None})
-                flight_recorder.record_event(f"train.restart:{run_name}", {
-                    "attempt": attempt_no, "error": repr(error)}, kind="train")
-                time.sleep(min(2.0 ** min(failures, 5) * 0.1, 5.0))  # backoff
-                # Restart from the newest checkpoint (ref: v2 controller
-                # RESTARTING state). The coordinator's committed step wins —
-                # its replica tier restores without re-reading storage.
-                t0 = time.monotonic()
-                restore_ckpt = self._coordinator_checkpoint(coordinator)
-                restarts[-1]["restore"] = self._last_restore
-                if restore_ckpt is not None:
-                    self._last_restore["seconds"] = time.monotonic() - t0
-                restore_ckpt = (restore_ckpt or manager.latest_checkpoint()
-                                or self.resume_from_checkpoint)
-                # The restarted attempt re-runs the user loop from its own
-                # epoch 0: ingest epochs start fresh too.
-                for ingest in ingests.values():
-                    ingest.reset()
+                if elastic is not None:
+                    time.sleep(0.05)  # recovery latency is the product
+                else:
+                    restore_ckpt = self._restart_point(
+                        run_name, attempt_no, outcome, failures, restarts,
+                        coordinator, manager, ingests)
                 attempt_no += 1
                 run_registry.update_run(run_name, attempts=attempt_no)
         finally:
@@ -465,6 +590,56 @@ class DataParallelTrainer:
                 ray_tpu_torch.kill(coordinator)
             self._snapshot_pools = []
 
+    def _restart_point(self, run_name: str, attempt_no: int, outcome: Dict,
+                       failures: int, restarts: List[Dict[str, Any]],
+                       coordinator, manager: CheckpointManager,
+                       ingests: Dict[str, Any]) -> Optional[Checkpoint]:
+        """A fixed-world restart (ref: v2 controller RESTARTING state): back
+        off, then the newest checkpoint. The coordinator's committed step
+        wins — its replica tier restores without re-reading storage."""
+        restarts.append({"attempt": attempt_no, "error": repr(outcome["error"]),
+                         "failed_at": outcome["failed_at"], "resumed_s": None})
+        flight_recorder.record_event(f"train.restart:{run_name}", {
+            "attempt": attempt_no, "error": repr(outcome["error"])},
+            kind="train")
+        time.sleep(min(2.0 ** min(failures, 5) * 0.1, 5.0))  # backoff
+        t0 = time.monotonic()
+        restore_ckpt = self._coordinator_checkpoint(coordinator)
+        restarts[-1]["restore"] = self._last_restore
+        if restore_ckpt is not None:
+            self._last_restore["seconds"] = time.monotonic() - t0
+        # The restarted attempt re-runs the user loop from its own epoch 0:
+        # ingest epochs start fresh too.
+        for ingest in ingests.values():
+            ingest.reset()
+        return (restore_ckpt or manager.latest_checkpoint()
+                or self.resume_from_checkpoint)
+
+    def _elastic_event(self, run_name: str, events: List[Dict[str, Any]],
+                       event: Dict[str, Any], t0: float) -> None:
+        """Record a shrink/recover/grow and start its recovery clock."""
+        events.append(event)
+        run_registry.record_event(run_name, event)
+        self._recovery_t0 = t0
+        self._recovery_event = event
+
+    def _close_recovery(self, resumed_at: float) -> None:
+        """The first report after an elastic recovery landed: training
+        resumed. Observes the failure -> resumed seconds and records the
+        window as one ``train.elastic`` span."""
+        dt = resumed_at - self._recovery_t0
+        train_metrics.RECOVERY_SECONDS.observe(dt)
+        ev = self._recovery_event
+        now_w = time.time() - (time.monotonic() - resumed_at)
+        tracing.record_span("train.elastic", now_w - dt, now_w,
+                            attributes={"type": ev["type"],
+                                        "from_world": ev["from_world"],
+                                        "to_world": ev["to_world"],
+                                        "restore_step": ev["restore_step"]})
+        ev["recovery_seconds"] = dt
+        self._recovery_t0 = None
+        self._recovery_event = None
+
     # ------------------------------------------------ coordinator restore
     def _coordinator_checkpoint(self, coordinator,
                                 from_memory: bool = True
@@ -474,42 +649,80 @@ class DataParallelTrainer:
         Prefers the in-memory replica tier (full shard set resident): the
         handle's to_pytree() assembles the tree from the payloads and never
         touches the storage (the reference writes them to a local dir and
-        reads that back); the committed dir on storage is the floor.
-        ``_last_restore`` records which ({"source", "step"}), or None."""
+        reads that back); the peer holder's copies are next, the committed
+        dir on storage the floor. ``_last_restore`` records which
+        ({"source", "step"}), or None."""
         self._last_restore = None
-        if coordinator is None:
-            return None
-        try:
-            src = ray_tpu_torch.get(coordinator.restore_source.remote(),
-                                    timeout=30)
-        except (TaskError, RayTpuError):
-            return None
+        src = self._restore_source(coordinator)
         if src is None:
             return None
         if from_memory:
-            ckpt = self._memory_checkpoint(src)
-            if ckpt is not None:
-                self._last_restore = {"source": "memory", "step": src["step"]}
-                return ckpt
+            for source, fetch in (("memory", self._memory_checkpoint),
+                                  ("peer", self._peer_checkpoint)):
+                ckpt = fetch(coordinator, src)
+                if ckpt is not None:
+                    self._last_restore = {"source": source,
+                                          "step": src["step"]}
+                    return ckpt
         self._last_restore = {"source": "disk", "step": src["step"]}
         return Checkpoint(src["path"])
 
-    def _memory_checkpoint(self, src: Dict) -> Optional[Checkpoint]:
+    def _restore_source(self, coordinator) -> Optional[Dict]:
+        if coordinator is None:
+            return None
+        try:
+            return ray_tpu_torch.get(coordinator.restore_source.remote(),
+                                     timeout=30)
+        except (TaskError, RayTpuError):
+            return None
+
+    def _elastic_restore_point(self, coordinator, manager: CheckpointManager):
+        """(checkpoint, step) to resume from after a preemption or grow:
+        memory replicas -> peer holder payloads -> committed dir on disk ->
+        the manager's checkpoints (step unknown there). Every remote fetch
+        is bounded, so a dead holder or a lost object falls through to the
+        next tier instead of hanging the recovery."""
+        ckpt = self._coordinator_checkpoint(coordinator)
+        if ckpt is not None:
+            return ckpt, self._last_restore["step"]
+        return manager.latest_checkpoint(), None
+
+    def _memory_checkpoint(self, coordinator, src: Dict
+                           ) -> Optional[Checkpoint]:
         """A handle on the object-store replica payloads; None when the set
         is absent or any ref is unfetchable within the bound."""
         if not src.get("replicas"):
             return None
-        from ray_tpu_torch.checkpoint import metrics as ckpt_metrics
-        from ray_tpu_torch.train.checkpoint import ReplicaCheckpoint
-
         try:
             refs = src["replicas"]["refs"]
             payloads = {int(sid): ray_tpu_torch.get(w["ref"], timeout=20)
                         for sid, w in refs.items()}
         except Exception:
             return None
-        ckpt_metrics.RESTORES.inc(tags={"source": "memory"})
-        return ReplicaCheckpoint(src["path"], payloads)
+        return self._replica_checkpoint(src["path"], payloads, "memory")
+
+    def _peer_checkpoint(self, coordinator, src: Dict
+                         ) -> Optional[Checkpoint]:
+        """The same, from the ReplicaHolder actor on a peer node: the tier
+        that survives the writers' node."""
+        try:
+            res = ray_tpu_torch.get(
+                coordinator.peer_payloads.remote(src["step"]), timeout=30)
+        except (TaskError, RayTpuError):
+            return None
+        if not res:
+            return None
+        payloads = {int(sid): p for sid, p in res["payloads"].items()}
+        return self._replica_checkpoint(src["path"], payloads, "peer")
+
+    @staticmethod
+    def _replica_checkpoint(path: str, payloads: Dict[int, dict],
+                            source: str) -> Checkpoint:
+        from ray_tpu_torch.checkpoint import metrics as ckpt_metrics
+        from ray_tpu_torch.train.checkpoint import ReplicaCheckpoint
+
+        ckpt_metrics.RESTORES.inc(tags={"source": source})
+        return ReplicaCheckpoint(path, payloads)
 
     def _check_async_saves(self, sessions: List[TrainSession],
                            coordinator) -> Optional[BaseException]:
@@ -544,20 +757,44 @@ class DataParallelTrainer:
         return err
 
     def _committed_step(self, coordinator) -> Optional[int]:
+        if coordinator is None:
+            return None
         try:
             return ray_tpu_torch.get(coordinator.latest_committed.remote(),
                                      timeout=30)
         except (TaskError, RayTpuError):
             return None
 
+    def _preempt_worker_node(self, pg) -> Optional[str]:
+        """The preempt_node chaos hook: take out a whole node hosting
+        worker-group bundles (never the head: the controller lives there)."""
+        from ray_tpu_torch._private.runtime import get_runtime
+        from ray_tpu_torch.autoscaler.elastic import simulate_preemption
+
+        head = str(get_runtime().head_node_id)
+        victim = next((n for n in pg.bundle_node_ids()
+                       if n is not None and n != head), None)
+        return simulate_preemption(victim)
+
     # ---------------------------------------------------------- one attempt
     def _run_attempt(self, run_name: str, manager: CheckpointManager,
                      restore_ckpt: Optional[Checkpoint],
-                     ingests: Dict[str, Any], coordinator=None) -> Dict:
+                     ingests: Dict[str, Any], coordinator=None,
+                     world: Optional[int] = None,
+                     ledgers: Optional[Dict[str, SampleLedger]] = None) -> Dict:
         scfg = self.scaling_config
-        world = scfg.num_workers
-        DataParallelTrainer._collective_counter += 1
-        group_name = f"train-{run_name}-{DataParallelTrainer._collective_counter}"
+        if world is None:
+            world = scfg.num_workers
+        if scfg.elastic is not None:
+            # A stable group name re-formed per attempt: a rank of a
+            # preempted attempt still blocked in a rendezvous wakes with an
+            # error, and the group's world follows the elastic world.
+            group_name = f"train-{run_name}"
+            collective.reform_collective_group(world, group_name=group_name)
+        else:
+            DataParallelTrainer._collective_counter += 1
+            group_name = (f"train-{run_name}-"
+                          f"{DataParallelTrainer._collective_counter}")
 
         # Gang-schedule the worker group via a placement group
         # (ref: backend_executor.py placement group per worker group).
@@ -582,17 +819,19 @@ class DataParallelTrainer:
                             f"Could not reserve {world}x{scfg.worker_resources()} "
                             f"for the worker group within {PG_WAIT_S:.0f}s "
                             f"(cluster: {ray_tpu_torch.cluster_resources()}). "
-                            f"Reduce num_workers/resources_per_worker.")}
+                            f"Reduce num_workers/resources_per_worker or add "
+                            f"nodes.")}
             return self._run_with_pg(pg, run_name, group_name, manager,
-                                     restore_ckpt, ingests, coordinator)
+                                     restore_ckpt, ingests, coordinator,
+                                     world=world, ledgers=ledgers or {})
         finally:
             collective.destroy_collective_group(group_name)
             remove_placement_group(pg)
 
     def _worker_mode(self, pg) -> str:
         """threads (one host, shared process) vs processes (one
-        torch.distributed rank per worker process — required once the
-        group spans nodes: a thread here cannot run on another host)."""
+        torch.distributed rank per worker process — what a group that spans
+        nodes needs: a thread here cannot run on another host)."""
         mode = self.scaling_config.worker_mode
         if mode in ("threads", "processes"):
             return mode
@@ -607,8 +846,19 @@ class DataParallelTrainer:
 
     def _run_with_pg(self, pg, run_name: str, group_name: str,
                      manager: CheckpointManager, restore_ckpt,
-                     ingests: Dict[str, Any], coordinator=None) -> Dict:
+                     ingests: Dict[str, Any], coordinator=None,
+                     world: Optional[int] = None,
+                     ledgers: Optional[Dict[str, SampleLedger]] = None) -> Dict:
+        scfg = self.scaling_config
+        elastic = scfg.elastic
         if self._worker_mode(pg) == "processes":
+            if elastic is not None:
+                return {"status": "fatal", "last_metrics": None,
+                        "history": [], "error": ValueError(
+                            "elastic training requires thread-tier workers "
+                            "(the sample ledger and replica restore live in "
+                            "the controller's process); use ScalingConfig("
+                            "worker_mode='threads')")}
             if coordinator is not None:
                 return {"status": "fatal", "last_metrics": None,
                         "history": [], "error": ValueError(
@@ -618,11 +868,13 @@ class DataParallelTrainer:
                             "6); use ScalingConfig(worker_mode='threads')")}
             return self._run_distributed(pg, run_name, group_name, manager,
                                          restore_ckpt)
-        scfg = self.scaling_config
-        world = scfg.num_workers
+        if world is None:
+            world = scfg.num_workers
+        ledgers = ledgers or {}
         train_metrics.WORLD_SIZE.set(world)
         run_registry.update_run(run_name, world_size=world)
-        dataset_shards = self._split_datasets(world, exclude=set(ingests))
+        dataset_shards = self._split_datasets(
+            world, exclude=set(ledgers) | set(ingests))
         writers: List = []
         start_step = 0
         if coordinator is not None:
@@ -654,6 +906,11 @@ class DataParallelTrainer:
                                                           rank=rank)
                                              if self.run_config.profile
                                              else None))
+            # Elastic datasets are views onto the shared ledger, bound to
+            # this session so claims carry its next checkpoint step.
+            for name, ledger in ledgers.items():
+                session.dataset_shards[name] = ElasticDatasetShard(ledger,
+                                                                   session)
             # Streaming datasets: a per-session view onto the shared ingest.
             for name, ingest in ingests.items():
                 session.dataset_shards[name] = ingest.make_shard(session)
@@ -673,15 +930,31 @@ class DataParallelTrainer:
 
         drained = _Drain(manager)
         pending = list(refs)
+        statuses: List[str] = []
+        grow_target: Optional[int] = None
+        desired_max = (elastic.resolve_max(scfg.num_workers)
+                       if elastic is not None else world)
         last_health = last_seal = 0.0
+        last_grow_check = time.monotonic()
+        grow_first_exit: Optional[float] = None
+        grow_woke = False
+
+        def drain() -> None:
+            drained.sessions(sessions)
+            if self._recovery_t0 is not None and \
+                    drained.first_report_at is not None:
+                self._close_recovery(drained.first_report_at)
 
         def seal_committed() -> None:
-            # Streaming-ingest claims are provisional under async saves:
-            # seal them as the coordinator commits their steps.
+            # Ledger and streaming-ingest claims are provisional under
+            # async saves: seal them as the coordinator commits their
+            # steps (sealed samples never requeue on a rollback).
             committed = self._committed_step(coordinator)
             if committed is not None:
                 run_registry.update_run(run_name,
                                         last_committed_step=committed)
+                for ledger in ledgers.values():
+                    ledger.seal(committed)
                 for ingest in ingests.values():
                     ingest.seal(committed)
 
@@ -689,9 +962,9 @@ class DataParallelTrainer:
             while pending:
                 ready, pending = ray_tpu_torch.wait(
                     pending, num_returns=len(pending), timeout=0.05)
-                drained.sessions(sessions)
+                drain()
                 now = time.monotonic()
-                if ingests and coordinator is not None and \
+                if (ledgers or ingests) and coordinator is not None and \
                         now - last_seal >= 0.25:
                     last_seal = now
                     seal_committed()
@@ -706,27 +979,87 @@ class DataParallelTrainer:
 
                         raise WorkerCrashedError(
                             f"{len(dead)} train worker(s) died (ranks "
-                            f"{sorted(dead)})")
+                            f"{sorted(dead)}; node preempted?)")
+                # Chaos: a whole worker node vanishes (the injector as the
+                # config stands now, so a test can arm it mid-run).
+                injector = fault_injection.get_injector()
+                if injector.enabled and injector.fires("preempt_node"):
+                    self._preempt_worker_node(pg)
+                # Grow back toward the target world at a checkpoint boundary
+                # once capacity returns (and there is a step to restore:
+                # growing without one would train from scratch).
+                if (elastic is not None and grow_target is None
+                        and world < desired_max
+                        and now - last_grow_check >= elastic.grow_check_period_s):
+                    last_grow_check = now
+                    from ray_tpu_torch.autoscaler.elastic import worker_capacity
+
+                    target = min(worker_capacity(scfg.worker_resources()),
+                                 desired_max)
+                    has_restore = (self._committed_step(coordinator) is not None
+                                   or manager.latest_checkpoint() is not None)
+                    if target > world and has_restore:
+                        grow_target = target
+                        # report() IS the checkpoint boundary: each rank
+                        # raises StopIteration there and returns "stopped".
+                        for s in sessions:
+                            s.stop_requested.set()
                 for r in ready:
-                    ray_tpu_torch.get(r)  # raise worker errors
-            drained.sessions(sessions)
+                    try:
+                        statuses.append(ray_tpu_torch.get(r))  # raise worker errors
+                    except (TaskError, RayTpuError) as err:
+                        if grow_target is None:
+                            raise
+                        # Woken mid-rendezvous by the boundary wake below:
+                        # its uncommitted claims roll back with the grow's
+                        # restore, so this is a clean stop.
+                        _drop_frames(err)
+                        statuses.append("stopped")
+                # Ranks see the grow stop at different points: one can exit
+                # at its report() while a peer already waits in the next
+                # collective for a partner that will never come. Once one
+                # has exited, give the rest a grace second to reach their
+                # own boundary, then wake them by destroying the group.
+                if grow_target is not None and statuses and pending:
+                    if grow_first_exit is None:
+                        grow_first_exit = now
+                    elif not grow_woke and now - grow_first_exit >= 1.0:
+                        grow_woke = True
+                        self._destroy_group(group_name)
+            drain()
             # Async saves still persisting belong to this run: let them land
-            # (and commit) before declaring it finished.
+            # (and commit) before declaring it finished — and, on a grow,
+            # before the restore point is chosen.
             _settle(writers)
-            if ingests and coordinator is not None:
+            if (ledgers or ingests) and coordinator is not None:
                 seal_committed()
+            # A grow stop surfaces two ways: ranks that hit report() raise
+            # StopIteration ("stopped"), ranks whose loop ended on the
+            # ledger's fence come back "done" — work left in a ledger tells
+            # that apart from the end of the data.
+            work_left = any(not led.exhausted() for led in ledgers.values()) \
+                or any(not ing.exhausted() for ing in ingests.values())
+            if grow_target is not None and ("stopped" in statuses or work_left):
+                return {"status": "grow", "new_world": grow_target,
+                        "last_metrics": drained.last_metrics,
+                        "history": drained.history, "error": None}
             return drained.outcome(
                 "finished", error=self._check_async_saves(sessions,
                                                           coordinator))
         except (TaskError, RayTpuError) as e:  # a worker failed
             failed_at = time.monotonic()
+            # A rank whose actor died (killed, or its node preempted) is
+            # fenced: what its thread still reports is dropped. Every rank
+            # stops at its next boundary: a report (kept, then
+            # StopIteration), a collective (the group is destroyed) or a
+            # ledger claim (refused).
+            for rank in self._dead_workers(workers):
+                sessions[rank].fence()
             for s in sessions:
                 s.stop_requested.set()
-            # Wake any worker blocked in a collective rendezvous NOW.
-            try:
-                collective.get_collective_group(group_name).destroy()
-            except ValueError:
-                pass
+            self._destroy_group(group_name)
+            for w in workers:
+                ray_tpu_torch.kill(w)
             # Queued-but-unstarted async saves die with the attempt (their
             # epoch is stale anyway). The persist in flight may still
             # commit, which is always safe — its snapshot is whole — and
@@ -734,17 +1067,44 @@ class DataParallelTrainer:
             # includes it: on the card a persist outlasts a few steps.
             for wtr in writers:
                 wtr.abort()
+            # Keep what every rank reported before it stopped, so that a
+            # rank's report of a step it finished never races the drain;
+            # a rank that outlasts the bound is abandoned.
+            ray_tpu_torch.wait(refs, num_returns=len(refs),
+                               timeout=RANK_STOP_S)
+            # The stopped ranks' errors must not keep their state on the
+            # card through the attempts that follow.
+            for r in refs:
+                try:
+                    ray_tpu_torch.get(r, timeout=0)
+                except (TaskError, RayTpuError) as err:
+                    _drop_frames(err)
             _settle(writers)
-            # Keep results reported before the crash (checkpoints
-            # especially — the restart resumes from the last one).
-            drained.sessions(sessions)
-            return drained.outcome("failed", error=e, failed_at=failed_at)
+            drain()
+            # The newest coordinator step any rank reported (its save may
+            # or may not have committed): the elastic controller's lost
+            # steps are this minus the restore step.
+            last_step = max((s.current_checkpoint_step() - 1
+                             for s in sessions), default=-1)
+            return drained.outcome("failed", error=_drop_frames(e),
+                                   failed_at=failed_at,
+                                   last_step=last_step if last_step >= 0
+                                   else None)
         finally:
             for w in workers:
                 ray_tpu_torch.kill(w)
 
+    @staticmethod
+    def _destroy_group(group_name: str) -> None:
+        """Wake every rank blocked in the group's rendezvous."""
+        try:
+            collective.get_collective_group(group_name).destroy()
+        except ValueError:
+            pass
+
     def _dead_workers(self, workers) -> List[int]:
-        """Ranks whose worker actor is no longer alive (killed)."""
+        """Ranks whose worker actor is no longer alive (killed, or its node
+        preempted)."""
         from ray_tpu_torch._private.runtime import get_runtime
 
         runtime = get_runtime()
@@ -878,10 +1238,11 @@ class _Drain:
                 self.item(item["rank"], item["metrics"], item["checkpoint"])
 
     def outcome(self, status: str, error: Optional[BaseException] = None,
-                failed_at: Optional[float] = None) -> Dict[str, Any]:
+                failed_at: Optional[float] = None,
+                last_step: Optional[int] = None) -> Dict[str, Any]:
         return {"status": status, "last_metrics": self.last_metrics,
                 "history": self.history, "error": error,
-                "failed_at": failed_at,
+                "failed_at": failed_at, "last_step": last_step,
                 "first_report_at": self.first_report_at}
 
 

@@ -1,11 +1,13 @@
-"""Placement groups on the one node (the counterpart of
-``ray_tpu/util/placement_group.py``; ref: python/ray/util/placement_group.py
-— PlacementGroup:41, placement_group():145, strategies PACK / SPREAD /
-STRICT_PACK / STRICT_SPREAD:162).
+"""Placement groups (the counterpart of ``ray_tpu/util/placement_group.py``;
+ref: python/ray/util/placement_group.py — PlacementGroup:41,
+placement_group():145, strategies PACK / SPREAD / STRICT_PACK /
+STRICT_SPREAD:162).
 
-The scheduler reserves a group's bundles all at once or not at all
-(``_private/scheduling.py``); a bundle's GPU share names its cards, and a
-task or actor given ``PlacementGroupSchedulingStrategy`` leases from it.
+The scheduler reserves a group's bundles all at once or not at all, across
+the cluster's nodes (``_private/scheduling.py``); ``bundle_node_ids()``
+names the node each bundle landed on. A bundle's GPU share names its
+cards, and a task or actor given ``PlacementGroupSchedulingStrategy``
+leases from it.
 """
 
 from __future__ import annotations

@@ -70,6 +70,7 @@ SPAN_REGISTRY: Dict[str, str] = {
                            "(attrs: preferred, local)",
     "data.prefetch": "ingest: host->device transfer dispatch, per batch",
     "train.step": "profiler: one training step, report() to report()",
+    "train.elastic": "controller: elastic recovery, failure -> resumed",
     "train.data_wait": "profiler: step blocked on the input pipeline",
     "train.h2d": "profiler: host->device batch transfer within a step",
     "train.compute": "profiler: step compute residual (wall - waits)",

@@ -93,13 +93,9 @@ def main(argv=None) -> int:
     out = {"card": _card() if on_card else "cpu", "device": str(dev)}
     pool = PinnedPool()
 
-    def release(lease):
-        if lease is not None:  # None: a host state, copied without a pool
-            pool.release(lease)
-
     (host, lease), out["snapshot_alloc_s"] = timed(
         lambda: snapshot_to_host(state, pool))
-    release(lease)
+    pool.release(lease)
     (host, lease), out["snapshot_s"] = timed(
         lambda: snapshot_to_host(state, pool))
     (doc, skeleton, kind, arrays), out["build_shard_s"] = timed(
@@ -128,7 +124,7 @@ def main(argv=None) -> int:
             lambda: {k: np.array(a) for k, a in arrays.items()})
         payload = {"doc": doc, "skeleton": skeleton, "kind": kind,
                    "arrays": payload_arrays, "shard_id": 0, "step": 0}
-        release(lease)
+        pool.release(lease)
         del host, arrays
 
         coord = CheckpointCoordinator(os.path.join(root, "ckpt"),

@@ -7,8 +7,9 @@ tests/conftest.py, the port's thread group with torch on the host. Integer
 results must be equal, float results within 1e-6. Left out:
 ``test_collectives_ride_the_mesh``, which inspects JAX's lowered mesh
 programs. The port's own cases follow: ops across dtypes, the backend
-names, the process tier over gloo in two worker processes, and the
-stream order of thread ranks on the card (tests/test_torch_cuda.py).
+names, a destroyed or re-formed group refusing the ranks it had, the
+process tier over gloo in two worker processes, and the stream order of
+thread ranks on the card (tests/test_torch_cuda.py).
 """
 
 import threading
@@ -334,6 +335,48 @@ def test_destroy_wakes_a_blocked_rank():
     group.destroy()
     t.join(timeout=10)
     assert not t.is_alive() and "was destroyed" in err[0]
+
+
+def test_destroyed_group_refuses_later_rounds_at_once():
+    """A rank that reaches the group after its destruction (a rank of a
+    failed attempt still finishing its step) is refused at once instead of
+    waiting out the rendezvous timeout for partners that stopped."""
+    from ray_tpu_torch.collective.thread_group import ThreadCollectiveGroup
+
+    group = ThreadCollectiveGroup("late", 2, timeout_s=60.0)
+    group.destroy()
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="was destroyed"):
+        group.allreduce(1, torch.ones(2))
+    assert time.monotonic() - t0 < 1.0
+
+
+def test_actor_of_a_reformed_group_is_refused():
+    """An actor that joined a group is no member once the group is
+    re-formed under its name (the elastic Trainer's next attempt drops the
+    old ranks' bindings): its allreduce raises instead of joining the new
+    group's rounds."""
+    from ray_tpu_torch import collective
+
+    fresh_init(ray_tpu_torch, num_cpus=2)
+    try:
+        @ray_tpu_torch.remote
+        class Rank:
+            def __init__(self):
+                collective.init_collective_group(1, 0, group_name="reformed")
+
+            def reduce(self):
+                return collective.allreduce(torch.ones(2),
+                                            group_name="reformed").tolist()
+
+        rank = Rank.remote()
+        assert ray_tpu_torch.get(rank.reduce.remote(), timeout=30) == [1, 1]
+        collective.reform_collective_group(1, group_name="reformed")
+        with pytest.raises(Exception, match="No rank bound"):
+            ray_tpu_torch.get(rank.reduce.remote(), timeout=30)
+    finally:
+        collective.destroy_collective_group("reformed")
+        ray_tpu_torch.shutdown()
 
 
 def test_each_rank_gets_its_own_tensor():

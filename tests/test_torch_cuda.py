@@ -690,3 +690,118 @@ def test_step_value_read_back_from_its_checkpoint_on_gpu(tmp_path):
         assert value["device"] == "cuda:0"  # where the step made it
         assert value["o"].device.type == "cpu"
         assert torch.equal(value["o"], want)
+
+
+@pytest.mark.cuda
+def test_virtual_nodes_sharing_card_zero_each_grant_it_on_gpu():
+    """Two virtual nodes, each half of card 0: an actor placed on each (by
+    node affinity) reads ``cuda:0`` from its lease and allocates there."""
+    _need_gpu()
+    import ray_tpu_torch
+    from ray_tpu_torch._private.device import granted_cuda_device
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+
+    cluster = Cluster(initialize_head=True,
+                      head_node_args={"num_cpus": 2, "num_gpus": 0})
+    try:
+        nodes = [cluster.add_node(num_cpus=1, num_gpus=0.5)
+                 for _ in range(2)]
+
+        @ray_tpu_torch.remote(num_gpus=0.5)
+        class Rank:
+            def card(self):
+                dev = granted_cuda_device()
+                x = torch.ones(4, device=dev)
+                return str(dev), str(x.device), ray_tpu_torch.get_gpu_ids()
+
+        ranks = [Rank.options(scheduling_strategy=NodeAffinitySchedulingStrategy(
+            str(n))).remote() for n in nodes]
+        assert ray_tpu_torch.get([r.card.remote() for r in ranks],
+                                 timeout=60) == [("cuda:0", "cuda:0", [0])] * 2
+    finally:
+        cluster.shutdown()
+
+
+@pytest.mark.cuda
+def test_add_node_refuses_a_card_the_host_lacks_on_gpu():
+    _need_gpu()
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 1})
+    try:
+        n = torch.cuda.device_count()
+        with pytest.raises(ValueError, match=f"host has {n}"):
+            cluster.add_node(num_gpus=0.5, gpu_index=n)
+        cluster.add_node(num_gpus=0.5, gpu_index=n - 1)
+    finally:
+        cluster.shutdown()
+
+
+@pytest.mark.cuda
+def test_preempted_thread_rank_memory_comes_back_on_gpu(tmp_path):
+    """A two-rank elastic fit over two half-card nodes; one node is
+    preempted mid-run. Its rank's thread ends at its next boundary and the
+    card memory it held comes back: after the fit, ``memory_allocated()``
+    (cuBLAS workspaces cleared) is within 64 MB of its value before."""
+    _need_gpu()
+    import gc
+    import threading
+    import time
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.autoscaler.elastic import simulate_preemption
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.examples import train_gpt2
+    from ray_tpu_torch.train import (CheckpointConfig, CudaTrainer,
+                                     ElasticConfig, RunConfig, ScalingConfig,
+                                     run_registry)
+
+    cluster = Cluster(initialize_head=True,
+                      head_node_args={"num_cpus": 2, "num_gpus": 0})
+    try:
+        nodes = [cluster.add_node(num_cpus=1, num_gpus=0.5)
+                 for _ in range(2)]
+        rows = np.random.default_rng(0).integers(
+            0, 50257, (64, 1025), dtype=np.int64)
+        def allocated():
+            # Each thread's cuBLAS handle keeps a 32 MiB workspace after
+            # the thread ends: cleared, so that only tensors count.
+            gc.collect()
+            torch.cuda.synchronize()
+            torch._C._cuda_clearCublasWorkspaces()
+            return torch.cuda.memory_allocated()
+
+        before = allocated()
+        trainer = CudaTrainer(
+            train_gpt2.train_loop_per_worker,
+            train_loop_config=dict(batch_size=2, ckpt_every=2,
+                                   async_save=True, seed=0),
+            scaling_config=ScalingConfig(
+                num_workers=2, gpus_per_worker=0.5, worker_mode="threads",
+                elastic=ElasticConfig(min_workers=1)),
+            datasets={"train": rows},
+            run_config=RunConfig(
+                name="preempt-memory", storage_path=str(tmp_path),
+                checkpoint_config=CheckpointConfig(async_save=True)))
+        box = {}
+        t = threading.Thread(target=lambda: box.update(r=trainer.fit()),
+                             daemon=True)
+        t.start()
+        deadline = time.monotonic() + 300
+        while (run_registry.get_run("preempt-memory") or {}).get(
+                "last_committed_step") is None:
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+        assert simulate_preemption(str(nodes[1])) is not None
+        t.join(timeout=600)
+        assert not t.is_alive() and box["r"].error is None, box.get("r")
+        del box, trainer
+        after = allocated()
+        assert after - before <= 64 << 20, (before, after)
+    finally:
+        cluster.shutdown()

@@ -11,6 +11,11 @@ device, the port's half moves them with ``device="cpu"`` (its
 ``DeviceBatchIterator`` on the card is held by tests/test_torch_cuda.py)
 and both are reduced to numpy. The reference's slow bounded-memory case
 runs here at a fifth of its rows.
+
+Its two elastic cases (a node preempted mid-epoch, and a grow at an epoch
+boundary; tests/test_data_ingest.py:742,765) end the file: they run on the
+port alone, on a virtual cluster, with the reference's loop in torch, and
+hold the same exactly-once audits and sums.
 """
 
 import os
@@ -576,3 +581,158 @@ def test_device_iterator_with_sharding():
     ref, port = both(device_iterator_with_sharding)
     assert ref == [3, True]
     assert port[0] == "NotImplementedError" and "DeviceMesh" in port[1]
+
+
+# --------------------------------------------------------------------------
+# elastic: the reference's shrink mid-epoch / grow at an epoch boundary
+# (tests/test_data_ingest.py:742,765) on the port, with its loop in torch
+# --------------------------------------------------------------------------
+def _stream_loop(config):
+    """Lockstep loop over the streaming shard: every step the group
+    allreduces [rows, sum]; an epoch ends when the global row count is
+    zero, so ranks never diverge at a shard's end."""
+    import torch
+
+    from ray_tpu_torch import collective, train
+
+    ctx = train.get_context()
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        t = ckpt.to_pytree()
+        w, step = float(t["w"]), int(t["step"])
+    else:
+        w, step = 0.0, -1
+    shard = train.get_dataset_shard("train")
+    for _epoch in range(config.get("epochs", 1)):
+        it = iter(shard.iter_batches(batch_size=config.get("batch", 20)))
+        while True:
+            batch = next(it, None)
+            n = 0 if batch is None else len(batch["x"])
+            contrib = 0.0 if batch is None else float(np.sum(batch["x"]))
+            vec = collective.allreduce(
+                torch.tensor([float(n), contrib], dtype=torch.float64),
+                group_name=ctx.collective_group)
+            if float(vec[0]) == 0:
+                break
+            w += float(vec[1])
+            step += 1
+            train.report(
+                {"step": step, "w": w, "world": ctx.world_size},
+                checkpoint={"w": torch.tensor(w, dtype=torch.float64),
+                            "step": torch.tensor(step)})
+            time.sleep(config.get("sleep", 0.05))
+
+
+def _streaming_trainer(tmp_path, ds, *, epochs=1, num_workers=3,
+                       sleep=0.25, name="stream-elastic"):
+    from ray_tpu_torch.train import (CheckpointConfig, CudaTrainer,
+                                     DatasetConfig, ElasticConfig,
+                                     FailureConfig, RunConfig, ScalingConfig)
+
+    return CudaTrainer(
+        _stream_loop,
+        train_loop_config={"epochs": epochs, "batch": 20, "sleep": sleep},
+        scaling_config=ScalingConfig(
+            num_workers=num_workers, use_gpu=False, worker_mode="threads",
+            elastic=ElasticConfig(min_workers=1, grow_check_period_s=0.3)),
+        datasets={"train": ds},
+        # Shard == block == batch (20-row blocks, batch 20, window 1): a
+        # claim resolves within one step, so the dataset-sum check below is
+        # exact across shrink and grow.
+        dataset_config=DatasetConfig(shuffle_window_blocks=1,
+                                     shuffle_seed=12),
+        run_config=RunConfig(
+            name=name, storage_path=str(tmp_path),
+            checkpoint_config=CheckpointConfig(async_save=True,
+                                               replica_memory_steps=2),
+            failure_config=FailureConfig(max_failures=3)))
+
+
+@pytest.fixture
+def elastic_cluster():
+    """A head with no CPU and three 1-CPU worker nodes (the elastic
+    training suite's shape): killing a node drops worker capacity."""
+    import ray_tpu
+    import ray_tpu_torch
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    for pkg in (ray_tpu, ray_tpu_torch):
+        pkg.shutdown()
+    cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 0})
+    nodes = [cluster.add_node(num_cpus=1) for _ in range(3)]
+    yield cluster, nodes
+    ray_tpu_torch.shutdown()
+    _set_chaos(ray_tpu_torch, "")
+
+
+def _fit_elastic(trainer, cluster, nodes, grow):
+    """fit() on a thread; the first worker node is preempted once a step
+    has committed, and (``grow``) a node is added a second later."""
+    from ray_tpu_torch.autoscaler.elastic import simulate_preemption
+    from ray_tpu_torch.train import run_registry
+
+    box = {}
+    t = threading.Thread(target=lambda: box.update(r=trainer.fit()),
+                         daemon=True)
+    t.start()
+    deadline = time.monotonic() + 30
+    while (run_registry.get_run(trainer.run_config.name) or {}).get(
+            "last_committed_step") is None:
+        assert time.monotonic() < deadline, "the run never got going"
+        time.sleep(0.05)
+    assert simulate_preemption(str(nodes[0])) is not None
+    if grow:
+        time.sleep(1.0)
+        cluster.add_node(num_cpus=1)
+    t.join(timeout=90)
+    assert not t.is_alive(), "fit() hung after preemption"
+    assert box["r"].error is None, box["r"].error
+    return box["r"]
+
+
+def _audit_clean(trainer, epochs):
+    ing = trainer.streaming_ingests["train"]
+    for epoch in range(epochs):
+        audit = ing.audit(epoch)
+        assert audit["double_trained"] == [], (epoch, audit)
+        assert audit["untrained"] == [], (epoch, audit)
+
+
+def test_streaming_shrink_mid_epoch_exactly_once(elastic_cluster, tmp_path):
+    """A worker node killed mid-epoch: the survivors drain the dead rank's
+    unfinished shard claims exactly once — the final sum is the dataset's
+    (exact: integers in float64) and the shard ledger shows nothing double
+    or dropped."""
+    from ray_tpu_torch import data
+
+    cluster, nodes = elastic_cluster
+    n = 480
+    ds = data.range(n, parallelism=n // 20).map_batches(
+        lambda b: {"x": b["id"].astype(np.float64) + 1.0})
+    trainer = _streaming_trainer(tmp_path, ds, name="stream-shrink")
+    r = _fit_elastic(trainer, cluster, nodes, grow=False)
+    shrinks = [e for e in r.elastic_events if e["type"] == "shrink"]
+    assert shrinks and shrinks[0]["from_world"] == 3
+    _audit_clean(trainer, epochs=1)
+    assert r.metrics["w"] == float(sum(range(1, n + 1)))
+    assert r.metrics["world"] == 2
+
+
+def test_streaming_grow_epoch_boundary_resplits(elastic_cluster, tmp_path):
+    """Capacity returns mid-run: the trainer grows back at a checkpoint
+    boundary and later epochs re-split over the larger world — every epoch
+    still sums to the dataset's exactly once."""
+    from ray_tpu_torch import data
+
+    cluster, nodes = elastic_cluster
+    n, epochs = 480, 2
+    ds = data.range(n, parallelism=n // 20).map_batches(
+        lambda b: {"x": b["id"].astype(np.float64) + 1.0})
+    trainer = _streaming_trainer(tmp_path, ds, epochs=epochs,
+                                 name="stream-grow")
+    r = _fit_elastic(trainer, cluster, nodes, grow=True)
+    types = [e["type"] for e in r.elastic_events]
+    assert "shrink" in types and "grow" in types, r.elastic_events
+    _audit_clean(trainer, epochs=epochs)
+    assert r.metrics["w"] == epochs * float(sum(range(1, n + 1)))
+    assert r.metrics["world"] == 3

@@ -143,14 +143,18 @@ def test_stop_job_ends_the_whole_process_group(tmp_path):
 
     jm = JobManager(log_root=str(tmp_path))
     pid_file = str(tmp_path / "child.pid")
+    ready = str(tmp_path / "child.ready")
+    # The child says when its handler is set: a SIGTERM that came before
+    # (a loaded host can take seconds to start Python) would end it at
+    # once, and the grace period would never run.
     child = ("import signal, time; signal.signal(signal.SIGTERM, "
-             "signal.SIG_IGN); time.sleep(60)")
+             f"signal.SIG_IGN); open('{ready}', 'w').close(); time.sleep(60)")
     job_id = jm.submit_job(
         f"{sys.executable} -c \"{child}\" & echo $! > {pid_file}; wait")
-    deadline = time.monotonic() + 10
-    while not os.path.exists(pid_file) and time.monotonic() < deadline:
+    deadline = time.monotonic() + 30
+    while not os.path.exists(ready):
+        assert time.monotonic() < deadline, "the job's child never started"
         time.sleep(0.05)
-    time.sleep(0.3)  # the child has set its handler
     pid = int(open(pid_file).read())
     assert os.getpgid(pid) != os.getpgid(0)
     t0 = time.monotonic()

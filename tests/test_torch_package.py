@@ -119,7 +119,9 @@ print(json.dumps({"modules": mods, "loaded": sorted(sys.modules)}))
             "ray_tpu_torch.util.state", "ray_tpu_torch.dag",
             "ray_tpu_torch.dag.dag_node", "ray_tpu_torch.workflow",
             "ray_tpu_torch.workflow.api", "ray_tpu_torch.job",
-            "ray_tpu_torch.job.job_manager"} <= set(res["modules"])
+            "ray_tpu_torch.job.job_manager", "ray_tpu_torch.cluster_utils",
+            "ray_tpu_torch.autoscaler", "ray_tpu_torch.autoscaler.elastic",
+            "ray_tpu_torch._private.accelerators"} <= set(res["modules"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 

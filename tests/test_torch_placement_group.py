@@ -4,11 +4,9 @@ tests/test_scheduling.py that hold on one node.
 
 Each case runs on both packages, one after the other, on a runtime of one
 node with 4 CPUs (the reference's cases add a node to a cluster; here the
-head node is the one node). Cases that need a second node wait for the
-port's multi-node runtime (ROADMAP.md, Queue 1 item 13.8):
-``test_pg_strict_spread``, ``test_pg_strict_pack_ici_slice`` and
-``test_pg_pending_until_node_added``; STRICT_SPREAD's other half, a group
-no set of nodes can hold staying pending, holds here. The port's own cases
+head node is the one node). The cases that need a second node run on
+virtual nodes in tests/test_torch_cluster.py; STRICT_SPREAD's other half,
+a group no set of nodes can hold staying pending, holds here. The port's own cases
 follow: bundles that name their cards, all-or-nothing reservation, and a
 pending group that commits once capacity comes back.
 """

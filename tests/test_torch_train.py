@@ -689,17 +689,24 @@ def test_what_waits_is_refused_when_built():
         TorchTrainer,
     )
 
-    with pytest.raises(NotImplementedError, match="item 5"):
-        CudaTrainer(lambda: None, scaling_config=ScalingConfig(
-            elastic=ElasticConfig()))
+    # Elastic training is built (it runs on thread ranks:
+    # tests/test_torch_train_elastic.py); process ranks refuse it at fit(),
+    # as the reference's TorchTrainer does.
+    CudaTrainer(lambda: None, scaling_config=ScalingConfig(
+        elastic=ElasticConfig()))
     with pytest.raises(ValueError, match="datasets="):
         TorchTrainer(lambda: None, datasets={"train": [1, 2]})
     with pytest.raises(ValueError, match="async_save"):
         TorchTrainer(lambda: None, run_config=RunConfig(
             checkpoint_config=CheckpointConfig(async_save=True)))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TorchTrainer(lambda: None, scaling_config=ScalingConfig(
-            elastic=ElasticConfig()))
+    fresh_init(ray_tpu_torch, num_cpus=2)
+    try:
+        result = TorchTrainer(lambda: None, scaling_config=ScalingConfig(
+            use_gpu=False, elastic=ElasticConfig())).fit()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert isinstance(result.error, ValueError)
+    assert "thread-tier" in str(result.error)
 
 
 def test_use_gpu_is_the_default_and_needs_a_card():

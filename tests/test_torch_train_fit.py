@@ -16,6 +16,7 @@ the example's command line at the tiny size.
 import dataclasses
 import os
 import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -374,8 +375,12 @@ def test_async_checkpoints_resume_from_memory(init, tokens):
     every rank its shard, every 2 steps), fail after step 3 of the first
     attempt and resume: the restart restores the coordinator's newest
     committed step from the memory replicas, bit for bit, and every step's
-    loss is within TOL of an uninterrupted async run's. A run whose every
-    save fails finishes with ``result.error`` saying so."""
+    loss is within TOL of an uninterrupted async run's. Rank 0 reports step
+    3 half a second late, after rank 1 has failed: a report a rank makes of
+    a step it finished before it stops is kept, as the reference's failure
+    path means to ("keep results reported before the crash"), so step 3 is
+    in the history every time. A run whose every save fails finishes with
+    ``result.error`` saying so."""
     from ray_tpu_torch._private import fault_injection
     from ray_tpu_torch._private.config import GLOBAL_CONFIG
     from ray_tpu_torch.checkpoint import layout
@@ -392,10 +397,13 @@ def test_async_checkpoints_resume_from_memory(init, tokens):
     def memory_restores():
         return ckpt_metrics.RESTORES.get(tags={"source": "memory"})
 
-    def fit(**extra):
+    def fit(late_step=None, **extra):
         seen = {"restore": [], "checkpoint": {}}
 
         def probe(event, rank, step, **info):
+            if event == "step" and rank == 0 and step == late_step \
+                    and not seen["restore"]:
+                time.sleep(0.5)  # rank 1 fails before this report
             if event in ("restore", "checkpoint") and rank == 0:
                 state = info["state"]
                 leaves = [t.detach().clone() for t in
@@ -426,8 +434,8 @@ def test_async_checkpoints_resume_from_memory(init, tokens):
     fresh_init(ray_tpu_torch, num_cpus=4)
     try:
         before = memory_restores()
-        broken, seen, committed = bounded(lambda: fit(fail_at_step=3),
-                                          CASE_S)
+        broken, seen, committed = bounded(
+            lambda: fit(fail_at_step=3, late_step=3), CASE_S)
         restored_from_memory = memory_restores() - before
         whole, _, _ = bounded(fit, CASE_S)
     finally:

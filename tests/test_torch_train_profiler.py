@@ -10,7 +10,9 @@ deterministic clock: what each returns must be equal. The reference's
 ``list_train_runs`` state API is not ported (ROADMAP.md, Queue 1 item 15):
 the port's half reads the same rows from ``run_registry``. Then the port's
 own: the streaming ingest's ``data_wait`` landing in a live train worker's
-profiler, and each rank's collective wait in its ``collective`` bucket.
+profiler, and each rank's collective wait in its ``collective`` bucket;
+and the reference's timeline fusion of an elastic fit, on the port alone
+(its loop in torch), once a step has committed.
 """
 
 import importlib
@@ -455,4 +457,125 @@ def test_ingest_data_wait_lands_in_a_live_train_worker_profiler():
                                        "ckpt_block", "compute"))
             assert parts == pytest.approx(r["wall"])
     finally:
+        ray_tpu_torch.shutdown()
+
+
+# ------------------------------------- timeline fusion of an elastic fit
+def _profiled_loop(config):
+    """The reference's ``_profiled_loop`` (tests/test_train_profiler.py) in
+    torch: a lockstep sum over the elastic shard, a save every step."""
+    import torch
+
+    from ray_tpu_torch import collective, train
+
+    ctx = train.get_context()
+    shard = train.get_dataset_shard("train")
+    ckpt = train.get_checkpoint()
+    step = int(ckpt.to_pytree()["step"]) if ckpt is not None else -1
+    w = float(ckpt.to_pytree()["w"]) if ckpt is not None else 0.0
+    while True:
+        batch = shard.next_batch(config.get("batch", 2))
+        n = 0 if batch is None else len(batch[0])
+        contrib = 0.0 if batch is None else float(np.sum(batch[1]))
+        vec = collective.allreduce(
+            torch.tensor([float(n), contrib], dtype=torch.float64),
+            group_name=ctx.collective_group)
+        if float(vec[0]) == 0:
+            break
+        w += float(vec[1])
+        step += 1
+        train.report({"step": step, "w": w, "world": ctx.world_size},
+                     checkpoint={"w": torch.tensor(w, dtype=torch.float64),
+                                 "step": torch.tensor(step)})
+        time.sleep(0.05)
+
+
+def test_timeline_fuses_train_elastic_and_checkpoint(tmp_path):
+    """The reference's timeline-fusion case on the port: one elastic
+    shrink -> grow run with tracing on; the exported trace shows steps,
+    their data-wait spans nested under them, the elastic recovery with the
+    shrink's shape, and checkpoint phases in the "train" lane, and the
+    state API tracks the run live and after."""
+    import json
+
+    from ray_tpu_torch.autoscaler.elastic import simulate_preemption
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.train import (CheckpointConfig, CudaTrainer,
+                                     ElasticConfig, FailureConfig, RunConfig,
+                                     ScalingConfig, run_registry)
+    from ray_tpu_torch.util import state as state_api
+    from ray_tpu_torch.util import tracing
+
+    for pkg in (ray_tpu, ray_tpu_torch):
+        pkg.shutdown()
+    cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 0})
+    nodes = [cluster.add_node(num_cpus=1) for _ in range(3)]
+    run_registry.clear()
+    tracing.clear_spans()
+    tracing.enable_tracing()
+    try:
+        trainer = CudaTrainer(
+            _profiled_loop,
+            scaling_config=ScalingConfig(
+                num_workers=3, use_gpu=False, worker_mode="threads",
+                elastic=ElasticConfig(min_workers=1,
+                                      grow_check_period_s=0.3)),
+            datasets={"train": np.arange(1, 361, dtype=np.float64)},
+            run_config=RunConfig(
+                name="fusion", storage_path=str(tmp_path),
+                checkpoint_config=CheckpointConfig(async_save=True,
+                                                   replica_memory_steps=2),
+                failure_config=FailureConfig(max_failures=3)))
+        box = {}
+        t = threading.Thread(
+            target=lambda: box.update(result=trainer.fit()), daemon=True)
+        t.start()
+        deadline = time.time() + 20
+        live = None
+        while time.time() < deadline and live is None:
+            rows = [r for r in state_api.list_train_runs(
+                filters=[("status", "=", "running")])
+                if r["name"] == "fusion"]
+            if rows and rows[0]["world_size"] == 3 and \
+                    rows[0].get("last_committed_step") is not None:
+                live = rows[0]
+            time.sleep(0.05)
+        assert live is not None, "running row never appeared"
+        assert live["elastic"] is True and live["target_world"] == 3
+        assert simulate_preemption(str(nodes[0])) is not None
+        time.sleep(1.0)
+        cluster.add_node(num_cpus=1)
+        t.join(timeout=90)
+        assert not t.is_alive(), "fit() hung"
+        r = box["result"]
+        assert r.error is None, r.error
+        kinds = [e["type"] for e in r.elastic_events]
+        assert "shrink" in kinds, r.elastic_events
+        row = state_api.get_train_run("fusion")
+        assert row["status"] == "finished"
+        assert row["last_committed_step"] is not None
+        assert [e["type"] for e in row["events"]] == kinds
+        out = tmp_path / "fusion_timeline.json"
+        events = ray_tpu_torch.timeline(str(out))
+        loaded = json.load(open(out))
+        assert loaded and isinstance(loaded, list)
+        for ev in loaded:
+            assert ev["ph"] in ("X", "i")
+            assert "pid" in ev and "tid" in ev and "ts" in ev
+        train_lane = [ev for ev in events if ev.get("pid") == "train"]
+        names = {ev["name"] for ev in train_lane}
+        assert {"train.step", "train.data_wait", "train.elastic"} <= names, \
+            sorted(names)
+        assert any(n.startswith("checkpoint.") for n in names), sorted(names)
+        steps = {ev["args"]["span_id"] for ev in train_lane
+                 if ev["name"] == "train.step"}
+        waits = [ev for ev in train_lane if ev["name"] == "train.data_wait"]
+        assert waits and all(ev["args"]["parent_id"] in steps
+                             for ev in waits)
+        rec = next(ev for ev in train_lane if ev["name"] == "train.elastic")
+        assert rec["args"]["from_world"] == 3 and rec["args"]["to_world"] == 2
+    finally:
+        tracing.disable_tracing()
+        tracing.clear_spans()
+        run_registry.clear()
         ray_tpu_torch.shutdown()
