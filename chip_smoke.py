@@ -274,7 +274,31 @@ Phases, each of which exits non-zero on failure:
     the phase is left. It prints the pool's batches/s beside direct's, a
     chunk's load, steps and save, each step checkpoint's write, and the
     jobs' cold start (submit to first logged step).
-15. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+15. The other model families at full width (``models`` lines), weights from
+    seed 0 and data from numpy seed 0. (a) Llama, ``LlamaConfig()`` (8
+    layers, D=512, 8 query heads over 4 kv heads of 64, RoPE, SwiGLU,
+    V=32000, S=1024): a B=16 forward launches exactly 8 splash forwards and
+    its logits keep the tie rule against the same model with plain
+    attention; five steps at B=16 (``make_optimizer(3e-4)``) launch
+    exactly 16 splash forwards (the whole-layer checkpoint reruns each) and
+    8 backwards each, and no CE or ring kernel; at B=2 the loss within
+    ``LOSS_ATOL`` and every gradient leaf within ``GRAD_RTOL`` of plain
+    attention, and ``attn_impl="pallas"`` (16 + 8 splash),
+    ``"ring"`` under ``MeshSpec(seq=4)`` (64 ring forwards, 32 backwards)
+    and ``"ulysses"`` (no kernel, as in JAX) held to the splash path. (b)
+    MoE, ``MoEConfig()``: five steps at B=8 with 16 + 8 splash launches
+    each, losses finite and falling; at B=2 the loss within ``LOSS_ATOL``
+    of plain attention, the aux loss finite, and the count of token-layers
+    whose top-2 experts differ between the two paths printed (a near-tie may
+    flip; the gradients are held on the CPU). (c) ViT-B/16 at B=64, five
+    steps of its own AdamW (no clip, fp32 moment), no kernel launched. (d)
+    The MLP trained on tests/test_torch_train.py's data to that test's
+    accuracy bar, beside the same loop on the CPU. (e) Rows 1 and 2 at
+    Llama's attention inputs (16, 1024, 8, 64) and MoE's (8, 1024, 8, 64)
+    against their plain versions; at Llama's, timed alone beside SDPA and
+    the bound. It prints tokens/s and MFU for Llama and MoE, images/s for
+    ViT, and the phase's seconds, with the card's name and power limit.
+16. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -285,6 +309,7 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -5216,10 +5241,14 @@ def _train_start(config):
 
 
 def _train_steps(label, config, step, params, opt_state, tokens, targets,
-                 want, peaks, card) -> Dict[str, object]:
+                 want, peaks, card, flops_per_token=None, per_row=None
+                 ) -> Dict[str, object]:
     """TRAIN_STEPS steps of ``step``, checking each step's launch counts
     against ``want`` (every kernel not named there: 0) and that the losses
-    are finite and fall. Counts are set to 0 just before and read after."""
+    are finite and fall. Counts are set to 0 just before and read after.
+    ``tokens_per_s`` counts ``per_row`` (default ``config.seq_len``) per
+    row of ``tokens``; MFU uses ``flops_per_token`` (default GPT-2's), and
+    is None when that is 0."""
     import numpy as np
     import torch
 
@@ -5245,19 +5274,25 @@ def _train_steps(label, config, step, params, opt_state, tokens, targets,
         fail(f"{label} training loss did not fall: {losses}")
     # Steps after the first (which sets up cuBLAS and the allocator).
     steps_per_s = (TRAIN_STEPS - 1) / sum(step_s[1:])
-    tokens_per_s = steps_per_s * TRAIN_BATCH * config.seq_len
-    mfu = 100.0 * gpt2.flops_per_token(config) * tokens_per_s / peaks[1]
+    tokens_per_s = steps_per_s * tokens.shape[0] * (
+        config.seq_len if per_row is None else per_row)
+    if flops_per_token is None:
+        flops_per_token = gpt2.flops_per_token(config)
+    mfu = (100.0 * flops_per_token * tokens_per_s / peaks[1]
+           if flops_per_token else None)
     return dict(losses=losses, step_s=step_s, steps_per_s=steps_per_s,
                 tokens_per_s=tokens_per_s, mfu_pct=mfu, launches=launches,
                 card=card,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def _check_step_against(label, cfg, ref_cfg, init, small, mesh=None
-                        ) -> Dict[str, object]:
+def _check_step_against(label, cfg, ref_cfg, init, small, mesh=None,
+                        loss_fn=None, want=None) -> Dict[str, object]:
     """One B=2 loss and gradient of ``cfg`` against ``ref_cfg`` on the same
     weights: loss within LOSS_ATOL, every leaf within GRAD_RTOL of its
-    largest entry."""
+    largest entry. ``loss_fn`` defaults to GPT-2's. With ``want``, the
+    launches of ``cfg``'s loss and gradient must be exactly those (every
+    kernel not named: 0)."""
     import contextlib
 
     import numpy as np
@@ -5267,22 +5302,28 @@ def _check_step_against(label, cfg, ref_cfg, init, small, mesh=None
     from ray_tpu_torch.optim import tree_leaves, tree_map
     from ray_tpu_torch.parallel import use_mesh
 
+    loss_fn = gpt2.loss_fn if loss_fn is None else loss_fn
+
     def loss_and_grads(c):
         params = tree_map(lambda p: p.detach().clone().requires_grad_(True),
                           init)
         with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
-            loss = gpt2.loss_fn(params, *small, c)
+            loss = loss_fn(params, *small, c)
             grads = torch.autograd.grad(loss, tree_leaves(params))
         return float(loss.detach()), grads
 
+    before = _counts()
     loss, grads = loss_and_grads(cfg)
+    launches = {k: v - before[k] for k, v in _counts().items()}
     ref_loss, ref_grads = loss_and_grads(ref_cfg)
     errs = {n: rel_err(g, r)
             for n, g, r in zip(_leaf_names(init), grads, ref_grads)}
     worst = max(errs, key=errs.get)
     check = dict(loss=loss, ref_loss=ref_loss, loss_abs_err=abs(loss - ref_loss),
-                 grad_rel_err=errs, worst_leaf=worst)
+                 grad_rel_err=errs, worst_leaf=worst, launches=launches)
     print(f"train_check {label} " + json.dumps(check), flush=True)
+    if want is not None and launches != {k: want.get(k, 0) for k in launches}:
+        fail(f"B=2 {label} launched {launches}, expected {want}")
     if not np.isfinite(loss) or abs(loss - ref_loss) > LOSS_ATOL:
         fail(f"B=2 {label} loss {loss} vs {ref_loss} (tol {LOSS_ATOL})")
     if errs[worst] > GRAD_RTOL:
@@ -5408,6 +5449,343 @@ def phase_train(peaks: Tuple[float, float], card: str) -> Dict[str, object]:
     return result
 
 
+# The other model families at full width (phase 15, ``models`` line).
+LLAMA_BATCH = 16
+MOE_BATCH = 8
+VIT_BATCH = 64
+MODEL_LR = 3e-4
+# (B, S, H, hd): Llama's attention (8 query heads, k and v repeated from 4
+# kv heads, q and k from RoPE) and MoE's (q, k, v split from a fused qkv),
+# each kernel held to its plain version there; Llama's timed alone.
+LLAMA_ATTN_SHAPE = (16, 1024, 8, 64)
+MOE_ATTN_SHAPE = (8, 1024, 8, 64)
+# The MLP on tests/test_torch_train.py's data: 3 epochs of Adam at 1e-3 in
+# batches of 128, to that test's accuracy bar.
+MLP_EPOCHS = 3
+MLP_ACC_FLOOR = 0.5
+
+
+def _model_tokens(config, rows: int):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(
+        rng.integers(0, config.vocab_size, (rows, config.seq_len + 1)),
+        dtype=torch.long, device="cuda")
+    return toks[:, :-1], toks[:, 1:]
+
+
+def _llama_attention_inputs(B: int, S: int, H: int, hd: int, kv: int):
+    """q, k, v as ``models/llama.py:_block`` hands them to the kernel: q and
+    k through ``_rope``, k and v ``repeat_interleave``d from ``kv`` heads;
+    the pre-repeat leaves require grad."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    leaves = [torch.randn((B, S, n, hd), generator=gen, device="cuda",
+                          dtype=torch.bfloat16, requires_grad=True)
+              for n in (H, kv, kv)]
+    q, k = (llama._rope(t, 10000.0) for t in leaves[:2])
+    k, v = (t.repeat_interleave(H // kv, dim=2) for t in (k, leaves[2]))
+    return leaves, q, k, v
+
+
+def _models_kernels(peaks: Tuple[float, float]) -> Dict[str, object]:
+    """Rows 1 and 2 at the Llama and MoE shapes against their plain
+    versions; at Llama's, each timed alone beside SDPA and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention
+
+    out: Dict[str, object] = {}
+    for label, (B, S, H, hd) in (("llama", LLAMA_ATTN_SHAPE),
+                                 ("moe", MOE_ATTN_SHAPE)):
+        if label == "llama":
+            leaves, q, k, v = _llama_attention_inputs(B, S, H, hd, H // 2)
+        else:
+            q, k, v = (t.detach().requires_grad_(True)
+                       for t in _qkv(torch.Generator(
+                           device="cuda").manual_seed(21), B, S, H, hd))
+            leaves = [q, k, v]
+        do = torch.randn((B, S, H, hd), generator=torch.Generator(
+            device="cuda").manual_seed(22), device="cuda",
+            dtype=torch.bfloat16)
+        o, lse = attention.splash_attention(q, k, v, return_lse=True)
+        grads = torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = attention.attention_reference(q, k, v)
+        refs = attention.attention_bwd_reference(q, k, v, o, lse, do)
+        row = dict(B=B, S=S, H=H, hd=hd, causal=True,
+                   max_abs_err=(o.float() - o_ref.float()).abs().max().item(),
+                   lse_max_abs_err=(lse - lse_ref).abs().max().item(),
+                   **{f"{n}_rel_err": rel_err(g, r)
+                      for n, g, r in zip(("dq", "dk", "dv"), grads, refs)})
+        if not (torch.isfinite(o).all()
+                and all(torch.isfinite(g).all() for g in grads)):
+            fail(f"non-finite splash output at the {label} shape")
+        if row["max_abs_err"] > O_ATOL or row["lse_max_abs_err"] > LSE_ATOL:
+            fail(f"splash forward disagrees at the {label} shape: {row}")
+        if max(row[f"{n}_rel_err"] for n in ("dq", "dk", "dv")) > BWD_RTOL:
+            fail(f"splash backward disagrees at the {label} shape: {row}")
+        if label == "llama":
+            qd, kd, vd, od = (t.detach() for t in (q, k, v, o))
+            qt, kt, vt = (t.transpose(1, 2).detach().clone().requires_grad_()
+                          for t in (qd, kd, vd))
+            sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            dot = do.transpose(1, 2).contiguous()
+            fwd_bound = attention_bound(B, S, H, hd, True, *peaks)
+            bwd_bound = attention_bwd_bound(B, S, H, hd, True, *peaks)
+            sdpa_bwd, _ = profiled_ms(lambda: torch.autograd.grad(
+                sdpa, (qt, kt, vt), dot, retain_graph=True))
+            row.update(
+                fwd_ms=device_ms(lambda: attention.splash_attention(
+                    qd, kd, vd)),
+                fwd_plain_ms=device_ms(lambda: attention.attention_reference(
+                    qd, kd, vd), iters=5),
+                fwd_library_ms=device_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True)),
+                fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+                bwd_ms=device_ms(lambda: attention.splash_attention_bwd(
+                    qd, kd, vd, od, lse, do)),
+                bwd_plain_ms=device_ms(
+                    lambda: attention.attention_bwd_reference(
+                        qd, kd, vd, od, lse, do), iters=3),
+                bwd_library_ms=sdpa_bwd, bwd_library_ms_by="profiler",
+                bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
+            del qt, kt, vt, sdpa, dot
+        out[label] = row
+        print(f"models_kernel {label} " + json.dumps(row), flush=True)
+        del leaves, q, k, v, o, lse, grads, o_ref, lse_ref, refs, do
+    torch.cuda.empty_cache()
+    return out
+
+
+def _llama_forward_check(config, params, tokens) -> Dict[str, object]:
+    """Llama's forward at B=16: exactly n_layer splash forwards, logits held
+    to the same model with plain attention by the serving tie rule."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+
+    with torch.no_grad():
+        _reset_counts()
+        t0 = time.perf_counter()
+        logits = llama.forward(params, tokens, config)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        launches = _counts()
+        want = {k: 0 for k in launches}
+        want["splash_attention_fwd"] = config.n_layer
+        if launches != want:
+            fail(f"llama forward launched {launches}, expected {want}")
+        if logits.shape != (*tokens.shape, config.vocab_size) or \
+                not torch.isfinite(logits).all():
+            fail(f"llama logits {tuple(logits.shape)} or non-finite")
+        ref = llama.forward(params, tokens,
+                            dataclasses.replace(config, attn_impl="xla"))
+        err = (logits - ref).abs().max().item()
+        chosen = logits.argmax(-1, keepdim=True)
+        gap = (ref.max(-1).values - ref.gather(-1, chosen)[..., 0]).max().item()
+    del logits, ref
+    torch.cuda.empty_cache()
+    res = dict(launches=launches, max_abs_err=err, worst_gap=gap,
+               forward_s=forward_s)
+    if err > LOGIT_ATOL or gap > LOGIT_ATOL:
+        fail(f"llama forward against plain attention: max|dlogit| {err}, "
+             f"worst chosen gap {gap} (tol {LOGIT_ATOL})")
+    return res
+
+
+def _moe_flops_per_token(config) -> float:
+    """6 x the parameters a token's forward multiplies by (every expert's
+    weights top_k / n_experts times) + attention's 12 L D S. The dispatch
+    and combine products against the (N, E, C) one-hots are not counted."""
+    from ray_tpu_torch.models import moe
+
+    D, L, F_ = config.d_model, config.n_layer, config.expert_mlp
+    E, K = config.n_experts, config.top_k
+    expert = E * D * F_ + E * F_ + E * F_ * D + E * D
+    active = moe.num_params(config) - L * expert + L * expert * K / E
+    return 6.0 * active + 12.0 * L * D * config.seq_len
+
+
+def _moe_choices(params, tokens, config):
+    """Each layer's top-k experts per token (sorted), read at the router's
+    input during a no-grad forward; and the aux loss."""
+    import torch
+
+    from ray_tpu_torch.models import moe
+
+    seen, route = [], moe._route
+
+    def recording(x32, router_w, cfg):
+        probs = torch.softmax(x32 @ router_w, dim=-1)
+        seen.append(probs.topk(cfg.top_k, dim=-1).indices.sort(-1).values)
+        return route(x32, router_w, cfg)
+
+    moe._route = recording
+    try:
+        with torch.no_grad():
+            _, aux = moe.forward(params, tokens, config)
+    finally:
+        moe._route = route
+    return torch.stack(seen), float(aux)
+
+
+def phase_models(peaks: Tuple[float, float], card: str) -> Dict[str, object]:
+    """Llama, MoE, ViT and the MLP at full width on the card (see the
+    module docstring, phase 15)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import optim
+    from ray_tpu_torch.models import llama, mlp, moe, vit
+    from ray_tpu_torch.optim import tree_map
+    from ray_tpu_torch.parallel import MeshSpec
+
+    t_phase = time.perf_counter()
+    result: Dict[str, object] = {"card": card}
+
+    def fresh(init):
+        return tree_map(lambda p: p.detach().clone(), init)
+
+    # Llama: forward, five steps at B=16, then B=2 against each path.
+    config = llama.LlamaConfig()
+    init = llama.init_params(config, seed=0, device="cuda")
+    tokens, targets = _model_tokens(config, LLAMA_BATCH)
+    fwd = _llama_forward_check(config, init, tokens)
+    optimizer = llama.make_optimizer(MODEL_LR)
+    params = fresh(init)
+    L = config.n_layer
+    splash = {"splash_attention_fwd": 2 * L, "splash_attention_bwd": L}
+    run = _train_steps("llama", config, llama.make_train_step(
+        config, optimizer), params, optimizer.init(params), tokens, targets,
+        splash, peaks, card, flops_per_token=llama.flops_per_token(config))
+    del params
+    torch.cuda.empty_cache()
+    small = (tokens[:2], targets[:2])
+    W = RING_WORLD
+    checks = {"xla": _check_step_against(
+        "llama", config, dataclasses.replace(config, attn_impl="xla"), init,
+        small, loss_fn=llama.loss_fn, want=splash)}
+    for impl, mesh, want in (
+            ("pallas", None, splash),
+            # The whole-layer checkpoint reruns each layer's ring forward.
+            ("ring", MeshSpec(seq=W), {"ring_attention_fwd": 2 * L * W,
+                                       "ring_attention_bwd": L * W}),
+            # Ulysses runs plain attention on the head shards, as JAX does.
+            ("ulysses", MeshSpec(seq=W), {})):
+        checks[impl] = _check_step_against(
+            f"llama_{impl}", dataclasses.replace(config, attn_impl=impl),
+            config, init, small, mesh=mesh, loss_fn=llama.loss_fn, want=want)
+    result["llama"] = dict(forward=fwd, run=run, checks=checks,
+                           num_params=llama.num_params(config))
+    print("models_llama " + json.dumps(result["llama"]), flush=True)
+    del init
+    torch.cuda.empty_cache()
+
+    # MoE: five steps at B=8, then B=2 against plain attention.
+    config = moe.MoEConfig()
+    init = moe.init_params(config, seed=0, device="cuda")
+    tokens, targets = _model_tokens(config, MOE_BATCH)
+    optimizer = optim.make_optimizer(MODEL_LR)
+    params = fresh(init)
+    L = config.n_layer
+    run = _train_steps("moe", config, moe.make_train_step(config, optimizer),
+                       params, optimizer.init(params), tokens, targets,
+                       {"splash_attention_fwd": 2 * L,
+                        "splash_attention_bwd": L}, peaks, card,
+                       flops_per_token=_moe_flops_per_token(config))
+    del params
+    torch.cuda.empty_cache()
+    small = (tokens[:2], targets[:2])
+    plain = dataclasses.replace(config, attn_impl="xla")
+    with torch.no_grad():
+        loss, ref_loss = (float(moe.loss_fn(init, *small, c))
+                          for c in (config, plain))
+    choices, aux = _moe_choices(init, small[0], config)
+    ref_choices, ref_aux = _moe_choices(init, small[0], plain)
+    flips = int((choices != ref_choices).any(-1).sum())
+    check = dict(loss=loss, ref_loss=ref_loss, loss_abs_err=abs(loss - ref_loss),
+                 aux=aux, ref_aux=ref_aux, topk_differs=flips,
+                 token_layers=int(choices.shape[0] * choices.shape[1]),
+                 capacity=config.capacity(MOE_BATCH * config.seq_len))
+    if not np.isfinite(aux) or abs(loss - ref_loss) > LOSS_ATOL:
+        fail(f"MoE B=2 against plain attention: {check} (tol {LOSS_ATOL})")
+    result["moe"] = dict(run=run, check=check,
+                         num_params=moe.num_params(config))
+    print("models_moe " + json.dumps(result["moe"]), flush=True)
+    del init
+    torch.cuda.empty_cache()
+
+    # ViT-B/16: five steps at B=64 under its own optimizer; no kernel.
+    config = vit.ViTConfig.base()
+    params = vit.init_params(config, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.normal(size=(
+        VIT_BATCH, config.image_size, config.image_size, 3)).astype(
+            np.float32), device="cuda")
+    labels = torch.as_tensor(rng.integers(0, config.num_classes, VIT_BATCH),
+                             device="cuda")
+    optimizer = vit.make_optimizer(MODEL_LR)
+    run = _train_steps("vit", config, vit.make_train_step(config, optimizer),
+                       params, optimizer.init(params), images, labels, {},
+                       peaks, card, flops_per_token=0, per_row=1)
+    run["images_per_s"] = run.pop("tokens_per_s")
+    result["vit"] = dict(run=run, num_params=vit.num_params(config))
+    print("models_vit " + json.dumps(result["vit"]), flush=True)
+    del params, images
+    torch.cuda.empty_cache()
+
+    # The MLP on tests/test_torch_train.py's data, on the card and (the
+    # same loop, the same weights) on the CPU.
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(512, 784)).astype(np.float32)
+    w = rng.normal(size=(784, 10)).astype(np.float32)
+    y = np.argmax(x @ w + rng.normal(size=(512, 10)) * 0.1, axis=-1)
+    accs = {}
+    for dev in ("cuda", "cpu"):
+        params = tree_map(lambda p: p.to(dev), mlp.init_params(0, device="cuda"))
+        xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+        optimizer = optim.AdamW(learning_rate=1e-3, weight_decay=0.0,
+                                b2=0.999, grad_clip=math.inf,
+                                mu_dtype=torch.float32)
+        step = optim.make_step(mlp.loss_fn, optimizer)
+        state = optimizer.init(params)
+        _reset_counts()
+        for _ in range(MLP_EPOCHS):
+            for i in range(0, len(x), 128):
+                params, state, _ = step(params, state, xt[i:i + 128],
+                                        yt[i:i + 128])
+        with torch.no_grad():
+            accs[dev] = float(mlp.accuracy(params, xt, yt))
+        if any(_counts().values()):
+            fail(f"the MLP launched a port kernel: {_counts()}")
+    result["mlp"] = dict(accuracy=accs["cuda"], cpu_accuracy=accs["cpu"])
+    if accs["cuda"] <= MLP_ACC_FLOOR:
+        fail(f"the MLP reached {accs} on the card (floor {MLP_ACC_FLOOR})")
+    # Last: the SDPA backward's yardstick runs under torch.profiler.
+    result["kernels"] = _models_kernels(peaks)
+    result["seconds"] = time.perf_counter() - t_phase
+    summary = dict(
+        card=card, seconds=result["seconds"],
+        llama_tokens_per_s=result["llama"]["run"]["tokens_per_s"],
+        llama_mfu_pct=result["llama"]["run"]["mfu_pct"],
+        moe_tokens_per_s=result["moe"]["run"]["tokens_per_s"],
+        moe_mfu_pct=result["moe"]["run"]["mfu_pct"],
+        vit_images_per_s=result["vit"]["run"]["images_per_s"],
+        mlp=result["mlp"], moe_topk_differs=check["topk_differs"],
+        launches={k: result[k]["run"]["launches"]
+                  for k in ("llama", "moe", "vit")})
+    print("models " + json.dumps(summary), flush=True)
+    return result
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -5490,6 +5868,7 @@ def main() -> int:
                  f"kernel check covers")
     tune_fit = phase_tune_fit()
     workflow_fit = phase_workflow_fit()
+    models = phase_models(peaks, card)
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
     bwd = phase_attn_bwd(peaks)
@@ -5521,6 +5900,8 @@ def main() -> int:
         for impl in ("dense", "fused"):
             out[f"train_{impl}"] = train["launches"][impl][name]
         out["train_ring"] = train_ring["run"]["launches"][name]
+        for model in ("llama", "moe", "vit"):
+            out[f"models_{model}"] = models[model]["run"]["launches"][name]
         return out
 
     kernels = [
@@ -5541,7 +5922,9 @@ def main() -> int:
                                                       (32, 1024, True),
                                                       (8, 517, True))],
               resources={k: r for k, r in splash_res.items()
-                         if k.startswith("fwd")}),
+                         if k.startswith("fwd")},
+              llama_shape={k: v for k, v in models["kernels"]["llama"].items()
+                           if not k.startswith(("bwd", "d"))}),
         entry("splash_attention_bwd",
               "ray_tpu_torch/csrc/splash_attention_bwd.cu",
               "ray_tpu/ops/attention.py:56",
@@ -5555,7 +5938,9 @@ def main() -> int:
               library_loop_ms=bwd["main"]["library_loop_ms"],
               profiled_ms=bwd["main"]["profiled_ms"],
               resources={k: r for k, r in splash_res.items()
-                         if not k.startswith("fwd")}),
+                         if not k.startswith("fwd")},
+              llama_shape={k: v for k, v in models["kernels"]["llama"].items()
+                           if not k.startswith(("fwd", "max", "lse"))}),
     ]
     for name, row_no, line, function in (
             ("fused_ce_fwd", 5, 81, "_fwd_pallas (_fwd_kernel :53)"),

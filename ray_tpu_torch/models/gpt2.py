@@ -33,8 +33,8 @@ from ray_tpu_torch.ops.attention import (attention_reference, flash_attention,
 from ray_tpu_torch.ops.fused_ce import fused_lm_head_ce
 from ray_tpu_torch.ops.ring_attention import ring_attention, ulysses_attention
 # make_optimizer is re-exported: the JAX package defines it in this module.
-from ray_tpu_torch.optim import (AdamW, make_optimizer,  # noqa: F401
-                                 tree_leaves, tree_map)
+from ray_tpu_torch.optim import AdamW, make_optimizer  # noqa: F401
+from ray_tpu_torch.optim import make_step
 
 Params = Dict[str, object]
 
@@ -379,36 +379,14 @@ def inference_params(params: Params, config: GPTConfig) -> Params:
 
 
 def make_train_step(config: GPTConfig, optimizer: AdamW):
-    """(params, opt_state, tokens, targets) -> (params, opt_state, loss).
-
-    The counterpart of the JAX step (``jax.value_and_grad(loss_fn)``, the
-    optimizer update, ``optax.apply_updates``) with one difference: JAX
-    returns new arrays, while here the parameters are leaf tensors updated
-    in place under ``no_grad`` and the same dictionary is returned. Leaves
-    that do not require grad yet are switched to ``requires_grad``. Gradients
-    come from ``torch.autograd.grad``, so no ``.grad`` is left behind. The
-    loss comes back detached, still on the device: reading it (``float``)
-    waits for the step.
-    """
+    """(params, opt_state, tokens, targets) -> (params, opt_state, loss):
+    ``optim.make_step`` over ``loss_fn`` (parameters updated in place, the
+    loss detached on the device)."""
     if config.pp_stages > 1:
         raise NotImplementedError(
             "pp_stages > 1 (pipeline parallelism) is not ported yet; see "
             "ROADMAP.md")
-
-    def step(params: Params, opt_state, tokens: torch.Tensor,
-             targets: torch.Tensor):
-        leaves = tree_leaves(params)
-        for p in leaves:
-            if not p.requires_grad:
-                p.requires_grad_(True)
-        loss = loss_fn(params, tokens, targets, config)
-        grads = torch.autograd.grad(loss, leaves)
-        it = iter(grads)
-        grad_tree = tree_map(lambda _: next(it), params)
-        opt_state = optimizer.update(grad_tree, opt_state, params)
-        return params, opt_state, loss.detach()
-
-    return step
+    return make_step(partial(loss_fn, config=config), optimizer)
 
 
 def make_eval_step(config: GPTConfig):

@@ -157,10 +157,20 @@ def _get(port, path):
         return e.code, None, b""
 
 
-def test_port_agent_routes():
+def test_port_agent_routes(tmp_path, monkeypatch):
+    """Every route of the port's agent answers. The postmortem routes parse
+    every dump in the postmortem directory, after ``/api/memory`` has
+    turned tracemalloc on (which slows parsing ~15x): on the session's
+    shared directory, which the whole suite's dumps fill, they took 2.9 and
+    7.2 s alone and passed ``_get``'s 10 s under the full suite's load. The
+    test reads a directory of its own, holding one dump it writes."""
     from ray_tpu_torch._private.metrics_agent import MetricsAgent
     from ray_tpu_torch._private.runtime import get_runtime
+    from ray_tpu_torch.util.flight_recorder import FlightRecorder
 
+    monkeypatch.setenv("RAY_TPU_POSTMORTEM_DIR", str(tmp_path))
+    dumped = FlightRecorder().dump("agent_routes")
+    assert dumped is not None and dumped.startswith(str(tmp_path))
     fresh_init(ray_tpu_torch, num_cpus=2)
     agent = MetricsAgent(get_runtime())
     tracing = tracemalloc.is_tracing()
@@ -182,11 +192,17 @@ def test_port_agent_routes():
         # (tests/test_torch_state.py holds their rows to the reference's);
         # the reference's cluster and node pages, which need its nodes, and
         # a postmortem id with no dump do not.
+        bodies = {}
         for path in ("/api/tasks", "/api/actors", "/api/objects",
                      "/api/nodes", "/api/placement_groups", "/api/jobs",
                      "/api/postmortems", "/api/postmortems/bundle"):
-            status, ctype, _ = _get(agent.port, path)
+            status, ctype, bodies[path] = _get(agent.port, path)
             assert (status, ctype) == (200, "application/json"), path
+        rows = json.loads(bodies["/api/postmortems"])
+        assert [r["reason"] for r in rows] == ["agent_routes"]
+        assert [d["reason"] for d in json.loads(
+            bodies["/api/postmortems/bundle"])["dumps"]] == ["agent_routes"]
+        assert _get(agent.port, "/api/postmortems/" + rows[0]["id"])[0] == 200
         for path in ("/api", "/api/cluster", "/api/node/x",
                      "/api/postmortems/no-such-dump", "/", "/nope"):
             assert _get(agent.port, path)[0] == 404, path

@@ -66,24 +66,6 @@ def _mlp_init():
     return jax.tree.map(np.asarray, mlp.init_params(jax.random.key(0)))
 
 
-def _torch_mlp():
-    """(loss, accuracy) of the reference MLP's function, in torch."""
-    import torch.nn.functional as F
-
-    def forward(params, x):
-        for layer in params[:-1]:
-            x = F.relu(x @ layer["w"] + layer["b"])
-        return x @ params[-1]["w"] + params[-1]["b"]
-
-    def loss(params, x, y):
-        return F.cross_entropy(forward(params, x), y)
-
-    def accuracy(params, x, y):
-        return (forward(params, x).argmax(-1) == y).float().mean()
-
-    return loss, accuracy
-
-
 # ------------------------------------------------- tests/test_train.py cases
 def single_worker_mnist_style(pkg, init):
     """BASELINE config 1: single-worker MLP classification train."""
@@ -115,7 +97,8 @@ def single_worker_mnist_style(pkg, init):
                               "accuracy": acc})
     else:
         def loop(config):
-            loss_fn, accuracy = _torch_mlp()
+            from ray_tpu_torch.models import mlp
+
             x, y = (torch.from_numpy(a) for a in _make_data())
             y = y.long()
             params = [{k: torch.tensor(v, requires_grad=True)
@@ -125,11 +108,11 @@ def single_worker_mnist_style(pkg, init):
             for epoch in range(config["epochs"]):
                 for i in range(0, len(x), 128):
                     opt.zero_grad()
-                    loss = loss_fn(params, x[i:i + 128], y[i:i + 128])
+                    loss = mlp.loss_fn(params, x[i:i + 128], y[i:i + 128])
                     loss.backward()
                     opt.step()
                 with torch.no_grad():
-                    acc = float(accuracy(params, x, y))
+                    acc = float(mlp.accuracy(params, x, y))
                 train.report({"epoch": epoch, "loss": float(loss.detach()),
                               "accuracy": acc})
 
@@ -185,8 +168,8 @@ def multi_worker_allreduce_training(pkg, init):
     else:
         def loop(config):
             from ray_tpu_torch import collective
+            from ray_tpu_torch.models import mlp
 
-            loss_fn, _ = _torch_mlp()
             ctx = train.get_context()
             rank, world = ctx.get_world_rank(), ctx.get_world_size()
             x, y = (torch.from_numpy(a) for a in _make_data(256, seed=rank))
@@ -199,7 +182,7 @@ def multi_worker_allreduce_training(pkg, init):
             for it in range(4):
                 for p in leaves:
                     p.requires_grad_(True)
-                grads = torch.autograd.grad(loss_fn(params, x, y), leaves)
+                grads = torch.autograd.grad(mlp.loss_fn(params, x, y), leaves)
                 summed = collective.allreduce(
                     torch.cat([g.reshape(-1) for g in grads]),
                     group_name=ctx.collective_group)
@@ -209,7 +192,7 @@ def multi_worker_allreduce_training(pkg, init):
                     for p in leaves:
                         p.sub_(lr * avg[i:i + p.numel()].view(p.shape))
                         i += p.numel()
-                    loss = float(loss_fn(params, x, y))
+                    loss = float(mlp.loss_fn(params, x, y))
                 losses[(rank, it)] = loss
                 train.report({"iter": it, "rank": rank, "loss": loss})
 
