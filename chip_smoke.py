@@ -298,7 +298,30 @@ Phases, each of which exits non-zero on failure:
     against their plain versions; at Llama's, timed alone beside SDPA and
     the bound. It prints tokens/s and MFU for Llama and MoE, images/s for
     ViT, and the phase's seconds, with the card's name and power limit.
-16. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+16. RL on the card (``rl_ppo`` lines; ``ray_tpu_torch.rl``, no gymnasium:
+    the port's own CartPole-v1). (a) PPO at ``examples/cartpole_ppo.py``'s
+    configuration (``train_batch_size=2048, minibatch_size=128,
+    num_epochs=8, lr=3e-4, entropy_coeff=0.001``, one local runner of 8
+    envs with fragments of 64, seed 0, ``(64, 64)`` torsos), the learner
+    and the runner's forward on the card, until the mean return reaches
+    ``RL_STOP_REWARD`` (450) within ``RL_MAX_ITERS`` (150) iterations, else
+    it fails; it prints the iteration and env steps where it got there,
+    env steps/s, minibatch updates/s, the seconds sampling and learning per
+    iteration, and the returns at iterations 0, 10 and 25 beside the
+    reference's (``RL_NORTHSTAR.json``). (d) The trained algorithm saved
+    and restored into a new one: weights and Adam's state equal bit for
+    bit. (b) One ``PPOLearner.update_from_batch`` (2 epochs, minibatch 64,
+    ``grad_clip=0.5``, 512 numpy rows) on the card and on the CPU from the
+    same weights: every weight within ``RL_ATOL``; and a runner of 8 envs
+    on each, seed 0, with those weights: the same 2048 steps (its sampling
+    noise comes from a host generator), log-probs within ``RL_ATOL``. (c)
+    Two thread learners
+    on the card, their gradients all-reduced through the collective,
+    against one learner on the same batch (two whole-batch steps): within
+    ``RL_ATOL``; then two
+    iterations with two remote runners and two learners. (e) No kernel of
+    the port launched over the phase.
+17. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -5786,6 +5809,252 @@ def phase_models(peaks: Tuple[float, float], card: str) -> Dict[str, object]:
     return result
 
 
+
+# PPO on CartPole-v1 at examples/cartpole_ppo.py's configuration, until the
+# mean return (over the last 20 iterations' episodes) reaches 450, for at
+# most 150 iterations (2.6x the reference's 58).
+RL_STOP_REWARD = 450.0
+RL_MAX_ITERS = 150
+# RL_NORTHSTAR.json: the reference's curve (mean return by iteration) and
+# where it reached 450, on its 1-core CPU host; the card's run is compared
+# with it, not timed against it.
+RL_REF_CURVE = {0: 20.93, 10: 137.37, 25: 288.93}
+RL_REF_REACHED = {"iteration": 57, "env_steps": 118784}
+# Every weight of the card's update against the CPU's, and of two learners
+# against one (fp32, TF32 off): sums in other orders over <= 512 rows and
+# 16 Adam steps at lr 3e-4.
+RL_ATOL = 1e-5
+RL_BATCH = 512
+
+
+def _rl_batch(module, n: int):
+    """A PPO batch from numpy seed 0 for a CartPole-shaped module: the
+    module's own log-probs plus noise (ratios leave the clip range), wide
+    value targets, ``kl_coeff`` 0.2."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rl import Columns
+    from ray_tpu_torch.rl.core.rl_module import Categorical
+
+    rng = np.random.default_rng(0)
+    obs = rng.normal(size=(n, 4)).astype(np.float32)
+    actions = rng.integers(0, 2, n).astype(np.int32)
+    with torch.no_grad():
+        logits = module.forward_train(obs)[Columns.ACTION_DIST_INPUTS]
+        logp = Categorical.logp(logits, torch.from_numpy(actions)).numpy()
+    return {Columns.OBS: obs, Columns.ACTIONS: actions,
+            Columns.ACTION_LOGP: (logp + rng.normal(0.1, 0.4, n)).astype(np.float32),
+            Columns.ADVANTAGES: rng.normal(size=n).astype(np.float32),
+            Columns.VALUE_TARGETS: (rng.normal(size=n) * 4).astype(np.float32),
+            "kl_coeff": np.float32(0.2)}
+
+
+def _rl_max_diff(a, b) -> float:
+    return max(float((a[k].detach().cpu() - b[k].detach().cpu()).abs().max())
+               for k in a)
+
+
+def phase_rl_ppo(card: str, device: str = "cuda") -> Dict[str, object]:
+    """The RL path on the card (see the module docstring, phase 16)."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rl import (DefaultActorCritic, LearnerGroup, RLModuleSpec,
+                                  SingleAgentEnvRunner)
+    from ray_tpu_torch.rl.algorithms import PPOConfig, PPOLearner
+
+    t_phase = time.perf_counter()
+    result: Dict[str, object] = {"card": card}
+    _reset_counts()
+    ray_tpu_torch.init()
+    try:
+        # (a) The north star: examples/cartpole_ppo.py to a mean of 450.
+        config = (PPOConfig().environment("CartPole-v1")
+                  .env_runners(num_env_runners=0, num_envs_per_env_runner=8,
+                               rollout_fragment_length=64)
+                  .training(train_batch_size=2048, minibatch_size=128,
+                            num_epochs=8, lr=3e-4, entropy_coeff=0.001,
+                            vf_clip_param=10.0, lambda_=0.95, gamma=0.99)
+                  .resources(device=device)
+                  .debugging(seed=0))
+        t0 = time.perf_counter()
+        algo = config.build_algo()
+        setup_s = time.perf_counter() - t0
+        curve, reached, steps_before, updates = [], None, 0, 0
+        timers = {"sample_s": [], "learn_s": [], "update_s": []}
+        t_train = time.perf_counter()
+        for it in range(RL_MAX_ITERS):
+            res = algo.train()
+            ret = res.get("episode_return_mean", float("nan"))
+            steps = res["num_env_steps_sampled_lifetime"]
+            n = steps - steps_before
+            steps_before = steps
+            updates += config.num_epochs * math.ceil(n / config.minibatch_size)
+            for k in timers:
+                timers[k].append(res["timers"][k])
+            curve.append({"iteration": it, "env_steps": steps,
+                          "return_mean": ret})
+            if ret >= RL_STOP_REWARD:
+                reached = it
+                break
+        train_s = time.perf_counter() - t_train
+        iters = len(curve)
+        a = dict(
+            card=card, device=str(algo.device), reached=reached is not None,
+            reached_at_iteration=reached, iterations=iters,
+            env_steps=steps_before, train_s=train_s, setup_s=setup_s,
+            env_steps_per_s=steps_before / train_s,
+            sample_env_steps_per_s=steps_before / sum(timers["sample_s"]),
+            updates=updates, updates_per_s=updates / sum(timers["update_s"]),
+            sample_s_per_iter=statistics.median(timers["sample_s"]),
+            learn_s_per_iter=statistics.median(timers["learn_s"]),
+            update_s_per_iter=statistics.median(timers["update_s"]),
+            first_iter_s={k: v[0] for k, v in timers.items()},
+            sample_share=sum(timers["sample_s"]) / (
+                sum(timers["sample_s"]) + sum(timers["learn_s"])),
+            returns={str(i): (curve[i]["return_mean"] if i < iters else None)
+                     for i in RL_REF_CURVE},
+            reference_returns={str(i): v for i, v in RL_REF_CURVE.items()},
+            reference_reached=RL_REF_REACHED,
+            curve_every_5=[c for c in curve if c["iteration"] % 5 == 0])
+        result["ppo"] = a
+        print("rl_ppo_a " + json.dumps(a), flush=True)
+        if reached is None:
+            fail(f"PPO did not reach a mean return of {RL_STOP_REWARD} in "
+                 f"{RL_MAX_ITERS} iterations: {curve[-1]}")
+
+        # (d) Save and restore the trained algorithm: bit for bit.
+        ckpt = algo.save()
+        algo2 = config.copy().build_algo()
+        algo2.restore(ckpt)
+        saved, restored = algo.get_weights(), algo2.get_weights()
+        opt_a = algo.learner_group.get_state()["opt_state"]["state"]
+        opt_b = algo2.learner_group.get_state()["opt_state"]["state"]
+        d = dict(card=card, weights_equal=all(
+            torch.equal(saved[k], restored[k]) for k in saved) and list(saved)
+            == list(restored), opt_state_equal=all(
+            torch.equal(opt_a[p][k], opt_b[p][k]) for p in opt_a
+            for k in opt_a[p]), restored_device=str(
+            next(iter(restored.values())).device))
+        result["restore"] = d
+        print("rl_ppo_d " + json.dumps(d), flush=True)
+        if not (d["weights_equal"] and d["opt_state_equal"]):
+            fail(f"PPO's restored state differs from the saved one: {d}")
+        algo.stop()
+        algo2.stop()
+
+        # (b) One update on the card against the same update on the CPU.
+        spec = RLModuleSpec(module_class=DefaultActorCritic,
+                            observation_dim=4, action_dim=2)
+        batch = _rl_batch(spec.build(device="cpu"), RL_BATCH)
+        cfg = PPOConfig().training(grad_clip=0.5)
+        learners, metrics = {}, {}
+        for dev in ("cpu", device):
+            learners[dev] = PPOLearner(
+                config=cfg.copy().resources(device=dev), module_spec=spec,
+                seed=0)
+        if _rl_max_diff(learners["cpu"].get_weights(),
+                        learners[device].get_weights()) != 0.0:
+            fail("PPO learners from one seed start from other weights on "
+                 "the card and the CPU")
+        for dev, learner in learners.items():
+            t0 = time.perf_counter()
+            metrics[dev] = learner.update_from_batch(
+                dict(batch), num_epochs=2, minibatch_size=64)
+            metrics[dev]["update_s"] = time.perf_counter() - t0
+        b = dict(card=card, rows=RL_BATCH, epochs=2, minibatch=64,
+                 max_abs_err=_rl_max_diff(learners["cpu"].get_weights(),
+                                          learners[device].get_weights()),
+                 atol=RL_ATOL, metrics=metrics, moved=_rl_max_diff(
+                     learners["cpu"].get_weights(),
+                     spec.build(device="cpu").state_dict()))
+        # The runner's sampler: one seed draws the same uniforms on the
+        # card and on the CPU (a host generator), so with the same weights
+        # both take the same 2048 steps.
+        episodes = {}
+        for dev in ("cpu", device):
+            runner = SingleAgentEnvRunner(env="CartPole-v1", module_spec=spec,
+                                          num_envs=8, seed=0, device=dev)
+            runner.set_state({"params": learners["cpu"].get_weights()})
+            episodes[dev] = [ep.to_numpy() for ep in
+                             runner.sample(num_timesteps=2048)]
+        pairs = list(zip(episodes["cpu"], episodes[device]))
+        b["runner"] = dict(
+            episodes=len(pairs), steps=sum(len(x["actions"]) for x, _ in pairs),
+            same_steps=len(episodes["cpu"]) == len(episodes[device]) and all(
+                np.array_equal(x[k], y[k]) for x, y in pairs
+                for k in ("obs", "actions", "rewards")),
+            logp_max_abs_err=max(float(np.abs(
+                x["action_logp"] - y["action_logp"]).max()) for x, y in pairs))
+        result["card_vs_cpu"] = b
+        print("rl_ppo_b " + json.dumps(b), flush=True)
+        if not b["max_abs_err"] <= RL_ATOL or b["moved"] < 1e-4:
+            fail(f"PPO's update on the card differs from the CPU's: {b}")
+        if not b["runner"]["same_steps"] or \
+                not b["runner"]["logp_max_abs_err"] <= RL_ATOL:
+            fail(f"the runner's steps on the card differ from the CPU's: {b}")
+
+        # (c) Two thread learners on the card, their gradients all-reduced
+        # through the collective, against one learner on the same batch.
+        # Whole-batch steps: each learner permutes its own shard, so only
+        # a step over the whole shard sees the rows one learner's step sees.
+        groups = {}
+        for num_learners in (0, 2):
+            groups[num_learners] = LearnerGroup(
+                learner_class=PPOLearner,
+                config=cfg.copy().resources(device=device), module_spec=spec,
+                num_learners=num_learners, seed=0)
+        for g in groups.values():
+            g.update_from_batch(dict(batch), num_epochs=2, minibatch_size=None)
+        c = dict(card=card, max_abs_err=_rl_max_diff(groups[0].get_weights(),
+                                                     groups[2].get_weights()),
+                 atol=RL_ATOL)
+        groups[2].stop()
+        # Then the whole loop with two remote runners and two learners.
+        two = (config.copy().env_runners(num_env_runners=2,
+                                         num_envs_per_env_runner=4)
+               .learners(num_learners=2))
+        algo = two.build_algo()
+        runs = [algo.train() for _ in range(2)]
+        algo.stop()
+        c["two_runners_two_learners"] = [
+            dict(env_steps=r["num_env_steps_sampled_lifetime"],
+                 total_loss=r["learners"]["total_loss"],
+                 return_mean=r.get("episode_return_mean")) for r in runs]
+        result["two_learners"] = c
+        print("rl_ppo_c " + json.dumps(c), flush=True)
+        if not c["max_abs_err"] <= RL_ATOL:
+            fail(f"two learners on the card differ from one: {c}")
+        if [r["env_steps"] for r in c["two_runners_two_learners"]] != [2048, 4096] \
+                or not all(math.isfinite(r["total_loss"])
+                           for r in c["two_runners_two_learners"]):
+            fail(f"PPO with two runners and two learners: {c}")
+    finally:
+        ray_tpu_torch.shutdown()
+
+    # (e) The RL path launches none of the port's kernels.
+    result["launches"] = _counts()
+    if any(result["launches"].values()):
+        fail(f"the RL path launched a port kernel: {result['launches']}")
+    result["seconds"] = time.perf_counter() - t_phase
+    summary = dict(
+        card=card, seconds=result["seconds"], reached=a["reached"],
+        reached_at_iteration=a["reached_at_iteration"],
+        env_steps=a["env_steps"], train_s=a["train_s"],
+        env_steps_per_s=a["env_steps_per_s"], updates_per_s=a["updates_per_s"],
+        sample_s_per_iter=a["sample_s_per_iter"],
+        learn_s_per_iter=a["learn_s_per_iter"],
+        returns=a["returns"], reference_returns=a["reference_returns"],
+        card_vs_cpu_max_abs_err=b["max_abs_err"],
+        runner_same_steps=b["runner"]["same_steps"],
+        two_learners_max_abs_err=c["max_abs_err"],
+        restore_bit_for_bit=d["weights_equal"] and d["opt_state_equal"],
+        launches=result["launches"])
+    print("rl_ppo " + json.dumps(summary), flush=True)
+    return result
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -5869,6 +6138,7 @@ def main() -> int:
     tune_fit = phase_tune_fit()
     workflow_fit = phase_workflow_fit()
     models = phase_models(peaks, card)
+    rl = phase_rl_ppo(card)
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
     bwd = phase_attn_bwd(peaks)
@@ -5902,6 +6172,7 @@ def main() -> int:
         out["train_ring"] = train_ring["run"]["launches"][name]
         for model in ("llama", "moe", "vit"):
             out[f"models_{model}"] = models[model]["run"]["launches"][name]
+        out["rl_ppo"] = rl["launches"].get(name, 0)
         return out
 
     kernels = [

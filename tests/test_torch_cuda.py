@@ -892,3 +892,53 @@ def test_llama_step_goes_through_the_splash_kernels_on_gpu():
     assert abs(loss - ref_loss) <= 1e-3
     for g, r in zip(grads, ref):
         assert _rel(g, r) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_ppo_runner_and_learner_on_gpu():
+    """RL has no kernel of its own: the runner's batched forward and one
+    PPO update on the card, against the same on the CPU from the same
+    weights (chip_smoke.py's RL_ATOL; the runner's noise comes from a host
+    generator, so the steps are the same), and no port kernel launched."""
+    _need_gpu()
+    import numpy as np
+
+    from ray_tpu_torch.rl import (DefaultActorCritic, RLModuleSpec,
+                                  SingleAgentEnvRunner)
+    from ray_tpu_torch.rl.algorithms import PPOConfig, PPOLearner
+    from ray_tpu_torch.rl.core.rl_module import Columns
+
+    counts = [attention.LAUNCHES, fused_ce.LAUNCHES, ra.LAUNCHES]
+    before = [dict(c) for c in counts]
+    spec = RLModuleSpec(module_class=DefaultActorCritic, observation_dim=4,
+                        action_dim=2)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        runner = SingleAgentEnvRunner(env="CartPole-v1", module_spec=spec,
+                                      num_envs=4, device=dev)
+        assert next(runner.module.parameters()).device.type == dev
+        runs[dev] = [e.to_numpy() for e in runner.sample(num_timesteps=64)]
+    assert sum(len(e["actions"]) for e in runs["cuda"]) == 64
+    assert len(runs["cpu"]) == len(runs["cuda"])
+    for a, b in zip(runs["cpu"], runs["cuda"]):
+        for k in ("obs", "actions", "rewards"):
+            assert np.array_equal(a[k], b[k]), k
+        assert np.abs(a["action_logp"] - b["action_logp"]).max() <= 1e-5
+    rng = np.random.default_rng(0)
+    n = 128
+    batch = {Columns.OBS: rng.normal(size=(n, 4)).astype(np.float32),
+             Columns.ACTIONS: rng.integers(0, 2, n).astype(np.int32),
+             Columns.ACTION_LOGP: np.full(n, -0.6, np.float32),
+             Columns.ADVANTAGES: rng.normal(size=n).astype(np.float32),
+             Columns.VALUE_TARGETS: rng.normal(size=n).astype(np.float32),
+             "kl_coeff": np.float32(0.2)}
+    weights = {}
+    for dev in ("cpu", "cuda"):
+        learner = PPOLearner(config=PPOConfig().training(grad_clip=0.5)
+                             .resources(device=dev), module_spec=spec, seed=0)
+        learner.update_from_batch(dict(batch), num_epochs=2, minibatch_size=32)
+        weights[dev] = learner.get_weights()
+    for k, w in weights["cpu"].items():
+        assert (weights["cuda"][k].cpu() - w).abs().max().item() <= 1e-5, k
+    delta = {k: v - b[k] for c, b in zip(counts, before) for k, v in c.items()}
+    assert not any(delta.values())

@@ -9,7 +9,7 @@
   subprocess: this test process already has JAX (tests/conftest.py), and
   the name ray_tpu_torch itself starts with "ray_tpu".
 - Entry points run on the GPU unless given device="cpu", and raise without
-  one.
+  one (RL's algorithms and learners too; RL runs without gymnasium).
 - The kernel build forms the sm_90a nvcc command and raises without nvcc.
 """
 
@@ -29,6 +29,8 @@ from ray_tpu_torch import bench
 from ray_tpu_torch._private import device as device_mod
 from ray_tpu_torch._private import kernel_build, peaks
 from ray_tpu_torch.models import convert, gpt2
+from ray_tpu_torch.rl import DefaultActorCritic, RLModuleSpec, TorchLearner
+from ray_tpu_torch.rl.algorithms import PPOConfig
 from ray_tpu_torch.serve import GPT2Next, GPT2Stream
 
 REPO = Path(__file__).resolve().parent.parent
@@ -36,9 +38,10 @@ PORT = REPO / "ray_tpu_torch"
 
 
 #: Packages the port may not import: JAX, the reference package, and the
-#: reference's dependencies that the card's machine does not have.
+#: reference's dependencies that the card's machine does not have (RL's
+#: gymnasium among them: the port has its own CartPole).
 _FORBIDDEN_ROOTS = ("jax", "jaxlib", "ray_tpu", "aiohttp", "cloudpickle",
-                    "psutil", "grpc")
+                    "psutil", "grpc", "gymnasium")
 
 
 #: Packages the port imports only inside the function that needs them:
@@ -121,7 +124,15 @@ print(json.dumps({"modules": mods, "loaded": sorted(sys.modules)}))
             "ray_tpu_torch.workflow.api", "ray_tpu_torch.job",
             "ray_tpu_torch.job.job_manager", "ray_tpu_torch.cluster_utils",
             "ray_tpu_torch.autoscaler", "ray_tpu_torch.autoscaler.elastic",
-            "ray_tpu_torch._private.accelerators"} <= set(res["modules"])
+            "ray_tpu_torch._private.accelerators", "ray_tpu_torch.rl",
+            "ray_tpu_torch.rl.algorithm", "ray_tpu_torch.rl.config",
+            "ray_tpu_torch.rl.connectors", "ray_tpu_torch.rl.core.learner",
+            "ray_tpu_torch.rl.core.learner_group",
+            "ray_tpu_torch.rl.core.rl_module",
+            "ray_tpu_torch.rl.env.cartpole", "ray_tpu_torch.rl.env.env_runner",
+            "ray_tpu_torch.rl.env.env_runner_group",
+            "ray_tpu_torch.rl.algorithms.ppo",
+            "ray_tpu_torch.examples.cartpole_ppo"} <= set(res["modules"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 
@@ -153,6 +164,8 @@ def no_gpu(monkeypatch):
 
 _TINY = gpt2.GPTConfig(vocab_size=64, n_layer=1, n_head=1, d_model=64,
                        seq_len=16, dtype=torch.float32)
+_RL_SPEC = RLModuleSpec(module_class=DefaultActorCritic, observation_dim=4,
+                        action_dim=2, model_config={"hiddens": (8,)})
 
 
 @pytest.mark.parametrize("make", [
@@ -165,7 +178,12 @@ _TINY = gpt2.GPTConfig(vocab_size=64, n_layer=1, n_head=1, d_model=64,
     lambda dev: GPT2Next(_TINY, device=dev) if dev else GPT2Next(_TINY),
     lambda dev: GPT2Stream(_TINY, device=dev) if dev else GPT2Stream(_TINY),
     lambda dev: convert.params_from_numpy({"w": np.zeros(3)}, device=dev)
-    if dev else convert.params_from_numpy({"w": np.zeros(3)})])
+    if dev else convert.params_from_numpy({"w": np.zeros(3)}),
+    lambda dev: PPOConfig().environment("CartPole-v1").training(
+        train_batch_size=8).resources(device=dev).build_algo() if dev else
+    PPOConfig().environment("CartPole-v1").build_algo(),
+    lambda dev: TorchLearner(config=PPOConfig().resources(device=dev),
+                             module_spec=_RL_SPEC)])
 def test_entry_points_default_to_the_gpu(no_gpu, make):
     with pytest.raises(RuntimeError, match="CUDA"):
         make(None)
@@ -255,6 +273,49 @@ def test_the_scan_covers_the_small_libraries():
             "dag/__init__.py", "dag/dag_node.py", "workflow/__init__.py",
             "workflow/api.py", "job/__init__.py",
             "job/job_manager.py"} <= files
+
+
+def test_the_scan_covers_rl():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"rl/__init__.py", "rl/algorithm.py", "rl/config.py",
+            "rl/connectors.py", "rl/core/__init__.py", "rl/core/learner.py",
+            "rl/core/learner_group.py", "rl/core/rl_module.py",
+            "rl/core/multi_rl_module.py", "rl/env/__init__.py",
+            "rl/env/cartpole.py", "rl/env/episode.py", "rl/env/env_runner.py",
+            "rl/env/env_runner_group.py", "rl/utils/__init__.py",
+            "rl/utils/metrics.py", "rl/utils/replay_buffers.py",
+            "rl/algorithms/__init__.py", "rl/algorithms/ppo.py",
+            "examples/cartpole_ppo.py"} <= files
+
+
+def test_rl_runs_a_ppo_iteration_without_gymnasium():
+    """RL imports and trains with gymnasium blocked (the card's machine has
+    none), starting no CUDA context."""
+    code = """
+import json, sys
+sys.modules["gymnasium"] = None
+import torch
+import ray_tpu_torch.rl
+from ray_tpu_torch.rl.algorithms import PPOConfig
+algo = (PPOConfig().environment("CartPole-v1")
+        .env_runners(num_envs_per_env_runner=2, rollout_fragment_length=16)
+        .training(train_batch_size=64, minibatch_size=32, num_epochs=1)
+        .resources(device="cpu").build_algo())
+res = algo.train()
+algo.stop()
+print(json.dumps({"steps": res["num_env_steps_sampled_lifetime"],
+                  "loss": res["learners"]["total_loss"],
+                  "cuda": torch.cuda.is_initialized(),
+                  "gymnasium": sys.modules["gymnasium"] is not None}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["steps"] == 64 and np.isfinite(res["loss"])
+    assert not res["cuda"] and not res["gymnasium"]
 
 
 def test_the_small_libraries_import_without_initialising_cuda():
