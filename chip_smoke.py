@@ -321,7 +321,31 @@ Phases, each of which exits non-zero on failure:
     ``RL_ATOL``; then two
     iterations with two remote runners and two learners. (e) No kernel of
     the port launched over the phase.
-17. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+17. The rest of the RL stack on the card (``rl_extras`` lines), each
+    algorithm at its reference test's configuration and seed 0, its learner
+    and runners' forwards on the card, gated by that test's own gates:
+    (a) DQN, plain and prioritized (``tests/test_rl.py``): the replay past
+    64, priorities refreshed away from 1.0; one ``DQNLearner`` update and
+    its TD errors on the card and the CPU within ``RL_ATOL``. (b) IMPALA
+    through two aggregator actors, best mean return > 35 within 300
+    iterations; APPO > 60 within 200, ``mean_ratio`` reported, a finite
+    loss; one IMPALA and one APPO update (its KL loss on) on the card and
+    the CPU within ``RL_ATOL``. (c) IMPALA with ``CNNActorCritic`` on the
+    pixel gridworld, best >= 0.5 within 45 iterations. (d) SAC on the
+    port's Pendulum-v1 at (256, 256), six iterations, every learner metric
+    finite and alpha > 0; one SAC update on the card and the CPU with the
+    same injected noise within ``SAC_ATOL``; CQL offline on the reference
+    test's Pendulum transitions held in memory: finite, its critic loss
+    not 0. (e) BC on expert CartPole transitions held in memory: bc_logp >
+    -0.35, greedy agreement with the expert > 0.9, a greedy evaluation
+    return > 100; MARWIL on half-random data: agreement > 0.75 (BC's on the
+    same data printed beside it). (f) Multi-agent PPO with two policies on
+    ``MultiAgentCartPole``: best > 60 within 12 iterations, the policies'
+    weights different, a checkpoint round trip bit for bit. (g) No kernel
+    of the port launched over the phase. Each line prints the gates'
+    iterations and env steps, env steps/s and learner updates/s per
+    algorithm; the summary line the phase's seconds.
+18. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -6055,6 +6079,546 @@ def phase_rl_ppo(card: str, device: str = "cuda") -> Dict[str, object]:
     print("rl_ppo " + json.dumps(summary), flush=True)
     return result
 
+
+# rl_extras: the reference tests' own gates (tests/test_rl.py,
+# tests/test_rl_extras.py, tests/test_rl_pixel.py,
+# tests/test_rl_multi_agent.py), at their configurations and seed 0.
+RLX_IMPALA_BEST, RLX_IMPALA_ITERS = 35.0, 300
+RLX_APPO_BEST, RLX_APPO_ITERS = 60.0, 200
+RLX_PIXEL_BEST, RLX_PIXEL_ITERS = 0.5, 45
+RLX_MA_BEST, RLX_MA_ITERS = 60.0, 12
+RLX_BC_LOGP, RLX_BC_AGREE, RLX_BC_RETURN = -0.35, 0.9, 100.0
+RLX_MARWIL_AGREE = 0.75
+# One SAC update at (256, 256) on the card against the CPU, the same noise
+# injected into both: Adam's first step moves each weight by lr * g /
+# (|g| + eps), so an entry whose gradient is near its rounding noise can
+# move by a share of lr (3e-4) on one device and not on the other.
+SAC_ATOL = 1e-4
+
+
+def _rlx_count(algo) -> Dict[str, float]:
+    """Count the local learners' minibatch updates and time their
+    ``update_from_batch`` calls (each ends in one copy of its metrics to
+    the host, so the time covers the device's work)."""
+    learners = ([g._local for g in algo.learner_groups.values()]
+                if hasattr(algo, "learner_groups")
+                else [algo.learner_group._local])
+    stats = {"updates": 0, "update_s": 0.0}
+    for learner in learners:
+        def counted(mb, inner=learner._update):
+            stats["updates"] += 1
+            return inner(mb)
+
+        def timed(*args, inner=learner.update_from_batch, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kw)
+            finally:
+                stats["update_s"] += time.perf_counter() - t0
+
+        learner._update = counted
+        learner.update_from_batch = timed
+    return stats
+
+
+def _rlx_learn(card, name, algo, gate, max_iters, at_least=False,
+               ret_of=lambda r: r.get("episode_return_mean")):
+    """Train until the best mean return passes ``gate`` (``>=`` with
+    ``at_least``) or ``max_iters`` iterations; the gate's iteration, env
+    steps, env steps/s and updates/s."""
+    stats = _rlx_count(algo)
+    best, reached, res = -math.inf, None, {}
+    t0 = time.perf_counter()
+    for it in range(max_iters):
+        res = algo.train()
+        ret = ret_of(res)
+        if ret is not None and ret == ret:
+            best = max(best, ret)
+        if best >= gate if at_least else best > gate:
+            reached = it
+            break
+    train_s = time.perf_counter() - t0
+    steps = res.get("num_env_steps_sampled_lifetime", 0)
+    out = dict(card=card, algo=name, gate=gate, best=best,
+               reached=reached is not None, reached_at_iteration=reached,
+               iterations=max_iters if reached is None else reached + 1,
+               env_steps=steps, train_s=train_s,
+               env_steps_per_s=steps / train_s, updates=stats["updates"],
+               updates_per_s=(stats["updates"] / stats["update_s"]
+                              if stats["update_s"] else None),
+               update_s=stats["update_s"])
+    return out, res
+
+
+def _rlx_iterations(card, name, algo, iters):
+    """``iters`` iterations; the last result, env steps/s and updates/s."""
+    stats = _rlx_count(algo)
+    t0 = time.perf_counter()
+    results = [algo.train() for _ in range(iters)]
+    train_s = time.perf_counter() - t0
+    steps = results[-1].get("num_env_steps_sampled_lifetime", 0)
+    return dict(card=card, algo=name, iterations=iters, env_steps=steps,
+                train_s=train_s, env_steps_per_s=steps / train_s,
+                updates=stats["updates"],
+                updates_per_s=(stats["updates"] / stats["update_s"]
+                               if stats["update_s"] else None),
+                update_s=stats["update_s"]), results
+
+
+def _rlx_card_vs_cpu(make, batch, device, noise=None, **update_kw):
+    """One learner per device from one seed (so one set of weights), the
+    same batch through ``update_from_batch`` (and, with ``noise``, the same
+    noise in place of each learner's draw): the largest weight difference,
+    and how far the update moved the weights."""
+    learners = {}
+    for dev in ("cpu", device):
+        learners[dev] = make(dev)
+        if noise is not None:
+            learners[dev]._draw_noise = (
+                lambda b, dev=dev: {k: v.to(dev) for k, v in noise.items()})
+    start = {k: v.clone() for k, v in learners["cpu"].module.state_dict().items()}
+    if _rl_max_diff(start, learners[device].module.state_dict()) != 0.0:
+        fail("RL learners from one seed start from other weights on the "
+             "card and the CPU")
+    for learner in learners.values():
+        learner.update_from_batch(dict(batch), **update_kw)
+    after = learners["cpu"].module.state_dict()
+    return learners, dict(
+        max_abs_err=_rl_max_diff(after, learners[device].module.state_dict()),
+        moved=_rl_max_diff(after, start))
+
+
+def _rlx_cartpole(n_steps, mixed):
+    """Transitions of the port's CartPole-v1 under the reference tests'
+    scripted expert, or half expert and half random (numpy seed 0), in
+    memory (the card's machine has no pyarrow for the files)."""
+    import numpy as np
+
+    from ray_tpu_torch.rl.connectors import episodes_to_transitions
+    from ray_tpu_torch.rl.env import cartpole
+    from ray_tpu_torch.rl.env.episode import SingleAgentEpisode
+
+    env = cartpole.make("CartPole-v1")
+    rng = np.random.default_rng(0)
+    episodes, steps = [], 0
+    while steps < n_steps:
+        obs, _ = env.reset(seed=steps)
+        ep = SingleAgentEpisode()
+        ep.add_env_reset(np.asarray(obs, np.float32))
+        done = False
+        while not done:
+            if not mixed or rng.random() < 0.5:
+                act = int(obs[2] + obs[3] > 0)
+            else:
+                act = int(rng.integers(0, 2))
+            obs, reward, term, trunc, _ = env.step(act)
+            ep.add_env_step(np.asarray(obs, np.float32), act, reward,
+                            terminated=term, truncated=trunc)
+            steps += 1
+            done = term or trunc
+        episodes.append(ep)
+    return episodes_to_transitions(episodes)
+
+
+def _rlx_pendulum(n_steps):
+    """The reference test's random Pendulum-v1 transitions (reset seeds by
+    step count, uniform torques from numpy seed 0), in memory."""
+    import numpy as np
+
+    from ray_tpu_torch.rl.connectors import episodes_to_transitions
+    from ray_tpu_torch.rl.env import cartpole
+    from ray_tpu_torch.rl.env.episode import SingleAgentEpisode
+
+    env = cartpole.make("Pendulum-v1")
+    rng = np.random.default_rng(0)
+    episodes, steps = [], 0
+    while steps < n_steps:
+        obs, _ = env.reset(seed=steps)
+        ep = SingleAgentEpisode()
+        ep.add_env_reset(np.asarray(obs, np.float32))
+        done = False
+        while not done and steps < n_steps + 200:
+            act = rng.uniform(-2, 2, size=(1,)).astype(np.float32)
+            obs, reward, term, trunc, _ = env.step(act)
+            ep.add_env_step(np.asarray(obs, np.float32), act, reward,
+                            terminated=term, truncated=trunc)
+            steps += 1
+            done = term or trunc
+        episodes.append(ep)
+    return episodes_to_transitions(episodes)
+
+
+def _rlx_agreement(algo, seed) -> float:
+    """Greedy agreement with the scripted expert on 512 fresh states."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rl import Columns
+
+    module = algo.learner_group._local.module
+    obs = np.random.default_rng(seed).uniform(-1, 1, (512, 4)).astype(np.float32)
+    with torch.no_grad():
+        inputs = module.forward_inference(obs)[Columns.ACTION_DIST_INPUTS]
+        greedy = module.action_dist.deterministic(inputs).cpu().numpy()
+    expert = (obs[:, 2] + obs[:, 3] > 0).astype(np.int64)
+    return float((greedy == expert).mean())
+
+
+def _rlx_vtrace_batch(seed):
+    """A (B, T) V-trace batch of padded CartPole-shaped fragments from numpy
+    ``seed`` (behaviour log-probs near the module's, a bootstrap value)."""
+    import numpy as np
+
+    from ray_tpu_torch.rl import Columns, SingleAgentEpisode
+    from ray_tpu_torch.rl.algorithms.impala import build_vtrace_batch
+
+    rng = np.random.default_rng(seed)
+    episodes = []
+    for i, n in enumerate((50, 37, 50, 12, 25, 50, 8, 44)):
+        ep = SingleAgentEpisode()
+        ep.add_env_reset(rng.normal(size=4).astype(np.float32))
+        for t in range(n):
+            ep.add_env_step(rng.normal(size=4).astype(np.float32),
+                            int(rng.integers(0, 2)), 1.0,
+                            terminated=(i % 3 == 0 and t == n - 1),
+                            extra={Columns.ACTION_LOGP: float(
+                                -0.69 + 0.2 * rng.normal())})
+        episodes.append(ep)
+    batch = build_vtrace_batch(episodes, 25, 0.99)
+    batch.pop("bootstrap_obs")
+    batch.pop("bootstrap_terminated")
+    batch["bootstrap_value"] = rng.normal(size=len(batch["mask"])).astype(np.float32)
+    return batch
+
+
+def phase_rl_extras(card: str, device: str = "cuda") -> Dict[str, object]:
+    """The rest of the RL stack on the card (see the module docstring,
+    phase 17)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rl import Columns, MultiAgentCartPole, RLModuleSpec
+    from ray_tpu_torch.rl.algorithms import (APPOConfig, APPOLearner, BCConfig,
+                                             CQLConfig, DQNConfig, DQNLearner,
+                                             IMPALAConfig, IMPALALearner,
+                                             MARWILConfig, PPOConfig, SACConfig,
+                                             SACLearner)
+    from ray_tpu_torch.rl.algorithms.sac import SACModule
+    from ray_tpu_torch.rl.core.rl_module import (CNNActorCritic,
+                                                 DefaultActorCritic,
+                                                 DefaultQModule)
+    from ray_tpu_torch.rl.env.pixel_gridworld import make_pixel_gridworld
+
+    t_phase = time.perf_counter()
+    result: Dict[str, object] = {"card": card}
+    lines: Dict[str, Dict[str, object]] = {}
+
+    def emit(key, line):
+        lines[key] = line
+        print(f"rl_extras_{key} " + json.dumps(line), flush=True)
+
+    _reset_counts()
+    ray_tpu_torch.init()
+    try:
+        # (a) DQN: tests/test_rl.py's plain and prioritized configurations.
+        plain = (DQNConfig().environment("CartPole-v1")
+                 .env_runners(num_env_runners=0, num_envs_per_env_runner=1,
+                              rollout_fragment_length=8)
+                 .training(train_batch_size=32, replay_buffer_capacity=2000,
+                           num_steps_sampled_before_learning_starts=64,
+                           target_network_update_freq=10)
+                 .resources(device=device).debugging(seed=0))
+        algo = plain.build_algo()
+        dqn, results = _rlx_iterations(card, "dqn", algo, 12)
+        algo.stop()
+        dqn["replay_size"] = results[-1]["replay_size"]
+        dqn["td_error_mean"] = results[-1]["learners"].get("td_error_mean")
+        per_cfg = (DQNConfig().environment("CartPole-v1")
+                   .env_runners(num_env_runners=0, rollout_fragment_length=8)
+                   .training(train_batch_size=16, prioritized_replay=True,
+                             replay_buffer_capacity=500,
+                             num_steps_sampled_before_learning_starts=32,
+                             target_network_update_freq=5)
+                   .resources(device=device).debugging(seed=0))
+        algo = per_cfg.build_algo()
+        per, _ = _rlx_iterations(card, "dqn_per", algo, 8)
+        prios = algo.replay._priorities[:len(algo.replay)]
+        per["distinct_priorities"] = len(set(np.round(prios[prios > 0], 6)))
+        algo.stop()
+        rng = np.random.default_rng(0)
+        n = 64
+        q_batch = {Columns.OBS: rng.normal(size=(n, 4)).astype(np.float32),
+                   Columns.ACTIONS: rng.integers(0, 2, n).astype(np.int64),
+                   Columns.REWARDS: rng.normal(size=n).astype(np.float32),
+                   Columns.NEXT_OBS: rng.normal(size=(n, 4)).astype(np.float32),
+                   Columns.TERMINATEDS: (rng.random(n) < 0.2).astype(np.float32),
+                   Columns.WEIGHTS: rng.uniform(0.2, 1, n).astype(np.float32)}
+        q_spec = RLModuleSpec(module_class=DefaultQModule, observation_dim=4,
+                              action_dim=2)
+        learners, q_vs = _rlx_card_vs_cpu(
+            lambda dev: DQNLearner(config=DQNConfig().training(
+                target_network_update_freq=1).resources(device=dev),
+                module_spec=q_spec, seed=0), q_batch, device)
+        td = {dev: l.compute_td_errors(q_batch) for dev, l in learners.items()}
+        q_vs["td_max_abs_err"] = float(np.abs(td["cpu"] - td[device]).max())
+        q_vs["atol"] = RL_ATOL
+        emit("a", dict(card=card, dqn=dqn, dqn_per=per, card_vs_cpu=q_vs))
+        if not (dqn["replay_size"] > 64 and dqn["td_error_mean"] is not None):
+            fail(f"DQN on the card: {dqn}")
+        if per["distinct_priorities"] <= 1:
+            fail(f"DQN's priorities were not refreshed: {per}")
+        if not (q_vs["max_abs_err"] <= RL_ATOL and q_vs["td_max_abs_err"]
+                <= RL_ATOL and q_vs["moved"] > 1e-5):
+            fail(f"DQN's update on the card differs from the CPU's: {q_vs}")
+
+        # (b) IMPALA through two aggregator actors, and APPO: the reference
+        # tests' learning gates; one update of each on the card and the CPU.
+        impala_cfg = (IMPALAConfig().environment("CartPole-v1")
+                      .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                                   rollout_fragment_length=25)
+                      .training(train_batch_size=100, num_aggregator_actors=2,
+                                lr=1e-3, entropy_coeff=0.005)
+                      .resources(device=device).debugging(seed=0))
+        algo = impala_cfg.build_algo()
+        impala, _ = _rlx_learn(card, "impala", algo, RLX_IMPALA_BEST,
+                               RLX_IMPALA_ITERS, ret_of=lambda r: r.get(
+                                   "env_runners", {}).get("episode_return_mean"))
+        algo.stop()
+        appo_cfg = (APPOConfig().environment("CartPole-v1")
+                    .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                                 rollout_fragment_length=32)
+                    .training(train_batch_size=256, lr=5e-4, entropy_coeff=0.01,
+                              clip_param=0.3)
+                    .resources(device=device).debugging(seed=0))
+        algo = appo_cfg.build_algo()
+        appo, res = _rlx_learn(card, "appo", algo, RLX_APPO_BEST,
+                               RLX_APPO_ITERS)
+        algo.stop()
+        appo["mean_ratio"] = res["learners"].get("mean_ratio")
+        appo["total_loss"] = res["learners"].get("total_loss", 0.0)
+        ac_spec = RLModuleSpec(module_class=DefaultActorCritic,
+                               observation_dim=4, action_dim=2)
+        v_batch = _rlx_vtrace_batch(0)
+        _, impala_vs = _rlx_card_vs_cpu(
+            lambda dev: IMPALALearner(config=IMPALAConfig().resources(
+                device=dev), module_spec=ac_spec, seed=0), v_batch, device)
+        kl_batch = dict(v_batch, kl_coeff=np.float32(1.0))
+        _, appo_vs = _rlx_card_vs_cpu(
+            lambda dev: APPOLearner(config=APPOConfig().training(
+                use_kl_loss=True).resources(device=dev), module_spec=ac_spec,
+                seed=0), kl_batch, device)
+        emit("b", dict(card=card, impala=impala, appo=appo,
+                       impala_card_vs_cpu=impala_vs, appo_card_vs_cpu=appo_vs,
+                       atol=RL_ATOL))
+        if not impala["reached"]:
+            fail(f"IMPALA through aggregators did not pass {RLX_IMPALA_BEST} "
+                 f"in {RLX_IMPALA_ITERS} iterations: {impala}")
+        if not (appo["reached"] and appo["mean_ratio"] is not None
+                and math.isfinite(appo["total_loss"])):
+            fail(f"APPO did not pass {RLX_APPO_BEST} in {RLX_APPO_ITERS} "
+                 f"iterations: {appo}")
+        for name, vs in (("IMPALA", impala_vs), ("APPO", appo_vs)):
+            if not (vs["max_abs_err"] <= RL_ATOL and vs["moved"] > 1e-5):
+                fail(f"{name}'s update on the card differs from the CPU's: {vs}")
+
+        # (c) Pixel IMPALA: the CNN on the gridworld (tests/test_rl_pixel.py).
+        pixel_cfg = (IMPALAConfig()
+                     .environment(make_pixel_gridworld,
+                                  env_config={"n": 4, "cell": 2,
+                                              "max_steps": 16, "shaped": True})
+                     .rl_module(module_class=CNNActorCritic,
+                                model_config={"obs_shape": (8, 8, 3),
+                                              "conv_filters": ((8, 3, 2),
+                                                               (16, 3, 1)),
+                                              "hiddens": (64,)})
+                     .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                                  rollout_fragment_length=20)
+                     .training(train_batch_size=160, lr=2e-3,
+                               entropy_coeff=0.003)
+                     .resources(device=device).debugging(seed=0))
+        algo = pixel_cfg.build_algo()
+        pixel, _ = _rlx_learn(card, "pixel_impala", algo, RLX_PIXEL_BEST,
+                              RLX_PIXEL_ITERS, at_least=True,
+                              ret_of=lambda r: r.get("env_runners", {}).get(
+                                  "episode_return_mean"))
+        algo.stop()
+        emit("c", dict(card=card, pixel_impala=pixel))
+        if not pixel["reached"]:
+            fail(f"pixel IMPALA did not reach {RLX_PIXEL_BEST} in "
+                 f"{RLX_PIXEL_ITERS} iterations: {pixel}")
+
+        # (d) SAC on the port's Pendulum-v1 at its default (256, 256)
+        # torsos; one update on the card and the CPU with the same noise;
+        # CQL offline on the reference test's Pendulum transitions.
+        sac_cfg = (SACConfig().environment("Pendulum-v1")
+                   .env_runners(num_envs_per_env_runner=1,
+                                rollout_fragment_length=32)
+                   .training(train_batch_size=64,
+                             num_steps_sampled_before_learning_starts=128,
+                             replay_buffer_capacity=10_000)
+                   .rl_module(model_config={"hiddens": (256, 256),
+                                            "action_scale": 2.0})
+                   .resources(device=device).debugging(seed=0))
+        algo = sac_cfg.build_algo()
+        sac, results = _rlx_iterations(card, "sac", algo, 6)
+        algo.stop()
+        sac["learners"] = results[-1]["learners"]
+        sac["replay_size"] = results[-1]["replay_size"]
+        sac_spec = RLModuleSpec(module_class=SACModule, observation_dim=3,
+                                action_dim=1, discrete=False,
+                                model_config={"action_scale": 2.0})
+        rng = np.random.default_rng(1)
+        n = 256
+        sac_batch = {
+            Columns.OBS: rng.normal(size=(n, 3)).astype(np.float32),
+            Columns.ACTIONS: rng.uniform(-2, 2, (n, 1)).astype(np.float32),
+            Columns.REWARDS: -rng.uniform(0, 10, n).astype(np.float32),
+            Columns.NEXT_OBS: rng.normal(size=(n, 3)).astype(np.float32),
+            Columns.TERMINATEDS: (rng.random(n) < 0.1).astype(np.float32)}
+        gen = torch.Generator().manual_seed(1)
+        noise = {"next": torch.randn((n, 1), generator=gen),
+                 "new": torch.randn((n, 1), generator=gen)}
+        _, sac_vs = _rlx_card_vs_cpu(
+            lambda dev: SACLearner(config=SACConfig().resources(device=dev),
+                                   module_spec=sac_spec, seed=0),
+            sac_batch, device, noise=noise)
+        sac_vs["atol"] = SAC_ATOL
+        cql_cfg = (CQLConfig().environment("Pendulum-v1")
+                   .offline_data(input_=_rlx_pendulum(600),
+                                 updates_per_iteration=15)
+                   .training(train_batch_size=64, min_q_weight=5.0)
+                   .rl_module(model_config={"hiddens": (32, 32),
+                                            "action_scale": 2.0})
+                   .resources(device=device).debugging(seed=0))
+        algo = cql_cfg.build_algo()
+        cql, results = _rlx_iterations(card, "cql", algo, 3)
+        algo.stop()
+        cql["learners"] = results[-1]["learners"]
+        cql["dataset_size"] = results[-1]["dataset_size"]
+        emit("d", dict(card=card, sac=sac, sac_card_vs_cpu=sac_vs, cql=cql))
+        if not (all(math.isfinite(v) for v in sac["learners"].values())
+                and sac["learners"]["alpha"] > 0 and sac["replay_size"] > 128):
+            fail(f"SAC on the card: {sac}")
+        if not (sac_vs["max_abs_err"] <= SAC_ATOL and sac_vs["moved"] > 1e-5):
+            fail(f"SAC's update on the card differs from the CPU's: {sac_vs}")
+        if not (all(math.isfinite(v) for v in cql["learners"].values())
+                and cql["dataset_size"] >= 600
+                and cql["learners"]["critic_loss"] != 0.0):
+            fail(f"CQL on the card: {cql}")
+
+        # (e) BC and MARWIL on CartPole transitions recorded in memory.
+        def offline(cfg_cls, data, updates, **training):
+            return (cfg_cls().environment("CartPole-v1")
+                    .offline_data(input_=data, updates_per_iteration=updates)
+                    .training(train_batch_size=256, lr=3e-3, **training)
+                    .rl_module(model_config={"hiddens": (32, 32)})
+                    .resources(device=device).debugging(seed=0))
+
+        algo = offline(BCConfig, _rlx_cartpole(2000, mixed=False), 40).build_algo()
+        bc, results = _rlx_iterations(card, "bc", algo, 5)
+        bc["bc_logp"] = results[-1]["learners"]["bc_logp"]
+        bc["agreement"] = _rlx_agreement(algo, 0)
+        bc["eval_return"] = algo.evaluate()["env_runners"]["episode_return_mean"]
+        algo.stop()
+        mixed = _rlx_cartpole(3000, mixed=True)
+        algo = offline(MARWILConfig, mixed, 40, beta=1.0).build_algo()
+        marwil, results = _rlx_iterations(card, "marwil", algo, 6)
+        marwil["policy_loss"] = results[-1]["learners"]["policy_loss"]
+        marwil["agreement"] = _rlx_agreement(algo, 1)
+        algo.stop()
+        # BC on the same mixed data, for comparison (not gated).
+        algo = offline(BCConfig, mixed, 40).build_algo()
+        for _ in range(6):
+            algo.train()
+        marwil["bc_agreement_on_mixed"] = _rlx_agreement(algo, 1)
+        algo.stop()
+        emit("e", dict(card=card, bc=bc, marwil=marwil))
+        if not (bc["bc_logp"] > RLX_BC_LOGP and bc["agreement"] > RLX_BC_AGREE
+                and bc["eval_return"] > RLX_BC_RETURN):
+            fail(f"BC on the card: {bc}")
+        if not (math.isfinite(marwil["policy_loss"])
+                and marwil["agreement"] > RLX_MARWIL_AGREE):
+            fail(f"MARWIL on the card: {marwil}")
+
+        # (f) Multi-agent PPO: two policies on MultiAgentCartPole; their
+        # weights differ; a checkpoint round trip bit for bit.
+        def ma_cfg():
+            return (PPOConfig()
+                    .environment(MultiAgentCartPole, env_config={"num_agents": 2})
+                    .multi_agent(policies={"p0": None, "p1": None},
+                                 policy_mapping_fn=_rlx_policy)
+                    .env_runners(rollout_fragment_length=64)
+                    .training(train_batch_size=512, minibatch_size=128,
+                              num_epochs=4, lr=1e-3, entropy_coeff=0.01)
+                    .rl_module(model_config={"hiddens": (32, 32)})
+                    .resources(device=device).debugging(seed=0))
+
+        algo = ma_cfg().build_algo()
+        ma, res = _rlx_learn(card, "multi_agent_ppo", algo, RLX_MA_BEST,
+                             RLX_MA_ITERS)
+        # The reference's gate looks at the best of all 12 iterations.
+        for _ in range(ma["iterations"], RLX_MA_ITERS):
+            res = algo.train()
+        w = algo.get_weights()
+        ma["policies_differ"] = not torch.equal(w["p0"]["pi.head.w"],
+                                                w["p1"]["pi.head.w"])
+        ma["losses_finite"] = all(math.isfinite(r["total_loss"])
+                                  for r in res["learners"].values())
+        with tempfile.TemporaryDirectory() as ckpt:
+            algo.save_checkpoint(ckpt)
+            algo2 = ma_cfg().build_algo()
+            algo2.load_checkpoint(None, ckpt)
+        w2 = algo2.get_weights()
+        ma["restore_bit_for_bit"] = all(
+            list(w[p]) == list(w2[p])
+            and all(torch.equal(w[p][k], w2[p][k]) for k in w[p])
+            and all(torch.equal(a, b) for a, b in zip(
+                _rlx_opt_leaves(algo.learner_groups[p]),
+                _rlx_opt_leaves(algo2.learner_groups[p])))
+            for p in w)
+        algo.stop()
+        algo2.stop()
+        emit("f", dict(card=card, multi_agent_ppo=ma))
+        if not (ma["reached"] and ma["policies_differ"] and ma["losses_finite"]
+                and ma["restore_bit_for_bit"]):
+            fail(f"multi-agent PPO on the card: {ma}")
+    finally:
+        ray_tpu_torch.shutdown()
+
+    # (g) The RL paths launch none of the port's kernels.
+    result["launches"] = _counts()
+    if any(result["launches"].values()):
+        fail(f"the RL paths launched a port kernel: {result['launches']}")
+    result["seconds"] = time.perf_counter() - t_phase
+    per_algo = {}
+    for key, names in (("a", ("dqn", "dqn_per")), ("b", ("impala", "appo")),
+                       ("c", ("pixel_impala",)), ("d", ("sac", "cql")),
+                       ("e", ("bc", "marwil")), ("f", ("multi_agent_ppo",))):
+        for name in names:
+            x = lines[key][name]
+            per_algo[name] = {k: x.get(k) for k in (
+                "reached_at_iteration", "iterations", "env_steps", "train_s",
+                "env_steps_per_s", "updates", "updates_per_s")}
+    summary = dict(card=card, seconds=result["seconds"], algorithms=per_algo,
+                   launches=result["launches"])
+    result.update(lines)
+    print("rl_extras " + json.dumps(summary), flush=True)
+    return result
+
+
+def _rlx_policy(agent_id: str) -> str:
+    return f"p{int(agent_id.split('_')[1]) % 2}"
+
+
+def _rlx_opt_leaves(group):
+    state = group.get_state()["opt_state"]["state"]
+    return [t for p in sorted(state) for t in state[p].values()
+            if hasattr(t, "shape")]
+
+
 def _leaf_names(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -6139,6 +6703,7 @@ def main() -> int:
     workflow_fit = phase_workflow_fit()
     models = phase_models(peaks, card)
     rl = phase_rl_ppo(card)
+    rl_extras = phase_rl_extras(card)
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
     bwd = phase_attn_bwd(peaks)
@@ -6173,6 +6738,7 @@ def main() -> int:
         for model in ("llama", "moe", "vit"):
             out[f"models_{model}"] = models[model]["run"]["launches"][name]
         out["rl_ppo"] = rl["launches"].get(name, 0)
+        out["rl_extras"] = rl_extras["launches"].get(name, 0)
         return out
 
     kernels = [

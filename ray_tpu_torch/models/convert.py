@@ -6,7 +6,9 @@ transposes. Trees are nested dicts (GPT-2, Llama, ViT, MoE) and lists (the
 MLP's layers). An RLModule's parameters live in the module;
 ``rl_params_from_numpy`` and ``rl_params_to_numpy`` carry them across by
 name, and transpose the one leaf whose layout differs, a conv kernel (HWIO
-in JAX, OIHW in torch).
+in JAX, OIHW in torch). A 0-d leaf is a 0-d parameter: SAC's tree (``pi``,
+``q1``, ``q2``, ``target_q1``, ``target_q2``, ``log_alpha``) carries across
+as it is.
 """
 
 from __future__ import annotations

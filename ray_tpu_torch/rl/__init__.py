@@ -5,9 +5,9 @@ EnvRunnerGroup sampling, LearnerGroup updates) in PyTorch: RLModules are
 ``nn.Module``s, the learner's update runs on the config's device (the card
 unless ``device="cpu"``), and several learners all-reduce their gradients
 through ``ray_tpu_torch.collective``. The port brings its own CartPole-v1
-(``rl/env/cartpole.py``), equal to gymnasium's, so it needs no gymnasium.
-Multi-agent RL, the other algorithms and offline RL come with ROADMAP.md
-Queue 1 item 12 (b); DreamerV3 with (c).
+and Pendulum-v1 (``rl/env/cartpole.py``, ``pendulum.py``), equal to
+gymnasium's, so it needs no gymnasium. DreamerV3 comes with ROADMAP.md Queue
+1 item 12 (c).
 """
 
 from ray_tpu_torch.rl.algorithm import Algorithm
@@ -20,10 +20,16 @@ from ray_tpu_torch.rl.core.rl_module import (Columns, DefaultActorCritic,
 from ray_tpu_torch.rl.env.env_runner import SingleAgentEnvRunner
 from ray_tpu_torch.rl.env.env_runner_group import EnvRunnerGroup
 from ray_tpu_torch.rl.env.episode import SingleAgentEpisode
+from ray_tpu_torch.rl.env.multi_agent_env import MultiAgentCartPole, MultiAgentEnv
+from ray_tpu_torch.rl.env.multi_agent_env_runner import MultiAgentEnvRunner
+from ray_tpu_torch.rl.env.multi_agent_episode import MultiAgentEpisode
+from ray_tpu_torch.rl.offline import OfflineData, record_episodes
 
 __all__ = [
     "Algorithm", "AlgorithmConfig", "TorchLearner", "LearnerGroup", "Columns",
     "DefaultActorCritic", "DefaultQModule", "RLModule", "RLModuleSpec",
     "SingleAgentEnvRunner", "EnvRunnerGroup", "SingleAgentEpisode",
-    "MultiRLModule", "MultiRLModuleSpec",
+    "MultiAgentEnv", "MultiAgentCartPole", "MultiAgentEnvRunner",
+    "MultiAgentEpisode", "MultiRLModule", "MultiRLModuleSpec",
+    "OfflineData", "record_episodes",
 ]

@@ -20,11 +20,12 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.rl.config import MULTI_AGENT_TODO, AlgorithmConfig
+from ray_tpu_torch.rl.config import AlgorithmConfig
 from ray_tpu_torch.rl.connectors import ConnectorPipeline, batch_episodes
 from ray_tpu_torch.rl.core.learner_group import LearnerGroup
 from ray_tpu_torch.rl.env.env_runner import SingleAgentEnvRunner
 from ray_tpu_torch.rl.env.env_runner_group import EnvRunnerGroup
+from ray_tpu_torch.rl.env.multi_agent_env_runner import MultiAgentEnvRunner
 from ray_tpu_torch.rl.utils.metrics import MetricsLogger
 from ray_tpu_torch.tune.trainable import Trainable
 
@@ -39,6 +40,9 @@ class Algorithm(Trainable):
 
     learner_class: type = None
     config_class = AlgorithmConfig
+    #: Algorithms that implement a multi-agent training_step set this True
+    #: (PPO); others fail fast at setup instead of deep inside train().
+    supports_multi_agent: bool = False
 
     # -------------------------------------------------------------- setup
     @classmethod
@@ -58,11 +62,16 @@ class Algorithm(Trainable):
         cfg = self._coerce_config(config)
         self.algo_config = cfg
         self.device = resolve_device(cfg.device)
-        if cfg.is_multi_agent():
-            raise NotImplementedError(MULTI_AGENT_TODO)
         self.metrics = MetricsLogger()
         self.learner_connector = self.build_learner_connector()
         self._lifetime_steps = 0
+        if cfg.is_multi_agent():
+            if not type(self).supports_multi_agent:
+                raise ValueError(
+                    f"{type(self).__name__} does not support multi-agent "
+                    f"training; use PPO or drop .multi_agent(...)")
+            self._setup_multi_agent(cfg)
+            return
         self.module_spec = cfg.module_spec()
         self.env_runner_group = EnvRunnerGroup(
             env=cfg.env, env_config=cfg.env_config,
@@ -77,6 +86,29 @@ class Algorithm(Trainable):
             seed=cfg.seed)
         # Initial weight alignment: runners start from learner params.
         self.env_runner_group.sync_weights(self.learner_group.get_weights())
+
+    def _setup_multi_agent(self, cfg) -> None:
+        """One learner group PER POLICY (independent learning) + a
+        multi-agent runner routed by policy_mapping_fn (ref: the reference
+        trains a MultiRLModule inside one learner; per-policy groups give
+        the same independent-gradient semantics)."""
+        self.multi_module_spec = cfg.multi_module_spec()
+        runner = MultiAgentEnvRunner(
+            env=cfg.env, env_config=cfg.env_config,
+            module_spec=self.multi_module_spec,
+            policy_mapping_fn=cfg.policy_mapping_fn,
+            rollout_fragment_length=cfg.rollout_fragment_length,
+            explore=cfg.explore, seed=cfg.seed, device=self.device)
+        self.env_runner_group = _SingleRunnerGroup(runner)
+        self.learner_groups: Dict[str, LearnerGroup] = {
+            pid: LearnerGroup(
+                learner_class=type(self).learner_class, config=cfg,
+                module_spec=spec, num_learners=cfg.num_learners,
+                seed=cfg.seed + i)
+            for i, (pid, spec)
+            in enumerate(sorted(self.multi_module_spec.module_specs.items()))
+        }
+        self.env_runner_group.sync_weights(self.get_weights())
 
     def build_learner_connector(self) -> ConnectorPipeline:
         return ConnectorPipeline([batch_episodes])
@@ -113,13 +145,22 @@ class Algorithm(Trainable):
         """
         cfg = self.algo_config
         if not hasattr(self, "_eval_runner"):
-            self._eval_runner = SingleAgentEnvRunner(
-                env=cfg.env, env_config=cfg.env_config,
-                module_spec=self.module_spec,
-                num_envs=cfg.num_envs_per_env_runner,
-                rollout_fragment_length=cfg.rollout_fragment_length,
-                explore=False, seed=cfg.seed + 10_000, worker_index=999,
-                device=self.device)
+            if cfg.is_multi_agent():
+                self._eval_runner = MultiAgentEnvRunner(
+                    env=cfg.env, env_config=cfg.env_config,
+                    module_spec=self.multi_module_spec,
+                    policy_mapping_fn=cfg.policy_mapping_fn,
+                    rollout_fragment_length=cfg.rollout_fragment_length,
+                    explore=False, seed=cfg.seed + 10_000, worker_index=999,
+                    device=self.device)
+            else:
+                self._eval_runner = SingleAgentEnvRunner(
+                    env=cfg.env, env_config=cfg.env_config,
+                    module_spec=self.module_spec,
+                    num_envs=cfg.num_envs_per_env_runner,
+                    rollout_fragment_length=cfg.rollout_fragment_length,
+                    explore=False, seed=cfg.seed + 10_000, worker_index=999,
+                    device=self.device)
         self._eval_runner.set_state({"params": self.get_weights()})
         # Fresh episodes every round: a trajectory must not span two policies.
         self._eval_runner.reset()
@@ -135,8 +176,13 @@ class Algorithm(Trainable):
 
     # -------------------------------------------------------- checkpointing
     def save_checkpoint(self, checkpoint_dir: str) -> Optional[Dict]:
+        if self.algo_config.is_multi_agent():
+            learner_state = {pid: lg.get_state()
+                             for pid, lg in self.learner_groups.items()}
+        else:
+            learner_state = self.learner_group.get_state()
         state = {
-            "learner": self.learner_group.get_state(),
+            "learner": learner_state,
             "lifetime_steps": self._lifetime_steps,
         }
         with open(os.path.join(checkpoint_dir, "algorithm_state.pkl"), "wb") as f:
@@ -147,18 +193,29 @@ class Algorithm(Trainable):
         path = os.path.join(checkpoint_dir, "algorithm_state.pkl")
         with open(path, "rb") as f:
             state = pickle.load(f)
-        self.learner_group.set_state(state["learner"])
-        self.env_runner_group.sync_weights(self.learner_group.get_weights())
+        if self.algo_config.is_multi_agent():
+            for pid, lg in self.learner_groups.items():
+                lg.set_state(state["learner"][pid])
+        else:
+            self.learner_group.set_state(state["learner"])
+        self.env_runner_group.sync_weights(self.get_weights())
         self._lifetime_steps = state.get("lifetime_steps", 0)
 
     def cleanup(self) -> None:
         self.env_runner_group.stop()
-        self.learner_group.stop()
+        if self.algo_config.is_multi_agent():
+            for lg in self.learner_groups.values():
+                lg.stop()
+        else:
+            self.learner_group.stop()
         if hasattr(self, "_eval_runner"):
             self._eval_runner.stop()
 
     # ------------------------------------------------------------- helpers
     def get_weights(self):
+        if self.algo_config.is_multi_agent():
+            return {pid: lg.get_weights()
+                    for pid, lg in self.learner_groups.items()}
         return self.learner_group.get_weights()
 
     def _sample_batch(self):
@@ -173,9 +230,8 @@ class Algorithm(Trainable):
 
 class _SingleRunnerGroup:
     """EnvRunnerGroup-shaped adapter over one local runner (the multi-agent
-    path of ROADMAP.md Queue 1 item 12 (b); fan-out over remote multi-agent
-    runners composes later the same way EnvRunnerGroup wraps
-    SingleAgentEnvRunner)."""
+    path; fan-out over remote multi-agent runners composes later the same
+    way EnvRunnerGroup wraps SingleAgentEnvRunner)."""
 
     def __init__(self, runner):
         self.runner = runner

@@ -112,6 +112,7 @@ class PPOLearner(TorchLearner):
 class PPO(Algorithm):
     learner_class = PPOLearner
     config_class = PPOConfig
+    supports_multi_agent = True
 
     def build_learner_connector(self) -> ConnectorPipeline:
         cfg = self.algo_config
@@ -129,6 +130,8 @@ class PPO(Algorithm):
         sync), and gives the update's own (its minibatches, ending in their
         metrics' one copy back) as ``update_s``."""
         cfg = self.algo_config
+        if cfg.is_multi_agent():
+            return self._multi_agent_training_step()
         t0 = time.perf_counter()
         episodes = self._sample_batch()
         t1 = time.perf_counter()
@@ -166,3 +169,40 @@ class PPO(Algorithm):
         return {"learners": learner_results,
                 "timers": {"sample_s": t1 - t0, "learn_s": t2 - t1,
                            "update_s": update_s}}
+
+    def _multi_agent_training_step(self) -> Dict[str, Any]:
+        """Independent PPO per policy: route each agent's trajectories to its
+        module's learner group, update every policy, sync all weights (ref:
+        multi-agent PPO via MultiRLModule in the reference's learner;
+        independent learning is its default multi-agent regime)."""
+        cfg = self.algo_config
+        ma_episodes = self._sample_batch()
+        by_module: Dict[str, list] = {}
+        for ma_ep in ma_episodes:
+            for mid, eps in ma_ep.episodes_by_module().items():
+                by_module.setdefault(mid, []).extend(eps)
+        if not hasattr(self, "_kl_coeffs"):
+            self._kl_coeffs = {mid: float(cfg.kl_coeff)
+                               for mid in self.learner_groups}
+        results: Dict[str, Any] = {}
+        for mid, episodes in by_module.items():
+            group = self.learner_groups[mid]
+            learner = group._local
+            if learner is None:
+                raise ValueError("multi-agent PPO drives local (in-process) "
+                                 "learner groups; set num_learners <= 1")
+            batch = self.learner_connector(
+                {}, episodes, params=None, vf_fn=learner.vf_fn)
+            batch["kl_coeff"] = np.float32(self._kl_coeffs[mid])
+            res = group.update_from_batch(
+                batch, num_epochs=cfg.num_epochs,
+                minibatch_size=cfg.minibatch_size)
+            kl = res.get("mean_kl")
+            if kl is not None and cfg.kl_coeff > 0:
+                if kl > 2.0 * cfg.kl_target:
+                    self._kl_coeffs[mid] *= 1.5
+                elif kl < 0.5 * cfg.kl_target:
+                    self._kl_coeffs[mid] *= 0.5
+            results[mid] = res
+        self.env_runner_group.sync_weights(self.get_weights())
+        return {"learners": results}

@@ -8,7 +8,9 @@ algorithm_config.py:103 AlgorithmConfig — chained .environment()/
 One field more than the reference: ``device``, where the learners, the env
 runners' forward and GAE's value pass run. ``None`` is the card (and
 raises without one); the tests pass ``"cpu"``. ``.resources(device=...)``
-sets it. Multi-agent configs come with ROADMAP.md Queue 1 item 12 (b).
+sets it. ``multi_module_spec`` reads each policy's spaces from the env's
+per-agent spaces (the port's ``Discrete``, or any space with ``n``, is
+discrete).
 """
 
 from __future__ import annotations
@@ -16,12 +18,13 @@ from __future__ import annotations
 import copy
 from typing import Any, Callable, Dict, Optional, Union
 
+import numpy as np
+
 from ray_tpu_torch._private.device import DeviceLike
 from ray_tpu_torch.rl.core.rl_module import DefaultActorCritic, RLModuleSpec
 
-MULTI_AGENT_TODO = ("multi-agent RL (MultiAgentEnvRunner, per-policy "
-                    "learner groups) is not ported yet: ROADMAP.md, Queue 1 "
-                    "item 12 (b)")
+def _default_policy(agent_id: str) -> str:
+    return "default_policy"
 
 
 class AlgorithmConfig:
@@ -50,8 +53,9 @@ class AlgorithmConfig:
         # learners
         self.num_learners = 0
         # multi-agent (ref: algorithm_config.py multi_agent(policies=...,
-        # policy_mapping_fn=...)); see MULTI_AGENT_TODO
+        # policy_mapping_fn=...))
         self.policies: Optional[Dict[str, Optional[RLModuleSpec]]] = None
+        self.policy_mapping_fn: Callable[[str], str] = _default_policy
         # resources: the learners' and the runners' device
         self.device: DeviceLike = None
         # debug / misc
@@ -110,8 +114,15 @@ class AlgorithmConfig:
     def multi_agent(self, *, policies: Optional[Dict[str, Any]] = None,
                     policy_mapping_fn: Optional[Callable[[str], str]] = None
                     ) -> "AlgorithmConfig":
-        """(ref: algorithm_config.py:multi_agent) Not ported yet."""
-        raise NotImplementedError(MULTI_AGENT_TODO)
+        """Declare per-policy modules + the agent→policy routing
+        (ref: algorithm_config.py:multi_agent). ``policies`` maps policy id
+        to an RLModuleSpec, or None to derive the spec from the env's
+        per-agent spaces."""
+        if policies is not None:
+            self.policies = dict(policies)
+        if policy_mapping_fn is not None:
+            self.policy_mapping_fn = policy_mapping_fn
+        return self
 
     def is_multi_agent(self) -> bool:
         return bool(self.policies)
@@ -137,6 +148,41 @@ class AlgorithmConfig:
         return RLModuleSpec(module_class=self.module_class,
                             observation_dim=obs_dim, action_dim=act_dim,
                             discrete=discrete, model_config=dict(self.model))
+
+    def multi_module_spec(self):
+        """Per-policy module specs, deriving unspecified ones from the env's
+        per-agent spaces (ref: MultiRLModuleSpec construction in
+        algorithm_config.get_multi_rl_module_spec)."""
+        from ray_tpu_torch.rl.core.multi_rl_module import MultiRLModuleSpec
+
+        if not self.is_multi_agent():
+            raise ValueError("multi_module_spec needs .multi_agent(policies=...)")
+        env = self.env(self.env_config) if callable(self.env) else self.env
+        try:
+            specs: Dict[str, RLModuleSpec] = {}
+            for pid, spec in self.policies.items():
+                if spec is not None:
+                    specs[pid] = spec
+                    continue
+                agent = next(
+                    (a for a in env.possible_agents
+                     if self.policy_mapping_fn(a) == pid), None)
+                if agent is None:
+                    raise ValueError(f"no agent maps to policy {pid!r}; "
+                                     "pass an explicit spec")
+                ospace = env.observation_spaces[agent]
+                aspace = env.action_spaces[agent]
+                discrete = hasattr(aspace, "n")
+                specs[pid] = RLModuleSpec(
+                    module_class=self.module_class,
+                    observation_dim=int(np.prod(ospace.shape)),
+                    action_dim=(int(aspace.n) if discrete
+                                else int(np.prod(aspace.shape))),
+                    discrete=discrete, model_config=dict(self.model))
+            return MultiRLModuleSpec(specs)
+        finally:
+            if callable(self.env):
+                env.close()
 
     def build_algo(self):
         if self.algo_class is None:

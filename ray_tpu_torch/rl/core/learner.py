@@ -87,6 +87,11 @@ class TorchLearner:
         self.optimizer.zero_grad()
         loss, metrics = self.compute_loss(mb, self._generator)
         loss.backward()
+        for p in self._params:
+            if p.grad is None:
+                # A parameter the loss does not read (BC's value head):
+                # optax's Adam sees a zero gradient for it, so does this one.
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self._params]
         if self._synced:
             from ray_tpu_torch import collective

@@ -88,6 +88,14 @@ class LearnerGroup:
         else:
             ray_tpu_torch.get([lr.set_state.remote(state) for lr in self._remote])
 
+    def foreach_learner(self, fn_name: str, *args, **kwargs) -> List[Any]:
+        """``fn_name(*args, **kwargs)`` on every learner, their results in
+        rank order (DQN's ``compute_td_errors``)."""
+        if self._local is not None:
+            return [getattr(self._local, fn_name)(*args, **kwargs)]
+        return ray_tpu_torch.get([getattr(lr, fn_name).remote(*args, **kwargs)
+                                  for lr in self._remote])
+
     def stop(self) -> None:
         for lr in self._remote:
             try:

@@ -209,8 +209,13 @@ class SingleAgentEnvRunner:
             # load_state_dict copies each tensor into this runner's own
             # parameters on its device: the learner's optimizer updates its
             # tensors in place, so holding them would sample with the
-            # weights of later steps.
-            self.module.load_state_dict(state["params"])
+            # weights of later steps. A learner may send part of its module
+            # (SAC sends its actor, ``pi.*``); the rest stays as built.
+            _, unexpected = self.module.load_state_dict(state["params"],
+                                                        strict=False)
+            if unexpected:
+                raise KeyError(f"weights for no parameter of the runner's "
+                               f"module: {unexpected}")
         self._weights_seq = state.get("weights_seq", self._weights_seq + 1)
 
     def ping(self) -> str:

@@ -154,6 +154,12 @@ class EnvRunnerGroup:
     def get_metrics(self) -> List[Dict[str, Any]]:
         return self.foreach_env_runner("get_metrics")
 
+    @property
+    def runners(self) -> List[Any]:
+        """The remote runner actors (empty with a local runner); IMPALA keeps
+        sample requests in flight on each."""
+        return self._remote_runners
+
     def stop(self) -> None:
         # Settle the final broadcast so its refs don't leak store entries;
         # bounded wait — a wedged runner must not block shutdown.

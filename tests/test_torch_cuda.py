@@ -942,3 +942,47 @@ def test_ppo_runner_and_learner_on_gpu():
         assert (weights["cuda"][k].cpu() - w).abs().max().item() <= 1e-5, k
     delta = {k: v - b[k] for c, b in zip(counts, before) for k, v in c.items()}
     assert not any(delta.values())
+
+
+@pytest.mark.cuda
+def test_sac_update_on_gpu_matches_the_cpu():
+    """RL's three-optimizer step: one CQL update (SAC's step and CQL's
+    penalty) on the card against the same on the CPU, from the same weights
+    and with the same noise injected in place of each learner's draw: every
+    weight within chip_smoke.py's SAC_ATOL, and no port kernel launched."""
+    _need_gpu()
+    import numpy as np
+
+    from ray_tpu_torch.rl.algorithms import CQLConfig, CQLLearner
+    from ray_tpu_torch.rl.algorithms.sac import SACModule
+    from ray_tpu_torch.rl.core.rl_module import Columns, RLModuleSpec
+
+    counts = [attention.LAUNCHES, fused_ce.LAUNCHES, ra.LAUNCHES]
+    before = [dict(c) for c in counts]
+    spec = RLModuleSpec(module_class=SACModule, observation_dim=3,
+                        action_dim=1, discrete=False,
+                        model_config={"action_scale": 2.0})
+    rng = np.random.default_rng(0)
+    n = 256
+    batch = {Columns.OBS: rng.normal(size=(n, 3)).astype(np.float32),
+             Columns.ACTIONS: rng.uniform(-2, 2, (n, 1)).astype(np.float32),
+             Columns.REWARDS: rng.normal(size=n).astype(np.float32),
+             Columns.NEXT_OBS: rng.normal(size=(n, 3)).astype(np.float32),
+             Columns.TERMINATEDS: (rng.random(n) < 0.1).astype(np.float32)}
+    gen = torch.Generator().manual_seed(1)
+    noise = {"next": torch.randn((n, 1), generator=gen),
+             "new": torch.randn((n, 1), generator=gen),
+             "rand": torch.rand((4, n, 1), generator=gen) * 4 - 2,
+             "pi": torch.randn((4, n, 1), generator=gen)}
+    weights = {}
+    for dev in ("cpu", "cuda"):
+        learner = CQLLearner(config=CQLConfig().resources(device=dev),
+                             module_spec=spec, seed=0)
+        learner._draw_noise = lambda b, dev=dev: {
+            k: v.to(dev) for k, v in noise.items()}
+        learner.update_from_batch(dict(batch))
+        weights[dev] = learner.module.state_dict()
+    for k, w in weights["cpu"].items():
+        assert (weights["cuda"][k].cpu() - w).abs().max().item() <= 1e-4, k
+    delta = {k: v - b[k] for c, b in zip(counts, before) for k, v in c.items()}
+    assert not any(delta.values())

@@ -29,8 +29,11 @@ from ray_tpu_torch import bench
 from ray_tpu_torch._private import device as device_mod
 from ray_tpu_torch._private import kernel_build, peaks
 from ray_tpu_torch.models import convert, gpt2
-from ray_tpu_torch.rl import DefaultActorCritic, RLModuleSpec, TorchLearner
-from ray_tpu_torch.rl.algorithms import PPOConfig
+from ray_tpu_torch.rl import (DefaultActorCritic, MultiAgentCartPole,
+                              MultiAgentEnvRunner, MultiRLModuleSpec,
+                              RLModuleSpec, TorchLearner)
+from ray_tpu_torch.rl.algorithms import DQNConfig, PPOConfig, SACConfig, SACLearner
+from ray_tpu_torch.rl.algorithms.sac import SACModule
 from ray_tpu_torch.serve import GPT2Next, GPT2Stream
 
 REPO = Path(__file__).resolve().parent.parent
@@ -166,6 +169,9 @@ _TINY = gpt2.GPTConfig(vocab_size=64, n_layer=1, n_head=1, d_model=64,
                        seq_len=16, dtype=torch.float32)
 _RL_SPEC = RLModuleSpec(module_class=DefaultActorCritic, observation_dim=4,
                         action_dim=2, model_config={"hiddens": (8,)})
+_SAC_SPEC = RLModuleSpec(module_class=SACModule, observation_dim=3,
+                         action_dim=1, discrete=False,
+                         model_config={"hiddens": (8,)})
 
 
 @pytest.mark.parametrize("make", [
@@ -183,7 +189,14 @@ _RL_SPEC = RLModuleSpec(module_class=DefaultActorCritic, observation_dim=4,
         train_batch_size=8).resources(device=dev).build_algo() if dev else
     PPOConfig().environment("CartPole-v1").build_algo(),
     lambda dev: TorchLearner(config=PPOConfig().resources(device=dev),
-                             module_spec=_RL_SPEC)])
+                             module_spec=_RL_SPEC),
+    lambda dev: DQNConfig().environment("CartPole-v1").resources(
+        device=dev).build_algo(),
+    lambda dev: SACLearner(config=SACConfig().resources(device=dev),
+                           module_spec=_SAC_SPEC),
+    lambda dev: MultiAgentEnvRunner(
+        env=MultiAgentCartPole, module_spec=MultiRLModuleSpec({"p": _RL_SPEC}),
+        policy_mapping_fn=lambda a: "p", device=dev)])
 def test_entry_points_default_to_the_gpu(no_gpu, make):
     with pytest.raises(RuntimeError, match="CUDA"):
         make(None)
@@ -287,6 +300,72 @@ def test_the_scan_covers_rl():
             "rl/utils/metrics.py", "rl/utils/replay_buffers.py",
             "rl/algorithms/__init__.py", "rl/algorithms/ppo.py",
             "examples/cartpole_ppo.py"} <= files
+
+
+def test_the_scan_covers_the_rest_of_rl():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"rl/offline.py", "rl/env/spaces.py", "rl/env/pendulum.py",
+            "rl/env/pixel_gridworld.py", "rl/env/multi_agent_env.py",
+            "rl/env/multi_agent_episode.py", "rl/env/multi_agent_env_runner.py",
+            "rl/algorithms/dqn.py", "rl/algorithms/impala.py",
+            "rl/algorithms/appo.py", "rl/algorithms/sac.py",
+            "rl/algorithms/cql.py", "rl/algorithms/bc.py",
+            "rl/algorithms/marwil.py"} <= files
+
+
+def test_rl_algorithms_run_without_gymnasium_pyarrow_or_pandas():
+    """DQN, SAC, CQL and BC on the port's CartPole and Pendulum, offline
+    data held in memory, with gymnasium, pyarrow and pandas blocked (the
+    card's machine has none of them), starting no CUDA context."""
+    code = """
+import json, sys
+for name in ("gymnasium", "pyarrow", "pandas"):
+    sys.modules[name] = None
+import numpy as np, torch
+from ray_tpu_torch.rl.algorithms import BCConfig, CQLConfig, DQNConfig, SACConfig
+from ray_tpu_torch.rl.connectors import episodes_to_transitions
+from ray_tpu_torch.rl.env import cartpole
+from ray_tpu_torch.rl.env.episode import SingleAgentEpisode
+env = cartpole.make("Pendulum-v1")
+obs, _ = env.reset(seed=0)
+ep = SingleAgentEpisode()
+ep.add_env_reset(obs)
+for t in range(64):
+    a = np.array([np.sin(t)], np.float32)
+    obs, r, term, trunc, _ = env.step(a)
+    ep.add_env_step(obs, a, r, terminated=term, truncated=trunc)
+data = episodes_to_transitions([ep])
+mod = {"hiddens": (8,), "action_scale": 2.0}
+out = {}
+for name, cfg in (
+        ("dqn", DQNConfig().environment("CartPole-v1").training(
+            train_batch_size=8, num_steps_sampled_before_learning_starts=8)),
+        ("sac", SACConfig().environment("Pendulum-v1").rl_module(
+            model_config=mod).training(
+            train_batch_size=8, num_steps_sampled_before_learning_starts=16)),
+        ("cql", CQLConfig().environment("Pendulum-v1").rl_module(
+            model_config=mod).offline_data(input_=data, updates_per_iteration=2)
+         .training(train_batch_size=8)),
+        ("bc", BCConfig().environment("Pendulum-v1").offline_data(
+            input_=data, updates_per_iteration=2).training(train_batch_size=8))):
+    algo = cfg.resources(device="cpu").build_algo()
+    for _ in range(3):
+        res = algo.train()
+    algo.stop()
+    out[name] = res["learners"]["total_loss"]
+print(json.dumps({"losses": out, "cuda": torch.cuda.is_initialized(),
+                  "blocked": [sys.modules[n] is None for n in
+                              ("gymnasium", "pyarrow", "pandas")]}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(res["losses"]) == {"dqn", "sac", "cql", "bc"}
+    assert all(np.isfinite(v) for v in res["losses"].values())
+    assert not res["cuda"] and all(res["blocked"])
 
 
 def test_rl_runs_a_ppo_iteration_without_gymnasium():

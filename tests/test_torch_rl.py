@@ -10,8 +10,9 @@ KL penalty and the gradient clip engaged, every weight and metric within
 1e-5. Sampling (Gumbel-max from a ``torch.Generator``; JAX's streams
 cannot be matched) is held statistically. Then the port's own counterparts
 of ``tests/test_rl.py``'s PPO cases (learning CartPole, remote runners and
-learners, checkpoints, Tune), two learners against one, the weight
-snapshot a broadcast takes, and the multi-agent branch that raises.
+learners, checkpoints, Tune), two learners against one, and the weight
+snapshot a broadcast takes. Multi-agent PPO is in
+tests/test_torch_rl_multi_agent.py.
 """
 
 import math
@@ -639,17 +640,6 @@ def test_evaluation_runs_on_its_own_greedy_runner(rt):
     assert ev["num_episodes"] >= 2 and ev["episode_return_mean"] > 0
     assert algo._eval_runner is not algo.env_runner_group._local_runner
     algo.stop()
-
-
-# -------------------------------------------------------------- multi-agent
-def test_multi_agent_raises_until_it_is_ported():
-    with pytest.raises(NotImplementedError, match="item 12 \\(b\\)"):
-        PPOConfig().environment("CartPole-v1").multi_agent(
-            policies={"p0": None})
-    cfg = PPOConfig().environment("CartPole-v1").resources(device="cpu")
-    cfg.policies = {"p0": None}
-    with pytest.raises(NotImplementedError, match="item 12 \\(b\\)"):
-        cfg.build_algo()
 
 
 def test_config_dict_round_trip_and_unknown_keys():

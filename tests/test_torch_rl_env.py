@@ -1,15 +1,17 @@
-"""The port's CartPole-v1 and spaces (ray_tpu_torch/rl/env/cartpole.py)
-against gymnasium's, and the port's env runner against the reference's.
+"""The port's CartPole-v1, Pendulum-v1 and spaces (ray_tpu_torch/rl/env/
+cartpole.py, pendulum.py, spaces.py) against gymnasium's, and the port's env
+runner against the reference's.
 
-The port carries its own CartPole because the card's machine has no
-gymnasium. Here it is held to ``gymnasium.make("CartPole-v1")`` bit for
-bit: reset observations over 20 seeds, reset after reset from one seeded
-generator, whole trajectories under fixed action sequences to termination
-and to the 500-step truncation (observations, rewards, flags), and the
-seeded samples of ``Discrete`` and ``Box``. Then greedy runner episodes of
-the port (the reference's weights through the converter, the policy head
+The port carries its own envs because the card's machine has no gymnasium.
+Here they are held to ``gymnasium.make`` bit for bit: reset observations
+over 20 seeds, reset after reset from one seeded generator, whole
+trajectories under fixed action sequences to termination and to the
+truncation (observations, rewards and their types, flags), and the seeded
+samples of ``Discrete`` and ``Box``. Then greedy runner episodes of the
+port (the reference's weights through the converter, the policy head
 scaled so that no greedy action sits on a near-tie) equal the reference
-runner's: observations and actions exactly, log-probs within 1e-6.
+runner's: observations and actions exactly, log-probs within 1e-6; and a
+runner takes part of a module's weights (SAC's actor).
 """
 
 import gymnasium as gym
@@ -129,11 +131,14 @@ def test_spaces_and_seeded_samples_equal_gymnasium():
 
 
 def test_make_knows_cartpole_only_and_a_callable_env_works():
+    """``make`` knows the ids it registers (CartPole-v1 and, since the
+    second RL slice, Pendulum-v1) and no other."""
     env = cartpole.make("CartPole-v1", max_episode_steps=3)
     env.reset(seed=0)
     assert [env.step(0)[3] for _ in range(3)] == [False, False, True]
     with pytest.raises(ValueError, match="unknown env"):
-        cartpole.make("Pendulum-v1")
+        cartpole.make("MountainCar-v0")
+    assert sorted(cartpole._REGISTRY) == ["CartPole-v1", "Pendulum-v1"]
     with pytest.raises(ValueError, match="non-negative"):
         env.reset(seed=-1)
     assert env_spaces("CartPole-v1", {}) == (4, 2, True)
@@ -195,3 +200,88 @@ def test_greedy_runner_episodes_equal_the_reference(seed, num_envs):
     assert ref.get_metrics() == port.get_metrics()
     ref.stop()
     port.stop()
+
+
+# ------------------------------------------------------------- Pendulum-v1
+def _pendulum_pair(seed=None):
+    ref, port = gym.make("Pendulum-v1"), cartpole.make("Pendulum-v1")
+    return ref, port, ref.reset(seed=seed), port.reset(seed=seed)
+
+
+@pytest.mark.parametrize("seed", range(20))
+def test_pendulum_resets_equal_gymnasium(seed):
+    ref, port, (ro, _), (po, _) = _pendulum_pair(seed)
+    assert po.dtype == np.float32 and po.shape == (3,)
+    assert ro.tobytes() == po.tobytes()
+    for _ in range(3):
+        assert ref.reset()[0].tobytes() == port.reset()[0].tobytes()
+    opts = {"x_init": 0.5, "y_init": 0.2}
+    assert ref.reset(seed=seed, options=opts)[0].tobytes() == \
+        port.reset(seed=seed, options=opts)[0].tobytes()
+
+
+@pytest.mark.parametrize("seed,pattern", [
+    (0, "zero"), (1, "max"), (2, "min"), (3, "random32"), (4, "random64"),
+    (5, "beyond"), (6, "swing")])
+def test_pendulum_trajectories_equal_gymnasium(seed, pattern):
+    """Fixed and random torques (float32 and float64 actions, and ones past
+    the +-2 clip) to the 200-step truncation: observations bit for bit,
+    rewards equal with their numpy type, flags equal."""
+    ref, port, (ro, _), (po, _) = _pendulum_pair(seed)
+    rand = np.random.default_rng(seed).uniform(-2, 2, 220)
+    runs = []
+    for env, obs in ((ref, ro), (port, po)):
+        steps = []
+        for t in range(220):
+            u = {"zero": 0.0, "max": 2.0, "min": -2.0, "random32": rand[t],
+                 "random64": rand[t], "beyond": 3 * rand[t],
+                 "swing": 2.0 * np.sign(obs[2] + 1e-3)}[pattern]
+            dtype = np.float64 if pattern == "random64" else np.float32
+            obs, reward, term, trunc, _ = env.step(np.array([u], dtype))
+            steps.append((obs.tobytes(), reward, type(reward), term, trunc))
+            if term or trunc:
+                break
+        runs.append(steps)
+    assert runs[0] == runs[1]
+    assert len(runs[1]) == 200 and runs[1][-1][4] and not runs[1][-1][3]
+
+
+def test_pendulum_spaces_sample_as_gymnasium():
+    ref, port = gym.make("Pendulum-v1"), cartpole.make("Pendulum-v1")
+    for space_r, space_p in ((ref.action_space, port.action_space),
+                             (ref.observation_space, port.observation_space)):
+        np.testing.assert_array_equal(space_p.low, space_r.low)
+        np.testing.assert_array_equal(space_p.high, space_r.high)
+        space_r.seed(3)
+        space_p.seed(3)
+        for _ in range(10):
+            a, b = space_r.sample(), space_p.sample()
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+            assert space_p.contains(b)
+    assert env_spaces("Pendulum-v1", {}) == (3, 1, False)
+    with pytest.raises(RuntimeError, match="reset"):
+        cartpole.make("Pendulum-v1").step(np.zeros(1, np.float32))
+
+
+def test_runner_takes_part_of_a_modules_weights():
+    """SAC broadcasts its actor only (``pi.*``): the runner loads that part
+    and keeps the rest as built; a name it lacks is refused."""
+    from ray_tpu_torch.rl.algorithms.sac import SACModule
+
+    spec = RLModuleSpec(module_class=SACModule, observation_dim=3,
+                        action_dim=1, discrete=False,
+                        model_config={"hiddens": (8,), "action_scale": 2.0})
+    runner = SingleAgentEnvRunner(env="Pendulum-v1", module_spec=spec,
+                                  device="cpu")
+    other = spec.build(seed=9, device="cpu")
+    built = {k: v.clone() for k, v in runner.module.state_dict().items()}
+    runner.set_state({"params": {k: v for k, v in other.state_dict().items()
+                                 if k.startswith("pi.")}})
+    for k, v in runner.module.state_dict().items():
+        want = other.state_dict()[k] if k.startswith("pi.") else built[k]
+        assert torch.equal(v, want), k
+    with pytest.raises(KeyError, match="no parameter"):
+        runner.set_state({"params": {"nope.w": torch.zeros(1)}})
+    eps = runner.sample(num_timesteps=16)
+    acts = np.concatenate([np.asarray(e.actions) for e in eps])
+    assert acts.shape == (16, 1) and np.all(np.abs(acts) <= 2.0)
