@@ -345,7 +345,45 @@ Phases, each of which exits non-zero on failure:
     of the port launched over the phase. Each line prints the gates'
     iterations and env steps, env steps/s and learner updates/s per
     algorithm; the summary line the phase's seconds.
-18. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+18. DreamerV3 on the card (``rl_dreamer`` lines; tests/test_dreamerv3.py's
+    LineWalk, the world model's and the actor-critic's updates and the
+    policy step on the card). (a) LineWalk at the reference's defaults,
+    seed 0: the best mean return must pass ``DREAMER_BEST`` (0.8) within
+    ``DREAMER_ITERS`` (60) iterations; it prints the iteration, env steps
+    and seconds (beside the reference test's 240 s deadline on one CPU),
+    policy steps/s and updates/s. (e) That algorithm saved and restored
+    into a new one: weights, target critic, both Adams' state, the return
+    normaliser and the step count bit for bit. (b) The world-model losses
+    of ``test_world_model_losses_decrease`` (300 random-policy steps, then
+    30 single updates: reconstruction below 0.75x its start, reward loss
+    0.25 nats lower). (c) The pixel configuration of
+    ``test_dreamerv3_pixel_conv_encoder`` on the gridworld: the
+    ConvTranspose decoder in use, finite losses, reconstruction down more
+    than 10% over 10 iterations. (d) One world-model and one actor-critic
+    update at the defaults on the card and on the CPU, from the same
+    weights, batch and Gumbel noise: every weight and the target critic
+    within ``RL_ATOL``. (f) No kernel of the port launched.
+19. The device-telemetry plane on the card (``telemetry`` line). (a) The
+    kernel builds this process ran are recorded, one ``kernel:<name>``
+    compile per source (none when it compiled nothing); GPT-2 124M dense
+    steps (``attn_outside``) through ``instrumented_step``, three at B=8
+    and one at B=4: exactly one ``first_compile`` and then one
+    ``shape_change``, 12 + 12 splash launches a step. (b)
+    ``device_memory_snapshot()`` has one row for the card, its
+    ``bytes_in_use`` equal to ``torch.cuda.memory_allocated()`` and its
+    ``bytes_limit`` to the card's total. (c) ``DeviceBatchIterator`` over 16
+    batches of a 64 MiB float32 column and token ids: the h2d ledger holds
+    exactly their bytes, the batches in order on the card. (d) Two async
+    checkpoint saves of the GPT-2 state, each persisted before the next:
+    one d2h transfer of exactly its bytes each, ``ckpt_staging`` back at 0
+    after the persists. (e) A multiplexed
+    GPT-2 charged to ``mux_weights`` at exactly its bytes, 0 after its
+    eviction. (f) A forensics bundle and ``serve.status()`` carry the
+    telemetry. It prints the h2d GB/s (past the prefetcher's ring setup)
+    and the d2h GB/s of the second save (the first's apart: it page-locks
+    the writer's buffers), and each first call's seconds, with the card's
+    name and power limit.
+20. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
@@ -366,6 +404,9 @@ from typing import Callable, Dict, Optional, Tuple
 # Published dense peaks, one table for the port (ray_tpu_torch._private.peaks):
 # device-memory bytes/s and bf16 tensor-core flop/s by card name.
 from ray_tpu_torch._private.peaks import PEAKS, peaks_for  # noqa: E402,F401
+# Loaded before the kernels are built, so that each nvcc run is recorded as a
+# compile (phase 19).
+from ray_tpu_torch.util import device_telemetry  # noqa: E402,F401
 
 # Kernel against plain version, bf16 in and out: the kernel rounds the
 # unnormalised probabilities to bf16 before p @ v and normalises in fp32;
@@ -6609,6 +6650,503 @@ def phase_rl_extras(card: str, device: str = "cuda") -> Dict[str, object]:
     return result
 
 
+# DreamerV3 on the card (phase 18): tests/test_dreamerv3.py's gates.
+DREAMER_BEST, DREAMER_ITERS = 0.8, 60
+# The reference test's deadline on a 1-CPU host (printed beside the card's
+# seconds; not a gate here).
+DREAMER_CPU_DEADLINE_S = 240.0
+# Batches the telemetry phase sends through the prefetcher.
+PREFETCH_BATCHES = 16
+
+
+class _LineWalk:
+    """tests/test_dreamerv3.py's env: a 1-D walk from 0 to +1 (reward 1,
+    terminate) within 12 steps, step cost -0.02; optimal return ~0.92."""
+
+    class _Space:
+        def __init__(self, n=None, shape=None):
+            self.n = n
+            self.shape = shape
+
+    def __init__(self):
+        import numpy as np
+
+        self._np = np
+        self.observation_space = self._Space(shape=(2,))
+        self.action_space = self._Space(n=2)
+        self._x = 0.0
+        self._t = 0
+
+    def reset(self, seed=None):
+        self._x, self._t = 0.0, 0
+        return self._obs(), {}
+
+    def _obs(self):
+        return self._np.array([self._x, self._t / 12.0], self._np.float32)
+
+    def step(self, action):
+        self._x += 0.25 if action == 1 else -0.25
+        self._t += 1
+        if self._x >= 1.0:
+            return self._obs(), 1.0, True, False, {}
+        return self._obs(), -0.02, False, self._t >= 12, {}
+
+
+def _dreamer_gridworld():
+    from ray_tpu_torch.rl.env.pixel_gridworld import PixelGridworld
+
+    return PixelGridworld(n=4, cell=2, max_steps=12, shaped=True)
+
+
+def _dreamer_count(algo) -> Dict[str, float]:
+    """Count DreamerV3's policy steps and world-model updates and time its
+    env loop and its training steps (each update ends in copies of its
+    metrics to the host, so the time covers the device's work)."""
+    stats = {"policy_steps": 0, "collect_s": 0.0, "updates": 0,
+             "step_s": 0.0}
+    collect, wm_update, training_step = (algo._collect, algo._wm_update,
+                                         algo.training_step)
+
+    def counted_collect(n):
+        t0 = time.perf_counter()
+        try:
+            got = collect(n)
+            stats["policy_steps"] += got
+            return got
+        finally:
+            stats["collect_s"] += time.perf_counter() - t0
+
+    def counted_update(batch):
+        stats["updates"] += 1
+        return wm_update(batch)
+
+    def timed_step():
+        t0 = time.perf_counter()
+        try:
+            return training_step()
+        finally:
+            stats["step_s"] += time.perf_counter() - t0
+
+    algo._collect = counted_collect
+    algo._wm_update = counted_update
+    algo.training_step = timed_step
+    return stats
+
+
+def _dreamer_rates(stats) -> Dict[str, object]:
+    update_s = stats["step_s"] - stats["collect_s"]
+    return dict(policy_steps=stats["policy_steps"],
+                policy_steps_per_s=(stats["policy_steps"] / stats["collect_s"]
+                                    if stats["collect_s"] else None),
+                updates=stats["updates"], update_s=update_s,
+                updates_per_s=(stats["updates"] / update_s
+                               if stats["updates"] else None))
+
+
+def _dreamer_state(algo) -> list:
+    """Every tensor of a DreamerV3's state: weights, target critic, both
+    optimizers' moments and counts, in a fixed order."""
+    out = [*algo.model.state_dict().values(),
+           *algo.target_critic.state_dict().values()]
+    for opt in (algo._wm_opt, algo._ac_opt):
+        state = opt.state_dict()["state"]
+        out += [t for p in sorted(state) for _, t in sorted(state[p].items())]
+    return out
+
+
+def _dreamer_card_vs_cpu(device) -> Dict[str, object]:
+    """One world-model and one actor-critic update at the defaults on the
+    card and on the CPU, from the same weights (drawn on the host from one
+    seed), batch and Gumbel noise: the largest difference of any weight or
+    the target critic, how far the updates moved them, the losses."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rl.algorithms import DreamerV3Config
+
+    algos = {dev: (DreamerV3Config().environment(_LineWalk)
+                   .resources(device=dev).debugging(seed=0).build_algo())
+             for dev in ("cpu", device)}
+    cfg = algos["cpu"].algo_config
+    start = [t.clone() for t in _dreamer_state(algos["cpu"])]
+    if any(not torch.equal(a.cpu(), b) for a, b in zip(
+            _dreamer_state(algos[device]), start)):
+        fail("DreamerV3 from one seed starts from other weights on the card "
+             "and the CPU")
+    B, T, H = cfg.batch_size, cfg.batch_length, cfg.horizon
+    S, C, A = cfg.stoch_groups, cfg.stoch_classes, 2
+    rng = np.random.default_rng(0)
+    first = (rng.random((B, T)) < 0.1).astype(np.float32)
+    first[:, 0] = 1.0
+    batch = {"obs": rng.normal(0, 1, (B, T, 2)).astype(np.float32),
+             "actions": rng.integers(0, A, (B, T)).astype(np.int32),
+             "rewards": rng.normal(0, 0.5, (B, T)).astype(np.float32),
+             "terminateds": (rng.random((B, T)) < 0.05).astype(np.float32),
+             "is_first": first}
+    gen = torch.Generator().manual_seed(1)
+
+    def gumbel(*shape):
+        u = torch.rand(shape, generator=gen).clamp_min(
+            torch.finfo(torch.float32).tiny)
+        return -torch.log(-torch.log(u))
+
+    noise = [{"z": gumbel(T, B, S, C)},
+             {"action": gumbel(H, B * T, A), "z": gumbel(H, B * T, S, C)}]
+    metrics = {}
+    for dev, algo in algos.items():
+        draws = iter(noise)
+        algo._draw_noise = (lambda site, *lead, it=draws, dev=dev:
+                            {k: v.to(dev) for k, v in next(it).items()})
+        loss, aux, feat = algo._wm_update(
+            {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        _, ac_aux = algo._ac_update(feat.reshape(-1, feat.shape[-1]), 1.0)
+        metrics[dev] = {"world_model_loss": float(loss),
+                        **{k: float(v) for k, v in aux.items()},
+                        **{k: float(v) for k, v in ac_aux.items()}}
+    cpu_after = _dreamer_state(algos["cpu"])
+    n_weights = (len(algos["cpu"].model.state_dict())
+                 + len(algos["cpu"].target_critic.state_dict()))
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        _dreamer_state(algos[device])[:n_weights], cpu_after[:n_weights]))
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        cpu_after[:n_weights], start[:n_weights]))
+    metric_err = max(abs(metrics[device][k] - v)
+                     for k, v in metrics["cpu"].items())
+    return dict(max_abs_err=err, moved=moved, metric_max_abs_err=metric_err,
+                atol=RL_ATOL, metrics=metrics[device])
+
+
+def phase_rl_dreamer(card: str, device: str = "cuda") -> Dict[str, object]:
+    """DreamerV3 on the card (see the module docstring, phase 18)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rl.algorithms import DreamerV3Config
+    from ray_tpu_torch.rl.algorithms.dreamerv3 import _DeconvDecoder
+
+    t_phase = time.perf_counter()
+    _reset_counts()
+    result: Dict[str, object] = {"card": card}
+
+    # (a) LineWalk at the reference's defaults, seed 0.
+    cfg = (DreamerV3Config().environment(_LineWalk)
+           .resources(device=device).debugging(seed=0))
+    algo = cfg.build_algo()
+    stats = _dreamer_count(algo)
+    best, reached, res = -10.0, None, {}
+    t0 = time.perf_counter()
+    for it in range(DREAMER_ITERS):
+        res = algo.train()
+        best = max(best, res.get("episode_return_mean", -10.0))
+        if best > DREAMER_BEST:
+            reached = it
+            break
+    train_s = time.perf_counter() - t0
+    line = dict(card=card, gate=DREAMER_BEST, best=best,
+                reached=reached is not None, reached_at_iteration=reached,
+                iterations=DREAMER_ITERS if reached is None else reached + 1,
+                env_steps=res.get("num_env_steps_sampled_lifetime"),
+                train_s=train_s, reference_cpu_deadline_s=DREAMER_CPU_DEADLINE_S,
+                learners=res.get("learners"), **_dreamer_rates(stats))
+    result["linewalk"] = line
+    print("rl_dreamer_a " + json.dumps(line), flush=True)
+    if not line["reached"]:
+        fail(f"DreamerV3 did not pass {DREAMER_BEST} on LineWalk in "
+             f"{DREAMER_ITERS} iterations: {line}")
+
+    # (e) The trained algorithm saved and restored into a new one.
+    with tempfile.TemporaryDirectory() as ckpt:
+        algo.save_checkpoint(ckpt)
+        restored = cfg.build_algo()
+        restored.load_checkpoint(None, ckpt)
+    a, b = _dreamer_state(algo), _dreamer_state(restored)
+    ckpt_ok = (len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+               and restored._retnorm == algo._retnorm
+               and restored._lifetime_steps == algo._lifetime_steps
+               and any(o.state_dict()["state"]
+                       for o in (algo._wm_opt, algo._ac_opt)))
+    algo.stop()
+    restored.stop()
+
+    # (b) tests/test_dreamerv3.py::test_world_model_losses_decrease.
+    wm_algo = (DreamerV3Config().environment(_LineWalk)
+               .training(env_steps_per_iteration=300,
+                         updates_per_iteration=0, min_buffer_steps=200)
+               .resources(device=device).debugging(seed=0).build_algo())
+    wm_algo.training_step()  # fill the buffer only (0 updates)
+    wm_algo.algo_config.env_steps_per_iteration = 1
+    wm_algo.algo_config.updates_per_iteration = 1
+    history = []
+    for _ in range(30):
+        r = wm_algo.training_step()["learners"]
+        if r:
+            history.append((r["recon_loss"], r["reward_loss"]))
+    wm_algo.stop()
+    wm = dict(updates=len(history),
+              recon_first=float(np.mean([h[0] for h in history[:3]])),
+              recon_last=float(np.mean([h[0] for h in history[-3:]])),
+              reward_first=float(np.mean([h[1] for h in history[:3]])),
+              reward_last=float(np.mean([h[1] for h in history[-3:]])))
+
+    # (c) tests/test_dreamerv3.py::test_dreamerv3_pixel_conv_encoder.
+    px = (DreamerV3Config().environment(_dreamer_gridworld)
+          .training(obs_shape=(8, 8, 3), conv_filters=((8, 2, 2), (16, 2, 1)),
+                    deter_dim=64, hidden=64, stoch_groups=4, stoch_classes=4,
+                    batch_size=4, batch_length=8, env_steps_per_iteration=120,
+                    updates_per_iteration=5, min_buffer_steps=120)
+          .resources(device=device).debugging(seed=0).build_algo())
+    pstats = _dreamer_count(px)
+    recon, finite = [], True
+    for _ in range(10):
+        r = px.training_step()["learners"]
+        if r:
+            recon.append(r["recon_loss"])
+            finite = finite and math.isfinite(r["world_model_loss"])
+    pixel = dict(deconv=bool(px._deconv and isinstance(px.model.decoder,
+                                                       _DeconvDecoder)),
+                 recon=recon, finite=finite, **_dreamer_rates(pstats))
+    px.stop()
+
+    # (d) One update of each kind on the card and the CPU.
+    vs = _dreamer_card_vs_cpu(device)
+    line = dict(card=card, world_model=wm, pixel=pixel, card_vs_cpu=vs,
+                checkpoint_bit_for_bit=ckpt_ok)
+    result.update(line)
+    print("rl_dreamer_b " + json.dumps(line), flush=True)
+    if not (wm["updates"] >= 20 and wm["recon_last"] < wm["recon_first"] * 0.75
+            and wm["reward_last"] < wm["reward_first"] - 0.25):
+        fail(f"DreamerV3's world-model losses did not fall: {wm}")
+    if not (pixel["deconv"] and pixel["finite"] and len(recon) >= 6
+            and recon[-1] < recon[0] * 0.9):
+        fail(f"pixel DreamerV3 did not fit its pixels: {pixel}")
+    if not (vs["max_abs_err"] <= RL_ATOL and vs["moved"] > 1e-5):
+        fail(f"DreamerV3's updates on the card differ from the CPU's: {vs}")
+    if not ckpt_ok:
+        fail("DreamerV3's checkpoint round trip is not bit for bit")
+
+    # (f) DreamerV3 launches none of the port's kernels.
+    result["launches"] = _counts()
+    if any(result["launches"].values()):
+        fail(f"DreamerV3 launched a port kernel: {result['launches']}")
+    result["seconds"] = time.perf_counter() - t_phase
+    print("rl_dreamer " + json.dumps(dict(
+        card=card, seconds=result["seconds"], launches=result["launches"],
+        reached_at_iteration=result["linewalk"]["reached_at_iteration"],
+        policy_steps_per_s=result["linewalk"]["policy_steps_per_s"],
+        updates_per_s=result["linewalk"]["updates_per_s"])), flush=True)
+    return result
+
+
+class _TelemetryEcho:
+    """A replica with no model: ``serve.status()``'s rows to read."""
+
+    def __call__(self, request) -> str:
+        return "ok"
+
+
+def _tensor_leaf_bytes(tree) -> int:
+    from torch.utils import _pytree
+
+    return sum(t.numel() * t.element_size()
+               for t in _pytree.tree_leaves(tree) if hasattr(t, "numel"))
+
+
+def phase_telemetry(card: str) -> Dict[str, object]:
+    """The device-telemetry plane on the card (see the module docstring,
+    phase 19)."""
+    import asyncio
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import kernel_build
+    from ray_tpu_torch._private.torch_compat import instrumented_step
+    from ray_tpu_torch.checkpoint import CheckpointCoordinator, ShardWriter
+    from ray_tpu_torch.data.ingest.prefetch import DeviceBatchIterator
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.util import device_telemetry as dt
+    from ray_tpu_torch.util import forensics
+
+    t_phase = time.perf_counter()
+    result: Dict[str, object] = {"card": card}
+
+    # (a) The kernel builds this process ran, then GPT-2 steps through the
+    # step tap: B=8 three times, then B=4.
+    builds = {r["label"]: r["compile_s"] for r in dt.compile_records()
+              if r["label"].startswith("kernel:")}
+    want_builds = ([f"kernel:{n}" for n in kernel_build.kernel_names()]
+                   if kernel_build.NVCC_RUNS else [])
+    if sorted(builds) != sorted(want_builds) or len(
+            [r for r in dt.compile_records()
+             if r["label"].startswith("kernel:")]) != len(want_builds):
+        fail(f"kernel builds recorded {sorted(builds)}, expected "
+             f"{want_builds} (nvcc runs {kernel_build.NVCC_RUNS})")
+    dt.reset()
+    _reset_counts()
+    config = gpt2.GPTConfig(remat_policy="attn_outside", scan_layers=False)
+    params = gpt2.init_params(config, seed=0, device="cuda")
+    optimizer = gpt2.make_optimizer(3e-4)
+    opt_state = optimizer.init(params)
+    step = instrumented_step(gpt2.make_train_step(config, optimizer),
+                             label="gpt2_step")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 50257, (8, config.seq_len + 1)), device="cuda")
+    want = {"splash_attention_fwd": config.n_layer,
+            "splash_attention_bwd": config.n_layer}
+    losses, step_s = [], []
+    for i, b in enumerate((8, 8, 8, 4)):
+        before = _counts()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, toks[:b, :-1],
+                                       toks[:b, 1:])
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        if delta != {k: want.get(k, 0) for k in delta}:
+            fail(f"telemetry step {i}: launches {delta}, expected {want}")
+    compiles = [(r["trigger"], r["compile_s"])
+                for r in dt.compile_records("gpt2_step")]
+    tap = dict(builds=builds, nvcc_runs=kernel_build.NVCC_RUNS,
+               triggers=[t for t, _ in compiles],
+               first_call_s=[s for _, s in compiles], step_s=step_s,
+               losses=losses)
+
+    # (b) The allocator's figures, as torch.cuda gives them.
+    torch.cuda.synchronize()
+    rows = dt.device_memory_snapshot()
+    allocated = torch.cuda.memory_allocated(0)
+    total = torch.cuda.mem_get_info(0)[1]
+    memory = dict(rows=rows, memory_allocated=allocated, total=total)
+
+    # (c) The prefetcher: 16 batches of a 64 MiB float32 column and token
+    # ids. Its rate counts the batches whose copies start after batch RING
+    # is handed out (the first RING batches also page-lock the ring's
+    # buffers; batch i is handed out once batch i + 1's copy has started).
+    batches = [{"x": np.full((64, 1024, 256), float(i), np.float32),
+                "tokens": np.full((16, 1025), i, np.int64),
+                "names": ["row"] * 16} for i in range(PREFETCH_BATCHES)]
+    sizes = [sum(v.nbytes for k, v in b.items() if k != "names")
+             for b in batches]
+    torch.cuda.synchronize()
+    seen, marks = [], [time.perf_counter()]
+    for out in DeviceBatchIterator(iter(batches), device="cuda:0"):
+        seen.append((float(out["x"][0, 0, 0]), out["x"].device.type))
+        marks.append(time.perf_counter())
+    torch.cuda.synchronize()
+    marks[-1] = time.perf_counter()
+    ledgered_h2d = sum(r["bytes"] for r in dt.transfer_records()
+                       if r["src"] == "ingest_prefetch")
+    ring = DeviceBatchIterator.RING
+    steady = sum(sizes[ring + 2:]) / (marks[-1] - marks[ring + 1])
+    prefetch = dict(bytes=sum(sizes), ledgered=ledgered_h2d,
+                    seconds=marks[-1] - marks[0],
+                    gb_per_s_with_ring_setup=sum(sizes)
+                    / (marks[-1] - marks[0]) / 1e9,
+                    gb_per_s=steady / 1e9,
+                    batches_in_order=seen == [(float(i), "cuda") for i in
+                                              range(PREFETCH_BATCHES)])
+    del batches
+
+    # (d) Two async saves of the GPT-2 state, each persisted before the
+    # next: the first also page-locks the writer's buffers, the second's
+    # block is the snapshot's copy alone.
+    state = {"params": params, "opt_state": opt_state}
+    state_bytes = _tensor_leaf_bytes(state)
+    blocks = []
+    with tempfile.TemporaryDirectory() as root:
+        writer = ShardWriter(CheckpointCoordinator(root, keep=1,
+                                                   replicate_to_peer=False),
+                             replicate=False)
+        try:
+            for save in range(2):
+                handle = writer.save_async(save, state)
+                handle.result(timeout=300)
+                blocks.append(handle.block_seconds)
+        finally:
+            writer.close()
+    d2h = [r["bytes"] for r in dt.transfer_records()
+           if r["src"] == "ckpt_snapshot"]
+    ckpt = dict(state_bytes=state_bytes, ledgered=d2h,
+                staging=dt.pool_bytes()["ckpt_staging"], block_s=blocks,
+                gb_per_s=state_bytes / blocks[1] / 1e9,
+                gb_per_s_first=state_bytes / blocks[0] / 1e9)
+
+    # (e) A multiplexed GPT-2 charged to mux_weights, then evicted.
+    @serve.multiplexed(max_num_models_per_replica=1)
+    async def load(model_id):
+        return gpt2.init_params(config, seed=int(model_id.split("-")[1]),
+                                device="cuda")
+
+    async def mux():
+        model = await load("seed-1")
+        out = dict(loaded=dt.pool_bytes()["mux_weights"]["bytes"],
+                   model_bytes=_tensor_leaf_bytes(model))
+        del model
+        for wrapper in load._multiplex_wrappers.values():
+            await wrapper.unload_all()
+        out["after_eviction"] = dt.pool_bytes()["mux_weights"]["bytes"]
+        return out
+
+    mux_line = asyncio.run(mux())
+
+    # (f) A forensics bundle and serve.status() carry the telemetry.
+    ray_tpu_torch.init()
+    try:
+        serve.start(http_options={"port": 0})
+        serve.run(serve.deployment(_TelemetryEcho).bind(), name="telemetry")
+        status = serve.status()
+        bundle = forensics.build_bundle()
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    snap = bundle["device_telemetry"]
+    device_rows = [row.get("device") for row in status.values()]
+    carried = dict(
+        bundle=snap is not None and snap["compiles"]["totals"]["by_trigger"]
+        == {dt.TRIGGER_FIRST: 1, dt.TRIGGER_SHAPE: 1}
+        and len(snap["device_memory"]) == 1
+        and snap["pools"].get("ckpt_staging", {}).get("peak") == state_bytes,
+        status=bool(device_rows) and all(
+            d is not None and set(d) == {"pools", "transfer_bw"}
+            and d["pools"].get("mux_weights", {}).get("peak")
+            == mux_line["model_bytes"] for d in device_rows))
+    result["launches"] = _counts()
+    result["seconds"] = time.perf_counter() - t_phase
+    line = dict(card=card, tap=tap, memory=memory, prefetch=prefetch,
+                checkpoint=ckpt, mux=mux_line, carried=carried,
+                launches=result["launches"], seconds=result["seconds"])
+    result.update(line)
+    print("telemetry " + json.dumps(line), flush=True)
+    if tap["triggers"] != [dt.TRIGGER_FIRST, dt.TRIGGER_SHAPE]:
+        fail(f"the step tap recorded {tap['triggers']}, expected one "
+             f"first_compile then one shape_change")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"telemetry GPT-2 losses not finite: {losses}")
+    if not (len(rows) == torch.cuda.device_count() == 1
+            and rows[0]["platform"] == "gpu"
+            and rows[0]["bytes_in_use"] == allocated
+            and rows[0]["bytes_limit"] == total
+            and rows[0]["peak_bytes_in_use"] >= allocated):
+        fail(f"device memory rows disagree with torch.cuda: {memory}")
+    if not (ledgered_h2d == prefetch["bytes"]
+            and prefetch["batches_in_order"]):
+        fail(f"the prefetcher's h2d ledger: {prefetch}")
+    if not (d2h == [state_bytes] * 2 and ckpt["staging"] == {
+            "bytes": 0.0, "peak": float(state_bytes)}):
+        fail(f"the checkpoint snapshot's d2h ledger: {ckpt}")
+    if not (mux_line["loaded"] == mux_line["model_bytes"] > 0
+            and mux_line["after_eviction"] == 0.0):
+        fail(f"mux_weights: {mux_line}")
+    if not (carried["bundle"] and carried["status"]):
+        fail(f"the bundle or serve.status() lacks the telemetry: {carried}")
+    return result
+
+
 def _rlx_policy(agent_id: str) -> str:
     return f"p{int(agent_id.split('_')[1]) % 2}"
 
@@ -6704,6 +7242,8 @@ def main() -> int:
     models = phase_models(peaks, card)
     rl = phase_rl_ppo(card)
     rl_extras = phase_rl_extras(card)
+    rl_dreamer = phase_rl_dreamer(card)
+    telemetry = phase_telemetry(card)
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
     bwd = phase_attn_bwd(peaks)
@@ -6739,6 +7279,8 @@ def main() -> int:
             out[f"models_{model}"] = models[model]["run"]["launches"][name]
         out["rl_ppo"] = rl["launches"].get(name, 0)
         out["rl_extras"] = rl_extras["launches"].get(name, 0)
+        out["rl_dreamer"] = rl_dreamer["launches"].get(name, 0)
+        out["telemetry"] = telemetry["launches"].get(name, 0)
         return out
 
     kernels = [

@@ -64,6 +64,12 @@ FAULT_POINTS: Dict[str, str] = {
     "ckpt_commit": "coordinator commit phase, before the atomic rename — "
                    "the step stays uncommitted, restore skips it",
     "ckpt_restore": "restore entry (restore_pytree) — retryable",
+    # device telemetry (tests/test_torch_device_telemetry.py)
+    "device_telemetry_snapshot": "device-telemetry snapshot assembly — every "
+                                 "embedding site (forensics bundle, "
+                                 "serve.status, run registry) absorbs a "
+                                 "telemetry failure rather than worsening "
+                                 "the event being observed",
 }
 
 

@@ -9,7 +9,11 @@ Several sources are compiled at once, one ``nvcc`` each.
 There is no fallback: a missing ``nvcc`` or a failed compile raises.
 ``NVCC_RUNS`` counts this process's compiles and ``LOAD_SECONDS`` the time
 each library took to become usable in it (its build included): a process
-worker loads the libraries its driver built and compiles none.
+worker loads the libraries the process that spawned it built and compiles
+none. When the device-telemetry plane is loaded, each successful ``nvcc``
+run is recorded there as a compile (label ``kernel:<name>``, its wall
+seconds, the build digest as its signature); a load from an existing build
+records none.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -90,22 +95,45 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         if not src.exists():
             raise FileNotFoundError(f"no kernel source {src}")
         tmp = out_dir / f"lib{n}.so.{os.getpid()}.tmp"
-        procs[n] = (tmp, subprocess.Popen(
+        procs[n] = (tmp, time.perf_counter(), subprocess.Popen(
             nvcc_command(nvcc, src, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
         NVCC_RUNS += 1
-    failed = []
-    for n, (tmp, proc) in procs.items():
+    # One waiter per nvcc, so each run's wall time ends when it does.
+    ended: Dict[str, tuple] = {}
+
+    def wait(n, started, proc):
         log, _ = proc.communicate()
+        ended[n] = (log, time.perf_counter() - started)
+
+    waiters = [threading.Thread(target=wait, args=(n, started, proc))
+               for n, (_tmp, started, proc) in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    failed = []
+    for n, (tmp, _started, proc) in procs.items():
+        log, seconds = ended[n]
         (out_dir / f"{n}.log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"--- {n} (nvcc exit {proc.returncode}) ---\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, libs[n])
+            _record_build(n, out_dir.name, seconds)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return libs
+
+
+def _record_build(name: str, digest: str, seconds: float) -> None:
+    """One nvcc run into the device-telemetry plane, if it is loaded (a
+    probe: this module imports nothing of the port)."""
+    telemetry = sys.modules.get("ray_tpu_torch.util.device_telemetry")
+    if telemetry is not None:
+        telemetry.record_compile(f"kernel:{name}", shapes=digest,
+                                 compile_s=seconds)
 
 
 def build_log(name: str) -> str:

@@ -27,9 +27,10 @@ _TRAIN_LANE_PREFIXES = ("train.", "checkpoint.", "data.")
 #: episode reads as one story next to the per-trace request lanes.
 _SERVE_LANE_PREFIXES = ("serve.slo", "serve.preempt_recompute")
 
-#: Device-plane spans (the reference's compiles, host<->device transfers
-#: and compute burns; its device telemetry is not ported yet) fold into one
-#: shared "device" lane under the train/serve stories.
+#: Device-plane spans (compiles, host<->device transfers and compute burns
+#: from util.device_telemetry) fold into one shared "device" lane: a
+#: recompile storm, the transfers feeding it, and the burns it starves line
+#: up on a single row under the train/serve stories.
 _DEVICE_LANE_PREFIXES = ("xla.", "device.")
 
 

@@ -73,6 +73,13 @@ def _profiler_record(bucket: str, start: float, end: float) -> None:
         mod.record(bucket, start, end)
 
 
+def _telemetry():
+    """Device-telemetry plane iff loaded (same probe idiom): the snapshot
+    is a device->host transfer and the host copy stages bytes in the
+    ``ckpt_staging`` pool until its persist releases them."""
+    return sys.modules.get("ray_tpu_torch.util.device_telemetry")
+
+
 def _invoke(coordinator, method: str, *args):
     """Call a coordinator method whether it is local or an actor handle."""
     m = getattr(coordinator, method)
@@ -254,6 +261,7 @@ class ShardWriter:
                                       "phase": "snapshot"}):
             host_tree, lease = snapshot_to_host(tree, self._pool)
         block = time.monotonic() - t0
+        self._ledger_snapshot(host_tree, w0, w0 + block)
         ckpt_metrics.SAVE_BLOCK_SECONDS.observe(block, tags={"mode": "async"})
         # The snapshot is the only save work blocking the training step —
         # attribute exactly it to the step profiler's ckpt_block bucket.
@@ -273,11 +281,26 @@ class ShardWriter:
         with tracing.span("checkpoint.save",
                           attributes={"step": step, "shard": self.shard_id,
                                       "phase": "sync"}):
+            w0 = time.time()
             host_tree, lease = snapshot_to_host(tree, self._pool)
+            self._ledger_snapshot(host_tree, w0, time.time())
             manifest = self._persist(step, host_tree, lease)
         ckpt_metrics.SAVE_BLOCK_SECONDS.observe(time.monotonic() - t0,
                                                 tags={"mode": "sync"})
         return manifest
+
+    @staticmethod
+    def _ledger_snapshot(host_tree: Any, start: float, end: float) -> None:
+        """Ledger one device->host snapshot and stage its bytes in the
+        ``ckpt_staging`` pool (released when the persist drops the host
+        copy)."""
+        dt = _telemetry()
+        if dt is None:
+            return
+        nbytes = dt.tree_nbytes(host_tree)
+        dt.record_transfer("d2h", nbytes, src="ckpt_snapshot",
+                           start=start, end=end)
+        dt.pool_add("ckpt_staging", nbytes)
 
     # ------------------------------------------------------------ persist
     def _persist(self, step: int, host_tree: Any, lease,
@@ -287,8 +310,13 @@ class ShardWriter:
             return self._persist_inner(step, host_tree)
         finally:
             # The snapshot's pinned buffer is free again once its bytes are
-            # on storage (and copied into the replica payload).
+            # on storage (and copied into the replica payload); the host
+            # staging copy's pool bytes are released whether the persist
+            # committed, failed, or the writer was aborted before it ran.
             self._pool.release(lease)
+            dt = _telemetry()
+            if dt is not None:
+                dt.pool_sub("ckpt_staging", dt.tree_nbytes(host_tree))
             if handle is not None:
                 handle.persist_window = (start, time.time())
 

@@ -8,7 +8,9 @@ MLP's layers). An RLModule's parameters live in the module;
 name, and transpose the one leaf whose layout differs, a conv kernel (HWIO
 in JAX, OIHW in torch). A 0-d leaf is a 0-d parameter: SAC's tree (``pi``,
 ``q1``, ``q2``, ``target_q1``, ``target_q2``, ``log_alpha``) carries across
-as it is.
+as it is. DreamerV3's tree (``dreamerv3_params_from_numpy``) also holds
+transposed-conv kernels, which go HWIO -> (in, out, kH, kW) flipped in both
+spatial axes, and comes with its target critic and bucket grid.
 """
 
 from __future__ import annotations
@@ -69,28 +71,25 @@ def rl_params_from_numpy(module: "torch.nn.Module", tree: Any) -> "torch.nn.Modu
     are the parameter names (``pi.layers.0.w``); conv kernels (the 4-D
     leaves) go HWIO -> OIHW, every other leaf is a copy. Every name must
     match."""
-    flat = _flatten(tree)
-    names = set(module.state_dict())
-    if set(flat) != names:
-        raise KeyError(f"params tree does not match the module: missing "
-                       f"{sorted(names - set(flat))}, unexpected "
-                       f"{sorted(set(flat) - names)}")
-    state = {}
-    for name, x in flat.items():
-        t = torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
-        state[name] = t.permute(3, 2, 0, 1) if t.ndim == 4 else t
-    module.load_state_dict(state)
+    _load_named(module, tree,
+                lambda name, t: t.permute(3, 2, 0, 1) if t.ndim == 4 else t)
     return module
 
 
 def rl_params_to_numpy(module: "torch.nn.Module") -> Any:
     """The reference's params pytree of the port's ``module``: nested dicts,
     lists where a path part is an index, conv kernels OIHW -> HWIO."""
+    return _state_to_tree(
+        module.state_dict(),
+        lambda name, t: t.permute(2, 3, 1, 0) if t.ndim == 4 else t)
+
+
+def _state_to_tree(state: Dict[str, "torch.Tensor"], leaf_fn) -> Any:
+    """A state dict as the reference's pytree: nested dicts, lists where a
+    path part is an index, each leaf ``leaf_fn(name, host tensor)``."""
     tree: Dict[str, Any] = {}
-    for name, t in module.state_dict().items():
-        t = t.detach().cpu()
-        if t.ndim == 4:
-            t = t.permute(2, 3, 1, 0)
+    for name, t in state.items():
+        t = leaf_fn(name, t.detach().cpu())
         node = tree
         *parents, leaf = name.split(".")
         for part in parents:
@@ -106,3 +105,59 @@ def rl_params_to_numpy(module: "torch.nn.Module") -> Any:
         return node
 
     return listify(tree)
+
+
+def _load_named(module: "torch.nn.Module", tree: Any, leaf_fn) -> None:
+    """Load a reference pytree into ``module`` by name, each leaf through
+    ``leaf_fn(name, tensor)``; every name must match."""
+    flat = _flatten(tree)
+    names = set(module.state_dict())
+    if set(flat) != names:
+        raise KeyError(f"params tree does not match the module: missing "
+                       f"{sorted(names - set(flat))}, unexpected "
+                       f"{sorted(set(flat) - names)}")
+    module.load_state_dict({
+        name: leaf_fn(name, torch.from_numpy(
+            np.array(x, dtype=np.float32, copy=True)))
+        for name, x in flat.items()})
+
+
+def _dreamer_from_ref(name: str, t: "torch.Tensor") -> "torch.Tensor":
+    if t.ndim != 4:
+        return t
+    if ".deconvs." in name:
+        # jax.lax.conv_transpose(transpose_kernel=False) does not flip its
+        # HWIO kernel; F.conv_transpose2d's (in, out, kH, kW) one does.
+        return t.flip(0, 1).permute(2, 3, 0, 1)
+    return t.permute(3, 2, 0, 1)
+
+
+def _dreamer_to_ref(name: str, t: "torch.Tensor") -> "torch.Tensor":
+    if t.ndim != 4:
+        return t
+    if ".deconvs." in name:
+        return t.permute(2, 3, 0, 1).flip(0, 1)
+    return t.permute(2, 3, 1, 0)
+
+
+def dreamerv3_params_from_numpy(algo: Any, params: Any, target_critic: Any,
+                                buckets: Any = None) -> Any:
+    """Load the reference DreamerV3's params tree (``_init_params``'s dict,
+    as numpy), its target critic and, given, its bucket grid into the port's
+    ``algo`` in place, on its device. Dense ``w`` is (in, out) on both
+    sides, the GRU's ``w`` (2D, 3D); conv kernels go HWIO -> OIHW,
+    transposed-conv kernels HWIO -> flipped (in, out, kH, kW)."""
+    _load_named(algo.model, params, _dreamer_from_ref)
+    _load_named(algo.target_critic, target_critic, _dreamer_from_ref)
+    if buckets is not None:
+        with torch.no_grad():
+            algo._head_buckets.copy_(torch.from_numpy(
+                np.asarray(buckets, np.float32)))
+    return algo
+
+
+def dreamerv3_params_to_numpy(algo: Any) -> Any:
+    """(params, target critic) of the port's DreamerV3 as the reference's
+    numpy trees."""
+    return (_state_to_tree(algo.model.state_dict(), _dreamer_to_ref),
+            _state_to_tree(algo.target_critic.state_dict(), _dreamer_to_ref))

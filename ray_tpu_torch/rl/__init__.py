@@ -6,8 +6,8 @@ EnvRunnerGroup sampling, LearnerGroup updates) in PyTorch: RLModules are
 unless ``device="cpu"``), and several learners all-reduce their gradients
 through ``ray_tpu_torch.collective``. The port brings its own CartPole-v1
 and Pendulum-v1 (``rl/env/cartpole.py``, ``pendulum.py``), equal to
-gymnasium's, so it needs no gymnasium. DreamerV3 comes with ROADMAP.md Queue
-1 item 12 (c).
+gymnasium's, so it needs no gymnasium. The algorithms, DreamerV3 among
+them, are in ``ray_tpu_torch.rl.algorithms``, as in the reference.
 """
 
 from ray_tpu_torch.rl.algorithm import Algorithm

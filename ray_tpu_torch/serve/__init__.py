@@ -17,12 +17,14 @@ and the autoscaler's SLO-burn policy read.
 
 Replicas are async actors of the thread tier, or, with
 ``ray_actor_options={"isolation": "process"}`` (or a ``runtime_env``),
-``SyncReplicaActor`` in worker processes of their own. Not ported yet
-(ROADMAP.md, Queue 1): the compiled router, the gRPC proxy and the LLM
-engine.
+``SyncReplicaActor`` in worker processes of their own. ``serve.device`` is
+the device-telemetry plane (``util/device_telemetry.py``: pools, the
+transfer ledger, ``transfer_bw``). Not ported yet (ROADMAP.md, Queue 1):
+the compiled router, the gRPC proxy and the LLM engine.
 """
 
 from ray_tpu_torch.serve import metrics, slo
+from ray_tpu_torch.util import device_telemetry as device
 from ray_tpu_torch.serve.api import (Application, Deployment, delete,
                                      deployment, get_app_handle,
                                      get_deployment_handle, list_deployments,
@@ -48,7 +50,7 @@ __all__ = [
     "DeploymentResponse", "Request", "multiplexed",
     "get_multiplexed_model_id", "batch", "continuous_batch", "EOS",
     "Emissions", "SequenceSlot", "BackPressureError", "SLOObjective",
-    "metrics", "slo",
+    "metrics", "slo", "device",
     "GPT2Next", "GPT2Stream", "GPT2BatchNext", "GPT2ContinuousStream",
     "GPT2MultiplexNext",
 ]

@@ -283,7 +283,9 @@ def status() -> Dict[str, Any]:
     counts/health plus requests/errors and p50/p95/p99/mean end-to-end
     latency (ms) aggregated from every router's pushed snapshots.  When
     the SLO watchdog (serve/slo.py) has objectives registered, each
-    deployment row also carries its fresh ``"slo"`` evaluation."""
+    deployment row also carries its fresh ``"slo"`` evaluation, and each
+    row carries this process's device-telemetry rollup under ``"device"``
+    (named pool bytes + windowed h2d/d2h transfer bandwidth)."""
     controller = _get_controller()
     out = ray_tpu_torch.get(controller.get_deployment_status.remote(),
                             timeout=_CONTROL_TIMEOUT_S)
@@ -299,6 +301,19 @@ def status() -> Dict[str, Any]:
                 if key in slo_payload:
                     row["slo"] = slo_payload[key]
                     break
+    try:
+        from ray_tpu_torch.util import device_telemetry as _dt
+
+        device_info: Optional[Dict[str, Any]] = {
+            "pools": _dt.pool_bytes(),
+            "transfer_bw": {"h2d": _dt.transfer_bw("h2d"),
+                            "d2h": _dt.transfer_bw("d2h")},
+        }
+    except Exception:  # status must never break on a telemetry hiccup
+        device_info = None
+    if device_info is not None:
+        for row in out.values():
+            row["device"] = device_info
     return out
 
 

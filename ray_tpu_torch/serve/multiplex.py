@@ -32,9 +32,9 @@ from ray_tpu_torch.util import metrics as _metrics
 
 def _telemetry():
     """Device-telemetry plane iff loaded (cross-layer probe idiom) —
-    resident multiplexed weights are accounted in its ``mux_weights``
-    pool, released on eviction.  That module is not ported yet (ROADMAP.md,
-    Queue 1), so until it is this finds nothing and the hook is a no-op."""
+    resident multiplexed weights (``tree_nbytes`` of what the loader
+    returned) are accounted in its ``mux_weights`` pool, released on
+    eviction."""
     return sys.modules.get("ray_tpu_torch.util.device_telemetry")
 
 MODELS_LOADED_GAUGE = _metrics.Gauge(

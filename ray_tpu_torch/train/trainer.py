@@ -573,7 +573,7 @@ class DataParallelTrainer:
                 run_registry.update_run(run_name, attempts=attempt_no)
         finally:
             # Device-telemetry rollup for the run row, when that plane is
-            # loaded (ROADMAP.md, Queue 1 item 11) — best-effort.
+            # loaded — best-effort.
             telemetry = sys.modules.get("ray_tpu_torch.util.device_telemetry")
             if telemetry is not None:
                 try:

@@ -11,10 +11,10 @@ bundle — served by ``/api/postmortems`` and
 :func:`ray_tpu_torch.util.state.list_postmortems`, and exportable as a
 fused Perfetto timeline (one lane per dumped process, instant markers at
 deaths, stalls and dump triggers — see
-:func:`ray_tpu_torch._private.profiling.postmortem_chrome_events`).  The
-reference's device telemetry section is not ported (ROADMAP.md, Queue 1
-item 11): a bundle's ``device_telemetry`` is None, as the reference gives
-when its snapshot fails.
+:func:`ray_tpu_torch._private.profiling.postmortem_chrome_events`).  A
+bundle also embeds the device-telemetry snapshot
+(:func:`ray_tpu_torch.util.device_telemetry.snapshot`), None only when
+that snapshot fails.
 """
 
 from __future__ import annotations
@@ -110,8 +110,16 @@ def build_bundle(*, window_s: float = 300.0,
     # as util.state.list_train_runs).
     reg = sys.modules.get("ray_tpu_torch.train.run_registry")
     bundle["train_runs"] = reg.list_runs() if reg is not None else []
-    # The reference snapshots its device telemetry here; not ported.
-    bundle["device_telemetry"] = None
+    # Device telemetry snapshot (compile registry tail, pool high-water,
+    # transfer window, device memory) next to the ring/stacks sections.
+    # Absorbed: a telemetry failure (incl. the device_telemetry_snapshot
+    # chaos point) must never cost the bundle its other sections.
+    try:
+        from ray_tpu_torch.util import device_telemetry
+
+        bundle["device_telemetry"] = device_telemetry.snapshot(now=t)
+    except Exception:
+        bundle["device_telemetry"] = None
     return bundle
 
 

@@ -82,6 +82,14 @@ SPAN_REGISTRY: Dict[str, str] = {
                        "persist",
     "checkpoint.commit": "coordinator: commit phase up to atomic rename",
     "checkpoint.restore": "restore_pytree entry",
+    "xla.compile": "device telemetry: one compile through a compile tap (a "
+                   "kernel's nvcc run, a step's first call at a signature)",
+    "xla.compile_storm": "device telemetry: recompile storm episode, first "
+                         "recompile in window -> detection (status ERROR)",
+    "device.transfer": "device telemetry: one timed host<->device "
+                       "transfer (attrs: direction, src, bytes)",
+    "device.burn": "device telemetry: one device compute burn (a step "
+                   "execution, a decode burn)",
 }
 
 

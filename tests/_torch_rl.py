@@ -38,7 +38,9 @@ def _ref_layout(t: torch.Tensor) -> np.ndarray:
 
 def _ref_moments(opt_state, prefixes=("",)):
     """name -> (mu, nu) of every ``ScaleByAdamState`` in ``opt_state``,
-    the i-th state's names under ``prefixes[i]``."""
+    the i-th state's names under ``prefixes[i]``. Several optimizers' states
+    go in as one tuple (DreamerV3's ``(wm_state, ac_state)``), their Adam
+    states taken in that order."""
     states = [s for s in jax.tree_util.tree_leaves(
         opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
         if isinstance(s, optax.ScaleByAdamState)]
@@ -50,23 +52,34 @@ def _ref_moments(opt_state, prefixes=("",)):
     return out
 
 
-def _port_moments(optimizers, module):
+def _port_moments(optimizers, module, layout=None):
+    """name -> (mu, nu) of every parameter of ``optimizers`` (one or
+    several, e.g. DreamerV3's world-model and actor-critic Adams), named by
+    ``module``'s parameter names, each moment in the reference's layout:
+    ``layout(name, tensor)`` (default: conv kernels OIHW -> HWIO)."""
     names = {id(p): n for n, p in module.named_parameters()}
+    if layout is None:
+        def layout(name, t):
+            return _ref_layout(t)
     out = {}
     for opt in optimizers:
         for group in opt.param_groups:
             for p in group["params"]:
                 st = opt.state[p]
-                out[names[id(p)]] = (_ref_layout(st["exp_avg"]),
-                                     _ref_layout(st["exp_avg_sq"]))
+                name = names[id(p)]
+                out[name] = tuple(
+                    np.asarray(layout(name, st[k].detach().cpu())).copy()
+                    for k in ("exp_avg", "exp_avg_sq"))
     return out
 
 
-def _assert_learner_equal(jparams, jmoments, pmodule, pmoments, tol=UPDATE_TOL):
+def _assert_learner_equal(jparams, jmoments, pmodule, pmoments, tol=UPDATE_TOL,
+                          to_numpy=rl_params_to_numpy):
     """Every weight within ``tol``; every moment the port keeps within
     ``tol``, and the reference's for the rest (target networks, which the
-    port leaves out of its optimizers) zero."""
-    want, got = _flat(_np_tree(jparams)), _flat(rl_params_to_numpy(pmodule))
+    port leaves out of its optimizers) zero. ``to_numpy`` gives the port's
+    weights as the reference's tree."""
+    want, got = _flat(_np_tree(jparams)), _flat(to_numpy(pmodule))
     assert set(want) == set(got)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], atol=tol, rtol=0, err_msg=k)

@@ -986,3 +986,72 @@ def test_sac_update_on_gpu_matches_the_cpu():
         assert (weights["cuda"][k].cpu() - w).abs().max().item() <= 1e-4, k
     delta = {k: v - b[k] for c, b in zip(counts, before) for k, v in c.items()}
     assert not any(delta.values())
+
+
+@pytest.mark.cuda
+def test_dreamer_updates_on_gpu_match_the_cpu():
+    """DreamerV3's world-model and actor-critic updates on the card against
+    the same on the CPU, from the same weights (drawn on the host from one
+    seed), batch and Gumbel noise: every weight and the target critic
+    within chip_smoke.py's RL_ATOL, and no port kernel launched."""
+    _need_gpu()
+    import numpy as np
+
+    from ray_tpu_torch.rl.algorithms import DreamerV3Config
+
+    counts = [attention.LAUNCHES, fused_ce.LAUNCHES, ra.LAUNCHES]
+    before = [dict(c) for c in counts]
+    B, T, H, S, C, A = 4, 8, 5, 4, 4, 2
+    rng = np.random.default_rng(0)
+    first = (rng.random((B, T)) < 0.2).astype(np.float32)
+    first[:, 0] = 1.0
+    batch = {"obs": rng.normal(0, 1, (B, T, 4)).astype(np.float32),
+             "actions": rng.integers(0, A, (B, T)).astype(np.int32),
+             "rewards": rng.normal(0, 1, (B, T)).astype(np.float32),
+             "terminateds": (rng.random((B, T)) < 0.1).astype(np.float32),
+             "is_first": first}
+    gen = torch.Generator().manual_seed(1)
+
+    def gumbel(*shape):
+        u = torch.rand(shape, generator=gen).clamp_min(1e-30)
+        return -torch.log(-torch.log(u))
+
+    noise = [{"z": gumbel(T, B, S, C)},
+             {"action": gumbel(H, B * T, A), "z": gumbel(H, B * T, S, C)}]
+    states = {}
+    for dev in ("cpu", "cuda"):
+        algo = (DreamerV3Config().environment("CartPole-v1")
+                .training(deter_dim=32, hidden=32, stoch_groups=S,
+                          stoch_classes=C, batch_size=B, batch_length=T,
+                          horizon=H)
+                .resources(device=dev).debugging(seed=0).build_algo())
+        draws = iter(noise)
+        algo._draw_noise = lambda site, *lead, it=draws, dev=dev: {
+            k: v.to(dev) for k, v in next(it).items()}
+        _, _, feat = algo._wm_update({k: torch.as_tensor(v, device=dev)
+                                      for k, v in batch.items()})
+        algo._ac_update(feat.reshape(-1, feat.shape[-1]), 1.0)
+        states[dev] = {**algo.model.state_dict(),
+                       **{f"target.{k}": v for k, v in
+                          algo.target_critic.state_dict().items()}}
+    for k, w in states["cpu"].items():
+        assert (states["cuda"][k].cpu() - w).abs().max().item() <= 1e-5, k
+    delta = {k: v - b[k] for c, b in zip(counts, before) for k, v in c.items()}
+    assert not any(delta.values())
+
+
+@pytest.mark.cuda
+def test_device_memory_snapshot_reads_the_card():
+    """One row per visible card, its figures those of
+    ``torch.cuda.memory_stats`` and ``mem_get_info``."""
+    _need_gpu()
+    from ray_tpu_torch.util import device_telemetry as dt
+
+    x = torch.empty(1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    rows = dt.device_memory_snapshot()
+    assert len(rows) == torch.cuda.device_count()
+    assert rows[0]["platform"] == "gpu" and rows[0]["device"] == "0"
+    assert rows[0]["bytes_in_use"] == torch.cuda.memory_allocated(0)
+    assert rows[0]["bytes_limit"] == torch.cuda.mem_get_info(0)[1]
+    assert rows[0]["peak_bytes_in_use"] >= x.numel() * 4

@@ -32,7 +32,8 @@ from ray_tpu_torch.models import convert, gpt2
 from ray_tpu_torch.rl import (DefaultActorCritic, MultiAgentCartPole,
                               MultiAgentEnvRunner, MultiRLModuleSpec,
                               RLModuleSpec, TorchLearner)
-from ray_tpu_torch.rl.algorithms import DQNConfig, PPOConfig, SACConfig, SACLearner
+from ray_tpu_torch.rl.algorithms import (DQNConfig, DreamerV3Config, PPOConfig,
+                                         SACConfig, SACLearner)
 from ray_tpu_torch.rl.algorithms.sac import SACModule
 from ray_tpu_torch.serve import GPT2Next, GPT2Stream
 
@@ -194,6 +195,8 @@ _SAC_SPEC = RLModuleSpec(module_class=SACModule, observation_dim=3,
         device=dev).build_algo(),
     lambda dev: SACLearner(config=SACConfig().resources(device=dev),
                            module_spec=_SAC_SPEC),
+    lambda dev: DreamerV3Config().environment("CartPole-v1").training(
+        deter_dim=8, hidden=8).resources(device=dev).build_algo(),
     lambda dev: MultiAgentEnvRunner(
         env=MultiAgentCartPole, module_spec=MultiRLModuleSpec({"p": _RL_SPEC}),
         policy_mapping_fn=lambda a: "p", device=dev)])
@@ -312,6 +315,13 @@ def test_the_scan_covers_the_rest_of_rl():
             "rl/algorithms/appo.py", "rl/algorithms/sac.py",
             "rl/algorithms/cql.py", "rl/algorithms/bc.py",
             "rl/algorithms/marwil.py"} <= files
+
+
+def test_the_scan_covers_dreamerv3_and_device_telemetry():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"rl/algorithms/dreamerv3.py", "util/device_telemetry.py",
+            "_private/torch_compat.py"} <= files
 
 
 def test_rl_algorithms_run_without_gymnasium_pyarrow_or_pandas():
