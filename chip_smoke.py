@@ -223,7 +223,31 @@ Phases, each of which exits non-zero on failure:
     recovery and grow seconds, lost steps and requeued rows, tokens/s at
     world 2, at world 1 and at world 2 again, and the phase's wall time,
     each with the card's name and power limit.
-13. GPT-2 124M tuned through ``Tuner.fit()`` (``tune_fit`` lines), the
+12b. GPT-2 124M on a device mesh of process ranks (``train_mesh`` lines),
+    after (12): ``CudaTrainer`` with ``worker_mode="processes"`` and
+    ``ScalingConfig(backend="gloo")`` (the ranks share card 0, which NCCL
+    refuses), each rank building ``make_mesh`` over the group,
+    ``create_sharded_state`` and its batch shard, at the full width, the
+    fused loss and ``attn_outside``, AdamW 3e-4, MESH_STEPS steps of
+    ``make_train_step`` on DTensors: (a) ``MeshSpec(data=2)``, B=8 a rank
+    (``local_batch_to_global``). An fsdp x tensor mesh does not run on one
+    card: DTensor's all-gathers kill a gloo rank there (MESH_CELLS); it
+    runs with ``--mesh-cards``, one rank a card over NCCL (below).
+    Against a direct B=16 step in this process on the same weights and
+    tokens: the sharded state equal to ``init_params`` bit for bit, the
+    first loss within ``LOSS_ATOL``, every synced gradient within
+    ``GRAD_RTOL`` of its leaf's largest entry while rank 0's own before the
+    sync is not (the control, over the leaves it holds whole), the replicas
+    of every shard equal bit for bit after each step, each rank's local
+    shapes those of ``logical_to_spec``, and every rank's launches in every
+    step 12 + 12 splash and one of each CE kernel (each rank's counts ride
+    to rank 0's report), none in this process; and each rank batch a shape
+    at which phase 2 held the kernels (they also cover the fsdp x tensor
+    mesh's rank shape, (8, 1024, 6, 64)). It prints tokens/s of each mesh
+    over direct's, the step profiler's ``collective`` ms per step (the
+    gradient sync alone, staged through the host by gloo, timed after the
+    rank's backward and a barrier) and each rank's cold start.
+13.GPT-2 124M tuned through ``Tuner.fit()`` (``tune_fit`` lines), the
     model of (11) at B=8 on its token windows, each trial building it on
     the card its lease names (``granted_cuda_device()`` in the trial's
     thread). (a) ASHA (``max_t=8, grace_period=2, reduction_factor=2``)
@@ -387,6 +411,11 @@ Phases, each of which exits non-zero on failure:
 
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
+
+``python3 chip_smoke.py --mesh-cards`` runs only ``train_mesh`` (b),
+``MeshSpec(fsdp=2, tensor=2)``, four process ranks on four cards over
+NCCL, after building the kernels, with the gates of (12b); its last line
+gives ``count`` 4.
 """
 
 from __future__ import annotations
@@ -399,7 +428,7 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 # Published dense peaks, one table for the port (ray_tpu_torch._private.peaks):
 # device-memory bytes/s and bf16 tensor-core flop/s by card name.
@@ -421,7 +450,8 @@ LOGIT_ATOL = 5e-2
 
 # (B, S, H, hd, causal): the training shape (B=16), the serving shapes (B=1,
 # and batches of 8 and 32 as serve.batch forms them, at S=1024 and at a
-# ragged longest request), ragged S, and head_dim 128.
+# ragged longest request), ragged S, head_dim 128, and train_mesh (b)'s rank
+# shape (B=8 of B=16 over fsdp, half the heads over tensor).
 KERNEL_SHAPES = [
     (16, 1024, 12, 64, True),
     (8, 1024, 12, 64, True), (8, 1024, 12, 64, False),
@@ -430,6 +460,7 @@ KERNEL_SHAPES = [
     (1, 1000, 12, 64, True), (2, 1000, 12, 64, False),
     (1, 7, 12, 64, True), (3, 7, 12, 64, False),
     (2, 512, 8, 128, True), (2, 512, 8, 128, False),
+    (8, 1024, 6, 64, True),
 ]
 # The main path's shape (GPT2Stream pads every step to seq_len).
 MAIN_SHAPE = (1, 1024, 12, 64, True)
@@ -441,10 +472,11 @@ MAIN_SHAPE = (1, 1024, 12, 64, True)
 BWD_RTOL = 2e-2
 # (B, S, H, hd, causal): the training shape first, q, k, v split from a
 # fused qkv as the model makes them, then train_fit's rank shape (B=8 of
-# the B=16 batch). Timed: the training shape and head_dim 128.
+# the B=16 batch), and last train_mesh (b)'s (B=8, half the heads). Timed:
+# the training shape and head_dim 128.
 BWD_SHAPES = [(16, 1024, 12, 64, True), (8, 1024, 12, 64, True),
               (1, 1000, 12, 64, False), (1, 7, 12, 64, True),
-              (2, 512, 8, 128, True)]
+              (2, 512, 8, 128, True), (8, 1024, 6, 64, True)]
 BWD_TIMED = [(16, 1024, 12, 64, True), (2, 512, 8, 128, True)]
 
 # Fused CE against its plain versions. lse and tgt are fp32 on both sides
@@ -676,13 +708,18 @@ def profiled_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2
     return (total if total > 0 else None), by_kernel
 
 
-def card_line() -> str:
+def card_lines() -> List[str]:
+    """Each card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     if out.returncode != 0:
         fail(f"nvidia-smi exited {out.returncode}: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def phase_kernel(peaks: Tuple[float, float]) -> Dict[str, object]:
@@ -5035,6 +5072,369 @@ def phase_train_elastic() -> Dict[str, object]:
     return result
 
 
+# ----------------------------------------------------------------- train_mesh
+MESH_STEPS = 3
+MESH_BATCH = 16  # the global batch of each mesh and of direct
+MESH_LR = 3e-4
+# (label, MeshSpec axes). Only (a): a data mesh needs all-reduces alone. An
+# fsdp x tensor mesh ("b", {"fsdp": 2, "tensor": 2}) gathers shards, and
+# DTensor's Shard -> Replicate calls the functional all-gather, which kills
+# a gloo rank on CUDA tensors (SIGSEGV in wait_tensor, torch 2.11.0+cu128;
+# scripts/torch_gloo_cuda_probe.py). The c10d all-gather works there, but
+# only 13 of a step's 32 all-gathers are the port's own redistributions;
+# DTensor's propagation through the model's operators and the backward
+# issues the other 19 (scripts/torch_mesh_allgathers.py). It is held on
+# the CPU by tests/test_torch_mesh.py and tests/test_torch_mesh_models.py.
+MESH_CELLS = (("a", {"data": 2}),)
+# With ``--mesh-cards``: the fsdp x tensor mesh, one process rank on each
+# of four cards joined over NCCL (the default backend), as its users run it.
+MESH_CARDS_CELLS = (("b", {"fsdp": 2, "tensor": 2}),)
+
+
+def _want_local(shape, spec, sizes) -> list:
+    """The local shape a rank holds of a leaf placed by ``spec``."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for name in () if entry is None else (
+                (entry,) if isinstance(entry, str) else entry):
+            out[d] //= sizes[name]
+    return out
+
+
+def _mesh_loop(config) -> None:
+    """One process rank of ``train_mesh``: GPT-2 124M on a device mesh over
+    the ranks' gloo group, as a user writes the loop. The rank builds the
+    mesh, the sharded state (``create_sharded_state``) and its batch shard;
+    checks each leaf's local shape against ``logical_to_spec``; computes the
+    first step's loss and gradients (rank 0 holds the synced ones, and its
+    own before the sync, against a direct B=16 step it runs alone); then
+    takes MESH_STEPS steps of ``make_train_step``, reporting after each its
+    time and every rank's kernel launches and digest of every local
+    shard."""
+    import hashlib
+    import os
+    from functools import partial
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.collective import distributed
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import attention, fused_ce, ring_attention
+    from ray_tpu_torch.optim import _as_placed, tree_leaves
+    from ray_tpu_torch.parallel import (MeshSpec, create_sharded_state,
+                                        logical_to_spec, make_mesh)
+    from ray_tpu_torch.train import profiler
+
+    started = time.time()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = gpt2.GPTConfig(loss_impl="fused", remat_policy="attn_outside")
+    mesh = make_mesh(MeshSpec(**config["spec"]))
+    opt = gpt2.make_optimizer(config["lr"])
+    params, state = create_sharded_state(
+        partial(gpt2.init_params, cfg), gpt2.logical_axes(cfg), mesh, 0, opt)
+    tokens = np.array(config["tokens"], dtype=np.int64)
+    # Each batch shard (data x fsdp, major to minor) feeds its own rows;
+    # ranks that differ only on the tensor axis feed the same ones.
+    shard, shards = 0, 1
+    for name in ("data", "fsdp"):
+        if name in mesh.dim_names:
+            shard = shard * mesh.shape[name] + \
+                mesh.device_mesh.get_local_rank(name)
+            shards *= mesh.shape[name]
+    b = tokens.shape[0] // shards
+    mine = torch.as_tensor(tokens[shard * b:(shard + 1) * b])
+    x, y = (distributed.local_batch_to_global(mesh, t.contiguous(),
+                                              axis=("data", "fsdp"))
+            for t in (mine[:, :-1], mine[:, 1:]))
+    leaves = tree_leaves(params)
+    names, axes = zip(*_named_leaves(gpt2.logical_axes(cfg)))
+    local = {n: list(p.to_local().shape) for n, p in zip(names, leaves)}
+    wrong = {n: (local[n], _want_local(p.shape, logical_to_spec(a),
+                                       mesh.shape))
+             for n, p, a in zip(names, leaves, axes)
+             if local[n] != _want_local(p.shape, logical_to_spec(a),
+                                        mesh.shape)}
+    x_local = list(x.to_local().shape)
+    ready = time.time()
+
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = gpt2.loss_fn(params, x, y, cfg)
+    raw = torch.autograd.grad(loss, leaves)
+    own = [g.to_local() for g in raw] if rank == 0 else None
+    synced = [g.full_tensor() for g in _as_placed(raw, leaves)]
+    full_init = [p.detach().full_tensor() for p in leaves]
+    loss0 = float(loss.detach().full_tensor())
+    del raw
+    for p in leaves:
+        p.requires_grad_(False)
+    check = None
+    if rank == 0:
+        ref_params = gpt2.init_params(cfg, 0, device="cuda")
+        rl = tree_leaves(ref_params)
+        init_equal = all(torch.equal(a, b) for a, b in zip(full_init, rl))
+        for p in rl:
+            p.requires_grad_(True)
+        t = torch.as_tensor(tokens, device="cuda")
+        ref_loss = gpt2.loss_fn(ref_params, t[:, :-1], t[:, 1:], cfg)
+        ref = torch.autograd.grad(ref_loss, rl)
+
+        def err(g, r):
+            if g.shape != r.shape:
+                return math.inf
+            return float((g.float() - r.float()).abs().max()
+                         / r.float().abs().max())
+
+        # The control: rank 0's own gradients of the leaves it holds whole
+        # (a sharded leaf's local gradient has another shape).
+        check = dict(loss=loss0, ref_loss=float(ref_loss),
+                     init_equal=init_equal,
+                     grad_rel_err={n: err(g, r)
+                                   for n, g, r in zip(names, synced, ref)},
+                     own_rel_err={n: err(g, r)
+                                  for n, g, r in zip(names, own, ref)
+                                  if g.shape == r.shape})
+        del ref, ref_params, rl, t, own
+    del synced, full_init
+    torch.cuda.empty_cache()
+
+    def counts():
+        return {**attention.LAUNCHES, **fused_ce.LAUNCHES,
+                **ring_attention.LAUNCHES}
+
+    for mod in (attention, fused_ce, ring_attention):
+        mod.reset_launches()
+    step = gpt2.make_train_step(cfg, opt)
+    # Process ranks run no session profiler; one per step times the step
+    # and takes the gradient sync that make_step records as ``collective``.
+    rows = []
+    for i in range(config["steps"]):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        prof = profiler.StepProfiler(run_name="train_mesh", rank=rank)
+        profiler.activate(prof)
+        params, state, loss = step(params, state, x, y)
+        value = float(loss)
+        step_s = time.time() - t0
+        rows.append(prof.step_boundary())
+        profiler.activate(None)
+        launched = {k: v - before[k] for k, v in counts().items()}
+        digests = [hashlib.sha256(p.to_local().detach().cpu().numpy()
+                                  .tobytes()).hexdigest()[:16]
+                   for p in tree_leaves(params)]
+        # Only rank 0's reports reach the driver: every rank's launches,
+        # digests and start times ride to it here.
+        ranks = [None] * world
+        dist.all_gather_object(ranks, {
+            "coord": mesh.device_mesh.get_coordinate(), "digests": digests,
+            "placements": [[repr(q) for q in p.placements]
+                           for p in tree_leaves(params)],
+            "launches": launched, "wrong_shapes": wrong,
+            "started": started, "ready": ready})
+        metrics = {"step": i + 1, "loss": value, "step_s": step_s,
+                   "time": time.time(), "ranks": ranks, "rank": rank,
+                   "pid": os.getpid(), "backend": dist.get_backend(),
+                   "x_local": x_local, "local_shapes": local,
+                   "check": check if i == 0 else None,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if i == config["steps"] - 1:
+            metrics["buckets"] = rows
+        train.report(metrics)
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def _replicas_equal(ranks) -> bool:
+    """Whether ranks that hold the same shard of a leaf (the same
+    coordinates on the mesh dimensions that shard it) hold the same
+    bytes."""
+    for leaf in range(len(ranks[0]["digests"])):
+        seen = {}
+        for r in ranks:
+            key = tuple(c for c, p in zip(r["coord"], r["placements"][leaf])
+                        if p.startswith("Shard"))
+            if seen.setdefault(key, r["digests"][leaf]) != r["digests"][leaf]:
+                return False
+    return True
+
+
+def phase_train_mesh(card: str, cells=MESH_CELLS, cards: int = 1
+                     ) -> Dict[str, object]:
+    """GPT-2 124M at full width on a device mesh of process ranks, one run
+    per entry of ``cells``. On one card (``cards=1``) the ranks share card 0
+    over an explicitly chosen gloo: (a) ``MeshSpec(data=2)``, two ranks of
+    B=8 (MESH_CELLS says why an fsdp x tensor mesh does not run there). On
+    ``cards`` cards each rank holds one and they join over NCCL: (b)
+    ``MeshSpec(fsdp=2, tensor=2)``, four ranks of B=8 and six heads (the
+    tensor ranks feed the same rows). Each is held to a direct B=16 step
+    on the same weights and tokens: the first loss within LOSS_ATOL, every
+    synced gradient within GRAD_RTOL of its leaf's largest entry in
+    direct's (rank 0's own gradients before the sync must fail that gate),
+    the parameters' replicas equal bit for bit after each step, each rank's
+    local shapes those ``logical_to_spec`` names, and each rank's launches
+    per step those of one rank's batch through the kernels, none in the
+    driver. Prints tokens/s against direct, the step profiler's collective
+    bucket and each rank's cold start."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.examples import batch_inference as bi
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import CudaTrainer, RunConfig, ScalingConfig
+
+    t_phase = time.perf_counter()
+    cfg = gpt2.GPTConfig(loss_impl="fused", remat_policy="attn_outside")
+    S, L = cfg.seq_len, cfg.n_layer
+    tokens = bi.token_windows(MESH_BATCH, S, 50257)  # default_rng(0)
+    want = {k: 0 for k in _counts()}
+    want.update(splash_attention_fwd=L, splash_attention_bwd=L,
+                fused_ce_fwd=1, fused_ce_dx=1, fused_ce_dw=1)
+
+    # direct: one process, B=16, the same weights and tokens
+    params = gpt2.init_params(cfg, 0, device="cuda")
+    opt = gpt2.make_optimizer(MESH_LR)
+    state = opt.init(params)
+    step = gpt2.make_train_step(cfg, opt)
+    t = torch.as_tensor(np.asarray(tokens, np.int64), device="cuda")
+    direct_s, direct_losses = [], []
+    for _ in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        params, state, loss = step(params, state, t[:, :-1], t[:, 1:])
+        direct_losses.append(float(loss))
+        direct_s.append(time.time() - t0)
+    direct_tps = (MESH_STEPS - 1) * MESH_BATCH * S / sum(direct_s[1:])
+    del params, state, step, t
+    torch.cuda.empty_cache()
+
+    storage = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_")
+    result: Dict[str, object] = {"card": card, "direct_tokens_per_s":
+                                 direct_tps, "direct_losses": direct_losses}
+    path_launches = {k: 0 for k in _counts()}
+    ray_tpu_torch.init()
+    try:
+        for label, spec in cells:
+            world = math.prod(spec.values())
+            shared = cards == 1
+            backend = "gloo" if shared else "nccl"
+            if not shared and world != cards:
+                fail(f"train_mesh ({label}): {world} ranks on {cards} cards")
+            _reset_counts()
+            trainer = CudaTrainer(
+                _mesh_loop,
+                train_loop_config={"spec": spec, "tokens": tokens,
+                                   "lr": MESH_LR, "steps": MESH_STEPS},
+                scaling_config=ScalingConfig(
+                    num_workers=world,
+                    gpus_per_worker=1.0 / world if shared else 1.0,
+                    worker_mode="processes",
+                    backend="gloo" if shared else None),
+                run_config=RunConfig(name=f"mesh_{label}",
+                                     storage_path=storage))
+            t0 = time.time()
+            res = trainer.fit()
+            wall = time.time() - t0
+            driver = _counts()
+            if res.error is not None:
+                fail(f"train_mesh ({label}): {res.error!r}")
+            hist = res.metrics_history
+            first, last = hist[0], hist[-1]
+            check = first["check"]
+            worst = max(check["grad_rel_err"], key=check["grad_rel_err"].get)
+            own_worst = max(check["own_rel_err"].values(), default=0.0)
+            topo = trainer.process_topology
+            pids = {r["pid"] for r in topo}
+            # [step][rank] -> that rank's launches in that step
+            per_rank = [[r["launches"] for r in m["ranks"]] for m in hist]
+            if any(r["backend"] != backend for r in topo) or \
+                    len(pids) != world or os.getpid() in pids:
+                fail(f"train_mesh ({label}): topology {topo}")
+            if abs(check["loss"] - check["ref_loss"]) > LOSS_ATOL or \
+                    not check["init_equal"]:
+                fail(f"train_mesh ({label}): first loss {check['loss']} vs "
+                     f"direct {check['ref_loss']}, init equal "
+                     f"{check['init_equal']}")
+            if check["grad_rel_err"][worst] > GRAD_RTOL:
+                fail(f"train_mesh ({label}): gradient {worst} off by "
+                     f"{check['grad_rel_err'][worst]} (tol {GRAD_RTOL})")
+            if own_worst <= GRAD_RTOL:
+                fail(f"train_mesh ({label}): rank 0's gradients before the "
+                     f"sync passed the gate ({own_worst}): the control")
+            if not all(_replicas_equal(m["ranks"]) for m in hist):
+                fail(f"train_mesh ({label}): replicas differ after a step")
+            wrong = {i: r["wrong_shapes"] for i, r in enumerate(first["ranks"])
+                     if r["wrong_shapes"]}
+            if wrong:
+                fail(f"train_mesh ({label}): local shapes by rank {wrong}")
+            if any(len(step) != world or any(c != want for c in step)
+                   for step in per_rank) or any(driver.values()):
+                fail(f"train_mesh ({label}): the ranks launched {per_rank} "
+                     f"per step (want {want} in each), the driver {driver}")
+            if not all(np.isfinite(m["loss"]) for m in hist):
+                fail(f"train_mesh ({label}): losses "
+                     f"{[m['loss'] for m in hist]}")
+            for k in path_launches:
+                path_launches[k] += sum(c[k] for step in per_rank
+                                        for c in step)
+            steps = [m["step_s"] for m in hist]
+            tps = (MESH_STEPS - 1) * MESH_BATCH * S / sum(steps[1:])
+            buckets = last["buckets"] or []
+            coll = [1e3 * b["collective"] for b in buckets[1:]]
+            row = dict(
+                spec=spec, world=world, cards=cards, backend=backend,
+                x_local=first["x_local"],
+                qkv_w_local=first["local_shapes"]["blocks.qkv_w"],
+                losses=[m["loss"] for m in hist],
+                first_loss=check["loss"], direct_first_loss=check["ref_loss"],
+                loss_abs_err=abs(check["loss"] - check["ref_loss"]),
+                worst_grad=worst, worst_grad_rel_err=check["grad_rel_err"][
+                    worst], own_worst_rel_err=own_worst,
+                step_s=steps, tokens_per_s=tps,
+                tokens_per_s_over_direct=tps / direct_tps,
+                collective_ms_per_step=coll,
+                wall_ms_per_step=[1e3 * b["wall"] for b in buckets[1:]],
+                cold_start_s=dict(
+                    to_loop=[r["started"] - t0 for r in first["ranks"]],
+                    to_state=[r["ready"] - t0 for r in first["ranks"]],
+                    to_first_report=hist[0]["time"] - t0),
+                launches_per_step=per_rank[0][0],
+                launches_by_rank=[{k: sum(step[r][k] for step in per_rank)
+                                   for k in want if want[k]}
+                                  for r in range(world)],
+                wall_s=wall,
+                peak_mem_gb=last["peak_mem_gb"])
+            print(f"train_mesh_{label} " + json.dumps(row), flush=True)
+            result[label] = row
+    finally:
+        ray_tpu_torch.shutdown()
+        import shutil
+
+        shutil.rmtree(storage, ignore_errors=True)
+    torch.cuda.empty_cache()
+    result["launches"] = path_launches
+    result["seconds"] = time.perf_counter() - t_phase
+    print("train_mesh " + json.dumps({
+        "card": card, "launches": path_launches,
+        "seconds": result["seconds"],
+        "tokens_per_s_over_direct": {k: result[k]["tokens_per_s_over_direct"]
+                                     for k, _ in cells}}), flush=True)
+    return result
+
+
 def phase_ring(peaks: Tuple[float, float]) -> Dict[str, object]:
     import torch
 
@@ -7165,6 +7565,61 @@ def _leaf_names(tree, prefix=""):
             yield prefix + k
 
 
+def _check_mesh_shapes(cells) -> None:
+    """Each mesh rank attends over its batch shard and its heads: phase 2
+    holds the kernels to their plain versions at those shapes (the
+    fsdp x tensor mesh's, (8, 1024, 6, 64), included)."""
+    for label, spec in cells:
+        b = MESH_BATCH // (spec.get("data", 1) * spec.get("fsdp", 1))
+        h = 12 // spec.get("tensor", 1)
+        if (b, 1024, h, 64, True) not in KERNEL_SHAPES or \
+                (b, 1024, h, 64, True) not in BWD_SHAPES or \
+                (b * 1024, 768, 50304) not in CE_SHAPES:
+            fail(f"train_mesh ({label}) ran a rank shape ({b}, 1024, {h}, "
+                 f"64) that no kernel check covers")
+
+
+def main_mesh_cards() -> int:
+    """``--mesh-cards``: only the fsdp x tensor mesh (MESH_CARDS_CELLS), one
+    process rank on each of its four cards over NCCL, after building the
+    kernels. The whole script on one card holds the kernels to their plain
+    versions at these ranks' shapes; this run prints the ``train_mesh_b``
+    line, the ranks' launches and the device line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 2
+    cards = max(math.prod(spec.values()) for _, spec in MESH_CARDS_CELLS)
+    if torch.cuda.device_count() < cards:
+        print(f"chip_smoke: --mesh-cards needs {cards} cards, torch finds "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    from ray_tpu_torch._private import kernel_build
+
+    started = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cards_seen = card_lines()
+    card = cards_seen[0]
+    for line in cards_seen:
+        print(line, flush=True)
+    t0 = time.perf_counter()
+    kernel_build.build()
+    print(f"build_seconds {time.perf_counter() - t0:.3f}", flush=True)
+    train_mesh = phase_train_mesh(card, MESH_CARDS_CELLS, cards)
+    _check_mesh_shapes(MESH_CARDS_CELLS)
+    print("launches " + json.dumps({"train_mesh": train_mesh["launches"]}),
+          flush=True)
+    print(f"seconds {time.perf_counter() - started:.1f}", flush=True)
+    for line in cards_seen:
+        print(line, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -7173,6 +7628,7 @@ def main() -> int:
         return 2
     from ray_tpu_torch._private import kernel_build
 
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -7237,6 +7693,8 @@ def main() -> int:
                 (b * (s - 1), 768, 50304) not in CE_SHAPES:
             fail(f"train_elastic ran a rank batch of {b} x {s} that no "
                  f"kernel check covers")
+    train_mesh = phase_train_mesh(card)
+    _check_mesh_shapes(MESH_CELLS)
     tune_fit = phase_tune_fit()
     workflow_fit = phase_workflow_fit()
     models = phase_models(peaks, card)
@@ -7270,6 +7728,7 @@ def main() -> int:
                "data_batch": data_batch["launches"].get(name, 0),
                "train_fit": train_fit["launches"].get(name, 0),
                "train_elastic": train_elastic["launches"].get(name, 0),
+               "train_mesh": train_mesh["launches"].get(name, 0),
                "tune_fit": tune_fit["launches"].get(name, 0),
                "workflow_fit": workflow_fit["launches"].get(name, 0)}
         for impl in ("dense", "fused"):
@@ -7371,6 +7830,7 @@ def main() -> int:
                        if key.split()[0] in (("fwd",) if which == "fwd"
                                              else ("dkv", "dq"))},
             **extra))
+    print(f"script_seconds {time.perf_counter() - started:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -7379,4 +7839,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--mesh-cards", action="store_true",
+                        help="run only the fsdp x tensor mesh, one rank on "
+                             "each of four cards over NCCL")
+    args = parser.parse_args()
+    sys.exit(main_mesh_cards() if args.mesh_cards else main())

@@ -1,5 +1,7 @@
-"""The compile tap of the port (the counterpart of ``InstrumentedJit`` and
-``instrumented_jit`` in ``ray_tpu/_private/jax_compat.py``).
+"""The port's counterparts of ``ray_tpu/_private/jax_compat.py``: the compile
+tap (``InstrumentedJit`` and ``instrumented_jit``) and the mesh helpers
+(``shard_map``, ``reshard``, ``device_put_batch``; the last section says
+what each is).
 
 The reference times each trace/lower/compile of a jitted step and records
 it into the device-telemetry plane with a classified trigger. The port runs
@@ -15,7 +17,9 @@ straight through.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
 
 
 class InstrumentedStep:
@@ -83,3 +87,120 @@ def instrumented_step(fn: Callable, *, label: Optional[str] = None
     """Wrap ``fn`` so that each first call at a new abstract signature is
     recorded into the device-telemetry plane (see :class:`InstrumentedStep`)."""
     return InstrumentedStep(fn, label=label)
+
+
+# ---------------------------------------------------------------- the mesh
+# The mesh helpers of ``ray_tpu/_private/jax_compat.py``: ``shard_map`` is
+# DTensor's ``local_map``, ``reshard`` is ``distribute_tensor``, and
+# ``device_put_batch`` places each numeric column of a host batch as a
+# DTensor by a NamedSharding. ``set_mesh`` and ``get_abstract_mesh`` are
+# ``parallel.mesh.use_mesh`` and ``current_mesh``; the mesh's axis sizes
+# are ``Mesh.shape``.
+
+
+@dataclass(frozen=True)
+class Pending:
+    """An output spec whose per-rank values are terms of a sum over
+    ``axes``: the psum that a shard_map body would end with, left to
+    DTensor as a ``Partial`` placement (a loss summed over batch shards)."""
+
+    spec: Any
+    axes: Tuple[str, ...]
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (without importing DTensor when no mesh
+    was ever built: ``torch.distributed.tensor`` is then not loaded)."""
+    import sys
+
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def _placements(spec, mesh, pending: Tuple[str, ...] = ()):
+    from torch.distributed.tensor import Partial
+
+    from ray_tpu_torch.parallel.mesh import spec_to_placements
+
+    out = spec_to_placements(spec, mesh)
+    for name in pending:
+        if name in mesh.dim_names:
+            out[mesh.dim_names.index(name)] = Partial()
+    return out
+
+
+def shard_map(f: Callable, *, mesh, in_specs, out_specs) -> Callable:
+    """``f`` over the rank's local tensors of DTensor arguments on ``mesh``
+    (``torch.distributed.tensor.experimental.local_map``): each argument is
+    redistributed to its PartitionSpec in ``in_specs`` (None for an
+    argument that is no tensor) and ``f`` sees its local shard, so no
+    DTensor reaches a kernel. ``out_specs`` is one spec (or a
+    ``Pending``) or a list of them, one per output. The gradient of an
+    argument that is replicated on a mesh dimension over which another
+    argument is sharded is a ``Partial`` sum there (each rank's term, from
+    its shard of the other); elsewhere it is placed as the argument is."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    def place(spec):
+        if isinstance(spec, Pending):
+            return _placements(spec.spec, mesh, spec.axes)
+        return _placements(spec, mesh)
+
+    ins = tuple(None if s is None else place(s) for s in in_specs)
+    outs = (tuple(place(s) for s in out_specs)
+            if isinstance(out_specs, list) else place(out_specs))
+    sharded = [any(isinstance(p[d], Shard) for p in ins if p is not None)
+               for d in range(len(mesh.dim_names))]
+    grads = tuple(
+        None if p is None else [
+            Partial() if isinstance(pd, Replicate) and sharded[d] else pd
+            for d, pd in enumerate(p)]
+        for p in ins)
+    return local_map(f, out_placements=outs, in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh.device_mesh,
+                     redistribute_inputs=True)
+
+
+def reshard(x, mesh, spec):
+    """A host array -> a DTensor on ``mesh`` sharded by ``spec`` (every rank
+    passes the same array and keeps its shard)."""
+    import numpy as np
+
+    from ray_tpu_torch.parallel.mesh import distribute, spec_to_placements
+
+    return distribute(np.asarray(x), mesh, spec_to_placements(spec, mesh))
+
+
+def device_put_batch(batch: Dict[str, Any], sharding, *,
+                     transfer_src: str = "device_put_batch"
+                     ) -> Dict[str, Any]:
+    """A dict-of-columns host batch placed by the ``NamedSharding``
+    ``sharding``: numeric columns become DTensors on its mesh (the spec
+    truncated to each column's rank, so 1-D labels ride beside 2-D tokens);
+    other columns stay on the host untouched. The bytes are ledgered as an
+    h2d transfer when the device-telemetry plane is loaded."""
+    import sys
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.parallel.mesh import distribute
+
+    out: Dict[str, Any] = {}
+    nbytes = 0
+    for key, col in batch.items():
+        arr = col if hasattr(col, "dtype") else np.asarray(col)
+        if not hasattr(arr, "dtype") or getattr(arr.dtype, "kind",
+                                                "f") not in "biufc":
+            out[key] = col
+            continue
+        t = torch.as_tensor(np.asarray(arr)) if not isinstance(
+            arr, torch.Tensor) else arr
+        fit = sharding.fit(t.ndim)
+        out[key] = distribute(t, fit.mesh, fit.placements)
+        nbytes += t.numel() * t.element_size()
+    telemetry = sys.modules.get("ray_tpu_torch.util.device_telemetry")
+    if telemetry is not None and nbytes:
+        telemetry.record_transfer("h2d", nbytes, src=transfer_src)
+    return out

@@ -57,8 +57,9 @@ def restore_pytree(path: str, template: Optional[Any] = None, *,
     Without ``template`` or ``device`` the leaves are torch tensors on the
     host (bfloat16 ones bit for bit). ``template`` (a tree of the same
     structure, checked) puts each leaf on its template leaf's device and
-    dtype, ``device`` on one device; the writer's world size never has to
-    match. ``mesh`` raises (reshard_tree)."""
+    dtype, ``device`` on one device, ``mesh`` (with ``pspec`` or
+    ``pspec_fn``) shards each leaf over a device mesh as DTensors
+    (``reshard_tree``); the writer's world size never has to match."""
     from ray_tpu_torch._private import fault_injection
     from ray_tpu_torch.util import tracing
 

@@ -97,9 +97,24 @@ def process_count() -> int:
 
 
 def local_batch_to_global(mesh, local_batch: Any, axis: str = "data"):
-    """The reference assembles a global sharded array from each process's
-    batch shard; the port's sharded layout is a ``DeviceMesh``, which is
-    not ported yet."""
-    raise NotImplementedError(
-        "local_batch_to_global needs the port's DeviceMesh (ROADMAP.md, "
-        "Queue 1 item 3)")
+    """Assemble each process's batch shard into one global batch sharded
+    over ``axis`` of ``mesh`` (a ``parallel.Mesh`` over the process group):
+    a DTensor whose rows are the ranks' rows in mesh order, replicated over
+    the other axes, so ranks that differ only there pass the same rows.
+    ``axis`` is a mesh axis name or, as in a PartitionSpec entry, a tuple
+    of them (major to minor: ``("data", "fsdp")`` is the batch's). Nothing
+    is sent (``DTensor.from_local``)."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel.mesh import (PartitionSpec, make_mesh,
+                                             spec_to_placements)
+
+    mesh = make_mesh(mesh)
+    local = local_batch if isinstance(local_batch, torch.Tensor) \
+        else torch.as_tensor(np.asarray(local_batch))
+    dm = mesh.device_mesh
+    return DTensor.from_local(local.to(dm.device_type), dm,
+                              spec_to_placements(PartitionSpec(axis), mesh),
+                              run_check=False)

@@ -172,8 +172,11 @@ class DeviceBatchIterator:
     copy's event before batch N is yielded (no host sync).  ``device=None``
     is the card of the calling task or actor (its lease's, else the current
     CUDA device); ``"cpu"`` gives host tensors, copied at once.
-    Non-numeric columns pass through on host. ``sharding`` (a mesh layout)
-    waits for the port's ``DeviceMesh``.
+    Non-numeric columns pass through on host. ``sharding`` (a
+    ``parallel.NamedSharding``, e.g. ``batch_sharding(mesh)``) places each
+    numeric column straight into the step's layout on a device mesh: a
+    DTensor of which this rank keeps its shard (the spec truncated to the
+    column's rank, so 1-D labels ride beside 2-D tokens).
     """
 
     #: Pinned buffers per column shape: batch N in the consumer's hands,
@@ -182,10 +185,6 @@ class DeviceBatchIterator:
 
     def __init__(self, batches: Iterable[Dict[str, Any]], *,
                  device: Any = None, sharding: Any = None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "DeviceBatchIterator(sharding=...) needs the port's "
-                "DeviceMesh (ROADMAP.md, Queue 1 item 3); pass device=")
         import torch
 
         from ray_tpu_torch._private.device import (
@@ -193,6 +192,9 @@ class DeviceBatchIterator:
             resolve_device,
         )
 
+        self._sharding = sharding
+        if sharding is not None:
+            device = sharding.mesh.device_mesh.device_type
         dev = resolve_device(device)
         if device is None:
             dev = granted_cuda_device()
@@ -211,6 +213,12 @@ class DeviceBatchIterator:
         """Start the copy of one batch: (columns, event or None)."""
         import numpy as np
         import torch
+
+        if self._sharding is not None:
+            from ray_tpu_torch._private.torch_compat import device_put_batch
+
+            return device_put_batch(batch, self._sharding,
+                                    transfer_src="ingest_prefetch"), None
 
         out: Dict[str, Any] = {}
         nbytes = 0

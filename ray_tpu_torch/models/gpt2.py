@@ -21,13 +21,14 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import partial
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch._private.torch_compat import Pending, is_dtensor, shard_map
 from ray_tpu_torch.ops.attention import (attention_reference, flash_attention,
                                          splash_attention)
 from ray_tpu_torch.ops.fused_ce import fused_lm_head_ce
@@ -35,6 +36,8 @@ from ray_tpu_torch.ops.ring_attention import ring_attention, ulysses_attention
 # make_optimizer is re-exported: the JAX package defines it in this module.
 from ray_tpu_torch.optim import AdamW, make_optimizer  # noqa: F401
 from ray_tpu_torch.optim import make_step
+from ray_tpu_torch.parallel.mesh import (DEFAULT_RULES, Mesh, gather,
+                                         logical_to_spec, partition)
 
 Params = Dict[str, object]
 
@@ -113,11 +116,14 @@ class GPTConfig:
 
 
 def init_params(config: GPTConfig, seed: int = 0,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None,
+                place: Optional[Callable] = None) -> Params:
     """Random float32 parameters in the JAX package's layout and init scheme:
     normal(0.02) weights, wpe at 0.01, residual projections at
     0.02/sqrt(2L), zero biases, unit layernorm scales. Drawn on ``device``
-    from a generator seeded with ``seed`` (the numbers differ from JAX's)."""
+    from a generator seeded with ``seed`` (the numbers differ from JAX's).
+    ``place``, given, takes each leaf as it is drawn and gives what the
+    tree keeps (``parallel.create_sharded_state`` keeps the rank's shard)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     D, L, V, S = config.d_model, config.n_layer, config.vocab_size, config.seq_len
@@ -125,10 +131,12 @@ def init_params(config: GPTConfig, seed: int = 0,
     resid_std = std / math.sqrt(2 * L)
 
     def norm(shape, s):
-        return torch.randn(shape, generator=gen, device=dev) * s
+        t = torch.randn(shape, generator=gen, device=dev) * s
+        return t if place is None else place(t)
 
     def const(shape, value):
-        return torch.full(shape, value, dtype=torch.float32, device=dev)
+        t = torch.full(shape, value, dtype=torch.float32, device=dev)
+        return t if place is None else place(t)
 
     return {
         "wte": norm((V, D), std),
@@ -152,6 +160,33 @@ def init_params(config: GPTConfig, seed: int = 0,
     }
 
 
+def logical_axes(config: GPTConfig) -> Dict[str, object]:
+    """Logical-axis tree matching init_params (the reference's). The leading
+    stacked-layer axis is "layers": sharded over ``pipe`` when pipelining,
+    unsharded otherwise."""
+    L = "layers"
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "blocks": {
+            "ln1_scale": (L, "norm"),
+            "ln1_bias": (L, "norm"),
+            "qkv_w": (L, "embed", "heads"),
+            "qkv_b": (L, "heads"),
+            "out_w": (L, "heads", "embed"),
+            "out_b": (L, "norm"),
+            "ln2_scale": (L, "norm"),
+            "ln2_bias": (L, "norm"),
+            "mlp_in_w": (L, "embed", "mlp"),
+            "mlp_in_b": (L, "mlp"),
+            "mlp_out_w": (L, "mlp", "embed"),
+            "mlp_out_b": (L, "norm"),
+        },
+        "lnf_scale": ("norm",),
+        "lnf_bias": ("norm",),
+    }
+
+
 def num_params(config: GPTConfig) -> int:
     D, L, V, S = config.d_model, config.n_layer, config.vocab_size, config.seq_len
     per_block = 4 * D + 3 * D * D + 3 * D + D * D + D + 8 * D * D + 4 * D + D
@@ -172,6 +207,10 @@ def _layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x32 - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
+#: The layout of q, k, v and the attention output, (B, S, H, hd), on a mesh.
+_QKV_AXES = ("batch", "seqlen", "heads", "kv")
+
+
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                config: GPTConfig) -> torch.Tensor:
     """Causal multi-head attention, q, k, v: (B, S, H, hd).
@@ -181,12 +220,18 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ring/ulysses are the context-parallel paths (``ops/ring_attention.py``)
     over the ambient mesh's ``seq`` axis: callers install the mesh with
     ``ray_tpu_torch.parallel.use_mesh`` or ``jit_train_step(mesh=)``.
+    DTensors on a device mesh (``parallel.make_mesh``) go through
+    ``shard_map``: each rank attends over its batch shard and its heads.
     """
     impl = config.attn_impl
     if impl not in ("auto", "xla", "pallas", "splash", "ring", "ulysses"):
         raise ValueError(
             f"Unknown attn_impl: {impl!r} "
             "(use auto|xla|pallas|splash|ring|ulysses)")
+    if is_dtensor(q):
+        spec = logical_to_spec(_QKV_AXES)
+        return shard_map(partial(_attention, config=config), mesh=Mesh.of(q),
+                         in_specs=(spec,) * 3, out_specs=spec)(q, k, v)
     if impl in ("auto", "splash"):
         return splash_attention(q, k, v, causal=True,
                                 block_q=config.attn_block_q,
@@ -296,19 +341,60 @@ def _validate(config: GPTConfig) -> None:
             "ROADMAP.md")
 
 
+def _embed(wte: torch.Tensor, wpe: Optional[torch.Tensor],
+           tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Token (plus, given ``wpe``, position) embeddings, (B, S, D) in
+    ``dtype``. On a device mesh each rank looks up its batch shard in the
+    whole tables (gathered; their gradients come back summed over the batch
+    shards)."""
+    if is_dtensor(tokens):
+        tables = (wte,) if wpe is None else (wte, wpe)
+        return shard_map(
+            lambda tokens, wte, wpe=None: _embed(wte, wpe, tokens, dtype),
+            mesh=Mesh.of(tokens),
+            in_specs=(logical_to_spec(("batch", "seqlen")),)
+            + (partition(),) * len(tables),
+            out_specs=logical_to_spec(("batch", "seqlen", None)))(
+                tokens, *tables)
+    x = wte[tokens].to(dtype)
+    return x if wpe is None else x + wpe[:tokens.shape[1]].to(dtype)
+
+
+def sharded_mean(mean_fn: Callable, x: torch.Tensor, targets: torch.Tensor,
+                 *weights: torch.Tensor) -> torch.Tensor:
+    """``mean_fn(x, targets, *weights)``, a mean over the leading (batch)
+    rows of x. On a device mesh each rank runs it over its batch shard with
+    the whole (gathered) weights, weighted by its share of the rows, and the
+    global mean is the sum of those terms over the batch shards."""
+    if not is_dtensor(x):
+        return mean_fn(x, targets, *weights)
+    B = x.shape[0]
+
+    def local(x, targets, *weights):
+        return mean_fn(x, targets, *weights) * (x.shape[0] / B)
+
+    def rows(t):
+        return logical_to_spec(("batch",) + (None,) * (t.ndim - 1))
+
+    return shard_map(local, mesh=Mesh.of(x),
+                     in_specs=(rows(x), rows(targets))
+                     + (partition(),) * len(weights),
+                     out_specs=Pending(partition(), DEFAULT_RULES["batch"]))(
+                         x, targets, *weights)
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    config: GPTConfig) -> torch.Tensor:
     """tokens (B, S) int -> final-layernormed hidden states (B, S, D)."""
     _validate(config)
-    B, S = tokens.shape
     dt = config.dtype
-    x = params["wte"][tokens].to(dt) + params["wpe"][:S].to(dt)
+    x = _embed(params["wte"], params["wpe"], tokens, dt)
     blocks = params["blocks"]
     # Checkpointing only matters when a backward will run.
     block = (block_fn(config) if torch.is_grad_enabled()
              else partial(_block, config=config))
     for i in range(config.n_layer):
-        x = block(x, {name: w[i] for name, w in blocks.items()})
+        x = block(x, gather({name: w[i] for name, w in blocks.items()}))
     return _layernorm(x, params["lnf_scale"], params["lnf_bias"]).to(dt)
 
 
@@ -342,27 +428,36 @@ def _ce_sum(x: torch.Tensor, wte: torch.Tensor, targets: torch.Tensor,
     return (lse - tgt).sum()
 
 
-def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
-            config: GPTConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy: the fused LM-head kernels, or a dense
-    or sequence-chunked head."""
-    x = forward_hidden(params, tokens, config)
+def _head_loss(x: torch.Tensor, targets: torch.Tensor, wte: torch.Tensor,
+               config: GPTConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of the final hidden states x (B, S, D):
+    the fused LM-head kernels, or a dense or sequence-chunked head."""
     B, S, D = x.shape
-    impl = config.loss_impl
-    if impl not in ("auto", "fused", "dense"):
-        raise ValueError(f"loss_impl must be auto|fused|dense, got {impl!r}")
-    if impl == "fused":
-        return fused_lm_head_ce(x, params["wte"], targets)
+    if config.loss_impl == "fused":
+        return fused_lm_head_ce(x, wte, targets)
     C = config.loss_chunk
     if not C or C >= S:
-        return _ce_sum(x, params["wte"], targets, config.logits_dtype) / (B * S)
+        return _ce_sum(x, wte, targets, config.logits_dtype) / (B * S)
     if S % C:
         raise ValueError(f"loss_chunk {C} must divide seq_len {S}")
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, S, C):
-        total = total + _ce_sum(x[:, c0:c0 + C], params["wte"],
-                                targets[:, c0:c0 + C], config.logits_dtype)
+        total = total + _ce_sum(x[:, c0:c0 + C], wte, targets[:, c0:c0 + C],
+                                config.logits_dtype)
     return total / (B * S)
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
+            config: GPTConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy: the fused LM-head kernels, or a dense
+    or sequence-chunked head (``sharded_mean`` on a device mesh; a
+    vocab-parallel head is ROADMAP Queue 2 work)."""
+    if config.loss_impl not in ("auto", "fused", "dense"):
+        raise ValueError(
+            f"loss_impl must be auto|fused|dense, got {config.loss_impl!r}")
+    x = forward_hidden(params, tokens, config)
+    return sharded_mean(partial(_head_loss, config=config), x, targets,
+                        params["wte"])
 
 
 def inference_params(params: Params, config: GPTConfig) -> Params:

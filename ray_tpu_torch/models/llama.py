@@ -17,15 +17,17 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import partial
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch._private.torch_compat import is_dtensor, shard_map
 from ray_tpu_torch.models import gpt2 as _g
 from ray_tpu_torch.optim import AdamW, make_step
 from ray_tpu_torch.optim import make_optimizer as _make_optimizer
+from ray_tpu_torch.parallel.mesh import Mesh, gather, logical_to_spec
 
 Params = Dict[str, Any]
 
@@ -75,11 +77,14 @@ class LlamaConfig:
 
 
 def init_params(config: LlamaConfig, seed: int = 0,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None,
+                place: Optional[Callable] = None) -> Params:
     """Random float32 parameters in the JAX package's layout and init scheme:
     normal(0.02) weights, residual projections at 0.02/sqrt(2L), unit norm
     scales, an untied LM head. Drawn on ``device`` from a generator seeded
-    with ``seed`` (the numbers differ from JAX's)."""
+    with ``seed`` (the numbers differ from JAX's).
+    ``place``, given, takes each leaf as it is drawn and gives what the
+    tree keeps (``parallel.create_sharded_state`` keeps the rank's shard)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     D, L, V = config.d_model, config.n_layer, config.vocab_size
@@ -88,10 +93,12 @@ def init_params(config: LlamaConfig, seed: int = 0,
     resid_std = std / math.sqrt(2 * L)
 
     def norm(shape, s):
-        return torch.randn(shape, generator=gen, device=dev) * s
+        t = torch.randn(shape, generator=gen, device=dev) * s
+        return t if place is None else place(t)
 
     def ones(shape):
-        return torch.ones(shape, device=dev)
+        t = torch.ones(shape, device=dev)
+        return t if place is None else place(t)
 
     return {
         "wte": norm((V, D), std),
@@ -112,8 +119,8 @@ def init_params(config: LlamaConfig, seed: int = 0,
 
 
 def logical_axes(config: LlamaConfig) -> Dict[str, Any]:
-    """The reference's logical axis names per leaf, as data (the port shards
-    no parameter yet: ROADMAP.md, Queue 1 item 3)."""
+    """The reference's logical axis names per leaf: what
+    ``parallel.create_sharded_state`` places each leaf by."""
     L = "layers"
     return {
         "wte": ("vocab", "embed"),
@@ -175,6 +182,21 @@ def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
                      dim=-1).to(x.dtype)
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            config: LlamaConfig) -> torch.Tensor:
+    """RoPE, GQA's shared kv heads and causal attention over (B, S, H, hd)
+    (KV heads for k and v). On a device mesh it runs over each rank's batch
+    shard and heads: a rank's kv heads are those its query heads read."""
+    q = _rope(q, config.rope_theta)
+    k = _rope(k, config.rope_theta)
+    if config.n_kv_head != config.n_head:
+        # GQA: kv head j serves query heads j*q_per_kv .. (j+1)*q_per_kv - 1
+        # (jnp.repeat; Tensor.repeat would tile the heads instead).
+        k = k.repeat_interleave(config.q_per_kv, dim=2)
+        v = v.repeat_interleave(config.q_per_kv, dim=2)
+    return _g._attention(q, k, v, config)
+
+
 def _block(x: torch.Tensor, blk: Params, config: LlamaConfig) -> torch.Tensor:
     dt = config.dtype
     B, S, D = x.shape
@@ -184,14 +206,13 @@ def _block(x: torch.Tensor, blk: Params, config: LlamaConfig) -> torch.Tensor:
     q = (h @ blk["wq"].to(dt)).view(B, S, H, hd)
     k = (h @ blk["wk"].to(dt)).view(B, S, KV, hd)
     v = (h @ blk["wv"].to(dt)).view(B, S, KV, hd)
-    q = _rope(q, config.rope_theta)
-    k = _rope(k, config.rope_theta)
-    if KV != H:
-        # GQA: kv head j serves query heads j*q_per_kv .. (j+1)*q_per_kv - 1
-        # (jnp.repeat; Tensor.repeat would tile the heads instead).
-        k = k.repeat_interleave(config.q_per_kv, dim=2)
-        v = v.repeat_interleave(config.q_per_kv, dim=2)
-    attn = _g._attention(q, k, v, config).to(dt).reshape(B, S, H * hd)
+    if is_dtensor(q):
+        spec = logical_to_spec(_g._QKV_AXES)
+        attn = shard_map(partial(_attend, config=config), mesh=Mesh.of(q),
+                         in_specs=(spec,) * 3, out_specs=spec)(q, k, v)
+    else:
+        attn = _attend(q, k, v, config)
+    attn = attn.to(dt).reshape(B, S, H * hd)
     x = x + attn @ blk["wo"].to(dt)
 
     h = _rmsnorm(x, blk["mlp_norm"], config.rms_eps).to(dt)
@@ -212,12 +233,12 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     """tokens (B, S) int -> final-normed hidden states (B, S, D) in
     ``config.dtype``."""
     _validate(config)
-    x = params["wte"][tokens].to(config.dtype)
+    x = _g._embed(params["wte"], None, tokens, config.dtype)
     block = partial(_block, config=config)
     # jax.checkpoint(layer): checkpointing only matters when a backward runs.
     remat = config.remat and torch.is_grad_enabled()
     for i in range(config.n_layer):
-        blk = {name: w[i] for name, w in params["blocks"].items()}
+        blk = gather({name: w[i] for name, w in params["blocks"].items()})
         x = _g._ckpt(block, x, blk) if remat else block(x, blk)
     return _rmsnorm(x, params["final_norm"], config.rms_eps).to(config.dtype)
 
@@ -234,9 +255,12 @@ def loss_fn(params: Params, tokens: torch.Tensor, targets: torch.Tensor,
     """Mean next-token cross-entropy: logits in ``config.logits_dtype``
     (bf16 by default), their logsumexp and the target logit in float32."""
     x = forward_hidden(params, tokens, config)
-    B, S, _ = x.shape
-    return _g._ce_sum(x, params["lm_head"], targets,
-                      config.logits_dtype) / (B * S)
+
+    def mean(x, targets, w):
+        B, S, _ = x.shape
+        return _g._ce_sum(x, w, targets, config.logits_dtype) / (B * S)
+
+    return _g.sharded_mean(mean, x, targets, params["lm_head"])
 
 
 def make_optimizer(learning_rate: float = 3e-4, weight_decay: float = 0.1,

@@ -15,13 +15,17 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import partial
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch._private.torch_compat import is_dtensor, shard_map
+from ray_tpu_torch.models.gpt2 import sharded_mean
 from ray_tpu_torch.optim import AdamW, make_step
+from ray_tpu_torch.parallel.mesh import (Mesh, gather, logical_to_spec,
+                                         partition)
 
 Params = Dict[str, Any]
 
@@ -59,20 +63,25 @@ class ViTConfig:
 
 
 def init_params(config: ViTConfig, seed: int = 0,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None,
+                place: Optional[Callable] = None) -> Params:
     """Random float32 parameters in the JAX package's layout: normal(0.02)
     weights and embeddings, unit layernorm scales, zero biases. Drawn on
-    ``device`` from a generator seeded with ``seed``."""
+    ``device`` from a generator seeded with ``seed``.
+    ``place``, given, takes each leaf as it is drawn and gives what the
+    tree keeps (``parallel.create_sharded_state`` keeps the rank's shard)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     D, L, F_ = config.d_model, config.n_layer, config.d_ff
     P, C, N = config.patch_dim, config.num_classes, config.n_patches
 
     def dense(shape):
-        return torch.randn(shape, generator=gen, device=dev) * 0.02
+        t = torch.randn(shape, generator=gen, device=dev) * 0.02
+        return t if place is None else place(t)
 
     def const(shape, value):
-        return torch.full(shape, value, dtype=torch.float32, device=dev)
+        t = torch.full(shape, value, dtype=torch.float32, device=dev)
+        return t if place is None else place(t)
 
     blocks = {
         "ln1_scale": const((L, D), 1.0), "ln1_bias": const((L, D), 0.0),
@@ -94,8 +103,8 @@ def init_params(config: ViTConfig, seed: int = 0,
 
 
 def logical_axes(config: ViTConfig) -> Dict[str, Any]:
-    """The reference's logical axis names per leaf, as data (the port shards
-    no parameter yet: ROADMAP.md, Queue 1 item 3)."""
+    """The reference's logical axis names per leaf: what
+    ``parallel.create_sharded_state`` places each leaf by."""
     L = "layers"
     return {
         "patch_embed": ("patch", "embed"),
@@ -142,19 +151,36 @@ def patchify(images: torch.Tensor, config: ViTConfig) -> torch.Tensor:
     return x.reshape(B, g * g, p * p * 3)
 
 
+#: The layout of q, k, v and the attention output, (B, T, H, hd), on a mesh.
+_QKV_AXES = ("batch", "seqlen", "heads", "kv")
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+            ) -> torch.Tensor:
+    """Bidirectional attention over (B, T, H, hd) with softmax in float32;
+    on a device mesh, over each rank's batch shard and heads."""
+    dt = q.dtype
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    scores = (q @ k.transpose(-1, -2)).float()
+    scores = scores / math.sqrt(q.shape[-1])
+    attn = torch.softmax(scores, dim=-1).to(dt)
+    return (attn @ v).transpose(1, 2)
+
+
 def _block(x: torch.Tensor, blk: Params, config: ViTConfig) -> torch.Tensor:
     B, T, D = x.shape
     H = config.n_head
     dt = x.dtype
     h = _layernorm(x, blk["ln1_scale"], blk["ln1_bias"])
     qkv = h @ blk["wqkv"].to(dt)
-    q, k, v = (t.reshape(B, T, H, D // H).transpose(1, 2)
-               for t in qkv.split(D, dim=-1))
-    scores = (q @ k.transpose(-1, -2)).float()
-    scores = scores / math.sqrt(D // H)
-    attn = torch.softmax(scores, dim=-1).to(dt)
-    out = (attn @ v).transpose(1, 2).reshape(B, T, D)
-    x = x + out @ blk["wo"].to(dt)
+    q, k, v = (t.reshape(B, T, H, D // H) for t in qkv.split(D, dim=-1))
+    if is_dtensor(q):
+        spec = logical_to_spec(_QKV_AXES)
+        out = shard_map(_attend, mesh=Mesh.of(q), in_specs=(spec,) * 3,
+                        out_specs=spec)(q, k, v)
+    else:
+        out = _attend(q, k, v)
+    x = x + out.reshape(B, T, D) @ blk["wo"].to(dt)
     h = _layernorm(x, blk["ln2_scale"], blk["ln2_bias"])
     # jax.nn.gelu defaults to the tanh approximation.
     h = F.gelu(h @ blk["w_up"].to(dt) + blk["b_up"].to(dt),
@@ -165,24 +191,62 @@ def _block(x: torch.Tensor, blk: Params, config: ViTConfig) -> torch.Tensor:
 def forward(params: Params, images: torch.Tensor, config: ViTConfig
             ) -> torch.Tensor:
     """(B, H, W, 3) images -> (B, num_classes) logits (float32)."""
+    x = forward_hidden(params, images, config)
+    return _head(x, params["head"], params["head_bias"])
+
+
+_EMBED = ("patch_embed", "patch_bias", "cls_token", "pos_embed")
+
+
+def _embed(images: torch.Tensor, weights, config: ViTConfig) -> torch.Tensor:
+    """Patches, their projection, the class token and the positions: (B,
+    n_patches + 1, D). On a device mesh each rank embeds its batch shard
+    with the whole (gathered) weights."""
+    if is_dtensor(images):
+        return shard_map(
+            lambda images, *w: _embed(images, w, config),
+            mesh=Mesh.of(images),
+            in_specs=(logical_to_spec(("batch", None, None, None)),)
+            + (partition(),) * len(weights),
+            out_specs=logical_to_spec(("batch", None, None)))(images,
+                                                               *weights)
+    patch_embed, patch_bias, cls_token, pos_embed = weights
     dt = config.dtype
     x = patchify(images.to(dt), config)
-    x = x @ params["patch_embed"].to(dt) + params["patch_bias"].to(dt)
+    x = x @ patch_embed.to(dt) + patch_bias.to(dt)
     B = x.shape[0]
-    cls = params["cls_token"].to(dt).expand(B, 1, config.d_model)
+    cls = cls_token.to(dt).expand(B, 1, config.d_model)
     x = torch.cat([cls, x], dim=1)
-    x = x + params["pos_embed"].to(dt)
+    return x + pos_embed.to(dt)
+
+
+def forward_hidden(params: Params, images: torch.Tensor, config: ViTConfig
+                   ) -> torch.Tensor:
+    """(B, H, W, 3) images -> final-layernormed tokens (B, n_patches + 1,
+    D) in ``config.dtype``."""
+    x = _embed(images, [params[n] for n in _EMBED], config)
     for i in range(config.n_layer):
-        x = _block(x, {n: w[i] for n, w in params["blocks"].items()}, config)
-    x = _layernorm(x, params["lnf_scale"], params["lnf_bias"])
-    cls_out = x[:, 0].float()
-    return cls_out @ params["head"] + params["head_bias"]
+        x = _block(x, gather({n: w[i] for n, w in params["blocks"].items()}),
+                   config)
+    return _layernorm(x, params["lnf_scale"], params["lnf_bias"])
+
+
+def _head(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+          ) -> torch.Tensor:
+    """The class token's logits (B, num_classes), float32."""
+    return x[:, 0].float() @ w + b
+
+
+def _nll(x: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
+         b: torch.Tensor) -> torch.Tensor:
+    logp = F.log_softmax(_head(x, w, b), dim=-1)
+    return -logp.gather(-1, labels[:, None].long()).mean()
 
 
 def loss_fn(params: Params, images: torch.Tensor, labels: torch.Tensor,
             config: ViTConfig) -> torch.Tensor:
-    logp = F.log_softmax(forward(params, images, config), dim=-1)
-    return -logp.gather(-1, labels[:, None].long()).mean()
+    x = forward_hidden(params, images, config)
+    return sharded_mean(_nll, x, labels, params["head"], params["head_bias"])
 
 
 def accuracy(params: Params, images: torch.Tensor, labels: torch.Tensor,

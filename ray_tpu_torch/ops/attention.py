@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ray_tpu_torch._private import kernel_build
+from ray_tpu_torch._private.torch_compat import is_dtensor
 
 #: Launches per kernel since the last reset; only a kernel launch adds one.
 LAUNCHES: Dict[str, int] = {"splash_attention_fwd": 0,
@@ -105,6 +106,9 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if any(is_dtensor(t) for t in (q, k, v)):
+        raise TypeError("the splash kernels take a rank's local tensors; on "
+                        "a device mesh call them under shard_map")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
             "q, k, v must share one (B, S, H, head_dim) shape, got "

@@ -28,6 +28,7 @@ from typing import Dict, Tuple
 import torch
 
 from ray_tpu_torch._private import kernel_build
+from ray_tpu_torch._private.torch_compat import is_dtensor
 
 #: Launches per kernel since the last reset; only a kernel launch adds one.
 LAUNCHES: Dict[str, int] = {"fused_ce_fwd": 0, "fused_ce_dx": 0,
@@ -211,6 +212,9 @@ def fused_lm_head_ce(x: torch.Tensor, wte: torch.Tensor, targets: torch.Tensor,
     del block_rows
     if bwd_impl not in ("pallas", "xla"):
         raise ValueError(f"bwd_impl must be pallas|xla, got {bwd_impl!r}")
+    if any(is_dtensor(a) for a in (x, wte, targets)):
+        raise TypeError("the fused CE takes a rank's local tensors; on a "
+                        "device mesh call it under shard_map")
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
     t2 = targets.reshape(b * s)

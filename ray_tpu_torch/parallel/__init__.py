@@ -1,9 +1,21 @@
-"""Parallelism axes, the ambient mesh and the train-step wrapper: the port
-of ``ray_tpu/parallel`` (mesh and train_state so far)."""
+"""Parallelism axes, the device mesh, sharded train state and the train-step
+wrapper: the port of ``ray_tpu/parallel`` (mesh and train_state; the
+pipeline schedule is ROADMAP Queue 1 item 10)."""
 
-from ray_tpu_torch.parallel.mesh import (AXIS_NAMES, Mesh, MeshSpec,
-                                         current_mesh, make_mesh, use_mesh)
-from ray_tpu_torch.parallel.train_state import jit_train_step
+from ray_tpu_torch.parallel.mesh import (AXIS_NAMES, DEFAULT_RULES, Mesh,
+                                         MeshSpec, NamedSharding,
+                                         PartitionSpec, batch_sharding,
+                                         current_mesh, logical_to_placements,
+                                         logical_to_spec, make_mesh,
+                                         named_sharding, partition,
+                                         pytree_sharding, shard_pytree,
+                                         use_mesh)
+from ray_tpu_torch.parallel.train_state import (create_sharded_state,
+                                                jit_train_step)
 
-__all__ = ["AXIS_NAMES", "Mesh", "MeshSpec", "current_mesh",
-           "jit_train_step", "make_mesh", "use_mesh"]
+__all__ = ["AXIS_NAMES", "DEFAULT_RULES", "Mesh", "MeshSpec",
+           "NamedSharding", "PartitionSpec", "batch_sharding",
+           "create_sharded_state", "current_mesh", "jit_train_step",
+           "logical_to_placements", "logical_to_spec", "make_mesh",
+           "named_sharding", "partition", "pytree_sharding", "shard_pytree",
+           "use_mesh"]

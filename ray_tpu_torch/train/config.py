@@ -33,6 +33,12 @@ class ScalingConfig:
     #: across nodes); "auto" — processes iff the placement group's bundles
     #: land on nodes beyond the head, so threads on the one node.
     worker_mode: str = "auto"
+    #: The process group's backend for ``worker_mode="processes"``: None
+    #: is ``distributed.default_backend()`` (NCCL when a rank holds a card
+    #: of its own); "gloo" joins ranks that share one card (NCCL refuses two
+    #: ranks on one device), which then stage their collectives through the
+    #: host. Never chosen silently.
+    backend: Optional[str] = None
     #: Dynamic world size (preemption-tolerant training, thread-tier ranks
     #: only); None = a lost worker restarts the attempt at the same world.
     elastic: Optional["ElasticConfig"] = None

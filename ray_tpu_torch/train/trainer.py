@@ -265,16 +265,19 @@ class CudaDistTrainWorker:
         """Rank 0 picks the process group's rendezvous address."""
         return _reserve_addr()
 
-    def setup(self, coordinator: str) -> Dict[str, Any]:
-        """Join the process group; returns the topology for checks, with
-        when the worker's main loop started and when this call entered and
-        joined (``time.time()``). Called CONCURRENTLY on all ranks
-        (initialization is a barrier)."""
+    def setup(self, coordinator: str, backend: Optional[str] = None
+              ) -> Dict[str, Any]:
+        """Join the process group over ``backend`` (None: the default, NCCL
+        on the card); returns the topology for checks, with when the
+        worker's main loop started and when this call entered and joined
+        (``time.time()``). Called CONCURRENTLY on all ranks (initialization
+        is a barrier)."""
         from ray_tpu_torch._private import process_pool
         from ray_tpu_torch.collective import distributed
 
         entered = time.time()
-        backend = distributed.initialize(coordinator, self.world, self.rank)
+        backend = distributed.initialize(coordinator, self.world, self.rank,
+                                         backend=backend)
         collective.init_collective_group(self.world, self.rank,
                                          group_name=self.group_name)
         return {"rank": self.rank, "backend": backend, "pid": os.getpid(),
@@ -1165,7 +1168,8 @@ class DataParallelTrainer:
                                       timeout=120)
             #: The ranks' topology as each reported it from setup().
             self.process_topology = ray_tpu_torch.get(
-                [w.setup.remote(coord) for w in workers], timeout=300)
+                [w.setup.remote(coord, scfg.backend) for w in workers],
+                timeout=300)
             blob = pack_checkpoint(restore_ckpt)
             refs = [w.run.remote(self.train_loop, self.train_loop_config, ctx,
                                  report_queue, blob)
@@ -1259,4 +1263,10 @@ class CudaTrainer(DataParallelTrainer):
     context; ranks that share a card share it. With
     ``ScalingConfig(worker_mode="processes")`` each worker is its own
     process on its own card, joined into one NCCL group, and the same
-    train_loop runs unchanged."""
+    train_loop runs unchanged. That is the mesh mode: inside the loop the
+    ranks build ``parallel.make_mesh(MeshSpec(...))`` over their process
+    group and train on DTensors (``parallel.create_sharded_state``,
+    ``collective.distributed.local_batch_to_global``), multi-controller
+    SPMD as in the reference. Ranks that share one card
+    (``gpus_per_worker < 1``) join over gloo, which the caller asks for
+    with ``ScalingConfig(backend="gloo")``."""

@@ -474,14 +474,29 @@ def test_restore_two_shards_at_world_sizes_one_and_four(tmp_path):
 
 
 def test_restore_onto_a_mesh_waits_for_the_mesh_axes(tmp_path):
-    from ray_tpu_torch.checkpoint import restore_latest
+    """The reference's ``test_elastic_restore_onto_larger_mesh``
+    (tests/test_checkpoint_subsystem.py:353) on the port: written by world
+    size 2, restored onto a 4-rank device mesh of gloo processes; axis 0 (8)
+    divides the mesh's 4 and is sharded over it, the scalar replicates."""
+    import _torch_mesh_cases as cases
+    from _torch_mesh import world
 
     coord = _coord(ray_tpu_torch, tmp_path)
-    w = _writer(ray_tpu_torch, coord)
-    w.save_async(0, {"w": np.ones(4, np.float32)}).result(timeout=30)
-    w.close()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        restore_latest(str(tmp_path), mesh=object())
+    tree = {"w": np.arange(32, dtype=np.float32).reshape(8, 4),
+            "b": np.float32(3.0)}
+    for i in range(2):
+        w = _writer(ray_tpu_torch, coord, i, 2)
+        w.save_async(0, tree).result(timeout=30)
+        w.close()
+    with pytest.raises(ValueError, match="pass mesh="):
+        ray_tpu_torch.checkpoint.restore_latest(str(tmp_path), pspec=())
+    out = world(4).run(cases.restore_onto_mesh, str(tmp_path), {"data": 4})
+    for rank in out:
+        placements, local, full = rank["w"]
+        assert placements == ["Shard(dim=0)"] and local == (2, 4)
+        np.testing.assert_array_equal(full, tree["w"])
+        placements, local, full = rank["b"]
+        assert placements == ["Replicate()"] and float(full) == 3.0
 
 
 def world_down_to_one(pkg, d):

@@ -1055,3 +1055,65 @@ def test_device_memory_snapshot_reads_the_card():
     assert rows[0]["bytes_in_use"] == torch.cuda.memory_allocated(0)
     assert rows[0]["bytes_limit"] == torch.cuda.mem_get_info(0)[1]
     assert rows[0]["peak_bytes_in_use"] >= x.numel() * 4
+
+
+def _gloo_rank(rank, world, port, out):
+    """One of ``world`` gloo processes on card 0: an all-reduce of a CUDA
+    tensor, and a DTensor on a "cuda" mesh redistributed Partial ->
+    Shard(0) (a reduce-scatter) and Partial -> Replicate (an all-reduce),
+    the redistributions of a data mesh's gradient sync. (Shard ->
+    Replicate, the functional all-gather, kills a gloo rank on CUDA
+    tensors: scripts/torch_gloo_cuda_probe.py.)"""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from ray_tpu_torch.parallel import MeshSpec, make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        t = torch.full((4,), float(rank + 1), device="cuda")
+        dist.all_reduce(t)
+        mesh = make_mesh(MeshSpec(data=world))  # the card, by default
+        x = torch.arange(2 * world, dtype=torch.float32, device="cuda")
+        part = DTensor.from_local(x * (rank + 1), mesh.device_mesh,
+                                  [Partial()])
+        shard = part.redistribute(mesh.device_mesh, [Shard(0)])
+        whole = part.redistribute(mesh.device_mesh, [Replicate()])
+        out.put((rank, t.tolist(), shard.to_local().tolist(),
+                 whole.to_local().tolist(), str(whole.to_local().device)))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_gloo_ranks_share_one_card_on_gpu():
+    """Two gloo processes on card 0 (NCCL refuses two ranks on one device):
+    an all-reduce of a CUDA tensor and a DTensor redistribution on a
+    "cuda" device mesh, the path of chip_smoke.py's train_mesh."""
+    _need_gpu()
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, 2, port, out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got = {}
+    for _ in range(2):
+        rank, *rest = out.get(timeout=120)
+        got[rank] = rest
+    for p in procs:
+        p.join(60)
+    total = [3.0 * v for v in range(4)]
+    for rank, (reduced, shard, whole, device) in got.items():
+        assert reduced == [3.0] * 4
+        assert shard == total[2 * rank:2 * rank + 2]
+        assert whole == total and device == "cuda:0"

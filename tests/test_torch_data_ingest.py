@@ -364,8 +364,8 @@ def device_iterator_values_and_lookahead(pkg, data):
 
 
 def device_iterator_with_sharding(pkg, data):
-    """The reference places batches by a mesh sharding; the port raises
-    until its DeviceMesh exists (ROADMAP.md, Queue 1 item 3)."""
+    """Batches placed by a mesh's batch sharding: the reference's on its
+    8-device CPU mesh, the port's on a mesh of 2 gloo processes."""
     ing = _ingest(pkg)
     if pkg.__name__ == "ray_tpu":
         import jax
@@ -376,7 +376,11 @@ def device_iterator_with_sharding(pkg, data):
         src = ({"x": np.ones((8, 4), dtype=np.float32) * i} for i in range(3))
         out = list(ing.DeviceBatchIterator(src, sharding=sharding))
         return [len(out), out[1]["x"].sharding == sharding]
-    return raises(lambda: ing.DeviceBatchIterator([], sharding=object()))
+    import _torch_mesh_cases as cases
+    from _torch_mesh import world
+
+    out = world(2).run(cases.device_iterator, {"data": 2})[0]
+    return [out["n"], out["placed"]]
 
 
 def ingest_device_path(pkg, data):
@@ -580,7 +584,23 @@ def test_files_match_reference(case, tmp_path):
 def test_device_iterator_with_sharding():
     ref, port = both(device_iterator_with_sharding)
     assert ref == [3, True]
-    assert port[0] == "NotImplementedError" and "DeviceMesh" in port[1]
+    assert port == ref
+
+
+def test_device_iterator_mixed_rank_columns():
+    """tests/test_data_ingest.py:436 on the port: 1-D labels beside 2-D
+    tokens through one rank-2 batch sharding (the spec truncates per
+    column); a string column stays on the host."""
+    import _torch_mesh_cases as cases
+    from _torch_mesh import world
+
+    out = world(2).run(cases.device_iterator, {"data": 2})
+    for rank in out:
+        assert rank["tokens"]
+        assert rank["label"] == ((8,), list(range(8)))
+        assert rank["name"] == ["a"] * 8
+        assert rank["values"] == [np.full((8, 4), float(i)).tolist()
+                                  for i in range(3)]
 
 
 # --------------------------------------------------------------------------

@@ -271,19 +271,22 @@ def test_config_and_layout_match_jax():
 
 
 def test_expert_axis_raises_until_it_is_ported(batch):
-    """make_mesh refuses an expert axis above 1; a mesh built around it
-    anyway makes the MoE forward raise, naming the ROADMAP item."""
+    """An expert axis above 1 spans the process group, so one process
+    refuses it (the expert-parallel path runs in a gloo world:
+    tests/test_torch_mesh_models.py). Plain tensors run the one-device
+    function whatever mesh is ambient: no mesh, a folded one, or one of
+    the expert axis."""
     _, tcfg = _configs(attn_impl="xla")
     params = tmoe.init_params(tcfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="process group has 1"):
         with use_mesh(MeshSpec(expert=2)):
             pass
+    want = tmoe.forward(params, _t(batch[0]), tcfg)[0]
     with use_mesh(Mesh(MeshSpec(expert=2))):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            tmoe.forward(params, _t(batch[0]), tcfg)
+        assert torch.equal(tmoe.forward(params, _t(batch[0]), tcfg)[0], want)
     with use_mesh(MeshSpec(seq=2)):  # another axis: the same function
         logits, _ = tmoe.forward(params, _t(batch[0]), tcfg)
-    assert torch.equal(logits, tmoe.forward(params, _t(batch[0]), tcfg)[0])
+    assert torch.equal(logits, want)
 
 
 def test_init_defaults_to_the_gpu(monkeypatch):

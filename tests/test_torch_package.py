@@ -457,14 +457,20 @@ print(json.dumps({"cuda": torch.cuda.is_initialized(),
         "cuda": False, "runtime": False, "threads": 0, "libs": []}
 
 
-#: Imported only inside the functions that use them in collective/ and
-#: train/, so that importing either package sets up no process group.
+#: Imported only inside the functions that use them in collective/,
+#: train/, parallel/ and the modules that place tensors on a device mesh,
+#: so that importing any of them sets up no process group.
 _DISTRIBUTED = ("torch.distributed", "torch.nn.parallel")
+_MESH_MODULES = ("_private/torch_compat.py", "optim.py",
+                 "checkpoint/elastic.py", "data/ingest/prefetch.py")
 
 
 def test_collective_and_train_import_torch_distributed_in_functions():
     for path in sorted((PORT / "collective").rglob("*.py")) + \
-            sorted((PORT / "train").rglob("*.py")):
+            sorted((PORT / "train").rglob("*.py")) + \
+            sorted((PORT / "parallel").rglob("*.py")) + \
+            sorted((PORT / "models").rglob("*.py")) + \
+            [PORT / m for m in _MESH_MODULES]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in tree.body:
             if isinstance(node, ast.Import):
@@ -481,6 +487,8 @@ def test_importing_collective_and_train_sets_up_no_process_group():
     code = """
 import json, sys
 import ray_tpu_torch.collective, ray_tpu_torch.train
+import ray_tpu_torch.parallel, ray_tpu_torch.models.moe
+import ray_tpu_torch.checkpoint, ray_tpu_torch.data.ingest.prefetch
 import torch.distributed as dist
 print(json.dumps({"initialized": dist.is_initialized()}))
 """

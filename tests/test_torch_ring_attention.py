@@ -303,8 +303,19 @@ def test_kernel_wrappers_refuse_before_launch(kw, err):
 # --------------------------------------------------------------------- mesh
 @pytest.mark.parametrize("axis", ["data", "fsdp", "tensor", "pipe", "expert"])
 def test_make_mesh_rejects_other_axes_above_one(axis):
-    with pytest.raises(NotImplementedError, match="Queue 1 items 3 and 7"):
+    """The seq axis folds onto one device alone: beside another axis above 1
+    it raises (sequence shards across processes are Queue 1 item 8), and
+    pipe raises (item 10). Any other axis spans the process group, and a
+    mesh larger than the group (one process here) is refused."""
+    item = "item 10" if axis == "pipe" else "item 8"
+    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         make_mesh(MeshSpec(seq=2, **{axis: 2}))
+    if axis == "pipe":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            make_mesh(MeshSpec(pipe=2))
+    else:
+        with pytest.raises(ValueError, match="process group has 1"):
+            make_mesh(MeshSpec(**{axis: 2}))
     assert make_mesh(MeshSpec(seq=4, **{axis: 1})).shape["seq"] == 4
 
 
@@ -444,5 +455,7 @@ def test_jit_train_step_without_a_mesh_is_the_step():
         return a
 
     assert jit_train_step(step) is step
-    with pytest.raises(NotImplementedError):
+    # The mesh is validated at wrap time: a data axis spans the process
+    # group, which is one process here.
+    with pytest.raises(ValueError, match="process group has 1"):
         jit_train_step(step, mesh=MeshSpec(data=2))
