@@ -53,7 +53,12 @@ Phases, each of which exits non-zero on failure:
    (step 0's blocks write-only; ``bound_ms_accumulate`` with every block
    reading) and SDPA, step 0 timed from NaN-filled accumulators, which it
    must not read; whole ``ring_attention`` against ``splash_attention`` at
-   (16, 1024, 12, 64), forward and gradient. Then GPT-2 124M trains five
+   (16, 1024, 12, 64), forward and gradient; the process ring's launches
+   (one per rank per ring step on the rank's own shard, every rank on this
+   card: ``ring_by_rank``) at train_mesh (c)'s rank shape (8, 512, 12, 64),
+   W=2, and with the full mask, against the plain blocks and, bit for
+   bit, against the folded launches over the same pairs, with one rank's
+   launch of each kind timed beside its bound. Then GPT-2 124M trains five
    steps through the ring from the splash run's start (exactly 48 ring
    forward and 48 ring backward launches per step, no splash or CE), and
    one B=2 step of ``attn_impl="ring"`` and of ``"ulysses"`` is held
@@ -227,26 +232,37 @@ Phases, each of which exits non-zero on failure:
     after (12): ``CudaTrainer`` with ``worker_mode="processes"`` and
     ``ScalingConfig(backend="gloo")`` (the ranks share card 0, which NCCL
     refuses), each rank building ``make_mesh`` over the group,
-    ``create_sharded_state`` and its batch shard, at the full width, the
-    fused loss and ``attn_outside``, AdamW 3e-4, MESH_STEPS steps of
-    ``make_train_step`` on DTensors: (a) ``MeshSpec(data=2)``, B=8 a rank
-    (``local_batch_to_global``). An fsdp x tensor mesh does not run on one
+    ``create_sharded_state`` and its (B/data, S/seq) block of the batch
+    (``local_batch_to_global``), at the full width and the fused loss,
+    AdamW 3e-4, MESH_STEPS steps of ``make_train_step`` on DTensors:
+    (a) ``MeshSpec(data=2)``, B=8 a rank, ``attn_outside``; (c)
+    ``MeshSpec(data=2, seq=2)``, four ranks of B=8 x 512 tokens,
+    ``attn_impl="ring"`` (the ring's K/V shifts between the ranks, one
+    launch of each ring kernel per rank per ring step); (d)
+    ``MeshSpec(pipe=2)``, two stages of six layers, B=16 in four
+    microbatches, ``save_attn``. An fsdp x tensor mesh does not run on one
     card: DTensor's all-gathers kill a gloo rank there (MESH_CELLS); it
     runs with ``--mesh-cards``, one rank a card over NCCL (below).
     Against a direct B=16 step in this process on the same weights and
-    tokens: the sharded state equal to ``init_params`` bit for bit, the
+    tokens (the ring folded onto the card for (c), the model unpipelined
+    for (d)): the sharded state equal to ``init_params`` bit for bit, the
     first loss within ``LOSS_ATOL``, every synced gradient within
     ``GRAD_RTOL`` of its leaf's largest entry while rank 0's own before the
-    sync is not (the control, over the leaves it holds whole), the replicas
-    of every shard equal bit for bit after each step, each rank's local
-    shapes those of ``logical_to_spec``, and every rank's launches in every
-    step 12 + 12 splash and one of each CE kernel (each rank's counts ride
-    to rank 0's report), none in this process; and each rank batch a shape
-    at which phase 2 held the kernels (they also cover the fsdp x tensor
-    mesh's rank shape, (8, 1024, 6, 64)). It prints tokens/s of each mesh
-    over direct's, the step profiler's ``collective`` ms per step (the
-    gradient sync alone, staged through the host by gloo, timed after the
-    rank's backward and a barrier) and each rank's cold start.
+    sync is not where its shard makes them a part of the sum (the control,
+    over the leaves it holds whole), the replicas of every shard equal bit
+    for bit after each step, each rank's local shapes those of
+    ``logical_to_spec``, and every rank's launches in every step those of
+    its place on the mesh (12 + 12 splash, or 12(i + 1) of each ring
+    kernel at seq index i, or 24 + 24 splash a stage, and one of each CE
+    kernel; each rank's counts ride to rank 0's report), none in this
+    process; and each rank's shapes ones at which phases 2 and 5 held the
+    kernels (they also cover the fsdp x tensor mesh's rank shape, (8,
+    1024, 6, 64)). It prints tokens/s of each mesh over direct's, the step
+    profiler's ``collective`` ms per step (the gradient sync, staged
+    through the host by gloo, timed after the rank's backward and a
+    barrier), the host time each rank waits in point-to-point shifts, (d)'s
+    bubble by its schedule, (c)'s ring steps' shift against their kernel
+    (the share the kernel hides) and each rank's cold start.
 13.GPT-2 124M tuned through ``Tuner.fit()`` (``tune_fit`` lines), the
     model of (11) at B=8 on its token windows, each trial building it on
     the card its lease names (``granted_cuda_device()`` in the trial's
@@ -412,15 +428,17 @@ Phases, each of which exits non-zero on failure:
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result. It imports nothing of JAX or of ``ray_tpu``.
 
-``python3 chip_smoke.py --mesh-cards`` runs only ``train_mesh`` (b),
-``MeshSpec(fsdp=2, tensor=2)``, four process ranks on four cards over
-NCCL, after building the kernels, with the gates of (12b); its last line
-gives ``count`` 4.
+``python3 chip_smoke.py --mesh-cards`` runs only ``train_mesh`` on four
+cards, four process ranks over NCCL, after building the kernels, with the
+gates of (12b): (b) ``MeshSpec(fsdp=2, tensor=2)``, (c4)
+``MeshSpec(data=2, seq=2)`` and (d4) ``MeshSpec(pipe=2, data=2)``; its
+last line gives ``count`` 4.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import json
 import math
@@ -451,9 +469,10 @@ LOGIT_ATOL = 5e-2
 # (B, S, H, hd, causal): the training shape (B=16), the serving shapes (B=1,
 # and batches of 8 and 32 as serve.batch forms them, at S=1024 and at a
 # ragged longest request), ragged S, head_dim 128, and train_mesh (b)'s rank
-# shape (B=8 of B=16 over fsdp, half the heads over tensor).
+# shape (B=8 of B=16 over fsdp, half the heads over tensor); second, the
+# microbatch of train_mesh (d)'s pipeline stages (4 rows).
 KERNEL_SHAPES = [
-    (16, 1024, 12, 64, True),
+    (16, 1024, 12, 64, True), (4, 1024, 12, 64, True),
     (8, 1024, 12, 64, True), (8, 1024, 12, 64, False),
     (32, 1024, 12, 64, True), (8, 517, 12, 64, True),
     (1, 1024, 12, 64, True), (1, 1024, 12, 64, False),
@@ -472,11 +491,13 @@ MAIN_SHAPE = (1, 1024, 12, 64, True)
 BWD_RTOL = 2e-2
 # (B, S, H, hd, causal): the training shape first, q, k, v split from a
 # fused qkv as the model makes them, then train_fit's rank shape (B=8 of
-# the B=16 batch), and last train_mesh (b)'s (B=8, half the heads). Timed:
+# the B=16 batch), train_mesh (b)'s (B=8, half the heads), and last the
+# microbatch of train_mesh (d)'s pipeline stages (4 rows). Timed:
 # the training shape and head_dim 128.
 BWD_SHAPES = [(16, 1024, 12, 64, True), (8, 1024, 12, 64, True),
               (1, 1000, 12, 64, False), (1, 7, 12, 64, True),
-              (2, 512, 8, 128, True), (8, 1024, 6, 64, True)]
+              (2, 512, 8, 128, True), (8, 1024, 6, 64, True),
+              (4, 1024, 12, 64, True)]
 BWD_TIMED = [(16, 1024, 12, 64, True), (2, 512, 8, 128, True)]
 
 # Fused CE against its plain versions. lse and tgt are fp32 on both sides
@@ -486,10 +507,11 @@ BWD_TIMED = [(16, 1024, 12, 64, True), (2, 512, 8, 128, True)]
 CE_ATOL = 2e-3
 CE_GRAD_RTOL = 2e-2
 # (N, D, V): GPT-2 124M's training shape (16 x 1024 tokens), train_fit's
-# rank shape (8 x 1024), the reference test's ragged 24 x 96 case, and an N
-# and V (GPT-2's unpadded vocab) that are multiples of no tile.
+# rank shape (8 x 1024), the reference test's ragged 24 x 96 case, an N
+# and V (GPT-2's unpadded vocab) that are multiples of no tile, and
+# train_mesh (c)'s rank shape (8 x 512 tokens of a seq shard).
 CE_SHAPES = [(16384, 768, 50304), (8192, 768, 50304), (24, 64, 96),
-             (1000, 768, 50257)]
+             (1000, 768, 50257), (4096, 768, 50304)]
 
 # Ring kernels (rows 8, 9) against their plain versions: (B, S_local, H, hd,
 # causal) over W=4 ranks. The training path's per-step shape first, then a
@@ -502,6 +524,12 @@ RING_SHAPES = [(16, 256, 12, 64, True), (2, 250, 12, 64, True),
                (2, 256, 8, 128, True), (4, 256, 12, 64, False)]
 # Whole ring attention against splash attention on the same q, k, v.
 RING_WHOLE_SHAPE = (16, 1024, 12, 64)
+# The process ring's launches (one per rank per step on the rank's own
+# shard, ring_by_rank) as (B, S_local, H, hd, causal, W): train_mesh (c)'s
+# rank shape first, then the full mask. Held to the plain blocks with the
+# tolerances above and to the folded launches over the same pairs bit for
+# bit: the same tiles, merged and summed in the same order.
+RING_RANK_SHAPES = [(8, 512, 12, 64, True, 2), (2, 256, 12, 64, False, 4)]
 
 TRAIN_BATCH = 16
 TRAIN_STEPS = 5
@@ -2159,18 +2187,30 @@ def phase_serve_slo(params) -> Dict[str, object]:
         # The fast window's bad fraction at every read that has the window
         # wholly in the error part (the first errors precede their series'
         # first sample, so the reads at the alert count too few of them).
-        steady = [row["objectives"]["availability"]["bad_fraction_fast"]
-                  for t, row in alerts
-                  if t_err0 + objective.fast_window_s + SLO_SCRAPE_S
-                  <= t <= t_err1]
+        reads = [(t, row["objectives"]["availability"]) for t, row in alerts
+                 if t_err0 + objective.fast_window_s + SLO_SCRAPE_S
+                 <= t <= t_err1]
+        steady = [a["bad_fraction_fast"] for _, a in reads]
         if not steady:
             fail("slo_burn: no alerting read with the fast window in the "
                  "error part")
         off = [b for b in steady if abs(b - share) > 0.05]
         if off:
+            # Each read's time from the first error, its fast window's bad
+            # fraction and event count, and the requests the clients sent
+            # and saw fail in that window: what the next look needs.
+            windows = [dict(
+                t=round(t - t_err0, 3), bad=a["bad_fraction_fast"],
+                events=a["events_fast"],
+                sent=sum(1 for _, sent_, _, _, _ in log_err
+                         if t - objective.fast_window_s <= sent_ <= t),
+                failed=sum(1 for j, sent_, _, _, _ in log_err
+                           if j % 3 == 2
+                           and t - objective.fast_window_s <= sent_ <= t))
+                for t, a in reads]
             fail(f"slo_burn: bad_fraction_fast {off} of the {len(steady)} "
                  f"reads in the error part against {share} of the requests "
-                 f"sent failing")
+                 f"sent failing; reads {windows}")
         applied = decisions(dep)
         if applied[:2] != ({"slo_burn": 1}, 2) or not applied[2] < t_err1:
             fail(f"slo_burn: the controller applied {applied} (errors "
@@ -2245,10 +2285,12 @@ def phase_serve_slo(params) -> Dict[str, object]:
 
 
 # serve_process: the clients and seconds of each measured load, and the
-# rounds of thread-tier against process-tier replicas in turns.
+# rounds of thread-tier against process-tier replicas in turns (one: the
+# script's time limit holds train_mesh's (c) and (d) since the second
+# round was cut; each gate still runs on every load).
 PROC_CLIENTS = 8
 PROC_SECONDS = 6.0
-PROC_ROUNDS = 2
+PROC_ROUNDS = 1
 
 
 def _compute_apps() -> list:
@@ -3018,7 +3060,9 @@ FIT_ROWS = 512
 FIT_INGEST_BLOCKS = 64
 FIT_BATCH = 16  # the global batch of (a) and of direct; 8 per rank
 FIT_STEPS = 5
-FIT_ROUNDS = 2
+# (a)'s fit against direct, in one round (a second repeated it for its
+# spread; cut so that the script's time limit holds train_mesh's (c), (d)).
+FIT_ROUNDS = 1
 RESTORE_STEPS = 8
 RESTORE_FAIL_AT = 4  # raise before step 5 of the first attempt
 RESTORE_CKPT_EVERY = 2
@@ -5076,19 +5120,45 @@ def phase_train_elastic() -> Dict[str, object]:
 MESH_STEPS = 3
 MESH_BATCH = 16  # the global batch of each mesh and of direct
 MESH_LR = 3e-4
-# (label, MeshSpec axes). Only (a): a data mesh needs all-reduces alone. An
-# fsdp x tensor mesh ("b", {"fsdp": 2, "tensor": 2}) gathers shards, and
-# DTensor's Shard -> Replicate calls the functional all-gather, which kills
-# a gloo rank on CUDA tensors (SIGSEGV in wait_tensor, torch 2.11.0+cu128;
-# scripts/torch_gloo_cuda_probe.py). The c10d all-gather works there, but
-# only 13 of a step's 32 all-gathers are the port's own redistributions;
-# DTensor's propagation through the model's operators and the backward
-# issues the other 19 (scripts/torch_mesh_allgathers.py). It is held on
-# the CPU by tests/test_torch_mesh.py and tests/test_torch_mesh_models.py.
-MESH_CELLS = (("a", {"data": 2}),)
-# With ``--mesh-cards``: the fsdp x tensor mesh, one process rank on each
-# of four cards joined over NCCL (the default backend), as its users run it.
-MESH_CARDS_CELLS = (("b", {"fsdp": 2, "tensor": 2}),)
+#: The model of every cell: GPT-2 124M at full width with the fused loss.
+MESH_BASE = {"loss_impl": "fused", "remat_policy": "attn_outside"}
+#: (c)'s and (d)'s settings. (c) rings the 1024-token sequence over seq=2:
+#: 512 rows a rank, a splash block, so the fused ring's kernels run, one
+#: launch per rank per ring step. (d) pipelines the 12 layers over pipe=2 in
+#: 4 microbatches of 4 rows; the reference refuses attn_outside under a
+#: pipe, so it keeps the attention outside the two halves' checkpoints by
+#: save_attn, which the port runs alike.
+MESH_RING = {"attn_impl": "ring"}
+MESH_PIPE = {"pp_stages": 2, "pp_microbatches": 4,
+             "remat_policy": "save_attn"}
+# (label, MeshSpec axes, settings over MESH_BASE). On one card the ranks
+# share card 0 over gloo. (a): a data mesh needs all-reduces alone. (c)
+# the reference's mixed mesh: the ring's K/V shifts are staged through the
+# host by gloo, and Ulysses' all_to_all_single takes CUDA tensors there
+# (scripts/torch_gloo_cuda_probe.py). (d) the pipeline: its tick shifts
+# and the output's sum ride the same transport. An fsdp x tensor mesh ("b")
+# gathers shards, and DTensor's Shard -> Replicate calls the functional
+# all-gather, which kills a gloo rank on CUDA tensors (SIGSEGV in
+# wait_tensor, torch 2.11.0+cu128; the probe). The c10d all-gather works
+# there, but only 13 of a step's 32 all-gathers are the port's own
+# redistributions; DTensor's propagation through the model's operators and
+# the backward issues the other 19 (scripts/torch_mesh_allgathers.py). It
+# is held on the CPU by tests/test_torch_mesh.py and
+# tests/test_torch_mesh_models.py.
+MESH_CELLS = (("a", {"data": 2}, {}),
+              ("c", {"data": 2, "seq": 2}, MESH_RING),
+              ("d", {"pipe": 2}, MESH_PIPE))
+# With ``--mesh-cards``: one process rank on each of four cards joined over
+# NCCL (the default backend), as their users run them; the shifts send the
+# CUDA tensors themselves. (d4) in 2 microbatches, so a microbatch is (d)'s
+# 4 rows.
+MESH_CARDS_CELLS = (("b", {"fsdp": 2, "tensor": 2}, {}),
+                    ("c4", {"data": 2, "seq": 2}, MESH_RING),
+                    ("d4", {"pipe": 2, "data": 2},
+                     dict(MESH_PIPE, pp_microbatches=2)))
+#: Ring steps timed in each rank of a seq mesh after its steps: a step's
+#: K/V shift alone, its kernel alone, and both as the ring runs them.
+RING_PROBE_REPS = 5
 
 
 def _want_local(shape, spec, sizes) -> list:
@@ -5101,16 +5171,143 @@ def _want_local(shape, spec, sizes) -> list:
     return out
 
 
+def _mesh_config(extra):
+    from ray_tpu_torch.models import gpt2
+
+    return gpt2.GPTConfig(**dict(MESH_BASE, **extra))
+
+
+def _mesh_reference(spec, extra):
+    """The direct B=16 step a cell is held to: the same model unpipelined,
+    and a seq mesh's ring folded onto the card (``Mesh`` of a seq-only spec
+    without a process group)."""
+    from ray_tpu_torch.parallel import Mesh, MeshSpec
+
+    ref = {k: v for k, v in extra.items()
+           if k not in ("pp_stages", "pp_microbatches")}
+    fold = Mesh(MeshSpec(seq=spec["seq"])) if spec.get("seq", 1) > 1 \
+        else None
+    return _mesh_config(ref), fold
+
+
+def _mesh_want(spec, extra, coord, L: int = 12) -> Dict[str, int]:
+    """Each kernel's launches in one step of the rank at mesh coordinate
+    ``coord``: a rank at seq index i runs the ring kernels on i + 1 of each
+    layer's W steps (the chunks after its shard are masked whole), a
+    pipeline stage the splash kernels on each of its layers once for each
+    microbatch, and every rank one of each CE kernel (every stage computes
+    the loss of the output the pipeline replicates)."""
+    want = {k: 0 for k in _counts()}
+    want.update(fused_ce_fwd=1, fused_ce_dx=1, fused_ce_dw=1)
+    if extra.get("attn_impl") == "ring":
+        n = L * (coord.get("seq", 0) + 1)
+        want.update(ring_attention_fwd=n, ring_attention_bwd=n)
+    else:
+        per = L // spec.get("pipe", 1) * extra.get("pp_microbatches", 1)
+        want.update(splash_attention_fwd=per, splash_attention_bwd=per)
+    return want
+
+
+def _whole(t, mesh):
+    """The whole of DTensor ``t`` on every rank, gathered with the c10d
+    all-gather over each mesh dimension that shards it (DTensor's
+    ``full_tensor`` calls the functional all-gather, which kills a gloo rank
+    on CUDA tensors)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    x = t.to_local()
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard):
+            group = mesh.device_mesh.get_group(i)
+            part = x.movedim(pl.dim, 0).contiguous()
+            out = torch.empty((dist.get_world_size(group) * part.shape[0],)
+                              + tuple(part.shape[1:]), dtype=part.dtype,
+                              device=part.device)
+            dist.all_gather_into_tensor(out, part, group=group)
+            x = out.movedim(0, pl.dim)
+    return x
+
+
+def _ring_probe(mesh, shape, device: str = "cuda") -> list:
+    """Each step of one ring layer on this rank's (B, S/W, H, hd) shard:
+    ms of the step's K/V shift alone, of its forward kernel alone and of
+    both as the ring runs them (the shift posted, the kernel launched, the
+    shift waited on), the median of RING_PROBE_REPS, host clock around a
+    synchronised card; then the share of the shift that the kernel hid,
+    (shift + kernel - both) / shift. Every rank of the seq group issues the
+    same shifts; a rank whose chunk at a step lies after its shard
+    launches nothing there."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch._private import torch_compat
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    group = mesh.device_mesh.get_group("seq")
+    W, i = dist.get_world_size(group), dist.get_rank(group)
+    gen = torch.Generator(device=device).manual_seed(11 + dist.get_rank())
+    q, k, v = (torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    o = torch.empty(shape, dtype=torch.float32, device=device)
+    lse = torch.empty(shape[0], shape[2], shape[1], dtype=torch.float32,
+                      device=device)
+    perm = [(r, (r + 1) % W) for r in range(W)]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def timed(fn):
+        times = []
+        for _ in range(RING_PROBE_REPS):
+            sync()
+            dist.barrier(group)
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    rows = []
+    for step in range(W - 1):  # the last step shifts nothing
+        chunk = ra.ring_source(step, i, W)
+        computes = chunk <= i
+
+        def kernel():
+            if computes:
+                ra.ring_fwd_block(q, k, v, o, lse, diagonal=step == 0,
+                                  first=step == 0)
+
+        def shift():
+            torch_compat.shift_start((k, v), group, perm).wait()
+
+        def both():
+            pending = torch_compat.shift_start((k, v), group, perm)
+            kernel()
+            pending.wait()
+
+        row = dict(step=step, chunk=chunk, computes=computes,
+                   shift_ms=timed(shift), kernel_ms=timed(kernel),
+                   both_ms=timed(both))
+        row["hidden_share"] = (max(0.0, min(1.0, (
+            row["shift_ms"] + row["kernel_ms"] - row["both_ms"])
+            / row["shift_ms"])) if computes else 0.0)
+        rows.append(row)
+    return rows
+
+
 def _mesh_loop(config) -> None:
     """One process rank of ``train_mesh``: GPT-2 124M on a device mesh over
-    the ranks' gloo group, as a user writes the loop. The rank builds the
-    mesh, the sharded state (``create_sharded_state``) and its batch shard;
-    checks each leaf's local shape against ``logical_to_spec``; computes the
-    first step's loss and gradients (rank 0 holds the synced ones, and its
-    own before the sync, against a direct B=16 step it runs alone); then
-    takes MESH_STEPS steps of ``make_train_step``, reporting after each its
-    time and every rank's kernel launches and digest of every local
-    shard."""
+    the ranks' process group, as a user writes the loop. The rank builds the
+    mesh, the sharded state (``create_sharded_state``) and its (B/data,
+    S/seq) block of the batch; checks each leaf's local shape against
+    ``logical_to_spec``; computes the first step's loss and gradients (rank
+    0 holds the synced ones, and its own before the sync, against a direct
+    B=16 step it runs alone); then takes MESH_STEPS steps of
+    ``make_train_step``, reporting after each its time, the host time spent
+    waiting in point-to-point shifts, and every rank's kernel launches and
+    digest of every local shard; on a seq mesh it then times the ring's
+    steps (``_ring_probe``). ``config["device"]`` "cpu" (and a tiny model in
+    ``config["extra"]``) rehearses it on the CPU."""
     import hashlib
     import os
     from functools import partial
@@ -5120,35 +5317,50 @@ def _mesh_loop(config) -> None:
     import torch.distributed as dist
 
     from ray_tpu_torch import train
+    from ray_tpu_torch._private import torch_compat
     from ray_tpu_torch.collective import distributed
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.ops import attention, fused_ce, ring_attention
     from ray_tpu_torch.optim import _as_placed, tree_leaves
-    from ray_tpu_torch.parallel import (MeshSpec, create_sharded_state,
-                                        logical_to_spec, make_mesh)
+    from ray_tpu_torch.parallel import (MeshSpec, batch_sharding,
+                                        create_sharded_state,
+                                        logical_to_spec, make_mesh, use_mesh)
+    from ray_tpu_torch.parallel.mesh import axis_index
     from ray_tpu_torch.train import profiler
 
     started = time.time()
     rank, world = dist.get_rank(), dist.get_world_size()
-    cfg = gpt2.GPTConfig(loss_impl="fused", remat_policy="attn_outside")
-    mesh = make_mesh(MeshSpec(**config["spec"]))
+    spec, extra = config["spec"], config["extra"]
+    dev = config.get("device", "cuda")
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if not cuda:
+        # The CPU's index_put (the embedding's backward) and its BLAS sum
+        # in an order that follows the threads; the stages' replicated
+        # computation must be bit for bit.
+        torch.set_num_threads(1)
+    cfg = _mesh_config(extra)
+    mesh = make_mesh(MeshSpec(**spec), device=dev)
+    coord = {n: axis_index(mesh, n) for n in mesh.dim_names}
     opt = gpt2.make_optimizer(config["lr"])
     params, state = create_sharded_state(
         partial(gpt2.init_params, cfg), gpt2.logical_axes(cfg), mesh, 0, opt)
     tokens = np.array(config["tokens"], dtype=np.int64)
-    # Each batch shard (data x fsdp, major to minor) feeds its own rows;
-    # ranks that differ only on the tensor axis feed the same ones.
+    # Each batch shard (data x fsdp, major to minor) feeds its own rows, and
+    # each seq shard its own columns; ranks that differ only on the tensor
+    # or pipe axis feed the same block.
     shard, shards = 0, 1
     for name in ("data", "fsdp"):
         if name in mesh.dim_names:
-            shard = shard * mesh.shape[name] + \
-                mesh.device_mesh.get_local_rank(name)
+            shard = shard * mesh.shape[name] + coord[name]
             shards *= mesh.shape[name]
     b = tokens.shape[0] // shards
-    mine = torch.as_tensor(tokens[shard * b:(shard + 1) * b])
-    x, y = (distributed.local_batch_to_global(mesh, t.contiguous(),
-                                              axis=("data", "fsdp"))
-            for t in (mine[:, :-1], mine[:, 1:]))
+    s = (tokens.shape[1] - 1) // mesh.shape["seq"]
+    j = coord.get("seq", 0)
+    rows = tokens[shard * b:(shard + 1) * b]
+    x, y = (distributed.local_batch_to_global(
+        mesh, torch.as_tensor(t[:, j * s:(j + 1) * s].copy()),
+        axis=batch_sharding(mesh).spec) for t in (rows[:, :-1], rows[:, 1:]))
     leaves = tree_leaves(params)
     names, axes = zip(*_named_leaves(gpt2.logical_axes(cfg)))
     local = {n: list(p.to_local().shape) for n, p in zip(names, leaves)}
@@ -5165,22 +5377,24 @@ def _mesh_loop(config) -> None:
     loss = gpt2.loss_fn(params, x, y, cfg)
     raw = torch.autograd.grad(loss, leaves)
     own = [g.to_local() for g in raw] if rank == 0 else None
-    synced = [g.full_tensor() for g in _as_placed(raw, leaves)]
-    full_init = [p.detach().full_tensor() for p in leaves]
+    synced = [_whole(g, mesh) for g in _as_placed(raw, leaves)]
+    full_init = [_whole(p.detach(), mesh) for p in leaves]
     loss0 = float(loss.detach().full_tensor())
     del raw
     for p in leaves:
         p.requires_grad_(False)
     check = None
     if rank == 0:
-        ref_params = gpt2.init_params(cfg, 0, device="cuda")
+        ref_cfg, fold = _mesh_reference(spec, extra)
+        ref_params = gpt2.init_params(ref_cfg, 0, device=dev)
         rl = tree_leaves(ref_params)
         init_equal = all(torch.equal(a, b) for a, b in zip(full_init, rl))
         for p in rl:
             p.requires_grad_(True)
-        t = torch.as_tensor(tokens, device="cuda")
-        ref_loss = gpt2.loss_fn(ref_params, t[:, :-1], t[:, 1:], cfg)
-        ref = torch.autograd.grad(ref_loss, rl)
+        t = torch.as_tensor(tokens, device=dev)
+        with use_mesh(fold) if fold is not None else contextlib.nullcontext():
+            ref_loss = gpt2.loss_fn(ref_params, t[:, :-1], t[:, 1:], ref_cfg)
+            ref = torch.autograd.grad(ref_loss, rl)
 
         def err(g, r):
             if g.shape != r.shape:
@@ -5199,28 +5413,44 @@ def _mesh_loop(config) -> None:
                                   if g.shape == r.shape})
         del ref, ref_params, rl, t, own
     del synced, full_init
-    torch.cuda.empty_cache()
+    if cuda:
+        torch.cuda.empty_cache()
 
     def counts():
         return {**attention.LAUNCHES, **fused_ce.LAUNCHES,
                 **ring_attention.LAUNCHES}
 
+    # The host time a step spends waiting in point-to-point shifts (the
+    # ring's K/V and dK/dV, the pipeline's ticks): its own wait for a
+    # peer, the bubble included, and the transfer.
+    waited = [0.0]
+    wait = torch_compat.Shift.wait
+
+    def timed_wait(self):
+        t0 = time.perf_counter()
+        try:
+            return wait(self)
+        finally:
+            waited[0] += time.perf_counter() - t0
+
+    torch_compat.Shift.wait = timed_wait
     for mod in (attention, fused_ce, ring_attention):
         mod.reset_launches()
     step = gpt2.make_train_step(cfg, opt)
     # Process ranks run no session profiler; one per step times the step
     # and takes the gradient sync that make_step records as ``collective``.
-    rows = []
+    buckets = []
     for i in range(config["steps"]):
         before = counts()
-        torch.cuda.synchronize()
+        waited[0] = 0.0
+        sync()
         t0 = time.time()
         prof = profiler.StepProfiler(run_name="train_mesh", rank=rank)
         profiler.activate(prof)
         params, state, loss = step(params, state, x, y)
         value = float(loss)
         step_s = time.time() - t0
-        rows.append(prof.step_boundary())
+        buckets.append(prof.step_boundary())
         profiler.activate(None)
         launched = {k: v - before[k] for k, v in counts().items()}
         digests = [hashlib.sha256(p.to_local().detach().cpu().numpy()
@@ -5230,20 +5460,30 @@ def _mesh_loop(config) -> None:
         # digests and start times ride to it here.
         ranks = [None] * world
         dist.all_gather_object(ranks, {
-            "coord": mesh.device_mesh.get_coordinate(), "digests": digests,
+            "coord": mesh.device_mesh.get_coordinate(), "axes": coord,
+            "digests": digests,
             "placements": [[repr(q) for q in p.placements]
                            for p in tree_leaves(params)],
             "launches": launched, "wrong_shapes": wrong,
+            "shift_wait_s": waited[0], "step_s": step_s,
             "started": started, "ready": ready})
         metrics = {"step": i + 1, "loss": value, "step_s": step_s,
                    "time": time.time(), "ranks": ranks, "rank": rank,
                    "pid": os.getpid(), "backend": dist.get_backend(),
                    "x_local": x_local, "local_shapes": local,
                    "check": check if i == 0 else None,
-                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+                   "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                   if cuda else None)}
         if i == config["steps"] - 1:
-            metrics["buckets"] = rows
+            metrics["buckets"] = buckets
+            if "seq" in mesh.dim_names:
+                probes = [None] * world
+                dist.all_gather_object(probes, _ring_probe(
+                    mesh, (x_local[0], x_local[1], cfg.n_head,
+                           cfg.head_dim), dev))
+                metrics["ring_probe"] = probes
         train.report(metrics)
+    torch_compat.Shift.wait = wait
 
 
 def _named_leaves(tree, prefix=""):
@@ -5268,23 +5508,61 @@ def _replicas_equal(ranks) -> bool:
     return True
 
 
+def _mesh_direct(spec, extra, tokens) -> Dict[str, object]:
+    """Direct: one process, B=16, the same weights and tokens, the cell's
+    reference model (``_mesh_reference``), MESH_STEPS steps: its losses and
+    tokens/s over steps 2 on."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import use_mesh
+
+    cfg, fold = _mesh_reference(spec, extra)
+    params = gpt2.init_params(cfg, 0, device="cuda")
+    opt = gpt2.make_optimizer(MESH_LR)
+    state = opt.init(params)
+    step = gpt2.make_train_step(cfg, opt)
+    t = torch.as_tensor(np.asarray(tokens, np.int64), device="cuda")
+    seconds, losses = [], []
+    for _ in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with use_mesh(fold) if fold is not None else contextlib.nullcontext():
+            params, state, loss = step(params, state, t[:, :-1], t[:, 1:])
+        losses.append(float(loss))
+        seconds.append(time.time() - t0)
+    del params, state, step, t
+    torch.cuda.empty_cache()
+    return {"losses": losses, "tokens_per_s": (MESH_STEPS - 1) * MESH_BATCH
+            * cfg.seq_len / sum(seconds[1:])}
+
+
 def phase_train_mesh(card: str, cells=MESH_CELLS, cards: int = 1
                      ) -> Dict[str, object]:
     """GPT-2 124M at full width on a device mesh of process ranks, one run
     per entry of ``cells``. On one card (``cards=1``) the ranks share card 0
     over an explicitly chosen gloo: (a) ``MeshSpec(data=2)``, two ranks of
-    B=8 (MESH_CELLS says why an fsdp x tensor mesh does not run there). On
-    ``cards`` cards each rank holds one and they join over NCCL: (b)
-    ``MeshSpec(fsdp=2, tensor=2)``, four ranks of B=8 and six heads (the
-    tensor ranks feed the same rows). Each is held to a direct B=16 step
-    on the same weights and tokens: the first loss within LOSS_ATOL, every
-    synced gradient within GRAD_RTOL of its leaf's largest entry in
-    direct's (rank 0's own gradients before the sync must fail that gate),
-    the parameters' replicas equal bit for bit after each step, each rank's
-    local shapes those ``logical_to_spec`` names, and each rank's launches
-    per step those of one rank's batch through the kernels, none in the
-    driver. Prints tokens/s against direct, the step profiler's collective
-    bucket and each rank's cold start."""
+    B=8; (c) ``MeshSpec(data=2, seq=2)``, four ranks of B=8 x 512 tokens
+    through the process ring; (d) ``MeshSpec(pipe=2)``, two stages of six
+    layers, B=16 in four microbatches (MESH_CELLS says why an fsdp x tensor
+    mesh does not run there). On ``cards`` cards each rank holds one and
+    they join over NCCL: (b) ``MeshSpec(fsdp=2, tensor=2)``, four ranks of
+    B=8 and six heads (the tensor ranks feed the same rows), and (c4), (d4)
+    as (c), (d) with ``data=2`` beside ``pipe``. Each is held to a direct
+    B=16 step on the same weights and tokens (a seq mesh's direct step runs
+    the ring folded onto the card, a pipelined one's the same model
+    unpipelined): the first loss within LOSS_ATOL, every synced gradient
+    within GRAD_RTOL of its leaf's largest entry in direct's (rank 0's own
+    gradients before the sync must fail that gate where its batch or
+    sequence shard makes them a part of the sum), the parameters' replicas
+    equal bit for bit after each step, each rank's local shapes those
+    ``logical_to_spec`` names, and each rank's launches per step those its
+    place on the mesh gives (``_mesh_want``), none in the driver. Prints
+    tokens/s against direct, the step profiler's collective bucket, the
+    time each rank waits in point-to-point shifts, the pipeline's bubble
+    by its schedule, each ring step's shift against its kernel, and each
+    rank's cold start."""
     import os
     import tempfile
 
@@ -5293,42 +5571,24 @@ def phase_train_mesh(card: str, cells=MESH_CELLS, cards: int = 1
 
     import ray_tpu_torch
     from ray_tpu_torch.examples import batch_inference as bi
-    from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.train import CudaTrainer, RunConfig, ScalingConfig
 
     t_phase = time.perf_counter()
-    cfg = gpt2.GPTConfig(loss_impl="fused", remat_policy="attn_outside")
-    S, L = cfg.seq_len, cfg.n_layer
+    S = _mesh_config({}).seq_len
     tokens = bi.token_windows(MESH_BATCH, S, 50257)  # default_rng(0)
-    want = {k: 0 for k in _counts()}
-    want.update(splash_attention_fwd=L, splash_attention_bwd=L,
-                fused_ce_fwd=1, fused_ce_dx=1, fused_ce_dw=1)
-
-    # direct: one process, B=16, the same weights and tokens
-    params = gpt2.init_params(cfg, 0, device="cuda")
-    opt = gpt2.make_optimizer(MESH_LR)
-    state = opt.init(params)
-    step = gpt2.make_train_step(cfg, opt)
-    t = torch.as_tensor(np.asarray(tokens, np.int64), device="cuda")
-    direct_s, direct_losses = [], []
-    for _ in range(MESH_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        params, state, loss = step(params, state, t[:, :-1], t[:, 1:])
-        direct_losses.append(float(loss))
-        direct_s.append(time.time() - t0)
-    direct_tps = (MESH_STEPS - 1) * MESH_BATCH * S / sum(direct_s[1:])
-    del params, state, step, t
-    torch.cuda.empty_cache()
-
     storage = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_")
-    result: Dict[str, object] = {"card": card, "direct_tokens_per_s":
-                                 direct_tps, "direct_losses": direct_losses}
+    result: Dict[str, object] = {"card": card}
     path_launches = {k: 0 for k in _counts()}
+    directs: Dict[str, Dict[str, object]] = {}
+    for label, spec, extra in cells:
+        key = repr(_mesh_reference(spec, extra))
+        if key not in directs:
+            directs[key] = _mesh_direct(spec, extra, tokens)
     ray_tpu_torch.init()
     try:
-        for label, spec in cells:
+        for label, spec, extra in cells:
             world = math.prod(spec.values())
+            direct = directs[repr(_mesh_reference(spec, extra))]
             shared = cards == 1
             backend = "gloo" if shared else "nccl"
             if not shared and world != cards:
@@ -5336,8 +5596,9 @@ def phase_train_mesh(card: str, cells=MESH_CELLS, cards: int = 1
             _reset_counts()
             trainer = CudaTrainer(
                 _mesh_loop,
-                train_loop_config={"spec": spec, "tokens": tokens,
-                                   "lr": MESH_LR, "steps": MESH_STEPS},
+                train_loop_config={"spec": spec, "extra": extra,
+                                   "tokens": tokens, "lr": MESH_LR,
+                                   "steps": MESH_STEPS},
                 scaling_config=ScalingConfig(
                     num_workers=world,
                     gpus_per_worker=1.0 / world if shared else 1.0,
@@ -5360,6 +5621,8 @@ def phase_train_mesh(card: str, cells=MESH_CELLS, cards: int = 1
             pids = {r["pid"] for r in topo}
             # [step][rank] -> that rank's launches in that step
             per_rank = [[r["launches"] for r in m["ranks"]] for m in hist]
+            want = [_mesh_want(spec, extra, r["axes"])
+                    for r in first["ranks"]]
             if any(r["backend"] != backend for r in topo) or \
                     len(pids) != world or os.getpid() in pids:
                 fail(f"train_mesh ({label}): topology {topo}")
@@ -5371,7 +5634,12 @@ def phase_train_mesh(card: str, cells=MESH_CELLS, cards: int = 1
             if check["grad_rel_err"][worst] > GRAD_RTOL:
                 fail(f"train_mesh ({label}): gradient {worst} off by "
                      f"{check['grad_rel_err'][worst]} (tol {GRAD_RTOL})")
-            if own_worst <= GRAD_RTOL:
+            # The control, where a rank's gradients are a part of the sum
+            # (its batch or sequence shard's). A pipe stage's own gradients
+            # of what every stage holds are whole before any sync.
+            control = any(spec.get(n, 1) > 1 for n in ("data", "fsdp",
+                                                        "seq"))
+            if control and own_worst <= GRAD_RTOL:
                 fail(f"train_mesh ({label}): rank 0's gradients before the "
                      f"sync passed the gate ({own_worst}): the control")
             if not all(_replicas_equal(m["ranks"]) for m in hist):
@@ -5380,7 +5648,7 @@ def phase_train_mesh(card: str, cells=MESH_CELLS, cards: int = 1
                      if r["wrong_shapes"]}
             if wrong:
                 fail(f"train_mesh ({label}): local shapes by rank {wrong}")
-            if any(len(step) != world or any(c != want for c in step)
+            if any(len(step) != world or step != want
                    for step in per_rank) or any(driver.values()):
                 fail(f"train_mesh ({label}): the ranks launched {per_rank} "
                      f"per step (want {want} in each), the driver {driver}")
@@ -5393,10 +5661,11 @@ def phase_train_mesh(card: str, cells=MESH_CELLS, cards: int = 1
             steps = [m["step_s"] for m in hist]
             tps = (MESH_STEPS - 1) * MESH_BATCH * S / sum(steps[1:])
             buckets = last["buckets"] or []
-            coll = [1e3 * b["collective"] for b in buckets[1:]]
+            stages = spec.get("pipe", 1)
+            micro = extra.get("pp_microbatches", 1)
             row = dict(
-                spec=spec, world=world, cards=cards, backend=backend,
-                x_local=first["x_local"],
+                spec=spec, extra=extra, world=world, cards=cards,
+                backend=backend, x_local=first["x_local"],
                 qkv_w_local=first["local_shapes"]["blocks.qkv_w"],
                 losses=[m["loss"] for m in hist],
                 first_loss=check["loss"], direct_first_loss=check["ref_loss"],
@@ -5404,19 +5673,39 @@ def phase_train_mesh(card: str, cells=MESH_CELLS, cards: int = 1
                 worst_grad=worst, worst_grad_rel_err=check["grad_rel_err"][
                     worst], own_worst_rel_err=own_worst,
                 step_s=steps, tokens_per_s=tps,
-                tokens_per_s_over_direct=tps / direct_tps,
-                collective_ms_per_step=coll,
+                direct_tokens_per_s=direct["tokens_per_s"],
+                direct_losses=direct["losses"],
+                tokens_per_s_over_direct=tps / direct["tokens_per_s"],
+                collective_ms_per_step=[1e3 * b["collective"]
+                                        for b in buckets[1:]],
                 wall_ms_per_step=[1e3 * b["wall"] for b in buckets[1:]],
+                shift_wait_ms_by_rank=[
+                    [1e3 * m["ranks"][r]["shift_wait_s"] for m in hist[1:]]
+                    for r in range(world)],
                 cold_start_s=dict(
                     to_loop=[r["started"] - t0 for r in first["ranks"]],
                     to_state=[r["ready"] - t0 for r in first["ranks"]],
                     to_first_report=hist[0]["time"] - t0),
-                launches_per_step=per_rank[0][0],
+                launches_per_step_by_rank=per_rank[0],
                 launches_by_rank=[{k: sum(step[r][k] for step in per_rank)
-                                   for k in want if want[k]}
+                                   for k in want[r] if want[r][k]}
                                   for r in range(world)],
                 wall_s=wall,
                 peak_mem_gb=last["peak_mem_gb"])
+            if stages > 1:
+                # GPipe's bubble: S - 1 of the S + M - 1 ticks a stage idles.
+                row["bubble_share_schedule"] = (stages - 1) / (stages + micro
+                                                               - 1)
+                row["shift_wait_share_of_step"] = [
+                    [m["ranks"][r]["shift_wait_s"] / m["ranks"][r]["step_s"]
+                     for m in hist[1:]] for r in range(world)]
+            if last.get("ring_probe"):
+                row["ring_probe_by_rank"] = last["ring_probe"]
+                hidden = [p["hidden_share"] for probe in last["ring_probe"]
+                          for p in probe if p["computes"]]
+                row["ring_hidden_share"] = dict(
+                    min=min(hidden), median=statistics.median(hidden),
+                    max=max(hidden))
             print(f"train_mesh_{label} " + json.dumps(row), flush=True)
             result[label] = row
     finally:
@@ -5431,7 +5720,7 @@ def phase_train_mesh(card: str, cells=MESH_CELLS, cards: int = 1
         "card": card, "launches": path_launches,
         "seconds": result["seconds"],
         "tokens_per_s_over_direct": {k: result[k]["tokens_per_s_over_direct"]
-                                     for k, _ in cells}}), flush=True)
+                                     for k, _, _ in cells}}), flush=True)
     return result
 
 
@@ -5482,7 +5771,110 @@ def phase_ring(peaks: Tuple[float, float]) -> Dict[str, object]:
     torch.cuda.empty_cache()
     whole = _ring_against_splash(gen)
     torch.cuda.empty_cache()
-    return dict(rows=rows, main=main, worst=worst, whole=whole)
+    per_rank = _ring_per_rank(peaks, gen, worst)
+    torch.cuda.empty_cache()
+    return dict(rows=rows, main=main, worst=worst, whole=whole,
+                per_rank=per_rank)
+
+
+def _ring_per_rank(peaks, gen, worst) -> Dict[str, object]:
+    """The process ring's per-rank launches (``ring_fwd_block`` and
+    ``ring_bwd_block``: the pair (0, 0), W = 1, the diagonal and first
+    flags of the rank's step) at RING_RANK_SHAPES, every rank on this card:
+    against the plain blocks and against the folded launches bit for bit;
+    then, at the first shape, the device ms of one rank's launch of each
+    kind (its first, diagonal step and a later, full one) beside the
+    bound."""
+    import torch
+
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    out = {"rows": []}
+    for n, (B, shard, H, hd, causal, W) in enumerate(RING_RANK_SHAPES):
+        q, k, v = _qkv(gen, B, W * shard, H, hd)
+        do = torch.randn(q.shape, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        got = ra.ring_by_rank(q, k, v, do, world=W, causal=causal)
+        plain = ra.ring_by_rank(q, k, v, do, world=W, causal=causal,
+                                plain=True)
+        o, lse = ra.ring_forward(q, k, v, world=W, causal=causal)
+        folded = (o, lse) + ra.ring_backward(q, k, v, o, lse, do, world=W,
+                                             causal=causal)
+        names = ("o", "lse", "dq", "dk", "dv")
+        shape = dict(B=B, S_local=shard, H=H, hd=hd, W=W, causal=causal)
+        row = dict(shape, equal_folded={m: bool(torch.equal(a, b)) for m, a, b
+                                        in zip(names, got, folded)},
+                   folded_max_abs_diff={
+                       m: (a - b).abs().max().item()
+                       for m, a, b in zip(names, got, folded)},
+                   o_max_abs_err=(got[0] - plain[0]).abs().max().item(),
+                   lse_max_abs_err=(got[1] - plain[1]).abs().max().item(),
+                   **{f"{m}_rel_err": rel_err(a, b) for m, a, b in
+                      zip(names[2:], got[2:], plain[2:])})
+        print("kernel ring_per_rank " + json.dumps(row), flush=True)
+        if not all(torch.isfinite(x).all() for x in got):
+            fail(f"non-finite per-rank ring output at {shape}")
+        if row["o_max_abs_err"] > O_ATOL or row["lse_max_abs_err"] > LSE_ATOL:
+            fail(f"the per-rank ring forward disagrees with its plain "
+                 f"version at {shape}: {row}")
+        if max(row[f"{m}_rel_err"] for m in names[2:]) > BWD_RTOL:
+            fail(f"the per-rank ring backward disagrees with its plain "
+                 f"version at {shape}: {row}")
+        if not all(row["equal_folded"].values()):
+            fail(f"the per-rank ring launches differ from the folded ones "
+                 f"at {shape}: {row['folded_max_abs_diff']}")
+        worst["fwd"] = max(worst["fwd"], row["o_max_abs_err"])
+        worst["bwd_rel"] = max(worst["bwd_rel"],
+                               *(row[f"{m}_rel_err"] for m in names[2:]))
+        worst["bwd_abs"] = max(worst["bwd_abs"], *(
+            (a - b).abs().max().item() for a, b in zip(got[2:], plain[2:])))
+        if n == 0:
+            out["timed"] = _ring_block_times(peaks, q, k, v, do, shard,
+                                             folded)
+        out["rows"].append(row)
+        del q, k, v, do, got, plain, o, lse, folded
+    return out
+
+
+def _ring_block_times(peaks, q, k, v, do, shard, folded) -> Dict[str, object]:
+    """Device ms of one rank's per-rank launch at train_mesh (c)'s shape:
+    the first (diagonal, writing) and a later (full, merging) step, forward
+    and backward, with their bounds and plain versions."""
+    import torch
+
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    B, _, H, hd = q.shape
+    q0, do0 = (x[:, :shard].contiguous() for x in (q, do))
+    own = [x[:, :shard].contiguous() for x in (k, v)]
+    other = [x[:, shard:2 * shard].contiguous() for x in (k, v)]
+    o = folded[0][:, :shard].contiguous()
+    lse = folded[1][:, :, :shard].contiguous()
+    delta = ra.ring_delta(o, do0)
+    o_acc, dq, dk, dv = (torch.empty_like(o) for _ in range(4))
+    lse_acc = torch.empty_like(lse)
+    out = {}
+    for label, kv, diagonal, first in (("first_diagonal", own, True, True),
+                                       ("later_full", other, False, False)):
+        flags = dict(diagonal=diagonal, first=first)
+        calls = {
+            "fwd": lambda fn, kv=kv, flags=flags: (
+                lambda: fn(q0, *kv, o_acc, lse_acc, **flags)),
+            "bwd": lambda fn, kv=kv, flags=flags: (
+                lambda: fn(q0, *kv, do0, lse, delta, dq, dk, dv, **flags))}
+        for which, kern, plain in (
+                ("fwd", ra.ring_fwd_block, ra.ring_fwd_block_plain),
+                ("bwd", ra.ring_bwd_block, ra.ring_bwd_block_plain)):
+            bound_ms, bound_by = ring_bound(
+                which, B, shard, H, hd, int(diagonal), int(not diagonal),
+                *peaks, n_first=int(first))
+            out[f"{which}_{label}"] = dict(
+                ms=device_ms(calls[which](kern)),
+                plain_ms=device_ms(calls[which](plain), iters=2),
+                bound_ms=bound_ms, bound_by=bound_by)
+    print("kernel ring_per_rank_ms " + json.dumps(
+        dict(B=B, S_local=shard, H=H, hd=hd, **out)), flush=True)
+    return out
 
 
 def _ring_times(peaks, q, k, v, do, o, lse, causal) -> Dict[str, object]:
@@ -7566,31 +7958,38 @@ def _leaf_names(tree, prefix=""):
 
 
 def _check_mesh_shapes(cells) -> None:
-    """Each mesh rank attends over its batch shard and its heads: phase 2
-    holds the kernels to their plain versions at those shapes (the
-    fsdp x tensor mesh's, (8, 1024, 6, 64), included)."""
-    for label, spec in cells:
+    """Each mesh rank attends over its batch shard (a pipeline stage over a
+    microbatch of it) and its heads, a seq rank over its sequence shard:
+    phases 2 and 5 hold the kernels to their plain versions at those shapes
+    (the splash and CE kernels at the rank's, the ring's per-rank launches
+    at RING_RANK_SHAPES)."""
+    for label, spec, extra in cells:
         b = MESH_BATCH // (spec.get("data", 1) * spec.get("fsdp", 1))
         h = 12 // spec.get("tensor", 1)
-        if (b, 1024, h, 64, True) not in KERNEL_SHAPES or \
-                (b, 1024, h, 64, True) not in BWD_SHAPES or \
-                (b * 1024, 768, 50304) not in CE_SHAPES:
-            fail(f"train_mesh ({label}) ran a rank shape ({b}, 1024, {h}, "
+        s = 1024 // spec.get("seq", 1)
+        if extra.get("attn_impl") == "ring":
+            covered = (b, s, h, 64, True, spec["seq"]) in RING_RANK_SHAPES
+        else:
+            mb = b // extra.get("pp_microbatches", 1)
+            covered = (mb, s, h, 64, True) in KERNEL_SHAPES and \
+                (mb, s, h, 64, True) in BWD_SHAPES
+        if not covered or (b * s, 768, 50304) not in CE_SHAPES:
+            fail(f"train_mesh ({label}) ran a rank shape ({b}, {s}, {h}, "
                  f"64) that no kernel check covers")
 
 
 def main_mesh_cards() -> int:
-    """``--mesh-cards``: only the fsdp x tensor mesh (MESH_CARDS_CELLS), one
-    process rank on each of its four cards over NCCL, after building the
-    kernels. The whole script on one card holds the kernels to their plain
-    versions at these ranks' shapes; this run prints the ``train_mesh_b``
-    line, the ranks' launches and the device line."""
+    """``--mesh-cards``: only the meshes of MESH_CARDS_CELLS, one process
+    rank on each of four cards over NCCL, after building the kernels. The
+    whole script on one card holds the kernels to their plain versions at
+    these ranks' shapes; this run prints a ``train_mesh_<cell>`` line for
+    each, the ranks' launches and the device line."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
-    cards = max(math.prod(spec.values()) for _, spec in MESH_CARDS_CELLS)
+    cards = max(math.prod(spec.values()) for _, spec, _ in MESH_CARDS_CELLS)
     if torch.cuda.device_count() < cards:
         print(f"chip_smoke: --mesh-cards needs {cards} cards, torch finds "
               f"{torch.cuda.device_count()}", file=sys.stderr)
@@ -7664,26 +8063,37 @@ def main() -> int:
     if "C751" in kernel_build.build_log("fused_ce"):
         fail("ptxas serialised the fused CE kernels' wgmma (a C751x note)")
 
-    kern = phase_kernel(peaks)
-    ce = phase_ce(peaks)
-    ring = phase_ring(peaks)
+    # Each phase's seconds, printed as it ends: the script must end within
+    # its time limit, and a later slice cuts the longest first.
+    phase_s: Dict[str, float] = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase_seconds {name} {phase_s[name]:.1f}", flush=True)
+        return out
+
+    kern = run("kernel", phase_kernel, peaks)
+    ce = run("ce", phase_ce, peaks)
+    ring = run("ring", phase_ring, peaks)
     weights = serve_weights()
-    serve = phase_serve(weights)
-    train = phase_train(peaks, card)
-    train_ring = phase_train_ring(peaks, card)
+    serve = run("serve", phase_serve, weights)
+    train = run("train", phase_train, peaks, card)
+    train_ring = run("train_ring", phase_train_ring, peaks, card)
     # After every in-process phase, so that none of their numbers moves;
     # before the profiled ones, whose tracing slows small kernels.
-    serve_http = phase_serve_http(weights, serve)
-    serve_batch = phase_serve_batch(weights)
-    serve_slo = phase_serve_slo(weights)
-    serve_process = phase_serve_process(weights, serve)
+    serve_http = run("serve_http", phase_serve_http, weights, serve)
+    serve_batch = run("serve_batch", phase_serve_batch, weights)
+    serve_slo = run("serve_slo", phase_serve_slo, weights)
+    serve_process = run("serve_process", phase_serve_process, weights, serve)
     del weights
-    data_batch = phase_data_batch()
+    data_batch = run("data_batch", phase_data_batch)
     ce["fused_ce_fwd"]["worst_abs"] = max(
         ce["fused_ce_fwd"]["worst_abs"],
         data_batch["ce_fwd_at_path"]["max_abs_err"])
-    train_fit = phase_train_fit()
-    train_elastic = phase_train_elastic()
+    train_fit = run("train_fit", phase_train_fit)
+    train_elastic = run("train_elastic", phase_train_elastic)
     # The phase's ranks ran at these batches: each kernel was held to its
     # plain version at their shapes by phase 2 (the forward and CE
     # kernels) and below (the splash backward).
@@ -7693,19 +8103,19 @@ def main() -> int:
                 (b * (s - 1), 768, 50304) not in CE_SHAPES:
             fail(f"train_elastic ran a rank batch of {b} x {s} that no "
                  f"kernel check covers")
-    train_mesh = phase_train_mesh(card)
+    train_mesh = run("train_mesh", phase_train_mesh, card)
     _check_mesh_shapes(MESH_CELLS)
-    tune_fit = phase_tune_fit()
-    workflow_fit = phase_workflow_fit()
-    models = phase_models(peaks, card)
-    rl = phase_rl_ppo(card)
-    rl_extras = phase_rl_extras(card)
-    rl_dreamer = phase_rl_dreamer(card)
-    telemetry = phase_telemetry(card)
+    tune_fit = run("tune_fit", phase_tune_fit)
+    workflow_fit = run("workflow_fit", phase_workflow_fit)
+    models = run("models", phase_models, peaks, card)
+    rl = run("rl_ppo", phase_rl_ppo, card)
+    rl_extras = run("rl_extras", phase_rl_extras, card)
+    rl_dreamer = run("rl_dreamer", phase_rl_dreamer, card)
+    telemetry = run("telemetry", phase_telemetry, card)
     # Last: its yardstick runs under torch.profiler, whose tracing slowed
     # the serving forward's many small kernels when it ran before them.
-    bwd = phase_attn_bwd(peaks)
-    ce_dense = phase_ce_yardstick(ce)
+    bwd = run("attn_bwd", phase_attn_bwd, peaks)
+    ce_dense = run("ce_yardstick", phase_ce_yardstick, ce)
 
     def entry(name, source, replaces, function, rows, by_path, worst, row,
               library_ms, shape, **extra):
@@ -7826,11 +8236,24 @@ def main() -> int:
                         for launch in ring["main"]["per_launch"]],
             whole_ring_ms=ring["whole"][f"{which}_ms"],
             bound_ms_accumulate=timed["bound_ms_accumulate"],
+            # The process ring's launch: one rank's block on its own shard
+            # at train_mesh (c)'s shape, and every per-rank row's match
+            # with the folded launches.
+            per_rank_launch=dict(
+                {k: RING_RANK_SHAPES[0][i] for i, k in enumerate(
+                    ("B", "S_local", "H", "hd", "causal", "W"))},
+                **{k[len(which) + 1:]: v
+                   for k, v in ring["per_rank"]["timed"].items()
+                   if k.startswith(which)}),
+            per_rank_equal_folded=[r["equal_folded"]
+                                   for r in ring["per_rank"]["rows"]],
             resources={key: res for key, res in resources.items()
                        if key.split()[0] in (("fwd",) if which == "fwd"
                                              else ("dkv", "dq"))},
             **extra))
-    print(f"script_seconds {time.perf_counter() - started:.1f}", flush=True)
+    print(f"script_seconds {time.perf_counter() - started:.1f} "
+          + json.dumps({k: round(v, 1) for k, v in phase_s.items()}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,9 @@
 """The port's counterparts of ``ray_tpu/_private/jax_compat.py``: the compile
 tap (``InstrumentedJit`` and ``instrumented_jit``) and the mesh helpers
-(``shard_map``, ``reshard``, ``device_put_batch``; the last section says
-what each is).
+(``shard_map``, ``reshard``, ``device_put_batch``; the mesh section says
+what each is), and the named-axis collectives of ``jax.lax`` that the
+context-parallel attention and the pipeline run over one axis of a mesh of
+process ranks (``ppermute``, ``all_to_all``, ``psum``; the last section).
 
 The reference times each trace/lower/compile of a jitted step and records
 it into the device-telemetry plane with a classified trigger. The port runs
@@ -204,3 +206,221 @@ def device_put_batch(batch: Dict[str, Any], sharding, *,
     if telemetry is not None and nbytes:
         telemetry.record_transfer("h2d", nbytes, src=transfer_src)
     return out
+
+
+# ------------------------------------------------ named-axis collectives
+# ``lax.ppermute``, ``lax.all_to_all`` and ``lax.psum`` over one named axis
+# of a mesh of process ranks: the axis's process group is
+# ``DeviceMesh.get_group(axis)`` and a rank's index on it its coordinate.
+# Each is a ``torch.autograd.Function`` whose backward is JAX's transpose.
+# Over gloo a CUDA tensor is staged through host memory (a gloo ``send`` of
+# a CUDA tensor kills the sender, scripts/torch_gloo_cuda_probe.py); NCCL
+# moves the CUDA tensor itself. Collectives pair by order: every rank of
+# the axis issues the same ones in the same order, from the forward and
+# backward of these Functions (whose order a graph the ranks share fixes),
+# never from hooks.
+
+
+def _axis_mesh(mesh):
+    from ray_tpu_torch.parallel.mesh import current_mesh, make_mesh
+
+    resolved = current_mesh() if mesh is None else make_mesh(mesh)
+    if resolved is None or resolved.device_mesh is None:
+        raise ValueError("a named-axis collective needs a mesh over process "
+                         "ranks: pass mesh= or install one with use_mesh")
+    return resolved
+
+
+def axis_group(mesh, axis: str):
+    """The process group of ``axis`` on ``mesh`` (a ``Mesh`` over process
+    ranks): the ranks that differ from this one on ``axis`` alone."""
+    mesh = _axis_mesh(mesh)
+    if axis not in mesh.dim_names:
+        raise ValueError(f"mesh dimensions {mesh.dim_names} have no "
+                         f"{axis!r}")
+    return mesh.device_mesh.get_group(axis)
+
+
+def _gloo(group) -> bool:
+    import torch.distributed as dist
+
+    return "nccl" not in str(dist.get_backend(group))
+
+
+def _staged(x, group) -> bool:
+    """Whether ``x`` goes through host memory on ``group``: a CUDA tensor
+    on any backend but NCCL."""
+    return x.is_cuda and _gloo(group)
+
+
+class Shift:
+    """A point-to-point shift in flight: ``wait()`` gives what this rank
+    received, on the device of what it sent (zeros where nothing came)."""
+
+    def __init__(self, works, sent, received, device):
+        # The sent tensors are held until the sends are done.
+        self._works, self._sent = works, sent
+        self._received, self._device = received, device
+
+    def wait(self):
+        for work in self._works:
+            work.wait()
+        self._sent = None
+        return [r.to(self._device) for r in self._received]
+
+
+def shift_start(tensors, group, perm) -> Shift:
+    """Posts ``lax.ppermute(x, axis, perm)`` of each of ``tensors`` on the
+    axis's ``group`` and returns at once: each (src, dst) of ``perm`` (axis
+    indices) moves src's tensor to dst, all in one batch of isend/irecv.
+    Over gloo a CUDA tensor is copied to the host first (which waits for
+    the work queued before it on its stream) and back at ``wait``."""
+    import torch
+    import torch.distributed as dist
+
+    me = dist.get_rank(group)
+    ranks = dist.get_process_group_ranks(group)
+    dsts = [d for s, d in perm if s == me]
+    srcs = [s for s, d in perm if d == me]
+    device = tensors[0].device
+    staged = _staged(tensors[0], group)
+    sent, received, ops = [], [], []
+    for x in tensors:
+        x = x.detach().contiguous()
+        x = x.cpu() if staged else x
+        sent.append(x)
+        out = torch.zeros_like(x)
+        received.append(out)
+        # Gloo moves the bytes (its point-to-point takes any type so).
+        wire, into = (x, out) if not _gloo(group) else (
+            x.view(torch.uint8), out.view(torch.uint8))
+        ops += [dist.P2POp(dist.isend, wire, ranks[d], group) for d in dsts]
+        ops += [dist.P2POp(dist.irecv, into, ranks[s], group) for s in srcs]
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return Shift(works, sent, received, device)
+
+
+def _inverse(perm):
+    return [(d, s) for s, d in perm]
+
+
+def _ppermute_function():
+    import torch
+
+    class PPermute(torch.autograd.Function):
+        """``lax.ppermute``; its transpose is the inverse permutation."""
+
+        @staticmethod
+        def forward(ctx, x, group, perm):
+            ctx.group, ctx.perm = group, perm
+            return shift_start([x], group, perm).wait()[0]
+
+        @staticmethod
+        def backward(ctx, g):
+            return (shift_start([g], ctx.group, _inverse(ctx.perm))
+                    .wait()[0], None, None)
+
+    return PPermute
+
+
+def ppermute(x, axis: str, perm, *, mesh=None):
+    """``lax.ppermute(x, axis, perm)`` over ``axis`` of ``mesh`` (the
+    ambient mesh by default): each (src, dst) of ``perm`` moves src's ``x``
+    to dst; a rank that receives nothing gets zeros, as on an open chain.
+    The gradient travels the inverse permutation."""
+    return _function("ppermute", _ppermute_function).apply(
+        x, axis_group(mesh, axis), [tuple(p) for p in perm])
+
+
+_functions = {}
+
+
+def _function(name, make):
+    fn = _functions.get(name)
+    if fn is None:
+        fn = _functions[name] = make()
+    return fn
+
+
+def _all_to_all(x, group, split_axis: int, concat_axis: int):
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)`` on
+    the axis's ``group``: ``x`` cut into W pieces along ``split_axis``,
+    piece j sent to rank j, the W pieces received laid side by side along
+    ``concat_axis`` in rank order. Gloo takes CUDA tensors in
+    ``all_to_all_single``, so nothing is staged."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size(group)
+    if x.shape[split_axis] % world:
+        raise ValueError(f"all_to_all: dimension {split_axis} of "
+                         f"{tuple(x.shape)} is not divisible by {world}")
+    send = x.unflatten(split_axis, (world, x.shape[split_axis] // world)) \
+        .movedim(split_axis, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    # recv[j] is rank j's piece; rank order is major along concat_axis.
+    return recv.movedim(0, concat_axis).flatten(concat_axis, concat_axis + 1)
+
+
+def _all_to_all_function():
+    import torch
+
+    class AllToAll(torch.autograd.Function):
+        """``lax.all_to_all``; its transpose swaps the two axes."""
+
+        @staticmethod
+        def forward(ctx, x, group, split_axis, concat_axis):
+            ctx.args = (group, concat_axis, split_axis)
+            return _all_to_all(x, group, split_axis, concat_axis)
+
+        @staticmethod
+        def backward(ctx, g):
+            return _all_to_all(g, *ctx.args), None, None, None
+
+    return AllToAll
+
+
+def all_to_all(x, axis: str, split_axis: int, concat_axis: int, *,
+               mesh=None):
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)`` over
+    ``axis`` of ``mesh`` (the ambient mesh by default), differentiable."""
+    return _function("all_to_all", _all_to_all_function).apply(
+        x, axis_group(mesh, axis), split_axis, concat_axis)
+
+
+def _psum_function():
+    import torch
+
+    class PSum(torch.autograd.Function):
+        """``lax.psum`` whose result is replicated over the axis (a
+        shard_map output of spec ``P()``): every rank then computes the
+        same thing from it, so each rank's cotangent is the whole one and
+        the transpose hands it on unchanged."""
+
+        @staticmethod
+        def forward(ctx, x, group):
+            import torch.distributed as dist
+
+            import torch
+
+            out = x.detach().clone()
+            if _gloo(group):  # through host memory, 16-bit types in fp32
+                out = out.cpu()
+                if out.dtype in (torch.bfloat16, torch.float16):
+                    out = out.float()
+            dist.all_reduce(out, group=group)
+            return out.to(x.device, x.dtype)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    return PSum
+
+
+def psum(x, axis: str, *, mesh=None):
+    """``lax.psum(x, axis)`` over ``axis`` of ``mesh`` (the ambient mesh by
+    default), replicated over the axis; see ``PSum`` for its gradient."""
+    return _function("psum", _psum_function).apply(x,
+                                                    axis_group(mesh, axis))

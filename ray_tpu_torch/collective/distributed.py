@@ -102,8 +102,10 @@ def local_batch_to_global(mesh, local_batch: Any, axis: str = "data"):
     a DTensor whose rows are the ranks' rows in mesh order, replicated over
     the other axes, so ranks that differ only there pass the same rows.
     ``axis`` is a mesh axis name or, as in a PartitionSpec entry, a tuple
-    of them (major to minor: ``("data", "fsdp")`` is the batch's). Nothing
-    is sent (``DTensor.from_local``)."""
+    of them (major to minor: ``("data", "fsdp")`` is the batch's), or a
+    whole ``PartitionSpec`` with one entry per dimension:
+    ``batch_sharding(mesh).spec`` gives each rank its (B/data, S/seq)
+    block of tokens. Nothing is sent (``DTensor.from_local``)."""
     import numpy as np
     import torch
     from torch.distributed.tensor import DTensor
@@ -115,6 +117,7 @@ def local_batch_to_global(mesh, local_batch: Any, axis: str = "data"):
     local = local_batch if isinstance(local_batch, torch.Tensor) \
         else torch.as_tensor(np.asarray(local_batch))
     dm = mesh.device_mesh
+    spec = axis if isinstance(axis, PartitionSpec) else PartitionSpec(axis)
     return DTensor.from_local(local.to(dm.device_type), dm,
-                              spec_to_placements(PartitionSpec(axis), mesh),
+                              spec_to_placements(spec, mesh),
                               run_check=False)

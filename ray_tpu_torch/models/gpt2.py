@@ -36,8 +36,10 @@ from ray_tpu_torch.ops.ring_attention import ring_attention, ulysses_attention
 # make_optimizer is re-exported: the JAX package defines it in this module.
 from ray_tpu_torch.optim import AdamW, make_optimizer  # noqa: F401
 from ray_tpu_torch.optim import make_step
-from ray_tpu_torch.parallel.mesh import (DEFAULT_RULES, Mesh, gather,
+from ray_tpu_torch.parallel.mesh import (DEFAULT_RULES, Mesh, axis_index,
+                                         current_mesh, gather,
                                          logical_to_spec, partition)
+from ray_tpu_torch.parallel.pipeline import pipeline_apply
 
 Params = Dict[str, object]
 
@@ -77,7 +79,8 @@ class GPTConfig:
     remat: bool = True
     remat_policy: str = "save_attn"
     attn_impl: str = "auto"  # auto | xla | pallas | splash | ring | ulysses
-    #: Pipeline stages; only 1 until the pipeline-parallel port.
+    #: GPipe stages over the mesh's ``pipe`` axis (``parallel/pipeline.py``)
+    #: and their microbatches (0: one per stage).
     pp_stages: int = 1
     pp_microbatches: int = 0
     #: Sequence-chunked LM-head loss: logits and cross-entropy per chunk of
@@ -207,21 +210,59 @@ def _layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x32 - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of (B, S, ..., K) activations and a (K, N) weight. With the
+    sequence sharded over a ``seq`` axis that spans ranks and the weight
+    replicated, each rank multiplies its own rows under ``shard_map``:
+    DTensor's matmul first flattens (B, S), which torch 2.11 refuses with
+    both dimensions sharded (its gradient of ``w`` is then the sum over the
+    shards that ``shard_map`` places)."""
+    if is_dtensor(x) and is_dtensor(w) and "seq" in Mesh.of(x).dim_names \
+            and all(p.is_replicate() for p in w.placements):
+        spec = logical_to_spec(("batch", "seqlen") + (None,) * (x.ndim - 2))
+        return shard_map(torch.matmul, mesh=Mesh.of(x),
+                         in_specs=(spec, partition()), out_specs=spec)(x, w)
+    return x @ w
+
+
 #: The layout of q, k, v and the attention output, (B, S, H, hd), on a mesh.
 _QKV_AXES = ("batch", "seqlen", "heads", "kv")
+#: The same with the whole sequence on each rank: what attention that is not
+#: context-parallel takes.
+_QKV_WHOLE_SEQ = ("batch", None, "heads", "kv")
+
+
+def _qkv_spec(config) -> tuple:
+    """The PartitionSpec a rank's q, k, v take on a mesh: the sequence
+    sharded over ``seq`` for the context-parallel paths (ring, Ulysses),
+    whole for the others."""
+    cp = config.attn_impl in ("ring", "ulysses")
+    return logical_to_spec(_QKV_AXES if cp else _QKV_WHOLE_SEQ)
+
+
+def _seq_offset(mesh: Mesh, spec, seq_len: int) -> int:
+    """The global position of a rank's first row along a (B, S, ...) tensor
+    placed by ``spec`` on ``mesh``: its ``seq`` index times the shard's
+    length when ``spec`` shards the sequence over ``seq``, else 0."""
+    if len(spec) < 2 or spec[1] != "seq":
+        return 0
+    return axis_index(mesh, "seq") * (seq_len // mesh.shape["seq"])
 
 
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               config: GPTConfig) -> torch.Tensor:
+               config: GPTConfig, mesh: Optional[Mesh] = None
+               ) -> torch.Tensor:
     """Causal multi-head attention, q, k, v: (B, S, H, hd).
 
     auto/splash run the splash kernel, pallas runs it through
     ``flash_attention`` (the same kernel), xla runs the plain version.
     ring/ulysses are the context-parallel paths (``ops/ring_attention.py``)
-    over the ambient mesh's ``seq`` axis: callers install the mesh with
-    ``ray_tpu_torch.parallel.use_mesh`` or ``jit_train_step(mesh=)``.
+    over the ``seq`` axis of ``mesh`` or of the ambient mesh: callers install
+    it with ``ray_tpu_torch.parallel.use_mesh`` or ``jit_train_step(mesh=)``.
     DTensors on a device mesh (``parallel.make_mesh``) go through
-    ``shard_map``: each rank attends over its batch shard and its heads.
+    ``shard_map``: each rank attends over its batch shard and its heads, and
+    over its sequence shard on the context-parallel paths (the whole
+    sequence, gathered, on the others).
     """
     impl = config.attn_impl
     if impl not in ("auto", "xla", "pallas", "splash", "ring", "ulysses"):
@@ -229,9 +270,11 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"Unknown attn_impl: {impl!r} "
             "(use auto|xla|pallas|splash|ring|ulysses)")
     if is_dtensor(q):
-        spec = logical_to_spec(_QKV_AXES)
-        return shard_map(partial(_attention, config=config), mesh=Mesh.of(q),
-                         in_specs=(spec,) * 3, out_specs=spec)(q, k, v)
+        mesh = Mesh.of(q)
+        spec = _qkv_spec(config)
+        return shard_map(partial(_attention, config=config, mesh=mesh),
+                         mesh=mesh, in_specs=(spec,) * 3,
+                         out_specs=spec)(q, k, v)
     if impl in ("auto", "splash"):
         return splash_attention(q, k, v, causal=True,
                                 block_q=config.attn_block_q,
@@ -239,9 +282,9 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl == "pallas":
         return flash_attention(q, k, v, causal=True)
     if impl == "ring":
-        return ring_attention(q, k, v, causal=True)
+        return ring_attention(q, k, v, causal=True, mesh=mesh)
     if impl == "ulysses":
-        return ulysses_attention(q, k, v, causal=True)
+        return ulysses_attention(q, k, v, causal=True, mesh=mesh)
     return attention_reference(q, k, v, causal=True)[0]
 
 
@@ -250,23 +293,23 @@ def _block_pre_attn(x: torch.Tensor, blk: Params, config: GPTConfig
     """ln1 + qkv projection (the part before attention)."""
     dt = config.dtype
     h = _layernorm(x, blk["ln1_scale"], blk["ln1_bias"]).to(dt)
-    return h @ blk["qkv_w"].to(dt) + blk["qkv_b"].to(dt)
+    return _mm(h, blk["qkv_w"].to(dt)) + blk["qkv_b"].to(dt)
 
 
 def _post_attn_mlp_in(x: torch.Tensor, attn: torch.Tensor, blk: Params,
                       config: GPTConfig):
     """Residual out-projection, ln2, mlp_in and GELU: (x, MLP activation)."""
     dt = config.dtype
-    x = x + attn @ blk["out_w"].to(dt) + blk["out_b"].to(dt)
+    x = x + _mm(attn, blk["out_w"].to(dt)) + blk["out_b"].to(dt)
     h = _layernorm(x, blk["ln2_scale"], blk["ln2_bias"]).to(dt)
-    return x, F.gelu(h @ blk["mlp_in_w"].to(dt) + blk["mlp_in_b"].to(dt),
+    return x, F.gelu(_mm(h, blk["mlp_in_w"].to(dt)) + blk["mlp_in_b"].to(dt),
                      approximate="tanh")
 
 
 def _post_attn_mlp_out(x: torch.Tensor, act: torch.Tensor, blk: Params,
                        config: GPTConfig) -> torch.Tensor:
     dt = config.dtype
-    return x + act @ blk["mlp_out_w"].to(dt) + blk["mlp_out_b"].to(dt)
+    return x + _mm(act, blk["mlp_out_w"].to(dt)) + blk["mlp_out_b"].to(dt)
 
 
 def _block_post_attn(x: torch.Tensor, attn: torch.Tensor, blk: Params,
@@ -335,51 +378,62 @@ def _validate(config: GPTConfig) -> None:
         raise ValueError(
             f"unknown remat_policy {config.remat_policy!r} "
             f"(use {sorted(_REMAT_POLICIES)})")
-    if config.pp_stages > 1:
-        raise NotImplementedError(
-            "pp_stages > 1 (pipeline parallelism) is not ported yet; see "
-            "ROADMAP.md")
+    if config.pp_stages > 1 and config.remat \
+            and config.remat_policy == "attn_outside":
+        raise ValueError(
+            "remat_policy='attn_outside' does not compose with "
+            "pp_stages>1 yet; use save_attn")
 
 
 def _embed(wte: torch.Tensor, wpe: Optional[torch.Tensor],
-           tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+           tokens: torch.Tensor, dtype: torch.dtype,
+           offset: int = 0) -> torch.Tensor:
     """Token (plus, given ``wpe``, position) embeddings, (B, S, D) in
-    ``dtype``. On a device mesh each rank looks up its batch shard in the
-    whole tables (gathered; their gradients come back summed over the batch
-    shards)."""
+    ``dtype``; ``offset`` is the global position of the first column. On a
+    device mesh each rank looks up its batch and sequence shard in the
+    whole tables (gathered; their gradients come back summed over the
+    shards), at the global positions of its shard."""
     if is_dtensor(tokens):
         tables = (wte,) if wpe is None else (wte, wpe)
+        mesh = Mesh.of(tokens)
+        spec = logical_to_spec(("batch", "seqlen"))
+        start = _seq_offset(mesh, spec, tokens.shape[1])
         return shard_map(
-            lambda tokens, wte, wpe=None: _embed(wte, wpe, tokens, dtype),
-            mesh=Mesh.of(tokens),
-            in_specs=(logical_to_spec(("batch", "seqlen")),)
-            + (partition(),) * len(tables),
+            lambda tokens, wte, wpe=None: _embed(wte, wpe, tokens, dtype,
+                                                 start),
+            mesh=mesh, in_specs=(spec,) + (partition(),) * len(tables),
             out_specs=logical_to_spec(("batch", "seqlen", None)))(
                 tokens, *tables)
     x = wte[tokens].to(dtype)
-    return x if wpe is None else x + wpe[:tokens.shape[1]].to(dtype)
+    if wpe is None:
+        return x
+    return x + wpe[offset:offset + tokens.shape[1]].to(dtype)
 
 
 def sharded_mean(mean_fn: Callable, x: torch.Tensor, targets: torch.Tensor,
                  *weights: torch.Tensor) -> torch.Tensor:
-    """``mean_fn(x, targets, *weights)``, a mean over the leading (batch)
-    rows of x. On a device mesh each rank runs it over its batch shard with
-    the whole (gathered) weights, weighted by its share of the rows, and the
-    global mean is the sum of those terms over the batch shards."""
+    """``mean_fn(x, targets, *weights)``, a mean over the targets: the
+    leading (batch) rows of x and, for (B, S) targets, its sequence too. On
+    a device mesh each rank runs it over its batch (and ``seq``) shard with
+    the whole (gathered) weights, weighted by its share of the targets, and
+    the global mean is the sum of those terms over the shards."""
     if not is_dtensor(x):
         return mean_fn(x, targets, *weights)
-    B = x.shape[0]
+    lead = ("batch", "seqlen")[:min(targets.ndim, 2)]
+    total = targets.numel()
 
     def local(x, targets, *weights):
-        return mean_fn(x, targets, *weights) * (x.shape[0] / B)
+        return mean_fn(x, targets, *weights) * (targets.numel() / total)
 
-    def rows(t):
-        return logical_to_spec(("batch",) + (None,) * (t.ndim - 1))
+    def spec(t):
+        return logical_to_spec(lead + (None,) * (t.ndim - len(lead)))
 
+    summed = DEFAULT_RULES["batch"] + (DEFAULT_RULES["seqlen"]
+                                       if len(lead) > 1 else ())
     return shard_map(local, mesh=Mesh.of(x),
-                     in_specs=(rows(x), rows(targets))
+                     in_specs=(spec(x), spec(targets))
                      + (partition(),) * len(weights),
-                     out_specs=Pending(partition(), DEFAULT_RULES["batch"]))(
+                     out_specs=Pending(partition(), summed))(
                          x, targets, *weights)
 
 
@@ -393,9 +447,37 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     # Checkpointing only matters when a backward will run.
     block = (block_fn(config) if torch.is_grad_enabled()
              else partial(_block, config=config))
-    for i in range(config.n_layer):
-        x = block(x, gather({name: w[i] for name, w in blocks.items()}))
+
+    def stack(local_blocks, h):
+        for i in range(next(iter(local_blocks.values())).shape[0]):
+            h = block(h, gather({n: w[i] for n, w in local_blocks.items()}))
+        return h
+
+    if config.pp_stages > 1:
+        x = _pipelined(stack, blocks, x, config)
+    else:
+        x = stack(blocks, x)
     return _layernorm(x, params["lnf_scale"], params["lnf_bias"]).to(dt)
+
+
+def _pipelined(stack: Callable, blocks: Params, x: torch.Tensor,
+               config: GPTConfig) -> torch.Tensor:
+    """The block stack as a GPipe schedule over the mesh's ``pipe`` axis,
+    each stage running its local slice of the stacked blocks
+    (``ray_tpu/models/gpt2.py:372-397``), with the reference's checks."""
+    if config.n_layer % config.pp_stages:
+        raise ValueError(
+            f"n_layer {config.n_layer} % pp_stages {config.pp_stages} != 0")
+    # The mesh is authoritative for the stage count: a mismatched config
+    # would silently run a different schedule than requested.
+    mesh = Mesh.of(x) if is_dtensor(x) else current_mesh()
+    if mesh is not None and mesh.shape["pipe"] not in (1, config.pp_stages):
+        raise ValueError(
+            f"config.pp_stages={config.pp_stages} but mesh pipe axis is "
+            f"{mesh.shape['pipe']}")
+    return pipeline_apply(
+        stack, blocks, x,
+        n_microbatches=config.pp_microbatches or config.pp_stages)
 
 
 def lm_head(x: torch.Tensor, wte: torch.Tensor, out_dtype: torch.dtype
@@ -409,8 +491,8 @@ def lm_head(x: torch.Tensor, wte: torch.Tensor, out_dtype: torch.dtype
     speed.
     """
     if x.dtype == out_dtype:
-        return x @ wte.to(x.dtype).t()
-    return x.to(out_dtype) @ wte.to(x.dtype).to(out_dtype).t()
+        return _mm(x, wte.to(x.dtype).t())
+    return _mm(x.to(out_dtype), wte.to(x.dtype).to(out_dtype).t())
 
 
 def forward(params: Params, tokens: torch.Tensor, config: GPTConfig
@@ -477,10 +559,6 @@ def make_train_step(config: GPTConfig, optimizer: AdamW):
     """(params, opt_state, tokens, targets) -> (params, opt_state, loss):
     ``optim.make_step`` over ``loss_fn`` (parameters updated in place, the
     loss detached on the device)."""
-    if config.pp_stages > 1:
-        raise NotImplementedError(
-            "pp_stages > 1 (pipeline parallelism) is not ported yet; see "
-            "ROADMAP.md")
     return make_step(partial(loss_fn, config=config), optimizer)
 
 

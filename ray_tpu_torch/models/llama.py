@@ -7,7 +7,9 @@ weights (in, out) used as ``x @ W``, held in float32 and cast to
 ``config.dtype`` at each matmul). Attention goes through GPT-2's dispatcher
 (``gpt2._attention``), as the reference reuses its own, so every
 ``attn_impl`` works: on CUDA tensors "auto", "splash" and "pallas" run the
-splash kernels, "ring" the ring kernels under ``use_mesh(MeshSpec(seq=W))``.
+splash kernels, "ring" the ring kernels under ``use_mesh(MeshSpec(seq=W))``
+(or across process ranks on a mesh whose ``seq`` axis spans them, where
+RoPE takes each rank's global positions).
 The kernels take full-head k and v: grouped-query attention repeats each kv
 head for its query heads before the call.
 """
@@ -27,7 +29,7 @@ from ray_tpu_torch._private.torch_compat import is_dtensor, shard_map
 from ray_tpu_torch.models import gpt2 as _g
 from ray_tpu_torch.optim import AdamW, make_step
 from ray_tpu_torch.optim import make_optimizer as _make_optimizer
-from ray_tpu_torch.parallel.mesh import Mesh, gather, logical_to_spec
+from ray_tpu_torch.parallel.mesh import Mesh, gather
 
 Params = Dict[str, Any]
 
@@ -164,16 +166,17 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float
     return x32 * torch.rsqrt(ms + eps) * scale
 
 
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
+def _rope(x: torch.Tensor, theta: float, offset: int = 0) -> torch.Tensor:
     """Rotary position embedding over (B, S, H, hd), rotate-half form, in
-    float32 and cast back to x's type."""
+    float32 and cast back to x's type; ``offset`` is the global position of
+    the first row (a ``seq`` shard's)."""
     B, S, H, hd = x.shape
     half = hd // 2
     dev = x.device
     freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
                                           device=dev) / half))
-    angles = torch.arange(S, dtype=torch.float32, device=dev)[:, None] \
-        * freqs[None, :]
+    angles = torch.arange(offset, offset + S, dtype=torch.float32,
+                          device=dev)[:, None] * freqs[None, :]
     cos = torch.cos(angles)[None, :, None, :]  # (1, S, 1, half)
     sin = torch.sin(angles)[None, :, None, :]
     x32 = x.float()
@@ -183,18 +186,21 @@ def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            config: LlamaConfig) -> torch.Tensor:
+            config: LlamaConfig, offset: int = 0,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """RoPE, GQA's shared kv heads and causal attention over (B, S, H, hd)
-    (KV heads for k and v). On a device mesh it runs over each rank's batch
-    shard and heads: a rank's kv heads are those its query heads read."""
-    q = _rope(q, config.rope_theta)
-    k = _rope(k, config.rope_theta)
+    (KV heads for k and v), the first row at global position ``offset``. On
+    a device mesh it runs over each rank's batch shard and heads (a rank's
+    kv heads are those its query heads read), and over its sequence shard
+    on the context-parallel paths."""
+    q = _rope(q, config.rope_theta, offset)
+    k = _rope(k, config.rope_theta, offset)
     if config.n_kv_head != config.n_head:
         # GQA: kv head j serves query heads j*q_per_kv .. (j+1)*q_per_kv - 1
         # (jnp.repeat; Tensor.repeat would tile the heads instead).
         k = k.repeat_interleave(config.q_per_kv, dim=2)
         v = v.repeat_interleave(config.q_per_kv, dim=2)
-    return _g._attention(q, k, v, config)
+    return _g._attention(q, k, v, config, mesh)
 
 
 def _block(x: torch.Tensor, blk: Params, config: LlamaConfig) -> torch.Tensor:
@@ -203,22 +209,26 @@ def _block(x: torch.Tensor, blk: Params, config: LlamaConfig) -> torch.Tensor:
     H, KV, hd = config.n_head, config.n_kv_head, config.head_dim
 
     h = _rmsnorm(x, blk["attn_norm"], config.rms_eps).to(dt)
-    q = (h @ blk["wq"].to(dt)).view(B, S, H, hd)
-    k = (h @ blk["wk"].to(dt)).view(B, S, KV, hd)
-    v = (h @ blk["wv"].to(dt)).view(B, S, KV, hd)
+    q = _g._mm(h, blk["wq"].to(dt)).view(B, S, H, hd)
+    k = _g._mm(h, blk["wk"].to(dt)).view(B, S, KV, hd)
+    v = _g._mm(h, blk["wv"].to(dt)).view(B, S, KV, hd)
     if is_dtensor(q):
-        spec = logical_to_spec(_g._QKV_AXES)
-        attn = shard_map(partial(_attend, config=config), mesh=Mesh.of(q),
-                         in_specs=(spec,) * 3, out_specs=spec)(q, k, v)
+        mesh = Mesh.of(q)
+        spec = _g._qkv_spec(config)
+        attn = shard_map(partial(_attend, config=config,
+                                 offset=_g._seq_offset(mesh, spec, S),
+                                 mesh=mesh),
+                         mesh=mesh, in_specs=(spec,) * 3,
+                         out_specs=spec)(q, k, v)
     else:
         attn = _attend(q, k, v, config)
     attn = attn.to(dt).reshape(B, S, H * hd)
-    x = x + attn @ blk["wo"].to(dt)
+    x = x + _g._mm(attn, blk["wo"].to(dt))
 
     h = _rmsnorm(x, blk["mlp_norm"], config.rms_eps).to(dt)
-    gate = F.silu((h @ blk["w_gate"].to(dt)).float())
-    up = (h @ blk["w_up"].to(dt)).float()
-    return x + (gate * up).to(dt) @ blk["w_down"].to(dt)
+    gate = F.silu(_g._mm(h, blk["w_gate"].to(dt)).float())
+    up = _g._mm(h, blk["w_up"].to(dt)).float()
+    return x + _g._mm((gate * up).to(dt), blk["w_down"].to(dt))
 
 
 def _validate(config: LlamaConfig) -> None:

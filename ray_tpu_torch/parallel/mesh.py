@@ -6,22 +6,21 @@ the JAX package's, copied (the port imports nothing of ``ray_tpu``). What
 differs is what a mesh is. In JAX it is a grid of devices that XLA's SPMD
 partitioner splits arrays over. Here it is one of two things:
 
-- a ``seq``-only mesh (every other axis 1) is folded onto the one device of
-  the process: the tensors hold all W sequence shards side by side and the
-  context-parallel attention (``ops/ring_attention.py``) runs its W ranks as
-  kernel launches over them;
-- any other mesh spans the ranks of the joined ``torch.distributed`` process
-  group, one rank per mesh position, as a ``DeviceMesh`` whose dimensions
-  are the axes above 1, in ``AXIS_NAMES`` order (an axis of size 1 shards
-  nothing and is no dimension). A tensor on it is a ``DTensor`` with one
+- a mesh spans the ranks of the joined ``torch.distributed`` process group,
+  one rank per mesh position, as a ``DeviceMesh`` whose dimensions are the
+  axes above 1, in ``AXIS_NAMES`` order (an axis of size 1 shards nothing
+  and is no dimension). A tensor on it is a ``DTensor`` with one
   ``Shard(dim)`` or ``Replicate()`` per mesh dimension: the placements that
   ``logical_to_placements`` derives from ``DEFAULT_RULES``, so each rank
   holds the shard that ``logical_to_spec`` names. DTensor's sharding
   propagation then stands where XLA's partitioner stands in the reference.
-
-``seq`` together with another axis above 1 (sequence shards across
-processes) and ``pipe`` above 1 raise ``NotImplementedError``: ROADMAP Queue 1
-items 8 and 10.
+  The ``seq`` axis holds sequence shards there (the context-parallel
+  attention of ``ops/ring_attention.py`` rings them between the ranks) and
+  ``pipe`` the stages of ``parallel/pipeline.py``;
+- a ``seq``-only mesh (every other axis 1) in a process that joined no
+  process group of ``spec.size`` ranks is folded onto the one device of the
+  process: the tensors hold all W sequence shards side by side and the
+  context-parallel attention runs its W ranks as kernel launches over them.
 
 ``use_mesh`` installs a mesh as the ambient one, the counterpart of
 ``jax.set_mesh`` (``ray_tpu/_private/jax_compat.py:set_mesh``), and
@@ -163,39 +162,31 @@ MeshLike = Union[Mesh, MeshSpec]
 
 
 def _validate(spec: MeshSpec) -> None:
-    sizes = spec.axis_sizes()
-    bad = {n: s for n, s in sizes.items() if s < 1}
+    bad = {n: s for n, s in spec.axis_sizes().items() if s < 1}
     if bad:
         raise ValueError(f"mesh axes must be >= 1, got {bad}")
-    if spec.pipe > 1:
-        raise NotImplementedError(
-            "a pipe axis above 1 needs the pipeline schedule across "
-            "processes (ROADMAP Queue 1 item 10)")
-    wide = {n: s for n, s in sizes.items() if n != "seq" and s > 1}
-    if spec.seq > 1 and wide:
-        raise NotImplementedError(
-            f"the seq axis ({spec.seq}) with {wide}: sequence shards across "
-            "processes are ROADMAP Queue 1 item 8; a seq-only mesh folds "
-            "onto one device")
 
 
 def make_mesh(spec: MeshLike, devices: Optional[Sequence[int]] = None, *,
               device=None) -> Mesh:
-    """The mesh of ``spec``. A ``seq``-only mesh folds onto this process's
-    device. Any other spans the joined process group, whose world size must
-    equal ``spec.size``: ``devices`` lists its ranks in mesh order (default
-    0..size-1, the reference's device order), and ``device`` is the device
-    type of the ranks' tensors (the card unless the caller asks for the
-    CPU)."""
+    """The mesh of ``spec`` over the joined process group, whose world size
+    must equal ``spec.size``: ``devices`` lists its ranks in mesh order
+    (default 0..size-1, the reference's device order), and ``device`` is
+    the device type of the ranks' tensors (the card unless the caller asks
+    for the CPU). A ``seq``-only mesh spans the group when the group has
+    ``spec.size`` ranks, and otherwise folds onto this process's device (no
+    group, a group of one, or ranks that each run a folded ring of their
+    own)."""
     if isinstance(spec, Mesh):
         return spec
     _validate(spec)
     sizes = spec.axis_sizes()
-    if all(s == 1 for n, s in sizes.items() if n != "seq"):
-        return Mesh(spec)
     from ray_tpu_torch.collective import distributed
 
     world = distributed.process_count()
+    seq_only = all(s == 1 for n, s in sizes.items() if n != "seq")
+    if seq_only and not (world > 1 and spec.size == world):
+        return Mesh(spec)
     if spec.size != world:
         raise ValueError(
             f"MeshSpec needs {spec.size} processes, the process group has "
@@ -220,6 +211,14 @@ def make_mesh(spec: MeshLike, devices: Optional[Sequence[int]] = None, *,
                               if dev.index is None else dev.index)
     return Mesh(spec, DeviceMesh(dev.type, grid.tolist(),
                                  mesh_dim_names=names))
+
+
+def axis_index(mesh: Mesh, name: str) -> int:
+    """This rank's coordinate on the ``name`` axis of ``mesh``: 0 when the
+    axis is no dimension of it (size 1, or folded). ``lax.axis_index``."""
+    if name not in mesh.dim_names:
+        return 0
+    return mesh.device_mesh.get_local_rank(name)
 
 
 def spec_to_placements(spec: Sequence, mesh: Mesh) -> List[Any]:

@@ -57,7 +57,8 @@ def create_sharded_state(init_fn: Callable, logical: Any, mesh: MeshLike,
     mesh = make_mesh(mesh)
     if mesh.device_mesh is None:
         raise ValueError("create_sharded_state needs a mesh over processes; "
-                         "a seq-only mesh is one device (use init_params)")
+                         "a seq-only mesh folded onto one device is one "
+                         "device (use init_params)")
     device = mesh.device_mesh.device_type
     draws = iter(range(1 << 62))
     index = init_fn(seed, device=device, place=lambda _: next(draws))

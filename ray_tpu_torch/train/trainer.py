@@ -1267,6 +1267,8 @@ class CudaTrainer(DataParallelTrainer):
     ranks build ``parallel.make_mesh(MeshSpec(...))`` over their process
     group and train on DTensors (``parallel.create_sharded_state``,
     ``collective.distributed.local_batch_to_global``), multi-controller
-    SPMD as in the reference. Ranks that share one card
+    SPMD as in the reference, on any of its axes: ``seq`` rings the
+    sequence shards between the ranks and ``pipe`` runs the GPipe
+    schedule across them. Ranks that share one card
     (``gpus_per_worker < 1``) join over gloo, which the caller asks for
     with ``ScalingConfig(backend="gloo")``."""

@@ -19,6 +19,7 @@ import time
 
 WORLD = 4
 N = 9_656_832  # the largest of GPT-2 124M's per-layer gathers, in floats
+RING_N = 8 * 512 * 12 * 64
 CASES = [
     ("all_reduce", "world", 8), ("all_reduce", "sub", N),
     ("broadcast", "world", 8),
@@ -33,6 +34,10 @@ CASES = [
     ("dtensor_2d_shard_to_replicate", "world", 8),
     ("dtensor_2d_partial_to_shard", "world", 8),
     ("dtensor_2d_partial_to_replicate", "world", 8),
+    # K or V of one (8, 512, 12, 64) sequence shard, in floats.
+    ("host_staged_ring", "world", RING_N), ("host_staged_ring", "sub", RING_N),
+    ("all_to_all_single_uneven", "world", 10),
+    ("all_to_all_single_uneven", "sub", 10),
 ]
 
 
@@ -65,6 +70,29 @@ def rank_main(rank, port, op, grp, n):
     elif op == "all_to_all_single":
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=g)
+    elif op == "host_staged_ring":
+        # What parallel's ppermute does over gloo: the CUDA tensor copied to
+        # the host, one batch of isend/irecv to the next rank of the group,
+        # the received copy back onto the card.
+        ranks = list(range(WORLD)) if g is None else \
+            dist.get_process_group_ranks(g)
+        i = ranks.index(rank)
+        host = x.cpu()
+        got = torch.empty_like(host)
+        ops = [dist.P2POp(dist.isend, host, ranks[(i + 1) % size], g),
+               dist.P2POp(dist.irecv, got, ranks[(i - 1) % size], g)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        out = got.to("cuda")
+    elif op == "all_to_all_single_uneven":
+        # Rank r sends j + 1 values to rank j and gets r + 1 from each.
+        me = dist.get_rank(g)
+        send = [j + 1 for j in range(size)]
+        x = torch.cat([torch.full((j + 1,), float(10 * rank + j),
+                                  device="cuda") for j in range(size)])
+        out = torch.empty(size * (me + 1), device="cuda")
+        dist.all_to_all_single(out, x, output_split_sizes=[me + 1] * size,
+                               input_split_sizes=send, group=g)
     elif op == "send_recv":
         if rank == 0:
             dist.send(x, 1)
@@ -103,7 +131,9 @@ def rank_main(rank, port, op, grp, n):
         out = out.wait() if hasattr(out, "wait") else out
     torch.cuda.synchronize()
     line = json.dumps({"rank": rank, "ms": (time.time() - t0) * 1e3,
-                       "head": out[:2].tolist(), "numel": out.numel()})
+                       "head": out[:2].tolist(), "numel": out.numel(),
+                       "values": out.tolist() if out.numel() <= 16
+                       else None})
     os.write(1, (line + "\n").encode())  # one write: ranks never interleave
     dist.barrier()
     dist.destroy_process_group()

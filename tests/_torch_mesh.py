@@ -5,8 +5,8 @@ process group over gloo on the CPU, started once per test process and
 reused by the cases that ask for the same size in a row (a case builds its
 own mesh, so nothing carries over but the process group). ``World.run(fn,
 *args)`` calls ``fn(*args)`` in every rank and returns the ranks' results
-in rank order; ``fn`` is a module-level function of ``_torch_mesh_cases``,
-which imports torch and the port and never JAX.
+in rank order; ``fn`` is a module-level function of ``_torch_mesh_cases``
+or ``_torch_cp_cases``, which import torch and the port and never JAX.
 
 The ranks are forked from a forkserver that has imported torch and the
 port and run nothing, so a world starts in about a second after the
@@ -28,7 +28,7 @@ CALL_S = 300.0
 _PRELOAD = ["torch", "torch.distributed", "numpy", "ray_tpu_torch.models.gpt2",
             "ray_tpu_torch.models.llama", "ray_tpu_torch.models.vit",
             "ray_tpu_torch.models.moe", "ray_tpu_torch.parallel",
-            "_torch_mesh_cases"]
+            "_torch_mesh_cases", "_torch_cp_cases"]
 _worlds = {}
 
 

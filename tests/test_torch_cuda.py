@@ -305,6 +305,42 @@ def test_ring_first_step_reads_no_accumulator_on_gpu(B, shard, H, hd, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,shard,H,hd,causal", [
+    (4, 256, 12, 64, True), (2, 512, 12, 64, True), (2, 256, 8, 128, True),
+    (2, 256, 12, 64, False)])
+def test_per_rank_ring_steps_match_plain_and_folded_on_gpu(B, shard, H, hd,
+                                                            causal):
+    """The process ring's launch: one per rank per step on the rank's own
+    shard (the diagonal and the full mask, the first step's write and the
+    later steps' merge and add), each rank's o, lse, dq, dk, dv against the
+    plain blocks within the ring's tolerance and against the folded
+    launches over the same pairs bit for bit."""
+    _need_gpu()
+    W = 4
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    qkv = torch.randn((B, W * shard, 3 * H * hd), generator=gen,
+                      device="cuda", dtype=torch.bfloat16)
+    q, k, v = (t.view(B, W * shard, H, hd) for t in qkv.split(H * hd, dim=-1))
+    do = torch.randn(q.shape, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    before = dict(ra.LAUNCHES)
+    got = ra.ring_by_rank(q, k, v, do, world=W, causal=causal)
+    n = W * (W + 1) // 2 if causal else W * W
+    assert {m: ra.LAUNCHES[m] - before[m] for m in before} == {
+        "ring_attention_fwd": n, "ring_attention_bwd": n}
+    o, lse = ra.ring_forward(q, k, v, world=W, causal=causal)
+    folded = (o, lse) + ra.ring_backward(q, k, v, o, lse, do, world=W,
+                                         causal=causal)
+    for a, b in zip(got, folded):
+        assert torch.equal(a, b)
+    plain = ra.ring_by_rank(q, k, v, do, world=W, causal=causal, plain=True)
+    assert (got[0] - plain[0]).abs().max().item() <= 2e-2
+    assert (got[1] - plain[1]).abs().max().item() <= 1e-3
+    for g, r in zip(got[2:], plain[2:]):
+        assert torch.isfinite(g).all() and _rel(g, r) <= 2e-2
+
+
+@pytest.mark.cuda
 def test_ring_attention_gradient_is_its_own_on_gpu():
     """attn_impl="ring"'s attention on the card: FusedRing's backward (four
     launches at W=4), within the splash kernels' tolerance of splash

@@ -49,9 +49,18 @@ def leaves(tree, order):
     return [np.asarray(tree, np.float32)]
 
 
-def jax_step(jmod, jcfg, params, inputs, targets, spec, opt=None):
+def jax_step(jmod, jcfg, params, inputs, targets, spec, opt=None,
+             ambient=False):
     """loss, gradients, and (given an optax optimizer) the parameters after
-    one update, jitted over the reference's mesh, and the sharded params."""
+    one update, jitted over the reference's mesh, and the sharded params.
+    ``ambient`` installs the mesh (``set_mesh``) around the step, as
+    ``jit_train_step(mesh=)`` does, for the paths that read it (ring and
+    Ulysses attention, the pipeline)."""
+    if ambient:
+        from ray_tpu._private.jax_compat import set_mesh
+
+        with set_mesh(jmesh.make_mesh(jmesh.MeshSpec(**spec))):
+            return jax_step(jmod, jcfg, params, inputs, targets, spec, opt)
     mesh = jmesh.make_mesh(jmesh.MeshSpec(**spec))
     sharded = jax.device_put(
         params, jmesh.pytree_sharding(jmod.logical_axes(jcfg), mesh))
@@ -69,12 +78,12 @@ def jax_step(jmod, jcfg, params, inputs, targets, spec, opt=None):
 
 
 def assert_step_matches(name, tcfg_kw, jmod, jcfg, params, inputs, targets,
-                        spec, jopt, opt_kw):
+                        spec, jopt, opt_kw, ambient=False):
     """The port's step on the mesh against the reference's, as the module
     docstring says; the gradients each rank holds before their
     redistribution must fail the gradient gate (a control)."""
     loss, grads, updated, sharded = jax_step(jmod, jcfg, params, inputs,
-                                             targets, spec, jopt)
+                                             targets, spec, jopt, ambient)
     np_params = jax.tree.map(np.asarray, params)
     np_grads = jax.tree.map(np.asarray, grads)
     out = world(int(np.prod(list(spec.values())))).run(

@@ -234,7 +234,19 @@ def test_the_scan_covers_the_parallel_package():
     files = {p.relative_to(PORT).as_posix() for p in _port_files()
              if PORT in p.parents}
     assert {"parallel/__init__.py", "parallel/mesh.py",
-            "parallel/train_state.py", "ops/ring_attention.py"} <= files
+            "parallel/pipeline.py", "parallel/train_state.py",
+            "ops/ring_attention.py",
+            "examples/long_context_ring_attention.py"} <= files
+
+
+def test_long_context_example_raises_without_a_gpu(no_gpu):
+    """The example runs on the card unless told ``--device cpu``: without
+    one it raises before starting a rank."""
+    from ray_tpu_torch.examples import long_context_ring_attention as ex
+
+    for argv in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ex.main(argv)
 
 
 def test_the_scan_covers_the_runtime_serve_util_and_examples():

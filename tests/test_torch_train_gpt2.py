@@ -302,10 +302,20 @@ def test_cpu_training_launches_no_kernel(batch):
     assert set(fused_ce.LAUNCHES.values()) == {0}
 
 
-def test_pipeline_stages_raise():
-    _, tcfg = _configs(pp_stages=2)
-    with pytest.raises(NotImplementedError, match="pp_stages"):
-        tgpt2.make_train_step(tcfg, tgpt2.make_optimizer())
+def test_pipeline_stages_raise(jax_params, batch):
+    """A pipelined step builds, as the reference's does; called without a
+    mesh it raises ValueError, as the reference's ("the context mesh cannot
+    be empty"). tests/test_torch_pipeline.py runs it on a pipe mesh."""
+    jcfg, tcfg = _configs(pp_stages=2)
+    jopt = jgpt2.make_optimizer()
+    jstep = jgpt2.make_train_step(jcfg, jopt)
+    with pytest.raises(ValueError, match="mesh"):
+        jstep(jax_params, jopt.init(jax_params), *map(jnp.asarray, batch))
+    step = tgpt2.make_train_step(tcfg, tgpt2.make_optimizer())
+    params = convert.params_from_numpy(jax_params, device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        step(params, tgpt2.make_optimizer().init(params),
+             *_torch_batch(batch))
 
 
 @pytest.mark.parametrize("loss_impl", ["dense", "fused"])
