@@ -58,9 +58,11 @@ Phases, each of which exits non-zero on failure:
    card: ``ring_by_rank``) at train_mesh (c)'s rank shape (8, 512, 12, 64),
    W=2, and with the full mask, against the plain blocks and, bit for
    bit, against the folded launches over the same pairs, with one rank's
-   launch of each kind timed beside its bound. Then GPT-2 124M trains five
-   steps through the ring from the splash run's start (exactly 48 ring
-   forward and 48 ring backward launches per step, no splash or CE), and
+   launch of each kind timed beside its bound and SDPA on the same blocks
+   (causal for the first, diagonal step, full for a later one). Then GPT-2
+   124M trains five steps through the ring from the splash run's start
+   (exactly 48 ring forward and 48 ring backward launches per step, no
+   splash or CE), and
    one B=2 step of ``attn_impl="ring"`` and of ``"ulysses"`` is held
    against the splash path.
 6. Serving through the control plane (``serve_http`` line): after the
@@ -130,6 +132,34 @@ Phases, each of which exits non-zero on failure:
    of each tier at one and two replicas and each process replica's cold
    start (spawn to worker loop, to the replica's constructor, the
    constructor, the first answer, the kernel library's load).
+9b. GPT-2 124M as two compiled stages (``dag_compiled`` line): thread
+    actors ``StageA`` (embeddings, blocks 0-5) and ``StageB`` (blocks 6-11,
+    ln_f, the head), both ``GPT2Stage`` on the serving weights, compiled as
+    ``b.tail.bind(a.head.bind(inp).with_tensor_transport())``. 32
+    executions at (1, 1024) and 8 at (8, 1024) keep the tie rule against
+    one whole ``gpt2.forward`` at every position (max |dlogit| printed), 12
+    splash launches an execution and no other kernel, the tensor StageB
+    reads has the data_ptr and device StageA wrote, no host bytes ledgered
+    for the edge; ``allreduce.bind`` over two actors holding halves of
+    block 0's MLP gives both equal reduced tensors within 2e-2 of the
+    unsplit MLP; after teardown both stages answer plain calls, and after
+    shutdown no thread of the phase is left, the ``dag_channel`` pool reads
+    0 and the card's memory is back within 8 MiB. It prints executions/s
+    and ms per execution, compiled against interpreted ``execute()`` and a
+    direct forward, at both shapes.
+9c. The compiled serve route (``serve_compiled`` line): (a)
+    ``GPT2BatchNext`` on one thread replica compiles after the stability
+    window (``route_mode`` "compiled", one recompile with reason
+    "deploy"), and answers 64 requests from 1, 8 and 32 handle clients, in
+    turns with the same deployment at ``compiled_route=False``, and from 8
+    HTTP clients, by the tie rule with 12 splash launches per vectorized
+    call; (b) redeployed at two replicas under 8 clients: no caller error,
+    the route torn down and compiled again (two recompiles, reasons
+    printed); (c) ``serve.pipeline`` over two ``GPT2Stage`` deployments
+    (``devices=["cuda"]``): mode "compiled", 32 answers equal to
+    ``GPT2Next``'s, 32 pipeline forwards, no host bytes for the hidden
+    state, 12 splash launches a request; no thread left after shutdown. It
+    prints requests/s and p50 latency by clients, compiled over dynamic.
 10. Ray Data on the card (``data_batch`` line). (a) Batch scoring: 2048
     windows of 1025 token ids (numpy ``default_rng(0)`` over 50257) in 16
     blocks of 128 rows go through ``Dataset.map_batches(GPT2Scorer,
@@ -2185,8 +2215,8 @@ def phase_serve_slo(params) -> Dict[str, object]:
         at_alert = alerts[0][1]["objectives"]["availability"]
         t_alert = at_alert["since"]
         # The fast window's bad fraction at every read that has the window
-        # wholly in the error part (the first errors precede their series'
-        # first sample, so the reads at the alert count too few of them).
+        # wholly in the error part, the stretch whose share of errors is
+        # known.
         reads = [(t, row["objectives"]["availability"]) for t, row in alerts
                  if t_err0 + objective.fast_window_s + SLO_SCRAPE_S
                  <= t <= t_err1]
@@ -2797,6 +2827,679 @@ DATA_BATCH = 32
 INGEST_ROWS = 512
 INGEST_BATCH = 16
 DATA_ROUNDS = 2
+
+
+# GPT-2 124M as two compiled stages: (B, S, executions gated) per shape.
+DAG_SHAPES = ((1, 1024, 32), (8, 1024, 8))
+# Executions per timed run, by B, for each of the three paths.
+DAG_TIMED = {1: 48, 8: 16}
+DAG_MAX_BUFFERED = 8
+DAG_MEM_SLACK = 8 << 20  # bytes
+# allreduce of block 0's MLP halves against the unsplit MLP, over its
+# largest entry: each half rounds its bf16 product before the sum.
+MLP_RTOL = 2e-2
+
+
+def _phase_threads(before) -> List[str]:
+    """Names of threads started since ``before`` still alive a few seconds
+    on, but for two process-wide ones that are started once and kept: the
+    hang watchdog and serve's executor for sync user code."""
+    import threading
+
+    deadline = time.monotonic() + 5.0
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t not in before and t.name != "ray_tpu_hang_watchdog"
+                and not t.name.startswith("serve-sync")]
+        if not left or time.monotonic() > deadline:
+            return left
+        time.sleep(0.05)
+
+
+def _transfer_bytes(src: str) -> Dict[str, float]:
+    """Bytes the transfer ledger holds for ``src``, by direction."""
+    from ray_tpu_torch.util import device_telemetry as dt
+
+    return {d: dt.TRANSFER_BYTES.get(tags={"direction": d, "src": src})
+            for d in ("h2d", "d2h")}
+
+
+def _pool_bytes(pool: str) -> float:
+    from ray_tpu_torch.util import device_telemetry as dt
+
+    return dt.pool_bytes().get(pool, {}).get("bytes", 0.0)
+
+
+def _in_flight(submit: Callable[[], object], get: Callable[[object], object],
+               n: int, window: int) -> float:
+    """Seconds for ``n`` submissions with at most ``window`` in flight, each
+    result fetched in order, until the card is done."""
+    import collections
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = collections.deque()
+    for _ in range(n):
+        if len(pending) == window:
+            get(pending.popleft())
+        pending.append(submit())
+    while pending:
+        get(pending.popleft())
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _settled_memory() -> int:
+    """The card's allocated bytes with the collector run and cuBLAS's
+    per-thread workspaces dropped (a thread's handle keeps one after the
+    thread ends)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def phase_dag_compiled(params) -> Dict[str, object]:
+    """GPT-2 124M as two compiled stages (``dag_compiled`` line). Thread
+    actor ``StageA`` holds the embeddings and blocks 0-5, ``StageB`` blocks
+    6-11, ln_f and the head (``GPT2Stage`` on the serving phases' weights,
+    cast as ``GPT2Next`` casts them), compiled as
+    ``b.tail.bind(a.head.bind(inp).with_tensor_transport())``.
+    (a) 32 executions at (1, 1024) and 8 at (8, 1024), tokens from numpy
+    seed 0: each answer's logits keep the tie rule against one whole
+    ``gpt2.forward`` here at every position (the max |dlogit| printed: the
+    kernels and shapes are the same, so 0 is expected), exactly 12 splash
+    forward launches per execution and none of the other kernels, the
+    tensor StageB reads has the data_ptr and device StageA wrote, and the
+    transfer ledger holds 0 host bytes for ``dag_channel``.
+    (b) Two thread actors hold halves of block 0's MLP (``mlp_in`` by
+    columns, ``mlp_out`` by rows) on the card, and ``allreduce.bind`` sums
+    their partial outputs: both reduced tensors equal bit for bit, each
+    within ``MLP_RTOL`` of the unsplit MLP's largest entry.
+    (c) After teardown both stages answer plain calls; after shutdown no
+    thread of the phase is left, the ``dag_channel`` pool reads 0 and the
+    card's allocated memory is back within ``DAG_MEM_SLACK``.
+    It prints executions/s and ms per execution at both shapes for the
+    compiled DAG (up to ``DAG_MAX_BUFFERED`` in flight), interpreted
+    ``execute()`` (as many in flight) and one direct forward here, with
+    their ratios, beside the card's name and power limit."""
+    import threading
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode, allreduce
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve.gpt2 import GPT2Stage
+
+    config = gpt2.GPTConfig()
+    L = config.n_layer
+    mem0 = _settled_memory()
+    threads0 = set(threading.enumerate())
+    xfer0 = _transfer_bytes("dag_channel")
+    rng = np.random.default_rng(0)
+    inputs = {B: [rng.integers(0, config.vocab_size, (B, S))
+                  for _ in range(n)] for B, S, n in DAG_SHAPES}
+    whole_params = gpt2.inference_params(params, config)
+
+    def whole(tokens):
+        with torch.inference_mode():
+            return gpt2.forward(whole_params,
+                                torch.as_tensor(tokens, device="cuda"),
+                                config)
+
+    class StageA(GPT2Stage):
+        """Records where each hidden state it hands on lives."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.records = []
+
+        def head(self, tokens):
+            out = super().head(tokens)
+            self.records.append((out.data_ptr(), str(out.device)))
+            return out
+
+        def take(self):
+            out, self.records = self.records, []
+            return out
+
+    class StageB(GPT2Stage):
+        """Records where each hidden state it reads lives."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.records = []
+
+        def tail(self, hidden):
+            self.records.append((hidden.data_ptr(), str(hidden.device)))
+            return super().tail(hidden)
+
+        take = StageA.take
+
+    class MLPHalf:
+        """Half ``part`` of block 0's MLP: mlp_in's columns and mlp_out's
+        rows of that half; the first half adds mlp_out's bias."""
+
+        def __init__(self, blk, part: int):
+            D4 = blk["mlp_in_w"].shape[1]
+            cols = slice(part * D4 // 2, (part + 1) * D4 // 2)
+            dt = config.dtype
+            self.w_in = blk["mlp_in_w"][:, cols].to(dt)
+            self.b_in = blk["mlp_in_b"][cols].to(dt)
+            self.w_out = blk["mlp_out_w"][cols].to(dt)
+            self.b_out = blk["mlp_out_b"].to(dt) if part == 0 else None
+
+        def mlp(self, x):
+            with torch.inference_mode():
+                y = F.gelu(x @ self.w_in + self.b_in,
+                           approximate="tanh") @ self.w_out
+                return y if self.b_out is None else y + self.b_out
+
+        def take(self, y):
+            return y
+
+    worst = 0.0
+    driver_launches = 0
+
+    def check(B, S, tokens, out):
+        """The tie rule at every position against one whole forward, whose
+        own splash launches are kept out of the DAG's count (no execution
+        is in flight while it runs)."""
+        nonlocal worst, driver_launches
+        if out.shape != (B, S, config.vocab_size) or not out.is_cuda \
+                or not torch.isfinite(out).all():
+            fail(f"dag_compiled: logits {tuple(out.shape)} on {out.device}, "
+                 f"or non-finite")
+        before = _counts()["splash_attention_fwd"]
+        ref = whole(tokens)
+        driver_launches += _counts()["splash_attention_fwd"] - before
+        worst = max(worst, (out - ref).abs().max().item())
+        chosen = out.argmax(-1, keepdim=True)
+        gap = (ref.max(-1).values - ref.gather(-1, chosen)[..., 0]).max()
+        if gap.item() > LOGIT_ATOL:
+            fail(f"dag_compiled at B={B}: a chosen token is {gap.item()} "
+                 f"below the whole forward's maximum (tol {LOGIT_ATOL})")
+
+    result: Dict[str, object] = {}
+    card = card_line()
+    ray_tpu_torch.init()
+    try:
+        a = ray_tpu_torch.remote(StageA).remote((0, L // 2), config,
+                                                params=params)
+        b = ray_tpu_torch.remote(StageB).remote((L // 2, L), config,
+                                                params=params)
+        with InputNode() as inp:
+            dag = b.tail.bind(a.head.bind(inp).with_tensor_transport())
+        compiled = dag.experimental_compile(max_buffered=DAG_MAX_BUFFERED)
+        try:
+            for B in inputs:  # warm-up: cuBLAS handles, the allocator
+                compiled.execute(inputs[B][0]).get(timeout=300)
+            # ----------------------------------------- (a) the main path
+            _reset_counts()
+            for B, S, n in DAG_SHAPES:
+                refs = []
+                for i, tokens in enumerate(inputs[B]):
+                    refs.append((tokens, compiled.execute(tokens)))
+                    if len(refs) < DAG_MAX_BUFFERED and i < n - 1:
+                        continue
+                    outs = [(tokens, ref.get(timeout=300))
+                            for tokens, ref in refs]
+                    for tokens, out in outs:
+                        check(B, S, tokens, out)
+                    refs, outs, out = [], [], None
+            torch.cuda.synchronize()
+            launches = _counts()
+            launches["splash_attention_fwd"] -= driver_launches
+            executions = sum(n for _, _, n in DAG_SHAPES)
+            if launches["splash_attention_fwd"] != L * executions:
+                fail(f"dag_compiled: {launches['splash_attention_fwd']} "
+                     f"splash launches for {executions} executions, "
+                     f"want {L} each")
+            others = {k: v for k, v in launches.items()
+                      if k != "splash_attention_fwd" and v}
+            if others:
+                fail(f"dag_compiled launched other kernels: {others}")
+            timed = {}
+            for B, n in DAG_TIMED.items():
+                x = inputs[B][0]
+                timed[B] = {"compiled": _in_flight(
+                    lambda: compiled.execute(x),
+                    lambda r: r.get(timeout=300), n, DAG_MAX_BUFFERED)}
+        finally:
+            compiled.teardown()
+        # The loops are gone: each stage's mailbox answers plain calls.
+        wrote = ray_tpu_torch.get(a.take.remote(), timeout=60)
+        read = ray_tpu_torch.get(b.take.remote(), timeout=60)
+        if not wrote or wrote != read or any(
+                dev != "cuda:0" for _, dev in wrote):
+            fail(f"dag_compiled: StageB read other tensors than StageA "
+                 f"wrote ({len(wrote)} written, {len(read)} read, first "
+                 f"{wrote[:1]} / {read[:1]})")
+        xfer = {d: v - xfer0[d]
+                for d, v in _transfer_bytes("dag_channel").items()}
+        if any(xfer.values()):
+            fail(f"dag_compiled: the edge moved host bytes {xfer}")
+        for B, n in DAG_TIMED.items():
+            x = inputs[B][0]
+            timed[B]["interpreted"] = _in_flight(
+                lambda: dag.execute(x),
+                lambda r: ray_tpu_torch.get(r, timeout=300), n,
+                DAG_MAX_BUFFERED)
+            timed[B]["direct"] = _in_flight(lambda: whole(x), lambda r: r,
+                                            n, n)
+        hidden = ray_tpu_torch.get(a.head.remote([1, 2, 3]), timeout=60)
+        answer = ray_tpu_torch.get(b.next_token.remote(hidden), timeout=60)
+        del hidden
+
+        # ------------------------------------------- (b) the allreduce
+        blk = {k: v[0] for k, v in params["blocks"].items()}
+        x = torch.randn((1, 1024, config.d_model),
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            0), device="cuda").to(config.dtype)
+        halves = [ray_tpu_torch.remote(MLPHalf).remote(blk, p)
+                  for p in (0, 1)]
+        with InputNode() as inp:
+            parts = [h.mlp.bind(inp) for h in halves]
+            reduced = allreduce.bind(parts)
+            ar_dag = MultiOutputNode([h.take.bind(r)
+                                      for h, r in zip(halves, reduced)])
+        ar = ar_dag.experimental_compile()
+        try:
+            outs = ar.execute(x).get(timeout=120)
+        finally:
+            ar.teardown()
+        with torch.inference_mode():
+            dt = config.dtype
+            full = F.gelu(x @ blk["mlp_in_w"].to(dt) + blk["mlp_in_b"].to(dt),
+                          approximate="tanh") @ blk["mlp_out_w"].to(dt) \
+                + blk["mlp_out_b"].to(dt)
+        scale = full.float().abs().max().item()
+        mlp_err = [(o.float() - full.float()).abs().max().item() / scale
+                   for o in outs]
+        if not (outs[0].is_cuda and torch.equal(outs[0], outs[1])):
+            fail("allreduce: the two participants' reduced tensors differ")
+        if max(mlp_err) > MLP_RTOL:
+            fail(f"allreduce: the summed halves are {mlp_err} of the "
+                 f"unsplit MLP's largest entry from it (tol {MLP_RTOL})")
+        del outs, full, x, blk
+        alive = [ray_tpu_torch.get(h.take.remote(7), timeout=60) == 7
+                 for h in halves]
+        if not all(alive):
+            fail("allreduce: a participant does not answer after teardown")
+        # Killed, not only shut down: a runtime keeps its actors'
+        # instances, and with them the stages' weights, until the next one.
+        for actor in (a, b, *halves, reduced[0]._target):
+            ray_tpu_torch.kill(actor)
+        del a, b, halves, compiled, ar, dag, ar_dag, reduced
+    finally:
+        ray_tpu_torch.shutdown()
+    # ------------------------------------------------- (c) what is left
+    left = _phase_threads(threads0)
+    if left:
+        fail(f"dag_compiled: threads left after shutdown: {left}")
+    pool = _pool_bytes("dag_channel")
+    if pool:
+        fail(f"dag_compiled: the dag_channel pool holds {pool} bytes")
+    del whole_params
+    mem = _settled_memory()
+    if mem > mem0 + DAG_MEM_SLACK:
+        fail(f"dag_compiled: the card holds {mem - mem0} bytes more than "
+             f"before the phase (slack {DAG_MEM_SLACK})")
+    rates = {}
+    for B, by in timed.items():
+        n = DAG_TIMED[B]
+        rates[f"B{B}"] = dict(
+            executions=n,
+            per_s={k: n / s for k, s in by.items()},
+            ms={k: s / n * 1e3 for k, s in by.items()},
+            compiled_over_interpreted=by["interpreted"] / by["compiled"],
+            compiled_over_direct=by["direct"] / by["compiled"])
+    result.update(
+        card=card, stages=[[0, L // 2], [L // 2, L]],
+        executions={f"B{B}": n for B, _, n in DAG_SHAPES},
+        max_abs_logit_err=worst, launches=launches,
+        splash_per_execution=launches["splash_attention_fwd"] / executions,
+        edge_records=len(wrote), edge_host_bytes=xfer,
+        plain_call_after_teardown=answer, allreduce_rel_err=mlp_err,
+        dag_channel_pool_bytes=pool, memory_delta_bytes=mem - mem0,
+        max_buffered=DAG_MAX_BUFFERED, rates=rates)
+    print("dag_compiled " + json.dumps(result), flush=True)
+    return result
+
+
+# The compiled serve route: handle clients per run, requests through the
+# pipeline, the clients and seconds of the membership change.
+SC_CLIENTS = (1, 8, 32)
+SC_PIPE_REQUESTS = 32
+SC_CHANGE_CLIENTS = 8
+SC_CHANGE_AFTER_S = 1.0
+SC_REASONS = ("deploy", "replica_death", "drain", "rolling_update",
+              "autoscale")
+
+
+def _wait_compiled(handle, timeout: float = 30.0) -> None:
+    deadline = time.monotonic() + timeout
+    while handle._get_router()._compiled.mode != "compiled":
+        if time.monotonic() > deadline:
+            fail(f"{handle.deployment_id}: the route never compiled")
+        time.sleep(0.02)
+
+
+def _recompiles(dep_id: str) -> Dict[str, float]:
+    from ray_tpu_torch.serve.compiled_router import RECOMPILES_TOTAL
+
+    out = {r: RECOMPILES_TOTAL.get(tags={"deployment": dep_id, "reason": r})
+           for r in SC_REASONS}
+    return {r: n for r, n in out.items() if n}
+
+
+def _handle_answers(handle, bodies: list, clients: int
+                    ) -> Tuple[list, list, float]:
+    """Every body through the handle by ``clients`` threads at once: the
+    answers in the bodies' order, each request's latency (ms) and the wall
+    time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(body):
+        t0 = time.perf_counter()
+        out = handle.remote(_Request(body=body)).result(timeout_s=120)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        outs = list(pool.map(one, bodies))
+    return ([o["next_token"] for o, _ in outs], [ms for _, ms in outs],
+            time.perf_counter() - t0)
+
+
+def phase_serve_compiled(params) -> Dict[str, object]:
+    """The compiled serve route on the card (``serve_compiled`` line), GPT-2
+    124M with the serving phases' weights, each replica a thread of this
+    process on a quarter of the card.
+    (a) ``GPT2BatchNext`` on one replica through ``serve.run``, and the same
+    deployment with ``compiled_route=False`` beside it: after the stability
+    window ``serve.status()`` reads ``route_mode`` "compiled" for the first
+    and "dynamic" for the second, and the first's recompile counter reads 1
+    with reason "deploy"; 64 requests of (7)'s lengths from 1, 8 and 32
+    handle clients to each in turns, and (after (b)) from 8 HTTP clients
+    to the compiled one, keep the tie rule against ``GPT2Next`` here, with
+    exactly 12 splash launches per vectorized call (``serve_batch_size``'s
+    count).
+    (b) The compiled deployment redeployed at two replicas under 8 handle
+    clients: no caller sees an error, every answer keeps the tie rule, the
+    route tears down and compiles again over both replicas (the counter at
+    2), and the reasons are printed.
+    (c) ``serve.pipeline`` over two deployments of ``GPT2Stage`` (the
+    ``dag_compiled`` stages: blocks 0-5 with the embeddings, 6-11 with ln_f
+    and the head; ``methods=["head", "next_token"]``, ``devices=["cuda"]``):
+    ``mode`` "compiled", 32 requests each answered as ``GPT2Next`` answers
+    it, the pipeline-forwards counter up by 32, 0 host bytes ledgered for
+    the hidden state, 12 splash launches per request. After shutdown no
+    thread of the phase is left and the ``dag_channel`` pool reads 0.
+    It prints requests/s and p50 latency by clients for the compiled and
+    the dynamic route and their ratio, beside the card's name and power
+    limit."""
+    import threading
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve import batching
+    from ray_tpu_torch.serve.compiled_router import PIPELINE_FORWARDS
+
+    config = gpt2.GPTConfig()
+    L = config.n_layer
+    requests, _ = _batch_inputs()
+    bodies = [{"tokens": t} for t in requests]
+    local_next = serve.GPT2Next(config, params=params)
+    with torch.inference_mode():
+        ref_logits = torch.stack([local_next.logits(t) for t in requests])
+    ref_answers = torch.argmax(ref_logits, dim=-1).tolist()
+    worst = 0.0
+
+    def held(label, answers, indices):
+        nonlocal worst
+        for i, ans in zip(indices, answers):
+            g = (ref_logits[i].max() - ref_logits[i][ans]).item()
+            worst = max(worst, g)
+            if g > LOGIT_ATOL:
+                fail(f"serve_compiled {label}: answer {ans} to request {i} "
+                     f"is {g} below the in-process maximum (tol "
+                     f"{LOGIT_ATOL})")
+
+    threads0 = set(threading.enumerate())
+    card = card_line()
+    quarter = {"num_gpus": 0.25}
+    batch_tags = {"deployment": "GPT2BatchNext", "method": "next_token"}
+    result: Dict[str, object] = dict(card=card)
+    ray_tpu_torch.init()
+    try:
+        serve.start(http_options={"port": 0})
+        from ray_tpu_torch.serve.api import _state
+
+        addr = _state["proxy"].address
+        dep = serve.deployment(max_ongoing_requests=64,
+                               ray_actor_options=quarter)(serve.GPT2BatchNext)
+        comp_id = "compiled#GPT2BatchNext"
+        base = _recompiles(comp_id)
+        h_c = serve.run(dep.bind(config, params=params), name="compiled",
+                        route_prefix="/compiled")
+        h_d = serve.run(dep.options(compiled_route=False).bind(
+            config, params=params), name="dynamic", route_prefix="/dynamic")
+        _wait_compiled(h_c)
+        deadline = time.monotonic() + 10
+        while True:
+            status = serve.status()
+            modes = {k: status[f"{k}#GPT2BatchNext"]["route_mode"]
+                     for k in ("compiled", "dynamic")}
+            if modes["compiled"] == "compiled" or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        if modes != {"compiled": "compiled", "dynamic": "dynamic"}:
+            fail(f"serve_compiled: serve.status() route modes {modes}")
+        if h_d._get_router()._compiled.mode != "dynamic":
+            fail("serve_compiled: compiled_route=False compiled")
+        made = {r: n - base.get(r, 0) for r, n in _recompiles(comp_id).items()
+                if n - base.get(r, 0)}
+        if made != {"deploy": 1}:
+            fail(f"serve_compiled: recompiles after deploy {made}, want "
+                 f"one with reason 'deploy'")
+        # ----------------------------------------------- (a) one replica
+        for h in (h_c, h_d):  # warm-up, not counted: a full batch
+            _handle_answers(h, bodies[:32], 32)
+        runs: Dict[str, Dict[str, object]] = {"compiled": {}, "dynamic": {}}
+        launches_by_run, calls_by_run = {}, {}
+        _reset_counts()
+        totals: Dict[str, int] = {}
+        for clients in SC_CLIENTS:
+            for kind, h in (("compiled", h_c), ("dynamic", h_d)):
+                seen = batching.BATCH_SIZE_HISTOGRAM.get(tags=batch_tags)
+                _reset_counts()
+                answers, lat, secs = _handle_answers(h, bodies, clients)
+                counts = _counts()
+                sizes = _since(batching.BATCH_SIZE_HISTOGRAM, batch_tags,
+                               seen)
+                held(f"{kind} c{clients}", answers, range(len(bodies)))
+                launches = counts["splash_attention_fwd"]
+                if launches != L * sizes["count"] or \
+                        sizes["sum"] != len(bodies):
+                    fail(f"serve_compiled {kind} c{clients}: {launches} "
+                         f"splash launches over {sizes}, want {L} per "
+                         f"vectorized call holding {len(bodies)} requests")
+                if kind == "compiled":
+                    for k, v in counts.items():
+                        totals[k] = totals.get(k, 0) + v
+                runs[kind][f"c{clients}"] = dict(
+                    qps=len(bodies) / secs, p50_ms=statistics.median(lat),
+                    vectorized_calls=sizes["count"])
+                launches_by_run[f"{kind}_c{clients}"] = launches
+        serve.delete("dynamic")
+
+        # ------------------------------- (b) a membership change, loaded
+        graph0 = h_c._get_router()._compiled.graph
+        stop = threading.Event()
+        errors, answered = [], []
+
+        def client(k):
+            i = k
+            while not stop.is_set():
+                j = i % len(bodies)
+                try:
+                    out = h_c.remote(_Request(body=bodies[j])).result(
+                        timeout_s=120)
+                    answered.append((j, out["next_token"]))
+                except Exception as e:  # noqa: BLE001 — the gate below
+                    errors.append(repr(e))
+                    return
+                i += SC_CHANGE_CLIENTS
+
+        clients_ = [threading.Thread(target=client, args=(k,))
+                    for k in range(SC_CHANGE_CLIENTS)]
+        for t in clients_:
+            t.start()
+        time.sleep(SC_CHANGE_AFTER_S)
+        t_change = time.perf_counter()
+        serve.run(dep.options(num_replicas=2).bind(config, params=params),
+                  name="compiled", route_prefix="/compiled")
+        mgr = h_c._get_router()._compiled
+        deadline = time.monotonic() + 60
+        while not (mgr.graph is not None and mgr.graph is not graph0
+                   and len(mgr.graph._lanes) == 2):
+            if time.monotonic() > deadline or errors:
+                break
+            time.sleep(0.02)
+        recompiled_s = time.perf_counter() - t_change
+        time.sleep(SC_CHANGE_AFTER_S)
+        stop.set()
+        for t in clients_:
+            t.join(timeout=120)
+        if errors or any(t.is_alive() for t in clients_):
+            fail(f"serve_compiled: callers saw errors through the "
+                 f"membership change: {errors[:3]}")
+        if mgr.graph is None or len(mgr.graph._lanes) != 2:
+            fail("serve_compiled: the route did not compile again over "
+                 "two replicas")
+        held("membership change", [a for _, a in answered],
+             [j for j, _ in answered])
+        change_reasons = {r: n - base.get(r, 0)
+                          for r, n in _recompiles(comp_id).items()
+                          if n - base.get(r, 0)}
+        if sum(change_reasons.values()) != 2:
+            fail(f"serve_compiled: recompiles {change_reasons}, want 2")
+        # (a) over HTTP, after (b): the proxy's own router would add its
+        # compiles to the counter (b) reads.
+        seen = batching.BATCH_SIZE_HISTOGRAM.get(tags=batch_tags)
+        _reset_counts()
+        outs, secs = _post_concurrently(f"{addr}/compiled", bodies, 8)
+        counts = _counts()
+        sizes = _since(batching.BATCH_SIZE_HISTOGRAM, batch_tags, seen)
+        for status_, _, out in outs:
+            if status_ != 200 or not isinstance(out.get("next_token"), int):
+                fail(f"serve_compiled HTTP answer {status_} {out}")
+        held("HTTP c8", [o["next_token"] for _, _, o in outs],
+             range(len(bodies)))
+        if counts["splash_attention_fwd"] != L * sizes["count"]:
+            fail(f"serve_compiled HTTP: {counts['splash_attention_fwd']} "
+                 f"splash launches over {sizes['count']} vectorized calls")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        http_qps = len(bodies) / secs
+        serve.delete("compiled")
+
+        # ------------------------------------------------ (c) the pipeline
+        stage = serve.deployment(max_ongoing_requests=32,
+                                 ray_actor_options=quarter)(serve.GPT2Stage)
+        h_head = serve.run(stage.options(name="Head").bind(
+            (0, L // 2), config, params=params), name="head",
+            route_prefix=None)
+        h_tail = serve.run(stage.options(name="Tail").bind(
+            (L // 2, L), config, params=params), name="tail",
+            route_prefix=None)
+        pipe = serve.pipeline(h_head, h_tail, methods=["head", "next_token"],
+                              devices=["cuda"], name="gpt2")
+        try:
+            _wait_compiled(h_head)
+            _wait_compiled(h_tail)
+            pipe.remote(requests[0]).result(timeout_s=120)  # warm-up
+            mode = pipe.mode
+            if mode != "compiled":
+                fail(f"serve_compiled: the pipeline's mode is {mode}")
+            tags = {"pipeline": "gpt2"}
+            fwd0 = PIPELINE_FORWARDS.get(tags=tags)
+            xfer0 = _transfer_bytes("dag_channel")
+            chosen = requests[:SC_PIPE_REQUESTS]
+            _reset_counts()
+            t0 = time.perf_counter()
+            resps = [pipe.remote(t) for t in chosen]
+            pipe_answers = [r.result(timeout_s=120) for r in resps]
+            pipe_s = time.perf_counter() - t0
+            counts = _counts()
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            forwards = PIPELINE_FORWARDS.get(tags=tags) - fwd0
+            xfer = {d: v - xfer0[d]
+                    for d, v in _transfer_bytes("dag_channel").items()}
+            kinds = sorted({type(r).__name__ for r in resps})
+            mode_after = pipe.mode
+        finally:
+            pipe.stop()
+        want = [ref_answers[i] for i in range(SC_PIPE_REQUESTS)]
+        if pipe_answers != want:
+            bad = [i for i, (a, w) in enumerate(zip(pipe_answers, want))
+                   if a != w]
+            fail(f"serve_compiled: the pipeline answered {len(bad)} "
+                 f"requests unlike GPT2Next (first {bad[:3]})")
+        if forwards != SC_PIPE_REQUESTS or mode_after != "compiled":
+            fail(f"serve_compiled: {forwards} pipeline forwards for "
+                 f"{SC_PIPE_REQUESTS} requests, mode {mode_after}")
+        if any(xfer.values()):
+            fail(f"serve_compiled: the hidden state crossed the host {xfer}")
+        if counts["splash_attention_fwd"] != L * SC_PIPE_REQUESTS or any(
+                v for k, v in counts.items() if k != "splash_attention_fwd"):
+            fail(f"serve_compiled: pipeline launches {counts}, want {L} "
+                 f"splash forwards per request")
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+    left = _phase_threads(threads0)
+    if left:
+        fail(f"serve_compiled: threads left after shutdown: {left}")
+    pool = _pool_bytes("dag_channel")
+    if pool:
+        fail(f"serve_compiled: the dag_channel pool holds {pool} bytes")
+    result.update(
+        requests=len(bodies), runs=runs,
+        compiled_over_dynamic={
+            c: dict(qps=runs["compiled"][c]["qps"] / runs["dynamic"][c]["qps"],
+                    p50=runs["compiled"][c]["p50_ms"]
+                    / runs["dynamic"][c]["p50_ms"])
+            for c in runs["compiled"]},
+        http_qps_c8=http_qps, splash_by_run=launches_by_run,
+        route_modes=modes, recompiles_after_deploy=made,
+        change=dict(answered=len(answered), errors=len(errors),
+                    recompiled_s=recompiled_s, reasons=change_reasons),
+        pipeline=dict(requests=SC_PIPE_REQUESTS, mode=mode_after,
+                      response_types=kinds, forwards=forwards,
+                      host_bytes=xfer, requests_per_s=SC_PIPE_REQUESTS
+                      / pipe_s, splash=counts["splash_attention_fwd"]),
+        worst_gap_below_max=worst, launches=totals,
+        dag_channel_pool_bytes=pool)
+    print("serve_compiled " + json.dumps(result), flush=True)
+    return result
 
 
 def _released(label: str) -> None:
@@ -5839,8 +6542,13 @@ def _ring_per_rank(peaks, gen, worst) -> Dict[str, object]:
 def _ring_block_times(peaks, q, k, v, do, shard, folded) -> Dict[str, object]:
     """Device ms of one rank's per-rank launch at train_mesh (c)'s shape:
     the first (diagonal, writing) and a later (full, merging) step, forward
-    and backward, with their bounds and plain versions."""
+    and backward, with their bounds and plain versions, and the library
+    yardstick on the same rank's blocks: SDPA causal for the diagonal step
+    and non-causal for the full one, its forward replayed in a CUDA graph
+    and its backward timed by events around a loop (no profiler this early
+    in the script)."""
     import torch
+    import torch.nn.functional as F
 
     from ray_tpu_torch.ops import ring_attention as ra
 
@@ -5872,6 +6580,19 @@ def _ring_block_times(peaks, q, k, v, do, shard, folded) -> Dict[str, object]:
                 ms=device_ms(calls[which](kern)),
                 plain_ms=device_ms(calls[which](plain), iters=2),
                 bound_ms=bound_ms, bound_by=bound_by)
+        qt, kt, vt = (x.transpose(1, 2).detach().clone().requires_grad_()
+                      for x in (q0, *kv))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=diagonal)
+        dot = do0.transpose(1, 2).contiguous()
+        with torch.no_grad():
+            out[f"fwd_{label}"]["library_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=diagonal))
+        out[f"bwd_{label}"]["library_ms"] = loop_ms(
+            lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
+                                        retain_graph=True))
+        out[f"bwd_{label}"]["library_ms_by"] = "events around a loop"
+        del qt, kt, vt, sdpa, dot
     print("kernel ring_per_rank_ms " + json.dumps(
         dict(B=B, S_local=shard, H=H, hd=hd, **out)), flush=True)
     return out
@@ -8087,6 +8808,8 @@ def main() -> int:
     serve_batch = run("serve_batch", phase_serve_batch, weights)
     serve_slo = run("serve_slo", phase_serve_slo, weights)
     serve_process = run("serve_process", phase_serve_process, weights, serve)
+    dag_compiled = run("dag_compiled", phase_dag_compiled, weights)
+    serve_compiled = run("serve_compiled", phase_serve_compiled, weights)
     del weights
     data_batch = run("data_batch", phase_data_batch)
     ce["fused_ce_fwd"]["worst_abs"] = max(
@@ -8135,6 +8858,8 @@ def main() -> int:
                "serve_batch": serve_batch["launches"][name],
                "serve_slo": serve_slo["launches"][name],
                "serve_process": serve_process["launches"].get(name, 0),
+               "dag_compiled": dag_compiled["launches"].get(name, 0),
+               "serve_compiled": serve_compiled["launches"].get(name, 0),
                "data_batch": data_batch["launches"].get(name, 0),
                "train_fit": train_fit["launches"].get(name, 0),
                "train_elastic": train_elastic["launches"].get(name, 0),

@@ -1,12 +1,24 @@
-"""ray_tpu_torch.dag — lazy DAGs (the counterpart of ``ray_tpu/dag/``; ref:
-python/ray/dag/).
+"""ray_tpu_torch.dag — lazy DAGs and compiled graphs (the counterpart of
+``ray_tpu/dag/``; ref: python/ray/dag/).
 
-Build with ``.bind()`` and run interpreted with ``.execute()``. The
-reference's compiled graphs (``.experimental_compile()``, its channels and
-``allreduce`` collective nodes) are not ported yet (ROADMAP.md, Queue 1
-item 11): ``experimental_compile()`` raises ``NotImplementedError``.
+Build with ``.bind()``, run interpreted with ``.execute()``, or lower onto
+fixed thread actors with typed channels via ``.experimental_compile()``
+(ref: dag/compiled_dag_node.py, experimental/channel/): ``Channel`` edges,
+``DeviceChannel`` edges that carry ``torch.Tensor``s to a device, and
+``allreduce`` collective nodes.  Edges to or from process actors need the
+reference's ``SharedMemoryChannel``, which is not ported yet (ROADMAP.md,
+Queue 1 item 11b-2): compiling such a DAG raises.
 """
 
+from ray_tpu_torch.dag.channel import (
+    Channel,
+    ChannelClosed,
+    ChannelTimeout,
+    DeviceChannel,
+    IntraProcessChannel,
+)
+from ray_tpu_torch.dag.collective_node import allreduce
+from ray_tpu_torch.dag.compiled_dag import CompiledDAG, CompiledDAGRef
 from ray_tpu_torch.dag.dag_node import (
     ActorMethodNode,
     ClassMethodNode,
@@ -21,4 +33,7 @@ from ray_tpu_torch.dag.dag_node import (
 __all__ = [
     "DAGNode", "InputNode", "InputAttributeNode", "FunctionNode", "ClassNode",
     "ClassMethodNode", "ActorMethodNode", "MultiOutputNode",
+    "CompiledDAG", "CompiledDAGRef", "allreduce",
+    "Channel", "IntraProcessChannel", "DeviceChannel",
+    "ChannelClosed", "ChannelTimeout",
 ]

@@ -4,11 +4,10 @@ class_node.py).
 
 ``fn.bind(x)`` / ``Actor.bind()`` / ``actor.method.bind(x)`` build a DAG of
 lazy nodes.  ``node.execute(*args)`` runs it interpreted (each node becomes a
-normal task / actor call, diamonds deduped).  The reference's
-``node.experimental_compile()`` lowers it onto fixed actors with typed
-channels; that compiled half (its graphs, channels and collective nodes)
-needs the shared-memory arena and object transfer, and is not ported yet
-(ROADMAP.md, Queue 1 item 11).
+normal task / actor call, diamonds deduped).  ``node.experimental_compile()``
+lowers it onto fixed thread actors with typed channels (compiled_dag.py).
+Edges into or out of process actors need the reference's shared-memory
+channels, which are not ported yet (ROADMAP.md, Queue 1 item 11b-2).
 """
 
 from __future__ import annotations
@@ -78,10 +77,9 @@ class DAGNode:
         raise NotImplementedError
 
     def experimental_compile(self, **kwargs):
-        raise NotImplementedError(
-            "compiled graphs (experimental_compile) need the shared-memory "
-            "channels, which are not ported yet (ROADMAP.md, Queue 1 item "
-            "11); run the DAG interpreted with execute()")
+        from ray_tpu_torch.dag.compiled_dag import CompiledDAG
+
+        return CompiledDAG(self, **kwargs)
 
 
 class InputNode(DAGNode):
@@ -147,7 +145,7 @@ class ClassNode(DAGNode):
     """Actor.bind(...) — lazy actor creation (ref: dag/class_node.py).
 
     The instantiated handle is cached on the node, so repeated execute()
-    calls reuse one actor.
+    calls and compilation reuse one actor.
     """
 
     def __init__(self, actor_cls, args, kwargs):
@@ -193,6 +191,24 @@ class ClassMethodNode(DAGNode):
         super().__init__(args, kwargs)
         self._target = target
         self._method_name = method_name
+        self._tensor_transport = None
+
+    def with_tensor_transport(self, device=None) -> "ClassMethodNode":
+        """Mark this node's outputs as device tensors: compiled edges out of
+        it become DeviceChannels that place its ``torch.Tensor``s on
+        ``device`` at write time (ref: torch_tensor_type.py
+        with_tensor_transport, where it selects NCCL).  ``None`` is the
+        current CUDA device, and raises without one; pass ``device="cpu"``
+        for the host."""
+        import torch
+
+        from ray_tpu_torch._private.device import resolve_device
+
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self._tensor_transport = dev
+        return self
 
     def _upstream(self) -> List[DAGNode]:
         ups = super()._upstream()

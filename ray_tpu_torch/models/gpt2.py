@@ -460,6 +460,25 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     return _layernorm(x, params["lnf_scale"], params["lnf_bias"]).to(dt)
 
 
+def stage_hidden(params: Params, x: torch.Tensor, config: GPTConfig, *,
+                 first: bool, last: bool) -> torch.Tensor:
+    """One stage of an inference forward split by layers over devices or
+    actors, over the blocks in ``params["blocks"]`` (a span of the stack):
+    the first stage takes (B, S) token ids and embeds them, the last ends
+    with the final layernorm. A stage that is both is ``forward_hidden``
+    without remat, in the same operations, so a split forward gives the
+    whole one's numbers."""
+    dt = config.dtype
+    if first:
+        x = _embed(params["wte"], params["wpe"], x, dt)
+    blocks = params["blocks"]
+    for i in range(next(iter(blocks.values())).shape[0]):
+        x = _block(x, gather({n: w[i] for n, w in blocks.items()}), config)
+    if last:
+        x = _layernorm(x, params["lnf_scale"], params["lnf_bias"]).to(dt)
+    return x
+
+
 def _pipelined(stack: Callable, blocks: Params, x: torch.Tensor,
                config: GPTConfig) -> torch.Tensor:
     """The block stack as a GPipe schedule over the mesh's ``pipe`` axis,

@@ -11,7 +11,8 @@ in one shared call per iteration, and ``@serve.multiplexed`` keeps an LRU
 of models per replica. ``GPT2Next`` and ``GPT2Stream`` are the GPT-2
 replica bodies of ``examples/serve_gpt2.py``; ``GPT2BatchNext``,
 ``GPT2ContinuousStream`` and ``GPT2MultiplexNext`` serve the same model
-through those three. ``slo`` holds the SLO objectives and the burn-rate
+through those three, and ``GPT2Stage`` a span of its layers for a
+forward split over actors or pipeline stages. ``slo`` holds the SLO objectives and the burn-rate
 watchdog that ``serve.status()``, the metrics agent's ``/api/serve/slo``
 and the autoscaler's SLO-burn policy read.
 
@@ -19,8 +20,13 @@ Replicas are async actors of the thread tier, or, with
 ``ray_actor_options={"isolation": "process"}`` (or a ``runtime_env``),
 ``SyncReplicaActor`` in worker processes of their own. ``serve.device`` is
 the device-telemetry plane (``util/device_telemetry.py``: pools, the
-transfer ledger, ``transfer_bw``). Not ported yet (ROADMAP.md, Queue 1):
-the compiled router, the gRPC proxy and the LLM engine.
+transfer ledger, ``transfer_bw``). Once a thread-tier replica set is
+stable, routers lower unary requests onto compiled channel lanes
+(``compiled_router.py``; ``RAY_TPU_SERVE_COMPILED=0`` or
+``compiled_route=False`` keeps the dynamic path), and ``serve.pipeline``
+chains deployments over ``DeviceChannel`` edges. Not ported yet
+(ROADMAP.md, Queue 1): the compiled route of process-tier replicas (item
+11b-2), the gRPC proxy and the LLM engine.
 """
 
 from ray_tpu_torch.serve import metrics, slo
@@ -28,8 +34,8 @@ from ray_tpu_torch.util import device_telemetry as device
 from ray_tpu_torch.serve.api import (Application, Deployment, delete,
                                      deployment, get_app_handle,
                                      get_deployment_handle, list_deployments,
-                                     list_replicas, run, shutdown, start,
-                                     status)
+                                     list_replicas, pipeline, run, shutdown,
+                                     start, status)
 from ray_tpu_torch.serve.batching import batch
 from ray_tpu_torch.serve.config import (AutoscalingConfig, DeploymentConfig,
                                         HTTPOptions)
@@ -45,20 +51,20 @@ from ray_tpu_torch.serve.slo import SLOObjective
 __all__ = [
     "Application", "Deployment", "deployment", "run", "start", "shutdown",
     "delete", "status", "get_app_handle", "get_deployment_handle",
-    "list_deployments", "list_replicas", "AutoscalingConfig",
+    "list_deployments", "list_replicas", "pipeline", "AutoscalingConfig",
     "DeploymentConfig", "HTTPOptions", "DeploymentHandle",
     "DeploymentResponse", "Request", "multiplexed",
     "get_multiplexed_model_id", "batch", "continuous_batch", "EOS",
     "Emissions", "SequenceSlot", "BackPressureError", "SLOObjective",
     "metrics", "slo", "device",
     "GPT2Next", "GPT2Stream", "GPT2BatchNext", "GPT2ContinuousStream",
-    "GPT2MultiplexNext",
+    "GPT2MultiplexNext", "GPT2Stage",
 ]
 
 #: The GPT-2 bodies (``serve/gpt2.py``) load torch, so they are imported on
 #: first use: a process replica that serves no model starts without torch.
 _GPT2 = ("GPT2Next", "GPT2Stream", "GPT2BatchNext", "GPT2ContinuousStream",
-         "GPT2MultiplexNext")
+         "GPT2MultiplexNext", "GPT2Stage")
 
 
 def __getattr__(name):

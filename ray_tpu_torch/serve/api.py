@@ -45,7 +45,8 @@ class Deployment:
                 health_check_timeout_s: Optional[float] = None,
                 graceful_shutdown_wait_loop_s: Optional[float] = None,
                 graceful_shutdown_timeout_s: Optional[float] = None,
-                max_unavailable: Optional[int] = None) -> "Deployment":
+                max_unavailable: Optional[int] = None,
+                compiled_route: Optional[bool] = None) -> "Deployment":
         import copy
 
         cfg = copy.deepcopy(self.config)
@@ -79,6 +80,8 @@ class Deployment:
             cfg.graceful_shutdown_timeout_s = graceful_shutdown_timeout_s
         if max_unavailable is not None:
             cfg.max_unavailable = max_unavailable
+        if compiled_route is not None:
+            cfg.compiled_route = compiled_route
         return Deployment(self.func_or_class, name or self.name, cfg)
 
     def bind(self, *args, **kwargs) -> "Application":
@@ -112,7 +115,8 @@ def deployment(_func_or_class: Optional[Any] = None, *,
                health_check_timeout_s: float = 30.0,
                graceful_shutdown_wait_loop_s: float = 2.0,
                graceful_shutdown_timeout_s: float = 5.0,
-               max_unavailable: int = 0) -> Any:
+               max_unavailable: int = 0,
+               compiled_route: Optional[bool] = None) -> Any:
     """@serve.deployment (ref: serve/api.py:deployment)."""
 
     def decorate(obj):
@@ -133,6 +137,7 @@ def deployment(_func_or_class: Optional[Any] = None, *,
             graceful_shutdown_wait_loop_s=graceful_shutdown_wait_loop_s,
             graceful_shutdown_timeout_s=graceful_shutdown_timeout_s,
             max_unavailable=max_unavailable,
+            compiled_route=compiled_route,
             ray_actor_options=dict(ray_actor_options or {}))
         return Deployment(obj, name or obj.__name__, cfg)
 
@@ -276,6 +281,33 @@ def get_app_handle(name: str = "default") -> DeploymentHandle:
 def get_deployment_handle(deployment_name: str,
                           app_name: str = "default") -> DeploymentHandle:
     return DeploymentHandle(deployment_name, app_name)
+
+
+def pipeline(*stages, methods: Optional[list] = None,
+             devices: Optional[list] = None, name: str = "pipeline"):
+    """Chain deployments into a multi-stage compiled serve graph
+    (:class:`~ray_tpu_torch.serve.compiled_router.ServePipeline`).
+
+    ``pipeline(prefill, decode, postprocess).remote(x)`` submits ``x`` to
+    the first stage and returns a future that resolves with the LAST
+    stage's result; once every stage's replica set is stable and compiled,
+    the request traverses the whole chain as typed-channel traffic —
+    stage i's demux forwards straight into stage i+1's lanes over a
+    ``DeviceChannel`` edge, no TaskSpec or ObjectRef between stages.
+
+    Stages are deployment names (looked up via ``get_deployment_handle``),
+    handles, or method-bound handles (``handle.method``); ``methods``
+    overrides the called method per stage, ``devices`` (one per edge)
+    places each inter-stage payload's tensors on the consumer's device at
+    forward time (``"cuda"``, ``"cpu"``, or None to leave them).  Any
+    stage membership change degrades that hop to dynamic dispatch with
+    zero caller-visible errors and re-lowers when the stage recompiles."""
+    from ray_tpu_torch.serve.compiled_router import ServePipeline
+
+    handles = [get_deployment_handle(s) if isinstance(s, str) else s
+               for s in stages]
+    return ServePipeline(handles, methods=methods, devices=devices,
+                         name=name)
 
 
 def status() -> Dict[str, Any]:

@@ -223,8 +223,8 @@ def _split_call_args(args: tuple, kwargs: dict,
 
 def batch_fusion(fn: Any) -> Optional[Tuple[Callable, Dict[str, Any]]]:
     """``(inner_func, batch_config)`` when ``fn`` is a ``@serve.batch``
-    wrapper, else None.  The compiled serve route (``compiled_router.py`` in
-    the reference; not ported yet, ROADMAP.md Queue 1) uses this to FUSE the micro-batch queue into its channel loop: having already
+    wrapper, else None.  The compiled serve route (compiled_router.py) uses
+    this to FUSE the micro-batch queue into its channel loop: having already
     coalesced a channel drain into one batch, it calls the undecorated inner
     function directly with the item list — same vectorized call, same
     per-request error-isolation contract, but no per-request asyncio future

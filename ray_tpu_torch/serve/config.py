@@ -129,6 +129,11 @@ class DeploymentConfig:
     #: During a rolling update, how many replicas below target the healthy
     #: count may drop; 0 = never lose capacity (surge-then-drain).
     max_unavailable: int = 0
+    #: Compiled steady-state route: None (default) lets the router lower
+    #: dispatch onto pre-resolved channels once the replica set is stable;
+    #: False pins the deployment to the dynamic path.  (Process-tier
+    #: replicas keep the dynamic path regardless.)
+    compiled_route: Optional[bool] = None
     #: Options of each replica's actor: ``num_gpus`` (a GPU replica),
     #: ``num_cpus``, ``memory``, ``resources``, ``max_concurrency``.
     ray_actor_options: Dict[str, Any] = field(default_factory=dict)

@@ -56,6 +56,10 @@ class ServeController:
         #: histograms), so rollups keep the latest per pid and sum across
         #: pids — never across routers.
         self._metric_snaps: Dict[str, Dict[int, tuple]] = {}
+        #: dep_id -> router_id -> (compiled: bool, ts).  Routers report
+        #: whether their route is lowered onto the compiled channel path;
+        #: serve.status() surfaces "compiled" when any fresh report says so.
+        self._route_modes: Dict[str, Dict[str, tuple]] = {}
         self._loop_task: Optional[asyncio.Task] = None
         self._shutdown = False
 
@@ -240,12 +244,13 @@ class ServeController:
                               total_inflight: int,
                               snapshot: Optional[Dict[str, Any]] = None,
                               pid: Optional[int] = None,
+                              compiled: Optional[bool] = None,
                               queued: Optional[int] = None) -> None:
         """Handle-side queue report (ref: autoscaling_state.py
         record_request_metrics_for_handle).  Routers additionally attach a
-        cumulative per-process RED snapshot for the status rollups and how
-        many requests are parked waiting for a non-empty replica set (the
-        wake-from-zero signal)."""
+        cumulative per-process RED snapshot for the status rollups, whether
+        their route is currently compiled, and how many requests are parked
+        waiting for a non-empty replica set (the wake-from-zero signal)."""
         now = time.time()
         self._handle_metrics.setdefault(deployment_id, {})[router_id] = (
             int(total_inflight), now)
@@ -255,6 +260,9 @@ class ServeController:
         if snapshot is not None and pid is not None:
             self._metric_snaps.setdefault(deployment_id, {})[int(pid)] = (
                 snapshot, now)
+        if compiled is not None:
+            self._route_modes.setdefault(deployment_id, {})[router_id] = (
+                bool(compiled), now)
 
     def _latency_rollup(self, deployment_id: str) -> Dict[str, Any]:
         from ray_tpu_torch.serve import metrics as serve_metrics
@@ -391,6 +399,13 @@ class ServeController:
                 "backoff_remaining_s": round(
                     max(0.0, state.backoff_until - now), 3),
                 "status": status,
+                # "compiled" when any fresh router report says its dispatch
+                # is lowered onto the channel path; stale reports (>2s) are
+                # ignored so a torn-down router can't pin the mode.
+                "route_mode": ("compiled" if any(
+                    c for c, ts in
+                    self._route_modes.get(dep_id, {}).values()
+                    if now - ts < 2.0) else "dynamic"),
                 # The last failed start's cause, for serve.run to raise.
                 "last_start_error": (repr(state.last_start_error)
                                      if state.last_start_error else None),

@@ -316,7 +316,7 @@ class DeploymentState:
         self.last_start_error: Optional[BaseException] = None
         #: Why the running set last changed (deploy / replica_death /
         #: drain / rolling_update / autoscale) — stamped onto the rows
-        #: routers receive.
+        #: routers receive, so a compiled-route rebuild is attributable.
         self.change_reason = "deploy"
         #: Where the current target_num came from: "config" (deploy /
         #: set_target) or "autoscale" (set_target_num) — decides whether a
@@ -562,6 +562,7 @@ class DeploymentState:
         return [{"replica_id": r.replica_id, "actor": r.actor,
                  "max_ongoing_requests": self.info.config.max_ongoing_requests,
                  "max_queued_requests": self.info.config.max_queued_requests,
+                 "compiled_route": self.info.config.compiled_route,
                  "change_reason": self.change_reason,
                  "multiplexed_model_ids": list(r.multiplexed_model_ids)}
                 for r in self.replicas if r.state == ReplicaState.RUNNING]

@@ -23,6 +23,9 @@ The batched bodies compose ``serve.batch``, ``serve.continuous_batch`` and
   ``"seed-<n>"`` (GPT-2 built from seed n), an LRU of them per replica; a
   batch only ever holds requests for one model.
 
+``GPT2Stage`` holds a span of the layers, for a forward split over thread
+actors of a compiled DAG or over the deployments of ``serve.pipeline``.
+
 Each defaults to GPT-2 124M (``GPTConfig()``) on the GPU, with attention on
 the splash kernel. Behind ``serve.run`` a replica's methods run on the
 runtime's threads (the async ``__call__`` on the replica's event loop, each
@@ -35,7 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import json
-from typing import Any, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -136,6 +139,83 @@ class GPT2Next(_Replica):
     async def __call__(self, request):
         body = await request.json()
         return {"next_token": self.next_token(body["tokens"])}
+
+
+class GPT2Stage:
+    """The layers ``[lo, hi)`` of GPT-2 on one device, one stage of a
+    forward split by layers: ``head(tokens)`` embeds (B, S) token ids and
+    runs the span (the first stage), ``tail(hidden)`` runs the span, the
+    final layernorm and the tied LM head, giving float32 logits (B, S, V)
+    (the last stage), and ``next_token(hidden)`` answers as ``GPT2Next``
+    does from the last stage (each row's greedy token at its last
+    position). A stage keeps its span's blocks and the weights its ends
+    use, cast as ``GPT2Next`` casts them; ``params`` are the whole model's
+    (``gpt2.init_params``), else built from ``seed`` on ``device``."""
+
+    def __init__(self, layers: Tuple[int, int],
+                 config: Optional[gpt2.GPTConfig] = None, seed: int = 0,
+                 device: DeviceLike = None, params=None):
+        self.config = gpt2.GPTConfig() if config is None else config
+        lo, hi = layers
+        if not 0 <= lo < hi <= self.config.n_layer:
+            raise ValueError(f"layers {layers} outside [0, "
+                             f"{self.config.n_layer}) or empty")
+        self.layers = (lo, hi)
+        self.first, self.last = lo == 0, hi == self.config.n_layer
+        self.device = _pin_device(device)
+        if params is None:
+            params = gpt2.init_params(self.config, seed, self.device)
+        keep = {"blocks": {n: w[lo:hi] for n, w in params["blocks"].items()}}
+        if self.first:
+            keep.update(wte=params["wte"], wpe=params["wpe"])
+        if self.last:
+            keep.update(wte=params["wte"], lnf_scale=params["lnf_scale"],
+                        lnf_bias=params["lnf_bias"])
+        self.params = gpt2.inference_params(keep, self.config)
+
+    def _device_scope(self):
+        return (torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext())
+
+    @torch.inference_mode()
+    def _hidden(self, x, first: bool) -> torch.Tensor:
+        with self._device_scope():
+            x = torch.as_tensor(x, dtype=torch.long if first else None,
+                                device=self.device)
+            if first and x.dim() == 1:
+                x = x[None, :]
+            return gpt2.stage_hidden(self.params, x, self.config,
+                                     first=first, last=self.last)
+
+    def head(self, tokens) -> torch.Tensor:
+        """(B, S) token ids (a list, an array or a tensor; one request's
+        list is a row) -> this span's hidden states (B, S, D)."""
+        if not self.first:
+            raise ValueError(f"stage {self.layers} is not the first")
+        if not isinstance(tokens, torch.Tensor):
+            tokens = np.asarray(tokens)
+            if tokens.ndim == 1:
+                _check_tokens(tokens.tolist(), self.config)
+        return self._hidden(tokens, first=True)
+
+    def tail(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The previous stage's hidden states -> float32 logits (B, S, V)."""
+        x = self._last_hidden(hidden)
+        with self._device_scope(), torch.inference_mode():
+            return gpt2.lm_head(x, self.params["wte"], torch.float32)
+
+    def next_token(self, hidden: torch.Tensor) -> int:
+        """One request's (1, S) hidden states -> its greedy next token, the
+        LM head on its last position alone (as ``GPT2Next``)."""
+        x = self._last_hidden(hidden)
+        with self._device_scope(), torch.inference_mode():
+            logits = gpt2.lm_head(x[:, -1], self.params["wte"], torch.float32)
+            return int(torch.argmax(logits[0]))
+
+    def _last_hidden(self, hidden) -> torch.Tensor:
+        if not self.last:
+            raise ValueError(f"stage {self.layers} is not the last")
+        return self._hidden(hidden, first=False)
 
 
 class GPT2Stream(_Replica):

@@ -314,6 +314,14 @@ class DeploymentHandle:
             actor, sid, done = router.assign_stream(method, *args, **kwargs)
             return DeploymentResponseGenerator(actor, sid, done)
 
+        # Compiled steady-state route: when the replica set is stable the
+        # router has lowered dispatch onto pre-resolved channels — no
+        # TaskSpec, no ObjectRef.  None means the route is dynamic (or a
+        # teardown raced us); fall through to the classic path.
+        compiled = router.try_assign_compiled(method, *args, **kwargs)
+        if compiled is not None:
+            return compiled
+
         def assign():
             return router.assign_request(method, *args, **kwargs)
 

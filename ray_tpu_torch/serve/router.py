@@ -9,10 +9,10 @@ controller for autoscaling (autoscaling_state.py), never probed from
 replicas — a saturated replica couldn't answer the probe anyway.)
 
 A request that carries a multiplexed model id prefers replicas that have
-that model loaded (``choose_replica(model_id=)``). The compiled
-steady-state route (``compiled_router.py``) and the LLM prefix directory
-are not ported yet (ROADMAP.md, Queue 1): every request takes the dynamic
-path.
+that model loaded (``choose_replica(model_id=)``). Once a thread-tier
+replica set is stable, unary requests take the compiled steady-state route
+(``compiled_router.py``) instead of one actor call each. The LLM prefix
+directory is not ported yet (ROADMAP.md, Queue 1 item 13.7).
 """
 
 from __future__ import annotations
@@ -181,6 +181,11 @@ class Router:
         #: wake signal.  guarded_by: _wake_lock
         self._wake_waiting = 0
         self._wake_lock = threading.Lock()
+        # Compiled steady-state route (built BEFORE the long-poll client:
+        # its callback feeds the manager the replica set).
+        from ray_tpu_torch.serve.compiled_router import CompiledRouteManager
+
+        self._compiled = CompiledRouteManager(self)
         from ray_tpu_torch.serve.long_poll import LongPollClient
 
         self._long_poll = LongPollClient(
@@ -203,6 +208,10 @@ class Router:
             self._replicas_populated.set()
         else:
             self._replicas_populated.clear()
+        # AFTER the scheduler swap: a membership change tears the compiled
+        # graph down inside this callback (fallback within one tick), and
+        # any request it re-dispatches must see the NEW replica set.
+        self._compiled.on_replica_set(replicas or [])
 
     def _push_metrics_loop(self) -> None:
         """Handle-side queue metric reporting (ref: autoscaling_state.py —
@@ -213,7 +222,9 @@ class Router:
         while not self._stopped.wait(METRICS_PUSH_INTERVAL_S):
             if runtime_or_none() is not self._runtime:
                 self._stopped.set()  # the runtime, and the controller, are gone
+                self._compiled.stop()
                 return
+            self._compiled.maybe_compile()
             inflight = self._scheduler.total_inflight()
             INFLIGHT_GAUGE.set(inflight,
                                tags={"deployment": self.deployment_id})
@@ -228,7 +239,9 @@ class Router:
                     self.deployment_id, self.router_id, inflight,
                     snapshot=serve_metrics.deployment_snapshot(
                         self.deployment_id),
-                    pid=os.getpid(), queued=queued)
+                    pid=os.getpid(),
+                    compiled=(self._compiled.mode == "compiled"),
+                    queued=queued)
             except ActorDiedError:
                 self._stopped.set()  # controller gone: stop reporting
                 return
@@ -265,6 +278,17 @@ class Router:
             SHED_COUNTER.inc(tags={"deployment": self.deployment_id})
             raise BackPressureError(self.deployment_id, inflight, capacity,
                                     max_queued)
+
+    def try_assign_compiled(self, method_name: str, *args, **kwargs):
+        """Compiled fast path for unary requests.  Returns a
+        CompiledResponse when the route is compiled and the request was
+        lowered onto a channel, or None to use the dynamic path.  Capacity
+        shedding fires exactly as on the dynamic path."""
+        graph = self._compiled.graph
+        if graph is None:
+            return None
+        self._check_capacity()
+        return graph.submit(method_name, args, kwargs)
 
     def _dispatch(self, send, model_id: Optional[str] = None):
         """Shared choose-replica/retry core (ref: Router.assign_request):
@@ -396,4 +420,5 @@ class Router:
 
     def stop(self) -> None:
         self._stopped.set()
+        self._compiled.stop()
         self._long_poll.stop()

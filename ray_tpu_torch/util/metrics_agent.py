@@ -91,6 +91,8 @@ class TimeSeriesAggregator:
     def __init__(self, max_window_s: float = DEFAULT_MAX_WINDOW_S):
         self.max_window_s = float(max_window_s)
         self._series: Dict[_SeriesKey, _Series] = {}
+        # id(registry) -> (registry, time of its latest sample).
+        self._sampled: Dict[int, Tuple[Any, float]] = {}
         self._lock = threading.Lock()
 
     # ------------------------------------------------------------- ingest
@@ -117,9 +119,16 @@ class TimeSeriesAggregator:
         """Snapshot every series in the metrics registry into the window;
         returns how many points landed.  Counters and histogram
         ``_sum``/``_count`` components ingest as cumulative "counter"
-        series; gauges as "gauge"."""
+        series; gauges as "gauge".  A counter series first seen here gets a
+        0 point at the registry's previous sample, which would have caught
+        it, so its first increments count like those of older series."""
         reg = registry if registry is not None else _metrics.registry()
         t = time.time() if ts is None else float(ts)
+        with self._lock:
+            prev = self._sampled.get(id(reg))
+            if prev is None or t > prev[1]:
+                self._sampled[id(reg)] = (reg, t)
+        born_after = prev[1] if prev is not None and prev[1] < t else None
         n = 0
         for group in reg.collect():
             lead = group[0]
@@ -136,8 +145,14 @@ class TimeSeriesAggregator:
                         merged[k] = merged.get(k, 0.0) + value
             kind = "gauge" if lead._type == "gauge" else "counter"
             for (suffix, tag_items), value in merged.items():
-                self.observe(lead.name + suffix, value, dict(tag_items),
-                             kind=kind, ts=t)
+                name, tags = lead.name + suffix, dict(tag_items)
+                if kind == "counter" and born_after is not None \
+                        and self._get(name, tags) is None:
+                    # Without this baseline an error counter born in a
+                    # burst misses the errors before its first sample while
+                    # the request total beside it counts them.
+                    self.observe(name, 0.0, tags, kind=kind, ts=born_after)
+                self.observe(name, value, tags, kind=kind, ts=t)
                 n += 1
         return n
 

@@ -55,6 +55,10 @@ SPAN_REGISTRY: Dict[str, str] = {
     "serve.http_request": "proxy: full HTTP request lifetime",
     "serve.route": "router: replica pick + dispatch",
     "serve.replica": "replica: user-handler execution",
+    "serve.compiled_route": "router: compiled-path dispatch -> response "
+                            "demux, per request (batch-exported)",
+    "serve.compiled_batch": "replica: compiled-loop vectorized execution, "
+                            "per request (batch-exported)",
     "serve.queue_wait": "batching: enqueue -> batch formation, per request",
     "serve.batch_execute": "batching: vectorized user call, per request",
     "serve.stream_emit": "proxy: one streamed response, first chunk -> end",

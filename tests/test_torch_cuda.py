@@ -1153,3 +1153,96 @@ def test_gloo_ranks_share_one_card_on_gpu():
         assert reduced == [3.0] * 4
         assert shard == total[2 * rank:2 * rank + 2]
         assert whole == total and device == "cuda:0"
+
+
+@pytest.mark.cuda
+def test_device_channel_hands_a_card_tensor_over_as_is_on_gpu():
+    """A tensor already on the channel's card crosses the edge with its
+    storage (the same ``data_ptr``), and no transfer is ledgered; a host
+    tensor lands on the card as an h2d transfer of its bytes."""
+    _need_gpu()
+    from ray_tpu_torch.dag import DeviceChannel
+    from ray_tpu_torch.util import device_telemetry as dt
+
+    dt.reset()
+    ch = DeviceChannel(device="cuda", maxsize=2)
+    x = torch.randn((4, 1024), device="cuda")
+    ch.write({"x": x, "host": torch.ones(256)})
+    assert dt.pool_bytes()["dag_channel"]["bytes"] == 4 * 4096 + 1024
+    out = ch.read()
+    assert out["x"].data_ptr() == x.data_ptr() and out["x"].is_cuda
+    assert out["host"].device == torch.device("cuda", 0)
+    assert out["host"].sum().item() == 256.0
+    assert dt.pool_bytes()["dag_channel"]["bytes"] == 0
+    moved = [r for r in dt.transfer_records() if r["src"] == "dag_channel"]
+    assert [(r["direction"], r["bytes"]) for r in moved] == [("h2d", 1024)]
+    # And back to the host: a d2h transfer, read once the copy is done.
+    back = DeviceChannel(device="cpu")
+    back.write(x)
+    assert torch.equal(back.read(), x.cpu())
+    assert [r["direction"] for r in dt.transfer_records()
+            if r["src"] == "dag_channel"] == ["h2d", "d2h"]
+
+
+@pytest.mark.cuda
+def test_device_channel_orders_a_side_stream_producer_on_gpu():
+    """The producer fills its tensor on a side stream after a long device
+    sleep; the consumer reads on its default stream. Without the channel's
+    event wait the consumer's sum would run before the fill."""
+    _need_gpu()
+    from ray_tpu_torch.dag import DeviceChannel
+
+    ch = DeviceChannel(device="cuda")
+    side = torch.cuda.Stream()
+    n = 1 << 22
+    with torch.cuda.stream(side):
+        x = torch.zeros(n, device="cuda")
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of device time
+        x.fill_(1.0)
+        ch.write(x)
+    total = ch.read().sum()  # on the default stream
+    assert total.item() == float(n)
+
+
+@pytest.mark.cuda
+def test_compiled_split_launches_one_splash_forward_per_layer_on_gpu():
+    """GPT-2 split over two thread actors on the card and compiled: the
+    logits equal the whole forward's bit for bit, and every execute makes
+    exactly one splash forward launch per layer (two per stage here)."""
+    _need_gpu()
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve.gpt2 import GPT2Stage
+
+    cfg = gpt2.GPTConfig(vocab_size=1024, n_layer=4, n_head=2, d_model=128,
+                         seq_len=256)
+    params = gpt2.init_params(cfg, 0, "cuda")
+    tokens = np.random.default_rng(0).integers(0, 1024, (2, 256))
+    with torch.inference_mode():
+        whole = gpt2.forward(gpt2.inference_params(params, cfg),
+                             torch.as_tensor(tokens, device="cuda"), cfg)
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        Stage = ray_tpu_torch.remote(GPT2Stage)
+        a = Stage.remote((0, 2), cfg, params=params)
+        b = Stage.remote((2, 4), cfg, params=params)
+        with InputNode() as inp:
+            dag = b.tail.bind(a.head.bind(inp).with_tensor_transport())
+        compiled = dag.experimental_compile()
+        try:
+            compiled.execute(tokens).get(timeout=120)  # builds the kernels
+            attention.reset_launches()
+            outs = [compiled.execute(tokens).get(timeout=60)
+                    for _ in range(3)]
+            launches = dict(attention.LAUNCHES)
+        finally:
+            compiled.teardown()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert launches == {"splash_attention_fwd": 3 * 4,
+                        "splash_attention_bwd": 0}
+    for out in outs:
+        assert out.is_cuda and torch.equal(out, whole)

@@ -147,6 +147,56 @@ def test_collector_merges_sources_like_reference():
     assert out[1] == out[0]
 
 
+class _Count:
+    """A counter as ``sample_registry`` reads it; no series before its
+    first increment (``value`` None)."""
+
+    _type = "counter"
+
+    def __init__(self, name):
+        self.name, self.value = name, None
+
+    def samples(self):
+        return [] if self.value is None else [
+            ("", {"deployment": "d"}, self.value)]
+
+
+class _Registry:
+    def __init__(self, *metrics):
+        self.metrics = metrics
+
+    def collect(self):
+        return [[m] for m in self.metrics]
+
+
+def _burst(mod):
+    """A request total that predates a burst and an error counter born in
+    it, sampled every 0.3 s: each one's sum over the last 2 s."""
+    agg = mod.TimeSeriesAggregator(max_window_s=60.0)
+    total, errors = _Count("reqs_total"), _Count("errs_total")
+    reg = _Registry(total, errors)
+    total.value = 1.0  # a warm-up request
+    agg.sample_registry(reg, ts=100.0)
+    total.value, errors.value = 31.0, 10.0
+    agg.sample_registry(reg, ts=100.3)
+    total.value, errors.value = 61.0, 20.0
+    agg.sample_registry(reg, ts=100.6)
+    return [agg.window_sum(name, {"deployment": "d"}, 2.0, 100.6)
+            for name in ("reqs_total", "errs_total")]
+
+
+def test_counter_born_between_samples_counts_from_the_previous_sample():
+    """The reference's aggregator gives a counter series no baseline before
+    its first sample, so the 10 errors of the burst's first 0.3 s enter no
+    window while the total beside them does: a bad fraction of 1/6 for
+    1/3 (ROADMAP Queue 3). The port's baseline is 0 at the registry's
+    previous sample."""
+    ref = _burst(ref_agg_mod)
+    port = _burst(port_agg_mod)
+    assert ref == [60.0, 10.0]
+    assert port == [60.0, 20.0]
+
+
 # --------------------------------------------------------- other routes
 def _get(port, path):
     try:

@@ -151,7 +151,7 @@ def multiplexed_loader_rejects_sync(pkg):
 
 
 # ------------------------------------------------- routing by model id
-def warm_routing_across_two_replicas(pkg):
+def warm_routing_across_two_replicas(pkg, compiled=False):
     serve = _serve(pkg)
     _LOADS.clear()
 
@@ -168,6 +168,9 @@ def warm_routing_across_two_replicas(pkg):
             return model, _replica_id(pkg), x
 
     handle = serve.run(Mux.bind(), name="warm", route_prefix=None)
+    if compiled:  # every request below rides the compiled lanes
+        assert _wait(lambda: handle._get_router()._compiled.mode
+                     == "compiled")
     h1 = handle.options(multiplexed_model_id="m1")
     h2 = handle.options(multiplexed_model_id="m2")
     # The pair goes out together: the second request sees the first in
@@ -333,8 +336,8 @@ EXPECTED = {
 
 
 def _run(pkg, case, monkeypatch):
-    # The reference lowers a stable replica set onto its compiled route,
-    # which the port does not have: both packages take the dynamic path.
+    # Both packages take the dynamic path here, where these cases'
+    # expectations were taken; the compiled route's case follows below.
     monkeypatch.setenv("RAY_TPU_SERVE_COMPILED", "0")
     fresh_init(pkg, num_cpus=8)
     serve = _serve(pkg)
@@ -354,6 +357,33 @@ def test_port_multiplex_matches_reference(case, monkeypatch):
         ref = _run(ray_tpu, case, monkeypatch)
     port = _run(ray_tpu_torch, case, monkeypatch)  # the collector on
     assert ref == EXPECTED[case.__name__]
+    assert port == ref
+
+
+def test_port_multiplex_matches_reference_on_the_compiled_route(monkeypatch):
+    """Warm routing with the compiled route on in both packages (their
+    default): the lanes keep the scheduler's warm-replica pick, so each
+    model loads once, on its own replica, as on the dynamic path."""
+    def case(pkg):
+        monkeypatch.setenv("RAY_TPU_SERVE_COMPILED_STABLE_S", "0.2")
+        fresh_init(pkg, num_cpus=8)
+        serve = _serve(pkg)
+        try:
+            serve.start(http_options={"port": 0})
+            out = warm_routing_across_two_replicas(pkg, compiled=True)
+            mode = serve.status()["warm#Mux"]["route_mode"]
+            return out, mode
+        finally:
+            try:
+                serve.shutdown()
+            finally:
+                pkg.shutdown()
+
+    monkeypatch.setenv("RAY_TPU_SERVE_COMPILED", "1")
+    with gc_paused():
+        ref = case(ray_tpu)
+    port = case(ray_tpu_torch)
+    assert ref == (EXPECTED["warm_routing_across_two_replicas"], "compiled")
     assert port == ref
 
 
