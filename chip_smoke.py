@@ -59,7 +59,9 @@ Phases, each of which exits non-zero on failure:
    W=2, and with the full mask, against the plain blocks and, bit for
    bit, against the folded launches over the same pairs, with one rank's
    launch of each kind timed beside its bound and SDPA on the same blocks
-   (causal for the first, diagonal step, full for a later one). Then GPT-2
+   (causal for the first, diagonal step, full for a later one; SDPA's
+   backward timed on the device as the aten flash-attention backward op
+   alone, replayed in a CUDA graph). Then GPT-2
    124M trains five steps through the ring from the splash run's start
    (exactly 48 ring forward and 48 ring backward launches per step, no
    splash or CE), and
@@ -160,6 +162,36 @@ Phases, each of which exits non-zero on failure:
     ``GPT2Next``'s, 32 pipeline forwards, no host bytes for the hidden
     state, 12 splash launches a request; no thread left after shutdown. It
     prints requests/s and p50 latency by clients, compiled over dynamic.
+9d. GPT-2 124M as two compiled stages in worker processes
+    (``dag_process`` line): process actors on half the card each, StageA
+    the embeddings and blocks 0-5, StageB blocks 6-11, ln_f and the head,
+    each built from its half of the weights sent as numpy arrays through
+    the shared-memory arena; (a) 32 executions at (1, 1024) and 8 at
+    (8, 1024) keep the tie rule against one whole forward here, with 6
+    splash launches per execution in each worker and none here, each stage
+    in a process of its own on this card, every element of the three edges
+    through the arena and none through the pipe, and the hidden state's
+    bytes ledgered d2h in StageA and h2d in StageB each execution; (b) an
+    input StageA refuses raises at that ``get()`` and the next execution
+    answers; (c) after teardown both stages answer plain calls and the
+    arena holds what it held before the DAG; after shutdown no DAG thread
+    or worker is left, the arena file is gone and nvidia-smi lists what it
+    listed before. It prints ms per execution and executions/s for the
+    process stages, the thread stages of 9b, one direct forward and the
+    process stages' interpreted ``execute()``, their ratios, and each
+    edge's share of an execution.
+9e. The compiled route on process replicas (``serve_compiled_process``
+    line): (a) ``GPT2BatchNext`` on one process replica compiles after the
+    stability window (``route_mode`` "compiled", one recompile, "deploy"),
+    answers through the handle at 1, 8 and 32 clients and over HTTP by the
+    tie rule with 12 splash launches per vectorized call in the worker,
+    against the same deployment at ``compiled_route=False``; (b) redeployed
+    at two replicas under 8 clients: no caller error, two recompiles; (c)
+    ``serve.pipeline`` of a thread-tier head and a process-tier tail
+    (the ``GPT2Stage`` spans, ``devices=["cuda"]``): mode "compiled", 32
+    answers equal to ``GPT2Next``'s, 32 forwards, 12 splash launches a
+    request over this process and the worker; (d) ``serve.shutdown()``
+    under 8 clients: no lane thread, arena file or worker left.
 10. Ray Data on the card (``data_batch`` line). (a) Batch scoring: 2048
     windows of 1025 token ids (numpy ``default_rng(0)`` over 50257) in 16
     blocks of 128 rows go through ``Dataset.map_batches(GPT2Scorer,
@@ -3502,6 +3534,676 @@ def phase_serve_compiled(params) -> Dict[str, object]:
     return result
 
 
+# GPT-2 124M as two compiled stages in worker processes: (B, S, executions
+# gated) per shape, executions per timed run of the process and thread
+# stages and the direct forward, and of the interpreted execute().
+DP_SHAPES = ((1, 1024, 32), (8, 1024, 8))
+DP_TIMED = {1: 16, 8: 3}
+DP_INTERPRETED = {1: 4, 8: 1}
+DP_SEQUENTIAL = {1: 4, 8: 1}
+
+
+def _proc_stage():
+    """A ``GPT2Stage`` built on the worker's card from numpy arrays of its
+    span's weights, whose first stage refuses a string input and which
+    reports on its process: the launch counts, the shared-memory channels'
+    traffic, the pool's handoffs and the ledger's ``dag_channel`` bytes.
+    Defined in a function of this script, so that it is pickled by value
+    into the worker that hosts it."""
+    from ray_tpu_torch.serve.gpt2 import GPT2Stage
+
+    class ProcStage(GPT2Stage):
+        def __init__(self, layers, config, arrays):
+            import torch
+
+            from ray_tpu_torch.models import gpt2
+            from ray_tpu_torch.util import device_telemetry  # noqa: F401
+
+            self.config = config
+            self.layers = tuple(layers)
+            self.first = layers[0] == 0
+            self.last = layers[1] == config.n_layer
+            self.device = torch.device("cuda", torch.cuda.current_device())
+
+            def card(a):
+                return torch.from_numpy(a).to(self.device)
+
+            keep = {n: card(a) for n, a in arrays.items() if n != "blocks"}
+            keep["blocks"] = {n: card(a) for n, a in arrays["blocks"].items()}
+            self.params = gpt2.inference_params(keep, config)
+            torch.cuda.synchronize(self.device)
+
+        def head(self, tokens):
+            if isinstance(tokens, str):
+                raise ValueError(f"stage A refuses {tokens!r}")
+            return super().head(tokens)
+
+        def report(self):
+            import torch
+
+            from ray_tpu_torch._private.process_pool import HANDOFFS
+            from ray_tpu_torch.dag.channel import CHANNEL_STATS
+
+            torch.cuda.synchronize(self.device)
+            return dict(_process_report(), name=torch.cuda.get_device_name(0),
+                        channel=dict(CHANNEL_STATS), handoffs=dict(HANDOFFS),
+                        xfer=_transfer_bytes("dag_channel"))
+
+        def ping(self, x):
+            return x
+
+    return ProcStage
+
+
+def _stats_here() -> Dict[str, object]:
+    """This process's launch counts, channel traffic, pool handoffs and
+    ``dag_channel`` ledger, as ``ProcStage.report`` gives a worker's."""
+    from ray_tpu_torch._private.process_pool import HANDOFFS
+    from ray_tpu_torch.dag.channel import CHANNEL_STATS
+
+    return dict(launches=_counts(), channel=dict(CHANNEL_STATS),
+                handoffs=dict(HANDOFFS), xfer=_transfer_bytes("dag_channel"))
+
+
+def _delta(after: Dict[str, object], before: Dict[str, object]):
+    """``after - before`` of two reports, key by key (nested dicts too)."""
+    return {k: (_delta(v, before[k]) if isinstance(v, dict) else
+                v - before[k])
+            for k, v in after.items()
+            if isinstance(v, (dict, int, float)) and k in before
+            and not isinstance(v, bool)}
+
+
+def _halves(params, L: int):
+    """Each stage's span of the weights as numpy arrays (float32)."""
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    a = {"wte": host(params["wte"]), "wpe": host(params["wpe"]),
+         "blocks": {n: host(w[:L // 2]) for n, w in params["blocks"].items()}}
+    b = {"wte": a["wte"], "lnf_scale": host(params["lnf_scale"]),
+         "lnf_bias": host(params["lnf_bias"]),
+         "blocks": {n: host(w[L // 2:]) for n, w in params["blocks"].items()}}
+    return a, b
+
+
+def phase_dag_process(params) -> Dict[str, object]:
+    """GPT-2 124M as two compiled stages in worker processes
+    (``dag_process`` line; docstring 9d). Both stage actors start at once;
+    the thread stages of ``dag_compiled`` and the direct forward are timed
+    in the same phase, after the process stages."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve.gpt2 import GPT2Stage
+
+    config = gpt2.GPTConfig()
+    L = config.n_layer
+    card = card_line()
+    uuid = _card_uuid()
+    threads0 = set(threading.enumerate())
+    apps0 = _compute_apps()
+    rng = np.random.default_rng(0)
+    inputs = {B: [rng.integers(0, config.vocab_size, (B, S))
+                  for _ in range(n)] for B, S, n in DP_SHAPES}
+    seq = {B: S for B, S, _ in DP_SHAPES}
+    whole_params = gpt2.inference_params(params, config)
+
+    def whole(tokens):
+        with torch.inference_mode():
+            return gpt2.forward(whole_params,
+                                torch.as_tensor(tokens, device="cuda"),
+                                config)
+
+    worst = 0.0
+
+    def check(B, S, tokens, out):
+        nonlocal worst
+        if out.shape != (B, S, config.vocab_size) or not out.is_cuda \
+                or not torch.isfinite(out).all():
+            fail(f"dag_process: logits {tuple(out.shape)} on {out.device}, "
+                 f"or non-finite")
+        ref = whole(tokens)
+        worst = max(worst, (out - ref).abs().max().item())
+        chosen = out.argmax(-1, keepdim=True)
+        gap = (ref.max(-1).values - ref.gather(-1, chosen)[..., 0]).max()
+        if gap.item() > LOGIT_ATOL:
+            fail(f"dag_process at B={B}: a chosen token is {gap.item()} "
+                 f"below the whole forward's maximum (tol {LOGIT_ATOL})")
+
+    half_a, half_b = _halves(params, L)
+    result: Dict[str, object] = dict(card=card)
+    rt = ray_tpu_torch.init()
+    arena = rt.store.arena_path
+    used, cap = rt.store.plasma.usage()[:2]
+    from ray_tpu_torch.native.plasma import free_bytes
+
+    print("dag_process arena " + json.dumps(dict(
+        path=arena, capacity=cap, filesystem_free=free_bytes(arena))),
+        flush=True)
+    try:
+        t0 = time.perf_counter()
+        Stage = ray_tpu_torch.remote(_proc_stage()).options(
+            isolation="process", num_gpus=0.5)
+        a = Stage.remote((0, L // 2), config, half_a)
+        b = Stage.remote((L // 2, L), config, half_b)
+        del half_a, half_b
+        ray_tpu_torch.get([a.ping.remote(0), b.ping.remote(0)], timeout=300)
+        start_s = time.perf_counter() - t0
+        objs0 = rt.store.plasma.usage()[2]
+        with InputNode() as inp:
+            dag = b.tail.bind(a.head.bind(inp))
+        compiled = dag.experimental_compile(max_buffered=DAG_MAX_BUFFERED)
+        try:
+            for B in inputs:  # warm-up: cuBLAS handles, the allocators
+                check(B, seq[B], inputs[B][0],
+                      compiled.execute(inputs[B][0]).get(timeout=300))
+            # ------------------------------------------- (a) the main path
+            # Marks: a report's own reply rides the pipe after it is taken,
+            # so each worker's pool counts one pipe handoff between marks.
+            marks = ray_tpu_torch.get([s.report.remote() for s in (a, b)],
+                                      timeout=60)
+            _reset_counts()
+            here0 = _stats_here()
+            outs = []
+            for B, S, n in DP_SHAPES:
+                refs = []
+                for i, tokens in enumerate(inputs[B]):
+                    refs.append((tokens, compiled.execute(tokens)))
+                    if len(refs) < DAG_MAX_BUFFERED and i < n - 1:
+                        continue
+                    outs += [(B, S, tokens, ref.get(timeout=300))
+                             for tokens, ref in refs]
+                    refs = []
+                    torch.cuda.synchronize()
+                    if any(_counts().values()):
+                        fail(f"dag_process: the driver launched "
+                             f"{_counts()}")
+                    for args in outs:
+                        check(*args)
+                    outs = []
+                    _reset_counts()  # the checks' own forwards
+            here = _delta(_stats_here(), here0)
+            reports = ray_tpu_torch.get([s.report.remote() for s in (a, b)],
+                                        timeout=60)
+            deltas = [_delta(r, m) for r, m in zip(reports, marks)]
+            executions = sum(n for _, _, n in DP_SHAPES)
+            hidden_bytes = sum(n * B * S * config.d_model
+                               * config.dtype.itemsize
+                               for B, S, n in DP_SHAPES)
+            one_reply = {"arena": 0, "pipe": 1, "arena_bytes": 0}
+            for label, rep, d in zip("AB", reports, deltas):
+                la = d["launches"]
+                if la.get("splash_attention_fwd") != (L // 2) * executions \
+                        or any(v for k, v in la.items()
+                               if k != "splash_attention_fwd"):
+                    fail(f"dag_process: stage {label} launched {la}, want "
+                         f"{L // 2} splash forwards per execution")
+                if rep["pid"] == os.getpid() or rep["uuid"] != uuid or \
+                        rep["device_count"] != 1:
+                    fail(f"dag_process: stage {label} runs in {rep['pid']} "
+                         f"on {rep['uuid']} ({rep['device_count']} cards)")
+                ch, pool = d["channel"], d["handoffs"]
+                if ch["writes"] != executions or ch["reads"] != executions \
+                        or {k: pool[k] for k in one_reply} != one_reply:
+                    fail(f"dag_process: stage {label}'s elements "
+                         f"{ch} / pool handoffs {pool}")
+            if reports[0]["pid"] == reports[1]["pid"]:
+                fail("dag_process: both stages run in one process")
+            ch = here["channel"]
+            if ch["writes"] != executions or ch["reads"] != executions or \
+                    any(here["handoffs"].values()):
+                fail(f"dag_process: the driver's elements {ch} / pool "
+                     f"handoffs {here['handoffs']}")
+            edge = {"d2h_in_A": deltas[0]["xfer"]["d2h"],
+                    "h2d_in_B": deltas[1]["xfer"]["h2d"]}
+            if edge != {"d2h_in_A": hidden_bytes, "h2d_in_B": hidden_bytes}:
+                fail(f"dag_process: the edge ledgered {edge}, want the "
+                     f"hidden state's {hidden_bytes} bytes each way")
+            # ------------------------------------------------ (b) errors
+            try:
+                compiled.execute("boom").get(timeout=120)
+                fail("dag_process: a refused input answered")
+            except ValueError as e:
+                raised = str(e)
+            check(1, seq[1], inputs[1][1],
+                  compiled.execute(inputs[1][1]).get(timeout=120))
+            # --------------------------------------------- the timed runs
+            marks = ray_tpu_torch.get([s.report.remote() for s in (a, b)],
+                                      timeout=60)
+            here0 = _stats_here()
+            timed: Dict[int, Dict[str, float]] = {}
+            for B, n in DP_TIMED.items():
+                x = inputs[B][0]
+                timed[B] = {"process": _in_flight(
+                    lambda: compiled.execute(x),
+                    lambda r: r.get(timeout=300), n, DAG_MAX_BUFFERED)}
+            # One execution at a time, for each edge's share of one: with
+            # several in flight the edges of different executions overlap.
+            shares: Dict[str, object] = {}
+            for B, n in DP_SEQUENTIAL.items():
+                x = inputs[B][0]
+                marks = ray_tpu_torch.get(
+                    [s.report.remote() for s in (a, b)], timeout=60)
+                here0 = _stats_here()
+                wall = _in_flight(lambda: compiled.execute(x),
+                                  lambda r: r.get(timeout=300), n, 1)
+                here_t = _delta(_stats_here(), here0)["channel"]
+                ra_, rb_ = (_delta(r, m)["channel"] for r, m in zip(
+                    ray_tpu_torch.get([s.report.remote() for s in (a, b)],
+                                      timeout=60), marks))
+                per = wall / n * 1e3
+                shares[f"B{B}"] = {"execution_ms": per}
+                for name, w, r in (
+                        ("input", here_t["write_s"], ra_["read_s"]),
+                        ("hidden", ra_["write_s"], rb_["read_s"]),
+                        ("logits", rb_["write_s"], here_t["read_s"])):
+                    shares[f"B{B}"][name] = dict(
+                        write_ms=w / n * 1e3, read_ms=r / n * 1e3,
+                        share=(w + r) / n * 1e3 / per)
+        finally:
+            compiled.teardown()
+        # ---------------------------------------------- (c) the teardown
+        answers = ray_tpu_torch.get([s.ping.remote(7) for s in (a, b)],
+                                    timeout=60)
+        objs_after = rt.store.plasma.usage()[2]
+        if answers != [7, 7] or objs_after != objs0:
+            fail(f"dag_process: after teardown the stages answered "
+                 f"{answers}, the arena holds {objs_after} objects "
+                 f"(before the DAG: {objs0})")
+        for B, n in DP_INTERPRETED.items():
+            x = inputs[B][0]
+            timed[B]["interpreted"] = _in_flight(
+                lambda: dag.execute(x),
+                lambda r: ray_tpu_torch.get(r, timeout=300), n,
+                DAG_MAX_BUFFERED) * DP_TIMED[B] / n
+        for actor in (a, b):
+            ray_tpu_torch.kill(actor)
+        # The thread stages of dag_compiled, and one direct forward.
+        ta = ray_tpu_torch.remote(GPT2Stage).remote((0, L // 2), config,
+                                                    params=params)
+        tb = ray_tpu_torch.remote(GPT2Stage).remote((L // 2, L), config,
+                                                    params=params)
+        with InputNode() as inp:
+            tdag = tb.tail.bind(ta.head.bind(inp).with_tensor_transport())
+        tcompiled = tdag.experimental_compile(max_buffered=DAG_MAX_BUFFERED)
+        try:
+            for B, n in DP_TIMED.items():
+                x = inputs[B][0]
+                tcompiled.execute(x).get(timeout=300)
+                timed[B]["thread"] = _in_flight(
+                    lambda: tcompiled.execute(x),
+                    lambda r: r.get(timeout=300), n, DAG_MAX_BUFFERED)
+                timed[B]["direct"] = _in_flight(lambda: whole(x),
+                                                lambda r: r, n, n)
+        finally:
+            tcompiled.teardown()
+        for actor in (ta, tb):
+            ray_tpu_torch.kill(actor)
+        del a, b, ta, tb, dag, tdag, compiled, tcompiled
+    finally:
+        ray_tpu_torch.shutdown()
+    left = _phase_threads(threads0)
+    workers = [r["pid"] for r in reports]
+    alive = [p for p in workers if os.path.exists(f"/proc/{p}")
+             and open(f"/proc/{p}/stat").read().split()[2] != "Z"]
+    apps = _compute_apps()
+    if left or alive or os.path.exists(arena) or apps != apps0:
+        fail(f"dag_process: after shutdown threads {left}, workers alive "
+             f"{alive}, arena {os.path.exists(arena)}, nvidia-smi lists "
+             f"{apps} (before: {apps0})")
+    rates = {}
+    for B, by in timed.items():
+        n = DP_TIMED[B]
+        rates[f"B{B}"] = dict(
+            executions=n, per_s={k: n / s for k, s in by.items()},
+            ms={k: s / n * 1e3 for k, s in by.items()},
+            process_over_thread=by["thread"] / by["process"],
+            process_over_direct=by["direct"] / by["process"],
+            process_over_interpreted=by["interpreted"] / by["process"])
+    result.update(
+        stages=[[0, L // 2], [L // 2, L]], start_s=start_s,
+        executions={f"B{B}": n for B, _, n in DP_SHAPES},
+        max_abs_logit_err=worst, hidden_bytes=hidden_bytes,
+        launches=here["launches"],
+        worker_launches=[d["launches"] for d in deltas],
+        worker_pids=workers, edge_bytes=edge, channel=[
+            d["channel"] for d in deltas] + [here["channel"]],
+        refused=raised, arena_objects=[objs0, objs_after],
+        max_buffered=DAG_MAX_BUFFERED, rates=rates, edge_share=shares,
+        edge_share_over="one execution at a time (DP_SEQUENTIAL)")
+    print("dag_process " + json.dumps(result), flush=True)
+    return result
+
+
+# The compiled route on process replicas: handle clients per run, requests
+# through the mixed-tier pipeline, clients of the shutdown under load.
+SCP_CLIENTS = (1, 8, 32)
+SCP_PIPE_REQUESTS = 32
+SCP_SHUTDOWN_CLIENTS = 8
+
+
+def phase_serve_compiled_process(params) -> Dict[str, object]:
+    """The compiled serve route on process replicas
+    (``serve_compiled_process`` line; docstring 9e), GPT-2 124M with the
+    serving phases' weights, each process replica on half the card. It
+    prints requests/s and p50 latency by clients, compiled against
+    dynamic, beside the card's name and power limit."""
+    import os
+    import threading
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve.compiled_router import PIPELINE_FORWARDS
+
+    config = gpt2.GPTConfig()
+    L = config.n_layer
+    requests, _ = _batch_inputs()
+    bodies = [{"tokens": t} for t in requests]
+    local_next = serve.GPT2Next(config, params=params)
+    with torch.inference_mode():
+        ref_logits = torch.stack([local_next.logits(t) for t in requests])
+    ref_answers = torch.argmax(ref_logits, dim=-1).tolist()
+    worst = 0.0
+
+    def held(label, answers, indices):
+        nonlocal worst
+        for i, ans in zip(indices, answers):
+            g = (ref_logits[i].max() - ref_logits[i][ans]).item()
+            worst = max(worst, g)
+            if g > LOGIT_ATOL:
+                fail(f"serve_compiled_process {label}: answer {ans} to "
+                     f"request {i} is {g} below the in-process maximum "
+                     f"(tol {LOGIT_ATOL})")
+
+    threads0 = set(threading.enumerate())
+    card = card_line()
+    proc = {"isolation": "process", "num_gpus": 0.5}
+    result: Dict[str, object] = dict(card=card)
+    rt = ray_tpu_torch.init()
+    arena = rt.store.arena_path
+    from ray_tpu_torch.native.plasma import free_bytes
+
+    print("serve_compiled_process arena " + json.dumps(dict(
+        path=arena, capacity=rt.store.plasma.usage()[1],
+        filesystem_free=free_bytes(arena))), flush=True)
+    pids = set()
+    try:
+        serve.start(http_options={"port": 0})
+        from ray_tpu_torch.serve.api import _state
+
+        addr = _state["proxy"].address
+        Batch = _reporting(serve.GPT2BatchNext)
+        dep = serve.deployment(max_ongoing_requests=64,
+                               ray_actor_options=proc)(Batch)
+        comp_id = "pcompiled#ProcGPT2BatchNext"
+        base = _recompiles(comp_id)
+        # A process replica builds the serving weights from their seed on
+        # its own card (CUDA tensors sent to it would arrive on the host).
+        h_c = serve.run(dep.bind(config, seed=0), name="pcompiled",
+                        route_prefix="/pcompiled")
+        h_d = serve.run(dep.options(compiled_route=False).bind(
+            config, seed=0), name="pdynamic", route_prefix="/pdynamic")
+        _wait_compiled(h_c, timeout=120)
+        deadline = time.monotonic() + 10
+        while True:
+            status = serve.status()
+            modes = {k: status[f"p{k}#ProcGPT2BatchNext"]["route_mode"]
+                     for k in ("compiled", "dynamic")}
+            if modes["compiled"] == "compiled" or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        if modes != {"compiled": "compiled", "dynamic": "dynamic"}:
+            fail(f"serve_compiled_process: route modes {modes}")
+        made = {r: n - base.get(r, 0) for r, n in _recompiles(comp_id).items()
+                if n - base.get(r, 0)}
+        if made != {"deploy": 1}:
+            fail(f"serve_compiled_process: recompiles after deploy {made}, "
+                 f"want one with reason 'deploy'")
+        lanes = [type(x).__name__ for x in
+                 h_c._get_router()._compiled.graph._lanes.values()]
+        # ----------------------------------------------- (a) one replica
+        for h in (h_c, h_d):  # warm-up, not counted
+            _handle_answers(h, bodies[:32], 32)
+        runs: Dict[str, Dict[str, object]] = {"compiled": {}, "dynamic": {}}
+        totals: Dict[str, int] = {}
+
+        def worker_counts(h):
+            rep = h.report.remote().result(timeout_s=60)
+            pids.add(rep["pid"])
+            if rep["pid"] == os.getpid() or rep["device_count"] != 1:
+                fail(f"serve_compiled_process: a replica in {rep['pid']} "
+                     f"sees {rep['device_count']} cards")
+            return rep["launches"]
+
+        for clients in SCP_CLIENTS:
+            for kind, h in (("compiled", h_c), ("dynamic", h_d)):
+                h.reset_launches.remote().result(timeout_s=60)
+                _reset_counts()
+                answers, lat, secs = _handle_answers(h, bodies, clients)
+                here = _counts()
+                there = worker_counts(h)
+                held(f"{kind} c{clients}", answers, range(len(bodies)))
+                if any(here.values()):
+                    fail(f"serve_compiled_process: the driver launched "
+                         f"{here}")
+                # Each vectorized call is one forward: the worker's splash
+                # launches are n_layer per call, its batch-size histogram
+                # is the worker's own.
+                splash = there["splash_attention_fwd"]
+                if splash % L or not splash or any(
+                        v for k, v in there.items()
+                        if k != "splash_attention_fwd"):
+                    fail(f"serve_compiled_process {kind} c{clients}: the "
+                         f"worker launched {there}, want {L} splash "
+                         f"forwards per vectorized call")
+                if kind == "compiled":
+                    for k, v in there.items():
+                        totals[k] = totals.get(k, 0) + v
+                runs[kind][f"c{clients}"] = dict(
+                    qps=len(bodies) / secs, p50_ms=statistics.median(lat),
+                    vectorized_calls=splash // L)
+        serve.delete("pdynamic")
+
+        # ------------------------------- (b) a membership change, loaded
+        base = _recompiles(comp_id)
+        graph0 = h_c._get_router()._compiled.graph
+        stop = threading.Event()
+        errors, answered = [], []
+
+        def client(k):
+            i = k
+            while not stop.is_set():
+                j = i % len(bodies)
+                try:
+                    out = h_c.remote(_Request(body=bodies[j])).result(
+                        timeout_s=120)
+                    answered.append((j, out["next_token"]))
+                except Exception as e:  # noqa: BLE001 — the gate below
+                    errors.append(repr(e))
+                    return
+                i += SC_CHANGE_CLIENTS
+
+        clients_ = [threading.Thread(target=client, args=(k,))
+                    for k in range(SC_CHANGE_CLIENTS)]
+        for t in clients_:
+            t.start()
+        time.sleep(SC_CHANGE_AFTER_S)
+        t_change = time.perf_counter()
+        serve.run(dep.options(num_replicas=2).bind(config, seed=0),
+                  name="pcompiled", route_prefix="/pcompiled")
+        mgr = h_c._get_router()._compiled
+        deadline = time.monotonic() + 120
+        while not (mgr.graph is not None and mgr.graph is not graph0
+                   and len(mgr.graph._lanes) == 2):
+            if time.monotonic() > deadline or errors:
+                break
+            time.sleep(0.02)
+        recompiled_s = time.perf_counter() - t_change
+        time.sleep(SC_CHANGE_AFTER_S)
+        stop.set()
+        for t in clients_:
+            t.join(timeout=120)
+        if errors or any(t.is_alive() for t in clients_):
+            fail(f"serve_compiled_process: callers saw errors through the "
+                 f"membership change: {errors[:3]}")
+        if mgr.graph is None or len(mgr.graph._lanes) != 2:
+            fail("serve_compiled_process: the route did not compile again "
+                 "over two replicas")
+        held("membership change", [a for _, a in answered],
+             [j for j, _ in answered])
+        change = {r: n - base.get(r, 0) for r, n in _recompiles(comp_id).items()
+                  if n - base.get(r, 0)}
+        recompiles = sum(made.values()) + sum(change.values())
+        if recompiles != 2:
+            fail(f"serve_compiled_process: recompiles {made} then {change}, "
+                 f"want 2 in all")
+        # Over HTTP after (b): the proxy's own router would add its
+        # compiles to the counter (b) reads.
+        outs, secs = _post_concurrently(f"{addr}/pcompiled", bodies, 8)
+        for status_, _, out in outs:
+            if status_ != 200 or not isinstance(out.get("next_token"), int):
+                fail(f"serve_compiled_process HTTP answer {status_} {out}")
+        held("HTTP c8", [o["next_token"] for _, _, o in outs],
+             range(len(bodies)))
+        http_qps = len(bodies) / secs
+        serve.delete("pcompiled")
+
+        # ------------------------------------------ (c) mixed tiers
+        Tail = _reporting(serve.GPT2Stage)
+        head = serve.deployment(max_ongoing_requests=32, name="Head",
+                                ray_actor_options={"num_gpus": 0.25})(
+                                    serve.GPT2Stage)
+        tail = serve.deployment(max_ongoing_requests=32, name="Tail",
+                                ray_actor_options=proc)(Tail)
+        h_head = serve.run(head.bind((0, L // 2), config, params=params),
+                           name="head", route_prefix=None)
+        h_tail = serve.run(tail.bind((L // 2, L), config, seed=0),
+                           name="tail", route_prefix=None)
+        pipe = serve.pipeline(h_head, h_tail, methods=["head", "next_token"],
+                              devices=["cuda"], name="mixed")
+        try:
+            _wait_compiled(h_head, timeout=120)
+            _wait_compiled(h_tail, timeout=120)
+            pipe.remote(requests[0]).result(timeout_s=120)  # warm-up
+            mode = pipe.mode
+            if mode != "compiled":
+                fail(f"serve_compiled_process: the pipeline's mode is {mode}")
+            tags = {"pipeline": "mixed"}
+            fwd0 = PIPELINE_FORWARDS.get(tags=tags)
+            chosen = requests[:SCP_PIPE_REQUESTS]
+            h_tail.reset_launches.remote().result(timeout_s=60)
+            _reset_counts()
+            t0 = time.perf_counter()
+            resps = [pipe.remote(t) for t in chosen]
+            pipe_answers = [r.result(timeout_s=120) for r in resps]
+            pipe_s = time.perf_counter() - t0
+            here = _counts()
+            there = worker_counts(h_tail)
+            forwards = PIPELINE_FORWARDS.get(tags=tags) - fwd0
+            mode_after = pipe.mode
+        finally:
+            pipe.stop()
+        want = [ref_answers[i] for i in range(SCP_PIPE_REQUESTS)]
+        if pipe_answers != want:
+            bad = [i for i, (x, w) in enumerate(zip(pipe_answers, want))
+                   if x != w]
+            fail(f"serve_compiled_process: the pipeline answered {len(bad)} "
+                 f"requests unlike GPT2Next (first {bad[:3]})")
+        if forwards != SCP_PIPE_REQUESTS or mode_after != "compiled":
+            fail(f"serve_compiled_process: {forwards} pipeline forwards for "
+                 f"{SCP_PIPE_REQUESTS} requests, mode {mode_after}")
+        pipe_splash = {"driver": here["splash_attention_fwd"],
+                       "worker": there["splash_attention_fwd"]}
+        if sum(pipe_splash.values()) != L * SCP_PIPE_REQUESTS or any(
+                v for k, v in {**here, **there}.items()
+                if k != "splash_attention_fwd"):
+            fail(f"serve_compiled_process: pipeline launches {here} here, "
+                 f"{there} in the worker, want {L} splash forwards a "
+                 f"request")
+        for k, v in {**here}.items():
+            totals[k] = totals.get(k, 0) + v + there.get(k, 0)
+        serve.delete("head")
+        serve.delete("tail")
+
+        # ----------------------------------- (d) shutdown under load
+        h_s = serve.run(dep.bind(config, seed=0), name="pshut",
+                        route_prefix=None)
+        _wait_compiled(h_s, timeout=120)
+        pids.add(h_s.report.remote().result(timeout_s=60)["pid"])
+        stop = threading.Event()
+        sent = [0]
+
+        def sender(k):
+            while not stop.is_set():
+                try:
+                    h_s.remote(_Request(body=bodies[k])).result(
+                        timeout_s=60)
+                    sent[0] += 1
+                except Exception:  # noqa: BLE001 — shut down under it
+                    pass
+
+        senders = [threading.Thread(target=sender, args=(k,), daemon=True)
+                   for k in range(SCP_SHUTDOWN_CLIENTS)]
+        for t in senders:
+            t.start()
+        time.sleep(2.0)
+        served_before = sent[0]
+        pids |= {w.proc.pid for w in rt.process_pool._started}
+        t_shut = time.perf_counter()
+        serve.shutdown()
+        shutdown_s = time.perf_counter() - t_shut
+        stop.set()
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+    lane_threads = [t.name for t in threading.enumerate()
+                    if t.name.startswith(("serve-compiled-loop",
+                                          "serve-compiled-demux",
+                                          "serve-compiled-ploop",
+                                          "serve-compiled-pdemux"))]
+    alive = [p for p in pids if os.path.exists(f"/proc/{p}")
+             and open(f"/proc/{p}/stat").read().split()[2] != "Z"]
+    if lane_threads or alive or os.path.exists(arena) or not served_before:
+        fail(f"serve_compiled_process: after the shutdown under load lane "
+             f"threads {lane_threads}, workers alive {alive}, arena "
+             f"{os.path.exists(arena)}, {served_before} answered before it")
+    left = [n for n in _phase_threads(threads0)
+            if not n.startswith("serve-compiled-redispatch")]
+    result.update(
+        requests=len(bodies), lanes=lanes, runs=runs,
+        compiled_over_dynamic={
+            c: dict(qps=runs["compiled"][c]["qps"] / runs["dynamic"][c]["qps"],
+                    p50=runs["compiled"][c]["p50_ms"]
+                    / runs["dynamic"][c]["p50_ms"])
+            for c in runs["compiled"]},
+        http_qps_c8=http_qps, route_modes=modes,
+        recompiles_after_deploy=made,
+        change=dict(answered=len(answered), errors=len(errors),
+                    recompiled_s=recompiled_s, reasons=change,
+                    recompiles=recompiles),
+        pipeline=dict(requests=SCP_PIPE_REQUESTS, mode=mode_after,
+                      forwards=forwards, splash=pipe_splash,
+                      requests_per_s=SCP_PIPE_REQUESTS / pipe_s),
+        shutdown=dict(served_before=served_before, shutdown_s=shutdown_s,
+                      threads_left=left),
+        worst_gap_below_max=worst, launches=totals)
+    print("serve_compiled_process " + json.dumps(result), flush=True)
+    return result
+
+
 def _released(label: str) -> None:
     """After a pass: the pool's actor is gone and the card is free again."""
     import ray_tpu_torch
@@ -6480,6 +7182,34 @@ def phase_ring(peaks: Tuple[float, float]) -> Dict[str, object]:
                 per_rank=per_rank)
 
 
+def sdpa_bwd_ms(qt, kt, vt, dot, causal: bool) -> Tuple[float, str]:
+    """Device ms of SDPA's backward alone on (B, H, S, hd) inputs: the aten
+    flash-attention backward op (what the autograd backward of SDPA runs on
+    this card for bf16 at head_dim 64) on its forward's saved outputs,
+    replayed in a CUDA graph as ``device_ms`` does; where it will not
+    capture, its kernels' device time summed by ``torch.profiler``. Returns
+    the ms and how they were taken."""
+    import torch
+
+    aten = torch.ops.aten
+    q, k, v, do = (x.detach() for x in (qt, kt, vt, dot))
+    with torch.no_grad():
+        o, lse, cq, ck, mq, mk, seed, off, _ = \
+            aten._scaled_dot_product_flash_attention(q, k, v, 0.0, causal)
+
+        def call():
+            return aten._scaled_dot_product_flash_attention_backward(
+                do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, causal, seed, off)
+
+        try:
+            return device_ms(call), "aten flash backward, CUDA-graph replay"
+        except Exception as e:  # noqa: BLE001 — then the profiler's sum
+            torch.cuda.synchronize()
+            ms, _ = profiled_ms(call)
+            return ms, (f"aten flash backward, profiler kernel sum "
+                        f"(graph capture: {type(e).__name__})")
+
+
 def _ring_per_rank(peaks, gen, worst) -> Dict[str, object]:
     """The process ring's per-rank launches (``ring_fwd_block`` and
     ``ring_bwd_block``: the pair (0, 0), W = 1, the diagonal and first
@@ -6545,8 +7275,8 @@ def _ring_block_times(peaks, q, k, v, do, shard, folded) -> Dict[str, object]:
     and backward, with their bounds and plain versions, and the library
     yardstick on the same rank's blocks: SDPA causal for the diagonal step
     and non-causal for the full one, its forward replayed in a CUDA graph
-    and its backward timed by events around a loop (no profiler this early
-    in the script)."""
+    and its backward too (``sdpa_bwd_ms``: the aten op alone), with the
+    old events around an autograd loop as ``library_loop_ms``."""
     import torch
     import torch.nn.functional as F
 
@@ -6588,10 +7318,12 @@ def _ring_block_times(peaks, q, k, v, do, shard, folded) -> Dict[str, object]:
             out[f"fwd_{label}"]["library_ms"] = device_ms(
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=diagonal))
-        out[f"bwd_{label}"]["library_ms"] = loop_ms(
+        out[f"bwd_{label}"]["library_loop_ms"] = loop_ms(
             lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
                                         retain_graph=True))
-        out[f"bwd_{label}"]["library_ms_by"] = "events around a loop"
+        ms, by = sdpa_bwd_ms(qt, kt, vt, dot, diagonal)
+        out[f"bwd_{label}"]["library_ms"] = ms
+        out[f"bwd_{label}"]["library_ms_by"] = by
         del qt, kt, vt, sdpa, dot
     print("kernel ring_per_rank_ms " + json.dumps(
         dict(B=B, S_local=shard, H=H, hd=hd, **out)), flush=True)
@@ -8810,6 +9542,9 @@ def main() -> int:
     serve_process = run("serve_process", phase_serve_process, weights, serve)
     dag_compiled = run("dag_compiled", phase_dag_compiled, weights)
     serve_compiled = run("serve_compiled", phase_serve_compiled, weights)
+    dag_process = run("dag_process", phase_dag_process, weights)
+    serve_compiled_process = run("serve_compiled_process",
+                                 phase_serve_compiled_process, weights)
     del weights
     data_batch = run("data_batch", phase_data_batch)
     ce["fused_ce_fwd"]["worst_abs"] = max(
@@ -8860,6 +9595,11 @@ def main() -> int:
                "serve_process": serve_process["launches"].get(name, 0),
                "dag_compiled": dag_compiled["launches"].get(name, 0),
                "serve_compiled": serve_compiled["launches"].get(name, 0),
+               "dag_process": sum(w.get(name, 0) for w in
+                                  dag_process["worker_launches"])
+               + dag_process["launches"].get(name, 0),
+               "serve_compiled_process":
+                   serve_compiled_process["launches"].get(name, 0),
                "data_batch": data_batch["launches"].get(name, 0),
                "train_fit": train_fit["launches"].get(name, 0),
                "train_elastic": train_elastic["launches"].get(name, 0),

@@ -4,9 +4,10 @@
 Every flag has a typed default and can be overridden by a ``RAY_TPU_<NAME>``
 environment variable or the ``_system_config`` dict passed to
 ``ray_tpu_torch.init``. The thread tier's flags (and the chaos flag of
-``_private/fault_injection.py``) and the placement policies' are here: the
-object transfer, worker-node and memory-monitor flags come with the
-serialized object tier and real worker nodes (ROADMAP.md, Queue 1).
+``_private/fault_injection.py``), the placement policies' and the
+serialized object tier's are here: the object transfer, worker-node and
+memory-monitor flags come with real worker nodes (ROADMAP.md, Queue 1 item
+13.8b).
 """
 
 from __future__ import annotations
@@ -27,6 +28,17 @@ class Config:
     #: Bytes the node advertises as its ``memory`` resource (0 = 30% of
     #: the host's RAM, the reference's default).
     object_store_memory: int = 0
+    #: Directory for spilled objects (object spilling under memory pressure,
+    #: ref: raylet/local_object_manager.h:41); the port's own, beside the
+    #: reference's ``/tmp/ray_tpu_spill``.
+    spill_dir: str = field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "ray_tpu_torch_spill"))
+    #: Start spilling when the serialized tier is this full (ref:
+    #: object_spilling_threshold).
+    object_spilling_threshold: float = 0.8
+    #: Args and results larger than this ride the shared-memory arena to and
+    #: from process workers instead of the pipe.
+    plasma_handoff_threshold: int = 128 * 1024
 
     # --- scheduling ---
     #: Pack-then-spread crossover used by the hybrid policy

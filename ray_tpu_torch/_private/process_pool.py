@@ -22,13 +22,19 @@ Protocol per worker:
   driver -> worker: ("exec"|"exec_gen", seq, fn_id, fn_bytes|None, args_spec)
                     ("actor_call"|"actor_call_gen", seq, method, args_spec)
                     ("actor_new", seq, cls_bytes, actor_id, args_spec)
+                    ("actor_exec", seq, fn_bytes, args_spec)
                     ("setup_env", payload), ("gen_stop", seq), ("shutdown",)
   worker -> driver: ("ok", seq, result_spec) | ("err", seq, flat_exc)
                     | ("yield", seq, item_spec)   [streaming kinds]
-where a spec is ("inline", bytes). The reference also hands payloads above a
-threshold through its shared-memory arena; its pool keeps the pipe when no
-arena is attached, which is the only form here until the serialized object
-tier is ported (ROADMAP.md, Queue 1 item 13.8).
+where a spec is ("inline", bytes) or ("plasma", key): a payload above
+``plasma_handoff_threshold`` is written into the object store's shared-
+memory arena (``ray_tpu_torch/native/plasma.py``), which every worker
+attaches at start, and only its key rides the pipe; the side that takes it
+deletes it. ``actor_exec`` runs a shipped function against the worker's
+actor instance (the resident loops of compiled graphs and of the compiled
+serve route's process lanes). ``HANDOFFS`` counts this process's payloads
+by transport. A CUDA tensor crosses as a host copy (``serialization.py``):
+its bytes count as a d2h transfer at the sender, under ``process_pool``.
 
 The pipe is multiplexed by seq: the driver side has one reader thread per
 worker routing replies to per-request queues, and the worker side runs
@@ -62,6 +68,8 @@ from contextlib import contextmanager
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ray_tpu_torch._private import serialization
+from ray_tpu_torch._private.config import GLOBAL_CONFIG
+
 
 def _read_into(fd: int, size: int, first: bool = False) -> bytearray:
     """Exactly ``size`` bytes of the pipe ``fd``, read into one buffer."""
@@ -106,15 +114,86 @@ MAX_IDLE_WORKERS = 16
 _SPAWN_LOCK = threading.Lock()
 
 
-def _spec_put(payload: bytes):
+#: This process's payloads by transport: ``arena``/``pipe`` count them,
+#: ``arena_bytes``/``pipe_bytes`` their bytes.
+HANDOFFS = {"arena": 0, "pipe": 0, "arena_bytes": 0, "pipe_bytes": 0}
+
+_HANDOFF_COUNTER = itertools.count(1)
+
+
+def _next_handoff_key(prefix: str) -> str:
+    return f"{prefix}:{os.getpid()}:{next(_HANDOFF_COUNTER)}"
+
+
+def _attach_arena(path: Optional[str]):
+    """The arena at ``path`` attached (None where there is no path)."""
+    if not path:
+        return None
+    from ray_tpu_torch.native.plasma import PlasmaClient
+
+    return PlasmaClient(path, create=False)
+
+
+def _wire(value: Any) -> bytes:
+    """``value``'s wire form, its CUDA tensors' host copies ledgered."""
+    so = serialization.serialize(value)
+    if so.d2h_bytes:
+        dt = sys.modules.get("ray_tpu_torch.util.device_telemetry")
+        if dt is not None:
+            dt.record_transfer("d2h", so.d2h_bytes, src="process_pool")
+    return so.to_bytes()
+
+
+def _spec_put(arena, key: str, payload: bytes):
+    """The transport of one payload: the arena above the threshold (the
+    pipe where the arena is full or the key taken), else the pipe."""
+    if arena is not None and \
+            len(payload) > GLOBAL_CONFIG.plasma_handoff_threshold:
+        try:
+            arena.put_bytes(key, payload)
+            HANDOFFS["arena"] += 1
+            HANDOFFS["arena_bytes"] += len(payload)
+            return ("plasma", key)
+        except (MemoryError, ValueError):
+            pass
+    HANDOFFS["pipe"] += 1
+    HANDOFFS["pipe_bytes"] += len(payload)
     return ("inline", payload)
 
 
-def _spec_take(spec) -> bytes:
+def _spec_take(arena, spec):
+    """The payload of one spec, a private writable copy for an arena
+    handoff, whose object is deleted here."""
     kind, val = spec
-    if kind != "inline":
+    if kind == "inline":
+        return val
+    if kind != "plasma":
         raise RuntimeError(f"unknown payload transport {kind!r}")
-    return val
+    if arena is None:
+        raise RuntimeError(
+            f"peer sent arena handoff {val} but this side has no arena")
+    view = arena.get(val, timeout=30)
+    if view is None:
+        raise RuntimeError(f"arena handoff object {val} missing")
+    try:
+        data = bytearray(view)
+    finally:
+        view.release()
+        arena.release(val)
+    arena.release(val)  # the creator's reference
+    arena.delete(val)
+    return data
+
+
+def _spec_cleanup(arena, spec) -> None:
+    """Free an unconsumed arena handoff (a no-op if the peer took it)."""
+    if arena is None or spec is None or spec[0] != "plasma":
+        return
+    try:
+        arena.release(spec[1])
+        arena.delete(spec[1])
+    except Exception:  # noqa: BLE001 — closed arena: nothing to free
+        pass
 
 
 def worker_gpu_ids() -> Tuple[int, ...]:
@@ -140,7 +219,8 @@ def _task_context(actor_id):
 
 
 def _worker_main(conn, back_conn, visible_devices: str,
-                 gpu_ids: Sequence[int]) -> None:
+                 gpu_ids: Sequence[int], arena_path: Optional[str] = None
+                 ) -> None:
     global WORKER_MAIN_AT
     WORKER_MAIN_AT = time.time()
     # The lease's cards, before anything in this process initialises CUDA
@@ -160,6 +240,12 @@ def _worker_main(conn, back_conn, visible_devices: str,
     redirect_worker_output()
     fn_cache: Dict[str, Any] = {}
     actor_instance: List[Any] = [None, None]  # [instance, actor_id]
+    arena = _attach_arena(arena_path)
+    if arena is not None:
+        # Channels unpickled here attach by path: they reuse this client.
+        from ray_tpu_torch.dag.channel import seed_arena_client
+
+        seed_arena_client(arena.path, arena)
     # Nested API: user code in this worker calls remote/get/put/wait
     # through the proxy runtime (client_runtime.py).
     from ray_tpu_torch._private.client_runtime import ClientRuntime
@@ -190,14 +276,22 @@ def _worker_main(conn, back_conn, visible_devices: str,
             blob = serialization.dumps((RuntimeError(repr(e)), tb))
         send(("err", seq, blob))
 
+    def reply_value(seq, value):
+        reply_ok(seq, _spec_put(arena, f"res:{os.getpid()}:{seq}",
+                                _wire(value)))
+
     def stream(seq, items) -> None:
-        for item in items:
+        for n, item in enumerate(items):
             if seq in stopped_streams:
                 break  # the driver abandoned the stream
-            send(("yield", seq,
-                  _spec_put(serialization.serialize(item).to_bytes())))
+            send(("yield", seq, _spec_put(
+                arena, f"res:{os.getpid()}:{seq}:{n}", _wire(item))))
         stopped_streams.discard(seq)
         reply_ok(seq, None)
+
+    def take_args(args_spec):
+        return serialization.deserialize_flat(
+            memoryview(_spec_take(arena, args_spec)))
 
     def run_exec(seq, fn_id, fn_bytes, args_spec, streaming):
         try:
@@ -214,14 +308,13 @@ def _worker_main(conn, back_conn, visible_devices: str,
                                 f"function {fn_id} never arrived")
                         time.sleep(0.005)
             fn = fn_cache[fn_id]
-            args, kwargs = serialization.deserialize_flat(
-                memoryview(_spec_take(args_spec)))
+            args, kwargs = take_args(args_spec)
             with _task_context(None):
                 if streaming:
                     stream(seq, fn(*args, **kwargs))
                     return
                 result = fn(*args, **kwargs)
-            reply_ok(seq, _spec_put(serialization.serialize(result).to_bytes()))
+            reply_value(seq, result)
         except BaseException as e:  # noqa: BLE001 — errors cross the boundary
             reply_err(seq, e)
 
@@ -230,8 +323,7 @@ def _worker_main(conn, back_conn, visible_devices: str,
             if actor_instance[0] is None:
                 raise RuntimeError("actor_call before actor_new")
             method = getattr(actor_instance[0], method_name)
-            args, kwargs = serialization.deserialize_flat(
-                memoryview(_spec_take(args_spec)))
+            args, kwargs = take_args(args_spec)
             # _ActorExit crosses back via reply_err and is unwrapped on the
             # driver's side.
             with _task_context(actor_instance[1]):
@@ -239,7 +331,21 @@ def _worker_main(conn, back_conn, visible_devices: str,
                     stream(seq, method(*args, **kwargs))
                     return
                 result = method(*args, **kwargs)
-            reply_ok(seq, _spec_put(serialization.serialize(result).to_bytes()))
+            reply_value(seq, result)
+        except BaseException as e:  # noqa: BLE001
+            reply_err(seq, e)
+
+    def run_actor_exec(seq, fn_bytes, args_spec):
+        """A shipped function against the actor instance: a resident loop,
+        long-running, beside the actor's ordinary calls."""
+        try:
+            if actor_instance[0] is None:
+                raise RuntimeError("actor_exec before actor_new")
+            fn = serialization.loads(fn_bytes)
+            args, kwargs = take_args(args_spec)
+            with _task_context(actor_instance[1]):
+                result = fn(actor_instance[0], *args, **kwargs)
+            reply_value(seq, result)
         except BaseException as e:  # noqa: BLE001
             reply_err(seq, e)
 
@@ -258,7 +364,7 @@ def _worker_main(conn, back_conn, visible_devices: str,
         try:
             msg = recv_bytes(conn)
         except (EOFError, OSError):
-            return
+            break
         req = serialization.loads(msg)
         kind = req[0]
         if kind == "setup_env":
@@ -284,8 +390,7 @@ def _worker_main(conn, back_conn, visible_devices: str,
             _, seq, cls_bytes, actor_id, args_spec = req
             try:
                 cls = serialization.loads(cls_bytes)
-                args, kwargs = serialization.deserialize_flat(
-                    memoryview(_spec_take(args_spec)))
+                args, kwargs = take_args(args_spec)
                 with _task_context(actor_id):
                     actor_instance[0] = cls(*args, **kwargs)
                 actor_instance[1] = actor_id
@@ -296,10 +401,17 @@ def _worker_main(conn, back_conn, visible_devices: str,
             _, seq, method_name, args_spec = req
             spawn(run_actor_call, seq, method_name, args_spec,
                   kind == "actor_call_gen")
+        elif kind == "actor_exec":
+            _, seq, fn_bytes, args_spec = req
+            spawn(run_actor_exec, seq, fn_bytes, args_spec)
         elif kind == "gen_stop":
             stopped_streams.add(req[1])
         elif kind == "shutdown":
-            return
+            break
+    if arena is not None:
+        # Every loop of this worker has returned or is dying with it: no
+        # call on another thread can meet the freed handle (close waits).
+        arena.close()
 
 
 _LOG_MONITOR = None
@@ -363,8 +475,12 @@ def _spawn(proc) -> None:
 
 class _ProcWorker:
     def __init__(self, env_key: str = "", env_payload: Optional[dict] = None,
-                 gpu_ids: Sequence[int] = ()) -> None:
+                 gpu_ids: Sequence[int] = (), arena_path: Optional[str] = None,
+                 arena=None) -> None:
         self.gpu_ids = tuple(gpu_ids)
+        #: The pool's driver-side arena client (None: every payload rides
+        #: the pipe).
+        self._arena = arena
         #: The idle pool's key: a worker is reused only for its env and cards.
         self.key = (env_key, self.gpu_ids)
         #: ``time.time()`` just before the spawn.
@@ -390,7 +506,7 @@ class _ProcWorker:
         self.proc = ctx.Process(
             target=_worker_main, daemon=True,
             args=(child_conn, back_child, _visible_devices(self.gpu_ids),
-                  self.gpu_ids))
+                  self.gpu_ids, arena_path))
         _spawn(self.proc)
         drop_stale_dump(self.proc.pid, self.spawned_at)
         child_conn.close()
@@ -454,6 +570,10 @@ class _ProcWorker:
                 q = self._pending.get(seq)
             if q is not None:
                 q.put((rkind, payload))
+            elif rkind == "yield":
+                # A stream abandoned before this item came: its arena
+                # object would otherwise stay forever.
+                _spec_cleanup(self._arena, payload)
         # Worker gone: wake every in-flight request with a crash marker.
         with self._pending_lock:
             self._dead = True
@@ -463,9 +583,10 @@ class _ProcWorker:
 
     def _submit(self, kind: str, header_rest: tuple, args: tuple,
                 kwargs: dict):
-        """Ship one request; returns (seq, queue)."""
+        """Ship one request; returns (seq, queue, args spec)."""
         seq = next(self._seq_counter)
-        args_spec = _spec_put(serialization.serialize((args, kwargs)).to_bytes())
+        args_spec = _spec_put(self._arena, _next_handoff_key("args"),
+                              _wire((args, kwargs)))
         q = self._register(seq)
         try:
             with self._send_lock:
@@ -475,8 +596,9 @@ class _ProcWorker:
             from ray_tpu_torch.exceptions import WorkerCrashedError
 
             self._unregister(seq)
+            _spec_cleanup(self._arena, args_spec)
             raise WorkerCrashedError(f"process worker died: {e}") from e
-        return seq, q
+        return seq, q, args_spec
 
     @staticmethod
     def _raise_reply_error(payload):
@@ -491,24 +613,32 @@ class _ProcWorker:
         raise TaskError(exc, tb=tb)
 
     def _roundtrip(self, kind: str, header_rest: tuple, args: tuple,
-                   kwargs: dict) -> Any:
-        """One request/reply over the multiplexed pipe. Raises
-        WorkerCrashedError if the process dies, TaskError on a worker-side
-        exception."""
+                   kwargs: dict, raw: bool = False) -> Any:
+        """One request/reply over the multiplexed pipe: the result, or its
+        wire form with ``raw``. Raises WorkerCrashedError if the process
+        dies, TaskError on a worker-side exception."""
         from ray_tpu_torch.exceptions import WorkerCrashedError
 
-        seq, q = self._submit(kind, header_rest, args, kwargs)
+        arena = self._arena
+        seq, q, args_spec = self._submit(kind, header_rest, args, kwargs)
         try:
             rkind, payload = q.get()
         finally:
             self._unregister(seq)
         if rkind == "crash":
+            # Reclaim the args if unconsumed, and a result the worker wrote
+            # before it died.
+            _spec_cleanup(arena, args_spec)
+            _spec_cleanup(arena, ("plasma", f"res:{self.proc.pid}:{seq}"))
             raise WorkerCrashedError("process worker died")
         if rkind == "ok":
             if payload is None:
                 return None
-            return serialization.deserialize_flat(
-                memoryview(_spec_take(payload)))
+            flat = _spec_take(arena, payload)
+            if raw:
+                return flat
+            return serialization.deserialize_flat(memoryview(flat))
+        _spec_cleanup(arena, args_spec)  # it may have failed before taking
         self._raise_reply_error(payload)
 
     def _stream(self, kind: str, header_rest: tuple, args: tuple,
@@ -517,23 +647,29 @@ class _ProcWorker:
         ends on the worker's ok (end) / err (raised) / crash."""
         from ray_tpu_torch.exceptions import WorkerCrashedError
 
-        seq, q = self._submit(kind, header_rest, args, kwargs)
+        arena = self._arena
+        seq, q, args_spec = self._submit(kind, header_rest, args, kwargs)
         finished = False
         try:
             while True:
                 rkind, payload = q.get()
                 if rkind == "yield":
                     yield serialization.deserialize_flat(
-                        memoryview(_spec_take(payload)))
+                        memoryview(_spec_take(arena, payload)))
                     continue
                 finished = True
                 if rkind == "ok":
                     return
+                _spec_cleanup(arena, args_spec)
                 if rkind == "crash":
                     raise WorkerCrashedError("process worker died mid-stream")
                 self._raise_reply_error(payload)
         finally:
             self._unregister(seq)
+            while not finished and not q.empty():
+                rkind, payload = q.get()
+                if rkind == "yield":
+                    _spec_cleanup(arena, payload)
             if not finished:
                 # The consumer abandoned the stream: tell the worker to
                 # stop pumping it.
@@ -553,10 +689,12 @@ class _ProcWorker:
         self.sent_fns.add(fn_id)
         return blob
 
-    def execute(self, fn_id: str, fn, args: tuple, kwargs: dict) -> Any:
-        """Run one task; raises WorkerCrashedError if the process dies."""
+    def execute(self, fn_id: str, fn, args: tuple, kwargs: dict,
+                raw: bool = False) -> Any:
+        """Run one task (its result's wire form with ``raw``); raises
+        WorkerCrashedError if the process dies."""
         return self._roundtrip("exec", (fn_id, self._fn_bytes(fn_id, fn)),
-                               args, kwargs)
+                               args, kwargs, raw)
 
     def execute_gen(self, fn_id: str, fn, args: tuple, kwargs: dict):
         """Run one GENERATOR task; yields items as the worker sends them."""
@@ -568,9 +706,17 @@ class _ProcWorker:
         """Instantiate an actor in this worker (dedicates the worker)."""
         self._roundtrip("actor_new", (cls_bytes, actor_id), args, kwargs)
 
-    def actor_call(self, method_name: str, args: tuple, kwargs: dict) -> Any:
-        """Invoke a method on the worker-resident actor instance."""
-        return self._roundtrip("actor_call", (method_name,), args, kwargs)
+    def actor_call(self, method_name: str, args: tuple, kwargs: dict,
+                   raw: bool = False) -> Any:
+        """Invoke a method on the worker-resident actor instance (its
+        result's wire form with ``raw``)."""
+        return self._roundtrip("actor_call", (method_name,), args, kwargs,
+                               raw)
+
+    def actor_exec(self, fn_bytes: bytes, args: tuple, kwargs: dict) -> Any:
+        """Run ``fn(instance, *args, **kwargs)`` against the worker-resident
+        actor instance (resident loops: compiled graphs, serve lanes)."""
+        return self._roundtrip("actor_exec", (fn_bytes,), args, kwargs)
 
     def actor_call_gen(self, method_name: str, args: tuple, kwargs: dict):
         """Invoke a GENERATOR method; yields items as the worker sends them."""
@@ -590,7 +736,11 @@ class ProcessPool:
     """Idle pool of reusable spawned workers, keyed by (runtime-env key,
     visible cards)."""
 
-    def __init__(self) -> None:
+    def __init__(self, arena_path: Optional[str] = None, arena=None) -> None:
+        #: The object store's arena, which every worker attaches, and the
+        #: store's client of it on this side (ref: runtime.py:303).
+        self.arena_path = arena_path
+        self._arena = arena if arena is not None else _attach_arena(arena_path)
         #: Idle workers by key (ref: the runtime-env-keyed WorkerPool cache,
         #: worker_pool.h:216; here the cards are part of the key).
         self._idle: Dict[tuple, List[_ProcWorker]] = {}
@@ -615,7 +765,8 @@ class ProcessPool:
             self._count += 1
         try:
             w = _ProcWorker(env_key=env_key, env_payload=env_payload,
-                            gpu_ids=gpu_ids)
+                            gpu_ids=gpu_ids, arena_path=self.arena_path,
+                            arena=self._arena)
         except BaseException:
             with self._lock:
                 self._count -= 1

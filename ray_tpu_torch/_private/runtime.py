@@ -26,9 +26,16 @@ the head's. ``remove_node`` takes a node out as its loss would: the tasks
 running there fail over (retried elsewhere within their ``max_retries``,
 else ``WorkerCrashedError``; a thread that cannot be stopped runs on and its
 result is dropped), and its actors restart elsewhere within
-``max_restarts`` or die with ``ActorDiedError``. Real worker nodes, the
-serialized object tier, borrowing and the memory monitor are not ported
-yet (ROADMAP.md, Queue 1 item 13.8b).
+``max_restarts`` or die with ``ActorDiedError``.
+
+The object store (``_private/object_store.py``) holds values by reference
+and, in its serialized tier, wire forms in a shared-memory arena that every
+process worker attaches: arguments and results above
+``plasma_handoff_threshold`` cross through it instead of the pipe, and a
+process task's or actor call's result is stored as its wire form there
+(spilled to disk under pressure), deserialized on first ``get``. Real
+worker nodes, the object server, borrowing and the memory monitor are not
+ported yet (ROADMAP.md, Queue 1 item 13.8b).
 """
 
 from __future__ import annotations
@@ -320,7 +327,8 @@ class Runtime:
         self.task_events: deque = deque(maxlen=self.config.max_task_events)
 
         # The process tier: spawned workers, and those busy with a task.
-        self.process_pool = ProcessPool()
+        self.process_pool = ProcessPool(self.store.arena_path,
+                                        self.store.plasma)
         self._leased_workers: Dict[int, Any] = {}
         self._leased_lock = threading.Lock()
 
@@ -788,8 +796,8 @@ class Runtime:
         worker = self._lease_env_worker(spec.runtime_env, gpu_ids)
         self._track_leased_worker(worker)
         try:
-            result = worker.execute(self._fn_id(spec.func), spec.func,
-                                    args, kwargs)
+            result = _WireForm(worker.execute(
+                self._fn_id(spec.func), spec.func, args, kwargs, raw=True))
         except (TaskError, WorkerCrashedError):
             self.process_pool.discard(worker)
             raise
@@ -845,6 +853,16 @@ class Runtime:
             self._generators.pop(spec.task_id, None)
 
     def _store_results(self, spec: TaskSpec, result: Any) -> None:
+        if isinstance(result, _WireForm):
+            if spec.num_returns == 1:
+                # A process worker's result: kept as its wire form in the
+                # serialized tier, deserialized on first get.
+                object_id = ObjectID.for_task_return(spec.task_id, 0)
+                self.store.put_serialized(object_id, result.flat)
+                self._on_object_ready(object_id)
+                self._inflight.discard(spec.task_id)
+                return
+            result = result.value()
         if spec.num_returns == 1:
             outputs = [result]
         else:
@@ -1080,8 +1098,8 @@ class Runtime:
                                 spec.method_name, args, kwargs))
                         result = None
                     else:
-                        result = worker.actor_call(spec.method_name, args,
-                                                   kwargs)
+                        result = _WireForm(worker.actor_call(
+                            spec.method_name, args, kwargs, raw=True))
                 elif spec.generator:
                     method = getattr(state.instance, spec.method_name)
                     saved, spec.func = spec.func, method
@@ -1271,6 +1289,18 @@ class Runtime:
 
 class _ActorExit(BaseException):
     """Raised by exit_actor() to terminate the current actor."""
+
+
+class _WireForm:
+    """A process worker's result as it came, in wire form."""
+
+    __slots__ = ("flat",)
+
+    def __init__(self, flat):
+        self.flat = flat
+
+    def value(self) -> Any:
+        return serialization.deserialize_flat(memoryview(self.flat))
 
 
 def _default_memory_bytes() -> int:

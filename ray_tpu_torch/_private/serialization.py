@@ -20,10 +20,15 @@ so recursive functions, mutually referencing closures and classes whose
 methods name the class round-trip. Importable functions and classes, and
 modules, go by reference.
 
-A CUDA tensor crosses a process boundary as a host copy and arrives as a
-CPU tensor. Pickled as it is, it would record its device index, and that
-index names a different card in a process whose ``CUDA_VISIBLE_DEVICES``
-differs; the receiver moves it to its own card.
+A CUDA tensor crosses a process boundary as a host copy: pickled as it is,
+it would record its device index, and that index names a different card in
+a process whose ``CUDA_VISIBLE_DEVICES`` differs. Its bytes go out of band
+(one copy from the card, none more in the pickle), and ``serialize`` counts
+them as the wire form's ``d2h_bytes``. It arrives as a CPU tensor that owns
+its bytes, or, read through ``deserialize_landing`` (a compiled graph's
+shared-memory channel), straight on the reader's card, copied there from
+the wire form. A CPU tensor pickles as torch pickles it and stays on the
+CPU.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ import pickle
 import sys
 import threading
 import types
-from typing import Any, Dict, List
+import warnings
+from typing import Any, Dict, List, Tuple
 
 from ray_tpu_torch._private.object_ref import ObjectRef
 
@@ -46,13 +52,21 @@ _THREAD_LOCAL = threading.local()
 class SerializedObject:
     """Pickled payload plus its out-of-band buffers and captured ObjectRefs."""
 
-    __slots__ = ("data", "buffers", "contained_refs")
+    __slots__ = ("data", "buffers", "contained_refs", "d2h_bytes")
 
     def __init__(self, data: bytes, buffers: List[pickle.PickleBuffer],
-                 contained_refs: List[Any]):
+                 contained_refs: List[Any], d2h_bytes: int = 0):
         self.data = data
         self.buffers = buffers
         self.contained_refs = contained_refs
+        #: Bytes of the CUDA tensors copied to the host for this wire form.
+        self.d2h_bytes = d2h_bytes
+
+    @property
+    def flat_size(self) -> int:
+        """Exact byte length of the to_bytes()/write_into() wire form."""
+        return 12 + 8 * len(self.buffers) + len(self.data) + sum(
+            b.raw().nbytes for b in self.buffers)
 
     def to_bytes(self) -> bytes:
         """Flatten into one buffer (framing: u32 count, u64 sizes, payloads)."""
@@ -65,6 +79,28 @@ class SerializedObject:
         for b in self.buffers:
             out.write(b.raw())
         return out.getvalue()
+
+    def write_into(self, dest: memoryview) -> int:
+        """Write the to_bytes() form straight into ``dest`` (an arena
+        buffer), skipping the intermediate flat copy; returns the bytes
+        written. ``dest`` must be at least ``flat_size`` long."""
+        off = 0
+
+        def put(b) -> None:
+            nonlocal off
+            n = len(b)
+            dest[off:off + n] = b
+            off += n
+
+        put(len(self.buffers).to_bytes(4, "little"))
+        put(len(self.data).to_bytes(8, "little"))
+        for b in self.buffers:
+            put(b.raw().nbytes.to_bytes(8, "little"))
+        put(self.data)
+        for b in self.buffers:
+            raw = b.raw()
+            put(raw.cast("B") if raw.format != "B" or raw.ndim != 1 else raw)
+        return off
 
 
 def _capture_ref(ref: Any) -> None:
@@ -99,8 +135,42 @@ def _import_module(name: str) -> types.ModuleType:
     return importlib.import_module(name)
 
 
-def _host_tensor(t: Any) -> Any:
-    return t
+def _host_tensor(buf, dtype_name: str, shape: tuple) -> Any:
+    """A CUDA tensor's host copy on the receiving side. Inside
+    ``deserialize_landing`` with a CUDA device it is copied straight from
+    the wire form onto that card; else it is a CPU tensor over ``buf`` where
+    ``buf`` is writable (the wire form's owner stays alive with it) and a
+    copy where it is not."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    mv = memoryview(buf)
+    landing = getattr(_THREAD_LOCAL, "landing", None)
+    if callable(landing):
+        landing = _THREAD_LOCAL.landing = landing()
+    if not mv.nbytes:
+        t = torch.empty(shape, dtype=dtype)
+        return t if landing is None else t.to(landing)
+    with warnings.catch_warnings():
+        # Read only here: a read-only wire form is copied below.
+        warnings.simplefilter("ignore", UserWarning)
+        raw = torch.frombuffer(mv, dtype=torch.uint8)
+    t = raw.view(dtype).reshape(shape)
+    if landing is not None and landing.type == "cuda":
+        _THREAD_LOCAL.h2d += mv.nbytes
+        return t.to(landing)
+    return t.clone() if mv.readonly else t
+
+
+def _reduce_cuda_tensor(t: Any) -> tuple:
+    host = t.detach().cpu().contiguous()
+    nbytes = host.numel() * host.element_size()
+    if getattr(_THREAD_LOCAL, "d2h", None) is not None:
+        _THREAD_LOCAL.d2h += nbytes
+    flat = host.reshape(-1).view(sys.modules["torch"].uint8).numpy()
+    return _host_tensor, (pickle.PickleBuffer(flat),
+                          str(host.dtype).rsplit(".", 1)[1],
+                          tuple(host.shape))
 
 
 # --------------------------------------------------------------- functions
@@ -205,7 +275,7 @@ class _Pickler(pickle.Pickler):
         torch = sys.modules.get("torch")
         if torch is not None and isinstance(obj, torch.Tensor) \
                 and obj.is_cuda:
-            return _host_tensor, (obj.detach().cpu(),)
+            return _reduce_cuda_tensor(obj)
         return NotImplemented
 
     def _reduce_function(self, fn: types.FunctionType):
@@ -258,12 +328,15 @@ def serialize(value: Any) -> SerializedObject:
     ObjectRefs it holds."""
     buffers: List[pickle.PickleBuffer] = []
     _THREAD_LOCAL.captured_refs = []
+    _THREAD_LOCAL.d2h = 0
     try:
         data = _pickle(value, buffers.append)
         return SerializedObject(data, buffers,
-                                list(_THREAD_LOCAL.captured_refs))
+                                list(_THREAD_LOCAL.captured_refs),
+                                _THREAD_LOCAL.d2h)
     finally:
         _THREAD_LOCAL.captured_refs = None
+        _THREAD_LOCAL.d2h = None
 
 
 def deserialize_flat(flat: memoryview) -> Any:
@@ -281,6 +354,19 @@ def deserialize_flat(flat: memoryview) -> Any:
         buffers.append(flat[off:off + size])
         off += size
     return pickle.loads(data, buffers=buffers)
+
+
+def deserialize_landing(flat: memoryview, device) -> Tuple[Any, int]:
+    """``deserialize_flat`` with every CUDA tensor that crossed as a host
+    copy landing on ``device`` (a CUDA ``torch.device``, or a function
+    giving one, called at the first such tensor; None or the CPU leave them
+    CPU tensors); returns the value and the bytes copied host-to-device. Arrays and tensors left on the host alias ``flat``, so
+    pass a private writable copy."""
+    _THREAD_LOCAL.landing, _THREAD_LOCAL.h2d = device, 0
+    try:
+        return deserialize_flat(flat), _THREAD_LOCAL.h2d
+    finally:
+        _THREAD_LOCAL.landing = None
 
 
 def dumps(value: Any) -> bytes:

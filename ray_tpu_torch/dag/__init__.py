@@ -2,12 +2,13 @@
 ``ray_tpu/dag/``; ref: python/ray/dag/).
 
 Build with ``.bind()``, run interpreted with ``.execute()``, or lower onto
-fixed thread actors with typed channels via ``.experimental_compile()``
-(ref: dag/compiled_dag_node.py, experimental/channel/): ``Channel`` edges,
-``DeviceChannel`` edges that carry ``torch.Tensor``s to a device, and
-``allreduce`` collective nodes.  Edges to or from process actors need the
-reference's ``SharedMemoryChannel``, which is not ported yet (ROADMAP.md,
-Queue 1 item 11b-2): compiling such a DAG raises.
+fixed actors with typed channels via ``.experimental_compile()`` (ref:
+dag/compiled_dag_node.py, experimental/channel/): ``Channel`` edges between
+thread actors, ``DeviceChannel`` edges that carry ``torch.Tensor``s to a
+device, ``SharedMemoryChannel`` edges over the shared-memory arena wherever
+a process actor is at either end, and ``allreduce`` collective nodes. The
+reference's edges between worker nodes (``NodeLocalChannel``,
+``RemoteChannel``) need real nodes (ROADMAP.md, Queue 1 item 13.8b).
 """
 
 from ray_tpu_torch.dag.channel import (
@@ -16,6 +17,7 @@ from ray_tpu_torch.dag.channel import (
     ChannelTimeout,
     DeviceChannel,
     IntraProcessChannel,
+    SharedMemoryChannel,
 )
 from ray_tpu_torch.dag.collective_node import allreduce
 from ray_tpu_torch.dag.compiled_dag import CompiledDAG, CompiledDAGRef
@@ -34,6 +36,6 @@ __all__ = [
     "DAGNode", "InputNode", "InputAttributeNode", "FunctionNode", "ClassNode",
     "ClassMethodNode", "ActorMethodNode", "MultiOutputNode",
     "CompiledDAG", "CompiledDAGRef", "allreduce",
-    "Channel", "IntraProcessChannel", "DeviceChannel",
+    "Channel", "IntraProcessChannel", "DeviceChannel", "SharedMemoryChannel",
     "ChannelClosed", "ChannelTimeout",
 ]

@@ -16,13 +16,19 @@ edges.  Error semantics match the reference: an exception in a node is
 wrapped, forwarded through downstream channels instead of computed values,
 and re-raised at ``CompiledDAGRef.get()``.
 
-The port compiles DAGs over thread actors, whose instances share the
-driver's heap: an edge is a ``Channel``, or a ``DeviceChannel`` when its
-producer set ``with_tensor_transport``.  A loop runs on its actor's mailbox
-thread under the actor's lease, on the card the lease names.  Edges to or
-from a process actor need the shared-memory arena's channels and raise
-(ROADMAP.md, Queue 1 item 11b-2), as the reference raises when its store
-has no arena.
+Between thread actors, whose instances share the driver's heap, an edge is
+a ``Channel``, or a ``DeviceChannel`` when its producer set
+``with_tensor_transport``; a loop runs on its actor's mailbox thread under
+the actor's lease, on the card the lease names.  Every edge with a process
+actor at either end (the driver's input and output edges included) is a
+``SharedMemoryChannel`` over the object store's arena, and that actor's
+loop runs inside its worker process (shipped with the pool's
+``actor_exec``, ``_slim_schedule`` stripping the DAG nodes), on the card of
+the worker's lease; a driver thread hosts the request and closes every edge
+if the loop dies.  A CUDA tensor crosses such an edge as a host copy and
+lands on the reader's card, so ``with_tensor_transport`` on a process edge
+raises: a ``DeviceChannel`` cannot leave the process.  Edges to actors on
+worker nodes need real nodes (ROADMAP.md, Queue 1 item 13.8b).
 """
 
 from __future__ import annotations
@@ -32,9 +38,11 @@ import functools
 import sys
 import threading
 import time
+import uuid
 from typing import Any, Dict, List, Optional, Tuple
 
-from ray_tpu_torch.dag.channel import Channel, ChannelClosed, DeviceChannel
+from ray_tpu_torch.dag.channel import (Channel, ChannelClosed, DeviceChannel,
+                                       SharedMemoryChannel, seed_arena_client)
 from ray_tpu_torch.dag.dag_node import (
     ClassMethodNode,
     DAGNode,
@@ -160,6 +168,20 @@ def _exec_ops(instance, ops: List[_CompiledOp]) -> None:
             return
 
 
+def _slim_schedule(schedule: List[_CompiledOp]) -> List[_CompiledOp]:
+    """Strip the DAG nodes so a schedule pickles to another process: only
+    method names, argument sources and channels travel."""
+    slim = []
+    for op in schedule:
+        clone = _CompiledOp(None, op.method_name)
+        clone.arg_sources = op.arg_sources
+        clone.kwarg_sources = op.kwarg_sources
+        clone.out_channels = op.out_channels
+        clone.reads_input = op.reads_input
+        slim.append(clone)
+    return slim
+
+
 class CompiledDAGRef:
     """Future for one compiled execution (ref: compiled_dag_ref.py)."""
 
@@ -180,32 +202,26 @@ class CompiledDAGRef:
 
 
 def _actor_state(runtime, node: ClassMethodNode):
-    """The node's actor, constructed: a thread actor's instance exists once
-    this returns.  A process actor raises (its edges need the arena)."""
+    """The node's actor, constructed: a thread actor's instance, or the
+    worker process that holds a process actor's, exists once this
+    returns."""
     handle = node._resolve_handle()
     state = runtime.get_actor_state(handle._ray_actor_id)
     if state is None:
         raise ValueError(
             f"actor for {node._method_name!r} not found for compiled DAG")
-    spec = state.spec
-    if spec.isolation == "process" or spec.runtime_env:
-        raise ValueError(
-            f"actor for {node._method_name!r} runs in a worker process; "
-            "compiled-DAG edges across processes need the shared-memory "
-            "channels, which are not ported yet (ROADMAP.md, Queue 1 item "
-            "11b-2)")
     # Construction is async: wait it out so the loop binds the instance.
-    # Worker threads and __init__ can take long on a loaded box, so the
+    # Worker spawn and __init__ can take long on a loaded box, so the
     # bound is generous and expiry is loud.
     deadline = time.monotonic() + _READY_TIMEOUT_S
-    while (state.instance is None and state.state != "DEAD"
-           and time.monotonic() < deadline):
+    while (state.instance is None and state.proc_worker is None
+           and state.state != "DEAD" and time.monotonic() < deadline):
         time.sleep(0.002)
     if state.state == "DEAD":
         raise ValueError(
             f"actor for {node._method_name!r} is DEAD "
             f"(cause: {state.death_cause!r}); cannot compile a DAG over it")
-    if state.instance is None:
+    if state.instance is None and state.proc_worker is None:
         raise TimeoutError(
             f"actor for {node._method_name!r} not ready within "
             f"{_READY_TIMEOUT_S:.0f}s; cannot compile a DAG over it")
@@ -230,6 +246,8 @@ class CompiledDAG:
         self._output_channels: List[Channel] = []
         self._all_channels: List[Channel] = []
         self._loop_refs: List[Any] = []
+        #: Driver threads hosting the process actors' loops.
+        self._loop_threads: List[threading.Thread] = []
         #: (instance, loop attribute) of each resident loop, dropped at
         #: teardown so an actor keeps no reference to the DAG's channels.
         self._loop_attrs: List[Tuple[Any, str]] = []
@@ -266,18 +284,43 @@ class CompiledDAG:
             if not isinstance(leaf, ClassMethodNode):
                 raise ValueError("Compiled DAG outputs must be actor-method nodes")
 
-        # Every actor constructed (and on the thread tier) before any
-        # channel exists: a process actor refuses the whole DAG up front.
+        # Every actor constructed before any channel exists: an edge's
+        # transport depends on which process holds each end.
         states = {id(n): _actor_state(runtime, n) for n in compute_nodes}
 
         ops: Dict[int, _CompiledOp] = {}
         for n in compute_nodes:
             ops[id(n)] = _CompiledOp(n, n._method_name)
 
-        def make_channel(producer: Optional[ClassMethodNode]) -> Channel:
+        # Arena keys must not collide across compiles: id(self) recycles.
+        chan_ns = uuid.uuid4().hex[:12]
+        shm_count = [0]
+
+        def in_process(node: Optional[ClassMethodNode]) -> bool:
+            return node is not None and \
+                states[id(node)][1].proc_worker is not None
+
+        def make_channel(producer: Optional[ClassMethodNode],
+                         consumer: Optional[ClassMethodNode]) -> Channel:
             transport = (getattr(producer, "_tensor_transport", None)
                          if producer is not None else None)
-            if transport is not None:
+            if in_process(producer) or in_process(consumer):
+                if transport is not None:
+                    raise ValueError(
+                        f"with_tensor_transport() on {producer._method_name!r}"
+                        ", whose edge has a process actor at one end: a "
+                        "DeviceChannel lives in one process, so the edge is "
+                        "a shared-memory channel, where a CUDA tensor crosses "
+                        "as a host copy and lands on the reader's card; drop "
+                        "with_tensor_transport() there")
+                store = runtime.store
+                seed_arena_client(store.arena_path, store.plasma)
+                shm_count[0] += 1
+                ch = SharedMemoryChannel(
+                    arena=store.plasma, arena_path=store.arena_path,
+                    name=f"dagch:{chan_ns}:{shm_count[0]}",
+                    maxsize=self._max_buffered)
+            elif transport is not None:
                 ch = DeviceChannel(device=transport, maxsize=self._max_buffered)
             else:
                 ch = Channel(maxsize=self._max_buffered)
@@ -294,7 +337,7 @@ class CompiledDAG:
             def wire(a) -> _ArgSource:
                 if isinstance(a, (InputNode, InputAttributeNode)):
                     if not op_input_ch:
-                        ch = make_channel(None)
+                        ch = make_channel(None, n)
                         self._input_channels.append(ch)
                         op_input_ch.append(ch)
                     key = a._key if isinstance(a, InputAttributeNode) else None
@@ -302,7 +345,7 @@ class CompiledDAG:
                         _ArgSource.INPUT, channel=op_input_ch[0], input_key=key
                     )
                 if isinstance(a, ClassMethodNode):
-                    ch = make_channel(a)
+                    ch = make_channel(a, n)
                     ops[id(a)].out_channels.append(ch)
                     return _ArgSource(_ArgSource.CHANNEL, channel=ch)
                 if isinstance(a, DAGNode):
@@ -318,7 +361,7 @@ class CompiledDAG:
 
         # Driver-facing output channels, one per leaf, in leaf order.
         for leaf in leaves:
-            ch = make_channel(leaf)
+            ch = make_channel(leaf, None)
             ops[id(leaf)].out_channels.append(ch)
             self._output_channels.append(ch)
 
@@ -336,6 +379,20 @@ class CompiledDAG:
 
         loop_attr = f"__ray_tpu_dag_loop_{id(self):x}__"
         for actor_id, (handle, state, schedule) in per_actor.items():
+            if state.proc_worker is not None:
+                # The loop runs inside the worker against its instance;
+                # every edge of its schedule is a shared-memory channel.
+                from ray_tpu_torch._private import serialization
+
+                t = threading.Thread(
+                    target=self._proc_loop_runner,
+                    args=(state.proc_worker,
+                          serialization.dumps(_actor_exec_loop),
+                          _slim_schedule(schedule)),
+                    name=f"dag-proc-loop-{actor_id}", daemon=True)
+                t.start()
+                self._loop_threads.append(t)
+                continue
             # The runtime dispatches an actor task by attribute, so the
             # resident loop rides the actor's mailbox as one long task.
             setattr(state.instance, loop_attr,
@@ -355,6 +412,24 @@ class CompiledDAG:
                 method_name=loop_attr,
             )
             self._loop_refs.append(runtime.submit_actor_task(actor_id, spec))
+
+    def _proc_loop_runner(self, worker, fn_bytes: bytes, schedule) -> None:
+        """Driver thread hosting one process actor's loop request; returns
+        when the loop ends on the teardown's close. A loop that dies
+        otherwise (its worker killed, an unpicklable result) closes every
+        edge, so no reader waits on it forever, and says why on stderr."""
+        try:
+            worker.actor_exec(fn_bytes, (schedule,), {})
+        except Exception:  # noqa: BLE001 — reported, then every edge closed
+            if not self._torn_down:
+                import traceback
+
+                traceback.print_exc()
+                for ch in self._all_channels:
+                    try:
+                        ch.close()
+                    except Exception:  # noqa: BLE001
+                        pass
 
     # -- execution ---------------------------------------------------------
 
@@ -400,8 +475,10 @@ class CompiledDAG:
 
     def teardown(self) -> None:
         """Close every edge, wait for the resident loops to return (each
-        actor's mailbox thread is free again), and release what the edges
-        still buffer."""
+        actor's mailbox thread is free again, each process loop's host
+        thread has ended), and release what the edges still buffer: the
+        arena objects of the shared-memory edges, whose close sentinels go
+        too once every loop is known to have ended."""
         with self._fetch_lock:
             if self._torn_down:
                 return
@@ -411,6 +488,7 @@ class CompiledDAG:
         from ray_tpu_torch._private.runtime import runtime_or_none
 
         runtime = runtime_or_none()
+        joined = True
         for ref in self._loop_refs:
             if runtime is None:
                 break
@@ -418,6 +496,9 @@ class CompiledDAG:
                 runtime.get(ref, timeout=5)
             except Exception:  # noqa: BLE001 — a dead actor's loop is gone too
                 pass
+        for t in self._loop_threads:
+            t.join(timeout=5)
+            joined = joined and not t.is_alive()
         for instance, attr in self._loop_attrs:
             try:
                 delattr(instance, attr)
@@ -427,6 +508,10 @@ class CompiledDAG:
         for ch in self._all_channels:
             if isinstance(ch, DeviceChannel):
                 ch.drain()
+            elif isinstance(ch, SharedMemoryChannel):
+                # A sentinel deleted under a loop still running would reopen
+                # the channel to it.
+                ch.reclaim(drop_sentinel=joined)
 
     def __del__(self):
         try:

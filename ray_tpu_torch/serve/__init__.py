@@ -20,13 +20,16 @@ Replicas are async actors of the thread tier, or, with
 ``ray_actor_options={"isolation": "process"}`` (or a ``runtime_env``),
 ``SyncReplicaActor`` in worker processes of their own. ``serve.device`` is
 the device-telemetry plane (``util/device_telemetry.py``: pools, the
-transfer ledger, ``transfer_bw``). Once a thread-tier replica set is
-stable, routers lower unary requests onto compiled channel lanes
-(``compiled_router.py``; ``RAY_TPU_SERVE_COMPILED=0`` or
-``compiled_route=False`` keeps the dynamic path), and ``serve.pipeline``
-chains deployments over ``DeviceChannel`` edges. Not ported yet
-(ROADMAP.md, Queue 1): the compiled route of process-tier replicas (item
-11b-2), the gRPC proxy and the LLM engine.
+transfer ledger, ``transfer_bw``). Once a replica set is stable, routers
+lower unary requests onto compiled channel lanes (``compiled_router.py``:
+in-process channels for thread-tier replicas, shared-memory channels
+(``SharedMemoryChannel``) over the object store's arena for process-tier
+ones;
+``RAY_TPU_SERVE_COMPILED=0`` or ``compiled_route=False`` keeps the dynamic
+path), and ``serve.pipeline`` chains deployments over ``DeviceChannel``
+edges, a process stage's hop crossing its lane's shared-memory channels.
+Not ported yet (ROADMAP.md, Queue 1): lanes to replicas on worker nodes
+(item 13.8b), the gRPC proxy and the LLM engine.
 """
 
 from ray_tpu_torch.serve import metrics, slo

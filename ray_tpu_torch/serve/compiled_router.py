@@ -30,9 +30,18 @@ share it), ordered across CUDA streams by the channel's event.
 
 A lane's loop thread runs the replica's CUDA work on the card the replica's
 lease names, under the replica's task context (``get_gpu_ids()`` answers
-as in an actor call).  Process-tier replicas keep the dynamic route: their
-lanes need the reference's shared-memory channels, which are not ported yet
-(ROADMAP.md, Queue 1 item 11b-2).
+as in an actor call).
+
+A PROCESS-tier replica has no instance in this heap, so its lane is a pair
+of shared-memory channels (``SharedMemoryChannel``) over the object store's
+arena (picklable by path) and its resident loop (:func:`_process_lane_loop`) runs inside the
+replica's worker process, shipped with the pool's ``actor_exec`` as the
+compiled graphs ship theirs, on the card of the worker's lease.  A driver
+thread hosts that request and a demux thread reads the responses; the
+graph's teardown joins both before it returns, so neither is left reading
+the arena when the store closes it.  A pipeline hop into or out of such a
+stage crosses the lane's channels: a CUDA tensor goes as a host copy and
+lands on the reader's card.
 
 Degradation is reconciler-driven and safe by construction: any replica
 membership change observed through the long-poll push tears the graph
@@ -119,8 +128,8 @@ def _stable_window_s() -> float:
 
 
 class _NotCompilable(Exception):
-    """This replica set cannot be lowered (process tier, no live in-process
-    instance, ...) — stay on the dynamic path."""
+    """This replica set cannot be lowered (a replica not alive, not a serve
+    replica, ...) — stay on the dynamic path."""
 
 
 class CompiledResponse:
@@ -728,6 +737,234 @@ class _Lane:
         self.graph._lane_closed(self)
 
 
+def _process_lane_loop(instance, req, resp) -> None:
+    """Resident loop of a PROCESS-tier replica's lane, inside the replica's
+    worker process: drains request records from the shm channel, executes
+    each through the replica's ordinary ``handle_request`` (fault points,
+    metrics and the replica context behave as on the dynamic path), and
+    writes one batched response per drain, on the card of the worker's
+    lease. Exits when the driver closes the request channel, after the
+    records already written (reads stay valid on a closed channel until it
+    is empty)."""
+    from ray_tpu_torch.dag.compiled_dag import _leased_device
+    from ray_tpu_torch.exceptions import TaskError
+
+    task_repr = f"{type(instance).__name__}.handle_request"
+    with _leased_device():
+        while True:
+            try:
+                first = req.read(timeout=0.25)
+            except ChannelTimeout:
+                continue
+            except Exception:  # noqa: BLE001 — ChannelClosed or a dead arena
+                break
+            batch = [first]
+            # Opportunistic micro-batch: what the driver already sealed
+            # rides along in one execute/reply cycle (one write back).
+            while len(batch) < 32:
+                try:
+                    batch.append(req.read(timeout=0.001))
+                except Exception:  # noqa: BLE001 — empty, closed, torn down
+                    break
+            out = []
+            for seq, method, args, kwargs, mux in batch:
+                kw = dict(kwargs or {})
+                if mux:
+                    kw["_serve_multiplexed_model_id"] = mux
+                try:
+                    out.append((seq, True,
+                                instance.handle_request(method, *args, **kw)))
+                except BaseException as e:  # noqa: BLE001 — per request
+                    err = e if isinstance(e, TaskError) else TaskError(
+                        e, task_repr=task_repr)
+                    out.append((seq, False, err))
+            try:
+                resp.write(out, timeout=30.0)
+            except Exception:  # noqa: BLE001 — no reader: nothing to flush to
+                break
+    try:
+        resp.close()
+    except Exception:  # noqa: BLE001
+        pass
+
+
+class _ProcessLane:
+    """One PROCESS-tier replica's compiled lane (see the module docstring).
+    The driver side keeps a seq -> waiter map; the demux thread drains the
+    response channel, resolves the futures and keeps the router's queue
+    accounting exact.  The host thread blocks in the worker's ``actor_exec``
+    for the lane's life; the worker runs it on a thread of its own, so
+    control-plane calls (check_health, prepare_for_shutdown) never wait
+    behind the data plane."""
+
+    def __init__(self, graph: "_CompiledGraph", row: Dict[str, Any],
+                 actor_state) -> None:
+        import uuid
+
+        from ray_tpu_torch._private.runtime import get_runtime
+        from ray_tpu_torch.dag.channel import (SharedMemoryChannel,
+                                               seed_arena_client)
+
+        store = get_runtime().store
+        seed_arena_client(store.arena_path, store.plasma)
+        self.graph = graph
+        self.rid: str = row["replica_id"]
+        self.max_ongoing = max(1, int(row.get("max_ongoing_requests") or 1))
+        self.state = actor_state
+        self._worker = actor_state.proc_worker
+        ns = uuid.uuid4().hex[:12]  # keys must not collide across compiles
+        self.req = SharedMemoryChannel(
+            arena=store.plasma, arena_path=store.arena_path,
+            name=f"serve-preq:{self.rid}:{ns}",
+            maxsize=max(64, 2 * self.max_ongoing))
+        self.resp = SharedMemoryChannel(
+            arena=store.plasma, arena_path=store.arena_path,
+            name=f"serve-presp:{self.rid}:{ns}", maxsize=64)
+        #: seq -> (method, args, kwargs, mux, resp, cont, t0, ctx). The demux
+        #: and the teardown's re-dispatch claim entries by atomic pops, so
+        #: exactly one resolves each request.
+        self._pending: Dict[int, tuple] = {}
+        self._seq = 0
+        self._seq_lock = threading.Lock()
+        self._route_attrs = {"deployment": graph.deployment_id,
+                             "replica": self.rid}
+        self._host_thread = threading.Thread(
+            target=self._run_host, daemon=True,
+            name=f"serve-compiled-ploop-{self.rid}")
+        self._demux_thread = threading.Thread(
+            target=self._run_demux, daemon=True,
+            name=f"serve-compiled-pdemux-{self.rid}")
+
+    def start(self) -> None:
+        self._host_thread.start()
+        self._demux_thread.start()
+
+    # ------------------------------------------------------------ submission
+    def submit(self, method: str, args: tuple, kwargs: dict,
+               mux: Optional[str], resp: CompiledResponse, cont) -> bool:
+        with self._seq_lock:
+            seq = self._seq
+            self._seq += 1
+        ctx = ((_tracing.active_span() or _ROOTLESS_CTX)
+               if _tracing.is_tracing_enabled() else None)
+        scheduler = self.graph.router._scheduler
+        self._pending[seq] = (method, args, kwargs, mux, resp, cont,
+                              time.time(), ctx)
+        scheduler.on_request_sent(self.rid)
+        try:
+            self.req.write((seq, method, args, kwargs, mux), timeout=5.0)
+        except Exception:  # noqa: BLE001 — closed, full past the timeout,
+            # or unpicklable: undo, and the dynamic path carries it.
+            if self._pending.pop(seq, None) is not None:
+                scheduler.on_request_done(self.rid)
+            return False
+        return True
+
+    # ------------------------------------------------------------- loop host
+    def _run_host(self) -> None:
+        """Hosts the worker-side loop's request; returns when the loop ends
+        on the teardown's close, or on the worker's death, where closing
+        both channels ends the demux so the fallback does not wait for the
+        controller's health probe."""
+        from ray_tpu_torch._private import serialization
+
+        try:
+            self._worker.actor_exec(serialization.dumps(_process_lane_loop),
+                                    (self.req, self.resp), {})
+        except Exception:  # noqa: BLE001 — the worker died: fall back
+            pass
+        finally:
+            self.req.close()
+            self.resp.close()
+
+    # ------------------------------------------------------------- teardown
+    def close_req(self) -> None:
+        self.req.close()
+
+    def join_loop(self, timeout: float) -> None:
+        """Wait for the worker's loop, then the demux (unless called from
+        the demux itself), so neither reads the arena after teardown."""
+        self._host_thread.join(timeout=timeout)
+        if threading.current_thread() is not self._demux_thread:
+            self._demux_thread.join(timeout=timeout)
+
+    def drain_pending(self, out: List[tuple]) -> None:
+        """Collect unresolved requests for dynamic re-dispatch. The worker's
+        loop executes what was already written before it exits and the
+        demux resolves it; what is left was lost with the worker."""
+        deadline = time.monotonic() + 2.0
+        while (self._pending and self._demux_thread.is_alive()
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        scheduler = self.graph.router._scheduler
+        while True:
+            try:
+                _, entry = self._pending.popitem()
+            except KeyError:
+                break
+            method, args, kwargs, mux, resp, cont, _, _ = entry
+            scheduler.on_request_done(self.rid)
+            out.append((method, args, kwargs, mux, resp, cont))
+
+    # ------------------------------------------------------------ demux side
+    def _run_demux(self) -> None:
+        from ray_tpu_torch.serve import metrics as serve_metrics
+
+        router = self.graph.router
+        scheduler = router._scheduler
+        tags = router._metric_tags
+        while True:
+            try:
+                batch = self.resp.read(timeout=0.5)
+            except ChannelTimeout:
+                if self.state.state != "ALIVE":
+                    break  # the replica died: fall back, no probe wait
+                continue
+            except Exception:  # noqa: BLE001 — closed, or the arena gone
+                break
+            now = time.time()
+            errors = done = 0
+            spans = [] if _tracing.is_tracing_enabled() else None
+            latencies = []
+            first_ctx = None
+            for seq, ok, value in batch:
+                entry = self._pending.pop(seq, None)
+                if entry is None:
+                    continue  # the teardown's re-dispatch claimed it
+                method, args, kwargs, mux, resp, cont, t0, ctx = entry
+                done += 1
+                if ok:
+                    if cont is not None:
+                        try:
+                            cont.feed(value, resp, ctx)
+                        except Exception as e:  # noqa: BLE001 — never hang
+                            resp._resolve(None, e)
+                    else:
+                        resp._resolve(value, None)
+                else:
+                    errors += 1
+                    resp._resolve(None, value)
+                latencies.append(now - t0)
+                if ctx is not None:
+                    if first_ctx is None:
+                        first_ctx = ctx
+                    if spans is not None:
+                        spans.append((t0, now, ctx))
+            if not done:
+                continue
+            scheduler.on_request_done(self.rid, done)
+            serve_metrics.REQUEST_LATENCY.observe_batch(
+                latencies, tags=tags,
+                exemplar=serve_metrics.trace_exemplar(first_ctx))
+            serve_metrics.REQUESTS_TOTAL.inc(done, tags=tags)
+            if errors:
+                serve_metrics.ERRORS_TOTAL.inc(errors, tags=tags)
+            if spans:
+                _tracing.record_span_batch("serve.compiled_route", spans,
+                                           attributes=self._route_attrs)
+        self.graph._lane_closed(self)
+
+
 class _CompiledGraph:
     """The compiled route for one (router, replica-set) pair."""
 
@@ -755,13 +992,13 @@ class _CompiledGraph:
                     raise _NotCompilable(
                         f"replica {row['replica_id']} is not a serve replica")
                 lanes[row["replica_id"]] = _Lane(self, row, st, st.instance)
+            elif st.proc_worker is not None:
+                # Process tier: shm channels and a worker-resident loop.
+                lanes[row["replica_id"]] = _ProcessLane(self, row, st)
             else:
-                # Process tier: a lane there needs the shared-memory
-                # channels, not ported yet — the route stays dynamic.
                 raise _NotCompilable(
-                    f"replica {row['replica_id']} runs in a worker process; "
-                    f"its lane needs the shared-memory channels (ROADMAP.md, "
-                    f"Queue 1 item 11b-2)")
+                    f"replica {row['replica_id']} has no instance and no "
+                    f"worker process")
         if not lanes:
             raise _NotCompilable("empty replica set")
         self._lanes = lanes
@@ -818,8 +1055,9 @@ class _CompiledGraph:
         back to dynamic dispatch immediately), join the loop threads, then
         re-dispatch every request still buffered through the dynamic path
         on a detached thread — callers blocked in result() never see the
-        teardown.  Idempotent; demux threads are NOT joined (they drain the
-        remaining responses and exit on their own)."""
+        teardown.  Idempotent; a thread lane's demux is NOT joined (it
+        drains the remaining responses and exits on its own), a process
+        lane's is (it reads the arena, which the store may close next)."""
         with self._destroy_lock:
             if self._destroyed:
                 return

@@ -1246,3 +1246,98 @@ def test_compiled_split_launches_one_splash_forward_per_layer_on_gpu():
                         "splash_attention_bwd": 0}
     for out in outs:
         assert out.is_cuda and torch.equal(out, whole)
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_crosses_a_process_edge_onto_the_readers_card_on_gpu():
+    """A CUDA tensor written into a compiled DAG's edge to a process actor
+    crosses the arena as a host copy and lands on the card of the reader's
+    lease with equal bits, and back on the driver's card the same way; the
+    driver's ledger holds the d2h of what it sent and the h2d of what it
+    read, under ``dag_channel``."""
+    _need_gpu()
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.util import device_telemetry as dt
+
+    class Echo:
+        def back(self, x):
+            return {"device": str(x.device), "x": x}
+
+    dt.reset()
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        p = ray_tpu_torch.remote(Echo).options(
+            isolation="process", num_gpus=0.5).remote()
+        with InputNode() as inp:
+            compiled = p.back.bind(inp).experimental_compile()
+        try:
+            x = torch.randn((3, 1024), device="cuda").to(torch.bfloat16)
+            out = compiled.execute(x).get(timeout=120)
+        finally:
+            compiled.teardown()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert out["device"] == "cuda:0" and out["x"].is_cuda
+    assert torch.equal(out["x"], x)
+    moved = [(r["direction"], r["bytes"]) for r in dt.transfer_records()
+             if r["src"] == "dag_channel"]
+    assert moved == [("d2h", 6144), ("h2d", 6144)]
+
+
+@pytest.mark.cuda
+def test_process_split_launches_one_splash_forward_per_layer_on_gpu():
+    """GPT-2 split over two PROCESS actors on the card and compiled: the
+    logits equal the whole forward's bit for bit, each worker makes one
+    splash forward launch per layer of its span each execute (two here),
+    and the driver makes none."""
+    _need_gpu()
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve.gpt2 import GPT2Stage
+
+    class Counted(GPT2Stage):
+        def launches(self, reset=False):
+            out = dict(attention.LAUNCHES)
+            if reset:
+                attention.reset_launches()
+            return out
+
+    cfg = gpt2.GPTConfig(vocab_size=1024, n_layer=4, n_head=2, d_model=128,
+                         seq_len=256)
+    params = gpt2.init_params(cfg, 0, "cuda")
+    tokens = np.random.default_rng(0).integers(0, 1024, (2, 256))
+    with torch.inference_mode():
+        whole = gpt2.forward(gpt2.inference_params(params, cfg),
+                             torch.as_tensor(tokens, device="cuda"), cfg)
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        Stage = ray_tpu_torch.remote(Counted).options(isolation="process",
+                                                      num_gpus=0.5)
+        # Each worker builds the weights from their seed on its own card
+        # (CUDA tensors sent to it arrive on the host).
+        a = Stage.remote((0, 2), cfg, seed=0)
+        b = Stage.remote((2, 4), cfg, seed=0)
+        with InputNode() as inp:
+            dag = b.tail.bind(a.head.bind(inp))
+        compiled = dag.experimental_compile()
+        try:
+            compiled.execute(tokens).get(timeout=120)
+            ray_tpu_torch.get([s.launches.remote(True) for s in (a, b)])
+            attention.reset_launches()
+            outs = [compiled.execute(tokens).get(timeout=60)
+                    for _ in range(3)]
+            driver = dict(attention.LAUNCHES)
+        finally:
+            compiled.teardown()
+        workers = ray_tpu_torch.get([s.launches.remote() for s in (a, b)])
+    finally:
+        ray_tpu_torch.shutdown()
+    assert driver == {"splash_attention_fwd": 0, "splash_attention_bwd": 0}
+    assert workers == [{"splash_attention_fwd": 3 * 2,
+                        "splash_attention_bwd": 0}] * 2
+    for out in outs:
+        assert out.is_cuda and torch.equal(out, whole)

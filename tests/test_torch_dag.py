@@ -1,13 +1,15 @@
 """The port's DAGs (``ray_tpu_torch.dag``) against the reference's: the
 channels of tests/test_dag.py (:28, :39, :57, :70), its interpreted cases
 (:84, :98, :120) and more of the node kinds, and its compiled graphs over
-thread actors (:139 to :293, :329, :346) on both packages. The reference's
-shared-memory channel and process-actor edges (:304, :379-446) wait for
-ROADMAP.md Queue 1 item 11b-2; the port refuses a process actor's edge and
-says so. Then the port's own: ``with_tensor_transport`` without a device,
-the ``dag_channel`` pool and transfer ledger, and GPT-2 tiny split over two
-thread actors and compiled, against the port's whole forward and the JAX
-package's.
+thread actors (:139 to :293, :329, :346), its shared-memory channel (:304)
+and its compiled graphs over process actors (:379), mixed tiers (:415) and
+a process actor's error (:446), on both packages. Then the port's own:
+``with_tensor_transport`` without a device and on a process edge, the
+``dag_channel`` pool and transfer ledger, teardown leaving no element in the
+arena, a CPU tensor staying on the CPU across a process edge, and GPT-2
+tiny split over two thread actors and over two process actors and compiled,
+against the port's whole forward and the JAX package's, with
+``examples/pp_inference_dag.py`` at its tiny size.
 
 Each parity case runs on the reference, then on the port, each in a runtime
 of its own (tests/_torch_train_parity.py); the observations must be equal.
@@ -17,6 +19,7 @@ device's kind are compared.
 """
 
 import importlib
+import os
 import threading
 import time
 
@@ -247,6 +250,34 @@ def _device_channel(pkg):
     ch.write({"x": x, "y": 7})
     out = ch.read()
     return out["y"], np.asarray(out["x"]).tolist(), kind(out["x"])
+
+
+# ---------------------------------------------------- tests/test_dag.py:304
+def _shared_memory_channel(pkg):
+    rt = importlib.import_module(pkg.__name__ + "._private.runtime")
+    plasma = rt.get_runtime().store.plasma
+    dag_mod = _dag(pkg)
+    writer = dag_mod.SharedMemoryChannel(plasma, "test_shm_ch", maxsize=4)
+    # The reader: same arena, a cursor of its own (as in another process).
+    reader = dag_mod.SharedMemoryChannel(plasma, "test_shm_ch", maxsize=4)
+    got = []
+
+    def consume():
+        for _ in range(8):
+            got.append(reader.read(timeout=10)["i"])
+
+    t = threading.Thread(target=consume)
+    t.start()
+    for i in range(8):  # more than maxsize: the writer waits on the reader
+        writer.write({"i": i, "blob": b"x" * 1000}, timeout=10)
+    t.join(timeout=10)
+    writer.close()
+    return got, raises(lambda: writer.write({"i": 9})), plasma.usage()[2]
+
+
+def test_shared_memory_channel_matches_reference():
+    got, closed, objs = _parity(_shared_memory_channel)
+    assert (got, closed, objs) == (list(range(8)), "ChannelClosed", 1)
 
 
 @pytest.mark.parametrize("case", [_channel_roundtrip, _slot_ring, _read_ready,
@@ -505,6 +536,92 @@ def _compiled_timeout_no_desync(pkg):
         compiled.teardown()
 
 
+# ------------------------------------------------ tests/test_dag.py:379-446
+def _compiled_across_process_actors(pkg):
+    @pkg.remote
+    class Stage:
+        def __init__(self, add):
+            self.add = add
+
+        def apply(self, x):
+            return {"v": x["v"] + self.add, "pid": os.getpid()}
+
+    a = Stage.options(isolation="process").remote(1)
+    b = Stage.options(isolation="process").remote(10)
+    with _dag(pkg).InputNode() as inp:
+        out = b.apply.bind(a.apply.bind(inp))
+    dag = out.experimental_compile()
+    try:
+        res = [dag.execute({"v": i, "pid": 0}).get(timeout=60)
+               for i in range(5)]
+    finally:
+        dag.teardown()
+    return ([r["v"] for r in res],
+            all(r["pid"] != os.getpid() for r in res))
+
+
+def _compiled_mixed_tiers(pkg):
+    @pkg.remote
+    class T:
+        def f(self, x):
+            return x * 2
+
+    @pkg.remote
+    class P:
+        def g(self, x):
+            return x + 100, os.getpid()
+
+    t = T.remote()
+    p = P.options(isolation="process").remote()
+    with _dag(pkg).InputNode() as inp:
+        out = p.g.bind(t.f.bind(inp))
+    dag = out.experimental_compile()
+    try:
+        res = [dag.execute(i).get(timeout=60) for i in range(3)]
+    finally:
+        dag.teardown()
+    return [v for v, _ in res], all(pid != os.getpid() for _, pid in res)
+
+
+def _compiled_process_actor_error(pkg):
+    @pkg.remote
+    class Bad:
+        def f(self, x):
+            if x == 2:
+                raise ValueError("proc stage exploded")
+            return x
+
+    b = Bad.options(isolation="process").remote()
+    with _dag(pkg).InputNode() as inp:
+        out = b.f.bind(inp)
+    dag = out.experimental_compile()
+    try:
+        first = dag.execute(1).get(timeout=60)
+        try:
+            dag.execute(2).get(timeout=60)
+            err = None
+        except ValueError as e:
+            err = ("ValueError", str(e))
+        return first, err, dag.execute(3).get(timeout=60)
+    finally:
+        dag.teardown()
+
+
+PROCESS = [_compiled_across_process_actors, _compiled_mixed_tiers,
+           _compiled_process_actor_error]
+
+
+@pytest.mark.parametrize("case", PROCESS, ids=lambda c: c.__name__.lstrip("_"))
+def test_compiled_dag_over_process_actors_matches_reference(case):
+    port = _parity(case)
+    assert port == {
+        "_compiled_across_process_actors": [[i + 11 for i in range(5)], True],
+        "_compiled_mixed_tiers": [[100, 102, 104], True],
+        "_compiled_process_actor_error": [1, ["ValueError",
+                                              "proc stage exploded"], 3],
+    }[case.__name__]
+
+
 COMPILED = [_compiled_single_actor, _compiled_pipeline, _compiled_multi_output,
             _compiled_errors, _compiled_after_teardown,
             _compiled_tensor_transport, _compiled_allreduce,
@@ -552,9 +669,37 @@ def _dag_threads():
             if "compiled_dag" in t.name or "dag" in t.name.split("-")[0]]
 
 
-def test_process_actor_edge_names_item_11b2(port_rt):
-    """The reference gives a process actor's edges the arena's channels
-    (tests/test_dag.py:379); the port has none yet and refuses the DAG."""
+def test_shared_memory_channel_takes_writers_from_several_threads(port_rt):
+    """Eight threads of one process write 50 elements each into one
+    ``SharedMemoryChannel`` (a serve lane's callers do): the reader gets
+    all 400, each once. Unlocked, two writers racing on the sequence number
+    left a hole the reader waited on forever (the reference's channel has
+    no lock)."""
+    dag_mod = _dag(ray_tpu_torch)
+    plasma = port_rt.store.plasma
+    writer = dag_mod.SharedMemoryChannel(plasma, "threads_ch", maxsize=16)
+    reader = dag_mod.SharedMemoryChannel(plasma, "threads_ch", maxsize=16)
+
+    def produce(k):
+        for i in range(50):
+            writer.write((k, i), timeout=30)
+
+    threads = [threading.Thread(target=produce, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    got = [tuple(reader.read(timeout=30)) for _ in range(400)]
+    for t in threads:
+        t.join(timeout=30)
+    assert sorted(got) == [(k, i) for k in range(8) for i in range(50)]
+    for k in range(8):  # each writer's own elements stay in its order
+        assert [i for kk, i in got if kk == k] == list(range(50))
+
+
+def test_tensor_transport_on_a_process_edge_raises(port_rt):
+    """A DeviceChannel lives in one process: ``with_tensor_transport`` on an
+    edge with a process actor at either end (into it, out of it, or out to
+    the driver) raises a ValueError that says why, before any loop starts;
+    both actors then answer plain calls."""
     dag_mod = _dag(ray_tpu_torch)
 
     @ray_tpu_torch.remote
@@ -564,17 +709,78 @@ def test_process_actor_edge_names_item_11b2(port_rt):
 
     t = T.remote()
     p = T.options(isolation="process").remote()
+    dags = []
     with dag_mod.InputNode() as inp:
-        mixed = p.f.bind(t.f.bind(inp))
+        dags.append(p.f.bind(t.f.bind(inp).with_tensor_transport("cpu")))
     with dag_mod.InputNode() as inp:
-        alone = p.f.bind(inp)
-    for dag in (mixed, alone):
-        with pytest.raises(ValueError, match="item 11b-2"):
+        dags.append(t.f.bind(p.f.bind(inp).with_tensor_transport("cpu")))
+    with dag_mod.InputNode() as inp:
+        dags.append(p.f.bind(inp).with_tensor_transport("cpu"))
+    for dag in dags:
+        with pytest.raises(ValueError, match="shared-memory channel"):
             dag.experimental_compile()
-    # Refused before any loop started: both actors answer plain calls.
     assert ray_tpu_torch.get(t.f.remote(2), timeout=30) == 4
     assert ray_tpu_torch.get(p.f.remote(3), timeout=60) == 6
-    assert ray_tpu_torch.get(mixed.execute(5), timeout=60) == 20
+
+
+def test_teardown_leaves_no_channel_element_in_the_arena(port_rt):
+    """Elements written and never read, and the close sentinels, are
+    reclaimed once the process loops have ended: the arena holds what it
+    held before the DAG."""
+    dag_mod = _dag(ray_tpu_torch)
+    plasma = port_rt.store.plasma
+
+    @ray_tpu_torch.remote
+    class W:
+        def f(self, x):
+            return x + 1
+
+    a, b = (W.options(isolation="process").remote() for _ in range(2))
+    ray_tpu_torch.get([a.f.remote(0), b.f.remote(0)], timeout=60)
+    before = plasma.usage()
+    with dag_mod.InputNode() as inp:
+        dag = b.f.bind(a.f.bind(inp))
+    compiled = dag.experimental_compile(max_buffered=4)
+    assert compiled.execute(1).get(timeout=60) == 3
+    for i in range(3):  # left unread in the output edge
+        compiled.execute(i)
+    time.sleep(0.5)
+    assert plasma.usage()[2] > before[2]
+    compiled.teardown()
+    assert plasma.usage() == before
+    assert not any(t.is_alive() for t in compiled._loop_threads)
+    assert ray_tpu_torch.get(a.f.remote(5), timeout=30) == 6
+
+
+def test_cpu_tensor_leaf_stays_on_the_cpu_across_a_process_edge(port_rt):
+    """A CPU tensor crosses a process edge as torch pickles it and stays a
+    CPU tensor, both ways; no transfer is ledgered and the ``dag_channel``
+    pool stays balanced."""
+    from ray_tpu_torch.util import device_telemetry as dt
+
+    dt.reset()
+    dag_mod = _dag(ray_tpu_torch)
+
+    @ray_tpu_torch.remote
+    class P:
+        def f(self, x):
+            return {"device": x["t"].device.type, "t": x["t"] * 2,
+                    "rest": x["rest"]}
+
+    p = P.options(isolation="process").remote()
+    with dag_mod.InputNode() as inp:
+        dag = p.f.bind(inp)
+    compiled = dag.experimental_compile()
+    try:
+        x = torch.arange(6, dtype=torch.float64).reshape(2, 3)
+        out = compiled.execute({"t": x, "rest": [1, "a"]}).get(timeout=60)
+    finally:
+        compiled.teardown()
+    assert out["device"] == "cpu" and out["t"].device.type == "cpu"
+    assert torch.equal(out["t"], x * 2) and out["rest"] == [1, "a"]
+    assert [r for r in dt.transfer_records()
+            if r["src"] == "dag_channel"] == []
+    assert dt.pool_bytes().get("dag_channel", {}).get("bytes", 0) == 0
 
 
 def test_tensor_transport_without_a_device():
@@ -727,6 +933,77 @@ def test_gpt2_split_over_two_compiled_actors():
     assert torch.equal(split, whole)
     np.testing.assert_allclose(outs[2].numpy(), expected, rtol=1e-4,
                                atol=1e-4)
+
+
+def test_gpt2_split_over_two_compiled_process_actors():
+    """GPT-2 tiny's forward split over two PROCESS actors (layer 0, then
+    layer 1 with the final layernorm and head), compiled over shared-memory
+    edges on the CPU: its logits equal the port's whole forward bit for bit,
+    and the JAX package's forward from the same weights within
+    tests/test_torch_gpt2.py's tolerance (1e-4)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ray_tpu.models import gpt2 as jgpt2
+    from ray_tpu_torch.models import convert
+    from ray_tpu_torch.models import gpt2 as tgpt2
+    from ray_tpu_torch.serve.gpt2 import GPT2Stage
+
+    fields = dict(vocab_size=256, n_layer=2, n_head=2, d_model=128,
+                  seq_len=128, attn_block_q=128, attn_block_kv=128,
+                  remat=False, attn_impl="auto")
+    jcfg = jgpt2.GPTConfig(dtype=jnp.float32, logits_dtype=jnp.float32,
+                           **fields)
+    tcfg = tgpt2.GPTConfig(dtype=torch.float32, logits_dtype=torch.float32,
+                           **fields)
+    jparams = jax.tree.map(np.asarray,
+                           jgpt2.init_params(jcfg, jax.random.key(0)))
+    tokens = np.random.default_rng(0).integers(0, 256, (2, 128)).astype(
+        np.int32)
+    expected = np.asarray(jax.jit(lambda p, t: jgpt2.forward(p, t, jcfg))(
+        jparams, jnp.asarray(tokens)), np.float32)
+    params = convert.params_from_numpy(jparams, device="cpu")
+    with torch.inference_mode():
+        whole = tgpt2.forward(tgpt2.inference_params(params, tcfg),
+                              torch.as_tensor(tokens, dtype=torch.long), tcfg)
+
+    fresh_init(ray_tpu_torch, **INIT)
+    try:
+        Stage = ray_tpu_torch.remote(GPT2Stage).options(isolation="process")
+        a = Stage.remote((0, 1), tcfg, device="cpu", params=params)
+        b = Stage.remote((1, 2), tcfg, device="cpu", params=params)
+        dag_mod = _dag(ray_tpu_torch)
+        with dag_mod.InputNode() as inp:
+            dag = b.tail.bind(a.head.bind(inp))
+        compiled = dag.experimental_compile()
+        try:
+            refs = [compiled.execute(tokens[i:i + 1]) for i in range(2)]
+            refs.append(compiled.execute(tokens))
+            outs = [r.get(timeout=120) for r in refs]
+        finally:
+            compiled.teardown()
+    finally:
+        ray_tpu_torch.shutdown()
+    split = torch.cat(outs[:2])
+    assert outs[2].dtype == torch.float32 and outs[2].shape == (2, 128, 256)
+    assert torch.equal(outs[2], whole)
+    assert torch.equal(split, whole)
+    np.testing.assert_allclose(outs[2].numpy(), expected, rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_pp_inference_dag_example_at_the_tiny_size():
+    from ray_tpu_torch.examples import pp_inference_dag
+
+    for pkg in (ray_tpu, ray_tpu_torch):
+        pkg.shutdown()
+    out = pp_inference_dag.main(["--device", "cpu", "--tiny",
+                                 "--requests", "8"])
+    pa, pb = out["stage_pids"]
+    assert len({pa, pb, os.getpid()}) == 3
+    assert len(out["next_tokens"]) == 9
+    with pytest.raises(NotImplementedError, match="13.8b"):
+        pp_inference_dag.main(["--nodes"])
 
 
 def test_edge_records_a_transfer_only_across_the_host():

@@ -9,10 +9,11 @@ and the port's observation must equal the reference's. The bodies that run
 inside a worker are defined inside the case, so both packages send them by
 value. Every ``get`` has a timeout, so a hang fails its case.
 
-Left out: ``test_actor_pool_survives_raising_task`` (``util/actor_pool.py``
-is not ported) and ``test_process_task_large_args_via_arena`` (the shared-
-memory arena is not ported; ROADMAP.md, Queue 1 item 13.8). The reference's
-generator-error case is racy (its ``_fail_task`` writes the error over the
+``process_task_large_args_via_arena`` (tests/test_core_tasks.py:204) sends
+a 2 MB array through the object store's shared-memory arena both ways and
+counts the arena's objects after five more calls. Left out:
+``test_actor_pool_survives_raising_task`` (``util/actor_pool.py`` is not
+ported). The reference's generator-error case is racy (its ``_fail_task`` writes the error over the
 first item); the port's is held to the contract instead.
 """
 
@@ -377,6 +378,27 @@ def pip_env_network_installs_stay_gated(pkg):
     return None
 
 
+def process_task_large_args_via_arena(pkg):
+    """Args and results above the handoff threshold ride the arena, and
+    each call's handoff objects are freed (tests/test_core_tasks.py:204)."""
+    import numpy as np
+
+    rt = __import__(pkg.__name__ + "._private.runtime",
+                    fromlist=["_"]).get_runtime()
+    arr = np.random.default_rng(0).random((500, 500))  # 2 MB
+
+    def double(x):
+        return x * 2.0
+
+    f = pkg.remote(double).options(isolation="process")
+    first = bool((pkg.get(f.remote(arr), timeout=T) == arr * 2.0).all())
+    objs = rt.store.plasma.usage()[2]
+    for _ in range(5):
+        pkg.get(f.remote(arr), timeout=T)
+    return [first, rt.store.arena_path is not None,
+            rt.store.plasma.usage()[2] <= objs + 2]
+
+
 def conda_still_rejected(pkg):
     env_mod = __import__(pkg.__name__ + "._private.runtime_env",
                          fromlist=["_"])
@@ -417,6 +439,7 @@ CASES = [
                               "ValueError", "ValueError", True, True]),
     (pip_env_network_installs_stay_gated, ["RuntimeError", True]),
     (conda_still_rejected, ["RuntimeError", True]),
+    (process_task_large_args_via_arena, [True, True, True]),
 ]
 
 

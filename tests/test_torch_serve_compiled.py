@@ -7,19 +7,23 @@ membership change, the two switches (``RAY_TPU_SERVE_COMPILED=0`` and
 ``compiled_route=False``), ``serve.status()``'s route mode, shedding, and
 the slot ring's steady state.
 
-In place of tests/test_serve_compiled.py:193 (the reference lowers a
-process-tier replica onto lanes over its shared-memory arena), the port's
-own case: a process replica keeps the dynamic route and answers; the lane
-needs ROADMAP.md Queue 1 item 11b-2.
-
 Each case is one body run on ``ray_tpu`` and then on ``ray_tpu_torch``,
 each on a fresh runtime and serve instance with a 0.2 s stability window,
 the reference's half under ``gc_paused`` (tests/_torch_runtimes.py says
-why); the observations must be equal.
+why); the observations must be equal. tests/test_serve_compiled.py:193
+(a process-tier replica lowered onto lanes over the shared-memory arena)
+runs the reference's half in a child interpreter (tests/_torch_child.py).
+
+The port's own: the lanes' threads end with serve, and 20 rounds of a
+shutdown under compiled load on a process replica crash nothing and leave
+no lane thread, arena or worker behind.
 """
 
 import asyncio
 import importlib
+import os
+import subprocess
+import sys
 import threading
 import time
 
@@ -29,6 +33,7 @@ import ray_tpu
 import ray_tpu.serve
 import ray_tpu_torch
 import ray_tpu_torch.serve
+from _torch_child import as_json, in_child
 from _torch_runtimes import fresh_init, gc_paused
 
 
@@ -357,13 +362,67 @@ def test_env_kill_switch_matches_reference(monkeypatch):
     assert port == ref
 
 
-# ------------------------------------------------------ the port's own rule
-def test_process_replica_keeps_the_dynamic_route(monkeypatch):
-    """A process-tier replica has no instance in this heap: its lane would
-    need the shared-memory channels (ROADMAP.md, Queue 1 item 11b-2), so
-    the route stays dynamic — answers and errors as the dynamic path gives
-    them, and ``route_mode`` "dynamic" — and the manager does not retry
-    the set every tick."""
+# ------------------------------------------ tests/test_serve_compiled.py:193
+def process_tier_replicas_compile(pkg):
+    serve = _serve(pkg)
+
+    @serve.deployment(num_replicas=1, max_ongoing_requests=8,
+                      ray_actor_options={"isolation": "process"})
+    class Iso:
+        def __call__(self, x):
+            return x * 3
+
+        def boom(self, x):
+            raise ValueError(f"boom-{x}")
+
+    h = serve.run(Iso.bind(), name="app", route_prefix=None)
+    first = h.remote(2).result(timeout_s=60)
+    # The set lowers onto shm-channel lanes with the loop in the worker.
+    router = _wait_compiled(h, timeout=60)
+    resp = h.remote(5)
+    resps = [h.remote(i) for i in range(32)]
+    return [first, type(resp).__name__, resp.result(timeout_s=60),
+            [r.result(timeout_s=60) for r in resps] == [
+                i * 3 for i in range(32)],
+            _error(lambda: h.boom.remote(1).result(timeout_s=60)),
+            h.remote(7).result(timeout_s=60), router._compiled.mode,
+            type(next(iter(router._compiled.graph._lanes.values()))).__name__]
+
+
+def child_half(pkg_name, case_name):
+    """One half of a case in this (child) interpreter, as ``_run`` runs it."""
+    os.environ["RAY_TPU_SERVE_COMPILED_STABLE_S"] = "0.2"
+    os.environ["RAY_TPU_SERVE_COMPILED"] = "1"
+    pkg = importlib.import_module(pkg_name)
+    fresh_init(pkg, num_cpus=8)
+    serve = _serve(pkg)
+    try:
+        serve.start(http_options={"port": 0})
+        return globals()[case_name](pkg)
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            pkg.shutdown()
+
+
+def test_process_tier_replicas_compile(monkeypatch):
+    case = process_tier_replicas_compile
+    ref = in_child("test_torch_serve_compiled", "child_half", "ray_tpu",
+                   case.__name__)
+    port = as_json(_run(ray_tpu_torch, case, monkeypatch))
+    assert ref == [6, "CompiledResponse", 15, True, ["TaskError",
+                                                     "ValueError"],
+                   21, "compiled", "_ProcessLane"]
+    assert port == ref
+
+
+def test_process_lane_takes_concurrent_callers(monkeypatch):
+    """Eight handle clients at once on a process replica's compiled lane
+    (every caller writes the lane's request channel from its own thread):
+    all 128 answers come back, right, and the route stays compiled."""
+    from concurrent.futures import ThreadPoolExecutor
+
     monkeypatch.setenv("RAY_TPU_SERVE_COMPILED_STABLE_S", "0.2")
     monkeypatch.setenv("RAY_TPU_SERVE_COMPILED", "1")
     fresh_init(ray_tpu_torch, num_cpus=8)
@@ -371,37 +430,104 @@ def test_process_replica_keeps_the_dynamic_route(monkeypatch):
     try:
         serve.start(http_options={"port": 0})
 
-        @serve.deployment(num_replicas=1, max_ongoing_requests=8,
+        @serve.deployment(num_replicas=1, max_ongoing_requests=64,
                           ray_actor_options={"isolation": "process"})
         class Iso:
             def __call__(self, x):
                 return x * 3
 
-            def boom(self, x):
-                raise ValueError(f"boom-{x}")
-
         h = serve.run(Iso.bind(), name="app", route_prefix=None)
-        assert h.remote(2).result(timeout_s=60) == 6
-        time.sleep(1.0)  # several stability windows + metric ticks
-        mgr = h._get_router()._compiled
-        assert mgr.mode == "dynamic"
-        assert mgr._uncompilable_sig == mgr._sig != ()
-        resps = [h.remote(i) for i in range(32)]
-        assert {type(r).__name__ for r in resps} == {"DeploymentResponse"}
-        assert [r.result(timeout_s=60) for r in resps] == [
-            i * 3 for i in range(32)]
-        with pytest.raises(Exception, match="boom-1"):
-            h.boom.remote(1).result(timeout_s=60)
-        assert serve.status()["app#Iso"]["route_mode"] == "dynamic"
-        from ray_tpu_torch.serve.compiled_router import RECOMPILES_TOTAL
-
-        assert RECOMPILES_TOTAL.get(
-            tags={"deployment": "app#Iso", "reason": "deploy"}) == 0
+        h.remote(0).result(timeout_s=60)
+        router = _wait_compiled(h, timeout=60)
+        with ThreadPoolExecutor(8) as pool:
+            got = list(pool.map(
+                lambda i: h.remote(i).result(timeout_s=60), range(128)))
+        assert got == [i * 3 for i in range(128)]
+        assert router._compiled.mode == "compiled"
     finally:
         try:
             serve.shutdown()
         finally:
             ray_tpu_torch.shutdown()
+
+
+_SHUTDOWN_ROUNDS = """
+import os, sys, threading, time
+os.environ["RAY_TPU_SERVE_COMPILED_STABLE_S"] = "0.1"
+import ray_tpu_torch
+from ray_tpu_torch import serve
+
+def lanes():
+    # A lane's own threads; a request re-dispatched at the teardown waits
+    # in the router for replicas (up to its 30 s) like any dynamic one.
+    return [t.name for t in threading.enumerate() if t.name.startswith(
+        ("serve-compiled-loop", "serve-compiled-demux",
+         "serve-compiled-ploop", "serve-compiled-pdemux"))]
+
+@serve.deployment(num_replicas=1, max_ongoing_requests=16,
+                  ray_actor_options={"isolation": "process"})
+class Iso:
+    def __call__(self, x):
+        return x + 1
+
+seen = []
+for i in range(ROUNDS):
+    rt = ray_tpu_torch.init(num_cpus=8)
+    arena = rt.store.arena_path
+    serve.start(http_options={"port": 0})
+    h = serve.run(Iso.bind(), name="app", route_prefix=None)
+    h.remote(0).result(timeout_s=60)
+    deadline = time.monotonic() + 30
+    while h._get_router()._compiled.mode != "compiled":
+        assert time.monotonic() < deadline, "never compiled"
+        time.sleep(0.01)
+    stop, answered = threading.Event(), [0]
+
+    def client():
+        while not stop.is_set():
+            try:
+                h.remote(1).result(timeout_s=10)
+                answered[0] += 1
+            except Exception:
+                pass
+
+    clients = [threading.Thread(target=client, daemon=True)
+               for _ in range(4)]
+    for c in clients:
+        c.start()
+    time.sleep(0.2)
+    pids = rt.process_pool.idle_pids() + [
+        w.proc.pid for w in rt.process_pool._started]
+    serve.shutdown()
+    ray_tpu_torch.shutdown()
+    stop.set()  # a client parked in the router ends on its own
+    time.sleep(0.2)
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    seen.append((answered[0] > 0, lanes(), os.path.exists(arena), alive))
+print("ROUNDS", all(s == (True, [], False, []) for s in seen), seen[:2])
+"""
+
+
+def test_shutdown_under_compiled_load_on_process_replicas_20_times():
+    """Twenty rounds of serve and runtime shutdown while four clients send
+    on a process replica's compiled lane, in a child interpreter so a crash
+    fails the case: each round answered, and left no lane thread, no arena
+    file and no worker process (the reference's demux read its arena after
+    its shutdown once and segfaulted)."""
+    out = subprocess.run(
+        [sys.executable, "-c", _SHUTDOWN_ROUNDS.replace("ROUNDS", "20", 1)],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, JAX_PLATFORMS="cpu",
+                 PYTHONPATH=os.path.dirname(os.path.dirname(
+                     os.path.abspath(__file__)))))
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "ROUNDS True" in out.stdout, out.stdout[-2000:]
 
 
 def test_route_threads_end_with_serve(monkeypatch):

@@ -5,14 +5,12 @@ edges with the caller's future riding the whole chain, awaiting it, per-hop
 dynamic degradation through a membership change with no caller-visible
 error, stages by name with per-stage methods, and validation.
 
-In place of tests/test_serve_pipeline.py:156 (a process-tier stage on the
-reference's shared-memory lanes), the port's own case: a process stage's
-hop stays dynamic (ROADMAP.md, Queue 1 item 11b-2), the pipeline as a whole
-reads "dynamic", and its results equal the reference's pipeline's.
-
 Each case is one body run on ``ray_tpu`` and then on ``ray_tpu_torch``,
 each on a fresh runtime and serve instance with a 0.2 s stability window,
 the reference's half under ``gc_paused``; the observations must be equal.
+tests/test_serve_pipeline.py:156 (a thread stage chained with a process
+stage, whose hop crosses its lane's shared-memory channels) runs the
+reference's half in a child interpreter (tests/_torch_child.py).
 """
 
 import asyncio
@@ -26,6 +24,7 @@ import ray_tpu
 import ray_tpu.serve
 import ray_tpu_torch
 import ray_tpu_torch.serve
+from _torch_child import as_json, in_child
 from _torch_runtimes import fresh_init, gc_paused
 
 
@@ -249,44 +248,56 @@ def test_port_pipeline_matches_reference(case, monkeypatch):
     assert port == ref
 
 
-# ----------------------------------------- in place of test_serve_pipeline.py:156
-def _mixed_tiers(pkg, isolation):
-    """A thread stage chained with a second stage, on the process tier in
-    the port's half. The reference's half keeps its second stage on the
-    thread tier: its process-tier lane reads the shared-memory arena from
-    a demux thread that can outlive the arena at shutdown (a segfault seen
-    in this file's runs), and the answers are the same either way."""
+# ------------------------------------------ tests/test_serve_pipeline.py:156
+def pipeline_mixed_tiers(pkg):
+    """A thread-tier stage chained with a process-tier one (its lane: shm
+    channels, a worker-resident loop), both compiled."""
     serve = _serve(pkg)
     prefill, _, _ = _stages(serve)
 
     @serve.deployment(num_replicas=1, max_ongoing_requests=8,
-                      ray_actor_options={"isolation": isolation})
-    class Mid:
+                      ray_actor_options={"isolation": "process"})
+    class IsoMid:
         def __call__(self, x):
             return x - 1
 
     h1 = serve.run(prefill.bind(), name="p1", route_prefix=None)
-    hm = serve.run(Mid.bind(), name="pm", route_prefix=None)
+    hm = serve.run(IsoMid.bind(), name="pm", route_prefix=None)
     pipe = serve.pipeline(h1, hm, name="mix")
     try:
         first = pipe.remote(10).result(timeout_s=60)
-        _wait_compiled(h1)
-        time.sleep(1.0)  # the second stage's windows pass too
+        _wait_compiled(h1, timeout=60)
+        _wait_compiled(hm, timeout=60)
+        mode = pipe.mode
         resps = [pipe.remote(i) for i in range(16)]
-        return ([first] + [r.result(timeout_s=60) for r in resps],
-                hm._get_router()._compiled.mode, pipe.mode,
-                [type(r).__name__ for r in resps[:1]])
+        return [first, mode, [r.result(timeout_s=60) for r in resps],
+                type(resps[0]).__name__]
     finally:
         pipe.stop()
 
 
-def test_process_stage_hop_stays_dynamic(monkeypatch):
-    with gc_paused():
-        ref = _run(ray_tpu, lambda pkg: _mixed_tiers(pkg, "thread"),
-                   monkeypatch)
-    port = _run(ray_tpu_torch, lambda pkg: _mixed_tiers(pkg, "process"),
-                monkeypatch)
-    assert ref[0] == port[0] == [10] + list(range(16))
-    assert ref[1:] == ("compiled", "compiled", ["CompiledResponse"])
-    # The first hop still rides its lane; the process stage's is dynamic.
-    assert port[1:] == ("dynamic", "dynamic", ["CompiledResponse"])
+def child_half(pkg_name, case_name):
+    """One half of a case in this (child) interpreter, as ``_run`` runs it."""
+    import os
+
+    os.environ["RAY_TPU_SERVE_COMPILED_STABLE_S"] = "0.2"
+    os.environ["RAY_TPU_SERVE_COMPILED"] = "1"
+    pkg = importlib.import_module(pkg_name)
+    fresh_init(pkg, num_cpus=8)
+    serve = _serve(pkg)
+    try:
+        serve.start(http_options={"port": 0})
+        return globals()[case_name](pkg)
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            pkg.shutdown()
+
+
+def test_pipeline_mixed_tiers(monkeypatch):
+    ref = in_child("test_torch_serve_pipeline", "child_half", "ray_tpu",
+                   "pipeline_mixed_tiers")
+    port = as_json(_run(ray_tpu_torch, pipeline_mixed_tiers, monkeypatch))
+    assert ref == [10, "compiled", list(range(16)), "CompiledResponse"]
+    assert port == ref
